@@ -1,0 +1,640 @@
+"""Model hyperparameter config for the transformer core.
+
+The port's own copy of ``gpustack_tpu/models/config.py`` (pure Python):
+the port imports nothing of the JAX package. Keep the two in step; the
+port's tests compare every preset field by field.
+
+Replaces the reference's scattered HF-config probing (reference
+gpustack/policies/candidate_selectors/base_candidate_selector.py:56-165 parses
+hidden_size / num_attention_heads / num_key_value_heads / moe experts for
+memory estimation) with one typed config that both the serving engine and the
+scheduler's HBM estimator consume.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Any, Dict, Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description for a Llama/Qwen/Mistral/Mixtral-class LM.
+
+    Attention type is derived, not stored: MHA when num_kv_heads ==
+    num_heads, GQA when 1 < num_kv_heads < num_heads, MQA when
+    num_kv_heads == 1 (mirrors the attention-type taxonomy the reference
+    scheduler uses for KV-cache sizing,
+    base_candidate_selector.py:148-165).
+    """
+
+    name: str = "custom"
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    head_dim: int = 128
+    rope_theta: float = 500000.0
+    # HF-style rope_scaling dict: {"rope_type": "llama3"|"linear", "factor": ..}
+    rope_scaling: Optional[Dict[str, Any]] = None
+    rms_norm_eps: float = 1e-5
+    tie_word_embeddings: bool = False
+    qkv_bias: bool = False          # Qwen2-style attention bias
+    qk_norm: bool = False           # Qwen3-style per-head q/k RMSNorm
+    max_position_embeddings: int = 8192
+    sliding_window: int = 0         # 0 = full attention
+    # ---- Gemma-family knobs (Gemma2/Gemma3 text) ----
+    hidden_act: str = "silu"        # "gelu_tanh" for gemma
+    norm_delta_gain: bool = False   # RMSNorm gain stored as (1 + w)
+    embed_scale: bool = False       # scale embeddings by sqrt(hidden)
+    post_norms: bool = False        # sandwich post-attn/post-mlp norms
+    query_pre_attn_scalar: float = 0.0  # 0 = scale by 1/sqrt(head_dim)
+    attn_logit_softcap: float = 0.0     # 0 = no softcapping
+    final_logit_softcap: float = 0.0
+    # per-layer sliding flags (True = sliding_attention); None = use the
+    # global sliding_window for every layer (Mistral-style)
+    layer_sliding: Optional[Tuple[bool, ...]] = None
+    # rope theta for sliding layers (gemma3 local attention); 0 = shared
+    rope_local_theta: float = 0.0
+    # MoE (Mixtral / Qwen-MoE class); num_experts == 0 means dense MLP.
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    norm_topk_prob: bool = True
+    # ---- DeepSeek-family knobs ----
+    # MLA (multi-head latent attention, DeepSeek-V2/V3): kv_lora_rank>0
+    # switches the attention block to compressed-latent projections. The
+    # engine serves the DECOMPRESSED form: per-head K/V are materialized
+    # (head_dim = qk_nope + qk_rope, num_kv_heads = num_heads) so the
+    # existing cache/flash/ring machinery applies unchanged; v (width
+    # v_head_dim) is zero-padded to head_dim in the cache and sliced
+    # before o_proj. Trades cache bytes for zero structural divergence.
+    q_lora_rank: int = 0            # 0 = direct q projection
+    kv_lora_rank: int = 0           # >0 = MLA
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # DeepSeek MoE: shared experts run on every token alongside routed
+    # ones; routed outputs scale by routed_scaling_factor. The first
+    # first_k_dense layers use a dense MLP (v2/v3 checkpoints ship 1).
+    n_shared_experts: int = 0
+    shared_expert_intermediate_size: int = 0
+    # Qwen2-MoE: the shared expert's output is gated by
+    # sigmoid(x @ gate); DeepSeek adds it ungated
+    shared_expert_gated: bool = False
+    routed_scaling_factor: float = 1.0
+    first_k_dense: int = 0
+    # "softmax" (v2) | "sigmoid" (v3: score + e_score_correction_bias)
+    # | "softmax_topk" (GPT-OSS: softmax over the selected top-k logits)
+    moe_scoring: str = "softmax"
+    # ---- GPT-OSS knobs ----
+    # learned per-head attention-sink logits (join the softmax
+    # denominator only — modeling_gpt_oss eager_attention_forward)
+    attn_sinks: bool = False
+    o_bias: bool = False            # bias on the attention out proj
+    # expert activation: "silu" (swiglu) | "gptoss" (clamped
+    # gate*sigmoid(1.702*gate), combined as (up+1)*glu) — experts carry
+    # biases on gate/up/down when moe_bias is set
+    moe_act: str = "silu"
+    moe_bias: bool = False
+    dtype: str = "bfloat16"
+
+    # ---- derived ----
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def group_size(self) -> int:
+        return self.num_heads // self.num_kv_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def attention_type(self) -> str:
+        if self.num_kv_heads == 1:
+            return "MQA"
+        if self.num_kv_heads == self.num_heads:
+            return "MHA"
+        return "GQA"
+
+    def validate(self) -> "ModelConfig":
+        assert self.num_heads % self.num_kv_heads == 0, (
+            "num_heads must be divisible by num_kv_heads"
+        )
+        if self.is_moe:
+            assert self.num_experts_per_tok > 0
+            assert self.moe_intermediate_size > 0
+        if self.layer_sliding is not None:
+            assert len(self.layer_sliding) == self.num_layers
+            assert self.sliding_window > 0
+        return self
+
+    # ---- memory accounting (used by scheduler + engine sizing) ----
+    def param_count(self) -> int:
+        """Exact parameter count for this architecture."""
+        d, v = self.hidden_size, self.vocab_size
+        embed = v * d
+        lm_head = 0 if self.tie_word_embeddings else d * v
+        if self.is_mla:
+            qk_dim = self.qk_nope_head_dim + self.qk_rope_head_dim
+            if self.q_lora_rank:
+                attn = (
+                    d * self.q_lora_rank
+                    + self.q_lora_rank * self.num_heads * qk_dim
+                    + self.q_lora_rank
+                )
+            else:
+                attn = d * self.num_heads * qk_dim
+            attn += (
+                d * (self.kv_lora_rank + self.qk_rope_head_dim)
+                + self.kv_lora_rank * self.num_heads
+                * (self.qk_nope_head_dim + self.v_head_dim)
+                + self.kv_lora_rank
+                + self.num_heads * self.v_head_dim * d
+            )
+        else:
+            attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+            if self.qkv_bias:
+                attn += self.q_dim + 2 * self.kv_dim
+            if self.qk_norm:
+                attn += 2 * self.head_dim
+        if self.is_moe:
+            mlp = d * self.num_experts + self.num_experts * (
+                3 * d * self.moe_intermediate_size
+            )
+            if self.shared_expert_intermediate_size:
+                mlp += 3 * d * self.shared_expert_intermediate_size
+            if self.moe_scoring == "sigmoid":
+                mlp += self.num_experts     # e_score_correction_bias
+        else:
+            mlp = 3 * d * self.intermediate_size
+        norms = (4 if self.post_norms else 2) * d
+        per_layer = attn + mlp + norms
+        dense_delta = 0
+        if self.is_moe and self.first_k_dense:
+            dense_delta = self.first_k_dense * (
+                3 * d * self.intermediate_size - mlp
+            )
+        return (
+            embed + lm_head + self.num_layers * per_layer
+            + dense_delta + d
+        )
+
+    def weight_bytes(self, bits: int = 16) -> int:
+        return self.param_count() * bits // 8
+
+    def kv_cache_bytes_per_token(self, bits: int = 16) -> int:
+        """Bytes of K+V cache per token position (all layers)."""
+        return 2 * self.num_layers * self.kv_dim * bits // 8
+
+
+def config_from_hf(cfg: Dict[str, Any], name: str = "custom") -> ModelConfig:
+    """Build a ModelConfig from an HF ``config.json`` dict.
+
+    Covers LlamaForCausalLM / Qwen2ForCausalLM / MistralForCausalLM /
+    MixtralForCausalLM / Qwen2MoeForCausalLM-style keys — the same families the
+    reference's selectors introspect (base_candidate_selector.py:56-165).
+    """
+    hidden = cfg["hidden_size"]
+    heads = cfg["num_attention_heads"]
+    head_dim = cfg.get("head_dim") or hidden // heads
+    archs = cfg.get("architectures") or [""]
+    arch = archs[0] if archs else ""
+    num_experts = (
+        cfg.get("num_local_experts")      # Mixtral
+        or cfg.get("num_experts")         # Qwen2-MoE
+        or cfg.get("n_routed_experts")    # DeepSeek-V2/V3
+        or 0
+    )
+    deepseek = "Deepseek" in arch
+    mla = deepseek and int(cfg.get("kv_lora_rank") or 0) > 0
+    if mla:
+        qk_nope = int(cfg.get("qk_nope_head_dim") or 0)
+        qk_rope = int(cfg.get("qk_rope_head_dim") or 0)
+        # decompressed MLA: the cache is per-head over the full qk dim
+        head_dim = qk_nope + qk_rope
+    if deepseek and int(cfg.get("n_group") or 1) > 1:
+        # group-limited expert routing selects a DIFFERENT expert set
+        # than plain top-k — serving it ungrouped would be silently
+        # wrong logits, for any topk_method
+        raise ValueError(
+            "DeepSeek group-limited routing (n_group>1) is not "
+            "supported yet; serve a checkpoint with n_group=1"
+        )
+    # Gemma2/Gemma3 text: (1+w) norms, scaled embeddings, sandwich
+    # norms, gelu-tanh MLP, softcapping (gemma2), alternating
+    # sliding/full layers, dual rope thetas (gemma3).  Gemma1
+    # ("GemmaForCausalLM") shares the (1+w)-norm and sqrt(d)
+    # embed-scale conventions but has no post-norms / softcap /
+    # sliding layers — it must still take the gemma norm path or it
+    # serves silently-wrong logits.
+    gemma2plus = "Gemma2" in arch or "Gemma3" in arch
+    gemma1 = arch == "GemmaForCausalLM"
+    gemma = gemma2plus or gemma1
+    # GPT-OSS: attention sinks, alternating sliding/full layers, biased
+    # attention + router + experts, clamped-glu MoE, YaRN rope
+    # (modeling_gpt_oss)
+    gptoss = "GptOss" in arch
+    layer_types = cfg.get("layer_types")
+    layer_sliding = (
+        tuple(t == "sliding_attention" for t in layer_types)
+        if (gemma2plus or gptoss) and layer_types
+        else None
+    )
+    if gemma2plus and layer_sliding is None:
+        # original-release hub configs serialize no layer_types; derive
+        # the pattern the way transformers does — gemma3:
+        # sliding_window_pattern (every Nth layer is global), gemma2:
+        # alternating starting sliding at layer 0
+        L = cfg["num_hidden_layers"]
+        pat = (
+            int(cfg.get("sliding_window_pattern") or 6)
+            if "Gemma3" in arch
+            else 2
+        )
+        layer_sliding = tuple(bool((i + 1) % pat) for i in range(L))
+    if gptoss and layer_sliding is None:
+        # a stripped config without layer_types must NOT fall through
+        # to the global-window branch (it would window the
+        # full-attention layers too — silently wrong past 128 tokens);
+        # GptOssConfig's own default is alternating starting sliding
+        layer_sliding = tuple(
+            i % 2 == 0 for i in range(cfg["num_hidden_layers"])
+        )
+    return ModelConfig(
+        name=name,
+        vocab_size=cfg["vocab_size"],
+        hidden_size=hidden,
+        intermediate_size=cfg.get("intermediate_size", 4 * hidden),
+        num_layers=cfg["num_hidden_layers"],
+        num_heads=heads,
+        # decompressed MLA materializes per-head K/V: MHA cache shape
+        num_kv_heads=(
+            heads if mla
+            else cfg.get("num_key_value_heads", heads)
+        ),
+        head_dim=head_dim,
+        rope_theta=cfg.get("rope_theta", 10000.0),
+        rope_scaling=cfg.get("rope_scaling"),
+        rms_norm_eps=cfg.get("rms_norm_eps", 1e-5),
+        tie_word_embeddings=cfg.get("tie_word_embeddings", False),
+        qkv_bias=(
+            ("Qwen2" in arch and not cfg.get("no_bias", False))
+            or (gptoss and cfg.get("attention_bias", True))
+        ),
+        o_bias=gptoss and bool(cfg.get("attention_bias", True)),
+        attn_sinks=gptoss,
+        moe_act="gptoss" if gptoss else "silu",
+        moe_bias=gptoss,
+        # Qwen3 (dense + MoE) and Gemma3 replace attention bias with
+        # per-head q/k RMSNorm
+        qk_norm="Qwen3" in arch or "Gemma3" in arch,
+        max_position_embeddings=cfg.get("max_position_embeddings", 8192),
+        sliding_window=cfg.get("sliding_window") or 0,
+        hidden_act=(
+            "gelu_tanh"
+            if cfg.get("hidden_activation") == "gelu_pytorch_tanh"
+            or cfg.get("hidden_act") == "gelu_pytorch_tanh"
+            # original gemma1 hub configs say "gelu" but the released
+            # weights were trained with the tanh approximation
+            or (gemma and cfg.get("hidden_act") in (None, "gelu"))
+            else "silu"
+        ),
+        norm_delta_gain=gemma,
+        embed_scale=gemma,
+        post_norms=gemma2plus,
+        query_pre_attn_scalar=(
+            float(cfg.get("query_pre_attn_scalar") or 0) if gemma2plus else 0.0
+        ),
+        attn_logit_softcap=float(cfg.get("attn_logit_softcapping") or 0),
+        final_logit_softcap=float(cfg.get("final_logit_softcapping") or 0),
+        layer_sliding=layer_sliding,
+        rope_local_theta=float(cfg.get("rope_local_base_freq") or 0),
+        num_experts=num_experts,
+        num_experts_per_tok=cfg.get("num_experts_per_tok", 0),
+        moe_intermediate_size=(
+            cfg.get("moe_intermediate_size")
+            or (cfg.get("intermediate_size", 0) if num_experts else 0)
+        ),
+        norm_topk_prob=cfg.get("norm_topk_prob", True),
+        q_lora_rank=int(cfg.get("q_lora_rank") or 0) if deepseek else 0,
+        kv_lora_rank=int(cfg.get("kv_lora_rank") or 0) if deepseek else 0,
+        qk_nope_head_dim=(
+            int(cfg.get("qk_nope_head_dim") or 0) if deepseek else 0
+        ),
+        qk_rope_head_dim=(
+            int(cfg.get("qk_rope_head_dim") or 0) if deepseek else 0
+        ),
+        v_head_dim=int(cfg.get("v_head_dim") or 0) if deepseek else 0,
+        n_shared_experts=(
+            int(cfg.get("n_shared_experts") or 0) if deepseek
+            else (1 if cfg.get("shared_expert_intermediate_size") else 0)
+        ),
+        shared_expert_intermediate_size=(
+            int(cfg.get("n_shared_experts") or 0)
+            * int(cfg.get("moe_intermediate_size") or 0)
+            if deepseek
+            # Qwen2-MoE: explicit width key
+            else int(cfg.get("shared_expert_intermediate_size") or 0)
+        ),
+        shared_expert_gated="Qwen2Moe" in arch,
+        routed_scaling_factor=(
+            float(cfg.get("routed_scaling_factor") or 1.0)
+            if deepseek else 1.0
+        ),
+        first_k_dense=(
+            int(cfg.get("first_k_dense_replace") or 0)
+            if deepseek and num_experts else 0
+        ),
+        moe_scoring=(
+            "sigmoid"
+            if deepseek and cfg.get("scoring_func") == "sigmoid"
+            else ("softmax_topk" if gptoss else "softmax")
+        ),
+    ).validate()
+
+
+def load_hf_config(path: str, name: str = "") -> ModelConfig:
+    """Read ``config.json`` from a local HF model directory."""
+    with open(os.path.join(path, "config.json")) as f:
+        cfg = json.load(f)
+    return config_from_hf(cfg, name=name or os.path.basename(path.rstrip("/")))
+
+
+# ---------------------------------------------------------------------------
+# Presets. Flagship = llama3-8b (BASELINE.json north-star model). Tiny configs
+# are for hermetic CPU tests (mirrors the reference's fixture doctrine,
+# SURVEY.md §4).
+# ---------------------------------------------------------------------------
+PRESETS: Dict[str, ModelConfig] = {
+    "llama3-8b": ModelConfig(
+        name="llama3-8b",
+        vocab_size=128256,
+        hidden_size=4096,
+        intermediate_size=14336,
+        num_layers=32,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=128,
+        rope_theta=500000.0,
+        max_position_embeddings=8192,
+    ),
+    "llama3-70b": ModelConfig(
+        name="llama3-70b",
+        vocab_size=128256,
+        hidden_size=8192,
+        intermediate_size=28672,
+        num_layers=80,
+        num_heads=64,
+        num_kv_heads=8,
+        head_dim=128,
+        rope_theta=500000.0,
+        max_position_embeddings=8192,
+    ),
+    "qwen2.5-7b": ModelConfig(
+        name="qwen2.5-7b",
+        vocab_size=152064,
+        hidden_size=3584,
+        intermediate_size=18944,
+        num_layers=28,
+        num_heads=28,
+        num_kv_heads=4,
+        head_dim=128,
+        rope_theta=1000000.0,
+        qkv_bias=True,
+        tie_word_embeddings=False,
+        max_position_embeddings=32768,
+    ),
+    # BASELINE anchor family: the reference's closest published 8B number
+    # is Qwen3-8B (docs/performance-lab/qwen3-8b/910b.md:95-98).
+    "qwen3-8b": ModelConfig(
+        name="qwen3-8b",
+        vocab_size=151936,
+        hidden_size=4096,
+        intermediate_size=12288,
+        num_layers=36,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=128,
+        rope_theta=1000000.0,
+        qk_norm=True,
+        max_position_embeddings=40960,
+    ),
+    "qwen3-30b-a3b": ModelConfig(
+        name="qwen3-30b-a3b",
+        vocab_size=151936,
+        hidden_size=2048,
+        intermediate_size=6144,
+        num_layers=48,
+        num_heads=32,
+        num_kv_heads=4,
+        head_dim=128,
+        rope_theta=1000000.0,
+        qk_norm=True,
+        num_experts=128,
+        num_experts_per_tok=8,
+        moe_intermediate_size=768,
+        norm_topk_prob=True,
+        max_position_embeddings=40960,
+    ),
+    "gemma2-9b": ModelConfig(
+        name="gemma2-9b",
+        vocab_size=256000,
+        hidden_size=3584,
+        intermediate_size=14336,
+        num_layers=42,
+        num_heads=16,
+        num_kv_heads=8,
+        head_dim=256,
+        rope_theta=10000.0,
+        rms_norm_eps=1e-6,
+        tie_word_embeddings=True,
+        hidden_act="gelu_tanh",
+        norm_delta_gain=True,
+        embed_scale=True,
+        post_norms=True,
+        query_pre_attn_scalar=256.0,
+        attn_logit_softcap=50.0,
+        final_logit_softcap=30.0,
+        sliding_window=4096,
+        layer_sliding=tuple(i % 2 == 0 for i in range(42)),
+        max_position_embeddings=8192,
+    ),
+    # GPT-OSS (openai/gpt-oss-20b — BASELINE.md headline anchor,
+    # docs/performance-lab/gpt-oss-20b/a100.md): attention sinks,
+    # alternating sliding/full layers, biased everything, clamped-glu
+    # MoE, YaRN truncate=false. Hub dims from GptOssConfig.
+    "gpt-oss-20b": ModelConfig(
+        name="gpt-oss-20b",
+        vocab_size=201088,
+        hidden_size=2880,
+        intermediate_size=2880,
+        num_layers=24,
+        num_heads=64,
+        num_kv_heads=8,
+        head_dim=64,
+        rope_theta=150000.0,
+        rope_scaling={
+            "rope_type": "yarn", "factor": 32.0,
+            "beta_fast": 32.0, "beta_slow": 1.0,
+            "truncate": False,
+            "original_max_position_embeddings": 4096,
+        },
+        rms_norm_eps=1e-5,
+        max_position_embeddings=131072,
+        sliding_window=128,
+        layer_sliding=tuple(i % 2 == 0 for i in range(24)),
+        qkv_bias=True,
+        o_bias=True,
+        attn_sinks=True,
+        num_experts=32,
+        num_experts_per_tok=4,
+        moe_intermediate_size=2880,
+        moe_scoring="softmax_topk",
+        moe_act="gptoss",
+        moe_bias=True,
+    ),
+    "gpt-oss-120b": ModelConfig(
+        name="gpt-oss-120b",
+        vocab_size=201088,
+        hidden_size=2880,
+        intermediate_size=2880,
+        num_layers=36,
+        num_heads=64,
+        num_kv_heads=8,
+        head_dim=64,
+        rope_theta=150000.0,
+        rope_scaling={
+            "rope_type": "yarn", "factor": 32.0,
+            "beta_fast": 32.0, "beta_slow": 1.0,
+            "truncate": False,
+            "original_max_position_embeddings": 4096,
+        },
+        rms_norm_eps=1e-5,
+        max_position_embeddings=131072,
+        sliding_window=128,
+        layer_sliding=tuple(i % 2 == 0 for i in range(36)),
+        qkv_bias=True,
+        o_bias=True,
+        attn_sinks=True,
+        num_experts=128,
+        num_experts_per_tok=4,
+        moe_intermediate_size=2880,
+        moe_scoring="softmax_topk",
+        moe_act="gptoss",
+        moe_bias=True,
+    ),
+    "mixtral-8x7b": ModelConfig(
+        name="mixtral-8x7b",
+        vocab_size=32000,
+        hidden_size=4096,
+        intermediate_size=14336,
+        num_layers=32,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=128,
+        rope_theta=1000000.0,
+        num_experts=8,
+        num_experts_per_tok=2,
+        moe_intermediate_size=14336,
+        max_position_embeddings=32768,
+    ),
+    # DeepSeek-V2-Lite (deepseek-ai/DeepSeek-V2-Lite): MLA + DeepSeek
+    # MoE, served decompressed (see the MLA notes on ModelConfig)
+    "deepseek-v2-lite": ModelConfig(
+        name="deepseek-v2-lite",
+        vocab_size=102400,
+        hidden_size=2048,
+        intermediate_size=10944,
+        num_layers=27,
+        num_heads=16,
+        num_kv_heads=16,
+        head_dim=192,                 # qk_nope + qk_rope
+        rope_theta=10000.0,
+        rms_norm_eps=1e-6,            # hub config.json value
+        # the shipped YaRN scaling (hub config.json rope_scaling)
+        rope_scaling={
+            "type": "yarn", "factor": 40,
+            "beta_fast": 32, "beta_slow": 1,
+            "mscale": 0.707, "mscale_all_dim": 0.707,
+            "original_max_position_embeddings": 4096,
+        },
+        max_position_embeddings=163840,
+        num_experts=64,
+        num_experts_per_tok=6,
+        moe_intermediate_size=1408,
+        norm_topk_prob=False,
+        kv_lora_rank=512,
+        qk_nope_head_dim=128,
+        qk_rope_head_dim=64,
+        v_head_dim=128,
+        n_shared_experts=2,
+        shared_expert_intermediate_size=2816,
+        routed_scaling_factor=1.0,
+        first_k_dense=1,
+    ),
+    # Hermetic-test configs (run everywhere, compile in seconds).
+    "tiny": ModelConfig(
+        name="tiny",
+        vocab_size=264,
+        hidden_size=64,
+        intermediate_size=128,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=2,
+        head_dim=16,
+        rope_theta=10000.0,
+        max_position_embeddings=256,
+    ),
+    "tiny-qwen3": ModelConfig(
+        name="tiny-qwen3",
+        vocab_size=264,
+        hidden_size=64,
+        intermediate_size=128,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=2,
+        head_dim=16,
+        rope_theta=10000.0,
+        qk_norm=True,
+        max_position_embeddings=256,
+    ),
+    "tiny-moe": ModelConfig(
+        name="tiny-moe",
+        vocab_size=264,
+        hidden_size=64,
+        intermediate_size=128,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=2,
+        head_dim=16,
+        rope_theta=10000.0,
+        num_experts=4,
+        num_experts_per_tok=2,
+        moe_intermediate_size=96,
+        max_position_embeddings=256,
+    ),
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name in PRESETS:
+        return PRESETS[name]
+    raise KeyError(
+        f"unknown model preset {name!r}; known: {sorted(PRESETS)}"
+    )
