@@ -76,7 +76,46 @@ def flash_attention_prefill_ref(
     return out.reshape(B, T, Hq * d).to(q.dtype)
 
 
-def _check_cuda_inputs(q, k, v) -> None:
+def _check_cuda_inputs(q, k, v, scale) -> tuple:
+    """Raise on what the kernel cannot take; return the nine element
+    strides it reads q, k and v through ((batch, row, head) of each).
+    ``scale`` must be positive and finite: the kernel takes each row's max
+    of the raw scores and scales it after.
+
+    The kernel reads each tensor through a TMA tensor map, whose rules
+    these are: a contiguous last dimension, a 16-byte aligned base, strides
+    that are multiples of 16 bytes and positive wherever the extent is
+    above 1 (a broadcast dimension with stride 0 has no map). One quick
+    test per tensor on the launch path; the reason is worked out only when
+    it fails."""
+    dev = q.get_device()
+    strides = ()
+    for t in (q, k, v):
+        st = t.stride()
+        if (
+            t.dtype is not torch.bfloat16 or len(st) != 4 or st[3] != 1
+            or st[0] % 8 or st[1] % 8 or st[2] % 8 or t.data_ptr() % 16
+            or not (st[0] and st[1] and st[2]) or t.get_device() != dev
+        ):
+            _refuse(q, k, v)
+        strides += st[:3]
+    qs, ks = q.shape, k.shape
+    if (
+        ks != v.shape or qs[0] != ks[0] or qs[3] != ks[3]
+        or qs[3] not in SUPPORTED_HEAD_DIMS
+    ):
+        _refuse(q, k, v)
+    if not 0.0 < scale < float("inf"):
+        raise ValueError(
+            f"scale must be positive and finite, got {scale}: the kernel "
+            "takes each row's max before scaling"
+        )
+    return strides
+
+
+def _refuse(q, k, v) -> None:
+    """Raise with the reason the kernel cannot take q, k, v (returns when
+    the only oddity is a stride of 0 along an extent-1 dimension)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -86,12 +125,19 @@ def _check_cuda_inputs(q, k, v) -> None:
             )
         if t.dim() != 4:
             raise ValueError(f"{name} must be 4-D, got {tuple(t.shape)}")
-        if t.stride(-1) != 1:
+        st = t.stride()
+        if st[3] != 1:
             raise ValueError(f"{name}'s last dimension must be contiguous")
-        if any(s % 8 for s in t.stride()[:-1]) or t.data_ptr() % 16:
+        if any(s % 8 for s in st[:3]) or t.data_ptr() % 16:
             raise ValueError(
                 f"{name} rows must be 16-byte aligned (strides a multiple "
                 "of 8 elements)"
+            )
+        if any(n > 1 and s <= 0 for n, s in zip(t.shape[:3], st[:3])):
+            raise ValueError(
+                f"{name} has a stride of 0 along a dimension of extent > 1 "
+                f"(strides {st}): the kernel's TMA tensor maps need "
+                "positive strides; pass a materialised tensor"
             )
     if k.shape != v.shape:
         raise ValueError(f"k {tuple(k.shape)} != v {tuple(v.shape)}")
@@ -105,6 +151,20 @@ def _check_cuda_inputs(q, k, v) -> None:
             f"head_dim {q.shape[3]} unsupported (kernel takes "
             f"{SUPPORTED_HEAD_DIMS})"
         )
+
+
+def _launch_error(err: int) -> str:
+    if err == -1:
+        return (
+            "flash_prefill_bf16: the CUDA driver has no "
+            "cuTensorMapEncodeTiled (TMA needs CUDA 12 on Hopper)"
+        )
+    if err <= -1000:
+        return (
+            "flash_prefill_bf16: the driver refused a TMA tensor map "
+            f"(CUresult {-1000 - err})"
+        )
+    return f"flash_prefill_bf16 launch failed: cudaError {err}"
 
 
 def flash_attention_prefill(
@@ -124,22 +184,19 @@ def flash_attention_prefill(
             f"q heads ({Hq}) must be a multiple of kv heads ({Hkv})"
         )
     q_offset = int(q_offset)
-    if q.device.type == "cpu":
-        return flash_attention_prefill_ref(q, k, v, scale, q_offset)
-    if q.device.type != "cuda":
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return flash_attention_prefill_ref(q, k, v, scale, q_offset)
         raise ValueError(f"unsupported device {q.device}")
-    _check_cuda_inputs(q, k, v)
+    strides = _check_cuda_inputs(q, k, v, scale)
     out = torch.empty((B, T, Hq * d), dtype=q.dtype, device=q.device)
-    fn = _kernel()
-    err = fn(
+    err = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, T, S, Hq, Hkv, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        q_offset, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        B, T, S, Hq, Hkv, d, *strides, q_offset, float(scale),
+        torch._C._cuda_getCurrentRawStream(q.device.index),
     )
     if err != 0:
-        raise RuntimeError(f"flash_prefill_bf16 launch failed: cudaError {err}")
+        raise RuntimeError(_launch_error(err))
     flash_attention_prefill.launches += 1
     return out
 

@@ -118,4 +118,54 @@ def test_card_input_checks(mutate, exc):
         for a in _inputs(6, 1, 64, 64, 2, 1, 64)
     )
     with pytest.raises(exc):
-        port._check_cuda_inputs(mutate(q), k, v)
+        port._check_cuda_inputs(mutate(q), k, v, 0.125)
+
+
+def _bf16_qkv(seed):
+    return tuple(
+        torch.from_numpy(a).bfloat16()
+        for a in _inputs(seed, 1, 64, 64, 2, 1, 64)
+    )
+
+
+@pytest.mark.parametrize("name,broadcast", [
+    ("q", lambda t: t.expand(2, -1, -1, -1)),             # batch
+    ("k", lambda t: t[:, :1].expand(-1, 64, -1, -1)),     # rows
+    ("v", lambda t: t.expand(-1, -1, 2, -1)),             # heads
+])
+def test_card_input_checks_refuse_broadcast_strides(name, broadcast):
+    """A TMA tensor map needs a positive stride along every dimension of
+    extent > 1: an expanded (stride 0) q, k or v is refused, by name."""
+    qkv = dict(zip("qkv", _bf16_qkv(7)))
+    qkv[name] = broadcast(qkv[name])
+    with pytest.raises(ValueError, match=f"{name} has a stride of 0"):
+        port._check_cuda_inputs(qkv["q"], qkv["k"], qkv["v"], 0.125)
+
+
+def test_card_input_checks_accept_zero_stride_on_extent_one():
+    """A dimension of extent 1 is never stepped along: its stride may be 0
+    (the kernel gives the map a packed one)."""
+    q, k, v = _bf16_qkv(7)
+    q0 = q.as_strided(q.shape, (0,) + q.stride()[1:])
+    assert port._check_cuda_inputs(q0, k, v, 0.125)[:3] == (0, 128, 64)
+
+
+@pytest.mark.parametrize("scale", [0.0, -0.125, float("inf"), float("nan")])
+def test_card_input_checks_refuse_non_positive_scale(scale):
+    """The kernel takes each row's max of the raw scores and scales it
+    after, which holds only for a positive, finite scale."""
+    q, k, v = _bf16_qkv(8)
+    with pytest.raises(ValueError, match="scale must be positive"):
+        port._check_cuda_inputs(q, k, v, scale)
+
+
+def test_card_input_checks_return_the_strides_the_kernel_reads():
+    """One layer of the runner's [L, B, S, H, d] cache is read in place:
+    the check hands the kernel its strides, (batch, row, head) of q, k, v."""
+    cache = torch.zeros(3, 1, 256, 2, 64, dtype=torch.bfloat16)
+    q = torch.zeros(1, 256, 4, 64, dtype=torch.bfloat16)
+    assert port._check_cuda_inputs(q, cache[1], cache[2], 0.125) == (
+        256 * 4 * 64, 4 * 64, 64,
+        256 * 2 * 64, 2 * 64, 64,
+        256 * 2 * 64, 2 * 64, 64,
+    )
