@@ -32,6 +32,7 @@ outside a checkout of the repository, it exits non-zero and prints no
 result.
 """
 
+import gc
 import json
 import os
 import re
@@ -268,6 +269,13 @@ def phase_kernels():
         (1, 32, 32, 0, 32, 8, 128),
         (1, 512, 2048, 1536, 32, 8, 128),
         (1, 1000, 1000, 0, 32, 8, 128),
+        # continuations phase e serves: a 512 chunk at 1024, a 32-token
+        # suffix after a 256-block prefix hit, and offsets off the
+        # kernel's 128-row/128-key tiles (16-token block granularity)
+        (1, 512, 2048, 1024, 32, 8, 128),
+        (1, 32, 2048, 1792, 32, 8, 128),
+        (1, 64, 1024, 784, 32, 8, 128),
+        (1, 128, 2048, 1888, 32, 8, 128),
     ]
     rows = [
         _flash_case(*c, gen, repeats=3 if i == 0 else 1)
@@ -548,6 +556,394 @@ def phase_main_path(kind, smi):
         engine.stop()
 
 
+# ---------------------------------------------------------------------------
+# e: prefix reuse and chunked prefill
+# ---------------------------------------------------------------------------
+
+E_ARGV = MAIN_ARGV + ["--prefill-chunk", "512", "--host-kv-cache-mb", "4096"]
+CHUNK = 512
+BLOCK = 256            # the host cache's default block
+# lowercase letters (byte tokenizer: byte b is id b + 1): a reply biased to
+# them is text that tokenizes back to the ids generated, as a real
+# model's reply does, so turn 2's prompt holds turn 1's generated tokens
+LETTERS = {str(ord(c) + 1): 100.0 for c in "abcdefghijklmnopqrstuvwxyz"}
+_SAMPLE = re.compile(
+    r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$"
+)
+
+
+def parse_prometheus(text):
+    """Strict enough for the exporter: every sample's family declared by a
+    ``# TYPE`` line first, numeric values, histogram buckets cumulative
+    with ``+Inf`` equal to ``_count``. Returns ({(name, labels): value},
+    {family: kind})."""
+    types, samples = {}, {}
+    for n, line in enumerate(text.splitlines(), 1):
+        if line.startswith("# TYPE "):
+            _, _, family, kind = line.split(" ")
+            if family in types:
+                raise AssertionError(f"line {n}: {family} declared twice")
+            types[family] = kind
+            continue
+        if not line or line.startswith("#"):
+            continue
+        m = _SAMPLE.match(line)
+        if not m:
+            raise AssertionError(f"line {n} is not a sample: {line!r}")
+        name, labels, value = m.group(1), m.group(2) or "", float(m.group(3))
+        family = re.sub(r"_(bucket|sum|count)$", "", name)
+        if name not in types and types.get(family) != "histogram":
+            raise AssertionError(f"line {n}: {name} has no # TYPE")
+        samples[(name, labels)] = value
+    for family, kind in types.items():
+        if kind != "histogram":
+            continue
+        series = {}
+        for (name, labels), value in samples.items():
+            if name == f"{family}_bucket":
+                rest = re.sub(r',?le="[^"]*"', "", labels)
+                le = re.search(r'le="([^"]*)"', labels).group(1)
+                series.setdefault(rest, []).append(
+                    (float("inf") if le == "+Inf" else float(le), value)
+                )
+        for rest, buckets in series.items():
+            counts = [c for _, c in sorted(buckets)]
+            count = samples[(f"{family}_count", "" if rest == "{}" else rest)]
+            if counts != sorted(counts) or counts[-1] != count:
+                raise AssertionError(f"{family}{rest}: bad buckets")
+    return samples, types
+
+
+def _get(port, path):
+    with urllib.request.urlopen(
+        f"http://127.0.0.1:{port}{path}", timeout=60
+    ) as resp:
+        return resp.read().decode()
+
+
+def _stream_chat(port, messages, max_tokens, arrivals=None, started=None):
+    """A streaming chat; returns (reply text, TTFT s). ``arrivals`` collects
+    the host time of every content chunk; ``started`` is set at the
+    first one."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/chat/completions",
+        data=json.dumps({
+            "messages": messages, "max_tokens": max_tokens,
+            "temperature": 0, "stream": True, "logit_bias": LETTERS,
+        }).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    t0 = time.perf_counter()
+    ttft, text = None, []
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith("data: ") or line == "data: [DONE]":
+                continue
+            piece = json.loads(line[6:])["choices"][0]["delta"].get(
+                "content"
+            )
+            if piece:
+                now = time.perf_counter()
+                if ttft is None:
+                    ttft = now - t0
+                    if started is not None:
+                        started.set()
+                if arrivals is not None:
+                    arrivals.append(now)
+                text.append(piece)
+    return "".join(text), ttft
+
+
+def _forwards(n_tokens, matched):
+    """Model forwards (each 32 flash launches) a prompt takes: one-shot
+    (with or without a prefix) up to the chunk, else one per chunk of
+    what the prefix left."""
+    rest = n_tokens - matched
+    return 1 if n_tokens <= CHUNK else -(-rest // CHUNK)
+
+
+def _expected_match(prompt, stored):
+    """Block-aligned tokens of ``prompt`` the cache can serve: its longest
+    common prefix with any stored sequence, in whole blocks, leaving at
+    least one token to prefill."""
+    best = 0
+    for seq in stored:
+        n = 0
+        while n < min(len(seq), len(prompt)) and seq[n] == prompt[n]:
+            n += 1
+        best = max(best, n // BLOCK * BLOCK)
+    return min(best, (len(prompt) - 1) // BLOCK * BLOCK)
+
+
+def _continuation_parity(engine):
+    """Runner level, outside the counted window: a continuation's logits
+    against one prefill of the same prompt (the flash kernel at
+    ``q_offset`` > 0 against offset 0)."""
+    runner = engine.runner
+    rows = []
+
+    def compare(name, got, want):
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        cos = torch.nn.functional.cosine_similarity(got, want, dim=0).item()
+        rows.append({"case": name, "max_abs_err": err, "logit_scale": scale,
+                     "cosine": cos})
+        if (
+            not torch.isfinite(got).all() or err > LOGIT_REL_TOL * scale
+            or cos < LOGIT_MIN_COSINE
+        ):
+            raise AssertionError(
+                f"{name}: continuation logits differ, max |err| {err} "
+                f"(scale {scale}), cosine {cos}"
+            )
+
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        ids = torch.randint(1, 257, (1500,), generator=gen).tolist()
+        full, k, v = runner.prefill(ids + [0] * (2048 - 1500), 1500)
+        suffix = ids[1024:] + [0] * (512 - 476)
+        got, _, _ = runner.prefill_with_prefix(
+            k[:, :1024], v[:, :1024], 1024, suffix, 476, 2048
+        )
+        compare("prefix 1024 + suffix 476 (T 512, S 2048, offset 1024)",
+                got, full)
+        ids = torch.randint(1, 257, (1900,), generator=gen).tolist()
+        full, _, _ = runner.prefill(ids + [0] * (2048 - 1900), 1900)
+        last = k = v = None
+        for start in range(0, 1900, CHUNK):
+            part = ids[start:start + CHUNK]
+            sb = runner.bucket_for(len(part))
+            padded = part + [0] * (sb - len(part))
+            if start == 0:
+                last, k, v = runner.prefill(padded, len(part))
+            else:
+                last, k, v = runner.prefill_with_prefix(
+                    k, v, start, padded, len(part),
+                    runner.bucket_for(start + sb),
+                )
+        compare("four chunks of 512 (1900 tokens)", last, full)
+        # device time of one 512-token forward by where it starts (CUDA
+        # events, median of 3): a bucketed prefill, then continuations
+        _, k, v = runner.prefill(ids[:2048] + [0] * 148, 1900)
+        timing = {}
+        for off in (0, 512, 1024, 1536):
+            part = ids[off:off + CHUNK]
+            runs = []
+            for _ in range(4):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                if off == 0:
+                    runner.prefill(part, CHUNK)
+                else:
+                    runner.prefill_with_prefix(
+                        k[:, :off], v[:, :off], off,
+                        part + [0] * (CHUNK - len(part)),
+                        len(part), runner.bucket_for(off + CHUNK),
+                    )
+                end.record()
+                torch.cuda.synchronize()
+                runs.append(start.elapsed_time(end))
+            timing[str(off)] = statistics.median(runs[1:])
+    return rows, timing
+
+
+def _kv_tier_times(engine):
+    """Host KV tier costs, outside the counted window: gathering and
+    uploading a 1280-token (5-block) prefix, and storing a 2048-token
+    sequence device→host (host clock; each ends on a synchronize)."""
+    cache = engine.host_kv_cache
+    runner = engine.runner
+    out = {"store_ms_2048_tokens": [], "store_blocks": [],
+           "gather_ms_1280_tokens": [], "upload_ms_1280_tokens": []}
+    # twice, on two sequences: the second call finds the caching host
+    # allocator's pinned blocks already made
+    for rep in range(2):
+        ids = [1 + (i + 7 * rep) % 250 for i in range(2048)]
+        with torch.no_grad():
+            _, k, v = runner.prefill(ids, 2048)
+        torch.cuda.synchronize()
+        before = cache.entries
+        t0 = time.perf_counter()
+        engine._submit_kv_copy(ids, k, v, 2048)
+        engine._kv_copy_pool.submit(lambda: None).result(timeout=120)
+        out["store_ms_2048_tokens"].append((time.perf_counter() - t0) * 1e3)
+        out["store_blocks"].append(cache.entries - before)
+        t0 = time.perf_counter()
+        pk, pv = cache.gather_prefix(ids, 1280)
+        out["gather_ms_1280_tokens"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        engine._upload_prefix(pk, pv, 1280)
+        out["upload_ms_1280_tokens"].append((time.perf_counter() - t0) * 1e3)
+    out["block_mib"] = pk.nbytes * 2 / 5 / 2**20
+    return out
+
+
+def phase_prefix_reuse(kind, smi):
+    """The engine with chunked prefill and the host KV cache, through the
+    port's server: multi-turn chats that reuse their earlier turns'
+    blocks, a long completion chunked while chats decode, exact hit and
+    launch counts, and /metrics."""
+    from gpustack_tpu_torch.engine.api_server import (
+        OpenAIServer,
+        build_engine_from_args,
+        build_parser,
+    )
+
+    args = build_parser().parse_args(E_ARGV)
+    engine = build_engine_from_args(args)
+    # runner-level checks and KV tier timings before the scheduler starts
+    parity, chunk_forward_ms = _continuation_parity(engine)
+    kv_tier = _kv_tier_times(engine)
+    engine.start()
+    server = OpenAIServer(engine)
+    port = server.start("127.0.0.1", 0)
+    tok = engine.tokenizer
+
+    def drain():
+        engine._kv_copy_pool.submit(lambda: None).result(timeout=120)
+
+    def health():
+        return json.loads(_get(port, "/healthz"))
+
+    try:
+        reset_launch_counts()
+        forwards = 0
+        stored = []
+        conversations = []
+        for name, seed_text in (("a", "Tell me about the H100. "),
+                                ("b", "Summarise this log line. ")):
+            body = (seed_text * 60)[:1226]
+            msgs = [{"role": "user", "content": body}]
+            p1 = tok.apply_chat_template(msgs)
+            h0 = health()
+            reply, ttft_cold = _stream_chat(port, msgs, 48)
+            out = tok.encode(reply)
+            if len(out) != 48:
+                raise AssertionError(f"turn 1 replied {len(out)} tokens")
+            forwards += _forwards(len(p1), _expected_match(p1, stored))
+            stored += [p1, p1 + out[:-1]]
+            drain()
+            msgs2 = msgs + [{"role": "assistant", "content": reply},
+                            {"role": "user", "content": "Go on."}]
+            p2 = tok.apply_chat_template(msgs2)
+            want = _expected_match(p2, stored)
+            h1 = health()
+            _, ttft_warm = _stream_chat(port, msgs2, 16)
+            h2 = health()
+            forwards += _forwards(len(p2), want)
+            stored.append(p2)      # its prefill store; reply under a block
+            drain()
+            hits = h2["kv_cache_prefix_hits"] - h1["kv_cache_prefix_hits"]
+            reused = (h2["kv_cache_prefix_tokens_reused"]
+                      - h1["kv_cache_prefix_tokens_reused"])
+            if want <= len(p1) or hits != 1 or reused != want:
+                raise AssertionError(
+                    f"conversation {name}: turn 2 ({len(p2)} tokens) reused "
+                    f"{reused} tokens in {hits} hits, want {want} in 1"
+                )
+            if h1["kv_cache_prefix_hits"] != h0["kv_cache_prefix_hits"]:
+                raise AssertionError(f"conversation {name}: turn 1 hit")
+            conversations.append({
+                "turn1_tokens": len(p1), "turn2_tokens": len(p2),
+                "reused_tokens": reused, "ttft_ms_cold": ttft_cold * 1e3,
+                "ttft_ms_warm": ttft_warm * 1e3,
+            })
+
+        # one 1900-token completion while 4 chats decode
+        arrivals = [[] for _ in range(4)]
+        started = [threading.Event() for _ in range(4)]
+        chats = [
+            threading.Thread(target=_stream_chat, args=(
+                port, [{"role": "user", "content": f"chat {i} " * 4}], 200,
+                arrivals[i], started[i],
+            ))
+            for i in range(4)
+        ]
+        for t in chats:
+            t.start()
+        for e in started:
+            if not e.wait(120):
+                raise AssertionError("a chat never streamed")
+        for i in range(4):
+            forwards += _forwards(
+                len(tok.apply_chat_template(
+                    [{"role": "user", "content": f"chat {i} " * 4}]
+                )), 0,
+            )
+        long_text = "".join(
+            chr(ord("a") + (i * 7) % 26) for i in range(1900)
+        )
+        t_submit = time.time()
+        p0 = time.perf_counter()
+        _, raw = _post(port, "/v1/completions", {
+            "prompt": long_text, "max_tokens": 8, "temperature": 0,
+        })
+        p1_ = time.perf_counter()
+        _check_usage(json.loads(raw), 1900)
+        forwards += _forwards(1900, 0)
+        for t in chats:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in chats):
+            raise AssertionError("a chat did not finish")
+        records = json.loads(_get(port, "/debug/flight?limit=2048"))[
+            "records"
+        ]
+        chunks = [
+            r for r in records
+            if r["ts"] >= t_submit and r["mode"] == "prefill_chunk"
+        ]
+        if len(chunks) != 4 or sum(r["prompt_tokens"] for r in chunks) != 1900:
+            raise AssertionError(
+                f"1900-token completion ran as {len(chunks)} chunk steps "
+                f"({[r['prompt_tokens'] for r in chunks]})"
+            )
+        gaps = [
+            max((b - a for a, b in zip(ts, ts[1:]) if p0 <= b <= p1_),
+                default=0.0)
+            for ts in arrivals
+        ]
+        counts = launch_counts()
+        n_layers = engine.cfg.num_layers
+        if counts["flash_attention_prefill"] != n_layers * forwards:
+            raise AssertionError(
+                f"flash kernel launched {counts['flash_attention_prefill']} "
+                f"times for {forwards} forwards (want {n_layers} each)"
+            )
+        samples, types = parse_prometheus(_get(port, "/metrics"))
+        h = health()
+        if h["status"] != "ok":
+            raise AssertionError(f"engine unhealthy: {h}")
+        if samples[("gpustack_kv_cache_hits", "")] != h["kv_cache_hits"]:
+            raise AssertionError("/metrics kv hits disagree with /healthz")
+        emit("prefix_reuse", model=engine.cfg.name, device=kind,
+             nvidia_smi=smi, continuation_parity=parity,
+             forward_ms_512_tokens_by_offset=chunk_forward_ms,
+             conversations=conversations,
+             long_prompt={
+                 "tokens": 1900, "chunk_steps": len(chunks),
+                 "chunk_step_ms": [r["dur_ms"] for r in chunks],
+                 "e2e_ms": (p1_ - p0) * 1e3,
+                 "max_inter_token_gap_ms_of_running_chats": [
+                     g * 1e3 for g in gaps
+                 ],
+             },
+             forwards=forwards, launches=counts, kv_tier=kv_tier,
+             kv_cache={k: h[k] for k in (
+                 "kv_cache_hits", "kv_cache_misses", "kv_cache_prefix_hits",
+                 "kv_cache_prefix_tokens_reused", "kv_cache_blocks",
+                 "kv_cache_host_bytes",
+             )},
+             metrics_families=len(types),
+             flight_overhead_ratio=h["flight_overhead_ratio"],
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        return counts
+    finally:
+        server.shutdown()
+        engine.stop()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -562,12 +958,16 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     counts = phase_main_path(kind, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    e_counts = phase_prefix_reuse(kind, smi)
     kernels = []
     for name, row in rows.items():
-        if counts.get(name, 0) < 1:
-            raise AssertionError(f"{name} never launched on the main path")
+        if counts.get(name, 0) < 1 or e_counts.get(name, 0) < 1:
+            raise AssertionError(f"{name} never launched on a main path")
         kernels.append({
-            "name": name, **KERNEL_META[name], "launches": counts[name],
+            "name": name, **KERNEL_META[name],
+            "launches": counts[name] + e_counts[name],
             **{k: row[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms",

@@ -1,9 +1,11 @@
 """OpenAI-compatible HTTP front for the PyTorch engine (standard library).
 
 The port of ``gpustack_tpu/engine/api_server.py``'s serving surface:
-``GET /healthz``, ``GET /v1/models``, ``POST /v1/completions`` and
-``POST /v1/chat/completions`` (streaming and not), with the same JSON
-shapes. It runs on ``http.server.ThreadingHTTPServer`` (one thread per
+``GET /healthz``, ``GET /v1/models``, ``GET /metrics`` (Prometheus text:
+engine gauges, host KV cache, spill tier, flight recorder, TTFT/TPOT/e2e
+histograms), ``GET /debug/flight`` (raw flight records and aggregates),
+``POST /v1/completions`` and ``POST /v1/chat/completions`` (streaming and
+not), with the same JSON shapes. It runs on ``http.server.ThreadingHTTPServer`` (one thread per
 connection; each handler blocks on its request's ``done`` event or token
 queue) and streams Server-Sent Events as HTTP/1.1 chunked transfer.
 
@@ -23,6 +25,7 @@ import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Tuple
+from urllib.parse import parse_qs, urlsplit
 
 from gpustack_tpu_torch.engine.engine import GenRequest, LLMEngine
 from gpustack_tpu_torch.engine.openai_tools import (
@@ -229,6 +232,89 @@ class OpenAIServer:
         health = self.engine.health()
         return (200 if health["status"] == "ok" else 503), health
 
+    def metrics(self) -> str:
+        """Prometheus exposition text: the family names and shapes the JAX
+        engine's exporter emits, less the KV handoff and prefetch families
+        (their routes are not ported yet)."""
+        from gpustack_tpu_torch.observability.metrics import type_line
+
+        h = self.engine.health()
+        lines = [
+            "# TYPE gpustack_engine_slots_used gauge",
+            f"gpustack_engine_slots_used {h['slots_used']}",
+            "# TYPE gpustack_engine_slots_total gauge",
+            f"gpustack_engine_slots_total {h['slots_total']}",
+            "# TYPE gpustack_engine_waiting gauge",
+            f"gpustack_engine_waiting {h['waiting']}",
+            "# TYPE gpustack_engine_decode_steps_total counter",
+            f"gpustack_engine_decode_steps_total {h['steps']}",
+            "# TYPE gpustack_engine_tokens_generated_total counter",
+            f"gpustack_engine_tokens_generated_total {h['tokens_generated']}",
+        ]
+        for family, value in (
+            ("gpustack_kv_cache_hits", h["kv_cache_hits"]),
+            ("gpustack_kv_cache_misses", h["kv_cache_misses"]),
+            (
+                "gpustack_kv_cache_prefix_tokens_reused",
+                h["kv_cache_prefix_tokens_reused"],
+            ),
+            ("gpustack_kv_cache_bytes", h["kv_cache_host_bytes"]),
+        ):
+            lines += [type_line(family), f"{family} {value}"]
+        s = h["kv_spill"]
+        if s:
+            for family, out_, in_ in (
+                ("gpustack_kv_spill_bytes_total",
+                 s["bytes_spilled"], s["bytes_loaded"]),
+                ("gpustack_kv_spill_blocks_total",
+                 s["blocks_spilled"], s["blocks_loaded"]),
+            ):
+                lines += [
+                    type_line(family),
+                    f'{family}{{direction="out"}} {out_}',
+                    f'{family}{{direction="in"}} {in_}',
+                ]
+            for family, value in (
+                ("gpustack_kv_spill_resident_bytes", s["bytes"]),
+                ("gpustack_kv_spill_corrupt_total", s["corrupt"]),
+                ("gpustack_kv_spill_evictions_total", s["evictions"]),
+                ("gpustack_kv_spill_faultbacks_total", h["kv_faultbacks"]),
+            ):
+                lines += [type_line(family), f"{family} {value}"]
+        lines += self.engine.flight.metrics_lines()
+        for name, hist in (
+            ("gpustack_engine_ttft_seconds", self.engine.ttft_hist),
+            ("gpustack_engine_tpot_seconds", self.engine.tpot_hist),
+            ("gpustack_engine_e2e_seconds", self.engine.e2e_hist),
+        ):
+            cum, total, count = hist.snapshot()
+            lines.append(f"# TYPE {name} histogram")
+            for ub, c in cum:
+                le = "+Inf" if ub == float("inf") else repr(ub)
+                lines.append(f'{name}_bucket{{le="{le}"}} {c}')
+            lines.append(f"{name}_sum {total:.6f}")
+            lines.append(f"{name}_count {count}")
+        return "\n".join(lines) + "\n"
+
+    def debug_flight(self, query: str) -> Tuple[int, Dict[str, Any]]:
+        """The most recent flight records plus windowed aggregates
+        (``limit=`` caps the records, ``window_s=`` bounds the
+        aggregate)."""
+        q = parse_qs(query)
+        try:
+            limit = min(2048, int(q.get("limit", ["100"])[0]))
+            window = q.get("window_s")
+            window_s = float(window[0]) if window else None
+        except ValueError:
+            return 400, _error_body("limit/window_s must be numbers")
+        flight = self.engine.flight
+        return 200, {
+            "model": self.model_name,
+            "records": flight.snapshot(limit=limit),
+            "aggregate": flight.aggregate(window_s=window_s),
+            "overhead_ratio": round(flight.overhead_ratio(), 6),
+        }
+
     def models(self) -> Dict[str, Any]:
         return {
             "object": "list",
@@ -420,10 +506,22 @@ class OpenAIServer:
                 self.wfile.write(data)
 
             def do_GET(self):
-                if self.path == "/healthz":
+                url = urlsplit(self.path)
+                if url.path == "/healthz":
                     self._send_json(*server.healthz())
-                elif self.path == "/v1/models":
+                elif url.path == "/v1/models":
                     self._send_json(200, server.models())
+                elif url.path == "/metrics":
+                    data = server.metrics().encode()
+                    self.send_response(200)
+                    self.send_header(
+                        "Content-Type", "text/plain; version=0.0.4"
+                    )
+                    self.send_header("Content-Length", str(len(data)))
+                    self.end_headers()
+                    self.wfile.write(data)
+                elif url.path == "/debug/flight":
+                    self._send_json(*server.debug_flight(url.query))
                 else:
                     self._send_json(404, _error_body("not found"))
 
@@ -525,6 +623,31 @@ def build_parser() -> argparse.ArgumentParser:
         "0 = serial reference mode",
     )
     p.add_argument(
+        "--prefill-chunk", type=int, default=0,
+        help="chunked prefill: prompts longer than this many tokens are "
+        "prefilled one chunk per scheduler step (0 = off)",
+    )
+    p.add_argument(
+        "--host-kv-cache-mb", type=int, default=0,
+        help="host-RAM block KV cache for prefix reuse, in MiB (0 = off)",
+    )
+    p.add_argument(
+        "--kv-block-tokens", type=int, default=0,
+        help="host KV cache block granularity in tokens (0 = 256)",
+    )
+    p.add_argument(
+        "--kv-cache-int8", action="store_true",
+        help="store host KV cache blocks as int8 with per-block scales",
+    )
+    p.add_argument(
+        "--kv-spill-mb", type=int, default=0,
+        help="disk spill tier under the host KV cache, in MiB (0 = off)",
+    )
+    p.add_argument(
+        "--kv-spill-dir", default="",
+        help="spill directory (default: a per-process temp directory)",
+    )
+    p.add_argument(
         "--device", default=None,
         help="torch device (default: the CUDA card; 'cpu' to run on the "
         "CPU — never chosen implicitly)",
@@ -549,6 +672,12 @@ def build_engine_from_args(args) -> LLMEngine:
         max_seq_len=args.max_seq_len,
         pipeline_depth=args.pipeline_depth,
         device=device,
+        prefill_chunk=args.prefill_chunk,
+        host_kv_cache_mb=args.host_kv_cache_mb,
+        kv_block_tokens=args.kv_block_tokens,
+        kv_cache_int8=args.kv_cache_int8,
+        kv_spill_mb=args.kv_spill_mb,
+        kv_spill_dir=args.kv_spill_dir,
     )
 
 

@@ -21,18 +21,50 @@ device, ``pipeline_depth`` steps of work in flight):
 ``pipeline_depth=0`` is the serial reference mode (fetch + inline detok
 every step); greedy outputs are identical across modes.
 
+The prompt path, as in the JAX engine:
+
+- **chunked prefill** (``prefill_chunk``): a prompt longer than the chunk
+  is prefilled one chunk per scheduler step, each chunk a continuation
+  (``runner.prefill_with_prefix``) of the ones before, with a decode step
+  for the running slots between chunks;
+- **host KV cache** (``host_kv_cache_mb``, ``kv_block_tokens``,
+  ``kv_cache_int8``; ``kv_host_cache.py``) with an optional **disk spill
+  tier** (``kv_spill_mb``, ``kv_spill_dir``; ``kv_spill.py``): every
+  prefill, and every cleanly finished sequence (prompt + generated
+  tokens), is copied to host RAM in blocks; a later prompt sharing a block
+  run uploads it and prefills only its suffix.
+
+KV moves between the card and the host off the scheduler thread. A
+device→host store is enqueued on a side stream that waits for the work
+that produced the K/V, into pinned buffers, with ``record_stream`` on the
+source so the caching allocator cannot hand its memory to the next
+prefill before the copy read it; the kv-copy thread waits on the copy's
+event and inserts the blocks. A host→device prefix upload runs on that
+thread too (a pinned, bucket-padded buffer copied on a second side
+stream); the scheduler makes its stream wait on the upload's event and
+records the uploaded tensors on its stream before the continuation
+prefill. A failure in either (a CUDA error) ends the engine like a failed
+decode step; a block run evicted between probe and gather cold-starts.
+
+The flight recorder (``observability/flight.py``) keeps one record per
+scheduler step (modes ``prefill``, ``prefill_chunk``, ``decode``).
+
 Not ported yet (the constructor raises ``ValueError`` when asked for
-them; ROADMAP lists them): speculative decoding and draft models, host
-and spill KV tiers, disaggregated kv roles, chunked prefill, embeddings,
-vision inputs, profile capture and the flight recorder.
+them; ROADMAP lists them): speculative decoding and draft models,
+disaggregated kv roles (and the ``/kv/*`` handoff), embeddings, vision
+inputs and profile capture.
 """
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import dataclasses
 import itertools
 import logging
+import os
 import queue
+import tempfile
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -40,10 +72,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from gpustack_tpu_torch.device import resolve_device
+from gpustack_tpu_torch.engine.host_bf16 import from_numpy, to_numpy
 from gpustack_tpu_torch.engine.runner import DecodeState, ModelRunner
 from gpustack_tpu_torch.engine.sampling import MAX_BIAS
 from gpustack_tpu_torch.engine.tokenizer import load_tokenizer
 from gpustack_tpu_torch.models.config import ModelConfig
+from gpustack_tpu_torch.models.transformer import torch_dtype
+from gpustack_tpu_torch.observability.flight import FlightRecorder
 
 logger = logging.getLogger(__name__)
 
@@ -53,37 +88,49 @@ _FETCH_LAG = 2
 # sync-in-dispatch contract (as in the JAX engine): these functions form
 # the scheduler dispatch path and must never block on the device — no
 # .item() / .tolist() / .cpu() / synchronize inside them. Host syncs
-# belong in _process_fetch and _drain_pending.
+# belong in _process_fetch, _drain_pending and the designated KV waits
+# (_resolve_staged_prefix, _upload_prefix), or off-thread.
 DISPATCH_SYNC_FREE = (
     "_loop", "step", "_admit", "_start_request", "_finalize_start",
-    "_new_slot_info", "_decode_once", "_deliver", "_emit_text", "_push",
-    "_finish", "_entry_ready", "_drain_ready", "_flush_detok",
-    "_step_key", "_record_event",
+    "_new_slot_info", "_plan_chunk_job", "_advance_chunk",
+    "_advance_one_shot", "_decode_once", "_deliver", "_emit_text",
+    "_push", "_finish", "_flight_record", "_submit_kv_copy",
+    "_store_finished_sequence", "_check_kv_copies", "_entry_ready",
+    "_drain_ready", "_flush_detok", "_step_key", "_record_event",
 )
 
 # guarded-by contract: lock-guarded shared state, plus the scheduler
 # thread's single-owner state (only these methods, all on the scheduler
 # thread, may touch the attribute).
 _SCHEDULER_METHODS = (
-    "step", "_loop", "_admit", "_decode_once", "_fail_all_requests",
-    "_finalize_start", "_finalize_start_sync", "_finish", "_process_fetch",
+    "step", "_loop", "_admit", "_advance_chunk", "_advance_one_shot",
+    "_decode_once", "_fail_all_requests", "_finalize_start",
+    "_finalize_start_sync", "_finish", "_flight_record", "_process_fetch",
     "_drain_pending", "_drain_ready", "_start_request", "_deliver",
-    "_flush_detok", "_new_slot_info", "_emit_text", "_push",
-    "_entry_ready", "_step_key",
+    "_flush_detok", "_store_finished_sequence", "_resolve_staged_prefix",
+    "_plan_chunk_job", "_new_slot_info", "_emit_text", "_push",
+    "_entry_ready", "_step_key", "_submit_kv_copy", "_check_kv_copies",
 )
 
 GUARDED_BY = {
+    "_overlap_s": "_overlap_mu",
+    "_KVStager._inflight": "_mu",
     "_slots": _SCHEDULER_METHODS,
     "_free": _SCHEDULER_METHODS,
     "_pending": _SCHEDULER_METHODS,
+    "_chunk_jobs": _SCHEDULER_METHODS,
+    "_kv_copies": _SCHEDULER_METHODS,
     "_detok_batch": _SCHEDULER_METHODS,
+    "_overlap_seen": _SCHEDULER_METHODS,
     "_state": _SCHEDULER_METHODS,
     "_gen": _SCHEDULER_METHODS,
 }
 
 # thread-boundary contract: the HTTP layer reaches the engine only through
 # submit()/health() and the thread-safe queues.
-THREAD_OWNED = ("_slots", "_free", "_pending", "_detok_batch", "_state")
+THREAD_OWNED = (
+    "_slots", "_free", "_pending", "_chunk_jobs", "_detok_batch", "_state",
+)
 
 
 class LatencyHistogram:
@@ -159,6 +206,10 @@ class GenRequest:
     submitted_at: float = 0.0
     first_token_at: float = 0.0
     finished_at: float = 0.0
+    # prefix reuse: prompt tokens whose prefill a host KV cache hit
+    # skipped, and the seconds spent uploading them to the device
+    prefix_tokens_reused: int = 0
+    kv_upload_s: float = 0.0
 
     def abort(self) -> None:
         self.aborted.set()
@@ -166,6 +217,26 @@ class GenRequest:
     @property
     def ttft_ms(self) -> float:
         return (self.first_token_at - self.submitted_at) * 1e3
+
+
+@dataclasses.dataclass
+class _ChunkJob:
+    """An in-progress chunked (or deferred one-shot) prefill holding a
+    slot that is not decoding yet."""
+
+    req: "GenRequest"
+    ids: List[int]
+    done: int = 0            # tokens prefilled so far
+    last: Any = None         # last-position logits of the latest chunk
+    k: Any = None            # accumulated KV [L, width, H, hd] on device
+    v: Any = None
+    # staged prefix upload in flight on the kv-copy thread: resolves to
+    # (k, v, prefix_len, event) or None on eviction — the job cold-starts
+    # then. While pending, decode for running slots proceeds.
+    pending_kv: Any = None
+    # deferred ONE-SHOT prefill (a prefix hit without chunking): the
+    # single "chunk" is the whole suffix, run once the upload landed
+    one_shot: bool = False
 
 
 @dataclasses.dataclass
@@ -219,16 +290,21 @@ class _DetokWorker:
         self._thread.join(timeout=timeout)
 
     def _run(self) -> None:
+        eng = self._engine
         while True:
             item = self._q.get()
             if item is self._STOP:
                 return
             kind, payload = item
-            if kind == "finish":
-                self._finish_one(payload)
-            else:
-                for info, toks in payload:
-                    self._tokens_one(info, toks)
+            t0 = time.perf_counter()
+            try:
+                if kind == "finish":
+                    self._finish_one(payload)
+                else:
+                    for info, toks in payload:
+                        self._tokens_one(info, toks)
+            finally:
+                eng._note_overlap(time.perf_counter() - t0)
 
     def _tokens_one(self, info: "_SlotInfo", toks: List[int]) -> None:
         try:
@@ -262,6 +338,39 @@ class _DetokWorker:
             req.done.set()
 
 
+class _KVStager:
+    """Two-slot staging bound for host→device prefix uploads on the
+    kv-copy executor: at most ``depth`` jobs in flight, so the next job's
+    prefix copies while the current chunk or the running slots' decode
+    computes, without unbounded host pinning."""
+
+    def __init__(self, executor, depth: int = 2):
+        self._ex = executor
+        self._inflight: "collections.deque" = collections.deque()
+        self._mu = threading.Lock()
+        self.depth = depth
+
+    def submit(self, fn):
+        with self._mu:
+            while self._inflight and self._inflight[0].done():
+                self._inflight.popleft()
+            while len(self._inflight) >= self.depth:
+                # backpressure: the two-slot bound is the memory contract
+                concurrent.futures.wait([self._inflight.popleft()])
+            try:
+                fut = self._ex.submit(fn)
+            except RuntimeError:
+                # executor shut down (engine stopping): run inline — a
+                # resolved future keeps the caller's contract
+                fut = concurrent.futures.Future()
+                try:
+                    fut.set_result(fn())
+                except Exception as e:
+                    fut.set_exception(e)
+            self._inflight.append(fut)
+            return fut
+
+
 class LLMEngine:
     """Single-device continuous-batching LLM engine."""
 
@@ -280,20 +389,18 @@ class LLMEngine:
         speculative: str = "",
         draft_cfg=None,
         draft_params=None,
-        host_kv_cache_mb: int = 0,
-        kv_cache_int8: bool = False,
-        prefill_chunk: int = 0,
+        host_kv_cache_mb: int = 0,   # >0: host-RAM block KV cache
+        kv_block_tokens: int = 0,    # block granularity (0 = default 256)
+        kv_cache_int8: bool = False,  # int8 host tier (per-block scales)
+        prefill_chunk: int = 0,      # >0: chunked prefill (tokens/chunk)
         kv_role: str = "",
-        kv_spill_mb: int = 0,
-        kv_spill_dir: str = "",
+        kv_spill_mb: int = 0,        # >0: disk spill tier under host RAM
+        kv_spill_dir: str = "",      # spill directory ("" = derived tmp)
     ):
         not_ported = {
             "speculative decoding": bool(speculative),
             "draft models": draft_cfg is not None or draft_params is not None,
-            "host KV cache": host_kv_cache_mb > 0 or kv_cache_int8,
-            "chunked prefill": prefill_chunk > 0,
             "kv roles": bool(kv_role),
-            "disk KV spill": kv_spill_mb > 0 or bool(kv_spill_dir),
         }
         asked = [name for name, on in not_ported.items() if on]
         if asked:
@@ -327,14 +434,77 @@ class LLMEngine:
         self._wake = threading.Condition()
         self._detok = _DetokWorker(self)
         self._detok_batch: List[Tuple[_SlotInfo, List[int]]] = []
+        # host work overlapped with device compute (detok worker + kv
+        # copy thread busy seconds), drained per step into the flight
+        # record's host_overlap field
+        self._overlap_mu = threading.Lock()
+        self._overlap_s = 0.0
+        self._overlap_seen = 0.0
         self._id_counter = itertools.count()
         self._step_count = 0
         self._tokens_generated = 0
-        self._prompt_tokens = 0
-        self._rollback_tokens = 0
+        # one record per scheduler step, always on
+        self.flight = FlightRecorder(max_slots)
+        # per-step accumulators, reset at the top of step(); written only
+        # by the scheduler thread
+        self._step_mode = ""
+        self._step_real = 0          # tokens genuinely dispatched
+        self._step_padded = 0        # tokens the padded dispatch computed
+        self._step_out = 0           # tokens delivered to requests
+        self._step_prompt = 0        # prompt tokens entering prefill
         self.ttft_hist = LatencyHistogram(TTFT_BUCKETS_S)
         self.tpot_hist = LatencyHistogram(TPOT_BUCKETS_S)
         self.e2e_hist = LatencyHistogram(E2E_BUCKETS_S)
+        # chunked prefill: snap the chunk to a real bucket (rounding UP),
+        # clamped to the top bucket — a chunk >= every prompt is a no-op
+        self.prefill_chunk = 0
+        if prefill_chunk > 0:
+            top = self.runner.prefill_buckets[-1]
+            self.prefill_chunk = self.runner.bucket_for(
+                min(prefill_chunk, top)
+            )
+        self._chunk_jobs: Dict[int, _ChunkJob] = {}
+        # futures of kv-copy work (device→host stores, abandoned stages)
+        # whose results the scheduler reads, so a failed copy ends the
+        # engine instead of vanishing on the copy thread
+        self._kv_copies: List[concurrent.futures.Future] = []
+        self.host_kv_cache = None
+        self._kv_copy_pool = None
+        self._kv_stage = None
+        self._copy_stream = self._upload_stream = None
+        if host_kv_cache_mb > 0:
+            from gpustack_tpu_torch.engine.kv_host_cache import (
+                DEFAULT_BLOCK_TOKENS,
+                HostKVCache,
+            )
+
+            self.host_kv_cache = HostKVCache(
+                host_kv_cache_mb * 2**20,
+                block_tokens=(
+                    kv_block_tokens if kv_block_tokens > 0
+                    else DEFAULT_BLOCK_TOKENS
+                ),
+                int8=kv_cache_int8,
+            )
+            if kv_spill_mb > 0:
+                from gpustack_tpu_torch.engine.kv_spill import DiskKVSpill
+
+                spill_dir = kv_spill_dir or os.path.join(
+                    tempfile.gettempdir(),
+                    f"gpustack-kv-spill-{os.getpid()}",
+                )
+                self.host_kv_cache.spill = DiskKVSpill(
+                    spill_dir, kv_spill_mb * 2**20
+                )
+            # device↔host KV copies run off the scheduler thread; staged
+            # prefix uploads share the thread behind a two-slot bound
+            self._kv_copy_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="kv-copy"
+            )
+            self._kv_stage = _KVStager(self._kv_copy_pool)
+            if self.device.type == "cuda":
+                self._copy_stream = torch.cuda.Stream(self.device)
+                self._upload_stream = torch.cuda.Stream(self.device)
 
     # ---- public API -----------------------------------------------------
 
@@ -392,8 +562,12 @@ class LLMEngine:
         if self._thread:
             self._thread.join(timeout=30)
         self._detok.stop()
+        if self._kv_copy_pool is not None:
+            # stores already queued land; later ones are skipped
+            self._kv_copy_pool.shutdown(wait=True)
 
     def health(self) -> Dict[str, Any]:
+        kv = self.host_kv_cache
         return {
             "status": "error" if self._fatal else "ok",
             "error": self._fatal,
@@ -405,10 +579,25 @@ class LLMEngine:
             "waiting": self._waiting.qsize(),
             "steps": self._step_count,
             "tokens_generated": self._tokens_generated,
-            "prompt_tokens": self._prompt_tokens,
+            "prompt_tokens": self.flight.prompt_tokens_total,
+            "flight_overhead_ratio": round(self.flight.overhead_ratio(), 6),
             "pipeline_depth": self.pipeline_depth,
             "overlap": self.overlap,
-            "pipeline_rollback_tokens": self._rollback_tokens,
+            "host_overlap_ratio": round(
+                self.flight.host_overlap_ratio(), 6
+            ),
+            "pipeline_rollback_tokens": self.flight.rollback_tokens_total,
+            "idle_wait_s": round(self.flight.idle_wait_s_total, 3),
+            "kv_cache_hits": kv.hits if kv else 0,
+            "kv_cache_misses": kv.misses if kv else 0,
+            "kv_cache_prefix_hits": kv.prefix_hits if kv else 0,
+            "kv_cache_prefix_tokens_reused": (
+                kv.prefix_tokens_reused if kv else 0
+            ),
+            "kv_cache_blocks": kv.entries if kv else 0,
+            "kv_cache_host_bytes": kv.bytes_used if kv else 0,
+            "kv_spill": kv.spill.snapshot() if kv and kv.spill else {},
+            "kv_faultbacks": kv.faultbacks if kv else 0,
         }
 
     # ---- scheduling loop ------------------------------------------------
@@ -427,7 +616,21 @@ class LLMEngine:
             if not busy:
                 with self._wake:
                     if self._running and self._waiting.empty():
+                        t0 = time.perf_counter()
                         self._wake.wait(timeout=0.05)
+                        self.flight.note_idle_wait(
+                            time.perf_counter() - t0
+                        )
+
+    def _notify_wake(self) -> None:
+        with self._wake:
+            self._wake.notify_all()
+
+    def _note_overlap(self, seconds: float) -> None:
+        """Worker threads report host work done concurrently with the
+        scheduler; _flight_record drains the delta per step."""
+        with self._overlap_mu:
+            self._overlap_s += seconds
 
     def _flush_detok(self) -> None:
         """Hand the accumulated (info, tokens) pairs to the detok worker
@@ -449,6 +652,13 @@ class LLMEngine:
             else:
                 self._detok.finish(info)
         self._slots.clear()
+        # mid-prefill requests live in _chunk_jobs, not _slots
+        for job in self._chunk_jobs.values():
+            job.req.finish_reason = "error"
+            if job.req.stream is not None:
+                job.req.stream.put(None)
+            job.req.done.set()
+        self._chunk_jobs.clear()
         while not self._waiting.empty():
             try:
                 req = self._waiting.get_nowait()
@@ -461,17 +671,60 @@ class LLMEngine:
 
     def step(self) -> bool:
         """One scheduling iteration. Returns False when fully idle."""
+        t0 = time.perf_counter()
+        self._step_mode = ""
+        self._step_real = self._step_padded = 0
+        self._step_out = self._step_prompt = 0
+        self._check_kv_copies()
         # fetch whatever the device already finished (non-blocking probe)
         # so a slot whose request ended re-tenants THIS step
         self._drain_ready()
         admitted = self._admit()
+        # at most one prefill chunk per step: decode cadence for running
+        # slots is bounded by one chunk's latency, not a whole prompt's
+        progressed = self._advance_chunk()
         if self._slots:
             self._decode_once()
+            self._flight_record(t0)
             return True
-        if admitted:
+        if admitted or progressed or self._chunk_jobs:
+            self._flight_record(t0)
             return True
         self._drain_pending()
+        if self._step_out:
+            # tokens the drain delivered belong to a record too
+            self._flight_record(t0)
         return not self._waiting.empty()
+
+    def _flight_record(self, t0: float) -> None:
+        """Seal this step's flight record. Scheduler-thread only."""
+        dur_s = time.perf_counter() - t0
+        oldest = 0.0
+        try:
+            # peeking the queue head without its mutex: worst case the
+            # gauge is one submit stale
+            oldest = time.time() - self._waiting.queue[0].submitted_at
+        except IndexError:
+            pass
+        kv = self.host_kv_cache
+        with self._overlap_mu:
+            overlap_total = self._overlap_s
+        overlap_delta = overlap_total - self._overlap_seen
+        self._overlap_seen = overlap_total
+        self.flight.record(
+            dur_s=dur_s,
+            host_overlap_s=max(0.0, overlap_delta),
+            mode=self._step_mode or "decode",
+            slots_used=self.max_slots - len(self._free),
+            waiting=self._waiting.qsize(),
+            oldest_wait_s=max(0.0, oldest),
+            tokens_real=self._step_real,
+            tokens_padded=self._step_padded,
+            tokens_out=self._step_out,
+            prompt_tokens=self._step_prompt,
+            kv_blocks=kv.entries if kv is not None else 0,
+            kv_reused_total=kv.prefix_tokens_reused if kv is not None else 0,
+        )
 
     def _admit(self) -> bool:
         admitted = False
@@ -498,11 +751,344 @@ class LLMEngine:
 
     def _start_request(self, slot: int, req: GenRequest) -> None:
         ids = req.prompt_ids
+        # ONE prefix probe per request (counts one hit or miss), shared by
+        # the chunked and one-shot paths
+        kv_cache = self.host_kv_cache
+        matched = (
+            kv_cache.match_prefix_len(ids) if kv_cache is not None else 0
+        )
+        if (
+            self.prefill_chunk
+            and len(ids) > self.prefill_chunk
+            and (job := self._plan_chunk_job(req, ids, matched)) is not None
+        ):
+            # long prompt: one chunk per scheduler step, seeded from the
+            # host cache's matched block run when one fits
+            self._step_mode = self._step_mode or "prefill_chunk"
+            self._chunk_jobs[slot] = job
+            return
+        use_len = matched
+        if use_len > 0:
+            top = self.runner.prefill_buckets[-1]
+            # bounds contract: the suffix BLOCK (bucketed) must fit above
+            # the prefix within a real bucket — a write past it would land
+            # outside the scratch cache. Trim the matched run one block at
+            # a time, BEFORE any KV bytes are assembled.
+            while use_len > 0:
+                sb = self.runner.bucket_for(len(ids) - use_len)
+                if use_len + sb <= top:
+                    break
+                use_len -= kv_cache.block_tokens
+        if use_len > 0:
+            # deferred one-shot prefill: the gather+upload rides the
+            # kv-copy thread while decode proceeds; the slot holds a job
+            # whose single "chunk" is the whole suffix
+            fut = self._kv_stage.submit(
+                self._stage_prefix_fn(req, ids, use_len, kv_cache)
+            )
+            self._chunk_jobs[slot] = _ChunkJob(
+                req=req, ids=list(ids), pending_kv=fut, one_shot=True,
+            )
+            return
         bucket = self.runner.bucket_for(max(1, len(ids)))
         padded = list(ids) + [0] * (bucket - len(ids))
-        self._prompt_tokens += len(ids)
+        self._step_mode = self._step_mode or "prefill"
+        self._step_real += len(ids)
+        self._step_prompt += len(ids)
+        self._step_padded += bucket
         last_logits, k, v = self.runner.prefill(padded, len(ids))
+        self._submit_kv_copy(ids, k, v, len(ids))
         self._finalize_start(slot, req, last_logits, k, v)
+
+    # ---- chunked prefill and prefix reuse -------------------------------
+
+    def _plan_chunk_job(
+        self, req: GenRequest, ids, matched: int = 0
+    ) -> Optional[_ChunkJob]:
+        """Chunk schedule for a long prompt, seeded from the host cache's
+        matched block run (``matched``) when one fits. Returns None when
+        any continuation would overflow the top bucket (possible with a
+        max_seq_len that is not a power of two): the caller falls back to
+        a one-shot prefill, which always fits."""
+        top = self.runner.prefill_buckets[-1]
+
+        def fits(start: int) -> bool:
+            # every continuation writes its suffix block at
+            # [start, start + sb): it must stay inside a real bucket
+            while start < len(ids):
+                n = min(self.prefill_chunk, len(ids) - start)
+                sb = self.runner.bucket_for(n)
+                if start and start + sb > top:
+                    return False
+                start += n
+            return True
+
+        kv_cache = self.host_kv_cache
+        if kv_cache is not None and matched > 0:
+            # trim the matched run block by block until its continuation
+            # fits, BEFORE gathering any bytes
+            plen = matched
+            while plen > 0 and not fits(plen):
+                plen -= kv_cache.block_tokens
+            if plen > 0 and fits(0):
+                # staged: gather + upload on the kv-copy thread while this
+                # and later steps decode; fits(0) guards the cold restart
+                # of a run evicted between match and gather
+                fut = self._kv_stage.submit(
+                    self._stage_prefix_fn(req, ids, plen, kv_cache)
+                )
+                return _ChunkJob(req=req, ids=list(ids), pending_kv=fut)
+            got = (
+                self._gather_and_upload(req, ids, plen, kv_cache)
+                if plen > 0 else None
+            )
+            if got is not None:
+                job = _ChunkJob(req=req, ids=list(ids))
+                self._adopt_prefix(job, got)
+                return job
+        if fits(0):
+            return _ChunkJob(req=req, ids=list(ids))
+        return None
+
+    def _gather_and_upload(self, req, ids, plen: int, kv_cache):
+        """Gather a matched block run from host RAM and upload it at
+        bucket width: ``(k, v, plen, event)``, or None when the run
+        evicted between match and gather. Hit counters and the request's
+        attribution are recorded here, on success only."""
+        got = kv_cache.gather_prefix(list(ids), plen)
+        if got is None:
+            return None
+        pk, pv = got
+        kv_cache.prefix_hits += 1
+        kv_cache.prefix_tokens_reused += plen
+        req.prefix_tokens_reused = plen
+        t0 = time.time()
+        k, v, event = self._upload_prefix(pk, pv, plen)
+        req.kv_upload_s = time.time() - t0
+        return k, v, plen, event
+
+    def _stage_prefix_fn(self, req, ids, plen: int, kv_cache):
+        """The kv-copy-thread job for a prefix seed."""
+        ids_t = tuple(ids)
+
+        def stage():
+            t0 = time.perf_counter()
+            try:
+                return self._gather_and_upload(
+                    req, list(ids_t), plen, kv_cache
+                )
+            finally:
+                self._note_overlap(time.perf_counter() - t0)
+                self._notify_wake()
+        return stage
+
+    def _upload_prefix(self, pk, pv, use_len: int):
+        """Upload a matched prefix run padded to its BUCKET width (pad rows
+        sit at positions >= use_len: overwritten by the suffix or hidden
+        by the causal mask). On the card: a pinned host buffer copied on
+        the upload stream into tensors allocated there; waits for the
+        copy (on the calling thread, the kv-copy thread when staged) so
+        the request's upload time is the transfer's. Returns ``(k, v,
+        event)``; the scheduler adopts them with :meth:`_adopt_prefix`."""
+        pw = self.runner.bucket_for(use_len)
+        L, _, H, hd = pk.shape
+        cuda = self.device.type == "cuda"
+        hosts = []
+        for arr in (pk, pv):
+            host = torch.zeros(
+                (L, pw, H, hd), dtype=torch_dtype(self.cfg), pin_memory=cuda
+            )
+            host[:, :use_len] = from_numpy(arr[:, :use_len])
+            hosts.append(host)
+        if not cuda:
+            return hosts[0], hosts[1], None
+        with torch.cuda.stream(self._upload_stream):
+            k = hosts[0].to(self.device, non_blocking=True)
+            v = hosts[1].to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        event.synchronize()
+        return k, v, event
+
+    def _adopt_prefix(self, job: _ChunkJob, got) -> None:
+        """Seed ``job`` with an uploaded prefix: the scheduler's stream
+        waits on the upload's event, and the tensors (allocated on the
+        upload stream) are recorded on it, so the allocator frees them
+        only after the scheduler's stream is done with them."""
+        k, v, plen, event = got
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            k.record_stream(stream)
+            v.record_stream(stream)
+        job.k, job.v, job.done = k, v, plen
+
+    def _resolve_staged_prefix(self, job: _ChunkJob) -> None:
+        """Rendezvous with a staged gather+upload — the designated wait
+        point (blocks when the job is reached before the upload landed).
+        An evicted run (None) cold-starts the job; a failed stage raises
+        and ends the engine."""
+        fut, job.pending_kv = job.pending_kv, None
+        got = fut.result()
+        if got is not None:
+            self._adopt_prefix(job, got)
+
+    def _advance_chunk(self) -> bool:
+        """Run ONE chunk of the oldest runnable in-progress job. A job
+        whose staged upload is still in flight is passed over while any
+        decode work exists; with nothing else to run, the oldest upload is
+        awaited instead."""
+        if not self._chunk_jobs:
+            return False
+        slot = job = None
+        for s, j in self._chunk_jobs.items():
+            if j.pending_kv is None or j.pending_kv.done():
+                slot, job = s, j
+                break
+        if job is None:
+            if self._slots:
+                return False   # decode while the upload lands
+            slot = next(iter(self._chunk_jobs))
+            job = self._chunk_jobs[slot]
+        if job.req.aborted.is_set():
+            # abandon the remaining chunks; the slot never activated. An
+            # upload still in flight is read later, like a store.
+            del self._chunk_jobs[slot]
+            self._free.append(slot)
+            if job.pending_kv is not None:
+                self._kv_copies.append(job.pending_kv)
+            self._finish_aborted(job.req)
+            return True
+        if job.pending_kv is not None:
+            self._resolve_staged_prefix(job)
+        if job.one_shot:
+            self._advance_one_shot(slot, job)
+            return True
+        r = self.runner
+        start = job.done
+        chunk = job.ids[start : start + self.prefill_chunk]
+        sb = r.bucket_for(len(chunk))
+        padded = list(chunk) + [0] * (sb - len(chunk))
+        self._step_mode = self._step_mode or "prefill_chunk"
+        self._step_real += len(chunk)
+        self._step_prompt += len(chunk)
+        self._step_padded += sb
+        if start == 0:
+            job.last, job.k, job.v = r.prefill(padded, len(chunk))
+        else:
+            job.last, job.k, job.v = r.prefill_with_prefix(
+                job.k, job.v, start, padded, len(chunk),
+                r.bucket_for(start + sb),
+            )
+        job.done += len(chunk)
+        if job.done >= len(job.ids):
+            del self._chunk_jobs[slot]
+            self._submit_kv_copy(job.ids, job.k, job.v, len(job.ids))
+            self._finalize_start(slot, job.req, job.last, job.k, job.v)
+        return True
+
+    def _advance_one_shot(self, slot: int, job: _ChunkJob) -> None:
+        """Complete a deferred one-shot prefill: the staged prefix (when
+        it landed — an evicted stage leaves ``done == 0`` and the job
+        cold-starts) plus ONE bucketed forward over the whole suffix."""
+        req, ids = job.req, job.ids
+        r = self.runner
+        self._step_mode = self._step_mode or "prefill"
+        if job.done > 0:
+            suffix = ids[job.done:]
+            sb = r.bucket_for(len(suffix))
+            self._step_real += len(suffix)
+            self._step_prompt += len(suffix)
+            self._step_padded += sb
+            padded = list(suffix) + [0] * (sb - len(suffix))
+            last_logits, k, v = r.prefill_with_prefix(
+                job.k, job.v, job.done, padded, len(suffix),
+                r.bucket_for(job.done + sb),
+            )
+        else:
+            bucket = r.bucket_for(max(1, len(ids)))
+            self._step_real += len(ids)
+            self._step_prompt += len(ids)
+            self._step_padded += bucket
+            padded = list(ids) + [0] * (bucket - len(ids))
+            last_logits, k, v = r.prefill(padded, len(ids))
+        del self._chunk_jobs[slot]
+        self._submit_kv_copy(ids, k, v, len(ids))
+        self._finalize_start(slot, req, last_logits, k, v)
+
+    # ---- device→host KV stores ------------------------------------------
+
+    def _submit_kv_copy(self, seq, k_dev, v_dev, total: int) -> None:
+        """Queue an async device→host copy + block insert of ``seq``'s KV
+        (``k_dev``/``v_dev`` may be wider than ``total``: bucket or
+        continuation padding). On the card the copy is enqueued here, on
+        the copy stream behind the work that produced the K/V, into pinned
+        buffers; the kv-copy thread waits on its event and inserts."""
+        kv_cache = self.host_kv_cache
+        if kv_cache is None:
+            return
+        if self.device.type == "cuda":
+            stream = self._copy_stream
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            hosts = []
+            with torch.cuda.stream(stream):
+                for t in (k_dev, v_dev):
+                    host = torch.empty(
+                        (t.shape[0], total) + tuple(t.shape[2:]),
+                        dtype=t.dtype, pin_memory=True,
+                    )
+                    host.copy_(t[:, :total], non_blocking=True)
+                    t.record_stream(stream)
+                    hosts.append(host)
+                done = torch.cuda.Event()
+                done.record()
+        else:
+            hosts = [k_dev[:, :total].clone(), v_dev[:, :total].clone()]
+            done = None
+
+        def copy_to_host(seq=tuple(seq), k_host=hosts[0], v_host=hosts[1]):
+            t0 = time.perf_counter()
+            try:
+                if done is not None:
+                    done.synchronize()
+                kv_cache.insert_sequence(
+                    seq, to_numpy(k_host), to_numpy(v_host)
+                )
+            finally:
+                self._note_overlap(time.perf_counter() - t0)
+
+        try:
+            fut = self._kv_copy_pool.submit(copy_to_host)
+        except RuntimeError:
+            # pool shut down (engine stopping): skip the store; the cache
+            # is an optimization, never required for correctness
+            return
+        self._kv_copies.append(fut)
+
+    def _check_kv_copies(self) -> None:
+        """Read the result of every finished kv-copy future: a failed copy
+        (a CUDA error) raises here and ends the engine."""
+        while self._kv_copies and self._kv_copies[0].done():
+            self._kv_copies.pop(0).result()
+
+    def _store_finished_sequence(self, slot: int, req: GenRequest) -> None:
+        """Cache the FULL finished sequence (prompt + generated tokens) so
+        turn N+1 of a conversation prefix-hits the blocks turn N decoded.
+        The trailing output token is dropped: its KV is written only when
+        it is fed, which may not have happened by finish time."""
+        kv_cache = self.host_kv_cache
+        if kv_cache is None:
+            return
+        seq = list(req.prompt_ids) + list(req.output_ids[:-1])
+        bt = kv_cache.block_tokens
+        if len(seq) // bt <= len(req.prompt_ids) // bt:
+            # no full block beyond what the prefill-time store indexed
+            return
+        total = len(seq)
+        k_dev, v_dev = self.runner.slot_kv(
+            self._state, slot, self.runner.bucket_for(total)
+        )
+        self._submit_kv_copy(seq, k_dev, v_dev, total)
 
     def _step_key(self) -> int:
         return int(torch.randint(0, 2**62, (1,), generator=self._gen))
@@ -597,6 +1183,11 @@ class LLMEngine:
             self._state, self._step_key()
         )
         self._pending.append((("decode", out), owners, self._record_event()))
+        # decode runs every slot whether or not it is active: the idle
+        # share is the decode side of padding waste
+        self._step_mode = self._step_mode or "decode"
+        self._step_real += len(owners)
+        self._step_padded += self.max_slots
         self._step_count += 1
         if len(self._pending) > self.pipeline_depth:
             self._process_fetch(*self._pending.pop(0))
@@ -621,7 +1212,7 @@ class LLMEngine:
             ((slot, owner_id),) = owners.items()
             info = self._slots.get(slot)
             if info is None or info.request.request_id != owner_id:
-                self._rollback_tokens += 1
+                self.flight.note_rollback(1)
                 return
             self._deliver(slot, info, [int(payload[0])])
             self._flush_detok()
@@ -641,7 +1232,7 @@ class LLMEngine:
             if info is None or info.request.request_id != owner_id:
                 # this step was dispatched before a lagged fetch ended (or
                 # re-tenanted) the slot: its token never existed
-                self._rollback_tokens += 1
+                self.flight.note_rollback(1)
                 continue
             lps = None
             if want_lps and info.request.logprobs:
@@ -673,6 +1264,7 @@ class LLMEngine:
                     req.output_logprobs.append(lps[j][0])
                     req.output_top_logprobs.append(lps[j][1])
                 self._tokens_generated += 1
+                self._step_out += 1
                 if info.sync_detok:
                     info.buffer_ids.append(tok)
                     if self._emit_text(info, final=False):
@@ -745,6 +1337,10 @@ class LLMEngine:
             req.output_text = info.text
         req.finish_reason = reason
         req.finished_at = time.time()
+        if reason in ("stop", "length"):
+            # aborted/errored slots may have undelivered device state;
+            # only cleanly finished sequences are cached
+            self._store_finished_sequence(slot, req)
         if req.first_token_at and req.submitted_at:
             self.ttft_hist.observe(req.first_token_at - req.submitted_at)
             self.e2e_hist.observe(req.finished_at - req.submitted_at)

@@ -1,0 +1,537 @@
+"""Host-RAM KV cache: block-granular radix prefix reuse.
+
+The port's copy of ``gpustack_tpu/engine/kv_host_cache.py``. A prompt
+sharing a prefix with a previously served sequence (system prompts, agent
+loops, multi-turn chat) re-uploads the cached K/V for the shared run and
+prefills only its suffix.
+
+KV is split into fixed-size token **blocks** (default 256,
+``kv_block_tokens``) deduplicated across requests in a radix trie keyed on
+rolling block hashes — ``child_key = sha256(parent_key ||
+block_token_bytes)`` — so a lookup is O(prompt_len / block) hash-map
+probes. Eviction is leaf-only: an interior block is referenced by its
+children (``refs``), so a hot shared system-prompt block survives while
+cold per-conversation suffixes evict. Sequences are inserted at request
+finish (prompt + generated tokens), which is what makes turn N+1 of a
+conversation hit the blocks turn N decoded.
+
+Arrays are numpy on the host; bf16 K/V are ``uint16`` bit patterns
+(``host_bf16``). The opt-in ``int8`` tier quantizes each block with a
+per-block scale (amax per layer × head within the block) computed on
+float32 widened exactly from the stored values, and dequantizes back to
+the stored dtype with round-to-nearest-even — bit for bit what the JAX
+cache stores and returns for the same K/V.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import threading
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from gpustack_tpu_torch.engine.host_bf16 import (
+    bf16_bits_to_f32,
+    f32_to_bf16_bits,
+    is_bf16,
+)
+
+DEFAULT_BLOCK_TOKENS = 256
+
+
+def _quantize_block(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-block int8: scale = amax over (tokens, head_dim) per
+    layer × head, so one outlier token degrades only its own block."""
+    x32 = bf16_bits_to_f32(x) if is_bf16(x.dtype) else np.asarray(
+        x, np.float32
+    )
+    scale = np.max(np.abs(x32), axis=(1, 3), keepdims=True) / 127.0
+    scale = np.maximum(scale, 1e-8).astype(np.float32)
+    q = np.clip(np.rint(x32 / scale), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def _dequantize_block(q: np.ndarray, scale: np.ndarray, dtype) -> np.ndarray:
+    x32 = q.astype(np.float32) * scale
+    return f32_to_bf16_bits(x32) if is_bf16(dtype) else x32.astype(dtype)
+
+
+class _Block:
+    """One cached KV block: ``block_tokens`` tokens of one sequence.
+    ``refs`` counts child blocks whose prefix this block is — a block with
+    live children never evicts."""
+
+    __slots__ = (
+        "key", "tokens", "parent", "children", "refs",
+        "k", "v", "k_scale", "v_scale", "dtype",
+        "nbytes", "last_used", "touches",
+    )
+
+    def __init__(self, key: bytes, tokens: Tuple[int, ...], parent):
+        self.key = key
+        self.tokens = tokens
+        self.parent = parent
+        self.children: Dict[bytes, "_Block"] = {}
+        self.refs = 0
+        self.k = self.v = None
+        self.k_scale = self.v_scale = None
+        self.dtype = None
+        self.nbytes = 0
+        self.last_used = 0
+        self.touches = 0     # local reuse count (walk touches)
+
+
+# concurrency contract: the trie and its accounting are shared between the
+# engine scheduler (match path) and the kv-copy executor (store/evict) —
+# always under `_lock`; quantize/assemble/file I/O stay outside it (blocks
+# are immutable once attached).
+GUARDED_BY = {
+    "_root": "_lock",
+    "_blocks": "_lock",
+    "_bytes": "_lock",
+    "_tick": "_lock",
+    "hits": "_lock",
+    "misses": "_lock",
+    "faultbacks": "_lock",
+    "blocks_inserted": "_lock",
+    "blocks_evicted": "_lock",
+}
+
+# sync-in-dispatch: the scheduler calls the match path every admit — trie
+# probes and in-memory spill-index lookups only, no file I/O (fault-back
+# and assembly run on the kv-copy executor via gather_prefix).
+DISPATCH_SYNC_FREE = (
+    "match_prefix_len", "peek_prefix_len", "_walk", "_disk_extension",
+)
+
+
+class HostKVCache:
+    """Byte-bounded block-granular radix prefix cache in host RAM.
+
+    Thread contract: ``match_prefix_len`` runs on the engine scheduler
+    thread, ``insert_sequence``/``gather_prefix`` on the kv-copy executor.
+    The lock guards only the trie walk and accounting."""
+
+    def __init__(
+        self,
+        max_bytes: int,
+        block_tokens: int = DEFAULT_BLOCK_TOKENS,
+        int8: bool = False,
+    ):
+        if block_tokens <= 0:
+            raise ValueError(f"block_tokens must be > 0: {block_tokens}")
+        self.max_bytes = max_bytes
+        self.block_tokens = int(block_tokens)
+        self.int8 = bool(int8)
+        self._root = _Block(b"", (), None)
+        self._blocks: Dict[bytes, _Block] = {}
+        self._bytes = 0
+        self._tick = 0
+        self._lock = threading.Lock()
+        # optional disk spill tier (kv_spill.DiskKVSpill): eviction
+        # victims spill instead of dropping; matches extend into disk
+        # residency and fault back on gather
+        self.spill = None
+        self.hits = 0            # match_prefix_len calls matching >= 1 block
+        self.misses = 0          # match_prefix_len calls matching nothing
+        self.prefix_hits = 0     # matches the engine actually consumed
+        self.prefix_tokens_reused = 0   # tokens the engine skipped prefilling
+        self.blocks_inserted = 0
+        self.blocks_evicted = 0
+        self.faultbacks = 0      # disk blocks pulled back into RAM runs
+
+    def _child_key(self, parent_key: bytes, tokens) -> bytes:
+        h = hashlib.sha256()
+        h.update(parent_key)
+        h.update(np.asarray(tokens, np.int32).tobytes())
+        return h.digest()
+
+    # ---- lookup ---------------------------------------------------------
+
+    def _walk(self, prompt, max_blocks: int, touch: bool) -> List[_Block]:
+        """Locked trie walk: the longest cached block run prefixing
+        ``prompt``, at most ``max_blocks`` long. Each probe hashes one
+        block and verifies the stored tokens (collision guard)."""
+        bt = self.block_tokens
+        run: List[_Block] = []
+        with self._lock:
+            node = self._root
+            for b in range(max_blocks):
+                block = prompt[b * bt : (b + 1) * bt]
+                child = node.children.get(self._child_key(node.key, block))
+                if child is None or child.tokens != block:
+                    break
+                run.append(child)
+                node = child
+            if touch and run:
+                self._tick += 1
+                for blk in run:
+                    blk.last_used = self._tick
+                    blk.touches += 1
+        return run
+
+    def _disk_extension(
+        self, prompt, parent_key: bytes, start_b: int, max_blocks: int
+    ) -> List[str]:
+        """Hex chain keys of the contiguous DISK-resident continuation of
+        a RAM run ending at ``parent_key`` (in-memory index lookups on the
+        spill tier, never file I/O), bounded by what the RAM budget can
+        hold after fault-back."""
+        keys: List[str] = []
+        spill = self.spill
+        if spill is None:
+            return keys
+        bt = self.block_tokens
+        key = parent_key
+        budget = self.max_bytes - start_b * self._avg_block_bytes()
+        for b in range(start_b, max_blocks):
+            key = self._child_key(key, prompt[b * bt : (b + 1) * bt])
+            key_hex = key.hex()
+            size = spill.size(key_hex)
+            if size <= 0 or size > budget:
+                break
+            budget -= size
+            keys.append(key_hex)
+        return keys
+
+    def _avg_block_bytes(self) -> int:
+        with self._lock:
+            n = len(self._blocks)
+            return (self._bytes // n) if n else 0
+
+    def match_prefix_len(self, prompt_ids) -> int:
+        """Length of the longest cached block run that is a proper prefix
+        of ``prompt_ids`` — a multiple of ``block_tokens``, strictly less
+        than ``len(prompt_ids)`` (at least one suffix token remains to
+        prefill, which regenerates the last-position logits). Counts one
+        hit or miss per call and touches the matched path's recency; no KV
+        bytes move — callers trim the length against their bounds guards
+        and then assemble only what they use via :meth:`gather_prefix`."""
+        prompt = tuple(int(t) for t in prompt_ids)
+        max_blocks = (len(prompt) - 1) // self.block_tokens
+        run = self._walk(prompt, max_blocks, touch=True) if max_blocks > 0 \
+            else []
+        disk = self._disk_extension(
+            prompt, run[-1].key if run else b"", len(run), max_blocks
+        )
+        with self._lock:
+            if run or disk:
+                self.hits += 1
+            else:
+                self.misses += 1
+        return (len(run) + len(disk)) * self.block_tokens
+
+    def peek_prefix_len(self, prompt_ids) -> int:
+        """Like :meth:`match_prefix_len` but side-effect free (no
+        counters, no recency touch)."""
+        prompt = tuple(int(t) for t in prompt_ids)
+        max_blocks = (len(prompt) - 1) // self.block_tokens
+        if max_blocks <= 0:
+            return 0
+        run = self._walk(prompt, max_blocks, touch=False)
+        disk = self._disk_extension(
+            prompt, run[-1].key if run else b"", len(run), max_blocks
+        )
+        return (len(run) + len(disk)) * self.block_tokens
+
+    def gather_prefix(
+        self, prompt_ids, length: int
+    ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """Assemble (dequantize + concatenate) exactly ``length`` tokens of
+        cached prefix KV. Returns None when the run is no longer fully
+        resident (evicted since the length probe, or a spilled block
+        failed to fault back); callers fall back to a cold prefill."""
+        bt = self.block_tokens
+        if length <= 0 or length % bt:
+            return None
+        prompt = tuple(int(t) for t in prompt_ids[:length])
+        run = self._walk(prompt, length // bt, touch=True)
+        if len(run) * bt < length:
+            if not self._fault_back(prompt, length // bt):
+                return None
+            run = self._walk(prompt, length // bt, touch=True)
+            if len(run) * bt < length:
+                return None
+        # assembly OUTSIDE the lock: block arrays are immutable once
+        # attached (eviction only drops references)
+        k = np.concatenate([self._block_k(b) for b in run], axis=1)
+        v = np.concatenate([self._block_v(b) for b in run], axis=1)
+        return k, v
+
+    def _fault_back(self, prompt: Tuple[int, ...], n_blocks: int) -> bool:
+        """Pull the first ``n_blocks`` of ``prompt`` that live only on the
+        spill tier back into the RAM trie. A missing, corrupt, or
+        content-mismatched spill file reads as False (cold prefill) —
+        never a crash, never wrong bytes."""
+        spill = self.spill
+        if spill is None:
+            return False
+        from gpustack_tpu_torch.engine.kv_transfer import _to_cache_tier
+
+        bt = self.block_tokens
+        with self._lock:
+            resident = set(self._blocks.keys())
+        prepared: Dict[int, Tuple] = {}
+        key = b""
+        complete = True
+        for b in range(n_blocks):
+            block = prompt[b * bt : (b + 1) * bt]
+            key = self._child_key(key, block)
+            if key in resident:
+                continue
+            frame = spill.load(key.hex())
+            if frame is None:
+                complete = False
+                break
+            if tuple(frame.tokens) != block:
+                # file content does not match its key: quarantine
+                spill.note_corrupt()
+                spill.remove(key.hex())
+                complete = False
+                break
+            prepared[b] = _to_cache_tier(self, frame)
+        if prepared:
+            with self._lock:
+                _, victims = self._attach_prepared_locked(
+                    prompt[: n_blocks * bt], n_blocks, prepared
+                )
+                self.faultbacks += len(prepared)
+            self._spill_victims(victims)
+        return complete
+
+    def prefix_keys(self, prompt_ids) -> List[str]:
+        """Hex chain keys of the longest RAM-resident block run prefixing
+        ``prompt_ids`` (side-effect free): what a puller declares as
+        ``have`` so an exporter elides blocks it already holds."""
+        prompt = tuple(int(t) for t in prompt_ids)
+        max_blocks = (len(prompt) - 1) // self.block_tokens
+        if max_blocks <= 0:
+            return []
+        return [
+            b.key.hex()
+            for b in self._walk(prompt, max_blocks, touch=False)
+        ]
+
+    def export_blocks(
+        self, prompt_ids, max_blocks: int = 0
+    ) -> List[dict]:
+        """The matched block run for ``prompt_ids`` AS STORED (int8 tiers
+        export quantized + scales), for ``kv_transfer.export_frames``."""
+        from gpustack_tpu_torch.engine.kv_transfer import _dtype_name
+
+        prompt = tuple(int(t) for t in prompt_ids)
+        limit = (len(prompt) - 1) // self.block_tokens
+        if max_blocks > 0:
+            limit = min(limit, max_blocks)
+        if limit <= 0:
+            return []
+        run = self._walk(prompt, limit, touch=True)
+        return [
+            {
+                "key": b.key.hex(),
+                "tokens": b.tokens,
+                "k": b.k,
+                "v": b.v,
+                "k_scale": b.k_scale,
+                "v_scale": b.v_scale,
+                "dtype": _dtype_name(b.dtype),
+                "nbytes": b.nbytes,
+            }
+            for b in run
+        ]
+
+    def import_blocks(self, token_ids, prepared: Dict[int, Tuple]) -> int:
+        """Attach pre-converted blocks: ``prepared[b]`` is ``(k, v,
+        scales|None, dtype, nbytes)`` for block index ``b`` of
+        ``token_ids``. A gap — neither cached nor provided — ends the
+        run."""
+        tokens = tuple(int(t) for t in token_ids)
+        n_blocks = len(tokens) // self.block_tokens
+        if n_blocks <= 0:
+            return 0
+        with self._lock:
+            inserted, victims = self._attach_prepared_locked(
+                tokens, n_blocks, prepared
+            )
+        self._spill_victims(victims)
+        return inserted
+
+    def match_prefix(
+        self, prompt_ids
+    ) -> Optional[Tuple[np.ndarray, np.ndarray, int]]:
+        """One-shot convenience (tests, small prompts): longest proper
+        prefix run fully assembled. The engine uses the two-phase
+        match_prefix_len → trim → gather_prefix flow instead."""
+        matched = self.match_prefix_len(prompt_ids)
+        if matched <= 0:
+            return None
+        got = self.gather_prefix(prompt_ids, matched)
+        if got is None:
+            return None
+        return got[0], got[1], matched
+
+    def _block_k(self, blk: _Block) -> np.ndarray:
+        if blk.k_scale is None:
+            return blk.k
+        return _dequantize_block(blk.k, blk.k_scale, blk.dtype)
+
+    def _block_v(self, blk: _Block) -> np.ndarray:
+        if blk.v_scale is None:
+            return blk.v
+        return _dequantize_block(blk.v, blk.v_scale, blk.dtype)
+
+    # ---- insert ---------------------------------------------------------
+
+    def insert_sequence(self, token_ids, k, v) -> int:
+        """Split ``(k, v)`` (``[L, T, H, hd]`` with ``T >=
+        len(token_ids)``; extra width is bucket padding) into full blocks
+        and attach any that are not already cached. Existing blocks are
+        touched (LRU recency), never re-stored. Returns the number of new
+        blocks."""
+        tokens = tuple(int(t) for t in token_ids)
+        bt = self.block_tokens
+        n_blocks = len(tokens) // bt
+        if n_blocks <= 0:
+            return 0
+        k = np.asarray(k)
+        v = np.asarray(v)
+        # walk under the lock FIRST to find where new blocks start, so the
+        # quantize/copy work below runs only for the new suffix
+        start = 0
+        with self._lock:
+            node = self._root
+            for b in range(n_blocks):
+                block = tokens[b * bt : (b + 1) * bt]
+                child = node.children.get(self._child_key(node.key, block))
+                if child is None or child.tokens != block:
+                    break
+                self._tick += 1
+                child.last_used = self._tick
+                node = child
+                start += 1
+        if start == n_blocks:
+            return 0
+        prepared: Dict[int, Tuple[Any, Any, Any, Any, int]] = {}
+        for b in range(start, n_blocks):
+            bk = k[:, b * bt : (b + 1) * bt]
+            bv = v[:, b * bt : (b + 1) * bt]
+            if self.int8:
+                qk, sk = _quantize_block(bk)
+                qv, sv = _quantize_block(bv)
+                nbytes = qk.nbytes + qv.nbytes + sk.nbytes + sv.nbytes
+                prepared[b] = (qk, qv, (sk, sv), k.dtype, nbytes)
+            else:
+                bk = np.ascontiguousarray(bk)
+                bv = np.ascontiguousarray(bv)
+                prepared[b] = (
+                    bk, bv, None, k.dtype, bk.nbytes + bv.nbytes
+                )
+        with self._lock:
+            inserted, victims = self._attach_prepared_locked(
+                tokens, n_blocks, prepared
+            )
+        self._spill_victims(victims)
+        return inserted
+
+    def _attach_prepared_locked(
+        self, tokens: Tuple[int, ...], n_blocks: int,
+        prepared: Dict[int, Tuple],
+    ) -> Tuple[int, List[_Block]]:
+        """Re-walk from the root (the trie may have changed since any
+        earlier walk), touch existing blocks, attach prepared ones, and
+        end the run at the first block that is neither."""
+        bt = self.block_tokens
+        inserted = 0
+        node = self._root
+        for b in range(n_blocks):
+            block = tokens[b * bt : (b + 1) * bt]
+            key = self._child_key(node.key, block)
+            child = node.children.get(key)
+            if child is not None and child.tokens == block:
+                self._tick += 1
+                child.last_used = self._tick
+                node = child
+                continue
+            if b not in prepared:
+                break
+            bk, bv, scales, dtype, nbytes = prepared[b]
+            if nbytes > self.max_bytes:
+                break   # one block over the whole budget: stop here
+            child = _Block(key, block, node)
+            child.k, child.v = bk, bv
+            if scales is not None:
+                child.k_scale, child.v_scale = scales
+            child.dtype = dtype
+            child.nbytes = nbytes
+            self._tick += 1
+            child.last_used = self._tick
+            node.children[key] = child
+            node.refs += 1
+            self._blocks[key] = child
+            self._bytes += nbytes
+            self.blocks_inserted += 1
+            inserted += 1
+            node = child
+        return inserted, self._evict_locked()
+
+    def _eviction_score_locked(self, blk: _Block) -> float:
+        """bytes × age / (1 + reuse): a large stale block evicts before a
+        small one, a block many requests touched survives past its raw
+        recency. Highest score evicts first."""
+        age = max(1, self._tick - blk.last_used + 1)
+        reuse = min(blk.touches, 8)
+        return (blk.nbytes * age) / (1.0 + reuse)
+
+    def _evict_locked(self) -> List[_Block]:
+        """Detach worst-scoring leaf blocks until back under budget and
+        return them — the caller spills them (file I/O happens OUTSIDE
+        the trie lock). Leaf-only: ``refs > 0`` means children extend this
+        block."""
+        victims: List[_Block] = []
+        while self._bytes > self.max_bytes and self._blocks:
+            victim = None
+            score = -1.0
+            for blk in self._blocks.values():
+                if blk.refs:
+                    continue
+                s = self._eviction_score_locked(blk)
+                if s > score:
+                    victim, score = blk, s
+            if victim is None:
+                break
+            parent = victim.parent
+            del parent.children[victim.key]
+            parent.refs -= 1
+            del self._blocks[victim.key]
+            self._bytes -= victim.nbytes
+            self.blocks_evicted += 1
+            victims.append(victim)
+        return victims
+
+    def _spill_victims(self, victims: List[_Block]) -> None:
+        """Write evicted blocks to the disk tier (no-op without one),
+        outside the trie lock. Blocks whose spill file already exists (a
+        faulted-back copy re-evicting) skip the rewrite."""
+        spill = self.spill
+        if spill is None or not victims:
+            return
+        from gpustack_tpu_torch.engine.kv_spill import encode_spill_frame
+
+        for blk in victims:
+            key_hex = blk.key.hex()
+            if spill.has(key_hex):
+                continue
+            spill.store(key_hex, encode_spill_frame(blk)[1])
+
+    # ---- introspection --------------------------------------------------
+
+    @property
+    def entries(self) -> int:
+        with self._lock:
+            return len(self._blocks)
+
+    @property
+    def bytes_used(self) -> int:
+        with self._lock:
+            return self._bytes

@@ -5,7 +5,9 @@ The port of ``gpustack_tpu/engine/runner.py`` for a single card (no mesh):
 - one resident **decode batch** of ``max_slots`` rows over a shared KV
   cache; ``decode_step`` advances every slot one token per call;
 - **prefill** runs per request at a power-of-two bucketed length into a
-  scratch cache; **insert** copies the prompt KV into the slot's rows. Pad
+  scratch cache; **prefill_with_prefix** continues one from a prefix on
+  the device (a host KV cache hit, or a chunked prefill's earlier
+  chunks); **insert** copies the prompt KV into the slot's rows. Pad
   positions are harmless: a slot's decode write at position p lands
   before any query attends p;
 - all sequencing state (last token, position, active mask) lives **on the
@@ -132,6 +134,62 @@ class ModelRunner:
         last = lm_head(self.params, self.cfg, hidden[0, true_len - 1])
         return last, cache.k[:, 0], cache.v[:, 0]
 
+    def prefill_with_prefix(
+        self, prefix_k, prefix_v, prefix_len: int,
+        suffix_ids: Sequence[int], suffix_true_len: int, total_bucket: int,
+    ):
+        """Continue a prefill from a prefix already on the device (a host
+        cache hit, or the chunks done so far): seed a scratch cache of
+        ``total_bucket`` rows with ``prefix_k/v`` ``[L, Pb, H, hd]`` and
+        run the suffix (pre-padded to a bucket ``Tsb``) at positions
+        ``prefix_len + j``. Prefix rows at or above ``prefix_len`` are pad:
+        the suffix overwrites them, or they sit above every query and the
+        causal mask hides them. The attention follows the TOTAL width
+        (on the card: the flash kernel with ``q_offset = prefix_len``,
+        ``T = Tsb``, ``S = total_bucket``). Returns ``(last_logits [V]
+        fp32 of suffix row suffix_true_len - 1, k, v [L, total_bucket, H,
+        hd])``.
+
+        Bounds: the suffix block must fit inside ``total_bucket``
+        (``prefix_len + Tsb <= total_bucket``); the engine's guards trim
+        the prefix so it always does, and a call that breaks it raises
+        here instead of writing past the cache."""
+        Pb = prefix_k.shape[1]
+        Tsb = len(suffix_ids)
+        if Tsb not in self.prefill_buckets:
+            raise ValueError(f"{Tsb} is not a bucket {self.prefill_buckets}")
+        if total_bucket not in self.prefill_buckets:
+            raise ValueError(f"total width {total_bucket} is not a bucket")
+        if not 0 < prefix_len <= Pb <= total_bucket:
+            raise ValueError(
+                f"prefix of {prefix_len} tokens in {Pb} rows does not fit "
+                f"{total_bucket}"
+            )
+        if prefix_len + Tsb > total_bucket:
+            raise ValueError(
+                f"suffix block {prefix_len}+{Tsb} overflows {total_bucket}"
+            )
+        if not 0 < suffix_true_len <= Tsb:
+            raise ValueError(
+                f"suffix_true_len {suffix_true_len} outside 1..{Tsb}"
+            )
+        cache = KVCache.create(self.cfg, 1, total_bucket, self.device)
+        cache.k[:, 0, :Pb] = prefix_k
+        cache.v[:, 0, :Pb] = prefix_v
+        tokens = torch.tensor(
+            [list(suffix_ids)], dtype=torch.int64, device=self.device
+        )
+        positions = (
+            prefix_len + torch.arange(Tsb, device=self.device)
+        )[None, :]
+        hidden, cache = forward(
+            self.params, self.cfg, tokens, positions, cache,
+            return_hidden=True, attn_impl=self.attn_impl_for(total_bucket),
+            q_offset=prefix_len,
+        )
+        last = lm_head(self.params, self.cfg, hidden[0, suffix_true_len - 1])
+        return last, cache.k[:, 0], cache.v[:, 0]
+
     # -- sampling ---------------------------------------------------------
 
     def sample_first(
@@ -153,7 +211,10 @@ class ModelRunner:
         seed: int = 0, seeded: bool = False, logit_bias=None,
     ) -> DecodeState:
         """Copy a prefill's KV into ``slot`` and activate it (in place).
-        ``first_token`` may be an int or a one-element device tensor."""
+        ``k``/``v`` are a bucket wide, or ``total_bucket`` wide after a
+        continuation prefill; rows past ``true_len`` are pad that decode
+        overwrites before any query reads it. ``first_token`` may be an int
+        or a one-element device tensor."""
         Tb = k.shape[1]
         if Tb > self.max_seq_len:
             raise ValueError(f"prefill width {Tb} > max_seq_len")

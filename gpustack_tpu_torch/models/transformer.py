@@ -319,6 +319,7 @@ def forward(
     cache: Optional[KVCache] = None,
     return_hidden: bool = False,
     attn_impl: str = "plain",
+    q_offset: int = 0,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the model.
 
@@ -329,11 +330,12 @@ def forward(
 
     ``attn_impl="flash"`` sends prefill attention (cache given, ``T > 1``)
     through ``ops.flash_attention_prefill`` — the Hopper kernel for CUDA
-    tensors. It serves prefill from position 0 (every row's positions are
-    ``0..T-1``, as the runner's bucketed prefill gives them); continuing
-    from a prefix needs the kernel's ``q_offset`` and is not ported yet.
-    ``"plain"`` uses :func:`_attend`. Decode and the cacheless path always
-    use :func:`_attend`.
+    tensors. Every row's positions must be ``q_offset .. q_offset+T-1``:
+    ``0`` for a bucketed prefill, the prefix length (or chunk start) for a
+    continuation. ``q_offset`` is a host int the caller already knows, so
+    the kernel's causal diagonal is set without reading ``positions`` back
+    from the card. ``"plain"`` uses :func:`_attend`. Decode and the
+    cacheless path always use :func:`_attend`.
 
     Returns ``(logits [B, T, vocab] fp32, cache or None)``, or the final
     normalized hidden states (fp32) with ``return_hidden``.
@@ -363,9 +365,11 @@ def forward(
                 f"length {S}"
             )
         if use_flash and positions.device.type == "cpu" and bool(
-            (positions[:, 0] != 0).any()
+            (positions[:, 0] != q_offset).any()
         ):
-            raise ValueError("flash prefill starts at position 0")
+            raise ValueError(
+                f"flash prefill rows must start at q_offset {q_offset}"
+            )
         cache_pos = torch.arange(S, device=device)
         mask = cache_pos[None, None, :] <= positions[:, :, None]
         rows = torch.arange(B, device=device)[:, None].expand(B, T)
@@ -399,7 +403,9 @@ def forward(
                     flash_attention_prefill,
                 )
 
-                attn = flash_attention_prefill(q, k_l, v_l, scale)
+                attn = flash_attention_prefill(
+                    q, k_l, v_l, scale, q_offset=q_offset
+                )
             else:
                 attn = _attend(qg, k_l, v_l, mask, scale)
         x = x + attn @ lp["wo"][li]

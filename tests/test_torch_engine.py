@@ -149,12 +149,14 @@ def test_logprobs_match_jax_engine(models):
 
 @pytest.mark.parametrize("kw", [
     {"speculative": "ngram"},
-    {"host_kv_cache_mb": 64},
-    {"prefill_chunk": 32},
+    {"speculative": "draft"},
+    {"draft_params": {}},
     {"kv_role": "prefill"},
-    {"kv_spill_mb": 8},
+    {"kv_role": "decode"},
 ])
 def test_unported_features_raise(models, kw):
+    """Speculative decoding, draft models and kv roles are not ported yet
+    (the KV tiers and chunked prefill are: test_torch_engine_kv.py)."""
     _, _, cfg, tparams = models
     with pytest.raises(ValueError, match="not ported"):
         LLMEngine(cfg, tparams, device="cpu", **kw)

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of the package, and not the
-chip smoke script, imports JAX or the JAX package; the default device is
+chip smoke script, imports JAX, the JAX package or ``ml_dtypes`` (the
+card's machine has none of them); the default device is
 the card and is never swapped for the CPU silently; the smoke script
 fails without a card or outside a checkout."""
 
@@ -15,7 +16,7 @@ from gpustack_tpu_torch.device import resolve_device  # analysis: ignore[metrics
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "gpustack_tpu_torch")  # analysis: ignore[metrics-drift]
-FORBIDDEN = ("jax", "jaxlib", "gpustack_tpu")
+FORBIDDEN = ("jax", "jaxlib", "gpustack_tpu", "ml_dtypes")
 
 
 def _port_files():

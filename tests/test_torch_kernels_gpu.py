@@ -46,6 +46,10 @@ def _assert_rows_close(out, ref, Hq, d, row_rtol=1e-2):
     (1, 100, 300, 200, 4, 2, 128),      # S not a multiple of the 128-key
     (1, 70, 333, 190, 4, 1, 64),        # tile, q_offset > 0: TMA's zero
     (2, 130, 250, 120, 4, 2, 128),      # fill meets the causal edge
+    (1, 512, 2048, 1024, 32, 8, 128),   # continuations the engine serves:
+    (1, 32, 2048, 1792, 32, 8, 128),    # a chunk, a suffix after a prefix
+    (1, 64, 1024, 784, 32, 8, 128),     # hit, and offsets off the 128-row
+    (1, 128, 2048, 1888, 32, 8, 128),   # and 128-key tiles
 ])
 def test_flash_kernel_matches_plain(B, T, S, off, Hq, Hkv, d):
     """bf16 kernel output against the fp32 plain version of the same bf16

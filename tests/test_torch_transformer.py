@@ -101,13 +101,19 @@ def test_cache_write_past_the_end_raises():
 
 
 def test_flash_prefill_must_start_at_position_zero():
+    """Flash rows start at ``q_offset`` (0 unless the caller says): rows at
+    2..5 are refused at the default offset and taken at ``q_offset=2``."""
     cfg, _, _, tparams = _pair()
     cache = pt.KVCache.create(cfg, 1, 16, torch.device("cpu"))
-    with pytest.raises(ValueError, match="position 0"):
+    with pytest.raises(ValueError, match="q_offset 0"):
         pt.forward(
             tparams, cfg, torch.ones(1, 4, dtype=torch.long),
             torch.arange(2, 6)[None, :], cache, attn_impl="flash",
         )
+    pt.forward(
+        tparams, cfg, torch.ones(1, 4, dtype=torch.long),
+        torch.arange(2, 6)[None, :], cache, attn_impl="flash", q_offset=2,
+    )
 
 
 def test_return_hidden_and_tied_embeddings():
