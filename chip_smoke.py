@@ -9,22 +9,40 @@ b. build: every CUDA source of the port, one ``nvcc`` each, in parallel,
    effect (no C7508 warning) and any ``wgmma`` serialisation ptxas
    reports;
 c. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the shapes the main path gives it, with times (CUDA
+   the card, at the shapes the main paths give it, with times (CUDA
    events; the main shape three times, for a spread) beside the least time
    the card could take (``bound_ms``), one PyTorch library call computing
-   the same function (``library_ms``, a yardstick the port never calls),
-   and the host's microseconds per call (wall clock around back-to-back
-   enqueues), which says whether a row is host- or device-bound;
+   the same function where there is one (``library_ms``, a yardstick the
+   port never calls), and the host's microseconds per call (wall clock
+   around back-to-back enqueues), which says whether a row is host- or
+   device-bound. W8A16 rows also time cuBLAS on the weight dequantized
+   ahead of time and the eager ``(x @ q.to(bf16)) * s``, each over copies
+   of the weight larger than L2, as a decode step meets its weights;
 d. main path: the port's OpenAI server in-process, serving llama3-8b at
    full width (bf16, random weights from a seed) with 8 slots and a
    2048-token context: chat, streaming chat, a completion whose prompt
    fills the 2048 bucket, four concurrent chats, and a repeated greedy
-   prompt. Every kernel's launch count is read around this phase alone
-   and must equal what the path needs (flash prefill: 32 per prefill).
-   A kernel prefill's last-position logits are held against a prefill
-   through the plain attention. Reported: TTFT of one 2048-bucket prompt,
-   decode tokens/s with 8 slots busy, and (after the counts are read) the
-   2048-bucket prefill timed with CUDA events.
+   prompt. A kernel prefill's last-position logits are held against a
+   prefill through the plain attention. Reported: TTFT of one 2048-bucket
+   prompt, decode tokens/s with 8 slots busy, peak memory, and the
+   2048-bucket prefill timed with CUDA events;
+e. prefix reuse: the same model with ``--prefill-chunk 512
+   --host-kv-cache-mb 4096``: continuations against one prefill,
+   multi-turn chats with exact hit and reuse counts, a 1900-token prompt
+   chunked while four chats decode, ``/metrics``;
+f. checkpoints and int8: llama3-8b's full widths at 2 layers written as a
+   safetensors checkpoint (the script's own writer) and served through
+   ``--model-dir``, the loaded tree and logits identical to the in-memory
+   tree's; then llama3-8b int8 at full depth (``--quantization int8``)
+   through the server with phase d's requests, its kernel logits against
+   the W8A16 plain version, beside phase d's bf16 numbers.
+
+In d, e and f every kernel's launches are counted around the served
+requests alone and must equal what that path's model forwards need,
+derived from the runner's calls: the flash kernel once per layer of every
+prefill forward; on the int8 path the W8A16 kernel 7 per layer plus one
+(lm_head) per forward, and never on a bf16 path. Each kernel must launch
+on at least one path.
 
 The last lines are the ``kernels`` line, the ``nvidia-smi`` name and
 power-limit line, and ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -32,13 +50,16 @@ outside a checkout of the repository, it exits non-zero and prints no
 result.
 """
 
+import dataclasses
 import gc
 import json
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -60,6 +81,23 @@ KERNEL_ROW_RTOL = 1e-2
 # relative to the logit scale, and the two must point the same way
 LOGIT_REL_TOL = 5e-2
 LOGIT_MIN_COSINE = 0.999
+# W8A16 bf16 output against the fp32 plain version of the same int8 and
+# bf16 inputs: bf16 output rounding and the fp32 summation order; each
+# output row also within 1% of its norm, so a wrong K slice or a missing
+# scale cannot hide under the element bound
+W8A16_RTOL = W8A16_ATOL = 2e-2
+W8A16_ROW_RTOL = 1e-2
+# llama3-8b's weight products, K x N ([in, out], the JAX layout)
+LLAMA3_8B_MATMULS = {
+    "wq/wo": (4096, 4096),
+    "wk/wv": (4096, 1024),
+    "w_gate/w_up": (4096, 14336),
+    "w_down": (14336, 4096),
+    "lm_head": (4096, 128256),
+}
+# the weights a decode step reads back to back never sit in the 50 MB L2:
+# time each shape over copies of its weight totalling at least this much
+L2_FLUSH_BYTES = 128 * 2**20
 
 
 def emit(phase: str, **fields) -> None:
@@ -290,7 +328,140 @@ def phase_kernels():
                     "row_rtol": KERNEL_ROW_RTOL},
          smem_bytes_per_cta={d: smem(d) for d in fa.SUPPORTED_HEAD_DIMS},
          cases=rows)
-    return {"flash_attention_prefill": rows[0]}
+    # W8A16 at the shapes the int8 path gives it: decode (8 slots) for
+    # every weight, the prefill's last position through lm_head, and a
+    # 2048-bucket prefill for the two MLP shapes
+    w8_cases = [(8, *LLAMA3_8B_MATMULS[n], n) for n in (
+        "w_gate/w_up", "wq/wo", "wk/wv", "w_down", "lm_head",
+    )] + [
+        (1, *LLAMA3_8B_MATMULS["lm_head"], "lm_head"),
+        (2048, *LLAMA3_8B_MATMULS["w_gate/w_up"], "w_gate/w_up"),
+        (2048, *LLAMA3_8B_MATMULS["w_down"], "w_down"),
+    ]
+    w8_rows = [
+        _w8a16_case(*c, gen, repeats=3 if i == 0 else 1)
+        for i, c in enumerate(w8_cases)
+    ]
+    emit("kernels", name="w8a16_matmul",
+         tolerance={"rtol": W8A16_RTOL, "atol": W8A16_ATOL,
+                    "row_rtol": W8A16_ROW_RTOL},
+         cases=w8_rows)
+    return {"flash_attention_prefill": rows[0], "w8a16_matmul": w8_rows[0]}
+
+
+def _check_w8a16(out, x, q, s):
+    from gpustack_tpu_torch.ops import w8a16
+
+    ref = w8a16.w8a16_plain(x.float(), q, s)
+    err = (out.float() - ref).abs()
+    bad = err > W8A16_ATOL + W8A16_RTOL * ref.abs()
+    row_rel = (
+        err.norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)
+    ).max().item()
+    if (
+        not torch.isfinite(out.float()).all() or bad.any()
+        or not row_rel <= W8A16_ROW_RTOL
+    ):
+        raise AssertionError(
+            f"W8A16 kernel disagrees at x {tuple(x.shape)} q "
+            f"{tuple(q.shape)}: max |err| {err.max().item()} "
+            f"({int(bad.sum())} elements outside tolerance), max row "
+            f"|err|/|ref| {row_rel}"
+        )
+    return err.max().item(), row_rel
+
+
+def _rotating(fn, args):
+    """A call that walks ``args`` round robin, one set per call."""
+    state = {"i": 0}
+
+    def call():
+        a = args[state["i"] % len(args)]
+        state["i"] += 1
+        return fn(*a)
+
+    return call
+
+
+def _int8pack_ms(x, qs, s):
+    """The one CUDA call torch might offer for this function:
+    ``torch._weight_int8pack_mm`` (q as [N, K]). Returns (ms or None,
+    what was timed or why nothing was)."""
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None:
+        return None, "this torch has no _weight_int8pack_mm"
+    qts = [q.T.contiguous() for q in qs]
+    try:
+        out = fn(x, qts[0], s)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        return None, (
+            "torch._weight_int8pack_mm refused the card's tensors: "
+            + str(e).strip().splitlines()[0][:200]
+        )
+    try:
+        _check_w8a16(out, x, qts[0].T, s)
+    except AssertionError as e:
+        return None, f"torch._weight_int8pack_mm computes another function: {e}"
+    return cuda_time_ms(_rotating(fn, [(x, qt, s) for qt in qts])), (
+        "torch._weight_int8pack_mm"
+    )
+
+
+def _w8a16_case(M, K, N, weight, gen, repeats=1):
+    from gpustack_tpu_torch.ops import w8a16
+
+    x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+    q = torch.randint(
+        -127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8
+    )
+    # the int8 init's scale (3 / sqrt(fan_in) / 127), jittered per channel
+    s = (
+        (0.5 + torch.rand(N, generator=gen, device="cuda"))
+        * (3.0 / K ** 0.5 / 127.0)
+    ).bfloat16()
+    out = w8a16.w8a16_matmul(x, q, s)
+    torch.cuda.synchronize()
+    max_err, row_rel = _check_w8a16(out, x, q, s)
+    copies = max(1, -(-L2_FLUSH_BYTES // (K * N)))
+    qs = [q] + [q.clone() for _ in range(copies - 1)]
+    kernel = _rotating(w8a16.w8a16_matmul, [(x, qi, s) for qi in qs])
+    ms_runs = [cuda_time_ms(kernel) for _ in range(repeats)]
+    host_us = host_us_per_call(kernel)
+    plain_ms = cuda_time_ms(
+        lambda: w8a16.w8a16_plain(x, q, s), warmup=1, iters=3
+    )
+    # yardsticks the port never calls: cuBLAS on the weight dequantized
+    # ahead of time (what bf16 serving pays), and the eager line
+    ws = [(qi.float() * s.float()).bfloat16() for qi in qs]
+    cublas_ms = cuda_time_ms(_rotating(torch.matmul, [(x, w) for w in ws]))
+    del ws
+    eager_ms = cuda_time_ms(_rotating(
+        lambda xi, qi, si: (xi @ qi.to(torch.bfloat16)) * si,
+        [(x, qi, s) for qi in qs],
+    ))
+    library_ms, library_call = _int8pack_ms(x, qs, s)
+    del qs
+    flops = 2 * M * N * K
+    nbytes = M * K * 2 + K * N + N * 2 + M * N * 2
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    ms = statistics.median(ms_runs)
+    return {
+        "weight": weight, "shape": {"M": M, "K": K, "N": N},
+        "path": "gemv" if M <= w8a16.GEMV_MAX_M else "mma",
+        "max_abs_err": max_err, "max_row_rel_err": row_rel,
+        "ms": ms, "ms_runs": ms_runs, "plain_ms": plain_ms,
+        "library_ms": library_ms, "library_call": library_call,
+        "cublas_bf16_dequantized_ms": cublas_ms, "eager_dequant_ms": eager_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "host_us_per_call": host_us,
+        "limited_by": "host" if host_us / 1e3 >= ms else "device",
+        "weight_copies_timed": copies,
+        "gbytes_per_s": nbytes / ms / 1e6, "tflops": flops / ms / 1e9,
+        "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+    }
 
 
 KERNEL_META = {
@@ -299,19 +470,69 @@ KERNEL_META = {
         "source": "gpustack_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "gpustack_tpu/ops/flash_attention.py:39",
     },
+    # no Pallas kernel behind it: the int8 branch of the JAX _mm, an XLA
+    # fusion
+    "w8a16_matmul": {
+        "route": "cuda",
+        "source": "gpustack_tpu_torch/ops/csrc/w8a16_gemm.cu",
+        "replaces": "gpustack_tpu/models/transformer.py:46",
+    },
 }
 
 
-def launch_counts():
+def _wrappers():
     from gpustack_tpu_torch.ops.flash_attention import flash_attention_prefill
+    from gpustack_tpu_torch.ops.w8a16 import w8a16_matmul
 
-    return {"flash_attention_prefill": flash_attention_prefill.launches}
+    return {
+        "flash_attention_prefill": flash_attention_prefill,
+        "w8a16_matmul": w8a16_matmul,
+    }
+
+
+def launch_counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def reset_launch_counts():
-    from gpustack_tpu_torch.ops.flash_attention import flash_attention_prefill
+    for fn in _wrappers().values():
+        fn.launches = 0
 
-    flash_attention_prefill.launches = 0
+
+def count_runner_calls(runner):
+    """Count the runner's model forwards from here on (instance
+    attributes over the methods the engine calls): {method: calls}."""
+    calls = {"prefill": 0, "prefill_with_prefix": 0, "decode_step": 0}
+    for name in calls:
+        fn = getattr(runner, name)
+
+        def counted(*args, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+
+        setattr(runner, name, counted)
+    return calls
+
+
+def expected_launches(cfg, calls, int8):
+    """What a window of runner calls must launch: the flash kernel once per
+    layer of every prefill forward (bucketed or continuation); with int8
+    weights the W8A16 kernel seven times per layer (q, k, v, o, gate, up,
+    down) plus once for lm_head (the prefill's last position, or the decode
+    batch) in every forward, and never without."""
+    prefills = calls["prefill"] + calls["prefill_with_prefix"]
+    forwards = prefills + calls["decode_step"]
+    return {
+        "flash_attention_prefill": cfg.num_layers * prefills,
+        "w8a16_matmul": (7 * cfg.num_layers + 1) * forwards if int8 else 0,
+    }
+
+
+def check_launches(path, counts, want):
+    if counts != want:
+        raise AssertionError(
+            f"{path}: kernel launches {counts}, the path needs {want}"
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -429,6 +650,139 @@ def _engine_metrics(engine):
     }
 
 
+def _serve_script(engine, port):
+    """The main path's requests through the server: chat, streaming chat,
+    a completion filling the 2048 bucket, four concurrent chats, and a
+    repeated greedy prompt; then TTFT and decode tokens/s. Returns the
+    request-derived prefill count, usages, greedy ids and metrics."""
+    from gpustack_tpu_torch.engine.engine import GenRequest
+
+    prefills = 0
+    tok = engine.tokenizer
+
+    msgs = [{"role": "user", "content": "Say hello to the H100."}]
+    chat_prompt = len(tok.apply_chat_template(msgs))
+    _, raw = _post(port, "/v1/chat/completions", {
+        "messages": msgs, "max_tokens": 16, "temperature": 0,
+    })
+    prefills += 1
+    chat = json.loads(raw)
+    chat_usage = _check_usage(chat, chat_prompt)
+
+    ctype, raw = _post(port, "/v1/chat/completions", {
+        "messages": msgs, "max_tokens": 16, "temperature": 0,
+        "stream": True,
+    })
+    prefills += 1
+    events = [
+        line[6:] for line in raw.split("\n") if line.startswith("data: ")
+    ]
+    if "text/event-stream" not in ctype or events[-1] != "[DONE]":
+        raise AssertionError(f"bad stream: {ctype} {events[-1:]}")
+    stream_usage = _check_usage(json.loads(events[-2]), chat_prompt)
+
+    long_text = "The quick brown fox jumps over the lazy dog. " * 34
+    long_ids = tok.encode(long_text)
+    if not 1024 < len(long_ids) < 2048:
+        raise AssertionError(f"long prompt is {len(long_ids)} tokens")
+    _, raw = _post(port, "/v1/completions", {
+        "prompt": long_text, "max_tokens": 8, "temperature": 0,
+        "logprobs": 1,
+    })
+    prefills += 1
+    long_data = json.loads(raw)
+    long_usage = _check_usage(long_data, len(long_ids))
+
+    results = [None] * 4
+
+    def worker(i):
+        _, body = _post(port, "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": f"request {i}"}],
+            "max_tokens": 24, "temperature": 0.8, "seed": i,
+        })
+        results[i] = json.loads(body)
+
+    threads = [
+        threading.Thread(target=worker, args=(i,)) for i in range(4)
+    ]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads) or None in results:
+        raise AssertionError("a concurrent request did not finish")
+    prefills += 4
+    for r in results:
+        _check_usage(r)
+
+    # repeated greedy prompt: identical token ids and logprobs
+    _, raw = _post(port, "/v1/completions", {
+        "prompt": long_text, "max_tokens": 8, "temperature": 0,
+        "logprobs": 1,
+    })
+    prefills += 1
+    again = json.loads(raw)
+    if again["choices"][0]["logprobs"]["token_logprobs"] != (
+        long_data["choices"][0]["logprobs"]["token_logprobs"]
+    ):
+        raise AssertionError("repeated greedy prompt diverged")
+    first = engine.generate(GenRequest(
+        prompt_ids=long_ids, max_tokens=8, temperature=0.0), timeout=600)
+    second = engine.generate(GenRequest(
+        prompt_ids=long_ids, max_tokens=8, temperature=0.0), timeout=600)
+    prefills += 2
+    if first.output_ids != second.output_ids or not first.output_ids:
+        raise AssertionError(
+            f"greedy ids differ: {first.output_ids} {second.output_ids}"
+        )
+
+    metrics = _engine_metrics(engine)
+    prefills += metrics.pop("prefills")
+    return {
+        "prefills": prefills,
+        "usage": {"chat": chat_usage, "stream": stream_usage,
+                  "long_completion": long_usage},
+        "greedy_ids": first.output_ids, **metrics,
+    }
+
+
+def _serve_counted(engine, logit_check, int8):
+    """Start ``engine`` behind the server, run ``logit_check`` outside the
+    counted window, then the main path's requests with every kernel's
+    launches counted and checked against what the runner's forwards need.
+    Returns (report, counts)."""
+    from gpustack_tpu_torch.engine.api_server import OpenAIServer
+
+    calls = count_runner_calls(engine.runner)
+    engine.start()
+    server = OpenAIServer(engine)
+    port = server.start("127.0.0.1", 0)
+    try:
+        logit_check(engine)
+        reset_launch_counts()
+        calls.update(dict.fromkeys(calls, 0))
+        report = _serve_script(engine, port)
+        counts = launch_counts()
+        window = dict(calls)
+        health = engine.health()
+        if health["status"] != "ok":
+            raise AssertionError(f"engine unhealthy: {health}")
+        if window["prefill"] != report["prefills"] or window[
+            "prefill_with_prefix"
+        ]:
+            raise AssertionError(
+                f"runner calls {window} for {report['prefills']} prompts"
+            )
+        want = expected_launches(engine.cfg, window, int8)
+        check_launches("int8 path" if int8 else "main path", counts, want)
+        report["runner_calls"] = window
+        report["prefill_ms_2048_bucket"] = _prefill_ms(engine)
+        return report, counts
+    finally:
+        server.shutdown()
+        engine.stop()
+
+
 MAIN_ARGV = [
     "--preset", "llama3-8b", "--max-slots", "8", "--max-seq-len", "2048",
     "--host", "127.0.0.1", "--port", "0",
@@ -437,123 +791,20 @@ MAIN_ARGV = [
 
 def phase_main_path(kind, smi):
     from gpustack_tpu_torch.engine.api_server import (
-        OpenAIServer,
         build_engine_from_args,
         build_parser,
     )
-    from gpustack_tpu_torch.engine.engine import GenRequest
 
     args = build_parser().parse_args(MAIN_ARGV)
     t0 = time.perf_counter()
     engine = build_engine_from_args(args)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    engine.start()
-    server = OpenAIServer(engine)
-    port = server.start("127.0.0.1", 0)
-    try:
-        _logit_check(engine)
-        reset_launch_counts()
-        prefills = 0
-        tok = engine.tokenizer
-
-        msgs = [{"role": "user", "content": "Say hello to the H100."}]
-        chat_prompt = len(tok.apply_chat_template(msgs))
-        _, raw = _post(port, "/v1/chat/completions", {
-            "messages": msgs, "max_tokens": 16, "temperature": 0,
-        })
-        prefills += 1
-        chat = json.loads(raw)
-        chat_usage = _check_usage(chat, chat_prompt)
-
-        ctype, raw = _post(port, "/v1/chat/completions", {
-            "messages": msgs, "max_tokens": 16, "temperature": 0,
-            "stream": True,
-        })
-        prefills += 1
-        events = [
-            line[6:] for line in raw.split("\n") if line.startswith("data: ")
-        ]
-        if "text/event-stream" not in ctype or events[-1] != "[DONE]":
-            raise AssertionError(f"bad stream: {ctype} {events[-1:]}")
-        stream_usage = _check_usage(json.loads(events[-2]), chat_prompt)
-
-        long_text = "The quick brown fox jumps over the lazy dog. " * 34
-        long_ids = tok.encode(long_text)
-        if not 1024 < len(long_ids) < 2048:
-            raise AssertionError(f"long prompt is {len(long_ids)} tokens")
-        _, raw = _post(port, "/v1/completions", {
-            "prompt": long_text, "max_tokens": 8, "temperature": 0,
-            "logprobs": 1,
-        })
-        prefills += 1
-        long_data = json.loads(raw)
-        long_usage = _check_usage(long_data, len(long_ids))
-
-        results = [None] * 4
-        def worker(i):
-            _, body = _post(port, "/v1/chat/completions", {
-                "messages": [{"role": "user", "content": f"request {i}"}],
-                "max_tokens": 24, "temperature": 0.8, "seed": i,
-            })
-            results[i] = json.loads(body)
-        threads = [
-            threading.Thread(target=worker, args=(i,)) for i in range(4)
-        ]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        if any(t.is_alive() for t in threads) or None in results:
-            raise AssertionError("a concurrent request did not finish")
-        prefills += 4
-        for r in results:
-            _check_usage(r)
-
-        # repeated greedy prompt: identical token ids and logprobs
-        _, raw = _post(port, "/v1/completions", {
-            "prompt": long_text, "max_tokens": 8, "temperature": 0,
-            "logprobs": 1,
-        })
-        prefills += 1
-        again = json.loads(raw)
-        if again["choices"][0]["logprobs"]["token_logprobs"] != (
-            long_data["choices"][0]["logprobs"]["token_logprobs"]
-        ):
-            raise AssertionError("repeated greedy prompt diverged")
-        first = engine.generate(GenRequest(
-            prompt_ids=long_ids, max_tokens=8, temperature=0.0), timeout=600)
-        second = engine.generate(GenRequest(
-            prompt_ids=long_ids, max_tokens=8, temperature=0.0), timeout=600)
-        prefills += 2
-        if first.output_ids != second.output_ids or not first.output_ids:
-            raise AssertionError(
-                f"greedy ids differ: {first.output_ids} {second.output_ids}"
-            )
-
-        metrics = _engine_metrics(engine)
-        prefills += metrics.pop("prefills")
-        counts = launch_counts()
-        health = engine.health()
-        if health["status"] != "ok":
-            raise AssertionError(f"engine unhealthy: {health}")
-        n_layers = engine.cfg.num_layers
-        if counts["flash_attention_prefill"] != n_layers * prefills:
-            raise AssertionError(
-                f"flash kernel launched {counts['flash_attention_prefill']} "
-                f"times for {prefills} prefills (want {n_layers} each)"
-            )
-        metrics["prefill_ms_2048_bucket"] = _prefill_ms(engine)
-        emit("main_path", model=engine.cfg.name, device=kind, nvidia_smi=smi,
-             setup_s=setup_s, prefills=prefills, launches=counts,
-             usage={"chat": chat_usage, "stream": stream_usage,
-                    "long_completion": long_usage},
-             greedy_ids=first.output_ids, **metrics,
-             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-        return counts
-    finally:
-        server.shutdown()
-        engine.stop()
+    report, counts = _serve_counted(engine, _logit_check, int8=False)
+    emit("main_path", model=engine.cfg.name, device=kind, nvidia_smi=smi,
+         setup_s=setup_s, launches=counts, **report,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return counts, report
 
 
 # ---------------------------------------------------------------------------
@@ -905,12 +1156,10 @@ def phase_prefix_reuse(kind, smi):
             for ts in arrivals
         ]
         counts = launch_counts()
-        n_layers = engine.cfg.num_layers
-        if counts["flash_attention_prefill"] != n_layers * forwards:
-            raise AssertionError(
-                f"flash kernel launched {counts['flash_attention_prefill']} "
-                f"times for {forwards} forwards (want {n_layers} each)"
-            )
+        check_launches("prefix reuse", counts, {
+            "flash_attention_prefill": engine.cfg.num_layers * forwards,
+            "w8a16_matmul": 0,
+        })
         samples, types = parse_prometheus(_get(port, "/metrics"))
         h = health()
         if h["status"] != "ok":
@@ -944,6 +1193,248 @@ def phase_prefix_reuse(kind, smi):
         engine.stop()
 
 
+# ---------------------------------------------------------------------------
+# f: checkpoints and int8
+# ---------------------------------------------------------------------------
+
+
+def _hf_named(tree, cfg):
+    """The param tree under HF llama names, linear weights as [out, in]."""
+    lp = tree["layers"]
+    out = {
+        "model.embed_tokens.weight": tree["embed"],
+        "model.norm.weight": tree["final_norm"],
+        "lm_head.weight": tree["lm_head"].T,
+    }
+    names = {
+        "attn_norm": ("input_layernorm.weight", False),
+        "wq": ("self_attn.q_proj.weight", True),
+        "wk": ("self_attn.k_proj.weight", True),
+        "wv": ("self_attn.v_proj.weight", True),
+        "wo": ("self_attn.o_proj.weight", True),
+        "mlp_norm": ("post_attention_layernorm.weight", False),
+        "w_gate": ("mlp.gate_proj.weight", True),
+        "w_up": ("mlp.up_proj.weight", True),
+        "w_down": ("mlp.down_proj.weight", True),
+    }
+    for i in range(cfg.num_layers):
+        for key, (hf, transpose) in names.items():
+            t = lp[key][i]
+            out[f"model.layers.{i}.{hf}"] = t.T if transpose else t
+    return out
+
+
+def write_safetensors(path, tensors):
+    """A minimal safetensors writer (bf16 only): 8-byte header length, the
+    JSON header padded to 8 bytes, then each tensor's bytes in order.
+    Returns the bytes written."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for t in tensors.values():
+            f.write(t.contiguous().view(torch.int16).cpu().numpy())
+    return 8 + len(head) + offset
+
+
+def phase_checkpoint(kind, smi, preset="llama3-8b", device="cuda"):
+    """``preset`` (llama3-8b) at full width but 2 layers (depth cut for
+    disk and time), random bf16 weights from a seed, written as a
+    safetensors checkpoint and served through ``--model-dir``: the loaded
+    tree and a prompt's last-position logits must equal the in-memory
+    tree's, bit for bit."""
+    from gpustack_tpu_torch.engine.api_server import (
+        OpenAIServer,
+        build_engine_from_args,
+        build_parser,
+    )
+    from gpustack_tpu_torch.engine.runner import ModelRunner
+    from gpustack_tpu_torch.models.config import get_config
+    from gpustack_tpu_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(get_config(preset), num_layers=2)
+    gen = torch.Generator(device=device).manual_seed(7)
+    tree = init_params(cfg, gen, dtype=torch.bfloat16, device=device)
+    with tempfile.TemporaryDirectory(prefix="ckpt-") as model_dir:
+        t0 = time.perf_counter()
+        nbytes = write_safetensors(
+            os.path.join(model_dir, "model.safetensors"), _hf_named(tree, cfg)
+        )
+        with open(os.path.join(model_dir, "config.json"), "w") as f:
+            json.dump({
+                "architectures": ["LlamaForCausalLM"],
+                "model_type": "llama",
+                "hidden_size": cfg.hidden_size,
+                "intermediate_size": cfg.intermediate_size,
+                "num_hidden_layers": cfg.num_layers,
+                "num_attention_heads": cfg.num_heads,
+                "num_key_value_heads": cfg.num_kv_heads,
+                "head_dim": cfg.head_dim,
+                "vocab_size": cfg.vocab_size,
+                "rope_theta": cfg.rope_theta,
+                "rms_norm_eps": cfg.rms_norm_eps,
+                "max_position_embeddings": cfg.max_position_embeddings,
+                "tie_word_embeddings": False,
+            }, f)
+        write_s = time.perf_counter() - t0
+        args = build_parser().parse_args([
+            "--model-dir", model_dir, "--max-slots", "8",
+            "--max-seq-len", "2048", "--device", device,
+        ])
+        t0 = time.perf_counter()
+        engine = build_engine_from_args(args)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    if dataclasses.replace(engine.cfg, name=cfg.name) != cfg:
+        raise AssertionError(f"config.json read back as {engine.cfg}")
+    loaded = engine.runner.params
+    mismatched = [
+        key for key, a, b in (
+            [(k, loaded[k], tree[k]) for k in ("embed", "final_norm",
+                                                "lm_head")]
+            + [(f"layers/{k}", loaded["layers"][k], v)
+               for k, v in tree["layers"].items()]
+        )
+        if a.dtype != b.dtype or not torch.equal(a, b)
+    ]
+    if mismatched or loaded.keys() != tree.keys():
+        raise AssertionError(f"loaded checkpoint differs at {mismatched}")
+    in_memory = ModelRunner(
+        engine.cfg, tree, engine.runner.device, max_slots=8,
+        max_seq_len=2048,
+    )
+    prompt = engine.tokenizer.encode("A checkpoint from disk. " * 30)
+    padded = prompt + [0] * (engine.runner.bucket_for(len(prompt))
+                             - len(prompt))
+    with torch.no_grad():
+        got, _, _ = engine.runner.prefill(padded, len(prompt))
+        want, _, _ = in_memory.prefill(padded, len(prompt))
+    if not torch.isfinite(got).all() or not torch.equal(got, want):
+        raise AssertionError(
+            "logits of the loaded checkpoint differ from the in-memory "
+            f"tree's: max |err| {(got - want).abs().max().item()}"
+        )
+    del in_memory, tree, loaded
+    engine.start()
+    server = OpenAIServer(engine)
+    port = server.start("127.0.0.1", 0)
+    try:
+        _, raw = _post(port, "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "Hello from disk."}],
+            "max_tokens": 8, "temperature": 0,
+        })
+        usage = _check_usage(json.loads(raw))
+    finally:
+        server.shutdown()
+        engine.stop()
+    depth = get_config(preset).num_layers
+    emit("checkpoint", model=f"{cfg.name} (2 of {depth} layers)",
+         device=kind, nvidia_smi=smi, checkpoint_gb=nbytes / 1e9, write_s=write_s,
+         load_s=load_s, load_gb_per_s=nbytes / 1e9 / load_s,
+         logits="identical bits", prompt_tokens=len(prompt),
+         chat_usage=usage)
+
+
+def _int8_logit_check(engine):
+    """The int8 tree's last-position logits through the kernel against the
+    same tree through the W8A16 plain version (outside the counted
+    window)."""
+    from gpustack_tpu_torch.ops import w8a16
+
+    runner = engine.runner
+    cfg = runner.cfg
+    prompt = engine.tokenizer.encode("The int8 logit check. " * 40)
+    bucket = runner.bucket_for(len(prompt))
+    padded = prompt + [0] * (bucket - len(prompt))
+    def split_plain(x, q, s):
+        # the plain version with K summed in two halves: another fp32
+        # summation order, nothing else
+        h = q.shape[0] // 2
+        xf = x.float()
+        out = xf[..., :h] @ q[:h].float() + xf[..., h:] @ q[h:].float()
+        return (out * s.float()).to(x.dtype)
+
+    def through(matmul):
+        kernel = w8a16.w8a16_matmul
+        w8a16.w8a16_matmul = matmul
+        try:
+            return runner.prefill(padded, len(prompt))[0]
+        finally:
+            w8a16.w8a16_matmul = kernel
+
+    with torch.no_grad():
+        kernel_last, _, _ = runner.prefill(padded, len(prompt))
+        plain_last = through(w8a16.w8a16_plain)
+        # how far the model itself carries a change of summation order
+        # (reported, not a gate)
+        floor = (through(split_plain) - plain_last).abs().max().item()
+    if kernel_last.shape != (cfg.vocab_size,) or not torch.isfinite(
+        kernel_last
+    ).all():
+        raise AssertionError(f"bad logits {tuple(kernel_last.shape)}")
+    scale = plain_last.abs().max().item()
+    err = (kernel_last - plain_last).abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(
+        kernel_last, plain_last, dim=0
+    ).item()
+    emit("int8_logit_check", prompt_tokens=len(prompt), bucket=bucket,
+         max_abs_err=err, logit_scale=scale, cosine=cos,
+         plain_vs_plain_split_k_max_abs_err=floor,
+         tolerance={"rel": LOGIT_REL_TOL, "min_cosine": LOGIT_MIN_COSINE})
+    if err > LOGIT_REL_TOL * scale or cos < LOGIT_MIN_COSINE:
+        raise AssertionError(
+            f"int8 kernel logits differ from the plain version: max |err| "
+            f"{err} (scale {scale}), cosine {cos}"
+        )
+
+
+F_ARGV = MAIN_ARGV + ["--quantization", "int8"]
+
+
+def phase_int8(kind, smi, bf16):
+    """llama3-8b int8 at full width and depth, drawn on the card, through
+    the server: the main path's requests with exact W8A16 and flash
+    launch counts, beside phase d's bf16 numbers from this run."""
+    from gpustack_tpu_torch.engine.api_server import (
+        build_engine_from_args,
+        build_parser,
+    )
+    from gpustack_tpu_torch.models.quant import QuantW
+
+    torch.cuda.reset_peak_memory_stats()
+    args = build_parser().parse_args(F_ARGV)
+    t0 = time.perf_counter()
+    engine = build_engine_from_args(args)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    params = engine.runner.params
+    weights = [params["lm_head"], params["embed"]] + [
+        params["layers"][k] for k in (
+            "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"
+        )
+    ]
+    if not all(isinstance(w, QuantW) for w in weights):
+        raise AssertionError("the int8 tree holds a weight that is not int8")
+    weight_gb = sum(
+        t.numel() * t.element_size() for w in weights for t in (w.q, w.s)
+    ) / 1e9
+    report, counts = _serve_counted(engine, _int8_logit_check, int8=True)
+    keys = ("ttft_ms_2048_bucket", "decode_tokens_per_s_8_slots",
+            "prefill_ms_2048_bucket", "peak_mem_gb")
+    emit("int8_path", model=engine.cfg.name, device=kind, nvidia_smi=smi,
+         setup_s=setup_s, launches=counts, int8_weight_gb=weight_gb,
+         **report, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         bf16_same_run={k: bf16[k] for k in keys})
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -957,17 +1448,24 @@ def main() -> int:
     kind, smi = phase_device()
     phase_build()
     rows = phase_kernels()
-    counts = phase_main_path(kind, smi)
-    gc.collect()
-    torch.cuda.empty_cache()
-    e_counts = phase_prefix_reuse(kind, smi)
+    paths = {}
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    paths["main_path"], bf16 = phase_main_path(kind, smi)
+    bf16["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    _free()
+    paths["prefix_reuse"] = phase_prefix_reuse(kind, smi)
+    _free()
+    phase_checkpoint(kind, smi)
+    _free()
+    paths["int8_path"] = phase_int8(kind, smi, bf16)
     kernels = []
     for name, row in rows.items():
-        if counts.get(name, 0) < 1 or e_counts.get(name, 0) < 1:
-            raise AssertionError(f"{name} never launched on a main path")
+        launches = sum(counts[name] for counts in paths.values())
+        if launches < 1:
+            raise AssertionError(f"{name} never launched on a served path")
         kernels.append({
-            "name": name, **KERNEL_META[name],
-            "launches": counts[name] + e_counts[name],
+            "name": name, **KERNEL_META[name], "launches": launches,
             **{k: row[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms",
@@ -979,6 +1477,11 @@ def main() -> int:
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)
     return 0
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

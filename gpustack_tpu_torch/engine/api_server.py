@@ -648,6 +648,16 @@ def build_parser() -> argparse.ArgumentParser:
         help="spill directory (default: a per-process temp directory)",
     )
     p.add_argument(
+        "--quantization", choices=["", "int8"], default="",
+        help="int8: weight-only int8 with per-channel scales, every weight "
+        "product through the W8A16 kernel on the card",
+    )
+    p.add_argument(
+        "--lora", action="append", default=[],
+        help="PEFT LoRA adapter directory merged into the weights at load, "
+        "before quantization (repeatable)",
+    )
+    p.add_argument(
         "--device", default=None,
         help="torch device (default: the CUDA card; 'cpu' to run on the "
         "CPU — never chosen implicitly)",
@@ -656,15 +666,41 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def build_engine_from_args(args) -> LLMEngine:
+    """Config, then weights, then the LoRA merge, then int8: the JAX
+    package's order. Config and weights come from the same checkpoint
+    (``checkpoint_source``: safetensors before GGUF); without one,
+    ``--quantization int8`` draws the int8 tree directly on the device."""
     from gpustack_tpu_torch.device import resolve_device
-    from gpustack_tpu_torch.engine.weights import load_or_init_params
+    from gpustack_tpu_torch.engine.gguf import config_from_gguf
+    from gpustack_tpu_torch.engine.weights import (
+        checkpoint_source,
+        load_or_init_params,
+        merge_lora_adapters,
+    )
     from gpustack_tpu_torch.models.config import get_config, load_hf_config
+    from gpustack_tpu_torch.models.quant import (
+        init_quantized_params,
+        quantize_params,
+    )
 
     device = resolve_device(args.device)
-    cfg = load_hf_config(args.model_dir) if args.model_dir else get_config(
-        args.preset
-    )
-    params = load_or_init_params(cfg, args.model_dir or None, device=device)
+    kind, path = checkpoint_source(args.model_dir or None)
+    if kind == "gguf":
+        cfg = config_from_gguf(path, name=args.served_name or "")
+    elif args.model_dir:
+        cfg = load_hf_config(args.model_dir)
+    else:
+        cfg = get_config(args.preset)
+    if kind == "none" and args.quantization == "int8" and not args.lora:
+        params = init_quantized_params(cfg, seed=0, device=device)
+    else:
+        params = load_or_init_params(
+            cfg, args.model_dir or None, seed=0, device=device
+        )
+        if args.lora:
+            params = merge_lora_adapters(cfg, params, args.lora)
+        if args.quantization == "int8":
+            params = quantize_params(params)
     return LLMEngine(
         cfg, params,
         model_dir=args.model_dir or None,

@@ -27,6 +27,7 @@ from typing import Any, Dict, Sequence, Tuple
 import torch
 
 from gpustack_tpu_torch.engine.sampling import SamplingState, sample
+from gpustack_tpu_torch.engine.weights import params_to_device
 from gpustack_tpu_torch.models.config import ModelConfig
 from gpustack_tpu_torch.models.transformer import (
     KVCache,
@@ -73,8 +74,9 @@ class ModelRunner:
     ):
         check_supported(cfg)
         self.cfg = cfg
-        self.params = params
         self.device = torch.device(device)
+        # int8 QuantW leaves go to the device as they are, never widened
+        self.params = params_to_device(params, self.device)
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
         if not prefill_buckets:

@@ -5,9 +5,7 @@ benchmark harness) runs hermetically in tests with the ``tiny`` model
 configs — same doctrine as the reference's fixture-driven tests (no real
 model downloads in CI, SURVEY.md §4).
 
-The port's own copy of ``gpustack_tpu/engine/tokenizer.py``. GGUF
-vocabularies are not ported yet (ROADMAP): a model directory without HF
-tokenizer files gets the byte tokenizer.
+The port's own copy of ``gpustack_tpu/engine/tokenizer.py``.
 """
 
 from __future__ import annotations
@@ -106,11 +104,30 @@ def _inject_tools_fallback(
 
 
 def load_tokenizer(model_dir: Optional[str]):
-    """HF tokenizer when a model dir with tokenizer files exists; the
-    hermetic byte fallback otherwise."""
-    if model_dir and os.path.isdir(model_dir) and (
-        os.path.exists(os.path.join(model_dir, "tokenizer.json"))
-        or os.path.exists(os.path.join(model_dir, "tokenizer_config.json"))
+    """HF tokenizer when a model dir with tokenizer files exists; a GGUF
+    file's embedded vocab next (exact decode, longest-match encode —
+    engine/gguf.py); the hermetic byte fallback last."""
+    # a direct .gguf path honors a tokenizer.json sidecar in its parent
+    # dir — the exact-HF-tokenization layout gguf.py documents
+    tok_dir = (
+        os.path.dirname(model_dir)
+        if model_dir and model_dir.endswith(".gguf") else model_dir
+    )
+    if tok_dir and os.path.isdir(tok_dir) and (
+        os.path.exists(os.path.join(tok_dir, "tokenizer.json"))
+        or os.path.exists(os.path.join(tok_dir, "tokenizer_config.json"))
     ):
-        return HFTokenizer(model_dir)
+        return HFTokenizer(tok_dir)
+    if model_dir:
+        from gpustack_tpu_torch.engine.gguf import (
+            GGUFVocabTokenizer,
+            gguf_file_in,
+        )
+
+        gguf_path = gguf_file_in(model_dir)
+        if gguf_path:
+            try:
+                return GGUFVocabTokenizer.from_file(gguf_path)
+            except (ValueError, KeyError):
+                pass
     return ByteTokenizer()

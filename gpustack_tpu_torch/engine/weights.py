@@ -1,13 +1,30 @@
-"""Model weights for the port: random init on the device, and carrying a
-parameter tree across from the JAX package (through numpy).
+"""Model weights for the port: HF safetensors and GGUF checkpoints, PEFT
+LoRA merges, npz caching of (int8) trees, random init on the device, and
+carrying a parameter tree across from the JAX package (through numpy).
 
-Checkpoint loading (safetensors, GGUF, LoRA merges — ``gpustack_tpu/
-engine/weights.py``) is not ported yet; see ROADMAP.
+The port of ``gpustack_tpu/engine/weights.py`` for the dense Llama family.
+Torch stores linear weights as ``[out_features, in_features]``; the
+functional matmuls contract ``x @ W`` with ``W[in, out]``, so every
+projection transposes on load. Loaded leaves are bf16, as in JAX.
+
+The safetensors reader is the port's own (the card's machine has no
+``safetensors`` package): an 8-byte little-endian header length, a JSON
+header, then each tensor's bytes at its offsets.
+
+Not ported yet: the MoE, MLA, GPT-OSS and post-norm branches of
+``build_lm_params`` and ``_mxfp4_dequant`` (with their families; the
+config check raises before any tensor is read), ``load_npz_params`` and
+``load_whisper_params`` (with the other modalities).
 """
 
 from __future__ import annotations
 
+import glob
+import json
 import logging
+import os
+import re
+import struct
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -15,6 +32,7 @@ import torch
 
 from gpustack_tpu_torch.device import resolve_device
 from gpustack_tpu_torch.models.config import ModelConfig
+from gpustack_tpu_torch.models.quant import QuantW
 from gpustack_tpu_torch.models.transformer import (
     check_supported,
     init_params,
@@ -23,26 +41,351 @@ from gpustack_tpu_torch.models.transformer import (
 
 logger = logging.getLogger(__name__)
 
+_ST_DTYPES = {
+    "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I8": torch.int8, "U8": torch.uint8, "I32": torch.int32,
+}
+
+
+def _read_safetensors_file(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of one ``.safetensors`` file (CPU tensors owning their
+    bytes). A header that does not describe the file is a ValueError."""
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        head = f.read(8)
+        if len(head) != 8:
+            raise ValueError(f"{path}: shorter than a safetensors header")
+        (n,) = struct.unpack("<Q", head)
+        if n > size - 8:
+            raise ValueError(
+                f"{path}: header length {n} exceeds the file ({size} bytes)"
+            )
+        try:
+            header = json.loads(f.read(n))
+        except (UnicodeDecodeError, json.JSONDecodeError) as e:
+            raise ValueError(f"{path}: header is not JSON ({e})") from None
+        if not isinstance(header, dict):
+            raise ValueError(f"{path}: header is not a JSON object")
+        base, data_len = 8 + n, size - 8 - n
+        tensors: Dict[str, torch.Tensor] = {}
+        for name, info in header.items():
+            if name == "__metadata__":
+                continue
+            try:
+                dtype = _ST_DTYPES[info["dtype"]]
+                shape = [int(d) for d in info["shape"]]
+                begin, end = (int(o) for o in info["data_offsets"])
+            except (KeyError, TypeError, ValueError):
+                raise ValueError(
+                    f"{path}: tensor {name!r} has a malformed or unsupported "
+                    f"entry {info!r} (dtypes: {sorted(_ST_DTYPES)})"
+                ) from None
+            numel = int(np.prod(shape, dtype=np.int64))
+            nbytes = numel * torch.empty((), dtype=dtype).element_size()
+            if (
+                any(d < 0 for d in shape) or not 0 <= begin <= end <= data_len
+                or end - begin != nbytes
+            ):
+                raise ValueError(
+                    f"{path}: tensor {name!r} offsets {begin}..{end} do not "
+                    f"hold {shape} {info['dtype']} inside {data_len} bytes"
+                )
+            f.seek(base + begin)
+            buf = bytearray(f.read(nbytes))
+            t = (
+                torch.frombuffer(buf, dtype=dtype)
+                if nbytes else torch.empty(0, dtype=dtype)
+            )
+            tensors[name] = t.reshape(shape)
+    return tensors
+
+
+def _read_safetensors(model_dir: str) -> Dict[str, torch.Tensor]:
+    """All tensors from a local HF model dir, keyed by checkpoint name."""
+    files = sorted(glob.glob(os.path.join(model_dir, "*.safetensors")))
+    if not files:
+        raise FileNotFoundError(f"no .safetensors files in {model_dir}")
+    tensors: Dict[str, torch.Tensor] = {}
+    for f in files:
+        tensors.update(_read_safetensors_file(f))
+    return tensors
+
+
+def _taker(tensors: Dict[str, torch.Tensor]):
+    """take(name, transpose) popping from ``tensors``: bf16, contiguous."""
+
+    def take(name: str, transpose: bool = False) -> torch.Tensor:
+        t = tensors.pop(name)
+        if transpose:
+            t = t.T
+        return t.to(torch.bfloat16).contiguous()
+
+    return take
+
+
+def build_lm_params(
+    cfg: ModelConfig, tensors: Dict[str, torch.Tensor]
+) -> Dict[str, Any]:
+    """HF-named tensors → the stacked param tree (CPU, bf16), for the
+    dense llama-family names, ``qkv_bias`` and ``qk_norm``."""
+    check_supported(cfg)
+    take = _taker(tensors)
+    L = cfg.num_layers
+
+    def stack(fmt: str, transpose: bool = False) -> torch.Tensor:
+        return torch.stack([take(fmt.format(i), transpose) for i in range(L)])
+
+    layers: Dict[str, torch.Tensor] = {
+        "attn_norm": stack("model.layers.{}.input_layernorm.weight"),
+        "wq": stack("model.layers.{}.self_attn.q_proj.weight", True),
+        "wk": stack("model.layers.{}.self_attn.k_proj.weight", True),
+        "wv": stack("model.layers.{}.self_attn.v_proj.weight", True),
+        "wo": stack("model.layers.{}.self_attn.o_proj.weight", True),
+        # llama-family: post_attention_layernorm IS the pre-MLP norm
+        "mlp_norm": stack("model.layers.{}.post_attention_layernorm.weight"),
+    }
+    if cfg.qkv_bias:
+        layers["bq"] = stack("model.layers.{}.self_attn.q_proj.bias")
+        layers["bk"] = stack("model.layers.{}.self_attn.k_proj.bias")
+        layers["bv"] = stack("model.layers.{}.self_attn.v_proj.bias")
+    if cfg.qk_norm:
+        layers["q_norm"] = stack("model.layers.{}.self_attn.q_norm.weight")
+        layers["k_norm"] = stack("model.layers.{}.self_attn.k_norm.weight")
+    layers["w_gate"] = stack("model.layers.{}.mlp.gate_proj.weight", True)
+    layers["w_up"] = stack("model.layers.{}.mlp.up_proj.weight", True)
+    layers["w_down"] = stack("model.layers.{}.mlp.down_proj.weight", True)
+
+    params: Dict[str, Any] = {
+        "embed": take("model.embed_tokens.weight"),
+        "layers": layers,
+        "final_norm": take("model.norm.weight"),
+    }
+    if not cfg.tie_word_embeddings:
+        if "lm_head.weight" in tensors:
+            params["lm_head"] = take("lm_head.weight", True)
+        else:
+            logger.warning("no lm_head.weight; tying to embeddings")
+            params["lm_head"] = params["embed"].T.contiguous()
+    if tensors:
+        logger.warning("unused checkpoint tensors: %s", sorted(tensors)[:8])
+    return params
+
+
+def load_hf_checkpoint(cfg: ModelConfig, model_dir: str) -> Dict[str, Any]:
+    """Load *.safetensors from a local HF model dir into the param tree."""
+    check_supported(cfg)
+    return build_lm_params(cfg, _read_safetensors(model_dir))
+
+
+def load_gguf_checkpoint(cfg: ModelConfig, gguf_path: str) -> Dict[str, Any]:
+    """Load a GGUF checkpoint: dequantize to the HF tensor names
+    (engine/gguf.py), then the same mapping as safetensors."""
+    from gpustack_tpu_torch.engine.gguf import load_gguf_tensors
+
+    check_supported(cfg)
+    return build_lm_params(cfg, load_gguf_tensors(gguf_path))
+
+
+# HF PEFT module name -> the stacked layer param (torch Linear weights are
+# [out, in]; ours are [in, out], so the merged delta is (B @ A).T == A.T @
+# B.T)
+_LORA_MODULES = {
+    "q_proj": "wq",
+    "k_proj": "wk",
+    "v_proj": "wv",
+    "o_proj": "wo",
+    "gate_proj": "w_gate",
+    "up_proj": "w_up",
+    "down_proj": "w_down",
+}
+
+
+def merge_lora_adapters(cfg, params: Dict[str, Any], adapter_dirs):
+    """Merge PEFT LoRA adapters into the base weights, W' = W + s·BA, in
+    place (on the tensors' device). Must run BEFORE int8 quantization.
+    Returns the param tree."""
+    pat = re.compile(
+        r"layers\.(\d+)\.(?:self_attn|mlp)\.(\w+)\.lora_A\.weight$"
+    )
+    for adapter_dir in adapter_dirs:
+        scale = 1.0
+        try:
+            with open(os.path.join(adapter_dir, "adapter_config.json")) as f:
+                acfg = json.load(f)
+            r = int(acfg.get("r", 0)) or 1
+            alpha = float(acfg.get("lora_alpha", r))
+            if acfg.get("use_rslora"):
+                scale = alpha / (r ** 0.5)   # rsLoRA: alpha / sqrt(r)
+            else:
+                scale = alpha / r
+        except (OSError, ValueError):
+            logger.warning(
+                "no adapter_config.json in %s; using scale 1.0", adapter_dir
+            )
+        tensors = _read_safetensors(adapter_dir)
+        merged = 0
+        for name in sorted(tensors):
+            m = pat.search(name)
+            if m is None:
+                continue
+            layer_idx, module = int(m.group(1)), m.group(2)
+            ours = _LORA_MODULES.get(module)
+            if layer_idx >= cfg.num_layers:
+                # a half-applied adapter must be an error, not a mystery
+                raise ValueError(
+                    f"adapter {adapter_dir} targets layer {layer_idx} "
+                    f"but the model has {cfg.num_layers} layers"
+                )
+            if ours is None or ours not in params["layers"]:
+                logger.warning(
+                    "skipping LoRA target %s (unsupported module)", name
+                )
+                continue
+            b_name = name.replace("lora_A", "lora_B")
+            if b_name not in tensors:
+                raise ValueError(
+                    f"adapter {adapter_dir} is missing {b_name} "
+                    f"(truncated checkpoint?)"
+                )
+            base = params["layers"][ours]
+            # fp32 through the delta product: a bf16 detour would cost ~8
+            # mantissa bits twice
+            a = tensors[name].to(base.device, torch.float32)
+            b = tensors[b_name].to(base.device, torch.float32)
+            delta = (a.T @ b.T) * scale                 # [in, out]
+            base[layer_idx] += delta.to(base.dtype)
+            merged += 1
+        logger.info(
+            "merged %d LoRA deltas from %s (scale %.3f)",
+            merged, adapter_dir, scale,
+        )
+        if merged == 0:
+            raise ValueError(
+                f"adapter {adapter_dir} matched no mergeable weights"
+            )
+    return params
+
+
+def checkpoint_source(model_dir: Optional[str]):
+    """(kind, path) for a model source: ("safetensors", dir), ("gguf",
+    file) or ("none", None). The one place format precedence lives, so
+    config resolution and weight loading pick the same checkpoint in a
+    mixed directory."""
+    if model_dir and glob.glob(os.path.join(model_dir, "*.safetensors")):
+        return "safetensors", model_dir
+    if model_dir:
+        from gpustack_tpu_torch.engine.gguf import gguf_file_in
+
+        gguf_path = gguf_file_in(model_dir)
+        if gguf_path:
+            return "gguf", gguf_path
+    return "none", None
+
+
+def params_to_device(tree: Dict[str, Any], device) -> Dict[str, Any]:
+    """The same tree with every tensor on ``device``; ``QuantW`` leaves
+    move as they are (int8 and bf16, never widened)."""
+    device = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return node.to(device)
+
+    return walk(tree)
+
 
 def load_or_init_params(
     cfg: ModelConfig, model_dir: Optional[str] = None, seed: int = 0,
     device: Optional[torch.device] = None,
 ) -> Dict[str, Any]:
-    """Random weights drawn on ``device`` (default: the card) from a
-    generator seeded with ``seed`` (the counterpart of the JAX
-    ``load_or_init_params`` without a checkpoint). A ``model_dir`` raises
-    until checkpoint loading is ported."""
-    if model_dir:
-        raise NotImplementedError(
-            "checkpoint loading (safetensors/GGUF) is not ported yet "
-            "(ROADMAP 'Modules to port': safetensors/GGUF loading); serve "
-            "a preset with random weights"
-        )
+    """The checkpoint under ``model_dir`` (safetensors before GGUF) on
+    ``device`` (default: the card); without one, random weights drawn on
+    ``device`` from a generator seeded with ``seed``."""
     device = resolve_device(device)
-    logger.warning("initializing random weights for %s on %s", cfg.name, device)
+    kind, path = checkpoint_source(model_dir)
+    if kind == "safetensors":
+        logger.info("loading checkpoint from %s", path)
+        return params_to_device(load_hf_checkpoint(cfg, path), device)
+    if kind == "gguf":
+        logger.info("loading GGUF checkpoint from %s", path)
+        return params_to_device(load_gguf_checkpoint(cfg, path), device)
+    logger.warning(
+        "no checkpoint at %r — initializing random weights for %s on %s",
+        model_dir, cfg.name, device,
+    )
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return init_params(cfg, gen, dtype=torch_dtype(cfg), device=device)
+
+
+# ---------------------------------------------------------------------------
+# npz checkpoints (both packages read each other's) and numpy trees
+# ---------------------------------------------------------------------------
+
+
+def _to_numpy(t: torch.Tensor) -> tuple:
+    """(array, tag): npz has no bfloat16, so bf16 goes as float32 (exact)
+    with a ``#bf16`` tag."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.float().numpy(), "#bf16"
+    return t.numpy(), ""
+
+
+def save_checkpoint(params: Dict[str, Any], path: str) -> None:
+    """Save params in the stacked layout as npz, the JAX package's format:
+    '/'-joined keys, ``QuantW`` leaves as ``::q`` / ``::s`` pairs."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix: str) -> None:
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}/{k}" if prefix else k)
+        elif isinstance(node, QuantW):
+            arr, tag = _to_numpy(node.q)
+            flat[prefix + "::q" + tag] = arr
+            arr, tag = _to_numpy(node.s)
+            flat[prefix + "::s" + tag] = arr
+        else:
+            arr, tag = _to_numpy(node)
+            flat[prefix + tag] = arr
+
+    walk(params, "")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **flat)
+
+
+def load_checkpoint(path: str, device=None) -> Dict[str, Any]:
+    """Read a :func:`save_checkpoint` file (of either package) onto
+    ``device`` (default: the card)."""
+    device = resolve_device(device)
+    tree: Dict[str, Any] = {}
+    pending: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    def place(name: str, leaf) -> None:
+        parts = name.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+
+    with np.load(path) as data:
+        for name in data.files:
+            arr = data[name]
+            if name.endswith("#bf16"):
+                name = name[: -len("#bf16")]
+                t = torch.from_numpy(arr).to(device, torch.bfloat16)
+            else:
+                t = torch.from_numpy(arr).to(device)
+            base, _, qs = name.partition("::")
+            if qs:
+                pending.setdefault(base, {})[qs] = t
+            else:
+                place(name, t)
+    for base, qs in pending.items():
+        place(base, QuantW(q=qs["q"], s=qs["s"]))
+    return tree
 
 
 def _to_tensor(arr, device: torch.device) -> torch.Tensor:
@@ -61,13 +404,18 @@ def params_from_numpy(
     """Convert a parameter tree of numpy arrays (the JAX package's
     ``init_params`` layout, leaves passed through ``np.asarray``) into the
     port's tree of tensors on ``device`` (default: the card): same keys,
-    same stacked shapes, same dtypes."""
+    same stacked shapes, same dtypes. A JAX ``QuantW`` leaf (any node with
+    ``q`` and ``s`` arrays) becomes the port's ``QuantW``."""
     check_supported(cfg)
     device = resolve_device(device)
 
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        if hasattr(node, "q") and hasattr(node, "s"):
+            return QuantW(
+                q=_to_tensor(node.q, device), s=_to_tensor(node.s, device)
+            )
         return _to_tensor(node, device)
 
     return walk(tree)

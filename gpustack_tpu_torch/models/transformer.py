@@ -14,7 +14,9 @@ follow the JAX module so its tests compare like with like:
   itself on the card);
 - GQA without repeated KV: queries reshape to ``[B, T, H_kv, G, hd]`` and
   contract against the unexpanded cache;
-- bf16 matmuls, fp32 softmax and norm accumulation.
+- bf16 matmuls, fp32 softmax and norm accumulation; every weight product
+  goes through :func:`_mm`, so int8 ``QuantW`` weights (``models/quant.py``)
+  run through the W8A16 kernel on the card.
 
 Prefill attention on the card is the hand-written flash kernel
 (``ops/flash_attention.py``); decode attention stays plain torch ops over
@@ -34,6 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from gpustack_tpu_torch.models.config import ModelConfig
+from gpustack_tpu_torch.models.quant import QuantW
 
 Params = Dict[str, Any]
 
@@ -69,6 +72,33 @@ def check_supported(cfg: ModelConfig) -> None:
             "'Modules to port': the other families — Qwen3, Gemma, MoE, "
             "MLA, GPT-OSS)"
         )
+
+
+def _mm(x: torch.Tensor, w) -> torch.Tensor:
+    """Weight product ``x @ w`` over x's last axis, for plain and int8
+    ``QuantW`` weights (the JAX ``_mm``). A ``QuantW`` goes through
+    ``ops.w8a16_matmul``: the Hopper kernel on the card, never a
+    dequantized copy; on the CPU its plain version, the JAX semantics (x
+    against q in x's dtype, then the per-output-channel scale). A plain
+    weight of another float dtype (a bf16 checkpoint under an fp32 config)
+    is promoted as ``jnp.einsum`` promotes."""
+    if isinstance(w, QuantW):
+        from gpustack_tpu_torch.ops.w8a16 import w8a16_matmul
+
+        return w8a16_matmul(x, w.q, w.s)
+    if w.dtype != x.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt)
+    return x @ w
+
+
+def _embed_lookup(embed, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """Embedding rows for ``tokens`` in ``dtype``; an int8 ``QuantW``
+    table is gathered, widened and scaled per row (a gather, as in JAX)."""
+    if isinstance(embed, QuantW):
+        x = embed.q[tokens].to(dtype)
+        return x * embed.s[tokens].to(dtype)[..., None]
+    return embed[tokens].to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -346,7 +376,7 @@ def forward(
     B, T = tokens.shape
     dtype = torch_dtype(cfg)
     device = tokens.device
-    x = params["embed"][tokens].to(dtype)
+    x = _embed_lookup(params["embed"], tokens, dtype)
     inv, att_factor = rope_params(cfg)
     sin, cos = rope_sin_cos(positions, inv)
     if att_factor != 1.0:
@@ -377,9 +407,9 @@ def forward(
     lp = params["layers"]
     for li in range(cfg.num_layers):
         h = rms_norm(x, lp["attn_norm"][li], cfg.rms_norm_eps)
-        q = h @ lp["wq"][li]
-        k = h @ lp["wk"][li]
-        v = h @ lp["wv"][li]
+        q = _mm(h, lp["wq"][li])
+        k = _mm(h, lp["wk"][li])
+        v = _mm(h, lp["wv"][li])
         if cfg.qkv_bias:
             q, k, v = q + lp["bq"][li], k + lp["bk"][li], v + lp["bv"][li]
         q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
@@ -408,11 +438,11 @@ def forward(
                 )
             else:
                 attn = _attend(qg, k_l, v_l, mask, scale)
-        x = x + attn @ lp["wo"][li]
+        x = x + _mm(attn, lp["wo"][li])
         h2 = rms_norm(x, lp["mlp_norm"][li], cfg.rms_norm_eps)
-        g = h2 @ lp["w_gate"][li]
-        u = h2 @ lp["w_up"][li]
-        x = x + (torch.nn.functional.silu(g) * u) @ lp["w_down"][li]
+        g = _mm(h2, lp["w_gate"][li])
+        u = _mm(h2, lp["w_up"][li])
+        x = x + _mm(torch.nn.functional.silu(g) * u, lp["w_down"][li])
 
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if return_hidden:
@@ -424,5 +454,5 @@ def lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Final-normed hidden states (compute dtype) → fp32 logits."""
     x = x.to(torch_dtype(cfg))
     if cfg.tie_word_embeddings:
-        return (x @ params["embed"].T).float()
-    return (x @ params["lm_head"]).float()
+        return _mm(x, params["embed"].T).float()
+    return _mm(x, params["lm_head"]).float()

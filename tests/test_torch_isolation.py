@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module of the package, and not the
-chip smoke script, imports JAX, the JAX package or ``ml_dtypes`` (the
-card's machine has none of them); the default device is
+chip smoke script, imports JAX, the JAX package, ``ml_dtypes`` or
+``safetensors`` (the card's machine has none of them); the default device is
 the card and is never swapped for the CPU silently; the smoke script
 fails without a card or outside a checkout."""
 
@@ -16,7 +16,11 @@ from gpustack_tpu_torch.device import resolve_device  # analysis: ignore[metrics
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "gpustack_tpu_torch")  # analysis: ignore[metrics-drift]
-FORBIDDEN = ("jax", "jaxlib", "gpustack_tpu", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "gpustack_tpu", "ml_dtypes", "safetensors")
+# modules the checkpoint slice added: they must be in the scan
+CHECKPOINT_MODULES = (
+    "models/quant.py", "ops/w8a16.py", "engine/gguf.py", "engine/weights.py",
+)
 
 
 def _port_files():
@@ -47,6 +51,16 @@ def test_port_imports_nothing_of_jax():
         if root in FORBIDDEN
     ]
     assert not offenders
+
+
+def test_scan_covers_the_checkpoint_modules():
+    files = {os.path.relpath(p, PACKAGE) for p in _port_files()}
+    assert set(CHECKPOINT_MODULES) <= files
+    assert os.path.exists(os.path.join(PACKAGE, "ops", "csrc", "w8a16_gemm.cu"))
+    for rel in CHECKPOINT_MODULES:
+        assert not set(_imported_roots(os.path.join(PACKAGE, rel))) & set(
+            FORBIDDEN
+        ), rel
 
 
 def test_default_device_is_the_card_or_an_error():

@@ -104,3 +104,92 @@ def test_flash_kernel_refuses_what_it_cannot_run(bad):
         k = k.cpu()
     with pytest.raises((TypeError, ValueError)):
         fa.flash_attention_prefill(q, k, k, 0.125)
+
+
+# ---------------------------------------------------------------------------
+# W8A16: int8 weights, bf16 activations
+# ---------------------------------------------------------------------------
+
+W8A16_ATOL = W8A16_RTOL = 2e-2
+W8A16_ROW_RTOL = 1e-2
+
+
+def _w8a16_inputs(M, K, N, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+    q = torch.randint(
+        -127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8
+    )
+    s = (torch.rand(N, generator=gen, device="cuda") * 3e-3 + 1e-4).bfloat16()
+    return x, q, s
+
+
+def _assert_w8a16_close(out, x, q, s):
+    from gpustack_tpu_torch.ops import w8a16  # analysis: ignore[metrics-drift]
+
+    ref = w8a16.w8a16_plain(x.float(), q, s)
+    err = (out.float() - ref).abs()
+    assert torch.isfinite(out.float()).all()
+    assert (err <= W8A16_ATOL + W8A16_RTOL * ref.abs()).all(), err.max()
+    row = err.norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)
+    assert row.max().item() <= W8A16_ROW_RTOL, row.max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [
+    (8, 4096, 4096), (8, 4096, 1024), (8, 4096, 14336),   # decode: wq/wo,
+    (8, 14336, 4096), (8, 4096, 128256),                  # wk/wv, gate/up,
+    (1, 4096, 128256),                                    # down, lm_head
+    (2048, 4096, 14336), (2048, 14336, 4096),             # prefill
+    (512, 4096, 14336),                                   # a chunk
+    (1, 4096, 4096), (3, 4096, 1024), (17, 4096, 1024),   # ragged M
+    (100, 4096, 4096), (16, 4096, 4096),
+    (8, 4104, 4112), (100, 4104, 4112), (5, 24, 16),      # ragged K and N
+])
+def test_w8a16_kernel_matches_plain(M, K, N):
+    """bf16 kernel output against the fp32 plain version of the same int8
+    and bf16 inputs: |err| <= 2e-2 + 2e-2 |ref| (bf16 output rounding
+    and the fp32 summation order), each row within 1e-2 of its norm."""
+    _need_card()
+    from gpustack_tpu_torch.ops import w8a16  # analysis: ignore[metrics-drift]
+
+    x, q, s = _w8a16_inputs(M, K, N, M + K + N)
+    before = w8a16.w8a16_matmul.launches
+    out = w8a16.w8a16_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert w8a16.w8a16_matmul.launches == before + 1
+    assert out.shape == (M, N) and out.dtype == torch.bfloat16
+    _assert_w8a16_close(out, x, q, s)
+
+
+@pytest.mark.gpu
+def test_w8a16_kernel_reads_a_layer_view_and_3d_x():
+    """The forward's shapes: x [B, T, K] and q one layer of [L, K, N]."""
+    _need_card()
+    from gpustack_tpu_torch.ops import w8a16  # analysis: ignore[metrics-drift]
+
+    x, q, s = _w8a16_inputs(6, 512, 256 * 3, 5)
+    stack = torch.stack([torch.zeros_like(q), q])
+    out = w8a16.w8a16_matmul(x.reshape(2, 3, 512), stack[1], s)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 3, 768)
+    _assert_w8a16_close(out.reshape(6, 768), x, q, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["k_odd", "n_odd", "x_fp32", "q_cpu"])
+def test_w8a16_kernel_refuses_what_it_cannot_run(bad):
+    _need_card()
+    from gpustack_tpu_torch.ops import w8a16  # analysis: ignore[metrics-drift]
+
+    x, q, s = _w8a16_inputs(4, 64, 64, 0)
+    if bad == "k_odd":
+        x, q = x[:, :60].contiguous(), q[:60]
+    elif bad == "n_odd":
+        q, s = q[:, :40].contiguous(), s[:40].contiguous()
+    elif bad == "x_fp32":
+        x = x.float()
+    else:
+        q = q.cpu()
+    with pytest.raises((ValueError, TypeError)):
+        w8a16.w8a16_matmul(x, q, s)
