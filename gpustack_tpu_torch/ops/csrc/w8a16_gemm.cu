@@ -17,49 +17,65 @@
 //
 // Two paths, chosen by M:
 //   - M <= 16 (decode; the prefill's last position through lm_head): a
-//     split-N / split-K GEMV, bound by the bytes of q (58.7 MB for w_gate at
-//     llama3-8b: ~17.5 us at 3.35 TB/s). 256 threads per CTA, 16 along N
-//     and 16 along K; each thread streams 16 columns of q with one 16-byte
-//     load per k row (four rows in flight), widens the bytes with a
-//     byte-permute into fp32 (2^23 + v trick: one PRMT and one FADD per
-//     value) and keeps MT <= 8 rows of fp32 sums, so a thread holds at most
-//     128 accumulators (M in 9..16 takes two row groups). The CTA's slice
-//     of x sits in shared memory as fp32; the 16 k-threads' sums reduce
-//     through shared memory. K is split over CTAs until the card has about
-//     two CTAs per SM; the partial sums go to an fp32 workspace and a second
-//     small kernel adds them, scales and rounds.
+//     split-N / split-K GEMV on the tensor cores, bound by the bytes of q
+//     (58.7 MB for w_gate at llama3-8b: ~17.5 us at 3.35 TB/s). At M = 8 the
+//     same product on the fp32 FMA units would take ~14 us of issue alone
+//     (470 M FMAs at ~33.5 T/s), so the weights go through mma.sync
+//     m16n8k16 with q as the A operand (16 output columns) and x as B (8
+//     tokens; two B tiles for M in 9..16). A CTA is 8 warps on one slice of
+//     128 columns; warp w takes the 16-row k steps w, w + 8, ... Each lane
+//     loads 16 columns (one 16-byte load) of four k rows, so the warp's 32
+//     lanes read four full 128-byte lines per row group. The order of k
+//     inside a step is free as long as A and B agree, so lane (g, t) gives
+//     its rows 4t..4t+3 the mma's k slots 2t, 2t+1, 2t+8, 2t+9; its B
+//     fragment is then the four bf16 x values at those k, one 8-byte load
+//     (x is read straight from global memory: no CTA reads it twice). The
+//     int8 bytes become bf16 pairs in registers (2^23 + v trick, one
+//     byte-permute, one add and half a byte-permute each). The 8 warps'
+//     sums reduce through shared memory. When the grid alone does not fill
+//     the card, K is split over up to 8 CTAs of one thread-block cluster,
+//     which add each other's sums through distributed shared memory: no
+//     fp32 workspace and no second kernel.
 //   - M > 16 (prefill, chunks): a tiled mma.sync m16n8k16 bf16 kernel,
 //     128 x 128 x 32 tiles, 8 warps of 64 x 32, fed by a 3-stage cp.async
 //     ring (x tile as bf16, q tile as int8: 4 KB instead of 8). The int8
 //     B fragments are widened to bf16 between shared memory and the
 //     registers. Bound by operations at prefill sizes (w_gate, M = 2048:
 //     240.5 GFLOP, ~0.243 ms at 989 TFLOP/s).
-// Not done yet: wgmma and TMA for the large-M path, and a tuned decode GEMV
-// (fewer registers, no split-K second pass).
+// Not done yet: wgmma and TMA for the large-M path.
 //
 // Requirements the wrapper checks: K % 8 == 0, N % 16 == 0, x rows and q
 // rows 16-byte aligned, out rows 4-byte aligned. Ragged M, N and K tiles
 // are masked (zero-filled loads, guarded stores).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 // ---------------------------------------------------------------------------
 // Small M: the GEMV
 // ---------------------------------------------------------------------------
 
-constexpr int GV_THREADS = 256;
-constexpr int GV_TX = 16;                        // threads along N
-constexpr int GV_TK = GV_THREADS / GV_TX;        // threads along K
-constexpr int GV_VEC = 16;                       // columns per thread
-constexpr int GV_BN = GV_TX * GV_VEC;            // 256 columns per CTA
-constexpr int GV_KC_MAX = 1024;                  // k rows per CTA at most
-constexpr int GV_UNROLL = 4;                     // q loads in flight
-
-static_assert(GV_BN == GV_THREADS, "one output column per thread");
+constexpr int GV_WARPS = 8;
+constexpr int GV_THREADS = 32 * GV_WARPS;
+constexpr int GV_BN = 128;                       // columns per CTA
+constexpr int GV_KSTEP = 16;                     // k rows per mma
+constexpr int GV_MAX_KSPLIT = 8;                 // portable cluster size
+constexpr int GV_SUMS = 32 * 32;                 // one B tile's sums per warp
 
 __device__ __forceinline__ float widen_byte(uint32_t biased, int i) {
   // biased holds four int8 values with the sign bit flipped (v + 128);
@@ -68,111 +84,142 @@ __device__ __forceinline__ float widen_byte(uint32_t biased, int i) {
   return __uint_as_float(bits) - 8388736.0f;     // 2^23 + 128
 }
 
-template <int MT>
-__device__ __forceinline__ void gemv_fma(
-    float (&acc)[MT][GV_VEC], const uint4 w, const float* xk) {
-  const uint32_t words[4] = {
-      w.x ^ 0x80808080u, w.y ^ 0x80808080u, w.z ^ 0x80808080u,
-      w.w ^ 0x80808080u};
-  float xv[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) xv[m] = xk[m * GV_KC_MAX];
-#pragma unroll
-  for (int c = 0; c < GV_VEC; ++c) {
-    const float wf = widen_byte(words[c / 4], c % 4);
-#pragma unroll
-    for (int m = 0; m < MT; ++m) acc[m][c] = fmaf(xv[m], wf, acc[m][c]);
-  }
+// bf16 pair {byte i of lo, byte i of hi}: v is an integer of at most 8
+// significant bits, so its fp32 value's upper half is its bf16, exactly
+__device__ __forceinline__ uint32_t bf16_pair(uint32_t lo, uint32_t hi,
+                                              int i) {
+  return __byte_perm(__float_as_uint(widen_byte(lo, i)),
+                     __float_as_uint(widen_byte(hi, i)), 0x7632u);
 }
 
-template <int MT>
-__global__ void __launch_bounds__(GV_THREADS, 1) w8a16_gemv(
+// NT B tiles of 8 tokens; loads for U k steps in flight per warp
+template <int NT>
+__global__ void __launch_bounds__(GV_THREADS, 2) w8a16_gemv(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
     const __nv_bfloat16* __restrict__ s, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ part, int M, int N, int K, long long ldx,
-    long long ldq, long long ldo, int kchunk) {
-  constexpr int SMEM_FLOATS =
-      MT * GV_KC_MAX > GV_TK * GV_BN ? MT * GV_KC_MAX : GV_TK * GV_BN;
-  __shared__ __align__(16) float xs[SMEM_FLOATS];
+    int M, int N, int K, long long ldx, long long ldq, long long ldo,
+    int kchunk) {
+  constexpr int U = NT == 1 ? 2 : 1;
+  __shared__ __align__(16) float red[GV_WARPS * GV_SUMS];
 
-  const int tx = threadIdx.x % GV_TX;
-  const int tk = threadIdx.x / GV_TX;
-  const int n0 = blockIdx.x * GV_BN + tx * GV_VEC;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n = blockIdx.x * GV_BN + 16 * g;     // this lane's 16 columns
+  const bool n_ok = n < N;
   const int k_begin = blockIdx.y * kchunk;
-  const int klen = min(K, k_begin + kchunk) - k_begin;
-  const int m0 = blockIdx.z * MT;
-  const int mrows = min(MT, M - m0);
+  const int k_end = min(K, k_begin + kchunk);
+  const int steps = (k_end - k_begin + GV_KSTEP - 1) / GV_KSTEP;
 
-  // this CTA's rows of x, [MT][klen] as fp32 (rows past M are zero)
-  for (int i = threadIdx.x; i < MT * klen; i += GV_THREADS) {
-    const int m = i / klen, k = i - m * klen;
-    xs[m * GV_KC_MAX + k] =
-        m < mrows ? __bfloat162float(x[(m0 + m) * ldx + k_begin + k]) : 0.f;
-  }
-  __syncthreads();
+  float acc[NT][8][4];
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  float acc[MT][GV_VEC];
+  for (int st = warp; st < steps; st += GV_WARPS * U) {
+    uint4 w[U][4];
+    uint2 b[U][NT];
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+    for (int u = 0; u < U; ++u) {
+      // rows k..k+3 lie all inside [k_begin, k_end) or all outside it:
+      // k_end is a multiple of 8
+      const int k = k_begin + (st + u * GV_WARPS) * GV_KSTEP + 4 * t;
+      const bool k_ok = k < k_end;
 #pragma unroll
-    for (int c = 0; c < GV_VEC; ++c) acc[m][c] = 0.f;
-
-  if (n0 < N) {
-    const int8_t* qp = q + (long long)k_begin * ldq + n0;
-    int k = tk;
-    for (; k + (GV_UNROLL - 1) * GV_TK < klen; k += GV_UNROLL * GV_TK) {
-      uint4 w[GV_UNROLL];
+      for (int r = 0; r < 4; ++r)
+        w[u][r] = k_ok && n_ok
+                      ? __ldg(reinterpret_cast<const uint4*>(
+                            q + (long long)(k + r) * ldq + n))
+                      : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-      for (int u = 0; u < GV_UNROLL; ++u)
-        w[u] = __ldg(reinterpret_cast<const uint4*>(
-            qp + (long long)(k + u * GV_TK) * ldq));
-#pragma unroll
-      for (int u = 0; u < GV_UNROLL; ++u)
-        gemv_fma<MT>(acc, w[u], xs + k + u * GV_TK);
+      for (int i = 0; i < NT; ++i) {
+        const int m = g + 8 * i;
+        b[u][i] = k_ok && m < M
+                      ? __ldg(reinterpret_cast<const uint2*>(
+                            x + (long long)m * ldx + k))
+                      : make_uint2(0u, 0u);
+      }
     }
-    for (; k < klen; k += GV_TK) {
-      const uint4 w =
-          __ldg(reinterpret_cast<const uint4*>(qp + (long long)k * ldq));
-      gemv_fma<MT>(acc, w, xs + k);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (st + u * GV_WARPS >= steps) break;     // the same in every lane
+      uint32_t r0[4], r1[4], r2[4], r3[4];
+      const uint32_t bias = 0x80808080u;
+      r0[0] = w[u][0].x ^ bias; r0[1] = w[u][0].y ^ bias;
+      r0[2] = w[u][0].z ^ bias; r0[3] = w[u][0].w ^ bias;
+      r1[0] = w[u][1].x ^ bias; r1[1] = w[u][1].y ^ bias;
+      r1[2] = w[u][1].z ^ bias; r1[3] = w[u][1].w ^ bias;
+      r2[0] = w[u][2].x ^ bias; r2[1] = w[u][2].y ^ bias;
+      r2[2] = w[u][2].z ^ bias; r2[3] = w[u][2].w ^ bias;
+      r3[0] = w[u][3].x ^ bias; r3[1] = w[u][3].y ^ bias;
+      r3[2] = w[u][3].z ^ bias; r3[3] = w[u][3].w ^ bias;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        // mma rows g and g + 8 are columns n + 2j and n + 2j + 1
+        const int wd = j / 2, by = 2 * (j % 2);
+        uint32_t a[4];
+        a[0] = bf16_pair(r0[wd], r1[wd], by);
+        a[1] = bf16_pair(r0[wd], r1[wd], by + 1);
+        a[2] = bf16_pair(r2[wd], r3[wd], by);
+        a[3] = bf16_pair(r2[wd], r3[wd], by + 1);
+#pragma unroll
+        for (int i = 0; i < NT; ++i)
+          mma_bf16(acc[i][j], a, b[u][i].x, b[u][i].y);
+      }
     }
   }
-  __syncthreads();          // x is no longer read: reuse xs for the sums
 
-  const int col = blockIdx.x * GV_BN + threadIdx.x;
+  // acc[i][j][c]: token 2t + (c & 1) + 8i, column n + 2j + (c >> 1)
   const bool split = gridDim.y > 1;
-  const float sc = (!split && col < N) ? __bfloat162float(s[col]) : 0.f;
+  const int ksplit = gridDim.y;
+  const int rank = blockIdx.y;                   // the cluster spans grid.y
 #pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    float4* dst = reinterpret_cast<float4*>(xs + tk * GV_BN + tx * GV_VEC);
+  for (int i = 0; i < NT; ++i) {
 #pragma unroll
-    for (int c = 0; c < GV_VEC / 4; ++c)
-      dst[c] = make_float4(acc[m][4 * c], acc[m][4 * c + 1],
-                           acc[m][4 * c + 2], acc[m][4 * c + 3]);
+    for (int e = 0; e < 32; ++e)
+      red[warp * GV_SUMS + e * 32 + lane] = acc[i][e / 4][e % 4];
     __syncthreads();
-    if (m < mrows && col < N) {
+    // this CTA's sum over its warps, into warp 0's slots (each slot is read
+    // and written by one thread only)
+#pragma unroll
+    for (int p = 0; p < GV_SUMS / GV_THREADS; ++p) {
+      const int idx = threadIdx.x + p * GV_THREADS;
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < GV_TK; ++j) sum += xs[j * GV_BN + threadIdx.x];
-      if (split)
-        part[((long long)blockIdx.y * M + m0 + m) * N + col] = sum;
-      else
-        out[(m0 + m) * ldo + col] = __float2bfloat16(sum * sc);
+      for (int v = 0; v < GV_WARPS; ++v) sum += red[v * GV_SUMS + idx];
+      red[idx] = sum;
     }
-    __syncthreads();
+    if (split)
+      cg::this_cluster().sync();
+    else
+      __syncthreads();
+    // each CTA of the cluster adds up its share of the slots over the
+    // cluster (slot e * 32 + lane: j = e / 4, c = e % 4, g = lane / 4,
+    // t = lane % 4)
+    const int per = (GV_SUMS + ksplit - 1) / ksplit;
+    const int last = min(GV_SUMS, (rank + 1) * per);
+    for (int idx = rank * per + threadIdx.x; idx < last; idx += GV_THREADS) {
+      const int e = idx / 32, ln = idx % 32;
+      const int m = 2 * (ln % 4) + (e & 1) + 8 * i;
+      const int col = blockIdx.x * GV_BN + 16 * (ln / 4) + 2 * (e / 4) +
+                      ((e % 4) >> 1);
+      if (m >= M || col >= N) continue;
+      float sum = red[idx];
+      if (split) {
+        sum = 0.f;
+        for (int r = 0; r < ksplit; ++r)
+          sum += cg::this_cluster().map_shared_rank(red, r)[idx];
+      }
+      out[m * ldo + col] = __float2bfloat16(sum * __bfloat162float(s[col]));
+    }
+    // no CTA reuses or frees its slots while another may still read them
+    if (split)
+      cg::this_cluster().sync();
+    else
+      __syncthreads();
   }
-}
-
-// out = bf16(sum over the K splits of part * s)
-__global__ void w8a16_splitk_sum(
-    const float* __restrict__ part, const __nv_bfloat16* __restrict__ s,
-    __nv_bfloat16* __restrict__ out, int M, int N, int ksplit,
-    long long ldo) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)M * N) return;
-  const int m = int(i / N), n = int(i - (long long)m * N);
-  float sum = 0.f;
-  for (int j = 0; j < ksplit; ++j) sum += part[(long long)j * M * N + i];
-  out[m * ldo + n] = __float2bfloat16(sum * __bfloat162float(s[n]));
 }
 
 // ---------------------------------------------------------------------------
@@ -218,15 +265,6 @@ __device__ __forceinline__ uint32_t pack_bf16(int8_t lo, int8_t hi) {
   const __nv_bfloat162 v =
       __floats2bfloat162_rn(static_cast<float>(lo), static_cast<float>(hi));
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __global__ void __launch_bounds__(MM_THREADS) w8a16_mma(
@@ -335,16 +373,26 @@ __global__ void __launch_bounds__(MM_THREADS) w8a16_mma(
   }
 }
 
-template <int MT>
+template <int NT>
 cudaError_t launch_gemv(const __nv_bfloat16* x, const int8_t* q,
-                        const __nv_bfloat16* s, __nv_bfloat16* out,
-                        float* part, int M, int N, int K, long long ldx,
-                        long long ldq, long long ldo, int kchunk,
-                        int ksplit, cudaStream_t st) {
-  const dim3 grid((N + GV_BN - 1) / GV_BN, ksplit, (M + MT - 1) / MT);
-  w8a16_gemv<MT><<<grid, GV_THREADS, 0, st>>>(x, q, s, out, part, M, N, K,
-                                              ldx, ldq, ldo, kchunk);
-  return cudaGetLastError();
+                        const __nv_bfloat16* s, __nv_bfloat16* out, int M,
+                        int N, int K, long long ldx, long long ldq,
+                        long long ldo, int kchunk, int ksplit,
+                        cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + GV_BN - 1) / GV_BN, ksplit, 1);
+  cfg.blockDim = dim3(GV_THREADS, 1, 1);
+  cfg.stream = st;
+  // the CTAs that split one column slice's K form one cluster
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = ksplit;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, w8a16_gemv<NT>, x, q, s, out, M, N, K,
+                            ldx, ldq, ldo, kchunk);
 }
 
 }  // namespace
@@ -352,17 +400,27 @@ cudaError_t launch_gemv(const __nv_bfloat16* x, const int8_t* q,
 // Largest M the GEMV path takes; above it, the mma.sync path.
 extern "C" int w8a16_gemv_max_m() { return 16; }
 
-// Largest K slice one GEMV CTA stages (the wrapper's kchunk bound).
-extern "C" int w8a16_gemv_kchunk_max() { return GV_KC_MAX; }
+// Most CTAs one GEMV column slice's K may be split over (one cluster).
+extern "C" int w8a16_gemv_max_ksplit() { return GV_MAX_KSPLIT; }
 
-// Returns 0 or a cudaError_t. For M <= 16, ``kchunk`` (a multiple of 16,
-// at most 1024) is the K slice of one CTA; when it is below K, ``part``
-// is an fp32 workspace of ceil(K / kchunk) * M * N floats. For M > 16,
-// ``kchunk`` and ``part`` are not read.
+// GEMV CTAs one SM holds at once for this M (0 if the query fails).
+extern "C" int w8a16_gemv_ctas_per_sm(int M) {
+  int n = 0;
+  const cudaError_t err =
+      M <= 8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &n, w8a16_gemv<1>, GV_THREADS, 0)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &n, w8a16_gemv<2>, GV_THREADS, 0);
+  return err == cudaSuccess ? n : 0;
+}
+
+// Returns 0 or a cudaError_t. For M <= 16, ``kchunk`` (a multiple of 16)
+// is the K slice of one CTA, and ceil(K / kchunk) may be at most
+// w8a16_gemv_max_ksplit(). For M > 16, ``kchunk`` is not read.
 extern "C" int w8a16_gemm_bf16(const void* x, const void* q, const void* s,
-                               void* out, void* part, int M, int N, int K,
-                               long long ldx, long long ldq, long long ldo,
-                               int kchunk, void* stream) {
+                               void* out, int M, int N, int K, long long ldx,
+                               long long ldq, long long ldo, int kchunk,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0) return int(cudaSuccess);
   if (K % 8 || N % 16 || K <= 0) return int(cudaErrorInvalidValue);
@@ -376,28 +434,11 @@ extern "C" int w8a16_gemm_bf16(const void* x, const void* q, const void* s,
                                            ldq, ldo);
     return int(cudaGetLastError());
   }
-  if (kchunk <= 0 || kchunk % GV_TK || kchunk > GV_KC_MAX)
-    return int(cudaErrorInvalidValue);
+  if (kchunk <= 0 || kchunk % GV_KSTEP) return int(cudaErrorInvalidValue);
   const int ksplit = (K + kchunk - 1) / kchunk;
-  float* pf = static_cast<float*>(part);
-  if (ksplit > 1 && pf == nullptr) return int(cudaErrorInvalidValue);
-  cudaError_t err;
-  if (M == 1)
-    err = launch_gemv<1>(xb, qb, sb, ob, pf, M, N, K, ldx, ldq, ldo, kchunk,
-                         ksplit, st);
-  else if (M == 2)
-    err = launch_gemv<2>(xb, qb, sb, ob, pf, M, N, K, ldx, ldq, ldo, kchunk,
-                         ksplit, st);
-  else if (M <= 4)
-    err = launch_gemv<4>(xb, qb, sb, ob, pf, M, N, K, ldx, ldq, ldo, kchunk,
-                         ksplit, st);
-  else
-    err = launch_gemv<8>(xb, qb, sb, ob, pf, M, N, K, ldx, ldq, ldo, kchunk,
-                         ksplit, st);
-  if (err != cudaSuccess || ksplit == 1) return int(err);
-  const long long total = (long long)M * N;
-  const int threads = 256;
-  w8a16_splitk_sum<<<unsigned((total + threads - 1) / threads), threads, 0,
-                     st>>>(pf, sb, ob, M, N, ksplit, ldo);
-  return int(cudaGetLastError());
+  if (ksplit > GV_MAX_KSPLIT) return int(cudaErrorInvalidValue);
+  return int(M <= 8 ? launch_gemv<1>(xb, qb, sb, ob, M, N, K, ldx, ldq, ldo,
+                                     kchunk, ksplit, st)
+                    : launch_gemv<2>(xb, qb, sb, ob, M, N, K, ldx, ldq, ldo,
+                                     kchunk, ksplit, st));
 }

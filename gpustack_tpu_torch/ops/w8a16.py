@@ -25,29 +25,36 @@ import ctypes
 import torch
 
 GEMV_MAX_M = 16            # csrc: w8a16_gemv_max_m()
-GEMV_BN = 256              # columns per GEMV CTA
-GEMV_TK = 16               # k rows a GEMV CTA reads at once
-GEMV_KCHUNK_MAX = 1024     # csrc: w8a16_gemv_kchunk_max()
+GEMV_BN = 128              # columns per GEMV CTA
+GEMV_KSTEP = 16            # k rows per mma step
+GEMV_WARPS = 8             # warps per GEMV CTA, each on its own k steps
+GEMV_MAX_KSPLIT = 8        # csrc: w8a16_gemv_max_ksplit() (one cluster)
 
 _lib = None
 
 
+def _kernel_lib():
+    """The compiled library (built on first call); besides the product it
+    reports the GEMV's CTAs per SM (``w8a16_gemv_ctas_per_sm(M)``)."""
+    from gpustack_tpu_torch.ops._build import load
+
+    return load("w8a16_gemm")
+
+
 def _kernel():
-    """The compiled library's entry point (built on first call)."""
+    """The compiled library's entry point, its ABI checked once."""
     global _lib
     if _lib is None:
-        from gpustack_tpu_torch.ops._build import load
-
-        lib = load("w8a16_gemm")
+        lib = _kernel_lib()
         if (
             lib.w8a16_gemv_max_m() != GEMV_MAX_M
-            or lib.w8a16_gemv_kchunk_max() != GEMV_KCHUNK_MAX
+            or lib.w8a16_gemv_max_ksplit() != GEMV_MAX_KSPLIT
         ):
             raise RuntimeError("w8a16_gemm.cu and ops/w8a16.py disagree")
         fn = lib.w8a16_gemm_bf16
         fn.restype = ctypes.c_int
         fn.argtypes = (
-            [ctypes.c_void_p] * 5
+            [ctypes.c_void_p] * 4
             + [ctypes.c_int] * 3
             + [ctypes.c_longlong] * 3
             + [ctypes.c_int, ctypes.c_void_p]
@@ -67,16 +74,18 @@ def w8a16_plain(
     return (out * s.float()).to(x.dtype)
 
 
-def gemv_plan(M: int, N: int, K: int, sms: int) -> tuple:
-    """(kchunk, ksplit) for the small-M path: split K over CTAs until the
-    card has about two CTAs per SM, with at least 256 k rows per CTA and at
-    most ``GEMV_KCHUNK_MAX`` (the x slice a CTA stages)."""
+def gemv_plan(N: int, K: int, sms: int) -> tuple:
+    """(kchunk, ksplit) for the small-M path: K is split over ``ksplit``
+    CTAs (one cluster, at most ``GEMV_MAX_KSPLIT``, each warp with at least
+    one 16-row step) only until the grid has a CTA for every SM. A CTA's
+    sums and its cluster's reduction cost the same however few rows it
+    reads, so on the card fewer and longer CTAs stream closer to the
+    memory rate than a grid cut finer to fill whole waves."""
     nb = -(-N // GEMV_BN)
-    ksplit = max(
-        -(-K // GEMV_KCHUNK_MAX), min(-(-2 * sms // nb), -(-K // 256))
-    )
-    rows = -(-K // ksplit)
-    kchunk = -(-rows // GEMV_TK) * GEMV_TK
+    steps = -(-K // GEMV_KSTEP)
+    cap = max(1, min(GEMV_MAX_KSPLIT, steps // GEMV_WARPS))
+    ksplit = min(cap, -(-sms // nb))
+    kchunk = -(-steps // ksplit) * GEMV_KSTEP
     return kchunk, -(-K // kchunk)
 
 
@@ -140,16 +149,11 @@ def w8a16_matmul(
     _check_cuda_inputs(x2, q, s)
     M, N = x2.shape[0], q.shape[1]
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    part, kchunk = None, 0
+    kchunk = 0
     if M <= GEMV_MAX_M:
-        kchunk, ksplit = gemv_plan(M, N, K, _sm_count(x.device.index))
-        if ksplit > 1:
-            part = torch.empty(
-                (ksplit, M, N), dtype=torch.float32, device=x.device
-            )
+        kchunk, _ = gemv_plan(N, K, _sm_count(x.device.index))
     err = _kernel()(
         x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-        part.data_ptr() if part is not None else None,
         M, N, K, x2.stride(0), q.stride(0), N, kchunk,
         torch._C._cuda_getCurrentRawStream(x.device.index),
     )

@@ -19,8 +19,8 @@ from gpustack_tpu_torch.ops import w8a16
 
 gen = torch.Generator(device="cuda").manual_seed(0)
 caught = []
-# decode (split-K GEMV), the prefill's lm_head row, a GEMV that needs no
-# split (one pass writes bf16), prefill (mma.sync) and ragged K and N
+# decode (GEMV, K split over a cluster), the prefill's lm_head row and a
+# GEMV whose K is not split, prefill (mma.sync) and ragged K and N
 for M, K, N in [(8, 4096, 14336), (1, 4096, 128256), (8, 1024, 128256),
                 (2048, 4096, 14336), (100, 4104, 4112)]:
     x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
@@ -44,9 +44,12 @@ cp "$src" orig.cu
 python3 - <<'PY'
 src = open("orig.cu").read()
 mutants = {
-    "gemv_drops_scale": ("__float2bfloat16(sum * sc)", "__float2bfloat16(sum)"),
-    "splitk_drops_last_slice": ("for (int j = 0; j < ksplit; ++j) sum +=",
-                                "for (int j = 0; j + 1 < ksplit; ++j) sum +="),
+    "gemv_drops_scale": ("__float2bfloat16(sum * __bfloat162float(s[col]))",
+                         "__float2bfloat16(sum)"),
+    "cluster_drops_last_rank": ("for (int r = 0; r < ksplit; ++r)",
+                                "for (int r = 0; r + 1 < ksplit; ++r)"),
+    "gemv_skips_last_k_step": ("const bool k_ok = k < k_end;",
+                               "const bool k_ok = k + GV_KSTEP < k_end;"),
     "mma_skips_last_k_tile": ("for (int kt = 0; kt < ktiles; ++kt) {",
                               "for (int kt = 0; kt < ktiles - 1; ++kt) {"),
     "mma_drops_scale": ("acc[i][j][2 * h] * s0", "acc[i][j][2 * h]"),
@@ -58,8 +61,8 @@ PY
 status=0
 echo "== unbroken"
 python3 check.py || { echo "RESULT unbroken: FAILS the check"; status=1; }
-for m in gemv_drops_scale splitk_drops_last_slice mma_skips_last_k_tile \
-         mma_drops_scale; do
+for m in gemv_drops_scale cluster_drops_last_rank gemv_skips_last_k_step \
+         mma_skips_last_k_tile mma_drops_scale; do
   cp "$m.cu" "$src"
   echo "== $m"
   if python3 check.py; then
