@@ -17,7 +17,10 @@ c. kernels: each hand-written kernel against its plain PyTorch version on
    around back-to-back enqueues), which says whether a row is host- or
    device-bound. W8A16 rows also time cuBLAS on the weight dequantized
    ahead of time and the eager ``(x @ q.to(bf16)) * s``, each over copies
-   of the weight larger than L2, as a decode step meets its weights;
+   of the weight larger than L2, as a decode step meets its weights: the
+   decode GEMV at every weight, the ``wgmma`` path at M = 64, 512 and 2048
+   at every weight, and ragged shapes (M, N and K off the tiles, strided
+   x and q views) checked without timing;
 d. main path: the port's OpenAI server in-process, serving llama3-8b at
    full width (bf16, random weights from a seed) with 8 slots and a
    2048-token context: chat, streaming chat, a completion whose prompt
@@ -41,8 +44,10 @@ In d, e and f every kernel's launches are counted around the served
 requests alone and must equal what that path's model forwards need,
 derived from the runner's calls: the flash kernel once per layer of every
 prefill forward; on the int8 path the W8A16 kernel 7 per layer plus one
-(lm_head) per forward, and never on a bf16 path. Each kernel must launch
-on at least one path.
+(lm_head) per forward, and never on a bf16 path, counted per path: a
+prefill forward sends its 7 per layer to the ``wgmma`` path and its last
+position's lm_head to the GEMV, a decode step all of its own to the GEMV.
+Each kernel must launch on at least one path.
 
 The last lines are the ``kernels`` line, the ``nvidia-smi`` name and
 power-limit line, and ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -337,24 +342,38 @@ def phase_kernels():
          smem_bytes_per_cta={d: smem(d) for d in fa.SUPPORTED_HEAD_DIMS},
          cases=rows)
     # W8A16 at the shapes the int8 path gives it: decode (8 slots) for
-    # every weight, the prefill's last position through lm_head, and a
-    # 2048-bucket prefill for the two MLP shapes
+    # every weight and the prefill's last position through lm_head (the
+    # GEMV); the 2048 bucket, a 512 chunk and a 64-token bucket for every
+    # layer weight (the wgmma path)
+    layer_weights = ("w_gate/w_up", "w_down", "wq/wo", "wk/wv")
     w8_cases = [(8, *LLAMA3_8B_MATMULS[n], n) for n in (
         "w_gate/w_up", "wq/wo", "wk/wv", "w_down", "lm_head",
-    )] + [
-        (1, *LLAMA3_8B_MATMULS["lm_head"], "lm_head"),
-        (2048, *LLAMA3_8B_MATMULS["w_gate/w_up"], "w_gate/w_up"),
-        (2048, *LLAMA3_8B_MATMULS["w_down"], "w_down"),
+    )] + [(1, *LLAMA3_8B_MATMULS["lm_head"], "lm_head")] + [
+        (M, *LLAMA3_8B_MATMULS[n], n)
+        for M in (2048, 512, 64) for n in layer_weights
     ]
+    large = w8_cases.index((2048, *LLAMA3_8B_MATMULS["w_gate/w_up"],
+                            "w_gate/w_up"))
     w8_rows = [
-        _w8a16_case(*c, gen, repeats=3 if i == 0 else 1)
+        _w8a16_case(*c, gen, repeats=3 if i in (0, large) else 1)
         for i, c in enumerate(w8_cases)
     ]
+    # ragged shapes, checked only: M, N and K off the tiles (N % 16 but not
+    # % 64, K % 8 but not % 64), q a column slice of a wider stacked layer
+    # (rows ldq != N apart), x rows wider than K
+    ragged = [
+        _w8a16_check_strided(M, K, N, gen)
+        for M, K, N in ((17, 4104, 4112), (100, 4104, 1040),
+                        (2048, 4104, 4112), (333, 14336, 4112))
+    ]
+    smem = _build.load("w8a16_gemm").w8a16_wgmma_smem_bytes
     emit("kernels", name="w8a16_matmul",
          tolerance={"rtol": W8A16_RTOL, "atol": W8A16_ATOL,
                     "row_rtol": W8A16_ROW_RTOL},
-         cases=w8_rows)
-    return {"flash_attention_prefill": rows[0], "w8a16_matmul": w8_rows[0]}
+         wgmma_smem_bytes_per_cta={bn: smem(bn) for bn in (128, 256)},
+         cases=w8_rows, ragged=ragged)
+    return {"flash_attention_prefill": rows[0], "w8a16_matmul": w8_rows[0],
+            "w8a16_large_m": w8_rows[large]}
 
 
 def _check_w8a16(out, x, q, s):
@@ -393,8 +412,9 @@ def _rotating(fn, args):
 
 def _int8pack_ms(x, qs, s):
     """The one CUDA call torch might offer for this function:
-    ``torch._weight_int8pack_mm`` (q as [N, K]). Returns (ms or None,
-    what was timed or why nothing was)."""
+    ``torch._weight_int8pack_mm`` (q as [N, K]), a few calls only above
+    the decode shapes (it takes ~0.26 s at 2048 x 4096 x 14336). Returns
+    (ms or None, what was timed or why nothing was)."""
     fn = getattr(torch, "_weight_int8pack_mm", None)
     if fn is None:
         return None, "this torch has no _weight_int8pack_mm"
@@ -411,9 +431,11 @@ def _int8pack_ms(x, qs, s):
         _check_w8a16(out, x, qts[0].T, s)
     except AssertionError as e:
         return None, f"torch._weight_int8pack_mm computes another function: {e}"
-    return cuda_time_ms(_rotating(fn, [(x, qt, s) for qt in qts])), (
-        "torch._weight_int8pack_mm"
-    )
+    few = x.shape[0] > 16
+    return cuda_time_ms(
+        _rotating(fn, [(x, qt, s) for qt in qts]),
+        warmup=1 if few else 3, iters=3 if few else 20,
+    ), "torch._weight_int8pack_mm"
 
 
 def _w8a16_case(M, K, N, weight, gen, repeats=1):
@@ -455,12 +477,17 @@ def _w8a16_case(M, K, N, weight, gen, repeats=1):
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     ms = statistics.median(ms_runs)
-    plan = {"path": "mma"}
+    sms = w8a16._sm_count(q.device.index)
     if M <= w8a16.GEMV_MAX_M:
-        ksplit = w8a16.gemv_plan(N, K, w8a16._sm_count(q.device.index))[1]
+        ksplit = w8a16.gemv_plan(N, K, sms)[1]
         plan = {"path": "gemv", "ksplit": ksplit,
                 "ctas": -(-N // w8a16.GEMV_BN) * ksplit,
                 "ctas_per_sm": w8a16._kernel_lib().w8a16_gemv_ctas_per_sm(M)}
+    else:
+        bn, grid_m, grid_n, _, ksplit = w8a16.wgmma_plan(M, N, K, sms)
+        ctas = grid_m * grid_n * ksplit
+        plan = {"path": "wgmma", "bn": bn, "ksplit": ksplit, "ctas": ctas,
+                "waves": ctas / sms}
     return {
         "weight": weight, "shape": {"M": M, "K": K, "N": N}, **plan,
         "max_abs_err": max_err, "max_row_rel_err": row_rel,
@@ -475,6 +502,26 @@ def _w8a16_case(M, K, N, weight, gen, repeats=1):
         "gbytes_per_s": nbytes / ms / 1e6, "tflops": flops / ms / 1e9,
         "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
     }
+
+
+def _w8a16_check_strided(M, K, N, gen):
+    """One product on strided views, held to the plain version: q columns
+    [0, N) of layer 1 of a stacked [2, K, N + 48] weight, x columns [0, K)
+    of [M, K + 64]."""
+    from gpustack_tpu_torch.ops import w8a16
+
+    xw = torch.randn(M, K + 64, generator=gen, device="cuda").bfloat16()
+    qw = torch.randint(-127, 128, (2, K, N + 48), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    s = ((0.5 + torch.rand(N, generator=gen, device="cuda"))
+         * (3.0 / K ** 0.5 / 127.0)).bfloat16()
+    x, q = xw[:, :K], qw[1][:, :N]
+    out = w8a16.w8a16_matmul(x, q, s)
+    torch.cuda.synchronize()
+    max_err, row_rel = _check_w8a16(out, x, q, s)
+    return {"shape": {"M": M, "K": K, "N": N}, "ldx": xw.stride(0),
+            "ldq": q.stride(0), "max_abs_err": max_err,
+            "max_row_rel_err": row_rel}
 
 
 KERNEL_META = {
@@ -504,12 +551,18 @@ def _wrappers():
 
 
 def launch_counts():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Each wrapper's launches, and the W8A16 wrapper's per path."""
+    counts = {name: fn.launches for name, fn in _wrappers().items()}
+    by_path = _wrappers()["w8a16_matmul"].launches_by_path
+    counts.update({f"w8a16_{path}": n for path, n in by_path.items()})
+    return counts
 
 
 def reset_launch_counts():
     for fn in _wrappers().values():
         fn.launches = 0
+    by_path = _wrappers()["w8a16_matmul"].launches_by_path
+    by_path.update(dict.fromkeys(by_path, 0))
 
 
 def count_runner_calls(runner):
@@ -531,13 +584,19 @@ def expected_launches(cfg, calls, int8):
     """What a window of runner calls must launch: the flash kernel once per
     layer of every prefill forward (bucketed or continuation); with int8
     weights the W8A16 kernel seven times per layer (q, k, v, o, gate, up,
-    down) plus once for lm_head (the prefill's last position, or the decode
-    batch) in every forward, and never without."""
+    down) plus once for lm_head in every forward, and never without. A
+    prefill's layer products (M = its bucket, 32 or more) take the wgmma
+    path and its lm_head (the last position, M = 1) the GEMV; a decode
+    step (M = the slots, at most 16) takes the GEMV for all of its own."""
     prefills = calls["prefill"] + calls["prefill_with_prefix"]
-    forwards = prefills + calls["decode_step"]
+    decodes = calls["decode_step"]
+    layer = 7 * cfg.num_layers if int8 else 0
+    gemv = prefills + (layer + 1) * decodes if int8 else 0
     return {
         "flash_attention_prefill": cfg.num_layers * prefills,
-        "w8a16_matmul": (7 * cfg.num_layers + 1) * forwards if int8 else 0,
+        "w8a16_matmul": layer * prefills + gemv,
+        "w8a16_gemv": gemv,
+        "w8a16_wgmma": layer * prefills,
     }
 
 
@@ -1171,7 +1230,7 @@ def phase_prefix_reuse(kind, smi):
         counts = launch_counts()
         check_launches("prefix reuse", counts, {
             "flash_attention_prefill": engine.cfg.num_layers * forwards,
-            "w8a16_matmul": 0,
+            "w8a16_matmul": 0, "w8a16_gemv": 0, "w8a16_wgmma": 0,
         })
         samples, types = parse_prometheus(_get(port, "/metrics"))
         h = health()
@@ -1462,6 +1521,7 @@ def main() -> int:
     _free()
     paths["int8_path"] = phase_int8(kind, smi, bf16)
     kernels = []
+    large_m = rows.pop("w8a16_large_m")
     for name, row in rows.items():
         launches = sum(counts[name] for counts in paths.values())
         if launches < 1:
@@ -1475,6 +1535,20 @@ def main() -> int:
             # W8A16: what bf16 serving pays for the same product
             **{k: row[k] for k in ("cublas_bf16_dequantized_ms",) if k in row},
         })
+    # W8A16's two paths: the row above is the decode GEMV's (M = 8, w_gate);
+    # beside it the wgmma path at 2048 x 4096 x 14336
+    w8 = next(k for k in kernels if k["name"] == "w8a16_matmul")
+    w8.update({
+        "launches_by_path": {
+            path: sum(counts[f"w8a16_{path}"] for counts in paths.values())
+            for path in ("gemv", "wgmma")
+        },
+        "large_m_shape": large_m["shape"],
+        **{f"large_m_{k}": large_m[k] for k in (
+            "max_abs_err", "ms", "bound_ms", "bound_by",
+            "cublas_bf16_dequantized_ms", "eager_dequant_ms",
+        )},
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

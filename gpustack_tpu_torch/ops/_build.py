@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/kernels/lib<name>-<hash>.so`` at the repository root (a directory
 that ``.gitignore`` lists) and loaded with ``ctypes``. The hash covers the
-source and the flags, so an edited kernel is rebuilt and an unchanged one
-is loaded as it is. Nothing here runs at import: a module that holds a
-kernel calls :func:`load` from inside its wrapper.
+source, the ``csrc`` headers it includes (``#include "x.cuh"``, followed
+through headers) and the flags, so an edited kernel or header is rebuilt
+and an unchanged one is loaded as it is. Nothing here runs at import: a
+module that holds a kernel calls :func:`load` from inside its wrapper.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -42,13 +44,29 @@ def nvcc_path() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _source_files(path: str, seen: Optional[List[str]] = None) -> List[str]:
+    """``path`` and, in include order, every file of ``csrc`` it includes
+    with quotes, each once."""
+    seen = [] if seen is None else seen
+    seen.append(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    for inc in _LOCAL_INCLUDE.findall(text):
+        dep = os.path.join(os.path.dirname(path), inc.decode())
+        if dep not in seen:
+            _source_files(dep, seen)
+    return seen
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _source_files(os.path.join(CSRC, f"{name}.cu")):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def sources() -> List[str]:

@@ -52,6 +52,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int BQ = 128;          // q rows per CTA
@@ -66,10 +68,6 @@ constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;   // 128 * 40 + 256 * 232 = 384 * 168
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-// the producer's barrier wait that outlasts this is a fault (a stage that
-// is never released, so consumers are stuck too): trap, so the launch fails
-// instead of hanging the card
-constexpr unsigned long long WAIT_LIMIT_NS = 4000000000ull;
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle
 // repeats every 1024 bytes): Q as D / 64 boxes of [BQ rows][64 cols], then
@@ -83,121 +81,6 @@ struct Smem {
   static constexpr uint32_t n_bars = 1 + 4 * STAGES;   // q; k, v full, empty
   static constexpr uint32_t total = bars + 8 * n_bars + 1024;  // + align
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarrier -------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Wait for the completion of the barrier phase of the given parity. The
-// consumers' wait is a bare spin: a trap on their path makes ptxas
-// serialize every wgmma (C7520).
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  while (!mbar_try_wait(bar, parity)) {
-  }
-}
-
-// The producer's wait, with a watchdog.
-__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar,
-                                                  uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const unsigned long long t0 = global_ns();
-  while (!mbar_try_wait(bar, parity)) {
-    if (global_ns() - t0 > WAIT_LIMIT_NS) __trap();
-  }
-}
-
-// ---- TMA ------------------------------------------------------------------
-
-// One box of a 4-D tensor map (coordinates innermost first) into shared
-// memory; the bytes are reported to `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// One box from shared memory to a 4-D tensor map; rows past the tensor's
-// extent are not written.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          uint32_t src, int c0, int c1,
-                                          int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// ---- wgmma ----------------------------------------------------------------
-
-// Shared-memory matrix descriptor for a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout B128.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Keep the compiler from moving accumulator reads or writes across an
-// asynchronous wgmma.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
 
 // d (m64nN, fp32) = A B (+ d when scale_d): A [64 x 16] and B [N x 16] both
 // K-major in shared memory.
@@ -281,14 +164,6 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-}
-
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-}
-
 // 2^x in one MUFU op (exp2f adds a range fix-up around it); results below
 // 2^-126 flush to 0, which a probability can afford.
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -300,11 +175,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x is the low half
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Issue S = Q K^T for one warpgroup's 64 rows and a BK-key tile: D / 16
@@ -454,7 +324,7 @@ flash_prefill_kernel(__grid_constant__ const CUtensorMap tq,
 
   if (threadIdx.x < 128) {
     // ---- producer warpgroup: one thread keeps the ring full -------------
-    setmaxnreg_dec();
+    setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == 0 && n_kt > 0) {
       mbar_expect_tx(bar_q, L::q);
 #pragma unroll
@@ -481,7 +351,7 @@ flash_prefill_kernel(__grid_constant__ const CUtensorMap tq,
     }
   } else {
     // ---- consumer warpgroups: 64 q rows each ----------------------------
-    setmaxnreg_inc();
+    setmaxnreg_inc<CONSUMER_REGS>();
     const int ct = threadIdx.x - 128;
     const int cw = ct / 128;            // consumer warpgroup
     const int warp = (ct / 32) % 4;     // warp within it: 16 rows
@@ -654,32 +524,6 @@ flash_prefill_kernel(__grid_constant__ const CUtensorMap tq,
 }
 
 // ---- host side ------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API call: reach it through the runtime
-// (no link against libcuda).
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // A [B, rows, H, D] bf16 tensor (element strides sb, sr, sh; d contiguous)
 // as a 4-D tensor map with dims (D, H, rows, B), read in boxes of

@@ -5,7 +5,8 @@ its plain PyTorch version.
 in the JAX package's ``[in, out]`` layout, s the per-output-channel scale.
 The kernel (``csrc/w8a16_gemm.cu``, CUDA C++ for ``sm_90a``, bound with
 ``ctypes``) sums and scales in fp32 and writes bf16; the int8 weight is
-widened in registers and never written back dequantized.
+widened in registers (decode GEMV, M <= 16) or once per CTA in shared memory
+(the TMA-fed ``wgmma`` path above), never written back dequantized.
 
 There is no Pallas kernel behind it: in the JAX package this is the int8
 branch of ``_mm`` (``gpustack_tpu/models/transformer.py:46-47``), which
@@ -15,7 +16,8 @@ XLA fuses. Bound on the card: bytes at decode (w_gate at M = 8: 58.7 MB,
 
 ``w8a16_matmul`` launches the kernel for CUDA tensors (or raises: no
 fallback on the card) and takes the plain version only for CPU tensors.
-``w8a16_matmul.launches`` counts kernel calls.
+``w8a16_matmul.launches`` counts kernel calls, and
+``w8a16_matmul.launches_by_path`` splits them into ``gemv`` and ``wgmma``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,10 @@ GEMV_MAX_M = 16            # csrc: w8a16_gemv_max_m()
 GEMV_BN = 128              # columns per GEMV CTA
 GEMV_KSTEP = 16            # k rows per mma step
 GEMV_WARPS = 8             # warps per GEMV CTA, each on its own k steps
-GEMV_MAX_KSPLIT = 8        # csrc: w8a16_gemv_max_ksplit() (one cluster)
+MAX_KSPLIT = 8             # csrc: w8a16_max_ksplit() (one cluster)
+WGMMA_BM = 128             # csrc: w8a16_wgmma_tile_m(), rows per CTA
+WGMMA_BK = 64              # k rows per stage of the wgmma path
+WGMMA_MIN_KTILES = 8       # k stages a CTA of a split keeps at least
 
 _lib = None
 
@@ -48,7 +53,8 @@ def _kernel():
         lib = _kernel_lib()
         if (
             lib.w8a16_gemv_max_m() != GEMV_MAX_M
-            or lib.w8a16_gemv_max_ksplit() != GEMV_MAX_KSPLIT
+            or lib.w8a16_max_ksplit() != MAX_KSPLIT
+            or lib.w8a16_wgmma_tile_m() != WGMMA_BM
         ):
             raise RuntimeError("w8a16_gemm.cu and ops/w8a16.py disagree")
         fn = lib.w8a16_gemm_bf16
@@ -57,7 +63,7 @@ def _kernel():
             [ctypes.c_void_p] * 4
             + [ctypes.c_int] * 3
             + [ctypes.c_longlong] * 3
-            + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         _lib = fn
     return _lib
@@ -76,17 +82,36 @@ def w8a16_plain(
 
 def gemv_plan(N: int, K: int, sms: int) -> tuple:
     """(kchunk, ksplit) for the small-M path: K is split over ``ksplit``
-    CTAs (one cluster, at most ``GEMV_MAX_KSPLIT``, each warp with at least
+    CTAs (one cluster, at most ``MAX_KSPLIT``, each warp with at least
     one 16-row step) only until the grid has a CTA for every SM. A CTA's
     sums and its cluster's reduction cost the same however few rows it
     reads, so on the card fewer and longer CTAs stream closer to the
     memory rate than a grid cut finer to fill whole waves."""
     nb = -(-N // GEMV_BN)
     steps = -(-K // GEMV_KSTEP)
-    cap = max(1, min(GEMV_MAX_KSPLIT, steps // GEMV_WARPS))
+    cap = max(1, min(MAX_KSPLIT, steps // GEMV_WARPS))
     ksplit = min(cap, -(-sms // nb))
     kchunk = -(-steps // ksplit) * GEMV_KSTEP
     return kchunk, -(-K // kchunk)
+
+
+def wgmma_plan(M: int, N: int, K: int, sms: int) -> tuple:
+    """(BN, grid_m, grid_n, kchunk, ksplit) for the large-M path: CTAs of
+    ``WGMMA_BM`` x BN outputs, BN 256 (each x tile feeds twice the columns,
+    so fewer shared-memory bytes per product) when that grid still gives
+    every SM a CTA, else 128. A grid smaller than the card splits K over
+    ``ksplit`` CTAs of one cluster (``kchunk`` rows each, at least
+    ``WGMMA_MIN_KTILES`` stages), so the weights stream from every SM. The
+    grid's x axis walks M, so CTAs that run together share weight columns."""
+    grid_m = -(-M // WGMMA_BM)
+    bn = 256 if grid_m * -(-N // 256) >= sms else 128
+    grid_n = -(-N // bn)
+    ktiles = -(-K // WGMMA_BK)
+    cap = max(1, min(
+        MAX_KSPLIT, sms // (grid_m * grid_n), ktiles // WGMMA_MIN_KTILES
+    ))
+    per = -(-ktiles // cap)
+    return bn, grid_m, grid_n, per * WGMMA_BK, -(-ktiles // per)
 
 
 _sms = {}
@@ -149,18 +174,26 @@ def w8a16_matmul(
     _check_cuda_inputs(x2, q, s)
     M, N = x2.shape[0], q.shape[1]
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    kchunk = 0
+    sms = _sm_count(x.device.index)
     if M <= GEMV_MAX_M:
-        kchunk, _ = gemv_plan(N, K, _sm_count(x.device.index))
+        path, bn, kchunk = "gemv", 0, gemv_plan(N, K, sms)[0]
+    else:
+        path = "wgmma"
+        bn, _, _, kchunk, _ = wgmma_plan(M, N, K, sms)
     err = _kernel()(
         x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-        M, N, K, x2.stride(0), q.stride(0), N, kchunk,
+        M, N, K, x2.stride(0), q.stride(0), N, bn, kchunk,
         torch._C._cuda_getCurrentRawStream(x.device.index),
     )
     if err != 0:
-        raise RuntimeError(f"w8a16_gemm_bf16 launch failed: cudaError {err}")
+        raise RuntimeError(
+            f"w8a16_gemm_bf16 launch failed: {err} (> 0 a cudaError, -1 no "
+            "tensor-map encoder, -(1000 + CUresult) a refused tensor map)"
+        )
     w8a16_matmul.launches += 1
+    w8a16_matmul.launches_by_path[path] += 1
     return out.reshape(*lead, N)
 
 
 w8a16_matmul.launches = 0
+w8a16_matmul.launches_by_path = {"gemv": 0, "wgmma": 0}

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""The W8A16 kernel's decode path in several source trees, on one CUDA card.
+"""The W8A16 kernel's two paths in several source trees, on one CUDA card.
 
     python3 hack/torch_w8a16_ab.py ROOT [ROOT ...]
 
 Each ROOT is a checkout of the repository (the parent commit unpacked with
 ``git archive`` into a gitignored directory, say); each runs in a process of
 its own, in the order given, so "parent change change parent" evens out the
-card's drift. Per tree, one JSON line: the GEMV kernels' ptxas registers,
-shared memory and the CTAs per SM those allow (8-warp CTAs, 64 K registers
-and 228 KB of shared memory per SM), then at llama3-8b's decode shapes the
-device time per call (CUDA events, weights rotated over copies larger than
-L2, as a decode step meets them), the DRAM rate that time implies for the
-bytes the call must move, and a ``torch.profiler`` split of the call into
-its kernels. Each result is first held to the fp32 plain version.
+card's drift. Per tree, one JSON line: each W8A16 kernel's ptxas registers
+and static shared memory (for the 8-warp GEMV also the CTAs per SM those
+allow: 64 K registers and 228 KB of shared memory per SM), then at
+llama3-8b's decode shapes (the GEMV) and at the 64 and 2048 buckets and
+the 512-token chunk (the large-M path) the device time per call (CUDA events,
+weights rotated over copies larger than L2), the bound (bytes or
+operations, whichever is larger), the rate that time implies, and a
+``torch.profiler`` split of the call into its kernels; at the large-M
+shapes also cuBLAS on the weight dequantized to bf16 ahead of time. Each
+result is first held to the fp32 plain version.
 """
 
 import json
@@ -22,14 +25,21 @@ import subprocess
 import sys
 
 # M x K x N (weight) at llama3-8b: decode with 8 slots, the prefill's
-# lm_head row, and M = 16, the most the GEMV takes
+# lm_head row, and M = 16, the most the GEMV takes; then a 64-token bucket
+# (K split over a cluster), a 512-token chunk and the 2048 bucket
 SHAPES = [
     (8, 4096, 14336, "w_gate"), (8, 4096, 4096, "wq"), (8, 4096, 1024, "wk"),
     (8, 14336, 4096, "w_down"), (8, 4096, 128256, "lm_head"),
     (1, 4096, 128256, "lm_head_m1"), (16, 4096, 14336, "w_gate_m16"),
+    (64, 14336, 4096, "w_down_m64"), (64, 4096, 4096, "wq_m64"),
+    (512, 4096, 14336, "w_gate_m512"), (512, 14336, 4096, "w_down_m512"),
+    (512, 4096, 4096, "wq_m512"),
+    (2048, 4096, 14336, "w_gate_m2048"), (2048, 14336, 4096, "w_down_m2048"),
+    (2048, 4096, 4096, "wq_m2048"), (2048, 4096, 1024, "wk_m2048"),
 ]
 L2_FLUSH_BYTES = 128 * 2**20
 PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3
+PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16
 
 
 def _ctas_per_sm(regs: int, smem: int, threads: int = 256) -> int:
@@ -45,15 +55,31 @@ def _ptxas(log: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"ILi(\d+)E", m.group(1))
-            name = f"w8a16_gemv<{t.group(1)}>" if t else m.group(1)
+            k = re.search(r"(w8a16_[a-z]+)(ILi(\d+)E)?", m.group(1))
+            name = m.group(1) if not k else (
+                f"{k.group(1)}<{k.group(3)}>" if k.group(3) else k.group(1))
             continue
         m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
-        if m and name and "gemv" in name:
+        if m and name:
             regs, smem = int(m.group(1)), int(m.group(2))
-            out[name] = {"registers": regs, "smem_bytes": smem,
-                         "ctas_per_sm": _ctas_per_sm(regs, smem)}
+            out[name] = {"registers": regs, "smem_bytes": smem}
+            if "gemv" in name:
+                out[name]["ctas_per_sm"] = _ctas_per_sm(regs, smem)
     return out
+
+
+def _events_ms(fn, iters: int = 20) -> float:
+    import torch
+
+    for i in range(3):
+        fn(i)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def one(root: str) -> dict:
@@ -110,14 +136,23 @@ def one(root: str) -> dict:
             if t and k:
                 split[k.group(0)] = t / 10 / 1e3
         nbytes = M * K * 2 + K * N + N * 2 + M * N * 2
+        flops = 2 * M * K * N
         ms = sorted(runs)[1]
-        rows.append({
+        row = {
             "weight": weight, "M": M, "K": K, "N": N, "ms_runs": runs,
-            "bound_ms": nbytes / PEAK_BYTES_S * 1e3,
+            "bound_ms": max(nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS)
+            * 1e3,
             "dram_gbytes_per_s": nbytes / ms / 1e6,
+            "tflops": flops / ms / 1e9,
             "profiler_ms_per_call": split or "no device time in the trace",
             "max_abs_err": err.max().item(),
-        })
+        }
+        if M > 16:
+            ws = [(qi.float() * s.float()).bfloat16() for qi in qs]
+            row["cublas_bf16_dequantized_ms"] = _events_ms(
+                lambda i: torch.matmul(x, ws[i % len(ws)]))
+            del ws
+        rows.append(row)
         del qs
     report["shapes"] = rows
     return report

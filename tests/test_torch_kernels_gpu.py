@@ -135,8 +135,7 @@ def _assert_w8a16_close(out, x, q, s):
     assert row.max().item() <= W8A16_ROW_RTOL, row.max().item()
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("M,K,N", [
+_W8A16_SHAPES = [
     (8, 4096, 4096), (8, 4096, 1024), (8, 4096, 14336),   # decode: wq/wo,
     (8, 14336, 4096), (8, 4096, 128256),                  # wk/wv, gate/up,
     (1, 4096, 128256),                                    # down, lm_head
@@ -145,20 +144,64 @@ def _assert_w8a16_close(out, x, q, s):
     (1, 4096, 4096), (3, 4096, 1024), (17, 4096, 1024),   # ragged M
     (100, 4096, 4096), (16, 4096, 4096),
     (8, 4104, 4112), (100, 4104, 4112), (5, 24, 16),      # ragged K and N
-])
+]
+# the wgmma path (M > 16) at every llama3-8b layer weight, at the buckets,
+# the chunk and ragged M
+_W8A16_SHAPES += [
+    (M, K, N)
+    for M in (17, 32, 64, 100, 512, 2048)
+    for K, N in ((4096, 14336), (14336, 4096), (4096, 4096), (4096, 1024))
+    if (M, K, N) not in _W8A16_SHAPES
+]
+# N % 16 but not % 64 or % 128, K % 8 but not % 64, on both tile widths
+_W8A16_SHAPES += [
+    (2048, 4104, 4112), (512, 4104, 1040), (33, 4104, 4112),
+    (64, 14336, 1040), (300, 136, 4112),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", _W8A16_SHAPES)
 def test_w8a16_kernel_matches_plain(M, K, N):
     """bf16 kernel output against the fp32 plain version of the same int8
     and bf16 inputs: |err| <= 2e-2 + 2e-2 |ref| (bf16 output rounding
-    and the fp32 summation order), each row within 1e-2 of its norm."""
+    and the fp32 summation order), each row within 1e-2 of its norm. The
+    launch is counted once, on the path M chooses."""
     _need_card()
     from gpustack_tpu_torch.ops import w8a16  # analysis: ignore[metrics-drift]
 
     x, q, s = _w8a16_inputs(M, K, N, M + K + N)
+    path = "gemv" if M <= w8a16.GEMV_MAX_M else "wgmma"
     before = w8a16.w8a16_matmul.launches
+    by_path = dict(w8a16.w8a16_matmul.launches_by_path)
     out = w8a16.w8a16_matmul(x, q, s)
     torch.cuda.synchronize()
     assert w8a16.w8a16_matmul.launches == before + 1
+    by_path[path] += 1
+    assert w8a16.w8a16_matmul.launches_by_path == by_path
     assert out.shape == (M, N) and out.dtype == torch.bfloat16
+    _assert_w8a16_close(out, x, q, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [
+    (8, 4096, 1040), (100, 4104, 4112), (2048, 4096, 4112),
+])
+def test_w8a16_kernel_reads_strided_views(M, K, N):
+    """q as columns [0, N) of one layer of a stacked [L, K, N + 48] weight
+    (rows ldq != N bytes apart), x as columns [0, K) of [M, K + 64]."""
+    _need_card()
+    from gpustack_tpu_torch.ops import w8a16  # analysis: ignore[metrics-drift]
+
+    gen = torch.Generator(device="cuda").manual_seed(M + N)
+    xw = torch.randn(M, K + 64, generator=gen, device="cuda").bfloat16()
+    qw = torch.randint(-127, 128, (3, K, N + 48), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    s = (torch.rand(N, generator=gen, device="cuda") * 3e-3 + 1e-4).bfloat16()
+    x, q = xw[:, :K], qw[2][:, :N]
+    assert q.stride(0) == N + 48 and x.stride(0) == K + 64
+    out = w8a16.w8a16_matmul(x, q, s)
+    torch.cuda.synchronize()
     _assert_w8a16_close(out, x, q, s)
 
 

@@ -257,7 +257,7 @@ def test_gemv_plan_covers_k_in_bounded_slices(N, K):
     sms = 132
     kchunk, ksplit = w8a16.gemv_plan(N, K, sms)
     assert kchunk % w8a16.GEMV_KSTEP == 0
-    assert 1 <= ksplit <= w8a16.GEMV_MAX_KSPLIT
+    assert 1 <= ksplit <= w8a16.MAX_KSPLIT
     assert (ksplit - 1) * kchunk < K <= ksplit * kchunk
     # every warp of every CTA has a 16-row step, unless K is too short to
     # split at all
@@ -265,6 +265,42 @@ def test_gemv_plan_covers_k_in_bounded_slices(N, K):
     # K is split only until the grid has a CTA for every SM
     nb = -(-N // w8a16.GEMV_BN)
     assert ksplit == 1 or nb * (ksplit - 1) < sms
+
+
+@pytest.mark.parametrize(
+    "M,N,K", [
+        (2048, 14336, 4096), (2048, 4096, 14336), (2048, 1024, 4096),
+        (512, 14336, 4096), (512, 4096, 14336), (512, 1024, 4096),
+        (64, 4096, 14336), (64, 1024, 4096), (17, 1024, 4096),
+        (100, 4112, 4104), (2048, 4112, 4104), (333, 1040, 14336),
+        (129, 16, 136), (40, 16, 8),
+    ],
+)
+@pytest.mark.parametrize("sms", [132, 114])
+def test_wgmma_plan_covers_every_output_once(M, N, K, sms):
+    """The large-M grid: its CTAs of WGMMA_BM x BN outputs over kchunk
+    rows of K, clipped to [M, N, K], cover every (output, k) exactly once;
+    BN is 256 only when that grid still has a CTA for every SM, and K is
+    split (into a cluster of at most MAX_KSPLIT) only while the grid has
+    fewer CTAs than SMs."""
+    bn, grid_m, grid_n, kchunk, ksplit = w8a16.wgmma_plan(M, N, K, sms)
+    assert bn in (128, 256)
+    assert kchunk % w8a16.WGMMA_BK == 0
+    assert 1 <= ksplit <= w8a16.MAX_KSPLIT
+    hits = np.zeros((M, N), np.int32)
+    for bm_i in range(grid_m):
+        for bn_i in range(grid_n):
+            m0, n0 = bm_i * w8a16.WGMMA_BM, bn_i * bn
+            assert m0 < M and n0 < N            # no CTA without outputs
+            hits[m0:m0 + w8a16.WGMMA_BM, n0:n0 + bn] += 1
+    assert (hits == 1).all()
+    # every split has k rows, and together they cover K once
+    assert (ksplit - 1) * kchunk < K <= ksplit * kchunk
+    tiles_256 = -(-M // w8a16.WGMMA_BM) * -(-N // 256)
+    assert (bn == 256) == (tiles_256 >= sms)
+    if ksplit > 1:
+        assert grid_m * grid_n * ksplit <= sms
+        assert kchunk >= w8a16.WGMMA_MIN_KTILES * w8a16.WGMMA_BK
 
 
 def _cpu_inputs(M=4, K=64, N=32, x_dtype=torch.bfloat16):
