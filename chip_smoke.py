@@ -19,8 +19,10 @@ c. kernels: each hand-written kernel against its plain PyTorch version on
    ahead of time and the eager ``(x @ q.to(bf16)) * s``, each over copies
    of the weight larger than L2, as a decode step meets its weights: the
    decode GEMV at every weight, the ``wgmma`` path at M = 64, 512 and 2048
-   at every weight, and ragged shapes (M, N and K off the tiles, strided
-   x and q views) checked without timing;
+   at every weight and at a speculative verify block's M = 32 (8 slots x
+   4 positions, lm_head too), and ragged shapes (M, N and K off the tiles,
+   strided x and q views) checked without timing; the flash kernel also at
+   the cacheless embedding shapes (B of 2, 4 and 8, T = S);
 d. main path: the port's OpenAI server in-process, serving llama3-8b at
    full width (bf16, random weights from a seed) with 8 slots and a
    2048-token context: chat, streaming chat, a completion whose prompt
@@ -38,16 +40,32 @@ f. checkpoints and int8: llama3-8b's full widths at 2 layers written as a
    ``--model-dir``, the loaded tree and logits identical to the in-memory
    tree's; then llama3-8b int8 at full depth (``--quantization int8``)
    through the server with phase d's requests, its kernel logits against
-   the W8A16 plain version, beside phase d's bf16 numbers.
+   the W8A16 plain version, beside phase d's bf16 numbers;
+g. speculation, embeddings and profile: llama3-8b int8 with
+   ``--speculative ngram`` and bf16 with ``--speculative draft
+   --draft-source llama3-8b`` (a perfect draft: the preset's weights come
+   from the target's seed), each beside a plain engine over the same
+   weights. Eight repetitive greedy chats on each: the speculative ids
+   must equal the plain ones or part only where the plain run's top two
+   logprobs were closer than twice the logit tolerance (two forwards each
+   within 5% of the logit scale); the n-gram server must accept proposals,
+   the perfect draft at least 90% of them. On each plain server:
+   ``/v1/embeddings`` of 8 inputs at the 2048 bucket (each vector within
+   cosine 0.999 of the same forward through the plain attention),
+   ``dimensions``, ``base64`` and ``/v1/rerank``; then
+   ``/debug/profile?steps=20`` while 8 chats decode, its Chrome trace
+   summarised (device-busy share, the 10 ops with the most device time,
+   idle time per step).
 
-In d, e and f every kernel's launches are counted around the served
+In d, e, f and g every kernel's launches are counted around the served
 requests alone and must equal what that path's model forwards need,
-derived from the runner's calls: the flash kernel once per layer of every
-prefill forward; on the int8 path the W8A16 kernel 7 per layer plus one
-(lm_head) per forward, and never on a bf16 path, counted per path: a
-prefill forward sends its 7 per layer to the ``wgmma`` path and its last
-position's lm_head to the GEMV, a decode step all of its own to the GEMV.
-Each kernel must launch on at least one path.
+derived from the runners' calls (a draft model's too): the flash kernel
+once per layer of every prefill and embedding forward; on the int8 path
+the W8A16 kernel 7 per layer at M = B·T plus lm_head at the rows it reads
+(a prefill's last position, a decode step's slots, every position of a
+verify block; none for an embedding), never on a bf16 path, and counted
+per path by M: M ≤ 16 the GEMV, above it the ``wgmma`` path. Each kernel
+must launch on at least one path.
 
 The last lines are the ``kernels`` line, the ``nvidia-smi`` name and
 power-limit line, and ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -55,6 +73,7 @@ outside a checkout of the repository, it exits non-zero and prints no
 result.
 """
 
+import base64
 import dataclasses
 import gc
 import json
@@ -327,6 +346,12 @@ def phase_kernels():
         (1, 32, 2048, 1792, 32, 8, 128),
         (1, 64, 1024, 784, 32, 8, 128),
         (1, 128, 2048, 1888, 32, 8, 128),
+        # embedding forwards (phase g): cacheless, the batch padded to a
+        # power of two, T = S = the bucket
+        (8, 2048, 2048, 0, 32, 8, 128),
+        (4, 2048, 2048, 0, 32, 8, 128),
+        (2, 512, 512, 0, 32, 8, 128),
+        (8, 64, 64, 0, 32, 8, 128),
     ]
     rows = [
         _flash_case(*c, gen, repeats=3 if i == 0 else 1)
@@ -351,6 +376,10 @@ def phase_kernels():
     )] + [(1, *LLAMA3_8B_MATMULS["lm_head"], "lm_head")] + [
         (M, *LLAMA3_8B_MATMULS[n], n)
         for M in (2048, 512, 64) for n in layer_weights
+    ] + [
+        # a speculative verify block (8 slots x 4 positions), lm_head too
+        (32, *LLAMA3_8B_MATMULS[n], n)
+        for n in layer_weights + ("lm_head",)
     ]
     large = w8_cases.index((2048, *LLAMA3_8B_MATMULS["w_gate/w_up"],
                             "w_gate/w_up"))
@@ -565,39 +594,79 @@ def reset_launch_counts():
     by_path.update(dict.fromkeys(by_path, 0))
 
 
-def count_runner_calls(runner):
-    """Count the runner's model forwards from here on (instance
-    attributes over the methods the engine calls): {method: calls}."""
-    calls = {"prefill": 0, "prefill_with_prefix": 0, "decode_step": 0}
-    for name in calls:
-        fn = getattr(runner, name)
+class RunnerCalls:
+    """The model forwards a runner runs from here on (instance attributes
+    over the methods the engine calls), each as (method, B, T): the rows
+    its weight products see are M = B·T."""
 
-        def counted(*args, _fn=fn, _name=name, **kw):
-            calls[_name] += 1
-            return _fn(*args, **kw)
+    METHODS = ("prefill", "prefill_with_prefix", "decode_step",
+               "verify_step", "ingest_step", "embed")
 
-        setattr(runner, name, counted)
-    return calls
+    def __init__(self, runner, int8):
+        self.runner, self.int8 = runner, int8
+        self.forwards = []
+        for name in self.METHODS:
+            fn = getattr(runner, name)
+
+            def counted(*args, _fn=fn, _name=name, **kw):
+                self.forwards.append((_name, *self._shape(_name, args)))
+                return _fn(*args, **kw)
+
+            setattr(runner, name, counted)
+
+    def _shape(self, name, args):
+        slots = self.runner.max_slots
+        if name == "prefill":
+            return 1, len(args[0])
+        if name == "prefill_with_prefix":
+            return 1, len(args[3])
+        if name == "decode_step":
+            return slots, 1
+        if name in ("verify_step", "ingest_step"):
+            return slots, len(args[1][0])
+        rows = 1                                    # embed: batch padded
+        while rows < len(args[0]):
+            rows *= 2
+        return rows, len(args[0][0])
+
+    def reset(self):
+        self.forwards.clear()
+
+    def counts(self):
+        return {name: sum(f[0] == name for f in self.forwards)
+                for name in self.METHODS}
 
 
-def expected_launches(cfg, calls, int8):
-    """What a window of runner calls must launch: the flash kernel once per
-    layer of every prefill forward (bucketed or continuation); with int8
-    weights the W8A16 kernel seven times per layer (q, k, v, o, gate, up,
-    down) plus once for lm_head in every forward, and never without. A
-    prefill's layer products (M = its bucket, 32 or more) take the wgmma
-    path and its lm_head (the last position, M = 1) the GEMV; a decode
-    step (M = the slots, at most 16) takes the GEMV for all of its own."""
-    prefills = calls["prefill"] + calls["prefill_with_prefix"]
-    decodes = calls["decode_step"]
-    layer = 7 * cfg.num_layers if int8 else 0
-    gemv = prefills + (layer + 1) * decodes if int8 else 0
-    return {
-        "flash_attention_prefill": cfg.num_layers * prefills,
-        "w8a16_matmul": layer * prefills + gemv,
-        "w8a16_gemv": gemv,
-        "w8a16_wgmma": layer * prefills,
-    }
+def expected_launches(runner_calls):
+    """What windows of runner forwards must launch, each
+    :class:`RunnerCalls` with its own model: the flash kernel once per
+    layer of every prefill forward (bucketed or continuation) and every
+    embedding forward; with int8 weights the W8A16 kernel seven times per
+    layer (q, k, v, o, gate, up, down) at M = B·T, plus lm_head at the
+    rows it reads (a prefill's last position, a decode step's slots, all
+    of a verify block's positions; an embedding forward and a draft's
+    ingest read none), and never without. Each product of M ≤ 16 rows
+    takes the GEMV, any larger one the ``wgmma`` path."""
+    from gpustack_tpu_torch.ops.w8a16 import GEMV_MAX_M
+
+    want = {"flash_attention_prefill": 0, "w8a16_matmul": 0,
+            "w8a16_gemv": 0, "w8a16_wgmma": 0}
+    for calls in runner_calls:
+        layers = calls.runner.cfg.num_layers
+        for name, B, T in calls.forwards:
+            if name in ("prefill", "prefill_with_prefix", "embed"):
+                want["flash_attention_prefill"] += layers
+            if not calls.int8:
+                continue
+            head = {"prefill": 1, "prefill_with_prefix": 1,
+                    "decode_step": B, "verify_step": B * T}.get(name)
+            for m, n in ((B * T, 7 * layers), (head, 1)):
+                if m is None:
+                    continue
+                path = "gemv" if m <= GEMV_MAX_M else "wgmma"
+                want[f"w8a16_{path}"] += n
+                want["w8a16_matmul"] += n
+    return want
 
 
 def check_launches(path, counts, want):
@@ -669,6 +738,7 @@ def _logit_check(engine):
             f"kernel prefill logits differ: max |err| {err} (scale "
             f"{scale}), cosine {cos}"
         )
+    return scale
 
 
 def _prefill_ms(engine, reps: int = 5) -> float:
@@ -825,17 +895,17 @@ def _serve_counted(engine, logit_check, int8):
     Returns (report, counts)."""
     from gpustack_tpu_torch.engine.api_server import OpenAIServer
 
-    calls = count_runner_calls(engine.runner)
+    calls = RunnerCalls(engine.runner, int8)
     engine.start()
     server = OpenAIServer(engine)
     port = server.start("127.0.0.1", 0)
     try:
         logit_check(engine)
         reset_launch_counts()
-        calls.update(dict.fromkeys(calls, 0))
+        calls.reset()
         report = _serve_script(engine, port)
         counts = launch_counts()
-        window = dict(calls)
+        window = calls.counts()
         health = engine.health()
         if health["status"] != "ok":
             raise AssertionError(f"engine unhealthy: {health}")
@@ -845,7 +915,7 @@ def _serve_counted(engine, logit_check, int8):
             raise AssertionError(
                 f"runner calls {window} for {report['prefills']} prompts"
             )
-        want = expected_launches(engine.cfg, window, int8)
+        want = expected_launches([calls])
         check_launches("int8 path" if int8 else "main path", counts, want)
         report["runner_calls"] = window
         report["prefill_ms_2048_bucket"] = _prefill_ms(engine)
@@ -1454,6 +1524,7 @@ def _int8_logit_check(engine):
             f"int8 kernel logits differ from the plain version: max |err| "
             f"{err} (scale {scale}), cosine {cos}"
         )
+    return scale
 
 
 F_ARGV = MAIN_ARGV + ["--quantization", "int8"]
@@ -1496,6 +1567,409 @@ def phase_int8(kind, smi, bf16):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# g: speculation, embeddings, profile
+# ---------------------------------------------------------------------------
+
+G_NGRAM_ARGV = F_ARGV + ["--speculative", "ngram"]
+G_DRAFT_ARGV = MAIN_ARGV + ["--speculative", "draft",
+                            "--draft-source", "llama3-8b"]
+# repetitive greedy chats: material for the n-gram proposer
+SPEC_CHATS = [
+    f"Repeat after me: {w} {w} {w} {w} {w} {w}."
+    for w in ("alpha beta", "one two three", "la la", "tick tock",
+              "red green blue", "spec spec", "go go go", "abc abc")
+]
+SPEC_MAX_TOKENS = 64
+# two forwards that each stay within LOGIT_REL_TOL of the logit scale can
+# put two logits at most twice that apart: a greedy choice may flip only
+# where the top two were closer
+IDS_GAP_REL = 2 * LOGIT_REL_TOL
+EMBED_MIN_COSINE = 0.999
+PROFILE_STEPS = 20
+# the embedding batch: 8 inputs, the longest 1900 tokens (the 2048 bucket)
+EMBED_TEXTS = ["x" * 1900] + [
+    f"Embedding input {i}: " + "the H100 serves " * (4 + 9 * i)
+    for i in range(7)
+]
+
+
+def _greedy(engine, port, logprobs):
+    """The chats, all at once, through the engine's ``submit`` (the ids
+    and, on the plain engine, each position's top-2 logprobs), then one
+    through the server with temperature left unset (0 on a speculative
+    server). Returns ([(ids, top-2 gaps)], decode tokens/s)."""
+    from gpustack_tpu_torch.engine.engine import GenRequest
+
+    tok = engine.tokenizer
+    reqs = [
+        engine.submit(GenRequest(
+            prompt_ids=tok.apply_chat_template(
+                [{"role": "user", "content": c}]
+            ),
+            max_tokens=SPEC_MAX_TOKENS, temperature=0.0, logprobs=logprobs,
+            top_logprobs=2 if logprobs else 0,
+        ))
+        for c in SPEC_CHATS
+    ]
+    for r in reqs:
+        if not r.done.wait(600):
+            raise AssertionError("a greedy chat timed out")
+        if r.finish_reason not in ("stop", "length"):
+            raise AssertionError(f"a greedy chat ended {r.finish_reason}")
+    t_first = max(r.first_token_at for r in reqs)
+    t_end = max(r.finished_at for r in reqs)
+    rate = sum(len(r.output_ids) - 1 for r in reqs) / max(
+        t_end - t_first, 1e-9)
+    out = [
+        (r.output_ids, [t[0][1] - t[1][1] for t in r.output_top_logprobs]
+         if logprobs else None)
+        for r in reqs
+    ]
+    _, raw = _post(port, "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": SPEC_CHATS[0]}],
+        "max_tokens": 8,
+    })
+    _check_usage(json.loads(raw))
+    return out, rate
+
+
+def _ids_rule(plain, spec, threshold):
+    """Speculative ids against plain greedy ones: equal, or parting only
+    where the plain run's top two were within ``threshold``."""
+    full, partings = 0, []
+    for (p_ids, gaps), (s_ids, _) in zip(plain, spec):
+        if p_ids == s_ids:
+            full += 1
+            continue
+        i = next((j for j, (a, b) in enumerate(zip(p_ids, s_ids)) if a != b),
+                 min(len(p_ids), len(s_ids)))
+        gap = gaps[i] if i < len(gaps) else None
+        partings.append({"position": i, "top2_gap": gap})
+        if gap is None or not gap < threshold:
+            raise AssertionError(
+                f"speculative ids part from plain greedy at {i} where the "
+                f"top-2 gap {gap} is not under {threshold}"
+            )
+    return {"prompts": len(plain), "identical": full, "partings": partings,
+            "gap_threshold": threshold}
+
+
+def _window(name, calls, body):
+    """Run ``body`` with every launch counted; the counts must equal what
+    the runners' forwards in it need."""
+    reset_launch_counts()
+    for c in calls:
+        c.reset()
+    out = body()
+    counts = launch_counts()
+    check_launches(name, counts, expected_launches(calls))
+    return counts, out
+
+
+def _embed_checks(engine, port):
+    """``/v1/embeddings`` at the 2048 bucket (8 rows), ``dimensions``,
+    ``base64`` and ``/v1/rerank``; returns (vectors, report)."""
+    tok = engine.tokenizer
+    lens = [len(tok.encode(t)) for t in EMBED_TEXTS]
+    if engine.runner.bucket_for(max(lens)) != 2048:
+        raise AssertionError(f"embedding batch lengths {lens}")
+    t0 = time.perf_counter()
+    _, raw = _post(port, "/v1/embeddings", {"input": EMBED_TEXTS})
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    data = json.loads(raw)
+    vecs = torch.tensor([d["embedding"] for d in data["data"]])
+    if vecs.shape != (8, engine.cfg.hidden_size) or not torch.isfinite(
+        vecs
+    ).all() or (vecs.norm(dim=-1) - 1).abs().max() > 1e-3:
+        raise AssertionError(f"bad embeddings {tuple(vecs.shape)}")
+    if data["usage"]["prompt_tokens"] != sum(lens):
+        raise AssertionError(f"embedding usage {data['usage']}")
+    dims = engine.cfg.hidden_size // 16                 # 256 at llama3-8b
+    _, raw = _post(port, "/v1/embeddings",
+                   {"input": EMBED_TEXTS[1], "dimensions": dims})
+    cut = torch.tensor(json.loads(raw)["data"][0]["embedding"])
+    _, raw = _post(port, "/v1/embeddings",
+                   {"input": EMBED_TEXTS[1], "encoding_format": "base64"})
+    packed = base64.b64decode(json.loads(raw)["data"][0]["embedding"])
+    full = torch.tensor(struct.unpack(f"<{len(packed) // 4}f", packed))
+    want_cut = full[:dims] / full[:dims].norm()
+    if cut.shape != (dims,) or (cut - want_cut).abs().max() > 1e-5:
+        raise AssertionError(f"dimensions={dims} is not the renormalised cut")
+    query = "Embedding input 2"
+    _, raw = _post(port, "/v1/rerank",
+                   {"query": query, "documents": EMBED_TEXTS[1:], "top_n": 4})
+    results = json.loads(raw)["results"]
+    scores = [r["relevance_score"] for r in results]
+    if len(results) != 4 or scores != sorted(scores, reverse=True):
+        raise AssertionError(f"rerank results out of order: {scores}")
+    return vecs, {"batch": 8, "bucket": 2048, "input_tokens": lens,
+                  "http_ms_batch": batch_ms, "rerank_scores": scores,
+                  f"dimensions_{dims}": "renormalised cut",
+                  "base64": "round trip"}
+
+
+def _embed_reference(engine, vecs):
+    """Outside the counted window: each row through the same forward with
+    the plain attention (one row at a time, the batch's bucket), and one
+    8 x 2048 embedding forward timed with CUDA events."""
+    runner, tok = engine.runner, engine.tokenizer
+    ids = [tok.encode(t) for t in EMBED_TEXTS]
+    padded = [r + [0] * (2048 - len(r)) for r in ids]
+    cos = []
+    with torch.no_grad():
+        runner.attn_impl_for = lambda bucket: "plain"
+        try:
+            for row, r, v in zip(padded, ids, vecs):
+                plain = runner.embed([row], [len(r)])[0].float().cpu()
+                cos.append(torch.nn.functional.cosine_similarity(
+                    plain, v, dim=0).item())
+        finally:
+            del runner.attn_impl_for
+        times = []
+        for _ in range(4):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            runner.embed(padded, [len(r) for r in ids])
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+    if min(cos) < EMBED_MIN_COSINE:
+        raise AssertionError(
+            f"embeddings through the flash kernel against plain attention: "
+            f"cosines {cos}"
+        )
+    return {"cosine_vs_plain_attention": cos,
+            "forward_ms_8x2048": statistics.median(times[1:])}
+
+
+def summarize_trace(path, steps):
+    """From a Chrome trace: the union of device intervals over the
+    captured window (busy share), the 10 kernels with the most device
+    time, and the device's idle time per step (host time between
+    kernels)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not any(e["cat"] == "kernel" for e in device):
+        raise AssertionError(f"{path}: the trace holds no kernel")
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    busy, end, gaps = 0.0, None, []
+    for e in sorted(device, key=lambda e: e["ts"]):
+        s, f = e["ts"], e["ts"] + e["dur"]
+        if end is None or s > end:
+            if end is not None:
+                gaps.append(s - end)
+            busy += f - s
+            end = f
+        elif f > end:
+            busy += f - end
+            end = f
+    by_name = {}
+    for e in device:
+        row = by_name.setdefault(e["name"], [0.0, 0])
+        row[0] += e["dur"]
+        row[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    window = t1 - t0
+    return {
+        "window_ms": window / 1e3, "steps_in_trace": steps,
+        "device_busy_share": busy / window,
+        "device_ms_per_step": busy / steps / 1e3,
+        "idle_ms_per_step": (window - busy) / steps / 1e3,
+        "kernels_per_step": sum(e["cat"] == "kernel" for e in device) / steps,
+        "gap_us_median": statistics.median(gaps) if gaps else 0.0,
+        "gap_us_max": max(gaps, default=0.0),
+        "top_device_ops": [
+            {"name": _short_kernel_name(n), "ms": us / 1e3, "calls": c,
+             "share": us / busy}
+            for n, (us, c) in top
+        ],
+        "trace_mb": os.path.getsize(path) / 1e6,
+    }
+
+
+def _short_kernel_name(name):
+    """A kernel's name without its parameter list and namespaces, keeping
+    the functor an ATen elementwise kernel was instantiated for."""
+    name = re.sub(r"\(anonymous namespace\)::|at::native::|c10::|void ", "",
+                  name)
+    depth, cut = 0, len(name)
+    for i, ch in enumerate(name):       # drop the trailing parameter list
+        if ch == "<":
+            depth += 1
+        elif ch == ">":
+            depth -= 1
+        elif ch == "(" and depth == 0 and i:
+            cut = i
+            break
+    return name[:cut][:240]
+
+
+def _profile(port, label):
+    """``/debug/profile?steps=20`` while 8 chats decode; the trace
+    summarised."""
+    from gpustack_tpu_torch.engine.engine import PROFILE_TRACE_FILE
+
+    started = [threading.Event() for _ in range(8)]
+    chats = [
+        threading.Thread(target=_stream_chat, args=(
+            port, [{"role": "user", "content": f"Profile chat {i} " * 3}],
+            256, None, started[i]))
+        for i in range(8)
+    ]
+    for t in chats:
+        t.start()
+    for e in started:
+        if not e.wait(120):
+            raise AssertionError("a chat never streamed")
+    out_dir = tempfile.mkdtemp(prefix=f"profile-{label}-")
+    time.sleep(0.5)             # unprofiled decode steps to compare with
+    t_capture = time.time()
+    try:
+        _, raw = _post(
+            port, f"/debug/profile?steps={PROFILE_STEPS}&timeout_s=120"
+            f"&out_dir={out_dir}", {},
+        )
+        result = json.loads(raw)
+        if result["profiler"] != "torch" or result["steps_captured"] != (
+            PROFILE_STEPS
+        ):
+            raise AssertionError(f"profile capture: {result['error']} "
+                                 f"{result['steps_captured']} steps")
+        # the trace opens after the first captured step's record
+        summary = summarize_trace(
+            os.path.join(out_dir, PROFILE_TRACE_FILE), PROFILE_STEPS - 1
+        )
+    finally:
+        for t in chats:
+            t.join(timeout=600)
+        for name in os.listdir(out_dir):
+            os.remove(os.path.join(out_dir, name))
+        os.rmdir(out_dir)
+    if any(t.is_alive() for t in chats):
+        raise AssertionError("a profiled chat did not finish")
+    records = json.loads(_get(port, "/debug/flight?limit=400"))["records"]
+    before = [r["dur_ms"] for r in records
+              if r["ts"] < t_capture and r["mode"] == "decode"][-20:]
+    if not before:
+        raise AssertionError("no decode step before the capture")
+    unprofiled = statistics.median(before)
+    return {**summary, "profiler_start_ms": result["profiler_start_ms"],
+            "flight_modes": result["aggregate"]["modes"],
+            # the profiler slows the host; kernels keep their time
+            "step_ms_unprofiled": unprofiled,
+            "device_busy_share_unprofiled": (
+                summary["device_ms_per_step"] / unprofiled
+            )}
+
+
+def _spec_pair(argv, int8, label, kind, smi):
+    """A speculative server built from ``argv`` and a plain server over
+    the same target weights, both through the port's server: greedy chats
+    on each (ids held to the rule above), the embedding and profile checks
+    on the plain one. Every window's launches are exact. Returns ({window:
+    counts}, report)."""
+    from gpustack_tpu_torch.engine.api_server import (
+        OpenAIServer,
+        build_engine_from_args,
+        build_parser,
+    )
+    from gpustack_tpu_torch.engine.engine import LLMEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    spec = build_engine_from_args(build_parser().parse_args(argv))
+    plain = LLMEngine(
+        spec.cfg, spec.runner.params, tokenizer=spec.tokenizer,
+        max_slots=spec.max_slots, max_seq_len=spec.max_seq_len,
+        device=spec.device,
+    )
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check = _int8_logit_check if int8 else _logit_check
+    scale = check(plain)
+    spec_calls = [RunnerCalls(spec.runner, int8)]
+    if spec.draft_runner is not None:
+        spec_calls.append(RunnerCalls(spec.draft_runner, False))
+    plain_calls = [RunnerCalls(plain.runner, int8)]
+    servers, ports = [], []
+    for engine in (spec, plain):
+        engine.start()
+        servers.append(OpenAIServer(engine))
+        ports.append(servers[-1].start("127.0.0.1", 0))
+    windows = {}
+    try:
+        windows[f"{label}_plain"], (p_out, p_rate) = _window(
+            f"{label} plain chats", plain_calls,
+            lambda: _greedy(plain, ports[1], logprobs=True),
+        )
+        windows[f"{label}_spec"], (s_out, s_rate) = _window(
+            f"{label} speculative chats", spec_calls,
+            lambda: _greedy(spec, ports[0], logprobs=False),
+        )
+        health = spec.health()
+        rule = _ids_rule(p_out, s_out, IDS_GAP_REL * scale)
+        windows[f"{label}_embed"], (vecs, embed) = _window(
+            f"{label} embeddings", plain_calls,
+            lambda: _embed_checks(plain, ports[1]),
+        )
+        embed.update(_embed_reference(plain, vecs))
+        windows[f"{label}_profile"], profile = _window(
+            f"{label} profile", plain_calls,
+            lambda: _profile(ports[1], label),
+        )
+        for engine in (spec, plain):
+            if engine.health()["status"] != "ok":
+                raise AssertionError(f"engine unhealthy: {engine.health()}")
+    finally:
+        for server in servers:
+            server.shutdown()
+        spec.stop()
+        plain.stop()
+    report = {
+        "model": spec.cfg.name, "weights": "int8" if int8 else "bf16",
+        "speculative": health["speculative"],
+        "draft_model": health["draft_model"], "device": kind,
+        "nvidia_smi": smi, "setup_s": setup_s,
+        "spec_steps": health["spec_steps"],
+        "spec_extra_tokens": health["spec_extra_tokens"],
+        "spec_acceptance_rate": health["spec_acceptance_rate"],
+        "ids_rule": rule, "logit_scale": scale,
+        "decode_tokens_per_s_8_chats": {"plain": p_rate,
+                                        "speculative": s_rate},
+        "embeddings": embed, "profile": profile,
+        "runner_calls": {w: c.counts() for w, c in (
+            ("spec", spec_calls[0]), ("plain", plain_calls[0]))},
+        "launches": windows,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    return windows, report
+
+
+def phase_speculation(kind, smi):
+    """n-gram speculation on llama3-8b int8 and a perfect draft on bf16,
+    each beside a plain server over the same weights; embeddings and a
+    profile on each plain server."""
+    windows, ngram = _spec_pair(G_NGRAM_ARGV, True, "ngram_int8", kind, smi)
+    if ngram["spec_steps"] < 1 or ngram["spec_extra_tokens"] < 1:
+        raise AssertionError(f"n-gram speculation accepted nothing: {ngram}")
+    emit("speculation_ngram_int8", **ngram)
+    _free()
+    more, draft = _spec_pair(G_DRAFT_ARGV, False, "draft_bf16", kind, smi)
+    emit("speculation_draft_bf16", **draft)
+    if draft["spec_acceptance_rate"] < 0.9:
+        raise AssertionError(
+            f"a perfect draft accepted {draft['spec_acceptance_rate']}"
+        )
+    windows.update(more)
+    return windows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1520,6 +1994,8 @@ def main() -> int:
     phase_checkpoint(kind, smi)
     _free()
     paths["int8_path"] = phase_int8(kind, smi, bf16)
+    _free()
+    paths.update(phase_speculation(kind, smi))
     kernels = []
     large_m = rows.pop("w8a16_large_m")
     for name, row in rows.items():

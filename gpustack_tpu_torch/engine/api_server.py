@@ -4,8 +4,11 @@ The port of ``gpustack_tpu/engine/api_server.py``'s serving surface:
 ``GET /healthz``, ``GET /v1/models``, ``GET /metrics`` (Prometheus text:
 engine gauges, host KV cache, spill tier, flight recorder, TTFT/TPOT/e2e
 histograms), ``GET /debug/flight`` (raw flight records and aggregates),
+``POST /debug/profile`` (a ``torch.profiler`` capture of the next steps),
 ``POST /v1/completions`` and ``POST /v1/chat/completions`` (streaming and
-not), with the same JSON shapes. It runs on ``http.server.ThreadingHTTPServer`` (one thread per
+not), ``POST /v1/embeddings`` and ``POST /v1/rerank``, with the same JSON
+shapes. ``--speculative ngram|draft`` serves greedy speculative decoding
+(requests that leave temperature unset default to 0 there). It runs on ``http.server.ThreadingHTTPServer`` (one thread per
 connection; each handler blocks on its request's ``done`` event or token
 queue) and streams Server-Sent Events as HTTP/1.1 chunked transfer.
 
@@ -16,10 +19,13 @@ Run: ``python -m gpustack_tpu_torch.engine.api_server --preset llama3-8b``
 from __future__ import annotations
 
 import argparse
+import base64
 import json
 import logging
+import math
 import os
 import queue
+import struct
 import threading
 import time
 import uuid
@@ -41,6 +47,7 @@ SYSTEM_FINGERPRINT = "fp_gpustack_tpu_torch"
 MAX_N = 8          # parallel choices per request (each takes a slot)
 MAX_TOP_LOGPROBS = 20
 GENERATION_TIMEOUT_S = 600.0
+PROFILE_MAX_TIMEOUT_S = 120.0
 
 
 class HTTPError(Exception):
@@ -105,6 +112,14 @@ def _completion_logprobs(req: GenRequest, tokenizer) -> Dict[str, Any]:
     }
 
 
+def _shrink(vec: List[float], dimensions: int) -> List[float]:
+    """Matryoshka truncation: the first ``dimensions`` values,
+    renormalised (OpenAI's ``dimensions``)."""
+    cut = vec[:dimensions]
+    norm = math.sqrt(sum(x * x for x in cut)) or 1.0
+    return [x / norm for x in cut]
+
+
 class OpenAIServer:
     """Serves one LLMEngine over HTTP. The request logic (``prepare``,
     ``complete``, ``stream_events``) is kept apart from the socket
@@ -147,10 +162,15 @@ class OpenAIServer:
                 f"top_logprobs must be 0..{MAX_TOP_LOGPROBS}, got {top_lp}"
             )
         temperature = body.get("temperature")
+        if temperature is None:
+            # a speculative deployment is greedy-only: the OpenAI default
+            # of 1.0 would refuse every request that leaves it unset (an
+            # explicit temperature still meets the engine's refusal)
+            temperature = 0.0 if self.engine.speculative else 1.0
         return GenRequest(
             prompt_ids=list(prompt_ids),
             max_tokens=max_tokens,
-            temperature=1.0 if temperature is None else float(temperature),
+            temperature=float(temperature),
             top_k=int(body.get("top_k") or 0),
             top_p=float(body.get("top_p") or 1.0),
             seed=None if seed is None else int(seed),
@@ -313,6 +333,150 @@ class OpenAIServer:
             "records": flight.snapshot(limit=limit),
             "aggregate": flight.aggregate(window_s=window_s),
             "overhead_ratio": round(flight.overhead_ratio(), 6),
+        }
+
+    def debug_profile(self, query: str) -> Tuple[int, Dict[str, Any]]:
+        """On-demand profiler capture: wrap the next ``steps`` busy
+        scheduler steps in ``torch.profiler``, writing a Chrome trace
+        under ``out_dir`` (flight records only without one). Blocks until
+        the steps elapse or ``timeout_s`` (at most 120) passes; 409 while
+        another capture runs."""
+        q = parse_qs(query)
+        try:
+            steps = int(q.get("steps", ["20"])[0])
+            timeout_s = min(
+                PROFILE_MAX_TIMEOUT_S, float(q.get("timeout_s", ["30"])[0])
+            )
+        except ValueError:
+            return 400, _error_body("steps/timeout_s must be numbers")
+        if steps < 1:
+            return 400, _error_body("steps must be >= 1")
+        out_dir = q.get("out_dir", [""])[0]
+        try:
+            return 200, self.engine.capture_profile(
+                steps, out_dir=out_dir, timeout_s=timeout_s
+            )
+        except ValueError as e:
+            return 409, _error_body(str(e))
+
+    def _embed(self, batch):
+        """(vectors, None), or (None, (status, error body))."""
+        try:
+            return self.engine.embed(batch, timeout=GENERATION_TIMEOUT_S), None
+        except ValueError as e:
+            return None, (400, _error_body(str(e)))
+        except TimeoutError:
+            return None, (504, _error_body("embedding timed out"))
+        except RuntimeError as e:
+            return None, (503, _error_body(f"engine unavailable: {e}"))
+
+    def embeddings(self, body: Dict[str, Any]) -> Tuple[int, Dict[str, Any]]:
+        """OpenAI embeddings: mean-pooled, l2-normalised hidden states of
+        strings or token-id arrays; ``dimensions`` truncates and
+        renormalises, ``encoding_format`` is ``float`` or ``base64``
+        (little-endian float32)."""
+        inputs = body.get("input")
+        if inputs is None:
+            return 400, _error_body("missing 'input'")
+        if isinstance(inputs, str):
+            inputs = [inputs]
+        # a bare token array is one input
+        if inputs and isinstance(inputs, list) and all(
+            isinstance(x, int) for x in inputs
+        ):
+            inputs = [inputs]
+        if not isinstance(inputs, list) or not inputs:
+            return 400, _error_body("'input' must be a string or list")
+        batch_ids = []
+        for item in inputs:
+            if isinstance(item, str):
+                ids = self.engine.tokenizer.encode(item)
+            elif isinstance(item, list) and all(
+                isinstance(t, int) for t in item
+            ):
+                ids = list(item)
+            else:
+                return 400, _error_body(
+                    "'input' items must be strings or token-id arrays"
+                )
+            if not ids:
+                return 400, _error_body("'input' items must be non-empty")
+            batch_ids.append(ids)
+        dimensions = body.get("dimensions")
+        if dimensions is not None and (
+            isinstance(dimensions, bool) or not isinstance(dimensions, int)
+        ):
+            return 400, _error_body("'dimensions' must be an integer")
+        if dimensions is not None and dimensions < 1:
+            return 400, _error_body("'dimensions' must be positive")
+        encoding_format = body.get("encoding_format", "float")
+        if encoding_format not in ("float", "base64"):
+            return 400, _error_body(
+                "'encoding_format' must be float or base64"
+            )
+        vecs, err = self._embed(batch_ids)
+        if err:
+            return err
+        if dimensions is not None:
+            if dimensions > len(vecs[0]):
+                return 400, _error_body(
+                    f"'dimensions' {dimensions} exceeds the model's "
+                    f"embedding size {len(vecs[0])}"
+                )
+            vecs = [_shrink(v, dimensions) for v in vecs]
+        total = sum(len(ids) for ids in batch_ids)
+        return 200, {
+            "object": "list",
+            "data": [
+                {"object": "embedding", "index": i,
+                 "embedding": (
+                     base64.b64encode(
+                         struct.pack(f"<{len(v)}f", *v)
+                     ).decode() if encoding_format == "base64" else v
+                 )}
+                for i, v in enumerate(vecs)
+            ],
+            "model": self.model_name,
+            "usage": {"prompt_tokens": total, "total_tokens": total},
+        }
+
+    def rerank(self, body: Dict[str, Any]) -> Tuple[int, Dict[str, Any]]:
+        """Jina/Cohere-style rerank: documents ranked by the cosine of
+        their embedding with the query's (one batched ``embed``)."""
+        query = body.get("query")
+        documents = body.get("documents")
+        if not isinstance(query, str) or not query:
+            return 400, _error_body("missing 'query'")
+        if not isinstance(documents, list) or not documents or not all(
+            isinstance(d, str) for d in documents
+        ):
+            return 400, _error_body("'documents' must be non-empty strings")
+        try:
+            top_n = int(body.get("top_n") or len(documents))
+        except (TypeError, ValueError):
+            return 400, _error_body("'top_n' must be an integer")
+        if top_n <= 0:
+            return 400, _error_body("'top_n' must be positive")
+        tok = self.engine.tokenizer
+        batch = [tok.encode(query)] + [tok.encode(d) for d in documents]
+        if any(not ids for ids in batch):
+            return 400, _error_body("query/documents must tokenize non-empty")
+        vecs, err = self._embed(batch)
+        if err:
+            return err
+        q = vecs[0]
+        # embed() l2-normalises, so the dot product is the cosine
+        scores = [sum(a * b for a, b in zip(d, q)) for d in vecs[1:]]
+        order = sorted(range(len(scores)), key=lambda i: -scores[i])
+        return 200, {
+            "model": self.model_name,
+            "object": "rerank",
+            "results": [
+                {"index": i, "relevance_score": scores[i],
+                 "document": {"text": documents[i]}}
+                for i in order[:top_n]
+            ],
+            "usage": {"total_tokens": sum(len(ids) for ids in batch)},
         }
 
     def models(self) -> Dict[str, Any]:
@@ -526,15 +690,29 @@ class OpenAIServer:
                     self._send_json(404, _error_body("not found"))
 
             def do_POST(self):
-                if self.path not in ("/v1/completions", "/v1/chat/completions"):
+                url = urlsplit(self.path)
+                length = int(self.headers.get("Content-Length") or 0)
+                raw = self.rfile.read(length)
+                if url.path == "/debug/profile":
+                    self._send_json(*server.debug_profile(url.query))
+                    return
+                route = {
+                    "/v1/embeddings": server.embeddings,
+                    "/v1/rerank": server.rerank,
+                }.get(url.path)
+                if route is None and url.path not in (
+                    "/v1/completions", "/v1/chat/completions"
+                ):
                     self._send_json(404, _error_body("not found"))
                     return
                 try:
-                    length = int(self.headers.get("Content-Length") or 0)
-                    body = json.loads(self.rfile.read(length) or b"{}")
+                    body = json.loads(raw or b"{}")
                     if not isinstance(body, dict):
                         raise HTTPError(400, "body must be a JSON object")
-                    gens, chat, tools_active = server.prepare(self.path, body)
+                    if route is not None:
+                        self._send_json(*route(body))
+                        return
+                    gens, chat, tools_active = server.prepare(url.path, body)
                     stream = bool(body.get("stream"))
                     if stream:
                         for gen in gens:
@@ -658,6 +836,20 @@ def build_parser() -> argparse.ArgumentParser:
         "before quantization (repeatable)",
     )
     p.add_argument(
+        "--speculative", choices=["", "ngram", "draft"], default="",
+        help="greedy speculative decoding: proposals from an n-gram index "
+        "of each context, or from a draft model (--draft-source)",
+    )
+    p.add_argument(
+        "--spec-tokens", type=int, default=4,
+        help="positions verified per speculative step",
+    )
+    p.add_argument(
+        "--draft-source", default="",
+        help="draft model for --speculative draft: a preset name or a "
+        "local checkpoint directory (never quantized)",
+    )
+    p.add_argument(
         "--device", default=None,
         help="torch device (default: the CUDA card; 'cpu' to run on the "
         "CPU — never chosen implicitly)",
@@ -701,6 +893,23 @@ def build_engine_from_args(args) -> LLMEngine:
             params = merge_lora_adapters(cfg, params, args.lora)
         if args.quantization == "int8":
             params = quantize_params(params)
+    draft_cfg = draft_params = None
+    if args.speculative == "draft":
+        # the draft is never quantized, as in the JAX server; a preset
+        # draws its weights from the target's seed
+        source = args.draft_source
+        if not source:
+            raise ValueError("--speculative draft needs --draft-source")
+        if os.path.isdir(source):
+            draft_cfg = load_hf_config(source)
+            draft_params = load_or_init_params(
+                draft_cfg, source, seed=0, device=device
+            )
+        else:
+            draft_cfg = get_config(source)
+            draft_params = load_or_init_params(
+                draft_cfg, None, seed=0, device=device
+            )
     return LLMEngine(
         cfg, params,
         model_dir=args.model_dir or None,
@@ -714,6 +923,10 @@ def build_engine_from_args(args) -> LLMEngine:
         kv_cache_int8=args.kv_cache_int8,
         kv_spill_mb=args.kv_spill_mb,
         kv_spill_dir=args.kv_spill_dir,
+        speculative=args.speculative,
+        spec_tokens=args.spec_tokens,
+        draft_cfg=draft_cfg,
+        draft_params=draft_params,
     )
 
 

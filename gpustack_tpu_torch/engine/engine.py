@@ -46,13 +46,32 @@ records the uploaded tensors on its stream before the continuation
 prefill. A failure in either (a CUDA error) ends the engine like a failed
 decode step; a block run evicted between probe and gather cold-starts.
 
+**Speculative decoding** (``speculative``, greedy only, as in the JAX
+engine): each decode step becomes a verify step (``runner.verify_step``)
+over ``spec_tokens`` positions per slot, fed with proposals from an
+incremental 2-gram index of each slot's context (``"ngram"``), or from a
+draft model's own decode state (``"draft"``: delivered tokens are
+block-ingested into the draft's cache, it proposes ``spec_tokens - 1``
+greedy tokens, and its positions are rewound). Output is identical to
+plain greedy decoding; near the cache end the step falls back to plain
+decode.
+
+**Embeddings** (``embed``): a batch is handed to the scheduler thread as
+a job and runs there as one forward, so every forward on the card is
+launched by one thread.
+
+**Profile capture** (``capture_profile``): ``torch.profiler`` wraps the
+next N busy scheduler steps (started and stopped on the scheduler
+thread) and writes a Chrome trace; the steps' flight records come back
+with it.
+
 The flight recorder (``observability/flight.py``) keeps one record per
-scheduler step (modes ``prefill``, ``prefill_chunk``, ``decode``).
+scheduler step (modes ``prefill``, ``prefill_chunk``, ``decode``,
+``spec_verify``, ``embed``).
 
 Not ported yet (the constructor raises ``ValueError`` when asked for
-them; ROADMAP lists them): speculative decoding and draft models,
-disaggregated kv roles (and the ``/kv/*`` handoff), embeddings, vision
-inputs and profile capture.
+them; ROADMAP lists them): disaggregated kv roles (and the ``/kv/*``
+handoff) and vision inputs.
 """
 
 from __future__ import annotations
@@ -78,12 +97,20 @@ from gpustack_tpu_torch.engine.sampling import MAX_BIAS
 from gpustack_tpu_torch.engine.tokenizer import load_tokenizer
 from gpustack_tpu_torch.models.config import ModelConfig
 from gpustack_tpu_torch.models.transformer import torch_dtype
-from gpustack_tpu_torch.observability.flight import FlightRecorder
+from gpustack_tpu_torch.observability.flight import (
+    FlightRecorder,
+    aggregate_records,
+)
 
 logger = logging.getLogger(__name__)
 
 # default decode-fetch pipeline depth (0 = serial mode)
 _FETCH_LAG = 2
+# a capture whose steps did not all come stops at the scheduler's next
+# iteration; the capture thread waits this long for it
+PROFILE_STOP_WAIT_S = 30.0
+# the Chrome trace's file name under a capture's out_dir
+PROFILE_TRACE_FILE = "trace.json"
 
 # sync-in-dispatch contract (as in the JAX engine): these functions form
 # the scheduler dispatch path and must never block on the device — no
@@ -97,6 +124,8 @@ DISPATCH_SYNC_FREE = (
     "_push", "_finish", "_flight_record", "_submit_kv_copy",
     "_store_finished_sequence", "_check_kv_copies", "_entry_ready",
     "_drain_ready", "_flush_detok", "_step_key", "_record_event",
+    "_note_spec_dispatch", "_spec_safe", "_build_proposals",
+    "_draft_propose", "_run_embed_job",
 )
 
 # guarded-by contract: lock-guarded shared state, plus the scheduler
@@ -110,10 +139,13 @@ _SCHEDULER_METHODS = (
     "_flush_detok", "_store_finished_sequence", "_resolve_staged_prefix",
     "_plan_chunk_job", "_new_slot_info", "_emit_text", "_push",
     "_entry_ready", "_step_key", "_submit_kv_copy", "_check_kv_copies",
+    "_note_spec_dispatch", "_spec_safe", "_build_proposals",
+    "_draft_propose", "_run_embed_job", "_profile_step", "_profile_poll",
 )
 
 GUARDED_BY = {
     "_overlap_s": "_overlap_mu",
+    "_profile": "_profile_mu",
     "_KVStager._inflight": "_mu",
     "_slots": _SCHEDULER_METHODS,
     "_free": _SCHEDULER_METHODS,
@@ -123,6 +155,7 @@ GUARDED_BY = {
     "_detok_batch": _SCHEDULER_METHODS,
     "_overlap_seen": _SCHEDULER_METHODS,
     "_state": _SCHEDULER_METHODS,
+    "_draft_state": _SCHEDULER_METHODS,
     "_gen": _SCHEDULER_METHODS,
 }
 
@@ -130,6 +163,7 @@ GUARDED_BY = {
 # submit()/health() and the thread-safe queues.
 THREAD_OWNED = (
     "_slots", "_free", "_pending", "_chunk_jobs", "_detok_batch", "_state",
+    "_draft_state",
 )
 
 
@@ -169,6 +203,58 @@ class LatencyHistogram:
 TTFT_BUCKETS_S = (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
 TPOT_BUCKETS_S = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5)
 E2E_BUCKETS_S = (0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0)
+
+
+def _ngram_propose(ctx: List[int], k: int, n: int = 2) -> List[int]:
+    """Up to ``k`` continuation tokens: find the latest earlier occurrence
+    of the context's final n-gram and replay what followed. The O(len)
+    reference; the engine uses the incremental :class:`_NgramIndex`."""
+    if k <= 0 or len(ctx) < n + 1:
+        return []
+    key = tuple(ctx[-n:])
+    for i in range(len(ctx) - n - 1, -1, -1):
+        if tuple(ctx[i : i + n]) == key:
+            return list(ctx[i + n : i + n + k])
+    return []
+
+
+class _NgramIndex:
+    """Incremental 2-gram index: O(1) proposal lookup per decode step.
+
+    ``prev[g]`` is the end index of the latest occurrence of 2-gram ``g``
+    before its most recent one: what the proposer needs, since the most
+    recent occurrence of the context's final 2-gram is the tail itself."""
+
+    def __init__(self, ctx: List[int], n: int = 2):
+        self.n = n
+        self.ctx = list(ctx)
+        self.cur: Dict[tuple, int] = {}
+        self.prev: Dict[tuple, int] = {}
+        for end in range(n, len(self.ctx) + 1):
+            self._register(tuple(self.ctx[end - n : end]), end)
+
+    def _register(self, gram: tuple, end: int) -> None:
+        if gram in self.cur:
+            self.prev[gram] = self.cur[gram]
+        self.cur[gram] = end
+
+    def append(self, token: int) -> None:
+        self.ctx.append(token)
+        if len(self.ctx) >= self.n:
+            self._register(tuple(self.ctx[-self.n:]), len(self.ctx))
+
+    def propose(self, k: int) -> List[int]:
+        if k <= 0 or len(self.ctx) < self.n + 1:
+            return []
+        end = self.prev.get(tuple(self.ctx[-self.n:]))
+        if end is None:
+            return []
+        return self.ctx[end : end + k]
+
+
+def _torch_profiler():
+    """``torch.profiler``, or None where this torch build has none."""
+    return getattr(torch, "profiler", None)
 
 
 @dataclasses.dataclass
@@ -240,8 +326,23 @@ class _ChunkJob:
 
 
 @dataclasses.dataclass
+class _EmbedJob:
+    """One embedding batch for the scheduler thread: rows pre-padded to
+    one bucket; ``result`` resolves to the ``[N, D]`` device tensor."""
+
+    ids: List[List[int]]
+    lens: List[int]
+    result: concurrent.futures.Future = dataclasses.field(
+        default_factory=concurrent.futures.Future
+    )
+
+
+@dataclasses.dataclass
 class _SlotInfo:
     request: GenRequest
+    ngram: Optional[_NgramIndex] = None
+    # draft mode: delivered tokens not yet ingested into the draft cache
+    pending_draft: List[int] = dataclasses.field(default_factory=list)
     # incremental detokenization: undecoded ids buffer until they decode
     # cleanly (no dangling multibyte sequence), then text accumulates
     buffer_ids: List[int] = dataclasses.field(default_factory=list)
@@ -386,8 +487,9 @@ class LLMEngine:
         seed: int = 0,
         pipeline_depth: int = _FETCH_LAG,  # 0 = serial reference mode
         device=None,
-        speculative: str = "",
-        draft_cfg=None,
+        speculative: str = "",       # ""|"ngram"|"draft" (greedy only)
+        spec_tokens: int = 4,        # positions verified per spec step
+        draft_cfg=None,              # draft model (speculative="draft")
         draft_params=None,
         host_kv_cache_mb: int = 0,   # >0: host-RAM block KV cache
         kv_block_tokens: int = 0,    # block granularity (0 = default 256)
@@ -397,16 +499,21 @@ class LLMEngine:
         kv_spill_mb: int = 0,        # >0: disk spill tier under host RAM
         kv_spill_dir: str = "",      # spill directory ("" = derived tmp)
     ):
-        not_ported = {
-            "speculative decoding": bool(speculative),
-            "draft models": draft_cfg is not None or draft_params is not None,
-            "kv roles": bool(kv_role),
-        }
+        not_ported = {"kv roles": bool(kv_role)}
         asked = [name for name, on in not_ported.items() if on]
         if asked:
             raise ValueError(
                 f"not ported to the PyTorch engine yet: {', '.join(asked)}"
             )
+        if speculative not in ("", "ngram", "draft"):
+            raise ValueError(
+                f"speculative must be '', 'ngram' or 'draft': {speculative!r}"
+            )
+        has_draft = draft_cfg is not None or draft_params is not None
+        if speculative == "draft" and (draft_cfg is None or draft_params is None):
+            raise ValueError("speculative='draft' needs draft_cfg/draft_params")
+        if has_draft and speculative != "draft":
+            raise ValueError("a draft model needs speculative='draft'")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.tokenizer = tokenizer or load_tokenizer(model_dir)
@@ -452,6 +559,29 @@ class LLMEngine:
         self._step_padded = 0        # tokens the padded dispatch computed
         self._step_out = 0           # tokens delivered to requests
         self._step_prompt = 0        # prompt tokens entering prefill
+        self._step_spec_proposed = 0
+        self._step_spec_accepted = 0
+        # speculative decoding: verify steps, accepted proposals (the
+        # tokens beyond one per slot-step) and proposals made
+        self.speculative = speculative
+        self.spec_tokens = max(2, int(spec_tokens))
+        self._spec_steps = 0
+        self._spec_hits = 0
+        self._spec_proposed = 0
+        self.draft_runner = None
+        self._draft_state = None
+        if speculative == "draft":
+            self.draft_runner = ModelRunner(
+                draft_cfg, draft_params, self.device,
+                max_slots=max_slots, max_seq_len=max_seq_len,
+            )
+            self._draft_state = self.draft_runner.new_state()
+        # embedding batches handed to the scheduler thread
+        self._embed_jobs: "queue.Queue[_EmbedJob]" = queue.Queue()
+        # on-demand profiler capture (capture_profile): the scheduler
+        # thread starts and stops torch.profiler around N busy steps
+        self._profile_mu = threading.Lock()
+        self._profile: Optional[Dict[str, Any]] = None
         self.ttft_hist = LatencyHistogram(TTFT_BUCKETS_S)
         self.tpot_hist = LatencyHistogram(TPOT_BUCKETS_S)
         self.e2e_hist = LatencyHistogram(E2E_BUCKETS_S)
@@ -514,6 +644,26 @@ class LLMEngine:
         if not req.request_id:
             req.request_id = f"req-{next(self._id_counter)}"
         req.submitted_at = time.time()
+        if self.speculative:
+            # verification is greedy and yields no sampled distribution:
+            # refuse what it would silently change
+            if req.temperature > 0:
+                raise ValueError(
+                    "this deployment runs speculative decoding, which is "
+                    "greedy-only; set temperature=0 (or deploy without "
+                    "--speculative) to use sampling"
+                )
+            if req.logprobs:
+                raise ValueError(
+                    "logprobs are unavailable under speculative decoding "
+                    "(verification produces no per-token distribution)"
+                )
+            if req.logit_bias:
+                raise ValueError(
+                    "logit_bias is unavailable under speculative decoding "
+                    "(verification argmaxes raw logits; the bias would "
+                    "stop applying after the first token)"
+                )
         if req.logit_bias:
             if len(req.logit_bias) > MAX_BIAS:
                 raise ValueError(
@@ -561,10 +711,54 @@ class LLMEngine:
             self._wake.notify_all()
         if self._thread:
             self._thread.join(timeout=30)
+        self._fail_embed_jobs("engine stopped")
         self._detok.stop()
         if self._kv_copy_pool is not None:
             # stores already queued land; later ones are skipped
             self._kv_copy_pool.shutdown(wait=True)
+
+    def embed(
+        self, batch_prompt_ids: List[List[int]], timeout: float = 300.0
+    ) -> List[List[float]]:
+        """Mean-pooled, l2-normalised embeddings from one batched forward
+        (``runner.embed``: rows padded to one prefill bucket, the batch to
+        a power of two). The JAX engine runs this on the caller's thread;
+        here the batch goes to the scheduler thread as a job, so every
+        forward on the card is launched by one thread. Needs a started
+        engine."""
+        if self._fatal:
+            raise ValueError(f"engine is down: {self._fatal}")
+        if not batch_prompt_ids or any(not ids for ids in batch_prompt_ids):
+            raise ValueError("embedding inputs must be non-empty")
+        for ids in batch_prompt_ids:
+            if len(ids) >= self.max_seq_len:
+                raise ValueError(
+                    f"input of {len(ids)} tokens >= max_seq_len "
+                    f"{self.max_seq_len}"
+                )
+        bucket = self.runner.bucket_for(
+            max(len(ids) for ids in batch_prompt_ids)
+        )
+        job = _EmbedJob(
+            ids=[list(ids) + [0] * (bucket - len(ids))
+                 for ids in batch_prompt_ids],
+            lens=[len(ids) for ids in batch_prompt_ids],
+        )
+        with self._wake:
+            if not self._running:
+                raise RuntimeError("embed needs a started engine")
+            self._embed_jobs.put(job)
+            self._wake.notify_all()
+        # the device-to-host copy waits for the forward on the stream
+        return job.result.result(timeout).tolist()
+
+    def _fail_embed_jobs(self, message: str) -> None:
+        while True:
+            try:
+                job = self._embed_jobs.get_nowait()
+            except queue.Empty:
+                return
+            job.result.set_exception(RuntimeError(message))
 
     def health(self) -> Dict[str, Any]:
         kv = self.host_kv_cache
@@ -588,6 +782,17 @@ class LLMEngine:
             ),
             "pipeline_rollback_tokens": self.flight.rollback_tokens_total,
             "idle_wait_s": round(self.flight.idle_wait_s_total, 3),
+            "speculative": self.speculative,
+            "spec_steps": self._spec_steps,
+            "spec_extra_tokens": self._spec_hits,
+            # accepted proposals / proposals made (1.0: every proposal of
+            # every slot accepted)
+            "spec_acceptance_rate": round(
+                self._spec_hits / max(1, self._spec_proposed), 4
+            ),
+            "draft_model": (
+                self.draft_runner.cfg.name if self.draft_runner else ""
+            ),
             "kv_cache_hits": kv.hits if kv else 0,
             "kv_cache_misses": kv.misses if kv else 0,
             "kv_cache_prefix_hits": kv.prefix_hits if kv else 0,
@@ -603,24 +808,35 @@ class LLMEngine:
     # ---- scheduling loop ------------------------------------------------
 
     def _loop(self) -> None:
-        while self._running:
-            try:
-                busy = self.step()
-            except Exception as e:
-                # a dead scheduling thread is LOUD and terminal: fail every
-                # request and flip health
-                logger.exception("engine scheduling loop died")
-                self._fatal = f"engine loop died: {e}"
-                self._fail_all_requests(str(e))
-                return
-            if not busy:
-                with self._wake:
-                    if self._running and self._waiting.empty():
-                        t0 = time.perf_counter()
-                        self._wake.wait(timeout=0.05)
-                        self.flight.note_idle_wait(
-                            time.perf_counter() - t0
-                        )
+        try:
+            while self._running:
+                try:
+                    busy = self.step()
+                except Exception as e:
+                    # a dead scheduling thread is LOUD and terminal: fail
+                    # every request and flip health
+                    logger.exception("engine scheduling loop died")
+                    self._fatal = f"engine loop died: {e}"
+                    self._fail_all_requests(str(e))
+                    return
+                # unlocked probe: None is the steady state
+                if self._profile is not None:  # analysis: ignore[guarded-by]
+                    self._profile_poll()
+                if not busy:
+                    with self._wake:
+                        if (
+                            self._running and self._waiting.empty()
+                            and self._embed_jobs.empty()
+                        ):
+                            t0 = time.perf_counter()
+                            self._wake.wait(timeout=0.05)
+                            self.flight.note_idle_wait(
+                                time.perf_counter() - t0
+                            )
+        finally:
+            # a capture still open when the loop ends closes here, on the
+            # thread that started it
+            self._profile_poll(closing=True)
 
     def _notify_wake(self) -> None:
         with self._wake:
@@ -659,6 +875,7 @@ class LLMEngine:
                 job.req.stream.put(None)
             job.req.done.set()
         self._chunk_jobs.clear()
+        self._fail_embed_jobs(message)
         while not self._waiting.empty():
             try:
                 req = self._waiting.get_nowait()
@@ -675,6 +892,7 @@ class LLMEngine:
         self._step_mode = ""
         self._step_real = self._step_padded = 0
         self._step_out = self._step_prompt = 0
+        self._step_spec_proposed = self._step_spec_accepted = 0
         self._check_kv_copies()
         # fetch whatever the device already finished (non-blocking probe)
         # so a slot whose request ended re-tenants THIS step
@@ -683,18 +901,46 @@ class LLMEngine:
         # at most one prefill chunk per step: decode cadence for running
         # slots is bounded by one chunk's latency, not a whole prompt's
         progressed = self._advance_chunk()
+        # at most one embedding batch per step, like a prefill
+        embedded = self._run_embed_job()
         if self._slots:
             self._decode_once()
             self._flight_record(t0)
             return True
-        if admitted or progressed or self._chunk_jobs:
+        if admitted or progressed or embedded or self._chunk_jobs:
             self._flight_record(t0)
             return True
         self._drain_pending()
-        if self._step_out:
+        if self._step_out or self._step_spec_accepted:
             # tokens the drain delivered belong to a record too
             self._flight_record(t0)
-        return not self._waiting.empty()
+        return not (self._waiting.empty() and self._embed_jobs.empty())
+
+    def _run_embed_job(self) -> bool:
+        """Dispatch the oldest queued embedding batch (one forward); its
+        future resolves to the device tensor, which the caller's thread
+        copies to the host."""
+        try:
+            job = self._embed_jobs.get_nowait()
+        except queue.Empty:
+            return False
+        if not job.result.set_running_or_notify_cancel():
+            return True
+        try:
+            vecs = self.runner.embed(job.ids, job.lens)
+        except Exception as e:
+            # a bad batch fails its caller; a CUDA error fails the next
+            # step too, which ends the engine
+            job.result.set_exception(e)
+            return True
+        self._step_mode = self._step_mode or "embed"
+        self._step_real += sum(job.lens)
+        # the batch runs padded to the next power of two
+        self._step_padded += len(job.ids[0]) * (
+            1 << (len(job.ids) - 1).bit_length()
+        )
+        job.result.set_result(vecs)
+        return True
 
     def _flight_record(self, t0: float) -> None:
         """Seal this step's flight record. Scheduler-thread only."""
@@ -722,9 +968,145 @@ class LLMEngine:
             tokens_padded=self._step_padded,
             tokens_out=self._step_out,
             prompt_tokens=self._step_prompt,
+            spec_proposed=self._step_spec_proposed,
+            spec_accepted=self._step_spec_accepted,
             kv_blocks=kv.entries if kv is not None else 0,
             kv_reused_total=kv.prefix_tokens_reused if kv is not None else 0,
         )
+        # unlocked probe: None is the steady state, and a stale non-None
+        # pays one lock round trip in _profile_step
+        if self._profile is not None:  # analysis: ignore[guarded-by]
+            self._profile_step()
+
+    # ---- on-demand profiler capture -------------------------------------
+
+    def capture_profile(
+        self, steps: int, out_dir: str = "", timeout_s: float = 30.0
+    ) -> Dict[str, Any]:
+        """Wrap the next ``steps`` busy scheduler steps in a
+        ``torch.profiler`` capture (CPU activity, and CUDA activity on the
+        card) and return the captured steps' flight records with their
+        aggregate. The scheduler thread starts and stops the profiler;
+        this thread then writes the Chrome trace to
+        ``out_dir/trace.json``. With an empty ``out_dir``, or without a
+        usable profiler, the capture degrades to flight records only.
+
+        Blocks up to ``timeout_s`` for the steps to elapse; an idle engine
+        returns what was captured by then. One capture at a time: a
+        concurrent one gets a ValueError (profiler state is
+        process-global)."""
+        n = max(1, min(int(steps), 10_000))
+        cap: Dict[str, Any] = {
+            "remaining": n, "requested": n, "records": [],
+            "out_dir": out_dir, "profiler": "flight-only",
+            "started": False, "stop_requested": False, "error": "",
+            "start_ms": None, "done": threading.Event(),
+        }
+        with self._profile_mu:
+            if self._profile is not None:
+                raise ValueError("a profile capture is already in progress")
+            self._profile = cap
+        if not cap["done"].wait(timeout_s):
+            with self._profile_mu:
+                if self._profile is cap and not cap["started"]:
+                    # no busy step came: nothing to stop
+                    self._profile = None
+                    cap["done"].set()
+                else:
+                    # the scheduler closes the open trace at its next
+                    # iteration (the profiler is bound to its thread)
+                    cap["stop_requested"] = True
+            if not cap["done"].wait(PROFILE_STOP_WAIT_S):
+                cap["error"] = "the scheduler did not close the capture"
+        if cap["profiler"] == "torch":
+            try:
+                os.makedirs(out_dir, exist_ok=True)
+                cap["_prof"].export_chrome_trace(
+                    os.path.join(out_dir, PROFILE_TRACE_FILE)
+                )
+            except Exception as e:  # a failed export keeps the records
+                cap["error"] = f"trace export failed: {e}"
+                cap["profiler"] = "flight-only"
+        records = list(cap["records"])
+        return {
+            "requested": cap["requested"],
+            "steps_captured": len(records),
+            "profiler": cap["profiler"],
+            "artifact": out_dir if cap["profiler"] == "torch" else "",
+            "error": cap["error"],
+            # the first CUDA capture of a process initialises CUPTI, which
+            # can stall the step that starts it
+            "profiler_start_ms": cap["start_ms"],
+            "records": records,
+            "aggregate": aggregate_records(
+                records, self.max_slots,
+                overhead_ratio=self.flight.overhead_ratio(),
+            ) if records else {},
+        }
+
+    def _profile_step(self) -> None:
+        """Advance the open capture by one recorded step (scheduler
+        thread; the lock only guards the handoff with the capture
+        thread)."""
+        with self._profile_mu:
+            cap = self._profile
+            if cap is None or cap["remaining"] <= 0:
+                return
+            if not cap["started"]:
+                # the first captured step is this one: its record lands
+                # before the trace opens, so the trace covers the rest
+                cap["started"] = True
+                if cap["out_dir"] and self._profiler_start(cap):
+                    cap["profiler"] = "torch"
+            snap = self.flight.snapshot(limit=1)
+            if snap:
+                cap["records"].append(snap[-1])
+            cap["remaining"] -= 1
+            if cap["remaining"] <= 0:
+                self._profiler_stop(cap)
+                self._profile = None
+                cap["done"].set()
+
+    def _profile_poll(self, closing: bool = False) -> None:
+        """Close a capture its caller gave up waiting for (or, when the
+        loop ends, any open one) on the scheduler thread."""
+        with self._profile_mu:
+            cap = self._profile
+            if cap is None or not (closing or cap["stop_requested"]):
+                return
+            self._profiler_stop(cap)
+            self._profile = None
+            cap["done"].set()
+
+    def _profiler_start(self, cap: Dict[str, Any]) -> bool:
+        prof = _torch_profiler()
+        if prof is None or not hasattr(prof, "profile"):
+            cap["error"] = "torch.profiler unavailable"
+            return False
+        activities = [prof.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(prof.ProfilerActivity.CUDA)
+        t0 = time.perf_counter()
+        try:
+            p = prof.profile(activities=activities)
+            p.start()
+        except Exception as e:  # the profiler must never kill the loop
+            cap["error"] = f"profiler start failed: {e}"
+            return False
+        cap["start_ms"] = (time.perf_counter() - t0) * 1e3
+        cap["_prof"] = p
+        return True
+
+    @staticmethod
+    def _profiler_stop(cap: Dict[str, Any]) -> None:
+        if cap["profiler"] != "torch" or cap.get("_stopped"):
+            return
+        cap["_stopped"] = True
+        try:
+            cap["_prof"].stop()
+        except Exception as e:
+            cap["error"] = f"profiler stop failed: {e}"
+            cap["profiler"] = "flight-only"
 
     def _admit(self) -> bool:
         admitted = False
@@ -1104,6 +1486,8 @@ class LLMEngine:
             from gpustack_tpu_torch.engine.openai_tools import JsonScanner
 
             info.json_scan = JsonScanner()
+        if self.speculative == "ngram":
+            info.ngram = _NgramIndex(req.prompt_ids)
         return info
 
     def _record_event(self):
@@ -1121,7 +1505,8 @@ class LLMEngine:
         """Insert a finished prefill into the decode state and feed the
         first sampled token. Overlap mode: the token never touches the
         host here — ``insert`` consumes it as a device tensor and the
-        host learns it through the fetch pipeline. Logprobs requests take
+        host learns it through the fetch pipeline. Speculative modes (the
+        proposers need the exact host context) and logprobs requests take
         the synchronous path."""
         ids = req.prompt_ids
         # decode samples token 2 at position len(ids); the first token
@@ -1132,7 +1517,7 @@ class LLMEngine:
             seed, req.seed is not None, len(ids) - 1, self._step_key(),
             logit_bias=req.logit_bias,
         )
-        if self.overlap and not req.logprobs:
+        if self.overlap and not self.speculative and not req.logprobs:
             self._state = self.runner.insert(
                 self._state, k, v, slot, len(ids), toks[0],
                 req.temperature, req.top_k, req.top_p,
@@ -1151,8 +1536,10 @@ class LLMEngine:
     def _finalize_start_sync(
         self, slot, req, k, v, seed, toks, tok_lp, top_ids, top_lps
     ) -> None:
-        """Synchronous first-token path (serial mode, logprobs): reads the
-        sampled token to the host before insert — a designated sync."""
+        """Synchronous first-token path (serial mode, speculation,
+        logprobs): reads the sampled token to the host before insert — a
+        designated sync. A draft model mirrors the slot: its own prefill
+        of the prompt, inserted greedy with the same first token."""
         ids = req.prompt_ids
         first = int(toks[0])
         first_lps = None
@@ -1167,11 +1554,31 @@ class LLMEngine:
             seed, req.seed is not None, req.logit_bias,
         )
         info = self._new_slot_info(req)
+        if self.draft_runner is not None:
+            dr = self.draft_runner
+            bucket = dr.bucket_for(max(1, len(ids)))
+            _, dk, dv = dr.prefill(
+                list(ids) + [0] * (bucket - len(ids)), len(ids)
+            )
+            self._draft_state = dr.insert(
+                self._draft_state, dk, dv, slot, len(ids), first,
+                0.0, 0, 1.0,
+            )
         self._slots[slot] = info
         self._deliver(slot, info, [first], first_lps)
         self._flush_detok()
+        if self.draft_runner is not None and slot in self._slots:
+            # ``first`` is already the draft's pending last token (set at
+            # insert): queueing it again would feed it twice
+            self._slots[slot].pending_draft.clear()
 
     def _decode_once(self) -> None:
+        if self.draft_runner is not None and self._spec_safe():
+            # a draft chain must continue the target's ACTUAL last token:
+            # proposing from a lagged context misaligns the whole chain
+            # (the n-gram proposer tolerates lag). One host sync per spec
+            # step, amortised over up to spec_tokens tokens.
+            self._drain_pending()
         # snapshot slot ownership at dispatch time: a lagged fetch drops
         # tokens of a slot that was retired and re-used since
         owners = {
@@ -1179,18 +1586,120 @@ class LLMEngine:
         }
         if not owners:
             return
-        self._state, out = self.runner.decode_step(
-            self._state, self._step_key()
-        )
-        self._pending.append((("decode", out), owners, self._record_event()))
-        # decode runs every slot whether or not it is active: the idle
-        # share is the decode side of padding waste
-        self._step_mode = self._step_mode or "decode"
-        self._step_real += len(owners)
-        self._step_padded += self.max_slots
+        # the drain may have moved a sequence nearer the end: ask again
+        if self.speculative and self._spec_safe():
+            proposals = (
+                self._build_proposals() if self.speculative == "ngram"
+                else self._draft_propose()
+            )
+            self._state, tokens, produced = self.runner.verify_step(
+                self._state, proposals
+            )
+            self._spec_steps += 1
+            self._spec_proposed += len(owners) * (self.spec_tokens - 1)
+            # one tensor, one copy at fetch: [B, P] tokens then produced
+            out = torch.cat([tokens, produced[:, None]], dim=1)
+            self._pending.append(
+                (("spec", out), owners, self._record_event())
+            )
+            self._note_spec_dispatch(len(owners))
+        else:
+            self._state, out = self.runner.decode_step(
+                self._state, self._step_key()
+            )
+            self._pending.append(
+                (("decode", out), owners, self._record_event())
+            )
+            # decode runs every slot whether or not it is active: the
+            # idle share is the decode side of padding waste
+            self._step_mode = self._step_mode or "decode"
+            self._step_real += len(owners)
+            self._step_padded += self.max_slots
         self._step_count += 1
         if len(self._pending) > self.pipeline_depth:
             self._process_fetch(*self._pending.pop(0))
+
+    def _note_spec_dispatch(self, active: int) -> None:
+        """Flight accounting for one verify step: every slot computes
+        spec_tokens positions, active or not."""
+        self._step_mode = self._step_mode or "spec_verify"
+        self._step_real += active * self.spec_tokens
+        self._step_padded += self.max_slots * self.spec_tokens
+        self._step_spec_proposed += active * (self.spec_tokens - 1)
+
+    # ---- speculative decoding -------------------------------------------
+
+    def _spec_safe(self) -> bool:
+        """A verify step writes spec_tokens KV positions contiguously:
+        stay clear of the cache end. The host's view of a sequence lags
+        the device by up to ``pipeline_depth`` dispatched steps (default
+        ``_FETCH_LAG``), each worth up to spec_tokens positions, hence the
+        margin."""
+        margin = self.spec_tokens * (self.pipeline_depth + 2)
+        for info in self._slots.values():
+            req = info.request
+            used = len(req.prompt_ids) + len(req.output_ids)
+            if used + margin >= self.max_seq_len:
+                return False
+        return True
+
+    def _build_proposals(self) -> torch.Tensor:
+        """N-gram lookup on each slot's (lagged) context through its
+        incremental index: ``[B, spec_tokens]`` on the host."""
+        P = self.spec_tokens
+        proposals = torch.zeros((self.max_slots, P), dtype=torch.int64)
+        for slot, info in self._slots.items():
+            if info.ngram is None:
+                continue
+            prop = info.ngram.propose(P - 1)
+            if prop:
+                proposals[slot, : len(prop)] = torch.tensor(prop)
+        return proposals
+
+    def _draft_propose(self) -> torch.Tensor:
+        """Draft-model proposals ``[B, spec_tokens]``, left on the device:
+
+        1. catch-up: block-ingest each slot's delivered but not yet
+           ingested tokens into the draft cache (one forward; the block is
+           a power of two wide, at most 2·spec_tokens, the rest queued);
+        2. propose: spec_tokens - 1 greedy draft decode steps;
+        3. rewind: restore the draft's positions and last tokens; the
+           proposal's cache entries sit above them, masked until accepted
+           tokens overwrite them.
+
+        The target's verify guarantees greedy-exact output whatever the
+        draft proposes."""
+        P = self.spec_tokens
+        dr = self.draft_runner
+        width = max(
+            (len(i.pending_draft) for i in self._slots.values()), default=0
+        )
+        if width:
+            width = min(width, 2 * P)
+            w = 1
+            while w < width:
+                w *= 2
+            block = torch.zeros((self.max_slots, w), dtype=torch.int64)
+            counts = torch.zeros((self.max_slots,), dtype=torch.int64)
+            for slot, info in self._slots.items():
+                take = info.pending_draft[:w]
+                info.pending_draft = info.pending_draft[len(take):]
+                if take:
+                    block[slot, : len(take)] = torch.tensor(take)
+                counts[slot] = len(take)
+            self._draft_state = dr.ingest_step(
+                self._draft_state, block, counts
+            )
+        snap = dr.snapshot_sequence(self._draft_state)
+        proposals = torch.zeros(
+            (self.max_slots, P), dtype=torch.int64, device=self.device
+        )
+        for j in range(P - 1):
+            # draft sampling is greedy: the step key is unused
+            self._draft_state, out = dr.decode_step(self._draft_state, 0)
+            proposals[:, j] = out[0]
+        self._draft_state = dr.restore_sequence(self._draft_state, snap)
+        return proposals
 
     @staticmethod
     def _entry_ready(entry) -> bool:
@@ -1215,6 +1724,22 @@ class LLMEngine:
                 self.flight.note_rollback(1)
                 return
             self._deliver(slot, info, [int(payload[0])])
+            self._flush_detok()
+            return
+        if kind == "spec":
+            rows = payload.tolist()            # sync point (lagged)
+            for slot, owner_id in owners.items():
+                n = rows[slot][-1]
+                info = self._slots.get(slot)
+                if info is None or info.request.request_id != owner_id:
+                    if n > 0:
+                        self.flight.note_rollback(n)
+                    continue
+                if n <= 0:
+                    continue
+                self._spec_hits += n - 1
+                self._step_spec_accepted += n - 1
+                self._deliver(slot, info, rows[slot][:n])
             self._flush_detok()
             return
         tokens, tok_lp, top_ids, top_lps = payload
@@ -1265,9 +1790,16 @@ class LLMEngine:
                     req.output_top_logprobs.append(lps[j][1])
                 self._tokens_generated += 1
                 self._step_out += 1
+                if info.ngram is not None:
+                    info.ngram.append(tok)
+                if self.draft_runner is not None:
+                    info.pending_draft.append(tok)
                 if info.sync_detok:
                     info.buffer_ids.append(tok)
                     if self._emit_text(info, final=False):
+                        # a verify step's later tokens never existed
+                        if len(toks) - j - 1:
+                            self.flight.note_rollback(len(toks) - j - 1)
                         self._finish(slot, info, "stop")
                         return
                 else:
@@ -1277,6 +1809,8 @@ class LLMEngine:
                 >= self.max_seq_len - 1
             )
             if is_eos or at_cap or len(req.output_ids) >= req.max_tokens:
+                if len(toks) - j - 1:
+                    self.flight.note_rollback(len(toks) - j - 1)
                 if offload:
                     self._detok_batch.append((info, offload))
                 self._finish(slot, info, "stop" if is_eos else "length")

@@ -13,7 +13,13 @@ The port of ``gpustack_tpu/engine/runner.py`` for a single card (no mesh):
 - all sequencing state (last token, position, active mask) lives **on the
   device** and is updated in place, so the decode loop never waits on the
   host; the engine fetches sampled tokens a few steps behind;
-- a slot deactivates on the device when it reaches ``max_seq_len``.
+- a slot deactivates on the device when it reaches ``max_seq_len``;
+- **speculation**: ``verify_step`` checks a block of proposals per slot in
+  one forward and accepts the longest greedy-matching prefix plus a bonus
+  token; a draft model's runner catches up with ``ingest_step`` and
+  rewinds its proposals with ``snapshot_sequence``/``restore_sequence``;
+- **embed**: one cacheless forward over a padded batch, mean-pooled and
+  l2-normalised.
 
 PyTorch runs eagerly, so there are no per-shape compilations to cache:
 the buckets bound the set of prefill shapes the kernel sees.
@@ -192,6 +198,38 @@ class ModelRunner:
         last = lm_head(self.params, self.cfg, hidden[0, suffix_true_len - 1])
         return last, cache.k[:, 0], cache.v[:, 0]
 
+    # -- embeddings -------------------------------------------------------
+
+    def embed(self, batch_token_ids, true_lens) -> torch.Tensor:
+        """Mean-pooled, l2-normalised fp32 hidden states ``[N, D]`` from
+        one batched cacheless forward. ``batch_token_ids`` is ``[N][Tb]``,
+        every row pre-padded to one bucket ``Tb``; the batch is padded to
+        a power of two with empty rows (true length 0, pooled to zero) so
+        the kernel sees a bounded set of shapes. On the card the attention
+        is the flash kernel (``attn_impl_for``), as for every prefill."""
+        Tb = len(batch_token_ids[0])
+        if Tb not in self.prefill_buckets:
+            raise ValueError(f"{Tb} is not a bucket {self.prefill_buckets}")
+        N = len(batch_token_ids)
+        Nb = 1
+        while Nb < N:
+            Nb *= 2
+        padded = [list(r) for r in batch_token_ids] + [[0] * Tb] * (Nb - N)
+        lens = list(true_lens) + [0] * (Nb - N)
+        tokens = self._ids_on_device(padded)
+        positions = torch.arange(Tb, device=self.device)[None, :].expand(
+            Nb, Tb
+        )
+        hidden, _ = forward(
+            self.params, self.cfg, tokens, positions, return_hidden=True,
+            attn_impl=self.attn_impl_for(Tb),
+        )
+        lens_t = self._ids_on_device(lens)
+        mask = (positions < lens_t[:, None])[..., None].float()
+        pooled = (hidden * mask).sum(dim=1) / mask.sum(dim=1).clamp_min(1.0)
+        norm = pooled.norm(dim=-1, keepdim=True)
+        return (pooled / norm.clamp_min(1e-9))[:N]
+
     # -- sampling ---------------------------------------------------------
 
     def sample_first(
@@ -246,6 +284,24 @@ class ModelRunner:
 
     # -- decode -----------------------------------------------------------
 
+    def _ids_on_device(self, ids) -> torch.Tensor:
+        """Token ids (host or device) as int64 on the device. A host
+        tensor goes through pinned memory without blocking: a pageable
+        copy to the card synchronises the stream, which would stall the
+        dispatch-ahead pipeline on every speculative step."""
+        if isinstance(ids, torch.Tensor) and ids.device.type != "cpu":
+            return ids.long()
+        host = torch.as_tensor(ids, dtype=torch.int64)
+        if self.device.type != "cuda":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def _block_positions(self, state: DecodeState, P: int) -> torch.Tensor:
+        """``[B, P]`` positions of a block fed from each row's position."""
+        return state.positions[:, None] + torch.arange(
+            P, device=self.device
+        )[None, :]
+
     def decode_step(self, state: DecodeState, key: int):
         """One decode step (in place). Returns ``(state, (tokens [B],
         token_logprob [B], top_ids [B, TOPLP], top_logprobs [B, TOPLP]))``
@@ -271,6 +327,92 @@ class ModelRunner:
         ))
         state.active &= ~at_capacity
         return state, out
+
+    # -- draft-model support ---------------------------------------------
+
+    def ingest_step(self, state: DecodeState, tokens, counts) -> DecodeState:
+        """Ingest already-accepted tokens into the cache (the draft's
+        catch-up), in place. ``tokens`` ``[B, P]`` (pad arbitrary),
+        ``counts`` ``[B]``. The state invariant is decode's and verify's
+        ``(pos, last)``: KV complete below ``pos``, ``last`` not yet fed.
+        So the block fed is ``[last, tokens[0 .. P-2]]``, after which
+        ``pos += counts`` (capped at ``max_seq_len - 1``) and ``last``
+        becomes each row's final ingested token; rows with count 0 keep
+        both. Pad positions land above the new position, hidden by the
+        causal mask until overwritten. The JAX forward's logits are
+        discarded, so this one stops at the hidden states."""
+        tokens = self._ids_on_device(tokens)
+        counts = self._ids_on_device(counts)
+        P = tokens.shape[1]
+        fed = torch.cat([state.last_tokens[:, None], tokens[:, : P - 1]], 1)
+        forward(
+            self.params, self.cfg, fed, self._block_positions(state, P),
+            state.cache, return_hidden=True, clamp_writes=True,
+        )
+        last_idx = (counts - 1).clamp_min(0)
+        new_last = tokens.gather(1, last_idx[:, None])[:, 0]
+        state.last_tokens.copy_(
+            torch.where(counts > 0, new_last, state.last_tokens)
+        )
+        state.positions.copy_(
+            (state.positions + counts).clamp_max(self.max_seq_len - 1)
+        )
+        return state
+
+    def snapshot_sequence(self, state: DecodeState):
+        """Copies of ``(positions, last_tokens)``: restore them after a
+        proposal run to rewind the draft (its cache entries above the
+        restored positions are masked out)."""
+        return state.positions.clone(), state.last_tokens.clone()
+
+    def restore_sequence(self, state: DecodeState, snap) -> DecodeState:
+        positions, last_tokens = snap
+        state.positions.copy_(positions)
+        state.last_tokens.copy_(last_tokens)
+        return state
+
+    # -- speculative decoding (greedy verify) -----------------------------
+
+    def verify_step(self, state: DecodeState, proposals):
+        """Greedy speculative verification (in place).
+
+        ``proposals`` ``[B, P]`` (host or device): the first P-1 entries
+        are candidate continuations, the last is padding, so one shape
+        serves propose-and-bonus. Feeds ``[last, p_0 .. p_{P-2}]`` at P
+        positions; per row the longest matching proposal prefix is
+        accepted plus one bonus token from the model's own argmax chain.
+        Returns ``(state, tokens [B, P], produced [B])``:
+        ``tokens[b, :produced[b]]`` are the new tokens (1..P per active
+        row, 0 for an inactive one).
+
+        Callers keep ``position + P < max_seq_len`` for every active row
+        (the engine falls back to plain decode near capacity): the block's
+        KV write is contiguous. An inactive row's block is clamped inside
+        the cache, as the JAX write is."""
+        proposals = self._ids_on_device(proposals)
+        P = proposals.shape[1]
+        fed = torch.cat(
+            [state.last_tokens[:, None], proposals[:, : P - 1]], 1
+        )
+        logits, _ = forward(
+            self.params, self.cfg, fed, self._block_positions(state, P),
+            state.cache, clamp_writes=True,
+        )
+        greedy = logits.argmax(dim=-1)                          # [B, P]
+        match = (proposals[:, : P - 1] == greedy[:, : P - 1]).long()
+        n_accept = match.cumprod(dim=1).sum(dim=1)              # 0..P-1
+        produced = torch.where(state.active, n_accept + 1, 0)
+        new_last = greedy.gather(1, n_accept[:, None])[:, 0]
+        state.last_tokens.copy_(
+            torch.where(state.active, new_last, state.last_tokens)
+        )
+        state.positions.copy_(torch.where(
+            state.active,
+            (state.positions + produced).clamp_max(self.max_seq_len - 1),
+            state.positions,
+        ))
+        state.active &= ~(state.positions + 1 >= self.max_seq_len)
+        return state, greedy, produced
 
 
 def greedy_reference(

@@ -19,8 +19,10 @@ follow the JAX module so its tests compare like with like:
   run through the W8A16 kernel on the card.
 
 Prefill attention on the card is the hand-written flash kernel
-(``ops/flash_attention.py``); decode attention stays plain torch ops over
-the full ``S_max`` mask, as in the JAX module (XLA there, not Pallas).
+(``ops/flash_attention.py``), and so is the cacheless embedding forward's;
+decode attention, and the speculative verify and draft ingest blocks,
+stay plain torch ops over the full ``S_max`` mask, as in the JAX module
+(XLA there, not Pallas).
 
 Configurations outside the dense path (MoE, MLA, sliding windows,
 softcaps, attention sinks, Gemma's norms and activations) raise
@@ -350,13 +352,15 @@ def forward(
     return_hidden: bool = False,
     attn_impl: str = "plain",
     q_offset: int = 0,
+    clamp_writes: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the model.
 
     Without ``cache``: plain causal forward. With ``cache``: writes K/V at
     ``positions`` into the cache (in place) and attends over the whole
     cache with an absolute-position causal mask; ``T > 1`` is a prefill
-    step, ``T == 1`` a decode step.
+    step (or a speculative verify / draft ingest block), ``T == 1`` a
+    decode step.
 
     ``attn_impl="flash"`` sends prefill attention (cache given, ``T > 1``)
     through ``ops.flash_attention_prefill`` — the Hopper kernel for CUDA
@@ -364,8 +368,16 @@ def forward(
     ``0`` for a bucketed prefill, the prefix length (or chunk start) for a
     continuation. ``q_offset`` is a host int the caller already knows, so
     the kernel's causal diagonal is set without reading ``positions`` back
-    from the card. ``"plain"`` uses :func:`_attend`. Decode and the
-    cacheless path always use :func:`_attend`.
+    from the card. Without a cache (an embedding forward), ``"flash"``
+    runs the kernel on the layer's own K/V (``S = T``, ``q_offset`` 0).
+    ``"plain"`` uses :func:`_attend`; decode always does.
+
+    ``clamp_writes`` gives the cache write the JAX module's
+    ``dynamic_update_slice`` semantics: each row's block of ``T`` (its
+    positions must be contiguous) lands at ``min(positions[:, 0], S - T)``.
+    The runner's verify and ingest blocks use it, as the JAX runner relies
+    on it for rows it has deactivated (a frozen position near the end);
+    everywhere else a write past the cache is an error.
 
     Returns ``(logits [B, T, vocab] fp32, cache or None)``, or the final
     normalized hidden states (fp32) with ``return_hidden``.
@@ -383,15 +395,25 @@ def forward(
         sin = sin * att_factor
         cos = cos * att_factor
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    use_flash = attn_impl == "flash" and cache is not None and T > 1
+    use_flash = attn_impl == "flash" and T > 1
 
     if cache is None:
-        mask = positions[:, :, None] >= positions[:, None, :]
+        if not use_flash:
+            mask = positions[:, :, None] >= positions[:, None, :]
+        elif positions.device.type == "cpu" and bool(
+            (positions != torch.arange(T, device=device)).any()
+        ):
+            raise ValueError("cacheless flash rows must be at 0 .. T-1")
     else:
         S = cache.max_len
-        if positions.device.type == "cpu" and int(positions.max()) >= S:
+        write_pos = positions
+        if clamp_writes:
+            write_pos = positions[:, :1].clamp(0, S - T) + torch.arange(
+                T, device=device
+            )
+        if positions.device.type == "cpu" and int(write_pos.max()) >= S:
             raise IndexError(
-                f"KV write at position {int(positions.max())} >= cache "
+                f"KV write at position {int(write_pos.max())} >= cache "
                 f"length {S}"
             )
         if use_flash and positions.device.type == "cpu" and bool(
@@ -403,6 +425,11 @@ def forward(
         cache_pos = torch.arange(S, device=device)
         mask = cache_pos[None, None, :] <= positions[:, :, None]
         rows = torch.arange(B, device=device)[:, None].expand(B, T)
+
+    if use_flash:
+        from gpustack_tpu_torch.ops.flash_attention import (
+            flash_attention_prefill,
+        )
 
     lp = params["layers"]
     for li in range(cfg.num_layers):
@@ -422,17 +449,16 @@ def forward(
         k = apply_rope(k, sin, cos)
         qg = q.reshape(B, T, cfg.num_kv_heads, cfg.group_size, cfg.head_dim)
         if cache is None:
-            attn = _attend(qg, k, v, mask, scale)
+            if use_flash:
+                attn = flash_attention_prefill(q, k, v, scale)
+            else:
+                attn = _attend(qg, k, v, mask, scale)
         else:
             k_l, v_l = cache.k[li], cache.v[li]
             # in-place write at each row's absolute positions
-            k_l[rows, positions] = k.to(k_l.dtype)
-            v_l[rows, positions] = v.to(v_l.dtype)
+            k_l[rows, write_pos] = k.to(k_l.dtype)
+            v_l[rows, write_pos] = v.to(v_l.dtype)
             if use_flash:
-                from gpustack_tpu_torch.ops.flash_attention import (
-                    flash_attention_prefill,
-                )
-
                 attn = flash_attention_prefill(
                     q, k_l, v_l, scale, q_offset=q_offset
                 )

@@ -11,8 +11,10 @@ Record vocabulary (per step):
 
 - ``mode`` — what the step mostly did: ``prefill`` (one-shot),
   ``prefill_chunk`` (one chunk of a long prompt), ``decode`` (one
-  decode_step over all slots). (``spec_verify`` belongs to speculative
-  decoding, which the port does not have yet.)
+  decode_step over all slots), ``spec_verify`` (one speculative verify
+  step: ``tokens_real`` = active slots x spec_tokens, ``tokens_padded``
+  = all slots x spec_tokens), ``embed`` (one embedding batch; the port
+  runs it on the scheduler thread, the JAX engine beside it, unrecorded).
 - ``dur_ms`` — step wall time.
 - ``slots_used``/``slots_total``, ``waiting``, ``oldest_wait_ms`` —
   occupancy, queue depth, and how long the queue head has waited.
@@ -20,6 +22,8 @@ Record vocabulary (per step):
   vs. tokens the padded dispatch computed (bucket padding on prefill,
   inactive slots on decode).
 - ``tokens_out`` — tokens delivered to requests during the step.
+- ``spec_proposed``/``spec_accepted`` — speculation: proposals made and
+  accepted.
 - ``kv_blocks``/``kv_reused_total`` — host KV cache pressure.
 - ``host_overlap_ms`` — host work (detokenization, stream writes, KV
   staging copies) done on worker threads during this step.

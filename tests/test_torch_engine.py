@@ -147,18 +147,22 @@ def test_logprobs_match_jax_engine(models):
     ]
 
 
-@pytest.mark.parametrize("kw", [
-    {"speculative": "ngram"},
-    {"speculative": "draft"},
-    {"draft_params": {}},
-    {"kv_role": "prefill"},
-    {"kv_role": "decode"},
+@pytest.mark.parametrize("kw,match", [
+    pytest.param(*case, id=f"kw{i}") for i, case in enumerate([
+        ({"speculative": "medusa"}, "speculative must be"),
+        ({"speculative": "draft"}, "needs draft_cfg"),
+        ({"draft_params": {}}, "needs speculative='draft'"),
+        ({"kv_role": "prefill"}, "not ported"),
+        ({"kv_role": "decode"}, "not ported"),
+    ])
 ])
-def test_unported_features_raise(models, kw):
-    """Speculative decoding, draft models and kv roles are not ported yet
-    (the KV tiers and chunked prefill are: test_torch_engine_kv.py)."""
+def test_unported_features_raise(models, kw, match):
+    """kv roles are not ported yet (the KV tiers and chunked prefill are:
+    test_torch_engine_kv.py; speculation is: test_torch_speculative.py),
+    and a speculative mode the engine does not know, a draft mode without
+    a draft or a draft without its mode are refused."""
     _, _, cfg, tparams = models
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match=match):
         LLMEngine(cfg, tparams, device="cpu", **kw)
 
 

@@ -1,7 +1,11 @@
-"""The engine's host KV tier on a card (marker ``gpu``; each test skips where
-there is no CUDA card): the side-stream device→host store into pinned
+"""The engine on a card (marker ``gpu``; each test skips where there is no
+CUDA card): the host KV tier's side-stream device→host store into pinned
 buffers, the staged upload on a second stream, and a continuation prefill
-from the uploaded prefix.
+from the uploaded prefix; a speculative verify block that the runner
+clamps inside the cache for a row frozen at its end (out of range it
+would be a device-side assert); the embedding forward through the flash
+kernel against the plain attention; and a profile capture whose trace
+holds the card's kernels.
 
 JAX-free like ``test_torch_kernels_gpu.py``: ``python -m pytest
 --noconftest -m gpu tests/test_torch_engine_gpu.py``. The model is
@@ -10,27 +14,36 @@ bf16, random weights on the card.
 """
 
 import dataclasses
+import json
+import os
 
 import pytest
 import torch
 
-from gpustack_tpu_torch.engine.engine import LLMEngine, _ChunkJob  # analysis: ignore[metrics-drift]
+from gpustack_tpu_torch.engine.engine import GenRequest, LLMEngine, _ChunkJob  # analysis: ignore[metrics-drift]
+from gpustack_tpu_torch.engine.runner import ModelRunner  # analysis: ignore[metrics-drift]
 from gpustack_tpu_torch.models.config import get_config  # analysis: ignore[metrics-drift]
 from gpustack_tpu_torch.models.transformer import init_params  # analysis: ignore[metrics-drift]
+from gpustack_tpu_torch.ops.flash_attention import flash_attention_prefill  # analysis: ignore[metrics-drift]
 
 
-def _engine():
+def _model():
     if not torch.cuda.is_available():
-        pytest.skip("no CUDA card: the engine's stream paths run only there")
+        pytest.skip("no CUDA card: these engine paths run only there")
     cfg = dataclasses.replace(
         get_config("tiny"), head_dim=64, dtype="bfloat16",
         max_position_embeddings=512,
     )
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    return cfg, init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+
+
+def _engine(**kw):
+    cfg, params = _model()
     return LLMEngine(
         cfg, params, max_slots=2, max_seq_len=512, device="cuda",
-        prefill_chunk=64, host_kv_cache_mb=64, kv_block_tokens=32,
+        **(kw or dict(prefill_chunk=64, host_kv_cache_mb=64,
+                      kv_block_tokens=32)),
     )
 
 
@@ -90,3 +103,66 @@ def test_continuation_from_uploaded_prefix_matches_one_prefill():
         assert err <= 5e-2 * scale and cos >= 0.999, (err, scale, cos)
     finally:
         eng.stop()
+
+
+@pytest.mark.gpu
+def test_verify_block_of_a_row_at_the_cache_end_stays_inside():
+    """Slot 0 decodes; slot 1 is inactive at the last position, where a
+    block of 4 would write past the cache. The runner clamps it, as the
+    JAX write does, and the active row advances by what it produced."""
+    cfg, params = _model()
+    r = ModelRunner(cfg, params, torch.device("cuda"), max_slots=2,
+                    max_seq_len=128)
+    with torch.no_grad():
+        _, k, v = r.prefill(list(range(1, 33)), 32)
+        state = r.insert(r.new_state(), k, v, 0, 32, 5, 0.0, 0, 1.0)
+        state.positions[1] = 127
+        state, tokens, produced = r.verify_step(
+            state, torch.zeros((2, 4), dtype=torch.int64)
+        )
+        torch.cuda.synchronize()
+    n = produced.tolist()
+    assert n[1] == 0 and 1 <= n[0] <= 4
+    assert state.positions.tolist() == [32 + n[0], 127]
+    assert tokens.shape == (2, 4)
+
+
+@pytest.mark.gpu
+def test_embed_through_flash_matches_plain_attention():
+    """B = 4 (3 rows padded), T = 64: the kernel's embeddings against the
+    same forward through the plain attention, cosine >= 0.999 per row;
+    the kernel launches once per layer."""
+    cfg, params = _model()
+    r = ModelRunner(cfg, params, torch.device("cuda"), max_slots=2,
+                    max_seq_len=128)
+    rows = [[1 + (i * j) % 250 for j in range(64)] for i in range(1, 4)]
+    lens = [64, 40, 7]
+    before = flash_attention_prefill.launches
+    with torch.no_grad():
+        got = r.embed(rows, lens)
+        assert flash_attention_prefill.launches - before == cfg.num_layers
+        r.attn_impl_for = lambda bucket: "plain"
+        want = r.embed(rows, lens)
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    assert got.shape == (3, cfg.hidden_size)
+    assert bool((cos >= 0.999).all()), cos.tolist()
+
+
+@pytest.mark.gpu
+def test_profile_capture_traces_the_card(tmp_path):
+    """A capture over a decoding request writes a Chrome trace with the
+    card's kernels in it."""
+    eng = _engine(pipeline_depth=2)
+    eng.start()
+    try:
+        req = eng.submit(GenRequest(prompt_ids=list(range(1, 20)),
+                                    max_tokens=200, temperature=0.0))
+        out_dir = str(tmp_path / "prof")
+        result = eng.capture_profile(6, out_dir=out_dir, timeout_s=60)
+        assert req.done.wait(120)
+    finally:
+        eng.stop()
+    assert result["profiler"] == "torch", result["error"]
+    with open(os.path.join(out_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)

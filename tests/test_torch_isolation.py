@@ -63,6 +63,26 @@ def test_scan_covers_the_checkpoint_modules():
         ), rel
 
 
+# modules the speculation, embeddings and profile slice extended
+SPECULATION_MODULES = (
+    "engine/engine.py", "engine/runner.py", "engine/api_server.py",
+    "models/transformer.py", "observability/flight.py",
+)
+
+
+def test_scan_covers_the_speculation_slice():
+    files = {os.path.relpath(p, PACKAGE) for p in _port_files()}
+    assert set(SPECULATION_MODULES) <= files
+    for rel in SPECULATION_MODULES:
+        assert not set(_imported_roots(os.path.join(PACKAGE, rel))) & set(
+            FORBIDDEN
+        ), rel
+    # the profiler is torch's, reached without importing JAX's
+    with open(os.path.join(PACKAGE, "engine", "engine.py")) as f:
+        src = f.read()
+    assert "torch.profiler" in src and "jax.profiler" not in src
+
+
 def test_default_device_is_the_card_or_an_error():
     assert resolve_device("cpu") == torch.device("cpu")
     if torch.cuda.is_available():
