@@ -55,9 +55,27 @@ g. speculation, embeddings and profile: llama3-8b int8 with
    ``dimensions``, ``base64`` and ``/v1/rerank``; then
    ``/debug/profile?steps=20`` while 8 chats decode, its Chrome trace
    summarised (device-busy share, the 10 ops with the most device time,
-   idle time per step).
+   idle time per step);
+h. the MoE family: qwen3-30b-a3b (qk-norm, 128 experts, top-8, dense
+   dispatch as in the JAX module): its full widths at 2 layers written in
+   Qwen3-MoE naming and served through ``--model-dir`` (loaded tree and
+   logits identical to the in-memory tree's); then bf16 at full width and
+   depth (48 layers, ~61 GB, random weights from a seed) through the
+   server with phase d's requests, its kernel logits against the plain
+   attention (the kernel run's expert picks replayed in the plain run:
+   top-k routing on random weights flips near-tied picks on any rounding
+   change; the free-routing comparison is reported beside it), TTFT,
+   decode tokens/s, peak memory, the 2048-bucket prefill, and a 20-step
+   ``/debug/profile`` while 8 chats decode (``moe_profile``); then a
+   ``moe`` line: one MoE layer at the 2048 bucket and at 8 decoding
+   slots, held against an fp32 routed reference (each token through its
+   own experts), timed with CUDA events beside its dense-dispatch bound
+   and its routed bound (the experts the input's routing reaches), with
+   its transient memory (no ``[E, tokens, D]`` copy of x) and its device
+   time split by kernel. Phase c times the flash kernel at this model's
+   heads too (32 q heads on 4 kv heads, a group of 8).
 
-In d, e, f and g every kernel's launches are counted around the served
+In d to h every kernel's launches are counted around the served
 requests alone and must equal what that path's model forwards need,
 derived from the runners' calls (a draft model's too): the flash kernel
 once per layer of every prefill and embedding forward; on the int8 path
@@ -352,9 +370,16 @@ def phase_kernels():
         (4, 2048, 2048, 0, 32, 8, 128),
         (2, 512, 512, 0, 32, 8, 128),
         (8, 64, 64, 0, 32, 8, 128),
+        # qwen3-30b-a3b (phase h): 32 q heads on 4 kv heads, a group of 8,
+        # at every bucket phase h fills
+        (1, 2048, 2048, 0, 32, 4, 128),
+        (1, 1024, 1024, 0, 32, 4, 128),
+        (1, 64, 64, 0, 32, 4, 128),
+        (1, 32, 32, 0, 32, 4, 128),
     ]
+    group8 = cases.index((1, 2048, 2048, 0, 32, 4, 128))
     rows = [
-        _flash_case(*c, gen, repeats=3 if i == 0 else 1)
+        _flash_case(*c, gen, repeats=3 if i in (0, group8) else 1)
         for i, c in enumerate(cases)
     ]
     from gpustack_tpu_torch.ops import _build
@@ -402,7 +427,7 @@ def phase_kernels():
          wgmma_smem_bytes_per_cta={bn: smem(bn) for bn in (128, 256)},
          cases=w8_rows, ragged=ragged)
     return {"flash_attention_prefill": rows[0], "w8a16_matmul": w8_rows[0],
-            "w8a16_large_m": w8_rows[large]}
+            "w8a16_large_m": w8_rows[large], "flash_group8": rows[group8]}
 
 
 def _check_w8a16(out, x, q, s):
@@ -701,9 +726,69 @@ def _check_usage(data, prompt_tokens=None):
     return usage
 
 
+class _RoutingTape:
+    """Inside ``with``, ``transformer.moe_route`` records the experts each
+    MoE call picks (``mode = "record"``) or replays the recorded picks in
+    order (``"replay"``), the combine weights recomputed from the call's
+    own router scores over those picks (softmax scoring, then
+    ``norm_topk_prob``): the forward's one discrete step held fixed, and
+    each call's count of tokens whose own picks would differ kept. Any
+    other mode routes freely."""
+
+    def __init__(self):
+        self.picks, self.flips, self.mode, self.at = [], [], "record", 0
+
+    def __enter__(self):
+        from gpustack_tpu_torch.models import transformer as tf
+
+        self._route = tf.moe_route
+
+        def route(x, router_w, cfg, router_bias=None):
+            idx, combine = self._route(x, router_w, cfg, router_bias)
+            if self.mode != "replay":
+                if self.mode == "record":
+                    self.picks.append(idx)
+                return idx, combine
+            if cfg.moe_scoring != "softmax":
+                raise ValueError("the tape replays softmax routing only")
+            want = self.picks[self.at]
+            self.at += 1
+            self.flips.append(int(
+                (idx.sort(-1).values != want.sort(-1).values).any(-1).sum()
+            ))
+            gates = torch.softmax(x.float() @ router_w.float(), dim=-1)
+            top_w = torch.gather(gates, -1, want)
+            if cfg.norm_topk_prob:
+                top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+            return want, torch.zeros_like(gates).scatter_(-1, want, top_w)
+
+        tf.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        from gpustack_tpu_torch.models import transformer as tf
+
+        tf.moe_route = self._route
+
+
+def _compare_logits(got, want):
+    return {
+        "max_abs_err": (got - want).abs().max().item(),
+        "logit_scale": want.abs().max().item(),
+        "cosine": torch.nn.functional.cosine_similarity(
+            got, want, dim=0
+        ).item(),
+    }
+
+
 def _logit_check(engine):
-    """A kernel prefill's last logits against the plain-attention prefill
-    of the same prompt (outside the counted window)."""
+    """A kernel prefill's last-position logits against the plain-attention
+    prefill of the same prompt (outside the counted window). For an MoE
+    model the plain run replays the kernel run's expert picks: on random
+    weights a top-k router flips the picks of tokens near a tie on any
+    rounding change, and 48 layers compound the flips, so replaying them
+    leaves the attention as the only difference between the runs. The
+    free-routing comparison and its flips are reported beside it."""
     from gpustack_tpu_torch.models import transformer as tf
 
     runner = engine.runner
@@ -711,8 +796,8 @@ def _logit_check(engine):
     prompt = engine.tokenizer.encode("The port's logit check. " * 40)
     bucket = runner.bucket_for(len(prompt))
     padded = prompt + [0] * (bucket - len(prompt))
-    with torch.no_grad():
-        kernel_last, _, _ = runner.prefill(padded, len(prompt))
+
+    def plain_last():
         tokens = torch.tensor([padded], device=runner.device)
         positions = torch.arange(bucket, device=runner.device)[None, :]
         cache = tf.KVCache.create(cfg, 1, bucket, runner.device)
@@ -720,25 +805,35 @@ def _logit_check(engine):
             runner.params, cfg, tokens, positions, cache,
             return_hidden=True, attn_impl="plain",
         )
-        plain_last = tf.lm_head(runner.params, cfg, hidden[0, len(prompt) - 1])
+        return tf.lm_head(runner.params, cfg, hidden[0, len(prompt) - 1])
+
+    moe = {}
+    with torch.no_grad(), _RoutingTape() as tape:
+        kernel_last, _, _ = runner.prefill(padded, len(prompt))
+        tape.mode = "replay"
+        plain = plain_last()
+        if tape.picks:
+            tape.mode = "free"
+            moe = {
+                "routing": "the kernel run's expert picks replayed",
+                "free_routing": {
+                    **_compare_logits(kernel_last, plain_last()),
+                    "tokens_with_a_flipped_pick_per_layer": tape.flips,
+                },
+            }
     if kernel_last.shape != (cfg.vocab_size,) or not torch.isfinite(
         kernel_last
     ).all():
         raise AssertionError(f"bad logits {tuple(kernel_last.shape)}")
-    scale = plain_last.abs().max().item()
-    err = (kernel_last - plain_last).abs().max().item()
-    cos = torch.nn.functional.cosine_similarity(
-        kernel_last, plain_last, dim=0
-    ).item()
-    emit("logit_check", prompt_tokens=len(prompt), bucket=bucket,
-         max_abs_err=err, logit_scale=scale, cosine=cos,
+    gate = _compare_logits(kernel_last, plain)
+    emit("logit_check", prompt_tokens=len(prompt), bucket=bucket, **gate,
+         **moe,
          tolerance={"rel": LOGIT_REL_TOL, "min_cosine": LOGIT_MIN_COSINE})
-    if err > LOGIT_REL_TOL * scale or cos < LOGIT_MIN_COSINE:
-        raise AssertionError(
-            f"kernel prefill logits differ: max |err| {err} (scale "
-            f"{scale}), cosine {cos}"
-        )
-    return scale
+    if gate["max_abs_err"] > LOGIT_REL_TOL * gate["logit_scale"] or (
+        gate["cosine"] < LOGIT_MIN_COSINE
+    ):
+        raise AssertionError(f"kernel prefill logits differ: {gate}")
+    return gate["logit_scale"]
 
 
 def _prefill_ms(engine, reps: int = 5) -> float:
@@ -888,11 +983,12 @@ def _serve_script(engine, port):
     }
 
 
-def _serve_counted(engine, logit_check, int8):
+def _serve_counted(engine, logit_check, int8, profile=""):
     """Start ``engine`` behind the server, run ``logit_check`` outside the
     counted window, then the main path's requests with every kernel's
-    launches counted and checked against what the runner's forwards need.
-    Returns (report, counts)."""
+    launches counted and checked against what the runner's forwards need;
+    with a ``profile`` label, then a counted window of :func:`_profile`.
+    Returns (report, {window: counts})."""
     from gpustack_tpu_torch.engine.api_server import OpenAIServer
 
     calls = RunnerCalls(engine.runner, int8)
@@ -919,7 +1015,13 @@ def _serve_counted(engine, logit_check, int8):
         check_launches("int8 path" if int8 else "main path", counts, want)
         report["runner_calls"] = window
         report["prefill_ms_2048_bucket"] = _prefill_ms(engine)
-        return report, counts
+        windows = {"served": counts}
+        if profile:
+            windows["profile"], report["profile"] = _window(
+                f"{profile} profile", [calls],
+                lambda: _profile(port, profile),
+            )
+        return report, windows
     finally:
         server.shutdown()
         engine.stop()
@@ -942,7 +1044,8 @@ def phase_main_path(kind, smi):
     engine = build_engine_from_args(args)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    report, counts = _serve_counted(engine, _logit_check, int8=False)
+    report, windows = _serve_counted(engine, _logit_check, int8=False)
+    counts = windows["served"]
     emit("main_path", model=engine.cfg.name, device=kind, nvidia_smi=smi,
          setup_s=setup_s, launches=counts, **report,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -1341,7 +1444,8 @@ def phase_prefix_reuse(kind, smi):
 
 
 def _hf_named(tree, cfg):
-    """The param tree under HF llama names, linear weights as [out, in]."""
+    """The param tree under HF names (llama, or Qwen3-MoE with ``qk_norm``
+    and per-expert tensors), linear weights as [out, in]."""
     lp = tree["layers"]
     out = {
         "model.embed_tokens.weight": tree["embed"],
@@ -1355,15 +1459,58 @@ def _hf_named(tree, cfg):
         "wv": ("self_attn.v_proj.weight", True),
         "wo": ("self_attn.o_proj.weight", True),
         "mlp_norm": ("post_attention_layernorm.weight", False),
+        "q_norm": ("self_attn.q_norm.weight", False),
+        "k_norm": ("self_attn.k_norm.weight", False),
         "w_gate": ("mlp.gate_proj.weight", True),
         "w_up": ("mlp.up_proj.weight", True),
         "w_down": ("mlp.down_proj.weight", True),
+        "router": ("mlp.gate.weight", True),
     }
+    experts = {"we_gate": "gate_proj", "we_up": "up_proj",
+               "we_down": "down_proj"}
     for i in range(cfg.num_layers):
         for key, (hf, transpose) in names.items():
-            t = lp[key][i]
-            out[f"model.layers.{i}.{hf}"] = t.T if transpose else t
+            if key in lp:
+                t = lp[key][i]
+                out[f"model.layers.{i}.{hf}"] = t.T if transpose else t
+        for key, hf in experts.items():
+            for e in range(cfg.num_experts if key in lp else 0):
+                out[f"model.layers.{i}.mlp.experts.{e}.{hf}.weight"] = (
+                    lp[key][i, e].T
+                )
     return out
+
+
+def _hf_config(cfg):
+    """``config.json`` for ``cfg``: LlamaForCausalLM, or
+    Qwen3MoeForCausalLM for the MoE family."""
+    hf = {
+        "architectures": ["LlamaForCausalLM"],
+        "model_type": "llama",
+        "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads,
+        "head_dim": cfg.head_dim,
+        "vocab_size": cfg.vocab_size,
+        "rope_theta": cfg.rope_theta,
+        "rms_norm_eps": cfg.rms_norm_eps,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "tie_word_embeddings": False,
+    }
+    if cfg.is_moe:
+        hf.update({
+            "architectures": ["Qwen3MoeForCausalLM"],
+            "model_type": "qwen3_moe",
+            "num_experts": cfg.num_experts,
+            "num_experts_per_tok": cfg.num_experts_per_tok,
+            "moe_intermediate_size": cfg.moe_intermediate_size,
+            "norm_topk_prob": cfg.norm_topk_prob,
+            "decoder_sparse_step": 1,
+            "mlp_only_layers": [],
+        })
+    return hf
 
 
 def write_safetensors(path, tensors):
@@ -1387,11 +1534,11 @@ def write_safetensors(path, tensors):
 
 
 def phase_checkpoint(kind, smi, preset="llama3-8b", device="cuda"):
-    """``preset`` (llama3-8b) at full width but 2 layers (depth cut for
-    disk and time), random bf16 weights from a seed, written as a
-    safetensors checkpoint and served through ``--model-dir``: the loaded
-    tree and a prompt's last-position logits must equal the in-memory
-    tree's, bit for bit."""
+    """``preset`` (llama3-8b, or qwen3-30b-a3b in Qwen3-MoE naming) at
+    full width but 2 layers (depth cut for disk and time), random bf16
+    weights from a seed, written as a safetensors checkpoint and served
+    through ``--model-dir``: the loaded tree and a prompt's last-position
+    logits must equal the in-memory tree's, bit for bit."""
     from gpustack_tpu_torch.engine.api_server import (
         OpenAIServer,
         build_engine_from_args,
@@ -1410,21 +1557,7 @@ def phase_checkpoint(kind, smi, preset="llama3-8b", device="cuda"):
             os.path.join(model_dir, "model.safetensors"), _hf_named(tree, cfg)
         )
         with open(os.path.join(model_dir, "config.json"), "w") as f:
-            json.dump({
-                "architectures": ["LlamaForCausalLM"],
-                "model_type": "llama",
-                "hidden_size": cfg.hidden_size,
-                "intermediate_size": cfg.intermediate_size,
-                "num_hidden_layers": cfg.num_layers,
-                "num_attention_heads": cfg.num_heads,
-                "num_key_value_heads": cfg.num_kv_heads,
-                "head_dim": cfg.head_dim,
-                "vocab_size": cfg.vocab_size,
-                "rope_theta": cfg.rope_theta,
-                "rms_norm_eps": cfg.rms_norm_eps,
-                "max_position_embeddings": cfg.max_position_embeddings,
-                "tie_word_embeddings": False,
-            }, f)
+            json.dump(_hf_config(cfg), f)
         write_s = time.perf_counter() - t0
         args = build_parser().parse_args([
             "--model-dir", model_dir, "--max-slots", "8",
@@ -1557,7 +1690,8 @@ def phase_int8(kind, smi, bf16):
     weight_gb = sum(
         t.numel() * t.element_size() for w in weights for t in (w.q, w.s)
     ) / 1e9
-    report, counts = _serve_counted(engine, _int8_logit_check, int8=True)
+    report, windows = _serve_counted(engine, _int8_logit_check, int8=True)
+    counts = windows["served"]
     keys = ("ttft_ms_2048_bucket", "decode_tokens_per_s_8_slots",
             "prefill_ms_2048_bucket", "peak_mem_gb")
     emit("int8_path", model=engine.cfg.name, device=kind, nvidia_smi=smi,
@@ -1970,6 +2104,182 @@ def phase_speculation(kind, smi):
     return windows
 
 
+# ---------------------------------------------------------------------------
+# h: the MoE family
+# ---------------------------------------------------------------------------
+
+H_PRESET = "qwen3-30b-a3b"
+H_ARGV = ["--preset", H_PRESET] + MAIN_ARGV[2:]
+PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
+# one MoE layer in bf16 against an fp32 routed reference (each token
+# through its own top-k experts only): bf16 rounding of x, g, u, h·c and
+# the output, relative to the output's scale
+MOE_REL_TOL = 2e-2
+MOE_MIN_COSINE = 0.999
+
+
+def _moe_routed_reference(x, lp, li, cfg):
+    """One MoE layer computed the routed way, in fp32: each expert over
+    only the tokens that picked it. An independent formulation of what
+    the dense dispatch computes."""
+    from gpustack_tpu_torch.models import transformer as tf
+
+    xf = x.reshape(-1, cfg.hidden_size).float()
+    top_idx, combine = tf.moe_route(xf, lp["router"][li], cfg)
+    out = torch.zeros_like(xf)
+    for e in top_idx.unique().tolist():
+        rows = (top_idx == e).any(dim=-1).nonzero().squeeze(1)
+        xe = xf[rows]
+        g = xe @ lp["we_gate"][li, e].float()
+        u = xe @ lp["we_up"][li, e].float()
+        y = (torch.nn.functional.silu(g) * u) @ lp["we_down"][li, e].float()
+        out[rows] += combine[rows, e, None] * y
+    return out, top_idx
+
+
+def _moe_layer_case(params, cfg, tokens, gen, li=0):
+    """Layer ``li``'s MoE block over ``tokens`` rows (normalised random
+    input): held against the routed fp32 reference, timed with CUDA
+    events, beside its dense-dispatch and routed bounds (the experts
+    this input's routing reaches), its transient device memory, and a
+    ``torch.profiler`` split of its device time by kernel."""
+    from gpustack_tpu_torch.models import transformer as tf
+
+    lp = params["layers"]
+    D, E, Fm, k = (cfg.hidden_size, cfg.num_experts,
+                   cfg.moe_intermediate_size, cfg.num_experts_per_tok)
+    x = tf.rms_norm(
+        torch.randn(1, tokens, D, generator=gen, device=gen.device).bfloat16(),
+        lp["mlp_norm"][li], cfg.rms_norm_eps,
+    )
+
+    def layer():
+        return tf._moe_mlp(x, lp["router"][li], lp["we_gate"][li],
+                           lp["we_up"][li], lp["we_down"][li], cfg)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = layer()
+    torch.cuda.synchronize()
+    transient = torch.cuda.max_memory_allocated() - base
+    ref, top_idx = _moe_routed_reference(x, lp, li, cfg)
+    got = out.reshape(-1, D).float()
+    scale = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(
+        got.flatten(), ref.flatten(), dim=0
+    ).item()
+    if not torch.isfinite(got).all() or err > MOE_REL_TOL * scale or (
+        cos < MOE_MIN_COSINE
+    ):
+        raise AssertionError(
+            f"MoE layer at {tokens} tokens differs from the routed "
+            f"reference: max |err| {err} (scale {scale}), cosine {cos}"
+        )
+    # g, u and h of one chunk; an [E, tokens, D] copy of x would add its
+    # own size on top
+    gu_h = 3 * min(tokens, tf.MOE_CHUNK_BYTES // (3 * E * Fm * 2)) * E * Fm * 2
+    x_copy = E * tokens * D * 2
+    if transient > gu_h + max(x_copy // 2, 64 << 20):
+        raise AssertionError(
+            f"MoE layer at {tokens} tokens held {transient / 1e9} GB of "
+            f"transients; g, u and h are {gu_h / 1e9} GB"
+        )
+    ms = cuda_time_ms(layer)
+    # where a call's device time goes, by kernel (three calls traced)
+    with tempfile.TemporaryDirectory(prefix="moe-trace-") as d:
+        path = os.path.join(d, "trace.json")
+        with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA,
+        ]) as prof:
+            for _ in range(3):
+                layer()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        trace = summarize_trace(path, 3)
+    reached = int(top_idx.unique().numel())
+    io = 2 * tokens * D * 2 + D * E * 2          # x in, out, the router
+    expert_bytes = 3 * D * Fm * 2                 # one expert's weights
+    router_ops = 2 * tokens * D * E / PEAK_FP32_FLOPS * 1e3
+
+    def bound(experts_read, expert_rows):
+        t_ops = 2 * expert_rows * 3 * D * Fm / PEAK_BF16_FLOPS * 1e3
+        t_ops += router_ops
+        t_bytes = (io + experts_read * expert_bytes) / PEAK_BYTES_S * 1e3
+        return {"ms": max(t_ops, t_bytes),
+                "by": "operations" if t_ops >= t_bytes else "bytes",
+                "tflop": 2 * expert_rows * 3 * D * Fm / 1e12,
+                "gbytes": (io + experts_read * expert_bytes) / 1e9}
+
+    return {
+        "tokens": tokens, "ms": ms, "ms_per_token": ms / tokens,
+        "dense_bound": bound(E, tokens * E),
+        "routed_bound": bound(reached, tokens * k),
+        "experts_reached": reached,
+        "max_abs_err": err, "out_scale": scale, "cosine": cos,
+        "transient_gb": transient / 1e9, "g_u_h_gb": gu_h / 1e9,
+        "x_copy_gb_avoided": x_copy / 1e9,
+        "trace": {
+            "device_ms_per_call": trace["device_ms_per_step"],
+            "device_busy_share": trace["device_busy_share"],
+            "kernels_per_call": trace["kernels_per_step"],
+            "top_device_ops": trace["top_device_ops"][:6],
+        },
+    }
+
+
+def phase_moe(kind, smi, device="cuda"):
+    """qwen3-30b-a3b: its full widths at 2 layers as a Qwen3-MoE
+    checkpoint through ``--model-dir``; then bf16 at full width and depth
+    through the server (phase d's requests, flash logits against the
+    plain attention, exact launches, a 20-step profile while 8 chats
+    decode); then one MoE layer timed at the 2048 bucket and at 8
+    decoding slots. Returns {window: launch counts}."""
+    from gpustack_tpu_torch.engine.api_server import (
+        build_engine_from_args,
+        build_parser,
+    )
+
+    phase_checkpoint(kind, smi, preset=H_PRESET, device=device)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = build_engine_from_args(build_parser().parse_args(H_ARGV))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    tree_gb = sum(
+        t.numel() * t.element_size() for t in (
+            [engine.runner.params[k] for k in ("embed", "final_norm",
+                                               "lm_head")]
+            + list(engine.runner.params["layers"].values())
+        )
+    ) / 1e9
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    report, windows = _serve_counted(engine, _logit_check, int8=False,
+                                     profile="moe")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = report.pop("profile")
+    emit("moe_path", model=engine.cfg.name, device=kind, nvidia_smi=smi,
+         setup_s=setup_s, tree_gb=tree_gb, init_peak_gb=init_peak_gb,
+         launches=windows, **report, peak_mem_gb=peak_gb)
+    emit("moe_profile", model=engine.cfg.name, device=kind, nvidia_smi=smi,
+         **profile)
+    gen = torch.Generator(device=device).manual_seed(3)
+    with torch.no_grad():
+        layers = [
+            _moe_layer_case(engine.runner.params, engine.cfg, t, gen)
+            for t in (2048, engine.max_slots)
+        ]
+    emit("moe", model=engine.cfg.name, device=kind, nvidia_smi=smi,
+         dispatch="dense (every expert over every token)",
+         tolerance={"rel": MOE_REL_TOL, "min_cosine": MOE_MIN_COSINE},
+         layers=layers)
+    del engine
+    return {f"moe_{w}": c for w, c in windows.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1996,8 +2306,11 @@ def main() -> int:
     paths["int8_path"] = phase_int8(kind, smi, bf16)
     _free()
     paths.update(phase_speculation(kind, smi))
+    _free()
+    paths.update(phase_moe(kind, smi))
     kernels = []
     large_m = rows.pop("w8a16_large_m")
+    group8 = rows.pop("flash_group8")
     for name, row in rows.items():
         launches = sum(counts[name] for counts in paths.values())
         if launches < 1:
@@ -2023,6 +2336,15 @@ def main() -> int:
         **{f"large_m_{k}": large_m[k] for k in (
             "max_abs_err", "ms", "bound_ms", "bound_by",
             "cublas_bf16_dequantized_ms", "eager_dequant_ms",
+        )},
+    })
+    # the flash kernel at qwen3-30b-a3b's heads (group 8), T = S = 2048
+    fl = next(k for k in kernels if k["name"] == "flash_attention_prefill")
+    fl.update({
+        "group8_shape": group8["shape"],
+        **{f"group8_{k}": group8[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms",
         )},
     })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -871,6 +871,7 @@ def build_engine_from_args(args) -> LLMEngine:
     )
     from gpustack_tpu_torch.models.config import get_config, load_hf_config
     from gpustack_tpu_torch.models.quant import (
+        check_quantizable,
         init_quantized_params,
         quantize_params,
     )
@@ -883,6 +884,8 @@ def build_engine_from_args(args) -> LLMEngine:
         cfg = load_hf_config(args.model_dir)
     else:
         cfg = get_config(args.preset)
+    if args.quantization == "int8":
+        check_quantizable(cfg)
     if kind == "none" and args.quantization == "int8" and not args.lora:
         params = init_quantized_params(cfg, seed=0, device=device)
     else:

@@ -2,7 +2,8 @@
 LoRA merges, npz caching of (int8) trees, random init on the device, and
 carrying a parameter tree across from the JAX package (through numpy).
 
-The port of ``gpustack_tpu/engine/weights.py`` for the dense Llama family.
+The port of ``gpustack_tpu/engine/weights.py`` for the dense Llama family
+and the MoE family (Mixtral, Qwen2/3-MoE).
 Torch stores linear weights as ``[out_features, in_features]``; the
 functional matmuls contract ``x @ W`` with ``W[in, out]``, so every
 projection transposes on load. Loaded leaves are bf16, as in JAX.
@@ -11,10 +12,11 @@ The safetensors reader is the port's own (the card's machine has no
 ``safetensors`` package): an 8-byte little-endian header length, a JSON
 header, then each tensor's bytes at its offsets.
 
-Not ported yet: the MoE, MLA, GPT-OSS and post-norm branches of
-``build_lm_params`` and ``_mxfp4_dequant`` (with their families; the
-config check raises before any tensor is read), ``load_npz_params`` and
-``load_whisper_params`` (with the other modalities).
+Not ported yet: the MLA, ``first_k_dense``, GPT-OSS and post-norm
+branches of ``build_lm_params`` and ``_mxfp4_dequant`` (with their
+families; the config check raises before any tensor is read),
+``load_npz_params`` and ``load_whisper_params`` (with the other
+modalities).
 """
 
 from __future__ import annotations
@@ -124,16 +126,34 @@ def _taker(tensors: Dict[str, torch.Tensor]):
 
 
 def build_lm_params(
-    cfg: ModelConfig, tensors: Dict[str, torch.Tensor]
+    cfg: ModelConfig, tensors: Dict[str, torch.Tensor], device=None
 ) -> Dict[str, Any]:
-    """HF-named tensors → the stacked param tree (CPU, bf16), for the
-    dense llama-family names, ``qkv_bias`` and ``qk_norm``."""
+    """HF-named tensors → the stacked param tree (bf16) on ``device``
+    (default: the CPU), for the dense llama-family names, ``qkv_bias``,
+    ``qk_norm`` and the MoE names: Mixtral (``block_sparse_moe``,
+    ``w1|w2|w3``) and Qwen-MoE/DeepSeek (``mlp.gate``,
+    ``experts.{e}.gate_proj|up_proj|down_proj``, shared experts, the fp32
+    ``e_score_correction_bias``).
+
+    Each stacked leaf is allocated on ``device`` and filled one layer at a
+    time, each tensor popped from ``tensors`` as it is copied: a layer's
+    experts are stacked on the host (one layer at a time), never the whole
+    checkpoint."""
     check_supported(cfg)
+    device = torch.device(device or "cpu")
     take = _taker(tensors)
     L = cfg.num_layers
 
+    def stacked(layer_fn, dtype=torch.bfloat16) -> torch.Tensor:
+        first = layer_fn(0)
+        out = torch.empty((L, *first.shape), dtype=dtype, device=device)
+        out[0].copy_(first)
+        for i in range(1, L):
+            out[i].copy_(layer_fn(i))
+        return out
+
     def stack(fmt: str, transpose: bool = False) -> torch.Tensor:
-        return torch.stack([take(fmt.format(i), transpose) for i in range(L)])
+        return stacked(lambda i: take(fmt.format(i), transpose))
 
     layers: Dict[str, torch.Tensor] = {
         "attn_norm": stack("model.layers.{}.input_layernorm.weight"),
@@ -151,18 +171,21 @@ def build_lm_params(
     if cfg.qk_norm:
         layers["q_norm"] = stack("model.layers.{}.self_attn.q_norm.weight")
         layers["k_norm"] = stack("model.layers.{}.self_attn.k_norm.weight")
-    layers["w_gate"] = stack("model.layers.{}.mlp.gate_proj.weight", True)
-    layers["w_up"] = stack("model.layers.{}.mlp.up_proj.weight", True)
-    layers["w_down"] = stack("model.layers.{}.mlp.down_proj.weight", True)
+    if cfg.is_moe:
+        layers.update(_moe_layers(cfg, tensors, take, stack, stacked))
+    else:
+        layers["w_gate"] = stack("model.layers.{}.mlp.gate_proj.weight", True)
+        layers["w_up"] = stack("model.layers.{}.mlp.up_proj.weight", True)
+        layers["w_down"] = stack("model.layers.{}.mlp.down_proj.weight", True)
 
     params: Dict[str, Any] = {
-        "embed": take("model.embed_tokens.weight"),
+        "embed": take("model.embed_tokens.weight").to(device),
         "layers": layers,
-        "final_norm": take("model.norm.weight"),
+        "final_norm": take("model.norm.weight").to(device),
     }
     if not cfg.tie_word_embeddings:
         if "lm_head.weight" in tensors:
-            params["lm_head"] = take("lm_head.weight", True)
+            params["lm_head"] = take("lm_head.weight", True).to(device)
         else:
             logger.warning("no lm_head.weight; tying to embeddings")
             params["lm_head"] = params["embed"].T.contiguous()
@@ -171,19 +194,80 @@ def build_lm_params(
     return params
 
 
-def load_hf_checkpoint(cfg: ModelConfig, model_dir: str) -> Dict[str, Any]:
-    """Load *.safetensors from a local HF model dir into the param tree."""
+def _moe_layers(cfg: ModelConfig, tensors, take, stack, stacked):
+    """The MoE leaves of :func:`build_lm_params` (the JAX loader's
+    Mixtral and Qwen-MoE/DeepSeek branches)."""
+    if "model.layers.0.block_sparse_moe.gate.weight" in tensors:
+        block, wg, wd, wu = "block_sparse_moe", "w1", "w2", "w3"
+    else:
+        block, wg, wd, wu = "mlp", "gate_proj", "down_proj", "up_proj"
+        if not cfg.shared_expert_intermediate_size and any(
+            "shared_expert" in name for name in tensors
+        ):
+            # shared-expert tensors with no config support would be
+            # silently dropped -> wrong logits; fail loudly
+            raise ValueError(
+                "checkpoint has shared-expert weights but the config "
+                "declares no shared expert width"
+            )
+    prefix = "model.layers.{}." + block
+    out: Dict[str, torch.Tensor] = {
+        "router": stack(prefix + ".gate.weight", True),
+    }
+    if cfg.moe_scoring == "sigmoid":
+        # fp32: the correction bias tie-breaks expert SELECTION
+        out["router_bias"] = stacked(
+            lambda i: tensors.pop(
+                prefix.format(i) + ".gate.e_score_correction_bias"
+            ),
+            dtype=torch.float32,
+        )
+
+    def experts(w: str):
+        # one layer's experts, [E, in, out]: a bounded host temporary
+        return lambda i: torch.stack([
+            take(f"{prefix.format(i)}.experts.{e}.{w}.weight", True)
+            for e in range(cfg.num_experts)
+        ])
+
+    out["we_gate"] = stacked(experts(wg))
+    out["we_down"] = stacked(experts(wd))
+    out["we_up"] = stacked(experts(wu))
+    if cfg.shared_expert_intermediate_size:
+        # DeepSeek: mlp.shared_experts.* (plural, ungated); Qwen2-MoE:
+        # mlp.shared_expert.* + shared_expert_gate
+        se = (
+            "model.layers.{}.mlp."
+            + ("shared_expert" if cfg.shared_expert_gated else "shared_experts")
+        )
+        out["ws_gate"] = stack(se + ".gate_proj.weight", True)
+        out["ws_up"] = stack(se + ".up_proj.weight", True)
+        out["ws_down"] = stack(se + ".down_proj.weight", True)
+        if cfg.shared_expert_gated:
+            out["shared_gate"] = stack(
+                "model.layers.{}.mlp.shared_expert_gate.weight", True
+            )
+    return out
+
+
+def load_hf_checkpoint(
+    cfg: ModelConfig, model_dir: str, device=None
+) -> Dict[str, Any]:
+    """Load *.safetensors from a local HF model dir into the param tree on
+    ``device`` (default: the CPU)."""
     check_supported(cfg)
-    return build_lm_params(cfg, _read_safetensors(model_dir))
+    return build_lm_params(cfg, _read_safetensors(model_dir), device)
 
 
-def load_gguf_checkpoint(cfg: ModelConfig, gguf_path: str) -> Dict[str, Any]:
+def load_gguf_checkpoint(
+    cfg: ModelConfig, gguf_path: str, device=None
+) -> Dict[str, Any]:
     """Load a GGUF checkpoint: dequantize to the HF tensor names
     (engine/gguf.py), then the same mapping as safetensors."""
     from gpustack_tpu_torch.engine.gguf import load_gguf_tensors
 
     check_supported(cfg)
-    return build_lm_params(cfg, load_gguf_tensors(gguf_path))
+    return build_lm_params(cfg, load_gguf_tensors(gguf_path), device)
 
 
 # HF PEFT module name -> the stacked layer param (torch Linear weights are
@@ -306,10 +390,10 @@ def load_or_init_params(
     kind, path = checkpoint_source(model_dir)
     if kind == "safetensors":
         logger.info("loading checkpoint from %s", path)
-        return params_to_device(load_hf_checkpoint(cfg, path), device)
+        return load_hf_checkpoint(cfg, path, device)
     if kind == "gguf":
         logger.info("loading GGUF checkpoint from %s", path)
-        return params_to_device(load_gguf_checkpoint(cfg, path), device)
+        return load_gguf_checkpoint(cfg, path, device)
     logger.warning(
         "no checkpoint at %r — initializing random weights for %s on %s",
         model_dir, cfg.name, device,

@@ -1,4 +1,4 @@
-"""Transformer core, dense Llama/Qwen path, in PyTorch.
+"""Transformer core, dense and MoE Llama/Qwen paths, in PyTorch.
 
 The port of ``gpustack_tpu/models/transformer.py``. Layout and semantics
 follow the JAX module so its tests compare like with like:
@@ -16,7 +16,12 @@ follow the JAX module so its tests compare like with like:
   contract against the unexpanded cache;
 - bf16 matmuls, fp32 softmax and norm accumulation; every weight product
   goes through :func:`_mm`, so int8 ``QuantW`` weights (``models/quant.py``)
-  run through the W8A16 kernel on the card.
+  run through the W8A16 kernel on the card;
+- MoE layers (Mixtral, Qwen2/3-MoE; :func:`_moe_mlp`) keep the JAX
+  module's dense dispatch: every expert runs over every token and the
+  router's top-k weights combine the results. The expert products are
+  batched torch products over the expert axis (XLA products in the JAX
+  module, not Pallas), in token chunks that bound their transients.
 
 Prefill attention on the card is the hand-written flash kernel
 (``ops/flash_attention.py``), and so is the cacheless embedding forward's;
@@ -24,9 +29,10 @@ decode attention, and the speculative verify and draft ingest blocks,
 stay plain torch ops over the full ``S_max`` mask, as in the JAX module
 (XLA there, not Pallas).
 
-Configurations outside the dense path (MoE, MLA, sliding windows,
-softcaps, attention sinks, Gemma's norms and activations) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Configurations outside these paths (MLA, DeepSeek's ``first_k_dense``
+split, sliding windows, softcaps, attention sinks, post-norms, Gemma's
+norms and activations) raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
@@ -50,10 +56,10 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configurations the dense port does not cover yet."""
+    """Raise for configurations the port does not cover yet."""
     unsupported = [
-        ("MoE", cfg.is_moe),
         ("MLA", cfg.is_mla),
+        ("first_k_dense layers", cfg.is_moe and bool(cfg.first_k_dense)),
         ("sliding-window attention", bool(cfg.sliding_window)),
         ("per-layer sliding flags", cfg.layer_sliding is not None),
         ("attention logit softcap", bool(cfg.attn_logit_softcap)),
@@ -71,8 +77,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
-            "'Modules to port': the other families — Qwen3, Gemma, MoE, "
-            "MLA, GPT-OSS)"
+            "'Modules to port': the other families — Gemma, MLA and "
+            "DeepSeek's first_k_dense, GPT-OSS)"
         )
 
 
@@ -145,7 +151,9 @@ def init_params(
 ) -> Params:
     """Random init with layer weights stacked on a leading [L] axis, drawn
     on ``device`` (the generator's device) from ``generator``. Same
-    shapes and scales as the JAX ``init_params``; not the same numbers."""
+    shapes and scales as the JAX ``init_params``; not the same numbers.
+    Expert weights are drawn one layer at a time, so the peak is the tree
+    itself."""
     check_supported(cfg)
     device = torch.device(device) if device is not None else generator.device
     d, f, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
@@ -160,8 +168,17 @@ def init_params(
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=device)
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    def w_layers(*shape, scale=None):
+        """Like ``w``, drawn one layer at a time into the stacked tensor
+        (qwen3-30b-a3b's ``we_gate`` alone is 19.3 GB)."""
+        scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for layer in out:
+            layer.normal_(generator=generator).mul_(scale)
+        return out
 
     layers: Dict[str, torch.Tensor] = {
         "attn_norm": ones(L, d),
@@ -170,10 +187,31 @@ def init_params(
         "wv": w(L, d, cfg.kv_dim),
         "wo": w(L, cfg.q_dim, d),
         "mlp_norm": ones(L, d),
-        "w_gate": w(L, d, f),
-        "w_up": w(L, d, f),
-        "w_down": w(L, f, d),
     }
+    if cfg.is_moe:
+        fm, E = cfg.moe_intermediate_size, cfg.num_experts
+        layers["router"] = w(L, d, E)
+        layers["we_gate"] = w_layers(L, E, d, fm)
+        layers["we_up"] = w_layers(L, E, d, fm)
+        layers["we_down"] = w_layers(L, E, fm, d)
+        if cfg.shared_expert_intermediate_size:
+            fs = cfg.shared_expert_intermediate_size
+            layers["ws_gate"] = w(L, d, fs)
+            layers["ws_up"] = w(L, d, fs)
+            layers["ws_down"] = w(L, fs, d)
+            if cfg.shared_expert_gated:
+                layers["shared_gate"] = w(L, d, 1)
+        if cfg.moe_scoring in ("sigmoid", "softmax_topk"):
+            # DeepSeek-V3 correction bias / GPT-OSS affine router, fp32
+            layers["router_bias"] = zeros(L, E, dt=torch.float32)
+        if cfg.moe_bias:
+            layers["we_gate_b"] = zeros(L, E, fm)
+            layers["we_up_b"] = zeros(L, E, fm)
+            layers["we_down_b"] = zeros(L, E, d)
+    else:
+        layers["w_gate"] = w(L, d, f)
+        layers["w_up"] = w(L, d, f)
+        layers["w_down"] = w(L, f, d)
     if cfg.qkv_bias:
         layers["bq"] = zeros(L, cfg.q_dim)
         layers["bk"] = zeros(L, cfg.kv_dim)
@@ -338,6 +376,133 @@ def _attend(
     return out.reshape(out.shape[0], out.shape[1], -1)
 
 
+# Transients of one MoE token chunk: g, u and h, each [tokens, E, Fm] in
+# the compute dtype. At qwen3-30b-a3b widths (E 128, Fm 768, bf16) that is
+# 576 KiB a token: a 2048-token prefill is one chunk, an 8 x 2048
+# embedding batch five.
+MOE_CHUNK_BYTES = 2 << 30
+
+
+def moe_route(
+    x: torch.Tensor,            # [N, D]
+    router_w: torch.Tensor,     # [D, E]
+    cfg: ModelConfig,
+    router_bias: Optional[torch.Tensor] = None,   # [E] fp32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The router of :func:`_moe_mlp`, in fp32 (a top-k pick must not flip
+    on bf16 rounding): ``(top_idx [N, k], combine [N, E] fp32)``, the
+    combine weights zero off each token's picks. Scorings as in JAX:
+    ``softmax`` (then ``norm_topk_prob``), ``sigmoid`` (the selection adds
+    ``router_bias``, the weights are the raw scores) and ``softmax_topk``
+    (an affine router; softmax over the selected logits)."""
+    k = cfg.num_experts_per_tok
+    logits = x.float() @ router_w.float()
+    if cfg.moe_scoring == "sigmoid":
+        scores = torch.sigmoid(logits)
+        sel = scores if router_bias is None else scores + router_bias
+        top_idx = torch.topk(sel, k, dim=-1).indices
+        top_w = torch.gather(scores, -1, top_idx)
+    elif cfg.moe_scoring == "softmax_topk":
+        if router_bias is not None:
+            logits = logits + router_bias.float()
+        top_v, top_idx = torch.topk(logits, k, dim=-1)
+        top_w = torch.softmax(top_v, dim=-1)
+    else:
+        top_w, top_idx = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
+    if cfg.norm_topk_prob and cfg.moe_scoring != "softmax_topk":
+        top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+    return top_idx, torch.zeros_like(logits).scatter_(-1, top_idx, top_w)
+
+
+def _moe_mlp(
+    x: torch.Tensor,            # [B, T, D]
+    router_w: torch.Tensor,     # [D, E]
+    we_gate: torch.Tensor,      # [E, D, Fm]
+    we_up: torch.Tensor,        # [E, D, Fm]
+    we_down: torch.Tensor,      # [E, Fm, D]
+    cfg: ModelConfig,
+    router_bias: Optional[torch.Tensor] = None,
+    shared=None,                # (ws_gate, ws_up, ws_down, gate_w | None)
+    biases=None,                # (bg [E, Fm], bu [E, Fm], bd [E, D])
+    chunk_tokens: Optional[int] = None,
+) -> torch.Tensor:
+    """Top-k MoE with the JAX module's dense dispatch: every expert runs
+    over every token and the router's top-k weights (zero elsewhere)
+    combine the results; then ``routed_scaling_factor``, then the shared
+    experts, ungated (DeepSeek) or gated by ``sigmoid(x @ g)`` (Qwen2-MoE).
+    ``moe_act="gptoss"`` is GPT-OSS's clamped GLU, with its expert biases.
+
+    On the card:
+
+    - the gate and up products are ``bmm`` over the expert axis with x
+      expanded (batch stride 0), so x is read in place and never copied
+      into an ``[E, tokens, D]`` tensor;
+    - the combine weights fold into ``h`` before the down product, which
+      becomes one ``[tokens, E·Fm] @ [E·Fm, D]`` product: the
+      ``[tokens, E, D]`` expert outputs never exist. In bf16 this rounds
+      ``h·c`` where JAX rounds each expert's output before the weighted
+      sum (``PERF.md`` §6 states the tolerance); in fp32 the two differ
+      only in summation order;
+    - tokens run in chunks of ``chunk_tokens`` (default: as many as keep
+      g, u and h within ``MOE_CHUNK_BYTES``). A chunk changes no value
+      beyond the summation order of products with fewer rows.
+    """
+    if not isinstance(we_gate, torch.Tensor):
+        raise NotImplementedError(
+            "int8 expert weights are not ported yet (ROADMAP 'Modules to "
+            "port': int8 MoE, a batched-over-experts W8A16 variant)"
+        )
+    B, T, D = x.shape
+    E, _, Fm = we_gate.shape
+    dtype = x.dtype
+    xt = x.reshape(B * T, D)
+    N = xt.shape[0]
+    if chunk_tokens is None:
+        chunk_tokens = max(1, MOE_CHUNK_BYTES // (3 * E * Fm * x.element_size()))
+    w_down = we_down.reshape(E * Fm, D)
+    out = torch.empty_like(xt)
+    for s in range(0, N, chunk_tokens):
+        xc = xt[s:s + chunk_tokens]
+        n = xc.shape[0]
+        _, combine = moe_route(xc, router_w, cfg, router_bias)
+        combine = combine.to(dtype)
+        xe = xc.expand(E, n, D)
+        g = torch.bmm(xe, we_gate)                  # [E, n, Fm]
+        u = torch.bmm(xe, we_up)
+        if biases is not None:
+            g += biases[0][:, None, :].to(dtype)
+            u += biases[1][:, None, :].to(dtype)
+        h = torch.empty((n, E, Fm), dtype=dtype, device=x.device)
+        if cfg.moe_act == "gptoss":
+            g.clamp_(max=7.0)
+            u.clamp_(-7.0, 7.0).add_(1.0)
+            torch.mul(u, g * torch.sigmoid(1.702 * g), out=h.transpose(0, 1))
+        else:
+            torch.mul(
+                torch.nn.functional.silu(g, inplace=True), u,
+                out=h.transpose(0, 1),
+            )
+        del g, u
+        h *= combine[:, :, None]
+        o = h.reshape(n, E * Fm) @ w_down
+        if biases is not None:
+            o += combine @ biases[2].to(dtype)
+        out[s:s + n] = o
+    if cfg.routed_scaling_factor != 1.0:
+        # the factor in the compute dtype first, as JAX's asarray does
+        out = out * torch.tensor(cfg.routed_scaling_factor, dtype=dtype).item()
+    if shared is not None:
+        ws_gate, ws_up, ws_down, gate_w = shared
+        sh = _mm(
+            torch.nn.functional.silu(_mm(xt, ws_gate)) * _mm(xt, ws_up),
+            ws_down,
+        )
+        if gate_w is not None:
+            sh = sh * torch.sigmoid(_mm(xt, gate_w))
+        out = out + sh
+    return out.reshape(B, T, D)
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -466,9 +631,30 @@ def forward(
                 attn = _attend(qg, k_l, v_l, mask, scale)
         x = x + _mm(attn, lp["wo"][li])
         h2 = rms_norm(x, lp["mlp_norm"][li], cfg.rms_norm_eps)
-        g = _mm(h2, lp["w_gate"][li])
-        u = _mm(h2, lp["w_up"][li])
-        x = x + _mm(torch.nn.functional.silu(g) * u, lp["w_down"][li])
+        if cfg.is_moe:
+            x = x + _moe_mlp(
+                h2, lp["router"][li], lp["we_gate"][li], lp["we_up"][li],
+                lp["we_down"][li], cfg,
+                router_bias=(
+                    lp["router_bias"][li] if "router_bias" in lp else None
+                ),
+                shared=(
+                    (
+                        lp["ws_gate"][li], lp["ws_up"][li], lp["ws_down"][li],
+                        lp["shared_gate"][li] if "shared_gate" in lp else None,
+                    )
+                    if "ws_gate" in lp else None
+                ),
+                biases=(
+                    (lp["we_gate_b"][li], lp["we_up_b"][li],
+                     lp["we_down_b"][li])
+                    if cfg.moe_bias else None
+                ),
+            )
+        else:
+            g = _mm(h2, lp["w_gate"][li])
+            u = _mm(h2, lp["w_up"][li])
+            x = x + _mm(torch.nn.functional.silu(g) * u, lp["w_down"][li])
 
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if return_hidden:

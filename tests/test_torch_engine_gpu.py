@@ -4,8 +4,9 @@ buffers, the staged upload on a second stream, and a continuation prefill
 from the uploaded prefix; a speculative verify block that the runner
 clamps inside the cache for a row frozen at its end (out of range it
 would be a device-side assert); the embedding forward through the flash
-kernel against the plain attention; and a profile capture whose trace
-holds the card's kernels.
+kernel against the plain attention; a profile capture whose trace
+holds the card's kernels; and the MoE block (dense dispatch) on the card
+against the same call on the CPU.
 
 JAX-free like ``test_torch_kernels_gpu.py``: ``python -m pytest
 --noconftest -m gpu tests/test_torch_engine_gpu.py``. The model is
@@ -166,3 +167,42 @@ def test_profile_capture_traces_the_card(tmp_path):
     with open(os.path.join(out_dir, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "kernel" for e in events)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_mlp_on_the_card_matches_the_cpu(dtype):
+    """``_moe_mlp`` (dense dispatch, a gated shared expert, token chunks)
+    on the card against the same call on the CPU, at tiny widths: the
+    same experts picked, the output within 1e-4 (fp32; TF32 is off for
+    matmuls) or 2% of its scale (bf16, the two devices' rounding)."""
+    from gpustack_tpu_torch.models import transformer as tf  # analysis: ignore[metrics-drift]
+
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card")
+    cfg = dataclasses.replace(
+        get_config("tiny-moe"), num_experts=16, num_experts_per_tok=4,
+        shared_expert_intermediate_size=48, shared_expert_gated=True,
+    )
+    gen = torch.Generator().manual_seed(0)
+    D, E, F = cfg.hidden_size, cfg.num_experts, cfg.moe_intermediate_size
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen) / shape[-2] ** 0.5).to(dtype)
+
+    args = [torch.randn(3, 37, D, generator=gen).to(dtype), w(D, E),
+            w(E, D, F), w(E, D, F), w(E, F, D)]
+    shared = (w(D, 48), w(D, 48), w(48, D), w(D, 1))
+    cpu = tf._moe_mlp(*args, cfg, shared=shared, chunk_tokens=50).float()
+    card = tf._moe_mlp(
+        *(a.cuda() for a in args), cfg,
+        shared=tuple(s.cuda() for s in shared), chunk_tokens=50,
+    ).float().cpu()
+    x2 = args[0].reshape(-1, D)
+    idx_cpu, _ = tf.moe_route(x2, args[1], cfg)
+    idx_card, _ = tf.moe_route(x2.cuda(), args[1].cuda(), cfg)
+    assert torch.equal(idx_cpu, idx_card.cpu())
+    if dtype == torch.float32:
+        torch.testing.assert_close(card, cpu, rtol=1e-4, atol=1e-4)
+    else:
+        assert (card - cpu).abs().max() <= 2e-2 * cpu.abs().max()

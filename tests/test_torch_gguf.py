@@ -2,7 +2,8 @@
 file: the same GGUF files (written here with the JAX suite's own test
 writer, from numpy seeds) go through both, and the port must give what
 the JAX module gives. Mirrors the dense cases of
-``tests/engine/test_gguf.py``; its MoE cases wait for the MoE families.
+``tests/engine/test_gguf.py``; its MoE cases are in
+``test_torch_moe_loaders.py``.
 
 Tolerances: parsed metadata, dequantized tensors (every format), configs,
 token ids and decoded text identical; K-quant dequantization also within
@@ -382,12 +383,15 @@ def test_gguf_unknown_rope_scaling_rejected(tmp_path):
 
 
 def test_moe_gguf_is_refused_before_any_tensor_is_read(tmp_path):
-    """The port's dense loader refuses an MoE config up front."""
+    """The loader refuses a family it does not cover (an MLA MoE config,
+    DeepSeek's) up front; the MoE family itself loads
+    (``test_torch_moe_loaders.py``)."""
     cfg = dataclasses.replace(
         pg.config_from_gguf(_write_tiny(tmp_path)), num_experts=4,
-        num_experts_per_tok=2, moe_intermediate_size=32,
+        num_experts_per_tok=2, moe_intermediate_size=32, kv_lora_rank=16,
+        qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8,
     )
-    with pytest.raises(NotImplementedError, match="MoE"):
+    with pytest.raises(NotImplementedError, match="MLA"):
         load_or_init_params(cfg, str(tmp_path), device="cpu")
 
 

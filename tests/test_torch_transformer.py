@@ -199,7 +199,9 @@ def test_init_params_shapes_match_jax():
     assert tparams["embed"].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("name", ["tiny-moe", "gemma2-9b", "gpt-oss-20b"])
+@pytest.mark.parametrize(
+    "name", ["deepseek-v2-lite", "gemma2-9b", "gpt-oss-20b"]
+)
 def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.check_supported(get_config(name))
