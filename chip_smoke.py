@@ -22,7 +22,10 @@ c. kernels: each hand-written kernel against its plain PyTorch version on
    at every weight and at a speculative verify block's M = 32 (8 slots x
    4 positions, lm_head too), and ragged shapes (M, N and K off the tiles,
    strided x and q views) checked without timing; the flash kernel also at
-   the cacheless embedding shapes (B of 2, 4 and 8, T = S);
+   the cacheless embedding shapes (B of 2, 4 and 8, T = S), at
+   deepseek-v2-lite's heads (16 q and kv heads, d 192: every bucket phase
+   i fills, a continuation, its 8 x 2048 embedding batch) and once at
+   d 64;
 d. main path: the port's OpenAI server in-process, serving llama3-8b at
    full width (bf16, random weights from a seed) with 8 slots and a
    2048-token context: chat, streaming chat, a completion whose prompt
@@ -73,9 +76,22 @@ h. the MoE family: qwen3-30b-a3b (qk-norm, 128 experts, top-8, dense
    and its routed bound (the experts the input's routing reaches), with
    its transient memory (no ``[E, tokens, D]`` copy of x) and its device
    time split by kernel. Phase c times the flash kernel at this model's
-   heads too (32 q heads on 4 kv heads, a group of 8).
+   heads too (32 q heads on 4 kv heads, a group of 8);
+i. the DeepSeek family: deepseek-v2-lite (MLA served decompressed, K 192
+   wide and V zero-padded to it; one dense layer then 26 DeepSeek-MoE
+   layers of 64 experts, top-6, two shared; YaRN with its mscale² softmax
+   scale) once phase h's tree is freed: its full widths at 2 layers (one
+   dense, one MoE) written in DeepSeek-V2 naming and served through
+   ``--model-dir`` (loaded tree and logits identical to the in-memory
+   tree's); then bf16 at full width and depth (27 layers, ~31.4 GB)
+   through the server with phase d's requests (flash logits against the
+   plain attention with the kernel run's expert picks replayed, free
+   routing beside), ``/v1/embeddings`` at the 2048 bucket against the
+   plain attention, a 20-step profile, and a ``moe`` line for one of its
+   MoE layers with the shared experts in the layer, its reference and its
+   bounds.
 
-In d to h every kernel's launches are counted around the served
+In d to i every kernel's launches are counted around the served
 requests alone and must equal what that path's model forwards need,
 derived from the runners' calls (a draft model's too): the flash kernel
 once per layer of every prefill and embedding forward; on the int8 path
@@ -142,8 +158,14 @@ LLAMA3_8B_MATMULS = {
 L2_FLUSH_BYTES = 128 * 2**20
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``t_s`` is the seconds since the script started (the
+    run's time budget, phase by phase)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.perf_counter() - _T0}), flush=True)
 
 
 def cuda_time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
@@ -376,10 +398,22 @@ def phase_kernels():
         (1, 1024, 1024, 0, 32, 4, 128),
         (1, 64, 64, 0, 32, 4, 128),
         (1, 32, 32, 0, 32, 4, 128),
+        # deepseek-v2-lite (phase i): MLA served decompressed, 16 heads at
+        # d 192 (64-key tiles, 3 stages), at every bucket phase i fills, a
+        # continuation and its cacheless embedding batch
+        (1, 2048, 2048, 0, 16, 16, 192),
+        (1, 1024, 1024, 0, 16, 16, 192),
+        (1, 64, 64, 0, 16, 16, 192),
+        (1, 32, 32, 0, 16, 16, 192),
+        (1, 512, 2048, 1536, 16, 16, 192),
+        (8, 2048, 2048, 0, 16, 16, 192),
+        # d 64 (no served model has it): its code and time are kept
+        (1, 2048, 2048, 0, 32, 8, 64),
     ]
     group8 = cases.index((1, 2048, 2048, 0, 32, 4, 128))
+    mla = cases.index((1, 2048, 2048, 0, 16, 16, 192))
     rows = [
-        _flash_case(*c, gen, repeats=3 if i in (0, group8) else 1)
+        _flash_case(*c, gen, repeats=3 if i in (0, group8, mla) else 1)
         for i, c in enumerate(cases)
     ]
     from gpustack_tpu_torch.ops import _build
@@ -427,7 +461,8 @@ def phase_kernels():
          wgmma_smem_bytes_per_cta={bn: smem(bn) for bn in (128, 256)},
          cases=w8_rows, ragged=ragged)
     return {"flash_attention_prefill": rows[0], "w8a16_matmul": w8_rows[0],
-            "w8a16_large_m": w8_rows[large], "flash_group8": rows[group8]}
+            "w8a16_large_m": w8_rows[large], "flash_group8": rows[group8],
+            "flash_mla": rows[mla]}
 
 
 def _check_w8a16(out, x, q, s):
@@ -983,12 +1018,14 @@ def _serve_script(engine, port):
     }
 
 
-def _serve_counted(engine, logit_check, int8, profile=""):
+def _serve_counted(engine, logit_check, int8, profile="", embed=False):
     """Start ``engine`` behind the server, run ``logit_check`` outside the
     counted window, then the main path's requests with every kernel's
     launches counted and checked against what the runner's forwards need;
-    with a ``profile`` label, then a counted window of :func:`_profile`.
-    Returns (report, {window: counts})."""
+    with a ``profile`` label, then a counted window of :func:`_profile`;
+    with ``embed``, a counted window of the embedding requests
+    (:func:`_embed_checks`) and their plain-attention reference. Returns
+    (report, {window: counts})."""
     from gpustack_tpu_torch.engine.api_server import OpenAIServer
 
     calls = RunnerCalls(engine.runner, int8)
@@ -1016,6 +1053,11 @@ def _serve_counted(engine, logit_check, int8, profile=""):
         report["runner_calls"] = window
         report["prefill_ms_2048_bucket"] = _prefill_ms(engine)
         windows = {"served": counts}
+        if embed:
+            windows["embed"], (vecs, report["embeddings"]) = _window(
+                "embeddings", [calls], lambda: _embed_checks(engine, port)
+            )
+            report["embeddings"].update(_embed_reference(engine, vecs))
         if profile:
             windows["profile"], report["profile"] = _window(
                 f"{profile} profile", [calls],
@@ -1444,46 +1486,58 @@ def phase_prefix_reuse(kind, smi):
 
 
 def _hf_named(tree, cfg):
-    """The param tree under HF names (llama, or Qwen3-MoE with ``qk_norm``
-    and per-expert tensors), linear weights as [out, in]."""
-    lp = tree["layers"]
+    """The param tree under HF names (llama; Qwen3-MoE with ``qk_norm`` and
+    per-expert tensors; DeepSeek-V2 with MLA, its shared experts and the
+    ``dense_layers`` stack first), linear weights as [out, in]."""
     out = {
         "model.embed_tokens.weight": tree["embed"],
         "model.norm.weight": tree["final_norm"],
         "lm_head.weight": tree["lm_head"].T,
     }
+    attn = "self_attn."
     names = {
         "attn_norm": ("input_layernorm.weight", False),
-        "wq": ("self_attn.q_proj.weight", True),
-        "wk": ("self_attn.k_proj.weight", True),
-        "wv": ("self_attn.v_proj.weight", True),
-        "wo": ("self_attn.o_proj.weight", True),
+        "wq": (attn + "q_proj.weight", True),
+        "wk": (attn + "k_proj.weight", True),
+        "wv": (attn + "v_proj.weight", True),
+        "wo": (attn + "o_proj.weight", True),
         "mlp_norm": ("post_attention_layernorm.weight", False),
-        "q_norm": ("self_attn.q_norm.weight", False),
-        "k_norm": ("self_attn.k_norm.weight", False),
+        "q_norm": (attn + "q_norm.weight", False),
+        "k_norm": (attn + "k_norm.weight", False),
+        "wq_a": (attn + "q_a_proj.weight", True),
+        "q_a_norm": (attn + "q_a_layernorm.weight", False),
+        "wq_b": (attn + "q_b_proj.weight", True),
+        "wkv_a": (attn + "kv_a_proj_with_mqa.weight", True),
+        "kv_a_norm": (attn + "kv_a_layernorm.weight", False),
+        "wkv_b": (attn + "kv_b_proj.weight", True),
         "w_gate": ("mlp.gate_proj.weight", True),
         "w_up": ("mlp.up_proj.weight", True),
         "w_down": ("mlp.down_proj.weight", True),
         "router": ("mlp.gate.weight", True),
+        "ws_gate": ("mlp.shared_experts.gate_proj.weight", True),
+        "ws_up": ("mlp.shared_experts.up_proj.weight", True),
+        "ws_down": ("mlp.shared_experts.down_proj.weight", True),
     }
     experts = {"we_gate": "gate_proj", "we_up": "up_proj",
                "we_down": "down_proj"}
-    for i in range(cfg.num_layers):
+    stacks = [tree[k] for k in ("dense_layers", "layers") if k in tree]
+    blocks = [(lp, j) for lp in stacks for j in range(len(lp["attn_norm"]))]
+    for i, (lp, j) in enumerate(blocks):
         for key, (hf, transpose) in names.items():
             if key in lp:
-                t = lp[key][i]
+                t = lp[key][j]
                 out[f"model.layers.{i}.{hf}"] = t.T if transpose else t
         for key, hf in experts.items():
             for e in range(cfg.num_experts if key in lp else 0):
                 out[f"model.layers.{i}.mlp.experts.{e}.{hf}.weight"] = (
-                    lp[key][i, e].T
+                    lp[key][j, e].T
                 )
     return out
 
 
 def _hf_config(cfg):
-    """``config.json`` for ``cfg``: LlamaForCausalLM, or
-    Qwen3MoeForCausalLM for the MoE family."""
+    """``config.json`` for ``cfg``: LlamaForCausalLM, Qwen3MoeForCausalLM
+    for the MoE family, or DeepseekV2ForCausalLM for MLA."""
     hf = {
         "architectures": ["LlamaForCausalLM"],
         "model_type": "llama",
@@ -1499,7 +1553,31 @@ def _hf_config(cfg):
         "max_position_embeddings": cfg.max_position_embeddings,
         "tie_word_embeddings": False,
     }
-    if cfg.is_moe:
+    if cfg.is_mla:
+        del hf["head_dim"]                  # qk_nope + qk_rope
+        hf.update({
+            "architectures": ["DeepseekV2ForCausalLM"],
+            "model_type": "deepseek_v2",
+            "rope_scaling": cfg.rope_scaling,
+            "q_lora_rank": cfg.q_lora_rank or None,
+            "kv_lora_rank": cfg.kv_lora_rank,
+            "qk_nope_head_dim": cfg.qk_nope_head_dim,
+            "qk_rope_head_dim": cfg.qk_rope_head_dim,
+            "v_head_dim": cfg.v_head_dim,
+            "n_routed_experts": cfg.num_experts,
+            "n_shared_experts": cfg.n_shared_experts,
+            "num_experts_per_tok": cfg.num_experts_per_tok,
+            "moe_intermediate_size": cfg.moe_intermediate_size,
+            "first_k_dense_replace": cfg.first_k_dense,
+            "moe_layer_freq": 1,
+            "norm_topk_prob": cfg.norm_topk_prob,
+            "routed_scaling_factor": cfg.routed_scaling_factor,
+            "scoring_func": "softmax",
+            "topk_method": "greedy",
+            "n_group": 1,
+            "topk_group": 1,
+        })
+    elif cfg.is_moe:
         hf.update({
             "architectures": ["Qwen3MoeForCausalLM"],
             "model_type": "qwen3_moe",
@@ -1533,8 +1611,21 @@ def write_safetensors(path, tensors):
     return 8 + len(head) + offset
 
 
+def _leaves(tree, prefix=""):
+    """{path: tensor} over a param tree, nested stacks (``layers``,
+    ``dense_layers``) included."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
 def phase_checkpoint(kind, smi, preset="llama3-8b", device="cuda"):
-    """``preset`` (llama3-8b, or qwen3-30b-a3b in Qwen3-MoE naming) at
+    """``preset`` (llama3-8b, qwen3-30b-a3b in Qwen3-MoE naming, or
+    deepseek-v2-lite in DeepSeek-V2 naming: one dense layer, one MoE) at
     full width but 2 layers (depth cut for disk and time), random bf16
     weights from a seed, written as a safetensors checkpoint and served
     through ``--model-dir``: the loaded tree and a prompt's last-position
@@ -1570,16 +1661,13 @@ def phase_checkpoint(kind, smi, preset="llama3-8b", device="cuda"):
     if dataclasses.replace(engine.cfg, name=cfg.name) != cfg:
         raise AssertionError(f"config.json read back as {engine.cfg}")
     loaded = engine.runner.params
+    got, want = _leaves(loaded), _leaves(tree)
     mismatched = [
-        key for key, a, b in (
-            [(k, loaded[k], tree[k]) for k in ("embed", "final_norm",
-                                                "lm_head")]
-            + [(f"layers/{k}", loaded["layers"][k], v)
-               for k, v in tree["layers"].items()]
-        )
-        if a.dtype != b.dtype or not torch.equal(a, b)
+        key for key, b in want.items()
+        if key not in got or got[key].dtype != b.dtype
+        or not torch.equal(got[key], b)
     ]
-    if mismatched or loaded.keys() != tree.keys():
+    if mismatched or got.keys() != want.keys():
         raise AssertionError(f"loaded checkpoint differs at {mismatched}")
     in_memory = ModelRunner(
         engine.cfg, tree, engine.runner.device, max_slots=8,
@@ -1596,7 +1684,7 @@ def phase_checkpoint(kind, smi, preset="llama3-8b", device="cuda"):
             "logits of the loaded checkpoint differ from the in-memory "
             f"tree's: max |err| {(got - want).abs().max().item()}"
         )
-    del in_memory, tree, loaded
+    del in_memory, tree, loaded, got, want
     engine.start()
     server = OpenAIServer(engine)
     port = server.start("127.0.0.1", 0)
@@ -2120,20 +2208,27 @@ MOE_MIN_COSINE = 0.999
 
 def _moe_routed_reference(x, lp, li, cfg):
     """One MoE layer computed the routed way, in fp32: each expert over
-    only the tokens that picked it. An independent formulation of what
-    the dense dispatch computes."""
+    only the tokens that picked it, then ``routed_scaling_factor`` and the
+    ungated shared experts (DeepSeek) where the layer has them. An
+    independent formulation of what the dense dispatch computes."""
     from gpustack_tpu_torch.models import transformer as tf
+
+    def mlp(xs, g, u, d):
+        return (torch.nn.functional.silu(xs @ g.float()) * (xs @ u.float())
+                ) @ d.float()
 
     xf = x.reshape(-1, cfg.hidden_size).float()
     top_idx, combine = tf.moe_route(xf, lp["router"][li], cfg)
     out = torch.zeros_like(xf)
     for e in top_idx.unique().tolist():
         rows = (top_idx == e).any(dim=-1).nonzero().squeeze(1)
-        xe = xf[rows]
-        g = xe @ lp["we_gate"][li, e].float()
-        u = xe @ lp["we_up"][li, e].float()
-        y = (torch.nn.functional.silu(g) * u) @ lp["we_down"][li, e].float()
-        out[rows] += combine[rows, e, None] * y
+        out[rows] += combine[rows, e, None] * mlp(
+            xf[rows], lp["we_gate"][li, e], lp["we_up"][li, e],
+            lp["we_down"][li, e],
+        )
+    out *= cfg.routed_scaling_factor
+    if "ws_gate" in lp:
+        out += mlp(xf, lp["ws_gate"][li], lp["ws_up"][li], lp["ws_down"][li])
     return out, top_idx
 
 
@@ -2148,14 +2243,19 @@ def _moe_layer_case(params, cfg, tokens, gen, li=0):
     lp = params["layers"]
     D, E, Fm, k = (cfg.hidden_size, cfg.num_experts,
                    cfg.moe_intermediate_size, cfg.num_experts_per_tok)
+    Fs = cfg.shared_expert_intermediate_size if "ws_gate" in lp else 0
     x = tf.rms_norm(
         torch.randn(1, tokens, D, generator=gen, device=gen.device).bfloat16(),
         lp["mlp_norm"][li], cfg.rms_norm_eps,
     )
 
+    shared = (lp["ws_gate"][li], lp["ws_up"][li], lp["ws_down"][li],
+              None) if Fs else None
+
     def layer():
         return tf._moe_mlp(x, lp["router"][li], lp["we_gate"][li],
-                           lp["we_up"][li], lp["we_down"][li], cfg)
+                           lp["we_up"][li], lp["we_down"][li], cfg,
+                           shared=shared)
 
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -2200,17 +2300,18 @@ def _moe_layer_case(params, cfg, tokens, gen, li=0):
         prof.export_chrome_trace(path)
         trace = summarize_trace(path, 3)
     reached = int(top_idx.unique().numel())
-    io = 2 * tokens * D * 2 + D * E * 2          # x in, out, the router
+    # x in, out, the router, and the shared experts (every token's)
+    io = 2 * tokens * D * 2 + D * E * 2 + 3 * D * Fs * 2
     expert_bytes = 3 * D * Fm * 2                 # one expert's weights
     router_ops = 2 * tokens * D * E / PEAK_FP32_FLOPS * 1e3
 
     def bound(experts_read, expert_rows):
-        t_ops = 2 * expert_rows * 3 * D * Fm / PEAK_BF16_FLOPS * 1e3
-        t_ops += router_ops
+        flop = 2 * 3 * D * (expert_rows * Fm + tokens * Fs)
+        t_ops = flop / PEAK_BF16_FLOPS * 1e3 + router_ops
         t_bytes = (io + experts_read * expert_bytes) / PEAK_BYTES_S * 1e3
         return {"ms": max(t_ops, t_bytes),
                 "by": "operations" if t_ops >= t_bytes else "bytes",
-                "tflop": 2 * expert_rows * 3 * D * Fm / 1e12,
+                "tflop": flop / 1e12,
                 "gbytes": (io + experts_read * expert_bytes) / 1e9}
 
     return {
@@ -2280,6 +2381,71 @@ def phase_moe(kind, smi, device="cuda"):
     return {f"moe_{w}": c for w, c in windows.items()}
 
 
+# ---------------------------------------------------------------------------
+# i: the DeepSeek family
+# ---------------------------------------------------------------------------
+
+I_PRESET = "deepseek-v2-lite"
+I_ARGV = ["--preset", I_PRESET] + MAIN_ARGV[2:]
+
+
+def phase_deepseek(kind, smi, device="cuda"):
+    """deepseek-v2-lite (MLA served decompressed at d 192, one dense layer
+    then 26 DeepSeek-MoE layers, YaRN): its full widths at 2 layers as a
+    DeepSeek-V2 checkpoint through ``--model-dir``; then bf16 at full
+    width and depth through the server (phase d's requests, flash logits
+    against the plain attention with the kernel run's expert picks
+    replayed, exact launches, embeddings at the 2048 bucket, a 20-step
+    profile while 8 chats decode); then one of its MoE layers (64
+    experts, top-6, two shared experts) at the 2048 bucket and at 8
+    decoding slots. Returns {window: launch counts}."""
+    from gpustack_tpu_torch.engine.api_server import (
+        build_engine_from_args,
+        build_parser,
+    )
+    from gpustack_tpu_torch.models.transformer import attn_scale
+
+    # phase h's tree (61 GB) is gone before this one is drawn
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    if held_gb > 4:
+        raise AssertionError(f"{held_gb} GB still allocated before phase i")
+    phase_checkpoint(kind, smi, preset=I_PRESET, device=device)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = build_engine_from_args(build_parser().parse_args(I_ARGV))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    params = engine.runner.params
+    tree_gb = sum(
+        t.numel() * t.element_size() for t in _leaves(params).values()
+    ) / 1e9
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    report, windows = _serve_counted(engine, _logit_check, int8=False,
+                                     profile="deepseek", embed=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = report.pop("profile")
+    emit("deepseek_path", model=engine.cfg.name, device=kind, nvidia_smi=smi,
+         setup_s=setup_s, tree_gb=tree_gb, init_peak_gb=init_peak_gb,
+         held_before_gb=held_gb, softmax_scale=attn_scale(engine.cfg),
+         launches=windows, **report, peak_mem_gb=peak_gb)
+    emit("deepseek_profile", model=engine.cfg.name, device=kind,
+         nvidia_smi=smi, **profile)
+    gen = torch.Generator(device=device).manual_seed(3)
+    with torch.no_grad():
+        layers = [
+            _moe_layer_case(params, engine.cfg, t, gen)
+            for t in (2048, engine.max_slots)
+        ]
+    emit("moe", model=engine.cfg.name, device=kind, nvidia_smi=smi,
+         dispatch="dense (every expert over every token), shared experts "
+         "on every token",
+         tolerance={"rel": MOE_REL_TOL, "min_cosine": MOE_MIN_COSINE},
+         layers=layers)
+    del engine, params
+    return {f"deepseek_{w}": c for w, c in windows.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2308,9 +2474,12 @@ def main() -> int:
     paths.update(phase_speculation(kind, smi))
     _free()
     paths.update(phase_moe(kind, smi))
+    _free()
+    paths.update(phase_deepseek(kind, smi))
     kernels = []
     large_m = rows.pop("w8a16_large_m")
     group8 = rows.pop("flash_group8")
+    mla = rows.pop("flash_mla")
     for name, row in rows.items():
         launches = sum(counts[name] for counts in paths.values())
         if launches < 1:
@@ -2338,15 +2507,17 @@ def main() -> int:
             "cublas_bf16_dequantized_ms", "eager_dequant_ms",
         )},
     })
-    # the flash kernel at qwen3-30b-a3b's heads (group 8), T = S = 2048
+    # the flash kernel at qwen3-30b-a3b's heads (group 8) and at
+    # deepseek-v2-lite's (d 192), T = S = 2048
     fl = next(k for k in kernels if k["name"] == "flash_attention_prefill")
-    fl.update({
-        "group8_shape": group8["shape"],
-        **{f"group8_{k}": group8[k] for k in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms",
-        )},
-    })
+    for tag, row in (("group8", group8), ("mla", mla)):
+        fl.update({
+            f"{tag}_shape": row["shape"],
+            **{f"{tag}_{k}": row[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms",
+            )},
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

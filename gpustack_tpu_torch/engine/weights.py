@@ -2,8 +2,9 @@
 LoRA merges, npz caching of (int8) trees, random init on the device, and
 carrying a parameter tree across from the JAX package (through numpy).
 
-The port of ``gpustack_tpu/engine/weights.py`` for the dense Llama family
-and the MoE family (Mixtral, Qwen2/3-MoE).
+The port of ``gpustack_tpu/engine/weights.py`` for the dense Llama family,
+the MoE family (Mixtral, Qwen2/3-MoE) and DeepSeek-V2/V3 (MLA, the
+``first_k_dense`` split).
 Torch stores linear weights as ``[out_features, in_features]``; the
 functional matmuls contract ``x @ W`` with ``W[in, out]``, so every
 projection transposes on load. Loaded leaves are bf16, as in JAX.
@@ -12,9 +13,9 @@ The safetensors reader is the port's own (the card's machine has no
 ``safetensors`` package): an 8-byte little-endian header length, a JSON
 header, then each tensor's bytes at its offsets.
 
-Not ported yet: the MLA, ``first_k_dense``, GPT-OSS and post-norm
-branches of ``build_lm_params`` and ``_mxfp4_dequant`` (with their
-families; the config check raises before any tensor is read),
+Not ported yet: the GPT-OSS and post-norm branches of
+``build_lm_params`` and ``_mxfp4_dequant`` (with their families; the
+config check raises before any tensor is read),
 ``load_npz_params`` and ``load_whisper_params`` (with the other
 modalities).
 """
@@ -130,10 +131,14 @@ def build_lm_params(
 ) -> Dict[str, Any]:
     """HF-named tensors → the stacked param tree (bf16) on ``device``
     (default: the CPU), for the dense llama-family names, ``qkv_bias``,
-    ``qk_norm`` and the MoE names: Mixtral (``block_sparse_moe``,
-    ``w1|w2|w3``) and Qwen-MoE/DeepSeek (``mlp.gate``,
-    ``experts.{e}.gate_proj|up_proj|down_proj``, shared experts, the fp32
-    ``e_score_correction_bias``).
+    ``qk_norm``, DeepSeek's MLA projections (``q_proj`` or ``q_a_proj`` →
+    ``q_a_layernorm`` → ``q_b_proj``, ``kv_a_proj_with_mqa``,
+    ``kv_a_layernorm``, ``kv_b_proj``) and the MoE names: Mixtral
+    (``block_sparse_moe``, ``w1|w2|w3``) and Qwen-MoE/DeepSeek
+    (``mlp.gate``, ``experts.{e}.gate_proj|up_proj|down_proj``, shared
+    experts, the fp32 ``e_score_correction_bias``). DeepSeek's
+    ``first_k_dense`` layers go to ``params["dense_layers"]`` and the MoE
+    rest to ``params["layers"]``, as in the JAX loader.
 
     Each stacked leaf is allocated on ``device`` and filled one layer at a
     time, each tensor popped from ``tensors`` as it is copied: a layer's
@@ -142,47 +147,69 @@ def build_lm_params(
     check_supported(cfg)
     device = torch.device(device or "cpu")
     take = _taker(tensors)
-    L = cfg.num_layers
+    kd = cfg.first_k_dense if cfg.is_moe else 0
 
-    def stacked(layer_fn, dtype=torch.bfloat16) -> torch.Tensor:
-        first = layer_fn(0)
-        out = torch.empty((L, *first.shape), dtype=dtype, device=device)
-        out[0].copy_(first)
-        for i in range(1, L):
-            out[i].copy_(layer_fn(i))
-        return out
+    def build_range(rng: range, moe: bool) -> Dict[str, torch.Tensor]:
+        def stacked(layer_fn, dtype=torch.bfloat16) -> torch.Tensor:
+            first = layer_fn(rng[0])
+            out = torch.empty(
+                (len(rng), *first.shape), dtype=dtype, device=device
+            )
+            out[0].copy_(first)
+            for j, i in enumerate(rng[1:], start=1):
+                out[j].copy_(layer_fn(i))
+            return out
 
-    def stack(fmt: str, transpose: bool = False) -> torch.Tensor:
-        return stacked(lambda i: take(fmt.format(i), transpose))
+        def stack(fmt: str, transpose: bool = False) -> torch.Tensor:
+            return stacked(lambda i: take(fmt.format(i), transpose))
 
-    layers: Dict[str, torch.Tensor] = {
-        "attn_norm": stack("model.layers.{}.input_layernorm.weight"),
-        "wq": stack("model.layers.{}.self_attn.q_proj.weight", True),
-        "wk": stack("model.layers.{}.self_attn.k_proj.weight", True),
-        "wv": stack("model.layers.{}.self_attn.v_proj.weight", True),
-        "wo": stack("model.layers.{}.self_attn.o_proj.weight", True),
+        attn = "model.layers.{}.self_attn."
+        layers: Dict[str, torch.Tensor] = {
+            "attn_norm": stack("model.layers.{}.input_layernorm.weight"),
+        }
+        if cfg.is_mla:
+            # DeepSeek MLA projections (served decompressed)
+            if cfg.q_lora_rank:
+                layers["wq_a"] = stack(attn + "q_a_proj.weight", True)
+                layers["q_a_norm"] = stack(attn + "q_a_layernorm.weight")
+                layers["wq_b"] = stack(attn + "q_b_proj.weight", True)
+            else:
+                layers["wq"] = stack(attn + "q_proj.weight", True)
+            layers["wkv_a"] = stack(attn + "kv_a_proj_with_mqa.weight", True)
+            layers["kv_a_norm"] = stack(attn + "kv_a_layernorm.weight")
+            layers["wkv_b"] = stack(attn + "kv_b_proj.weight", True)
+        else:
+            layers["wq"] = stack(attn + "q_proj.weight", True)
+            layers["wk"] = stack(attn + "k_proj.weight", True)
+            layers["wv"] = stack(attn + "v_proj.weight", True)
+        layers["wo"] = stack(attn + "o_proj.weight", True)
         # llama-family: post_attention_layernorm IS the pre-MLP norm
-        "mlp_norm": stack("model.layers.{}.post_attention_layernorm.weight"),
-    }
-    if cfg.qkv_bias:
-        layers["bq"] = stack("model.layers.{}.self_attn.q_proj.bias")
-        layers["bk"] = stack("model.layers.{}.self_attn.k_proj.bias")
-        layers["bv"] = stack("model.layers.{}.self_attn.v_proj.bias")
-    if cfg.qk_norm:
-        layers["q_norm"] = stack("model.layers.{}.self_attn.q_norm.weight")
-        layers["k_norm"] = stack("model.layers.{}.self_attn.k_norm.weight")
-    if cfg.is_moe:
-        layers.update(_moe_layers(cfg, tensors, take, stack, stacked))
-    else:
-        layers["w_gate"] = stack("model.layers.{}.mlp.gate_proj.weight", True)
-        layers["w_up"] = stack("model.layers.{}.mlp.up_proj.weight", True)
-        layers["w_down"] = stack("model.layers.{}.mlp.down_proj.weight", True)
+        layers["mlp_norm"] = stack(
+            "model.layers.{}.post_attention_layernorm.weight"
+        )
+        if cfg.qkv_bias:
+            layers["bq"] = stack(attn + "q_proj.bias")
+            layers["bk"] = stack(attn + "k_proj.bias")
+            layers["bv"] = stack(attn + "v_proj.bias")
+        if cfg.qk_norm:
+            layers["q_norm"] = stack(attn + "q_norm.weight")
+            layers["k_norm"] = stack(attn + "k_norm.weight")
+        if moe:
+            layers.update(_moe_layers(cfg, tensors, take, stack, stacked))
+        else:
+            mlp = "model.layers.{}.mlp."
+            layers["w_gate"] = stack(mlp + "gate_proj.weight", True)
+            layers["w_up"] = stack(mlp + "up_proj.weight", True)
+            layers["w_down"] = stack(mlp + "down_proj.weight", True)
+        return layers
 
     params: Dict[str, Any] = {
         "embed": take("model.embed_tokens.weight").to(device),
-        "layers": layers,
+        "layers": build_range(range(kd, cfg.num_layers), cfg.is_moe),
         "final_norm": take("model.norm.weight").to(device),
     }
+    if kd:
+        params["dense_layers"] = build_range(range(kd), False)
     if not cfg.tie_word_embeddings:
         if "lm_head.weight" in tensors:
             params["lm_head"] = take("lm_head.weight", True).to(device)
@@ -195,8 +222,8 @@ def build_lm_params(
 
 
 def _moe_layers(cfg: ModelConfig, tensors, take, stack, stacked):
-    """The MoE leaves of :func:`build_lm_params` (the JAX loader's
-    Mixtral and Qwen-MoE/DeepSeek branches)."""
+    """The MoE leaves of :func:`build_lm_params` for one range of layers
+    (the JAX loader's Mixtral and Qwen-MoE/DeepSeek branches)."""
     if "model.layers.0.block_sparse_moe.gate.weight" in tensors:
         block, wg, wd, wu = "block_sparse_moe", "w1", "w2", "w3"
     else:
@@ -320,7 +347,18 @@ def merge_lora_adapters(cfg, params: Dict[str, Any], adapter_dirs):
                     f"adapter {adapter_dir} targets layer {layer_idx} "
                     f"but the model has {cfg.num_layers} layers"
                 )
-            if ours is None or ours not in params["layers"]:
+            # DeepSeek's first_k_dense layers are a stack of their own:
+            # absolute layer i is dense_layers[i] below kd, else
+            # layers[i - kd]
+            kd = (
+                params["dense_layers"]["attn_norm"].shape[0]
+                if "dense_layers" in params else 0
+            )
+            if layer_idx < kd:
+                stack_key, stack_idx = "dense_layers", layer_idx
+            else:
+                stack_key, stack_idx = "layers", layer_idx - kd
+            if ours is None or ours not in params[stack_key]:
                 logger.warning(
                     "skipping LoRA target %s (unsupported module)", name
                 )
@@ -331,13 +369,13 @@ def merge_lora_adapters(cfg, params: Dict[str, Any], adapter_dirs):
                     f"adapter {adapter_dir} is missing {b_name} "
                     f"(truncated checkpoint?)"
                 )
-            base = params["layers"][ours]
+            base = params[stack_key][ours]
             # fp32 through the delta product: a bf16 detour would cost ~8
             # mantissa bits twice
             a = tensors[name].to(base.device, torch.float32)
             b = tensors[b_name].to(base.device, torch.float32)
             delta = (a.T @ b.T) * scale                 # [in, out]
-            base[layer_idx] += delta.to(base.dtype)
+            base[stack_idx] += delta.to(base.dtype)
             merged += 1
         logger.info(
             "merged %d LoRA deltas from %s (scale %.3f)",

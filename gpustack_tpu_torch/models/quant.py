@@ -95,13 +95,20 @@ def _quantize_leaf(name: str, w: torch.Tensor) -> QuantW:
 
 def check_quantizable(cfg: ModelConfig) -> None:
     """Raise for a configuration int8 serving does not cover yet: an MoE
-    model's expert products need a batched-over-experts W8A16 variant.
-    Called before any weight is drawn or read."""
+    model's expert products need a batched-over-experts W8A16 variant, and
+    MLA's projections (``wq_a``, ``wq_b``, ``wkv_a``, ``wkv_b``) wait with
+    them (DeepSeek is MoE). Called before any weight is drawn or read."""
+    missing = []
     if cfg.is_moe:
+        missing.append("MoE")
+    if cfg.is_mla:
+        missing.append("MLA's projections (wq_a, wq_b, wkv_a, wkv_b)")
+    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: int8 with MoE is not ported yet (ROADMAP "
-            "'Modules to port': int8 MoE, a batched-over-experts W8A16 "
-            "variant)"
+            f"{cfg.name}: int8 with {' and '.join(missing)} is not ported "
+            "yet (ROADMAP 'Modules to port': int8 MoE, a "
+            "batched-over-experts W8A16 variant; MLA's int8 leaves wait "
+            "with it)"
         )
 
 

@@ -1,4 +1,5 @@
-"""Transformer core, dense and MoE Llama/Qwen paths, in PyTorch.
+"""Transformer core, dense and MoE Llama/Qwen paths and DeepSeek's MLA, in
+PyTorch.
 
 The port of ``gpustack_tpu/models/transformer.py``. Layout and semantics
 follow the JAX module so its tests compare like with like:
@@ -21,7 +22,14 @@ follow the JAX module so its tests compare like with like:
   module's dense dispatch: every expert runs over every token and the
   router's top-k weights combine the results. The expert products are
   batched torch products over the expert axis (XLA products in the JAX
-  module, not Pallas), in token chunks that bound their transients.
+  module, not Pallas), in token chunks that bound their transients;
+- MLA (DeepSeek-V2/V3) is served decompressed, as in the JAX module: the
+  latent projections are expanded to per-head K (``qk_nope + qk_rope``
+  wide, the rope part rotated in interleaved pairs and shared by the
+  heads) and V (zero-padded to the same width), so the cache layout and
+  the flash kernel are every family's. DeepSeek's ``first_k_dense``
+  layers are a stack of their own (``params["dense_layers"]``) that runs
+  before the MoE stack over the cache's first layers.
 
 Prefill attention on the card is the hand-written flash kernel
 (``ops/flash_attention.py``), and so is the cacheless embedding forward's;
@@ -29,10 +37,9 @@ decode attention, and the speculative verify and draft ingest blocks,
 stay plain torch ops over the full ``S_max`` mask, as in the JAX module
 (XLA there, not Pallas).
 
-Configurations outside these paths (MLA, DeepSeek's ``first_k_dense``
-split, sliding windows, softcaps, attention sinks, post-norms, Gemma's
-norms and activations) raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+Configurations outside these paths (sliding windows, softcaps, attention
+sinks, post-norms, Gemma's norms and activations) raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -58,8 +65,6 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for configurations the port does not cover yet."""
     unsupported = [
-        ("MLA", cfg.is_mla),
-        ("first_k_dense layers", cfg.is_moe and bool(cfg.first_k_dense)),
         ("sliding-window attention", bool(cfg.sliding_window)),
         ("per-layer sliding flags", cfg.layer_sliding is not None),
         ("attention logit softcap", bool(cfg.attn_logit_softcap)),
@@ -77,8 +82,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
-            "'Modules to port': the other families — Gemma, MLA and "
-            "DeepSeek's first_k_dense, GPT-OSS)"
+            "'Modules to port': the other families — Gemma, GPT-OSS)"
         )
 
 
@@ -153,7 +157,10 @@ def init_params(
     on ``device`` (the generator's device) from ``generator``. Same
     shapes and scales as the JAX ``init_params``; not the same numbers.
     Expert weights are drawn one layer at a time, so the peak is the tree
-    itself."""
+    itself. With ``first_k_dense`` (DeepSeek) the first layers are a
+    dense stack of their own, ``params["dense_layers"]``, and
+    ``params["layers"]`` holds the MoE rest; each is drawn at its own
+    depth (JAX draws every leaf at full depth and slices)."""
     check_supported(cfg)
     device = torch.device(device) if device is not None else generator.device
     d, f, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
@@ -180,50 +187,77 @@ def init_params(
             layer.normal_(generator=generator).mul_(scale)
         return out
 
-    layers: Dict[str, torch.Tensor] = {
-        "attn_norm": ones(L, d),
-        "wq": w(L, d, cfg.q_dim),
-        "wk": w(L, d, cfg.kv_dim),
-        "wv": w(L, d, cfg.kv_dim),
-        "wo": w(L, cfg.q_dim, d),
-        "mlp_norm": ones(L, d),
-    }
-    if cfg.is_moe:
-        fm, E = cfg.moe_intermediate_size, cfg.num_experts
-        layers["router"] = w(L, d, E)
-        layers["we_gate"] = w_layers(L, E, d, fm)
-        layers["we_up"] = w_layers(L, E, d, fm)
-        layers["we_down"] = w_layers(L, E, fm, d)
-        if cfg.shared_expert_intermediate_size:
-            fs = cfg.shared_expert_intermediate_size
-            layers["ws_gate"] = w(L, d, fs)
-            layers["ws_up"] = w(L, d, fs)
-            layers["ws_down"] = w(L, fs, d)
-            if cfg.shared_expert_gated:
-                layers["shared_gate"] = w(L, d, 1)
-        if cfg.moe_scoring in ("sigmoid", "softmax_topk"):
-            # DeepSeek-V3 correction bias / GPT-OSS affine router, fp32
-            layers["router_bias"] = zeros(L, E, dt=torch.float32)
-        if cfg.moe_bias:
-            layers["we_gate_b"] = zeros(L, E, fm)
-            layers["we_up_b"] = zeros(L, E, fm)
-            layers["we_down_b"] = zeros(L, E, d)
-    else:
-        layers["w_gate"] = w(L, d, f)
-        layers["w_up"] = w(L, d, f)
-        layers["w_down"] = w(L, f, d)
-    if cfg.qkv_bias:
-        layers["bq"] = zeros(L, cfg.q_dim)
-        layers["bk"] = zeros(L, cfg.kv_dim)
-        layers["bv"] = zeros(L, cfg.kv_dim)
-    if cfg.qk_norm:
-        layers["q_norm"] = ones(L, cfg.head_dim)
-        layers["k_norm"] = ones(L, cfg.head_dim)
+    def stack(n: int, moe: bool) -> Dict[str, torch.Tensor]:
+        """The leaves of ``n`` stacked layers, with the MoE MLP or the
+        dense one."""
+        if cfg.is_mla:
+            H, r = cfg.num_heads, cfg.kv_lora_rank
+            layers: Dict[str, torch.Tensor] = {
+                "attn_norm": ones(n, d),
+                "wkv_a": w(n, d, r + cfg.qk_rope_head_dim),
+                "kv_a_norm": ones(n, r),
+                "wkv_b": w(n, r, H * (cfg.qk_nope_head_dim + cfg.v_head_dim)),
+                "wo": w(n, H * cfg.v_head_dim, d),
+                "mlp_norm": ones(n, d),
+            }
+            if cfg.q_lora_rank:
+                layers["wq_a"] = w(n, d, cfg.q_lora_rank)
+                layers["q_a_norm"] = ones(n, cfg.q_lora_rank)
+                layers["wq_b"] = w(n, cfg.q_lora_rank, H * cfg.head_dim)
+            else:
+                layers["wq"] = w(n, d, H * cfg.head_dim)
+        else:
+            layers = {
+                "attn_norm": ones(n, d),
+                "wq": w(n, d, cfg.q_dim),
+                "wk": w(n, d, cfg.kv_dim),
+                "wv": w(n, d, cfg.kv_dim),
+                "wo": w(n, cfg.q_dim, d),
+                "mlp_norm": ones(n, d),
+            }
+        if moe:
+            fm, E = cfg.moe_intermediate_size, cfg.num_experts
+            layers["router"] = w(n, d, E)
+            layers["we_gate"] = w_layers(n, E, d, fm)
+            layers["we_up"] = w_layers(n, E, d, fm)
+            layers["we_down"] = w_layers(n, E, fm, d)
+            if cfg.shared_expert_intermediate_size:
+                fs = cfg.shared_expert_intermediate_size
+                layers["ws_gate"] = w(n, d, fs)
+                layers["ws_up"] = w(n, d, fs)
+                layers["ws_down"] = w(n, fs, d)
+                if cfg.shared_expert_gated:
+                    layers["shared_gate"] = w(n, d, 1)
+            if cfg.moe_scoring in ("sigmoid", "softmax_topk"):
+                # DeepSeek-V3 correction bias / GPT-OSS affine router, fp32
+                layers["router_bias"] = zeros(n, E, dt=torch.float32)
+            if cfg.moe_bias:
+                layers["we_gate_b"] = zeros(n, E, fm)
+                layers["we_up_b"] = zeros(n, E, fm)
+                layers["we_down_b"] = zeros(n, E, d)
+        else:
+            layers["w_gate"] = w(n, d, f)
+            layers["w_up"] = w(n, d, f)
+            layers["w_down"] = w(n, f, d)
+        if cfg.qkv_bias:
+            layers["bq"] = zeros(n, cfg.q_dim)
+            layers["bk"] = zeros(n, cfg.kv_dim)
+            layers["bv"] = zeros(n, cfg.kv_dim)
+        if cfg.qk_norm:
+            layers["q_norm"] = ones(n, cfg.head_dim)
+            layers["k_norm"] = ones(n, cfg.head_dim)
+        return layers
+
+    kd = cfg.first_k_dense if cfg.is_moe else 0
+    layers = stack(L - kd, cfg.is_moe)
+    dense = stack(kd, False) if kd else None
     params: Params = {
         "embed": w(cfg.vocab_size, d, scale=0.02),
         "layers": layers,
         "final_norm": ones(d),
     }
+    if dense is not None:
+        params["dense_layers"] = dense
     if not cfg.tie_word_embeddings:
         params["lm_head"] = w(d, cfg.vocab_size)
     return params
@@ -359,6 +393,46 @@ def apply_rope(
     sin = sin[:, :, None, :].to(x.dtype)
     cos = cos[:, :, None, :].to(x.dtype)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def apply_rope_interleaved(
+    x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
+) -> torch.Tensor:
+    """DeepSeek's decoupled rope: rotates (x[2i], x[2i+1]) pairs (HF
+    modeling_deepseek_v2 through ``view_as_complex``), not rotate_half.
+    x: [B, T, H, d], sin/cos [B, T, d/2]."""
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    sin = sin[:, :, None, :].to(x.dtype)
+    cos = cos[:, :, None, :].to(x.dtype)
+    return torch.stack(
+        [x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1
+    ).reshape(x.shape)
+
+
+def mla_rope_params(cfg: ModelConfig) -> Tuple[torch.Tensor, float]:
+    """(inv_freq [qk_rope_head_dim/2] fp32, attention_factor) of MLA's
+    rope part: YaRN over ``qk_rope_head_dim`` when the config ships it
+    (its factor rides sin and cos), else the plain table."""
+    rs = cfg.rope_scaling or {}
+    if (rs.get("rope_type") or rs.get("type")) == "yarn":
+        return yarn_inv_freq(cfg.rope_theta, cfg.qk_rope_head_dim, rs)
+    return _inv_freq(cfg.rope_theta, cfg.qk_rope_head_dim), 1.0
+
+
+def attn_scale(cfg: ModelConfig) -> float:
+    """The softmax scale: ``1/sqrt(head_dim)``, and for MLA under YaRN
+    with ``mscale_all_dim`` times ``yarn_get_mscale(factor,
+    mscale_all_dim)²`` (HF DeepseekV2Attention; ~1.59 at
+    deepseek-v2-lite's config, whose sin/cos factor is 1)."""
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    rs = cfg.rope_scaling or {}
+    if cfg.is_mla and (
+        (rs.get("rope_type") or rs.get("type")) == "yarn"
+        and rs.get("mscale_all_dim")
+    ):
+        m = yarn_get_mscale(float(rs["factor"]), float(rs["mscale_all_dim"]))
+        scale = scale * m * m
+    return scale
 
 
 def _attend(
@@ -508,6 +582,36 @@ def _moe_mlp(
 # ---------------------------------------------------------------------------
 
 
+def _mla_qkv(h, lp, i, cfg: ModelConfig, sin, cos):
+    """MLA served decompressed (the JAX module's ``is_mla`` branch): q
+    through ``wq`` or ``wq_a`` → ``q_a_norm`` → ``wq_b``; ``wkv_a`` splits
+    into the latent ``c_kv`` (normed, then expanded per head by
+    ``wkv_b`` into ``k_nope`` and ``v``) and ``k_pe``, rotated once and
+    shared by every head. Returns q, k, v ``[B, T, H, head_dim]``: K is
+    ``[k_nope, k_pe]`` and V zero-padded to ``head_dim``, both real
+    tensors (the cache write and the kernel's TMA maps, which refuse a
+    stride of 0, read them as they are)."""
+    B, T, _ = h.shape
+    H, hd, r = cfg.num_heads, cfg.head_dim, cfg.kv_lora_rank
+    nope, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
+    if cfg.q_lora_rank:
+        q_c = rms_norm(_mm(h, lp["wq_a"][i]), lp["q_a_norm"][i],
+                       cfg.rms_norm_eps)
+        q = _mm(q_c, lp["wq_b"][i])
+    else:
+        q = _mm(h, lp["wq"][i])
+    q = q.reshape(B, T, H, hd)
+    kv_a = _mm(h, lp["wkv_a"][i])
+    c_kv = rms_norm(kv_a[..., :r], lp["kv_a_norm"][i], cfg.rms_norm_eps)
+    kv = _mm(c_kv, lp["wkv_b"][i]).reshape(B, T, H, nope + vd)
+    q_pe = apply_rope_interleaved(q[..., nope:], sin, cos)
+    k_pe = apply_rope_interleaved(kv_a[:, :, None, r:], sin, cos)
+    q = torch.cat([q[..., :nope], q_pe], dim=-1)
+    k = torch.cat([kv[..., :nope], k_pe.expand(B, T, H, hd - nope)], dim=-1)
+    v = torch.nn.functional.pad(kv[..., nope:], (0, hd - vd))
+    return q, k, v
+
+
 def forward(
     params: Params,
     cfg: ModelConfig,
@@ -554,12 +658,13 @@ def forward(
     dtype = torch_dtype(cfg)
     device = tokens.device
     x = _embed_lookup(params["embed"], tokens, dtype)
-    inv, att_factor = rope_params(cfg)
+    # MLA rotates only its qk_rope part, with a table of its own
+    inv, att_factor = mla_rope_params(cfg) if cfg.is_mla else rope_params(cfg)
     sin, cos = rope_sin_cos(positions, inv)
     if att_factor != 1.0:
         sin = sin * att_factor
         cos = cos * att_factor
-    scale = 1.0 / math.sqrt(cfg.head_dim)
+    scale = attn_scale(cfg)
     use_flash = attn_impl == "flash" and T > 1
 
     if cache is None:
@@ -596,22 +701,39 @@ def forward(
             flash_attention_prefill,
         )
 
-    lp = params["layers"]
-    for li in range(cfg.num_layers):
-        h = rms_norm(x, lp["attn_norm"][li], cfg.rms_norm_eps)
-        q = _mm(h, lp["wq"][li])
-        k = _mm(h, lp["wk"][li])
-        v = _mm(h, lp["wv"][li])
-        if cfg.qkv_bias:
-            q, k, v = q + lp["bq"][li], k + lp["bk"][li], v + lp["bv"][li]
-        q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
-        k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-        v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-        if cfg.qk_norm:
-            q = rms_norm(q, lp["q_norm"][li], cfg.rms_norm_eps)
-            k = rms_norm(k, lp["k_norm"][li], cfg.rms_norm_eps)
-        q = apply_rope(q, sin, cos)
-        k = apply_rope(k, sin, cos)
+    # DeepSeek's first_k_dense layers are a stack of their own: the dense
+    # stack runs first, then the MoE stack, over the cache's absolute
+    # layer indices
+    stacks = [(params["layers"], cfg.is_moe)]
+    if "dense_layers" in params:
+        stacks.insert(0, (params["dense_layers"], False))
+    blocks = [
+        (lp, i, moe) for lp, moe in stacks
+        for i in range(lp["attn_norm"].shape[0])
+    ]
+    if len(blocks) != cfg.num_layers:
+        raise ValueError(
+            f"the tree holds {len(blocks)} layers, the config "
+            f"{cfg.num_layers}"
+        )
+    for li, (lp, i, moe_layer) in enumerate(blocks):
+        h = rms_norm(x, lp["attn_norm"][i], cfg.rms_norm_eps)
+        if cfg.is_mla:
+            q, k, v = _mla_qkv(h, lp, i, cfg, sin, cos)
+        else:
+            q = _mm(h, lp["wq"][i])
+            k = _mm(h, lp["wk"][i])
+            v = _mm(h, lp["wv"][i])
+            if cfg.qkv_bias:
+                q, k, v = q + lp["bq"][i], k + lp["bk"][i], v + lp["bv"][i]
+            q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
+            k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+            v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+            if cfg.qk_norm:
+                q = rms_norm(q, lp["q_norm"][i], cfg.rms_norm_eps)
+                k = rms_norm(k, lp["k_norm"][i], cfg.rms_norm_eps)
+            q = apply_rope(q, sin, cos)
+            k = apply_rope(k, sin, cos)
         qg = q.reshape(B, T, cfg.num_kv_heads, cfg.group_size, cfg.head_dim)
         if cache is None:
             if use_flash:
@@ -629,32 +751,37 @@ def forward(
                 )
             else:
                 attn = _attend(qg, k_l, v_l, mask, scale)
-        x = x + _mm(attn, lp["wo"][li])
-        h2 = rms_norm(x, lp["mlp_norm"][li], cfg.rms_norm_eps)
-        if cfg.is_moe:
+        if cfg.is_mla:
+            # drop V's zero-padded tail before wo ([H * v_head_dim, d])
+            attn = attn.reshape(B, T, cfg.num_heads, cfg.head_dim)[
+                ..., :cfg.v_head_dim
+            ].reshape(B, T, cfg.num_heads * cfg.v_head_dim)
+        x = x + _mm(attn, lp["wo"][i])
+        h2 = rms_norm(x, lp["mlp_norm"][i], cfg.rms_norm_eps)
+        if moe_layer:
             x = x + _moe_mlp(
-                h2, lp["router"][li], lp["we_gate"][li], lp["we_up"][li],
-                lp["we_down"][li], cfg,
+                h2, lp["router"][i], lp["we_gate"][i], lp["we_up"][i],
+                lp["we_down"][i], cfg,
                 router_bias=(
-                    lp["router_bias"][li] if "router_bias" in lp else None
+                    lp["router_bias"][i] if "router_bias" in lp else None
                 ),
                 shared=(
                     (
-                        lp["ws_gate"][li], lp["ws_up"][li], lp["ws_down"][li],
-                        lp["shared_gate"][li] if "shared_gate" in lp else None,
+                        lp["ws_gate"][i], lp["ws_up"][i], lp["ws_down"][i],
+                        lp["shared_gate"][i] if "shared_gate" in lp else None,
                     )
                     if "ws_gate" in lp else None
                 ),
                 biases=(
-                    (lp["we_gate_b"][li], lp["we_up_b"][li],
-                     lp["we_down_b"][li])
+                    (lp["we_gate_b"][i], lp["we_up_b"][i],
+                     lp["we_down_b"][i])
                     if cfg.moe_bias else None
                 ),
             )
         else:
-            g = _mm(h2, lp["w_gate"][li])
-            u = _mm(h2, lp["w_up"][li])
-            x = x + _mm(torch.nn.functional.silu(g) * u, lp["w_down"][li])
+            g = _mm(h2, lp["w_gate"][i])
+            u = _mm(h2, lp["w_up"][i])
+            x = x + _mm(torch.nn.functional.silu(g) * u, lp["w_down"][i])
 
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if return_hidden:

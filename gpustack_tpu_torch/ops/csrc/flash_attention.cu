@@ -23,14 +23,19 @@
 //     maps (dims d, H, T, B with the tensors' own strides), in 64-column
 //     boxes with 128-byte swizzle. Rows past T or S arrive as zeros, and
 //     the batch dimension keeps one row's keys out of another's tile. Q is
-//     loaded once per CTA; 128-key K and V tiles flow through a 2-stage
-//     ring with full (TMA bytes) and empty (consumer warps) mbarriers, K
-//     and V on barriers of their own so a K stage is refilled as soon as
-//     Q K^T is done with it;
-//   - S = Q K^T is wgmma m64n128k16 with both operands in shared memory
+//     loaded once per CTA; BK-key K and V tiles flow through a ring with
+//     full (TMA bytes) and empty (consumer warps) mbarriers, K and V on
+//     barriers of their own so a K stage is refilled as soon as Q K^T is
+//     done with it. BK and the ring's depth follow d (bk_for, stages_for):
+//     128 keys in 2 stages at d = 64 and 128; at d = 192 (MLA served
+//     decompressed) a 128-key stage of K and V is 96 KB, two of them and
+//     the 48 KB Q tile overflow the 227 KB a CTA may have, so 64 keys in 3
+//     stages (48 + 3 x 48 KB);
+//   - S = Q K^T is wgmma m64n{BK}k16 with both operands in shared memory
 //     (K-major). O += P V is wgmma m64n{d}k16 with A = P in registers,
 //     repacked from S's accumulator layout, and B = V read MN-major
-//     (transposed) from shared memory. Each consumer issues tile j's Q K^T
+//     (transposed) from shared memory; O holds d / 2 fp32 registers a
+//     thread (96 at d = 192), S BK / 2. Each consumer issues tile j's Q K^T
 //     together with tile j-1's P V and runs tile j's softmax while P V is
 //     still on the tensor cores; the two consumers take turns issuing
 //     (named barriers), so one's softmax overlaps the other's products;
@@ -42,9 +47,10 @@
 //     Q tile (128-byte swizzled, free of bank conflicts) and one TMA store
 //     per box sends it to [B, T, Hq * d], rows past T dropped.
 // Not done yet: a persistent tile scheduler (one CTA per SM walking the
-// q-tiles, so one tile's epilogue overlaps the next one's loads), and
+// q-tiles, so one tile's epilogue overlaps the next one's loads),
 // splitting the diagonal tile so the first consumer skips keys its rows
-// cannot see.
+// cannot see, tuning d = 192, and skipping MLA's zero V tail (a third of
+// the P V work at d = 192).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -57,11 +63,9 @@
 namespace {
 
 constexpr int BQ = 128;          // q rows per CTA
-constexpr int BK = 128;          // keys per k-tile
 constexpr int WG_ROWS = 64;      // q rows per consumer warpgroup (wgmma M)
 constexpr int THREADS = 384;     // producer warpgroup + two consumers
 constexpr int CONSUMER_WARPS = 8;
-constexpr int STAGES = 2;        // K/V ring depth
 constexpr int BOX = 64;          // columns per TMA box: 128 bytes of bf16
 constexpr int ROW_BYTES = BOX * 2;
 constexpr int PRODUCER_REGS = 40;
@@ -69,17 +73,24 @@ constexpr int CONSUMER_REGS = 232;   // 128 * 40 + 256 * 232 = 384 * 168
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// keys per k-tile and K/V ring depth for head_dim d (see the header)
+constexpr int bk_for(int d) { return d > 128 ? 64 : 128; }
+constexpr int stages_for(int d) { return d > 128 ? 3 : 2; }
+
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle
 // repeats every 1024 bytes): Q as D / 64 boxes of [BQ rows][64 cols], then
 // per stage a K and a V tile as D / 64 boxes of [BK rows][64 cols], then
 // the barriers.
 template <int D>
 struct Smem {
+  static constexpr int BK = bk_for(D);
+  static constexpr int STAGES = stages_for(D);
   static constexpr uint32_t q = BQ * D * 2;
   static constexpr uint32_t kv = BK * D * 2;           // one K or V tile
   static constexpr uint32_t bars = q + 2 * STAGES * kv;
   static constexpr uint32_t n_bars = 1 + 4 * STAGES;   // q; k, v full, empty
   static constexpr uint32_t total = bars + 8 * n_bars + 1024;  // + align
+  static_assert(total <= 232448, "over the shared memory a CTA may have");
 };
 
 // d (m64nN, fp32) = A B (+ d when scale_d): A [64 x 16] and B [N x 16] both
@@ -116,6 +127,25 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -164,6 +194,42 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
+        "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),
+        "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // 2^x in one MUFU op (exp2f adds a range fix-up around it); results below
 // 2^-126 flush to 0, which a probability can afford.
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -180,7 +246,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Issue S = Q K^T for one warpgroup's 64 rows and a BK-key tile: D / 16
 // steps of k16, each 32 bytes further along the swizzled 128-byte rows of
 // a 64-column box.
-template <int D>
+template <int D, int BK = bk_for(D)>
 __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q_wg,
                                          uint32_t sK) {
 #pragma unroll
@@ -192,9 +258,10 @@ __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q_wg,
   }
 }
 
-// Issue O += P V: k16 steps advance 16 key rows of the V tile; V's two
-// 64-column boxes (d = 128) are the descriptor's leading-byte-offset apart.
-template <int D>
+// Issue O += P V: k16 steps advance 16 key rows of the V tile; V's
+// 64-column boxes (two at d = 128, three at 192) are the descriptor's
+// leading-byte-offset apart.
+template <int D, int BK = bk_for(D)>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
                                          const uint32_t (&p)[BK / 16][4],
                                          uint32_t sV) {
@@ -215,6 +282,7 @@ struct RowState {
 // mask keys past the causal edge or S to -inf (only on tiles that can hold
 // one), take each row's max, update the running max (log2 domain) and sum,
 // exponentiate in place and return the factors that rescale O's rows.
+template <int BK>
 __device__ __forceinline__ void online_softmax(float (&s)[BK / 2],
                                                RowState& r, bool need_mask,
                                                int k0, int S, int t4,
@@ -270,6 +338,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[BK / 2],
 }
 
 // S's accumulator layout, per 16 keys, is wgmma's A-register layout.
+template <int BK>
 __device__ __forceinline__ void pack_p(uint32_t (&p)[BK / 16][4],
                                        const float (&s)[BK / 2]) {
 #pragma unroll
@@ -288,6 +357,8 @@ flash_prefill_kernel(__grid_constant__ const CUtensorMap tq,
                      int T, int S, int Hq, int Hkv, int q_offset,
                      float scale) {
   using L = Smem<D>;
+  constexpr int BK = L::BK;
+  constexpr int STAGES = L::STAGES;
   constexpr int NB = D / BOX;        // 64-column boxes per row
   constexpr int DT = D / 8;          // 8-column blocks of O
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -420,9 +491,9 @@ flash_prefill_kernel(__grid_constant__ const CUtensorMap tq,
       wgmma_wait<0>();
       fence_regs(s);
       if (lane == 0) mbar_arrive(empty_k);
-      online_softmax(s, rs, mask_tile(0), 0, S, t4, qpos0, qpos1, sl2, c0,
-                     c1);
-      pack_p(p, s);
+      online_softmax<BK>(s, rs, mask_tile(0), 0, S, t4, qpos0, qpos1, sl2,
+                         c0, c1);
+      pack_p<BK>(p, s);
 
       // steady state: S_kt = Q K_kt and O += P_{kt-1} V_{kt-1} in flight
       // together; tile kt's softmax runs while P V is still on the tensor
@@ -444,8 +515,8 @@ flash_prefill_kernel(__grid_constant__ const CUtensorMap tq,
         wgmma_wait<1>();
         fence_regs(s);
         if (lane == 0) mbar_arrive(empty_k + 8 * st);
-        online_softmax(s, rs, mask_tile(kt * BK), kt * BK, S, t4, qpos0,
-                       qpos1, sl2, c0, c1);
+        online_softmax<BK>(s, rs, mask_tile(kt * BK), kt * BK, S, t4,
+                           qpos0, qpos1, sl2, c0, c1);
         wgmma_wait<0>();
         fence_regs(o);
         if (lane == 0) mbar_arrive(empty_v + 8 * pst);
@@ -456,7 +527,7 @@ flash_prefill_kernel(__grid_constant__ const CUtensorMap tq,
           o[4 * n + 2] *= c1;
           o[4 * n + 3] *= c1;
         }
-        pack_p(p, s);
+        pack_p<BK>(p, s);
       }
 
       // the last tile's O += P V
@@ -588,20 +659,23 @@ extern "C" int flash_prefill_bf16(
     int q_offset, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (T == 0 || B == 0) return int(cudaSuccess);
-  if (d != 64 && d != 128) return int(cudaErrorInvalidValue);
+  if (d != 64 && d != 128 && d != 192) return int(cudaErrorInvalidValue);
   EncodeTiled encode = encode_fn();
   if (encode == nullptr) return -1;
   CUtensorMap tq, tk, tv, to;
   CUresult r = make_map(encode, &tq, q, B, T, Hq, d, qsb, qst, qsh, BQ);
   if (r == CUDA_SUCCESS)
-    r = make_map(encode, &tk, k, B, S, Hkv, d, ksb, kss, ksh, BK);
+    r = make_map(encode, &tk, k, B, S, Hkv, d, ksb, kss, ksh, bk_for(d));
   if (r == CUDA_SUCCESS)
-    r = make_map(encode, &tv, v, B, S, Hkv, d, vsb, vss, vsh, BK);
+    r = make_map(encode, &tv, v, B, S, Hkv, d, vsb, vss, vsh, bk_for(d));
   // out is [B, T, Hq * d] contiguous: [B, T, Hq, d], stored 64 rows a box
   const long long ot = (long long)Hq * d;
   if (r == CUDA_SUCCESS)
     r = make_map(encode, &to, out, B, T, Hq, d, T * ot, ot, d, WG_ROWS);
   if (r != CUDA_SUCCESS) return -(1000 + int(r));
+  if (d == 192)
+    return int(launch<192>(tq, tk, tv, to, B, T, S, Hq, Hkv, q_offset,
+                           scale, st));
   if (d == 128)
     return int(launch<128>(tq, tk, tv, to, B, T, S, Hq, Hkv, q_offset,
                            scale, st));
@@ -611,6 +685,7 @@ extern "C" int flash_prefill_bf16(
 
 // Dynamic shared memory of one CTA for head_dim d (0 if unsupported).
 extern "C" int flash_prefill_smem_bytes(int d) {
+  if (d == 192) return int(Smem<192>::total);
   if (d == 128) return int(Smem<128>::total);
   if (d == 64) return int(Smem<64>::total);
   return 0;

@@ -5,8 +5,10 @@ from the uploaded prefix; a speculative verify block that the runner
 clamps inside the cache for a row frozen at its end (out of range it
 would be a device-side assert); the embedding forward through the flash
 kernel against the plain attention; a profile capture whose trace
-holds the card's kernels; and the MoE block (dense dispatch) on the card
-against the same call on the CPU.
+holds the card's kernels; the MoE block (dense dispatch) on the card
+against the same call on the CPU; and an MLA prefill (DeepSeek's widths
+per head: K 192, V 128 padded to 192) through the flash kernel at
+head_dim 192 against the plain attention.
 
 JAX-free like ``test_torch_kernels_gpu.py``: ``python -m pytest
 --noconftest -m gpu tests/test_torch_engine_gpu.py``. The model is
@@ -206,3 +208,45 @@ def test_moe_mlp_on_the_card_matches_the_cpu(dtype):
         torch.testing.assert_close(card, cpu, rtol=1e-4, atol=1e-4)
     else:
         assert (card - cpu).abs().max() <= 2e-2 * cpu.abs().max()
+
+
+@pytest.mark.gpu
+def test_mla_prefill_through_the_kernel_matches_plain_attention():
+    """Two dense MLA layers at deepseek-v2-lite's per-head widths (nope
+    128 + rope 64 = 192, V 128 zero-padded, YaRN), narrow elsewhere: a
+    bf16 prefill on the card through the flash kernel at d 192 (one launch
+    a layer) against the same prefill through the plain attention, within
+    the smoke's logit gate: 5% of the logit scale and cosine 0.999 (the
+    plain attention rounds its probabilities to bf16 where the kernel
+    rounds P for its P V product; on the CPU the plain version against
+    the plain attention parts by 2.2% here)."""
+    from gpustack_tpu_torch.models import transformer as tf  # analysis: ignore[metrics-drift]
+
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card")
+    cfg = dataclasses.replace(
+        get_config("deepseek-v2-lite"), name="mla-narrow", vocab_size=264,
+        hidden_size=256, intermediate_size=512, num_layers=2, num_heads=2,
+        num_kv_heads=2, kv_lora_rank=64, num_experts=0,
+        num_experts_per_tok=0, moe_intermediate_size=0, n_shared_experts=0,
+        shared_expert_intermediate_size=0, first_k_dense=0,
+    )
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    tokens = torch.randint(1, 264, (1, 100), generator=gen, device="cuda")
+    pos = torch.arange(100, device="cuda")[None, :]
+
+    def prefill(impl):
+        cache = tf.KVCache.create(cfg, 1, 128, torch.device("cuda"))
+        return tf.forward(params, cfg, tokens, pos, cache,
+                          attn_impl=impl)[0][0].float()
+
+    before = flash_attention_prefill.launches
+    got = prefill("flash")
+    torch.cuda.synchronize()
+    assert flash_attention_prefill.launches == before + 2
+    want = prefill("plain")
+    assert (got - want).abs().max() <= 5e-2 * want.abs().max()
+    assert torch.nn.functional.cosine_similarity(
+        got.flatten(), want.flatten(), dim=0
+    ) >= 0.999

@@ -53,6 +53,8 @@ def _jax_reference(q, k, v, off, scale):
     (1, 128, 512, 256, 4, 2, 64),    # mid-cache chunk
     (1, 100, 512, 384, 2, 1, 64),    # non-block T, chunk ends mid-cache
     (1, 128, 128, 0, 2, 2, 64),      # offset 0 == original contract
+    (1, 200, 200, 0, 4, 4, 192),     # MLA's width (deepseek: Hq == Hkv)
+    (1, 100, 300, 200, 2, 2, 192),   # the same, a continuation
 ])
 def test_plain_matches_jax_kernel_and_reference(B, T, S, off, Hq, Hkv, d):
     q, k, v = _inputs(B * 1000 + T + off, B, T, S, Hq, Hkv, d)
@@ -119,6 +121,22 @@ def test_card_input_checks(mutate, exc):
     )
     with pytest.raises(exc):
         port._check_cuda_inputs(mutate(q), k, v, 0.125)
+
+
+def test_card_input_checks_take_mla_widths():
+    """d 192 (MLA served decompressed) passes the checks a CUDA call runs;
+    a width between the kernel's does not."""
+    q, k, v = (
+        torch.from_numpy(a).bfloat16()
+        for a in _inputs(7, 1, 64, 64, 4, 4, 192)
+    )
+    assert port._check_cuda_inputs(q, k, v, 0.125)[:3] == (
+        64 * 4 * 192, 4 * 192, 192
+    )
+    with pytest.raises(ValueError, match="head_dim 160"):
+        port._check_cuda_inputs(q[..., :160].contiguous(),
+                                k[..., :160].contiguous(),
+                                v[..., :160].contiguous(), 0.125)
 
 
 def _bf16_qkv(seed):

@@ -383,16 +383,27 @@ def test_gguf_unknown_rope_scaling_rejected(tmp_path):
 
 
 def test_moe_gguf_is_refused_before_any_tensor_is_read(tmp_path):
-    """The loader refuses a family it does not cover (an MLA MoE config,
-    DeepSeek's) up front; the MoE family itself loads
-    (``test_torch_moe_loaders.py``)."""
-    cfg = dataclasses.replace(
-        pg.config_from_gguf(_write_tiny(tmp_path)), num_experts=4,
-        num_experts_per_tok=2, moe_intermediate_size=32, kv_lora_rank=16,
-        qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8,
-    )
-    with pytest.raises(NotImplementedError, match="MLA"):
-        load_or_init_params(cfg, str(tmp_path), device="cpu")
+    """llama.cpp's ``deepseek2`` export (DeepSeek's MoE with MLA tensor
+    names and its own cache layout) is refused by both packages' config
+    reader, before any tensor is read: DeepSeek serves from safetensors
+    (``test_torch_deepseek_loaders.py``), and the MoE family's fused-expert
+    GGUFs load (``test_torch_moe_loaders.py``)."""
+    path = str(tmp_path / "deepseek2.gguf")
+    rng = np.random.default_rng(0)
+    G.write_gguf(path, {
+        "general.architecture": "deepseek2",
+        "deepseek2.block_count": 1,
+        "deepseek2.embedding_length": G.D,
+        "deepseek2.feed_forward_length": G.I,
+        "deepseek2.attention.head_count": G.H,
+        "deepseek2.expert_count": 4,
+        "deepseek2.expert_used_count": 2,
+        "deepseek2.attention.kv_lora_rank": 16,
+    }, {"token_embd.weight": (
+        rng.standard_normal((G.V, G.D)).astype(np.float32), G.GGML_F32)})
+    for mod in (pg, jg):
+        with pytest.raises(ValueError, match="'deepseek2' is not supported"):
+            mod.config_from_gguf(path)
 
 
 def _write_tiny(tmp_path):

@@ -50,6 +50,12 @@ def _assert_rows_close(out, ref, Hq, d, row_rtol=1e-2):
     (1, 32, 2048, 1792, 32, 8, 128),    # a chunk, a suffix after a prefix
     (1, 64, 1024, 784, 32, 8, 128),     # hit, and offsets off the 128-row
     (1, 128, 2048, 1888, 32, 8, 128),   # and 128-key tiles
+    (1, 2048, 2048, 0, 16, 16, 192),    # deepseek-v2-lite's MLA heads
+    (1, 1024, 1024, 0, 16, 16, 192),    # (d 192: 64-key tiles, 3 stages)
+    (1, 64, 64, 0, 16, 16, 192),        # at the buckets, a continuation,
+    (1, 512, 2048, 1536, 16, 16, 192),  # ragged T and S off the 64-key
+    (1, 100, 300, 200, 16, 16, 192),    # tile, and a cacheless batch
+    (4, 2048, 2048, 0, 16, 16, 192),
 ])
 def test_flash_kernel_matches_plain(B, T, S, off, Hq, Hkv, d):
     """bf16 kernel output against the fp32 plain version of the same bf16

@@ -477,8 +477,8 @@ def test_int8_expert_weights_are_refused_in_the_forward():
 
 @pytest.mark.parametrize(
     "name,fields",
-    [("deepseek-v2-lite", {}), ("gpt-oss-20b", {}),
-     ("tiny-moe", {"first_k_dense": 1}),
+    [("gpt-oss-120b", {}), ("gpt-oss-20b", {}),
+     ("tiny-moe", {"post_norms": True}),
      ("tiny-moe", {"sliding_window": 16}),
      ("tiny-moe", {"attn_logit_softcap": 30.0}),
      ("tiny-moe", {"attn_sinks": True})],

@@ -200,7 +200,7 @@ def test_init_params_shapes_match_jax():
 
 
 @pytest.mark.parametrize(
-    "name", ["deepseek-v2-lite", "gemma2-9b", "gpt-oss-20b"]
+    "name", ["gpt-oss-120b", "gemma2-9b", "gpt-oss-20b"]
 )
 def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

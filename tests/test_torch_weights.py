@@ -291,8 +291,8 @@ def test_bf16_checkpoint_loads_bit_for_bit(tmp_path):
 
 
 def test_unsupported_family_raises_before_reading(tmp_path):
-    cfg = get_config("deepseek-v2-lite")
-    with pytest.raises(NotImplementedError, match="MLA"):
+    cfg = get_config("gpt-oss-20b")
+    with pytest.raises(NotImplementedError, match="attention sinks"):
         pw.load_hf_checkpoint(cfg, str(tmp_path / "nowhere"))
 
 
