@@ -89,17 +89,44 @@ i. the DeepSeek family: deepseek-v2-lite (MLA served decompressed, K 192
    routing beside), ``/v1/embeddings`` at the 2048 bucket against the
    plain attention, a 20-step profile, and a ``moe`` line for one of its
    MoE layers with the shared experts in the layer, its reference and its
-   bounds.
+   bounds;
+j. the GPT-OSS family: gpt-oss-20b (attention sinks, a window of 128 on
+   the even layers, q/k/v/o biases, YaRN; 32 experts, top-4, the affine
+   router, clamped GLU with expert biases) once phase i's tree is freed:
+   its full widths at 2 layers written in GPT-OSS naming with the expert
+   weights packed as MXFP4 blocks and scales (the script's own packer)
+   and served through ``--model-dir`` (the loaded tree and logits
+   identical to the in-memory tree rounded to fp4 by that packing); then
+   bf16 at full width and depth (24 layers, ~41.8 GB) through the server
+   with phase d's requests, ``/v1/embeddings`` at the 2048 bucket, a
+   20-step profile, a 2048-bucket prefill split into its attention and
+   MoE time (CUDA events), and a ``moe`` line. Its prefills take the plain
+   attention, as the JAX ``forward``'s do (no flash for sliding windows,
+   softcaps or sinks), so its served logits and embeddings are held
+   against the fp32 plain forward over the same weights, with the served
+   run's expert picks replayed (free routing beside it);
+k. the Gemma family: gemma2-9b (delta-gain sandwich norms, the scaled and
+   tied embedding, tanh GELU, ``query_pre_attn_scalar`` 256, attention
+   and final softcaps, a window of 4096 on the even layers): its full
+   widths at 2 layers as a tied Gemma2 checkpoint through ``--model-dir``;
+   bf16 at full width and depth (42 layers, ~18.5 GB) with phase d's
+   requests and embeddings, held against the fp32 plain forward; then
+   ``--quantization int8`` with phase d's requests, its W8A16 kernel
+   logits against the plain version; each path's 2048-bucket prefill
+   split into its attention time. Phase c times the W8A16 kernel at this
+   model's widths too.
 
-In d to i every kernel's launches are counted around the served
+In d to k every kernel's launches are counted around the served
 requests alone and must equal what that path's model forwards need,
 derived from the runners' calls (a draft model's too): the flash kernel
-once per layer of every prefill and embedding forward; on the int8 path
-the W8A16 kernel 7 per layer at M = B·T plus lm_head at the rows it reads
-(a prefill's last position, a decode step's slots, every position of a
-verify block; none for an embedding), never on a bf16 path, and counted
-per path by M: M ≤ 16 the GEMV, above it the ``wgmma`` path. Each kernel
-must launch on at least one path.
+once per layer of every prefill and embedding forward of a model whose
+config takes it (none with a sliding window, softcap or sinks: phases j
+and k launch it never); on the int8 path the W8A16 kernel 7 per layer at
+M = B·T plus an untied lm_head at the rows it reads (a prefill's last
+position, a decode step's slots, every position of a verify block; none
+for an embedding; a tied lm_head is the bf16 embedding's transpose),
+never on a bf16 path, and counted per path by M: M ≤ 16 the GEMV, above
+it the ``wgmma`` path. Each kernel must launch on at least one path.
 
 The last lines are the ``kernels`` line, the ``nvidia-smi`` name and
 power-limit line, and ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -152,6 +179,15 @@ LLAMA3_8B_MATMULS = {
     "w_gate/w_up": (4096, 14336),
     "w_down": (14336, 4096),
     "lm_head": (4096, 128256),
+}
+# gemma2-9b's (phase k's int8 path): head_dim 256 (16 q heads, 8 kv), d
+# 3584, F 14336
+GEMMA2_9B_MATMULS = {
+    "wq": (3584, 4096),
+    "wk/wv": (3584, 2048),
+    "wo": (4096, 3584),
+    "w_gate/w_up": (3584, 14336),
+    "w_down": (14336, 3584),
 }
 # the weights a decode step reads back to back never sit in the 50 MB L2:
 # time each shape over copies of its weight totalling at least this much
@@ -439,11 +475,18 @@ def phase_kernels():
         # a speculative verify block (8 slots x 4 positions), lm_head too
         (32, *LLAMA3_8B_MATMULS[n], n)
         for n in layer_weights + ("lm_head",)
+    ] + [
+        # gemma2-9b's int8 path (phase k): a decode step's 8 slots and the
+        # 2048 bucket, every layer weight (its tied lm_head stays bf16)
+        (M, *GEMMA2_9B_MATMULS[n], f"gemma2-9b {n}")
+        for M in (8, 2048) for n in GEMMA2_9B_MATMULS
     ]
     large = w8_cases.index((2048, *LLAMA3_8B_MATMULS["w_gate/w_up"],
                             "w_gate/w_up"))
+    gemma2 = w8_cases.index((2048, *GEMMA2_9B_MATMULS["w_gate/w_up"],
+                             "gemma2-9b w_gate/w_up"))
     w8_rows = [
-        _w8a16_case(*c, gen, repeats=3 if i in (0, large) else 1)
+        _w8a16_case(*c, gen, repeats=3 if i in (0, large, gemma2) else 1)
         for i, c in enumerate(w8_cases)
     ]
     # ragged shapes, checked only: M, N and K off the tiles (N % 16 but not
@@ -461,8 +504,8 @@ def phase_kernels():
          wgmma_smem_bytes_per_cta={bn: smem(bn) for bn in (128, 256)},
          cases=w8_rows, ragged=ragged)
     return {"flash_attention_prefill": rows[0], "w8a16_matmul": w8_rows[0],
-            "w8a16_large_m": w8_rows[large], "flash_group8": rows[group8],
-            "flash_mla": rows[mla]}
+            "w8a16_large_m": w8_rows[large], "w8a16_gemma2": w8_rows[gemma2],
+            "flash_group8": rows[group8], "flash_mla": rows[mla]}
 
 
 def _check_w8a16(out, x, q, s):
@@ -701,25 +744,32 @@ def expected_launches(runner_calls):
     """What windows of runner forwards must launch, each
     :class:`RunnerCalls` with its own model: the flash kernel once per
     layer of every prefill forward (bucketed or continuation) and every
-    embedding forward; with int8 weights the W8A16 kernel seven times per
-    layer (q, k, v, o, gate, up, down) at M = B·T, plus lm_head at the
-    rows it reads (a prefill's last position, a decode step's slots, all
-    of a verify block's positions; an embedding forward and a draft's
-    ingest read none), and never without. Each product of M ≤ 16 rows
-    takes the GEMV, any larger one the ``wgmma`` path."""
+    embedding forward where the model's config takes it
+    (``flash_eligible``: no sliding window, softcap or sinks, the JAX
+    ``forward``'s own condition), else never; with int8 weights the W8A16
+    kernel seven times per layer (q, k, v, o, gate, up, down) at M = B·T,
+    plus an untied lm_head at the rows it reads (a prefill's last
+    position, a decode step's slots, all of a verify block's positions;
+    an embedding forward and a draft's ingest read none; a tied lm_head
+    is the bf16 embedding's transpose), and never without. Each product
+    of M ≤ 16 rows takes the GEMV, any larger one the ``wgmma`` path."""
+    from gpustack_tpu_torch.models.transformer import flash_eligible
     from gpustack_tpu_torch.ops.w8a16 import GEMV_MAX_M
 
     want = {"flash_attention_prefill": 0, "w8a16_matmul": 0,
             "w8a16_gemv": 0, "w8a16_wgmma": 0}
     for calls in runner_calls:
-        layers = calls.runner.cfg.num_layers
+        cfg = calls.runner.cfg
+        layers, flash = cfg.num_layers, flash_eligible(cfg)
         for name, B, T in calls.forwards:
-            if name in ("prefill", "prefill_with_prefix", "embed"):
+            if flash and name in ("prefill", "prefill_with_prefix", "embed"):
                 want["flash_attention_prefill"] += layers
             if not calls.int8:
                 continue
-            head = {"prefill": 1, "prefill_with_prefix": 1,
-                    "decode_step": B, "verify_step": B * T}.get(name)
+            head = None if cfg.tie_word_embeddings else {
+                "prefill": 1, "prefill_with_prefix": 1,
+                "decode_step": B, "verify_step": B * T,
+            }.get(name)
             for m, n in ((B * T, 7 * layers), (head, 1)):
                 if m is None:
                     continue
@@ -763,12 +813,15 @@ def _check_usage(data, prompt_tokens=None):
 
 class _RoutingTape:
     """Inside ``with``, ``transformer.moe_route`` records the experts each
-    MoE call picks (``mode = "record"``) or replays the recorded picks in
-    order (``"replay"``), the combine weights recomputed from the call's
-    own router scores over those picks (softmax scoring, then
-    ``norm_topk_prob``): the forward's one discrete step held fixed, and
-    each call's count of tokens whose own picks would differ kept. Any
-    other mode routes freely."""
+    MoE call picks (``mode = "record"``) or replays the recorded picks
+    (``"replay"``): row by row in order, so a replaying forward over the
+    same tokens may run other token chunks (an fp32 forward's are half a
+    bf16 one's). The combine weights are recomputed from the call's own
+    router logits over those picks (softmax scoring then
+    ``norm_topk_prob``, or GPT-OSS's ``softmax_topk``: the affine logits'
+    softmax over the picks): the forward's one discrete step held fixed,
+    and each call's count of tokens whose own picks would differ kept.
+    Any other mode routes freely."""
 
     def __init__(self):
         self.picks, self.flips, self.mode, self.at = [], [], "record", 0
@@ -784,18 +837,26 @@ class _RoutingTape:
                 if self.mode == "record":
                     self.picks.append(idx)
                 return idx, combine
-            if cfg.moe_scoring != "softmax":
-                raise ValueError("the tape replays softmax routing only")
-            want = self.picks[self.at]
-            self.at += 1
+            if cfg.moe_scoring not in ("softmax", "softmax_topk"):
+                raise ValueError(f"the tape cannot replay {cfg.moe_scoring}")
+            if self.at == 0:
+                self.picks = [torch.cat(self.picks)]
+            want = self.picks[0][self.at:self.at + len(idx)]
+            self.at += len(idx)
             self.flips.append(int(
                 (idx.sort(-1).values != want.sort(-1).values).any(-1).sum()
             ))
-            gates = torch.softmax(x.float() @ router_w.float(), dim=-1)
-            top_w = torch.gather(gates, -1, want)
-            if cfg.norm_topk_prob:
-                top_w = top_w / top_w.sum(dim=-1, keepdim=True)
-            return want, torch.zeros_like(gates).scatter_(-1, want, top_w)
+            logits = x.float() @ router_w.float()
+            if cfg.moe_scoring == "softmax_topk":
+                if router_bias is not None:
+                    logits = logits + router_bias.float()
+                top_w = torch.softmax(torch.gather(logits, -1, want), -1)
+            else:
+                gates = torch.softmax(logits, dim=-1)
+                top_w = torch.gather(gates, -1, want)
+                if cfg.norm_topk_prob:
+                    top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+            return want, torch.zeros_like(logits).scatter_(-1, want, top_w)
 
         tf.moe_route = route
         return self
@@ -804,6 +865,34 @@ class _RoutingTape:
         from gpustack_tpu_torch.models import transformer as tf
 
         tf.moe_route = self._route
+
+
+class _Widened:
+    """A stacked leaf read a layer at a time in fp32 (``lp[key][i]``): an
+    fp32 forward over a bf16 tree without an fp32 copy of the tree
+    (gpt-oss-20b's would take 84 GB)."""
+
+    def __init__(self, t):
+        self.t = t
+
+    @property
+    def shape(self):
+        return self.t.shape
+
+    def __getitem__(self, i):
+        return self.t[i].float()
+
+
+def _fp32_model(runner):
+    """(params, cfg) of the fp32 plain reference over ``runner``'s bf16
+    weights: every layer leaf widened as it is read; the embedding, the
+    final norm and ``lm_head`` promote in ``_embed_lookup``, ``rms_norm``
+    and ``_mm``."""
+    params = dict(runner.params)
+    for key in ("layers", "dense_layers"):
+        if key in params:
+            params[key] = {k: _Widened(t) for k, t in params[key].items()}
+    return params, dataclasses.replace(runner.cfg, dtype="float32")
 
 
 def _compare_logits(got, want):
@@ -817,17 +906,26 @@ def _compare_logits(got, want):
 
 
 def _logit_check(engine):
-    """A kernel prefill's last-position logits against the plain-attention
-    prefill of the same prompt (outside the counted window). For an MoE
-    model the plain run replays the kernel run's expert picks: on random
-    weights a top-k router flips the picks of tokens near a tie on any
-    rounding change, and 48 layers compound the flips, so replaying them
-    leaves the attention as the only difference between the runs. The
-    free-routing comparison and its flips are reported beside it."""
+    """A served prefill's last-position logits against a reference run of
+    the same prompt (outside the counted window). Where the config takes
+    the flash kernel, the reference is the same bf16 forward through the
+    plain attention; where it does not (sliding windows, softcaps, sinks:
+    the plain attention is itself the served path, as in JAX), it is the
+    fp32 plain forward over the same weights (:func:`_fp32_model`). For an
+    MoE model the reference replays the served run's expert picks: on
+    random weights a top-k router flips the picks of tokens near a tie on
+    any rounding change, and many layers compound the flips, so replaying
+    them leaves the attention (or the rounding) as the only difference
+    between the runs. The free-routing comparison and its flips are
+    reported beside it."""
     from gpustack_tpu_torch.models import transformer as tf
 
     runner = engine.runner
     cfg = runner.cfg
+    flash = tf.flash_eligible(cfg)
+    params, ref_cfg = (
+        (runner.params, cfg) if flash else _fp32_model(runner)
+    )
     prompt = engine.tokenizer.encode("The port's logit check. " * 40)
     bucket = runner.bucket_for(len(prompt))
     padded = prompt + [0] * (bucket - len(prompt))
@@ -835,39 +933,43 @@ def _logit_check(engine):
     def plain_last():
         tokens = torch.tensor([padded], device=runner.device)
         positions = torch.arange(bucket, device=runner.device)[None, :]
-        cache = tf.KVCache.create(cfg, 1, bucket, runner.device)
+        cache = tf.KVCache.create(ref_cfg, 1, bucket, runner.device)
         hidden, _ = tf.forward(
-            runner.params, cfg, tokens, positions, cache,
+            params, ref_cfg, tokens, positions, cache,
             return_hidden=True, attn_impl="plain",
         )
-        return tf.lm_head(runner.params, cfg, hidden[0, len(prompt) - 1])
+        return tf.lm_head(params, ref_cfg, hidden[0, len(prompt) - 1])
 
     moe = {}
     with torch.no_grad(), _RoutingTape() as tape:
-        kernel_last, _, _ = runner.prefill(padded, len(prompt))
+        served_last, _, _ = runner.prefill(padded, len(prompt))
         tape.mode = "replay"
         plain = plain_last()
         if tape.picks:
             tape.mode = "free"
             moe = {
-                "routing": "the kernel run's expert picks replayed",
+                "routing": "the served run's expert picks replayed",
                 "free_routing": {
-                    **_compare_logits(kernel_last, plain_last()),
+                    **_compare_logits(served_last, plain_last()),
                     "tokens_with_a_flipped_pick_per_layer": tape.flips,
                 },
             }
-    if kernel_last.shape != (cfg.vocab_size,) or not torch.isfinite(
-        kernel_last
+    if served_last.shape != (cfg.vocab_size,) or not torch.isfinite(
+        served_last
     ).all():
-        raise AssertionError(f"bad logits {tuple(kernel_last.shape)}")
-    gate = _compare_logits(kernel_last, plain)
-    emit("logit_check", prompt_tokens=len(prompt), bucket=bucket, **gate,
-         **moe,
+        raise AssertionError(f"bad logits {tuple(served_last.shape)}")
+    gate = _compare_logits(served_last, plain)
+    emit("logit_check", model=cfg.name, prompt_tokens=len(prompt),
+         bucket=bucket,
+         served="flash kernel" if flash else "plain attention, bf16",
+         reference=("plain attention, bf16" if flash
+                    else "fp32 plain forward"),
+         **gate, **moe,
          tolerance={"rel": LOGIT_REL_TOL, "min_cosine": LOGIT_MIN_COSINE})
     if gate["max_abs_err"] > LOGIT_REL_TOL * gate["logit_scale"] or (
         gate["cosine"] < LOGIT_MIN_COSINE
     ):
-        raise AssertionError(f"kernel prefill logits differ: {gate}")
+        raise AssertionError(f"served prefill logits differ: {gate}")
     return gate["logit_scale"]
 
 
@@ -890,6 +992,48 @@ def _prefill_ms(engine, reps: int = 5) -> float:
             if i:
                 times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _prefill_split(engine):
+    """One 2048-bucket prefill (after ``_prefill_ms``'s warm-up, outside
+    the counted windows) with CUDA events around it and around each plain
+    attention (``_attend``) and MoE block (``_moe_mlp``) call in it: the
+    stream time each takes of the whole."""
+    from gpustack_tpu_torch.models import transformer as tf
+
+    runner = engine.runner
+    ids = engine.tokenizer.encode("x" * 1500)
+    padded = ids + [0] * (runner.bucket_for(len(ids)) - len(ids))
+    spans = {"attend": [], "moe_mlp": []}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+            out = fn(*args, **kw)
+            pair[1].record()
+            spans[name].append(pair)
+            return out
+        return call
+
+    attend, moe_mlp = tf._attend, tf._moe_mlp
+    tf._attend, tf._moe_mlp = timed("attend", attend), timed("moe_mlp", moe_mlp)
+    try:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.no_grad():
+            start.record()
+            runner.prefill(padded, len(ids))
+            end.record()
+        torch.cuda.synchronize()
+    finally:
+        tf._attend, tf._moe_mlp = attend, moe_mlp
+    split = {"prefill_ms": start.elapsed_time(end)}
+    for name, pairs in spans.items():
+        split[f"{name}_calls"] = len(pairs)
+        split[f"{name}_ms"] = sum(a.elapsed_time(b) for a, b in pairs)
+    return split
 
 
 def _engine_metrics(engine):
@@ -1024,7 +1168,7 @@ def _serve_counted(engine, logit_check, int8, profile="", embed=False):
     launches counted and checked against what the runner's forwards need;
     with a ``profile`` label, then a counted window of :func:`_profile`;
     with ``embed``, a counted window of the embedding requests
-    (:func:`_embed_checks`) and their plain-attention reference. Returns
+    (:func:`_embed_checks`) and their reference. Returns
     (report, {window: counts})."""
     from gpustack_tpu_torch.engine.api_server import OpenAIServer
 
@@ -1054,10 +1198,11 @@ def _serve_counted(engine, logit_check, int8, profile="", embed=False):
         report["prefill_ms_2048_bucket"] = _prefill_ms(engine)
         windows = {"served": counts}
         if embed:
-            windows["embed"], (vecs, report["embeddings"]) = _window(
-                "embeddings", [calls], lambda: _embed_checks(engine, port)
-            )
-            report["embeddings"].update(_embed_reference(engine, vecs))
+            with _RoutingTape() as tape:     # the served batch's picks
+                windows["embed"], (vecs, report["embeddings"]) = _window(
+                    "embeddings", [calls], lambda: _embed_checks(engine, port)
+                )
+            report["embeddings"].update(_embed_reference(engine, vecs, tape))
         if profile:
             windows["profile"], report["profile"] = _window(
                 f"{profile} profile", [calls],
@@ -1485,15 +1630,20 @@ def phase_prefix_reuse(kind, smi):
 # ---------------------------------------------------------------------------
 
 
-def _hf_named(tree, cfg):
+def _hf_named(tree, cfg, mxfp4=None):
     """The param tree under HF names (llama; Qwen3-MoE with ``qk_norm`` and
     per-expert tensors; DeepSeek-V2 with MLA, its shared experts and the
-    ``dense_layers`` stack first), linear weights as [out, in]."""
+    ``dense_layers`` stack first; GPT-OSS with its biases, fp32 sinks and
+    router bias and fused experts, gate and up interleaved; Gemma2's
+    sandwich norms), linear weights as [out, in]; a tied tree carries no
+    ``lm_head.weight``. ``mxfp4`` maps a GPT-OSS expert tensor's name to
+    its MXFP4 (blocks, scales), written in its place."""
     out = {
         "model.embed_tokens.weight": tree["embed"],
         "model.norm.weight": tree["final_norm"],
-        "lm_head.weight": tree["lm_head"].T,
     }
+    if "lm_head" in tree:
+        out["lm_head.weight"] = tree["lm_head"].T
     attn = "self_attn."
     names = {
         "attn_norm": ("input_layernorm.weight", False),
@@ -1501,6 +1651,11 @@ def _hf_named(tree, cfg):
         "wk": (attn + "k_proj.weight", True),
         "wv": (attn + "v_proj.weight", True),
         "wo": (attn + "o_proj.weight", True),
+        "bq": (attn + "q_proj.bias", False),
+        "bk": (attn + "k_proj.bias", False),
+        "bv": (attn + "v_proj.bias", False),
+        "bo": (attn + "o_proj.bias", False),
+        "sinks": (attn + "sinks", False),
         "mlp_norm": ("post_attention_layernorm.weight", False),
         "q_norm": (attn + "q_norm.weight", False),
         "k_norm": (attn + "k_norm.weight", False),
@@ -1518,6 +1673,16 @@ def _hf_named(tree, cfg):
         "ws_up": ("mlp.shared_experts.up_proj.weight", True),
         "ws_down": ("mlp.shared_experts.down_proj.weight", True),
     }
+    if cfg.post_norms:
+        names.update({
+            "post_attn_norm": ("post_attention_layernorm.weight", False),
+            "mlp_norm": ("pre_feedforward_layernorm.weight", False),
+            "post_mlp_norm": ("post_feedforward_layernorm.weight", False),
+        })
+    gptoss = cfg.moe_act == "gptoss"
+    if gptoss:
+        names.update({"router": ("mlp.router.weight", True),
+                      "router_bias": ("mlp.router.bias", False)})
     experts = {"we_gate": "gate_proj", "we_up": "up_proj",
                "we_down": "down_proj"}
     stacks = [tree[k] for k in ("dense_layers", "layers") if k in tree]
@@ -1527,6 +1692,21 @@ def _hf_named(tree, cfg):
             if key in lp:
                 t = lp[key][j]
                 out[f"model.layers.{i}.{hf}"] = t.T if transpose else t
+        if gptoss:
+            fused = {
+                "gate_up_proj": _interleave(lp["we_gate"][j], lp["we_up"][j]),
+                "gate_up_proj_bias": _interleave(lp["we_gate_b"][j],
+                                                 lp["we_up_b"][j]),
+                "down_proj": lp["we_down"][j],
+                "down_proj_bias": lp["we_down_b"][j],
+            }
+            for hf, t in fused.items():
+                name = f"model.layers.{i}.mlp.experts.{hf}"
+                if name in (mxfp4 or {}):
+                    out[name + "_blocks"], out[name + "_scales"] = mxfp4[name]
+                else:
+                    out[name] = t
+            continue
         for key, hf in experts.items():
             for e in range(cfg.num_experts if key in lp else 0):
                 out[f"model.layers.{i}.mlp.experts.{e}.{hf}.weight"] = (
@@ -1535,9 +1715,73 @@ def _hf_named(tree, cfg):
     return out
 
 
+def _interleave(gate, up):
+    """GPT-OSS's fused layout: gate and up alternating on the last axis."""
+    return torch.stack([gate, up], dim=-1).flatten(-2)
+
+
+# MXFP4's e2m1 magnitudes
+FP4_STEPS = (0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0)
+
+
+def _pack_mxfp4(w):
+    """An expert weight ``[E, in, out]`` as the GPT-OSS hub checkpoints
+    pack it: ``blocks`` uint8 ``[E, out, in/32, 16]`` (two e2m1 nibbles a
+    byte, the low one the even element; sign bit high) and e8m0
+    ``scales`` uint8 ``[E, out, in/32]`` (biased by 127), each 32-value
+    block scaled by the power of two that puts its largest magnitude at
+    or under 6. Also returns the weight the packing stands for, each
+    value rounded to its nearest step (the lower one on a tie), bf16
+    ``[E, in, out]``: computed here, independently of the loader's
+    decoding. One expert at a time."""
+    steps = torch.tensor(FP4_STEPS, device=w.device)
+    mids = (steps[1:] + steps[:-1]) / 2
+    blocks, scales, rounded = [], [], []
+    for we in w:
+        g = we.T.float().reshape(we.shape[1], -1, 32)        # [out, G, 32]
+        exp = torch.ceil(torch.log2(
+            (g.abs().amax(-1, keepdim=True) / 6.0).clamp_min(1e-30)
+        )).clamp(-127, 127)
+        e = (exp + 127).to(torch.int32)
+        # 2^exp from its exponent bits (exact on any device; e = 0 is the
+        # subnormal 2^-127)
+        pow2 = torch.where(e > 0, e << 23, torch.full_like(e, 1 << 22)).view(
+            torch.float32
+        )
+        scaled = g / pow2
+        idx = torch.bucketize(scaled.abs(), mids)
+        neg = scaled < 0
+        nib = (idx | (neg.long() << 3)).to(torch.uint8)
+        blocks.append(nib[..., 0::2] | (nib[..., 1::2] << 4))
+        scales.append(e[..., 0].to(torch.uint8))
+        value = torch.where(neg, -steps[idx], steps[idx]) * pow2
+        rounded.append(value.reshape(we.shape[1], -1).T.to(torch.bfloat16))
+    return torch.stack(blocks), torch.stack(scales), torch.stack(rounded)
+
+
+def _mxfp4_experts(tree):
+    """Pack every GPT-OSS expert weight of ``tree`` as MXFP4 and put the
+    rounded weights in the tree in place of the originals: returns {HF
+    tensor name: (blocks, scales)}."""
+    lp, packed = tree["layers"], {}
+    for j in range(len(lp["attn_norm"])):
+        name = f"model.layers.{j}.mlp.experts."
+        blocks, scales, gu = _pack_mxfp4(
+            _interleave(lp["we_gate"][j], lp["we_up"][j])
+        )
+        packed[name + "gate_up_proj"] = (blocks, scales)
+        lp["we_gate"][j].copy_(gu[..., 0::2])
+        lp["we_up"][j].copy_(gu[..., 1::2])
+        blocks, scales, down = _pack_mxfp4(lp["we_down"][j])
+        packed[name + "down_proj"] = (blocks, scales)
+        lp["we_down"][j].copy_(down)
+    return packed
+
+
 def _hf_config(cfg):
-    """``config.json`` for ``cfg``: LlamaForCausalLM, Qwen3MoeForCausalLM
-    for the MoE family, or DeepseekV2ForCausalLM for MLA."""
+    """``config.json`` for ``cfg``: LlamaForCausalLM, DeepseekV2ForCausalLM
+    for MLA, GptOssForCausalLM for GPT-OSS, Qwen3MoeForCausalLM for the
+    other MoE models, or Gemma2ForCausalLM for the sandwich norms."""
     hf = {
         "architectures": ["LlamaForCausalLM"],
         "model_type": "llama",
@@ -1551,8 +1795,12 @@ def _hf_config(cfg):
         "rope_theta": cfg.rope_theta,
         "rms_norm_eps": cfg.rms_norm_eps,
         "max_position_embeddings": cfg.max_position_embeddings,
-        "tie_word_embeddings": False,
+        "tie_word_embeddings": cfg.tie_word_embeddings,
     }
+    layer_types = [
+        "sliding_attention" if s else "full_attention"
+        for s in cfg.layer_sliding or ()
+    ]
     if cfg.is_mla:
         del hf["head_dim"]                  # qk_nope + qk_rope
         hf.update({
@@ -1577,6 +1825,18 @@ def _hf_config(cfg):
             "n_group": 1,
             "topk_group": 1,
         })
+    elif cfg.moe_act == "gptoss":
+        hf.update({
+            "architectures": ["GptOssForCausalLM"],
+            "model_type": "gpt_oss",
+            "intermediate_size": cfg.moe_intermediate_size,
+            "num_local_experts": cfg.num_experts,
+            "num_experts_per_tok": cfg.num_experts_per_tok,
+            "rope_scaling": cfg.rope_scaling,
+            "sliding_window": cfg.sliding_window,
+            "layer_types": layer_types,
+            "attention_bias": True,
+        })
     elif cfg.is_moe:
         hf.update({
             "architectures": ["Qwen3MoeForCausalLM"],
@@ -1588,17 +1848,32 @@ def _hf_config(cfg):
             "decoder_sparse_step": 1,
             "mlp_only_layers": [],
         })
+    elif cfg.post_norms:
+        hf.update({
+            "architectures": ["Gemma2ForCausalLM"],
+            "model_type": "gemma2",
+            "hidden_activation": "gelu_pytorch_tanh",
+            "query_pre_attn_scalar": cfg.query_pre_attn_scalar,
+            "attn_logit_softcapping": cfg.attn_logit_softcap,
+            "final_logit_softcapping": cfg.final_logit_softcap,
+            "sliding_window": cfg.sliding_window,
+            "layer_types": layer_types,
+        })
     return hf
 
 
+_ST_NAMES = {torch.bfloat16: "BF16", torch.float32: "F32",
+             torch.uint8: "U8"}
+
+
 def write_safetensors(path, tensors):
-    """A minimal safetensors writer (bf16 only): 8-byte header length, the
-    JSON header padded to 8 bytes, then each tensor's bytes in order.
-    Returns the bytes written."""
+    """A minimal safetensors writer (bf16, fp32 and uint8): 8-byte header
+    length, the JSON header padded to 8 bytes, then each tensor's bytes in
+    order. Returns the bytes written."""
     header, offset = {}, 0
     for name, t in tensors.items():
         n = t.numel() * t.element_size()
-        header[name] = {"dtype": "BF16", "shape": list(t.shape),
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
                         "data_offsets": [offset, offset + n]}
         offset += n
     head = json.dumps(header).encode()
@@ -1607,7 +1882,7 @@ def write_safetensors(path, tensors):
         f.write(struct.pack("<Q", len(head)))
         f.write(head)
         for t in tensors.values():
-            f.write(t.contiguous().view(torch.int16).cpu().numpy())
+            f.write(t.contiguous().reshape(-1).view(torch.uint8).cpu().numpy())
     return 8 + len(head) + offset
 
 
@@ -1623,13 +1898,27 @@ def _leaves(tree, prefix=""):
     return out
 
 
-def phase_checkpoint(kind, smi, preset="llama3-8b", device="cuda"):
-    """``preset`` (llama3-8b, qwen3-30b-a3b in Qwen3-MoE naming, or
-    deepseek-v2-lite in DeepSeek-V2 naming: one dense layer, one MoE) at
+# leaves the init draws as zeros (biases, sinks, the affine router's bias,
+# Gemma's delta gains): the checkpoint phase draws them at random, so a
+# swapped or dropped one shows in the round trip
+ZERO_INIT_LEAVES = ("bq", "bk", "bv", "bo", "sinks", "router_bias",
+                    "we_gate_b", "we_up_b", "we_down_b")
+DELTA_GAINS = ("attn_norm", "mlp_norm", "post_attn_norm", "post_mlp_norm",
+               "q_norm", "k_norm")
+
+
+def phase_checkpoint(kind, smi, preset="llama3-8b", device="cuda",
+                     mxfp4=False):
+    """``preset`` (llama3-8b, qwen3-30b-a3b in Qwen3-MoE naming,
+    deepseek-v2-lite in DeepSeek-V2 naming: one dense layer, one MoE;
+    gpt-oss-20b in GPT-OSS naming; gemma2-9b in Gemma2 naming, tied) at
     full width but 2 layers (depth cut for disk and time), random bf16
-    weights from a seed, written as a safetensors checkpoint and served
-    through ``--model-dir``: the loaded tree and a prompt's last-position
-    logits must equal the in-memory tree's, bit for bit."""
+    weights from a seed (its zero-initialised leaves drawn too), written
+    as a safetensors checkpoint and served through ``--model-dir``: the
+    loaded tree and a prompt's last-position logits must equal the
+    in-memory tree's, bit for bit. With ``mxfp4`` the GPT-OSS expert
+    weights go to disk as MXFP4 blocks and scales, and the in-memory tree
+    is the one the packing rounds them to."""
     from gpustack_tpu_torch.engine.api_server import (
         OpenAIServer,
         build_engine_from_args,
@@ -1640,12 +1929,22 @@ def phase_checkpoint(kind, smi, preset="llama3-8b", device="cuda"):
     from gpustack_tpu_torch.models.transformer import init_params
 
     cfg = dataclasses.replace(get_config(preset), num_layers=2)
+    if cfg.layer_sliding:
+        cfg = dataclasses.replace(cfg, layer_sliding=cfg.layer_sliding[:2])
     gen = torch.Generator(device=device).manual_seed(7)
     tree = init_params(cfg, gen, dtype=torch.bfloat16, device=device)
+    zeros = ZERO_INIT_LEAVES + (DELTA_GAINS if cfg.norm_delta_gain else ())
+    for key in zeros:
+        if key in tree["layers"]:
+            tree["layers"][key].uniform_(-0.2, 0.2, generator=gen)
+    if cfg.norm_delta_gain:
+        tree["final_norm"].uniform_(-0.2, 0.2, generator=gen)
+    packed = _mxfp4_experts(tree) if mxfp4 else None
     with tempfile.TemporaryDirectory(prefix="ckpt-") as model_dir:
         t0 = time.perf_counter()
         nbytes = write_safetensors(
-            os.path.join(model_dir, "model.safetensors"), _hf_named(tree, cfg)
+            os.path.join(model_dir, "model.safetensors"),
+            _hf_named(tree, cfg, packed),
         )
         with open(os.path.join(model_dir, "config.json"), "w") as f:
             json.dump(_hf_config(cfg), f)
@@ -1699,6 +1998,7 @@ def phase_checkpoint(kind, smi, preset="llama3-8b", device="cuda"):
         engine.stop()
     depth = get_config(preset).num_layers
     emit("checkpoint", model=f"{cfg.name} (2 of {depth} layers)",
+         experts="MXFP4 blocks and scales" if mxfp4 else None,
          device=kind, nvidia_smi=smi, checkpoint_gb=nbytes / 1e9, write_s=write_s,
          load_s=load_s, load_gb_per_s=nbytes / 1e9 / load_s,
          logits="identical bits", prompt_tokens=len(prompt),
@@ -1931,23 +2231,49 @@ def _embed_checks(engine, port):
                   "base64": "round trip"}
 
 
-def _embed_reference(engine, vecs):
-    """Outside the counted window: each row through the same forward with
-    the plain attention (one row at a time, the batch's bucket), and one
-    8 x 2048 embedding forward timed with CUDA events."""
+def _embed_reference(engine, vecs, tape=None):
+    """Outside the counted window: the served vectors against a reference
+    of the same inputs, and one 8 x 2048 embedding forward timed with
+    CUDA events. Where the config takes the flash kernel the reference is
+    each row through the same forward with the plain attention (one row
+    at a time, the batch's bucket); where it does not, the batch through
+    the fp32 plain forward (:func:`_fp32_model`) with the served batch's
+    expert picks replayed from ``tape`` (an MoE model's; its recording of
+    the served window)."""
+    from gpustack_tpu_torch.models import transformer as tf
+
+    tape = tape or _RoutingTape()
     runner, tok = engine.runner, engine.tokenizer
     ids = [tok.encode(t) for t in EMBED_TEXTS]
     padded = [r + [0] * (2048 - len(r)) for r in ids]
+    flash = tf.flash_eligible(runner.cfg)
     cos = []
     with torch.no_grad():
-        runner.attn_impl_for = lambda bucket: "plain"
-        try:
-            for row, r, v in zip(padded, ids, vecs):
-                plain = runner.embed([row], [len(r)])[0].float().cpu()
-                cos.append(torch.nn.functional.cosine_similarity(
-                    plain, v, dim=0).item())
-        finally:
-            del runner.attn_impl_for
+        if flash:
+            runner.attn_impl_for = lambda bucket: "plain"
+            try:
+                for row, r, v in zip(padded, ids, vecs):
+                    plain = runner.embed([row], [len(r)])[0].float().cpu()
+                    cos.append(torch.nn.functional.cosine_similarity(
+                        plain, v, dim=0).item())
+            finally:
+                del runner.attn_impl_for
+        else:
+            params, cfg32 = _fp32_model(runner)
+            tokens = torch.tensor(padded, device=runner.device)
+            positions = torch.arange(2048, device=runner.device)[None, :]
+            tape.mode = "replay"
+            with tape:
+                hidden, _ = tf.forward(
+                    params, cfg32, tokens, positions.expand(len(padded), -1),
+                    return_hidden=True, attn_impl="plain",
+                )
+            lens = torch.tensor([len(r) for r in ids], device=runner.device)
+            mask = (positions < lens[:, None])[..., None].float()
+            pooled = (hidden * mask).sum(dim=1) / mask.sum(dim=1)
+            ref = torch.nn.functional.normalize(pooled, dim=-1).cpu()
+            cos = torch.nn.functional.cosine_similarity(
+                ref, vecs, dim=-1).tolist()
         times = []
         for _ in range(4):
             start = torch.cuda.Event(enable_timing=True)
@@ -1959,11 +2285,22 @@ def _embed_reference(engine, vecs):
             times.append(start.elapsed_time(end))
     if min(cos) < EMBED_MIN_COSINE:
         raise AssertionError(
-            f"embeddings through the flash kernel against plain attention: "
-            f"cosines {cos}"
+            f"served embeddings against the reference: cosines {cos}"
         )
-    return {"cosine_vs_plain_attention": cos,
-            "forward_ms_8x2048": statistics.median(times[1:])}
+    reference = {
+        "reference": ("plain attention, bf16" if flash
+                      else "fp32 plain forward"),
+        "cosine_vs_reference": cos,
+        "forward_ms_8x2048": statistics.median(times[1:]),
+    }
+    if tape.picks:
+        reference["routing"] = (
+            "the served batch's expert picks replayed" if not flash
+            else "free"
+        )
+        if not flash:
+            reference["tokens_with_a_flipped_pick"] = sum(tape.flips)
+    return reference
 
 
 def summarize_trace(path, steps):
@@ -2209,22 +2546,31 @@ MOE_MIN_COSINE = 0.999
 def _moe_routed_reference(x, lp, li, cfg):
     """One MoE layer computed the routed way, in fp32: each expert over
     only the tokens that picked it, then ``routed_scaling_factor`` and the
-    ungated shared experts (DeepSeek) where the layer has them. An
+    ungated shared experts (DeepSeek) where the layer has them; GPT-OSS's
+    router bias, expert biases and clamped GLU where it has them. An
     independent formulation of what the dense dispatch computes."""
     from gpustack_tpu_torch.models import transformer as tf
 
-    def mlp(xs, g, u, d):
-        return (torch.nn.functional.silu(xs @ g.float()) * (xs @ u.float())
-                ) @ d.float()
+    def mlp(xs, g, u, d, e=None):
+        g, u = xs @ g.float(), xs @ u.float()
+        if e is None or cfg.moe_act != "gptoss":
+            return (torch.nn.functional.silu(g) * u) @ d.float()
+        g = (g + lp["we_gate_b"][li, e].float()).clamp(max=7.0)
+        u = (u + lp["we_up_b"][li, e].float()).clamp(-7.0, 7.0)
+        h = (u + 1.0) * (g * torch.sigmoid(1.702 * g))
+        return h @ d.float() + lp["we_down_b"][li, e].float()
 
     xf = x.reshape(-1, cfg.hidden_size).float()
-    top_idx, combine = tf.moe_route(xf, lp["router"][li], cfg)
+    top_idx, combine = tf.moe_route(
+        xf, lp["router"][li], cfg,
+        lp["router_bias"][li] if "router_bias" in lp else None,
+    )
     out = torch.zeros_like(xf)
     for e in top_idx.unique().tolist():
         rows = (top_idx == e).any(dim=-1).nonzero().squeeze(1)
         out[rows] += combine[rows, e, None] * mlp(
             xf[rows], lp["we_gate"][li, e], lp["we_up"][li, e],
-            lp["we_down"][li, e],
+            lp["we_down"][li, e], e,
         )
     out *= cfg.routed_scaling_factor
     if "ws_gate" in lp:
@@ -2251,11 +2597,15 @@ def _moe_layer_case(params, cfg, tokens, gen, li=0):
 
     shared = (lp["ws_gate"][li], lp["ws_up"][li], lp["ws_down"][li],
               None) if Fs else None
+    biases = (lp["we_gate_b"][li], lp["we_up_b"][li],
+              lp["we_down_b"][li]) if cfg.moe_bias else None
+    router_bias = lp["router_bias"][li] if "router_bias" in lp else None
 
     def layer():
         return tf._moe_mlp(x, lp["router"][li], lp["we_gate"][li],
                            lp["we_up"][li], lp["we_down"][li], cfg,
-                           shared=shared)
+                           router_bias=router_bias, shared=shared,
+                           biases=biases)
 
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -2302,7 +2652,8 @@ def _moe_layer_case(params, cfg, tokens, gen, li=0):
     reached = int(top_idx.unique().numel())
     # x in, out, the router, and the shared experts (every token's)
     io = 2 * tokens * D * 2 + D * E * 2 + 3 * D * Fs * 2
-    expert_bytes = 3 * D * Fm * 2                 # one expert's weights
+    # one expert's weights (and GPT-OSS's biases)
+    expert_bytes = (3 * D * Fm + (2 * Fm + D if biases else 0)) * 2
     router_ops = 2 * tokens * D * E / PEAK_FP32_FLOPS * 1e3
 
     def bound(experts_read, expert_rows):
@@ -2385,6 +2736,20 @@ def phase_moe(kind, smi, device="cuda"):
 # i: the DeepSeek family
 # ---------------------------------------------------------------------------
 
+def _tree_gb(params):
+    return sum(
+        t.numel() * t.element_size() for t in _leaves(params).values()
+    ) / 1e9
+
+
+def _held_gb(phase):
+    """The previous phase's tree must be gone before this one's is drawn."""
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    if held_gb > 4:
+        raise AssertionError(f"{held_gb} GB still allocated before {phase}")
+    return held_gb
+
+
 I_PRESET = "deepseek-v2-lite"
 I_ARGV = ["--preset", I_PRESET] + MAIN_ARGV[2:]
 
@@ -2405,10 +2770,7 @@ def phase_deepseek(kind, smi, device="cuda"):
     )
     from gpustack_tpu_torch.models.transformer import attn_scale
 
-    # phase h's tree (61 GB) is gone before this one is drawn
-    held_gb = torch.cuda.memory_allocated() / 1e9
-    if held_gb > 4:
-        raise AssertionError(f"{held_gb} GB still allocated before phase i")
+    held_gb = _held_gb("phase i")           # phase h's 61 GB are gone
     phase_checkpoint(kind, smi, preset=I_PRESET, device=device)
     _free()
     torch.cuda.reset_peak_memory_stats()
@@ -2417,9 +2779,7 @@ def phase_deepseek(kind, smi, device="cuda"):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     params = engine.runner.params
-    tree_gb = sum(
-        t.numel() * t.element_size() for t in _leaves(params).values()
-    ) / 1e9
+    tree_gb = _tree_gb(params)
     init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     report, windows = _serve_counted(engine, _logit_check, int8=False,
                                      profile="deepseek", embed=True)
@@ -2444,6 +2804,143 @@ def phase_deepseek(kind, smi, device="cuda"):
          layers=layers)
     del engine, params
     return {f"deepseek_{w}": c for w, c in windows.items()}
+
+
+# ---------------------------------------------------------------------------
+# j: the GPT-OSS family
+# ---------------------------------------------------------------------------
+
+J_PRESET = "gpt-oss-20b"
+J_ARGV = ["--preset", J_PRESET] + MAIN_ARGV[2:]
+
+
+def phase_gptoss(kind, smi, device="cuda"):
+    """gpt-oss-20b (sinks, sliding layers of 128 on the even layers, q/k/v/o
+    biases, YaRN; 32 experts, top-4, the affine router and clamped GLU):
+    its full widths at 2 layers as a GPT-OSS checkpoint with MXFP4 expert
+    blocks through ``--model-dir``; then bf16 at full width and depth
+    through the server (phase d's requests, the served logits against the
+    fp32 plain forward with the served run's expert picks replayed, exact
+    launches: the flash kernel never, as in JAX; embeddings at the 2048
+    bucket, a 20-step profile while 8 chats decode, a 2048-bucket prefill
+    split into its attention and MoE time); then one MoE layer at the
+    2048 bucket and at 8 decoding slots. Returns {window: launch
+    counts}."""
+    from gpustack_tpu_torch.engine.api_server import (
+        build_engine_from_args,
+        build_parser,
+    )
+
+    held_gb = _held_gb("phase j")
+    phase_checkpoint(kind, smi, preset=J_PRESET, device=device, mxfp4=True)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = build_engine_from_args(build_parser().parse_args(J_ARGV))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    params = engine.runner.params
+    tree_gb = _tree_gb(params)
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    report, windows = _serve_counted(engine, _logit_check, int8=False,
+                                     profile="gptoss", embed=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = report.pop("profile")
+    emit("gptoss_path", model=engine.cfg.name, device=kind, nvidia_smi=smi,
+         setup_s=setup_s, tree_gb=tree_gb, init_peak_gb=init_peak_gb,
+         held_before_gb=held_gb, launches=windows, **report,
+         prefill_split=_prefill_split(engine), peak_mem_gb=peak_gb)
+    emit("gptoss_profile", model=engine.cfg.name, device=kind,
+         nvidia_smi=smi, **profile)
+    gen = torch.Generator(device=device).manual_seed(3)
+    with torch.no_grad():
+        layers = [
+            _moe_layer_case(params, engine.cfg, t, gen)
+            for t in (2048, engine.max_slots)
+        ]
+    emit("moe", model=engine.cfg.name, device=kind, nvidia_smi=smi,
+         dispatch="dense (every expert over every token), expert biases "
+         "and the clamped GLU",
+         tolerance={"rel": MOE_REL_TOL, "min_cosine": MOE_MIN_COSINE},
+         layers=layers)
+    del engine, params
+    return {f"gptoss_{w}": c for w, c in windows.items()}
+
+
+# ---------------------------------------------------------------------------
+# k: the Gemma family
+# ---------------------------------------------------------------------------
+
+K_PRESET = "gemma2-9b"
+K_ARGV = ["--preset", K_PRESET] + MAIN_ARGV[2:]
+
+
+def phase_gemma(kind, smi, device="cuda"):
+    """gemma2-9b (delta-gain sandwich norms, the scaled and tied
+    embedding, tanh GELU, ``query_pre_attn_scalar``, attention and final
+    softcaps, a window of 4096 on the even layers): its full widths at 2
+    layers as a tied Gemma2 checkpoint through ``--model-dir``; then bf16
+    at full width and depth through the server (phase d's requests, the
+    served logits against the fp32 plain forward, exact launches: the
+    flash kernel never, as in JAX; embeddings at the 2048 bucket); then
+    ``--quantization int8`` (the seven layer weights through the W8A16
+    kernel at head_dim 256, d 3584, F 14336; the tied embedding bf16, so
+    no W8A16 lm_head) with phase d's requests, its kernel logits against
+    the W8A16 plain version; each path's 2048-bucket prefill split into
+    its attention time. Returns {window: launch counts}."""
+    from gpustack_tpu_torch.engine.api_server import (
+        build_engine_from_args,
+        build_parser,
+    )
+    from gpustack_tpu_torch.models.quant import QuantW
+
+    held_gb = _held_gb("phase k")
+    phase_checkpoint(kind, smi, preset=K_PRESET, device=device)
+    _free()
+    paths, bf16 = {}, {}
+    for label, argv, int8 in (
+        ("gemma", K_ARGV, False),
+        ("gemma_int8", K_ARGV + ["--quantization", "int8"], True),
+    ):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine = build_engine_from_args(build_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        params = engine.runner.params
+        layer_weights = [params["layers"][k] for k in (
+            "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"
+        )]
+        if int8 != all(isinstance(w, QuantW) for w in layer_weights) or (
+            isinstance(params["embed"], QuantW) or "lm_head" in params
+        ):
+            raise AssertionError(f"{label}: the tree's weights are not as "
+                                 "this path serves them")
+        tree_gb = sum(
+            t.numel() * t.element_size()
+            for w in [params["embed"], params["final_norm"],
+                      *params["layers"].values()]
+            for t in ((w.q, w.s) if isinstance(w, QuantW) else (w,))
+        ) / 1e9
+        report, windows = _serve_counted(
+            engine, _int8_logit_check if int8 else _logit_check, int8=int8,
+            embed=not int8,
+        )
+        report["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        report["prefill_split"] = _prefill_split(engine)
+        if not int8:
+            bf16 = report
+        keys = ("ttft_ms_2048_bucket", "decode_tokens_per_s_8_slots",
+                "prefill_ms_2048_bucket", "peak_mem_gb")
+        emit(f"{label}_path", model=engine.cfg.name, device=kind,
+             nvidia_smi=smi, setup_s=setup_s, tree_gb=tree_gb,
+             held_before_gb=held_gb, launches=windows, **report,
+             **({"bf16_same_run": {k: bf16[k] for k in keys}}
+                if int8 else {}))
+        paths.update({f"{label}_{w}": c for w, c in windows.items()})
+        del engine, params, layer_weights
+        _free()
+    return paths
 
 
 def main() -> int:
@@ -2476,8 +2973,13 @@ def main() -> int:
     paths.update(phase_moe(kind, smi))
     _free()
     paths.update(phase_deepseek(kind, smi))
+    _free()
+    paths.update(phase_gptoss(kind, smi))
+    _free()
+    paths.update(phase_gemma(kind, smi))
     kernels = []
     large_m = rows.pop("w8a16_large_m")
+    gemma2 = rows.pop("w8a16_gemma2")
     group8 = rows.pop("flash_group8")
     mla = rows.pop("flash_mla")
     for name, row in rows.items():
@@ -2505,6 +3007,16 @@ def main() -> int:
         **{f"large_m_{k}": large_m[k] for k in (
             "max_abs_err", "ms", "bound_ms", "bound_by",
             "cublas_bf16_dequantized_ms", "eager_dequant_ms",
+        )},
+        # at gemma2-9b's widths (phase k), w_gate at the 2048 bucket
+        "gemma2_launches": sum(
+            counts["w8a16_matmul"] for path, counts in paths.items()
+            if path.startswith("gemma_int8")
+        ),
+        "gemma2_shape": gemma2["shape"],
+        **{f"gemma2_{k}": gemma2[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "cublas_bf16_dequantized_ms",
         )},
     })
     # the flash kernel at qwen3-30b-a3b's heads (group 8) and at

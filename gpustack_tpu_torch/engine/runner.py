@@ -37,7 +37,6 @@ from gpustack_tpu_torch.engine.weights import params_to_device
 from gpustack_tpu_torch.models.config import ModelConfig
 from gpustack_tpu_torch.models.transformer import (
     KVCache,
-    check_supported,
     forward,
     lm_head,
 )
@@ -78,7 +77,6 @@ class ModelRunner:
         max_seq_len: int = 1024,
         prefill_buckets: Tuple[int, ...] = (),
     ):
-        check_supported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         # int8 QuantW leaves go to the device as they are, never widened

@@ -3,21 +3,20 @@ LoRA merges, npz caching of (int8) trees, random init on the device, and
 carrying a parameter tree across from the JAX package (through numpy).
 
 The port of ``gpustack_tpu/engine/weights.py`` for the dense Llama family,
-the MoE family (Mixtral, Qwen2/3-MoE) and DeepSeek-V2/V3 (MLA, the
-``first_k_dense`` split).
+the MoE family (Mixtral, Qwen2/3-MoE), DeepSeek-V2/V3 (MLA, the
+``first_k_dense`` split), Gemma (sandwich norms) and GPT-OSS (sinks, the
+attention output bias, fused experts, MXFP4 expert blocks).
 Torch stores linear weights as ``[out_features, in_features]``; the
 functional matmuls contract ``x @ W`` with ``W[in, out]``, so every
-projection transposes on load. Loaded leaves are bf16, as in JAX.
+projection transposes on load. Loaded leaves are bf16, as in JAX; router
+biases and attention sinks are fp32.
 
 The safetensors reader is the port's own (the card's machine has no
 ``safetensors`` package): an 8-byte little-endian header length, a JSON
 header, then each tensor's bytes at its offsets.
 
-Not ported yet: the GPT-OSS and post-norm branches of
-``build_lm_params`` and ``_mxfp4_dequant`` (with their families; the
-config check raises before any tensor is read),
-``load_npz_params`` and ``load_whisper_params`` (with the other
-modalities).
+Not ported yet: ``load_npz_params`` and ``load_whisper_params`` (with the
+other modalities).
 """
 
 from __future__ import annotations
@@ -36,11 +35,7 @@ import torch
 from gpustack_tpu_torch.device import resolve_device
 from gpustack_tpu_torch.models.config import ModelConfig
 from gpustack_tpu_torch.models.quant import QuantW
-from gpustack_tpu_torch.models.transformer import (
-    check_supported,
-    init_params,
-    torch_dtype,
-)
+from gpustack_tpu_torch.models.transformer import init_params, torch_dtype
 
 logger = logging.getLogger(__name__)
 
@@ -48,6 +43,34 @@ _ST_DTYPES = {
     "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
     "I8": torch.int8, "U8": torch.uint8, "I32": torch.int32,
 }
+
+
+# MXFP4 e2m1 values, nibble-indexed (sign bit high): the packing of the
+# GPT-OSS hub checkpoints' expert weights (transformers integrations/mxfp4
+# FP4_VALUES). The port's own copy of the JAX loader's table.
+_FP4_VALUES = (
+    0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0,
+    -0.0, -0.5, -1.0, -1.5, -2.0, -3.0, -4.0, -6.0,
+)
+
+
+def _mxfp4_dequant(blocks: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """MXFP4 ``blocks`` uint8 ``[..., G, B]`` (fp4 pairs, the low nibble
+    the even element) and e8m0 ``scales`` uint8 ``[..., G]`` (biased by
+    127) → the bf16 weight ``[..., G·2B, X]``: the block axes flattened
+    and the last two swapped into the ``[E, in, out]`` layout, on the
+    tensors' device. Bit for bit the JAX ``_mxfp4_dequant``: an e2m1 value
+    times a power of two is exact in fp32 and in bf16, and the power is
+    built from its exponent bits (``2^(e-127)``; e = 0 is the subnormal
+    2^-127), with no rounding of its own."""
+    lut = torch.tensor(_FP4_VALUES, dtype=torch.float32, device=blocks.device)
+    b = blocks.int()
+    out = torch.stack([lut[b & 0x0F], lut[b >> 4]], dim=-1).flatten(-2)
+    e = scales.to(torch.int32)
+    bits = torch.where(e > 0, e << 23, torch.full_like(e, 1 << 22))
+    out *= bits.view(torch.float32)[..., None]
+    out = out.reshape(*blocks.shape[:-2], -1)              # [..., X, in]
+    return out.transpose(-1, -2).to(torch.bfloat16)
 
 
 def _read_safetensors_file(path: str) -> Dict[str, torch.Tensor]:
@@ -131,20 +154,23 @@ def build_lm_params(
 ) -> Dict[str, Any]:
     """HF-named tensors → the stacked param tree (bf16) on ``device``
     (default: the CPU), for the dense llama-family names, ``qkv_bias``,
-    ``qk_norm``, DeepSeek's MLA projections (``q_proj`` or ``q_a_proj`` →
-    ``q_a_layernorm`` → ``q_b_proj``, ``kv_a_proj_with_mqa``,
-    ``kv_a_layernorm``, ``kv_b_proj``) and the MoE names: Mixtral
-    (``block_sparse_moe``, ``w1|w2|w3``) and Qwen-MoE/DeepSeek
-    (``mlp.gate``, ``experts.{e}.gate_proj|up_proj|down_proj``, shared
-    experts, the fp32 ``e_score_correction_bias``). DeepSeek's
-    ``first_k_dense`` layers go to ``params["dense_layers"]`` and the MoE
-    rest to ``params["layers"]``, as in the JAX loader.
+    ``qk_norm``, Gemma's sandwich norms (``post_attention_layernorm`` is
+    the post-attention norm there, ``pre_feedforward_layernorm`` the
+    pre-MLP one), GPT-OSS's ``o_proj.bias`` and fp32 ``sinks``, DeepSeek's
+    MLA projections (``q_proj`` or ``q_a_proj`` → ``q_a_layernorm`` →
+    ``q_b_proj``, ``kv_a_proj_with_mqa``, ``kv_a_layernorm``,
+    ``kv_b_proj``) and the MoE names: Mixtral (``block_sparse_moe``,
+    ``w1|w2|w3``), Qwen-MoE/DeepSeek (``mlp.gate``,
+    ``experts.{e}.gate_proj|up_proj|down_proj``, shared experts, the fp32
+    ``e_score_correction_bias``) and GPT-OSS (fused, biased experts, plain
+    or MXFP4). DeepSeek's ``first_k_dense`` layers go to
+    ``params["dense_layers"]`` and the MoE rest to ``params["layers"]``,
+    as in the JAX loader.
 
     Each stacked leaf is allocated on ``device`` and filled one layer at a
     time, each tensor popped from ``tensors`` as it is copied: a layer's
     experts are stacked on the host (one layer at a time), never the whole
     checkpoint."""
-    check_supported(cfg)
     device = torch.device(device or "cpu")
     take = _taker(tensors)
     kd = cfg.first_k_dense if cfg.is_moe else 0
@@ -183,18 +209,43 @@ def build_lm_params(
             layers["wk"] = stack(attn + "k_proj.weight", True)
             layers["wv"] = stack(attn + "v_proj.weight", True)
         layers["wo"] = stack(attn + "o_proj.weight", True)
-        # llama-family: post_attention_layernorm IS the pre-MLP norm
-        layers["mlp_norm"] = stack(
-            "model.layers.{}.post_attention_layernorm.weight"
-        )
+        layer = "model.layers.{}."
+        if cfg.post_norms:
+            # Gemma's sandwich: post_attention_layernorm is the POST-
+            # attention norm; the pre-MLP norm has a name of its own
+            layers["post_attn_norm"] = stack(
+                layer + "post_attention_layernorm.weight"
+            )
+            layers["mlp_norm"] = stack(
+                layer + "pre_feedforward_layernorm.weight"
+            )
+            layers["post_mlp_norm"] = stack(
+                layer + "post_feedforward_layernorm.weight"
+            )
+        else:
+            # llama-family: post_attention_layernorm IS the pre-MLP norm
+            layers["mlp_norm"] = stack(
+                layer + "post_attention_layernorm.weight"
+            )
         if cfg.qkv_bias:
             layers["bq"] = stack(attn + "q_proj.bias")
             layers["bk"] = stack(attn + "k_proj.bias")
             layers["bv"] = stack(attn + "v_proj.bias")
+        if cfg.o_bias:
+            layers["bo"] = stack(attn + "o_proj.bias")
+        if cfg.attn_sinks:
+            # fp32: sink logits join the softmax denominator directly
+            layers["sinks"] = stacked(
+                lambda i: tensors.pop(attn.format(i) + "sinks"),
+                dtype=torch.float32,
+            )
         if cfg.qk_norm:
             layers["q_norm"] = stack(attn + "q_norm.weight")
             layers["k_norm"] = stack(attn + "k_norm.weight")
-        if moe:
+        if moe and cfg.moe_act == "gptoss":
+            layers.update(_gptoss_experts(cfg, rng, tensors, take, stack,
+                                          stacked, device))
+        elif moe:
             layers.update(_moe_layers(cfg, tensors, take, stack, stacked))
         else:
             mlp = "model.layers.{}.mlp."
@@ -277,12 +328,56 @@ def _moe_layers(cfg: ModelConfig, tensors, take, stack, stacked):
     return out
 
 
+def _gptoss_experts(cfg, rng, tensors, take, stack, stacked, device):
+    """GPT-OSS's MoE leaves for one range of layers (the JAX loader's
+    GPT-OSS branch): the affine router (its bias fp32), the fused
+    ``gate_up_proj [E, D, 2F]`` with gate and up INTERLEAVED on the last
+    axis, ``down_proj [E, F, D]``, and their biases. An expert weight is
+    the plain tensor or, as the hub checkpoints ship it, MXFP4
+    ``{name}_blocks`` and ``{name}_scales``, dequantized on ``device``
+    one layer at a time."""
+    prefix = "model.layers.{}.mlp."
+    out: Dict[str, torch.Tensor] = {
+        "router": stack(prefix + "router.weight", True),
+        "router_bias": stacked(
+            lambda i: tensors.pop(prefix.format(i) + "router.bias"),
+            dtype=torch.float32,
+        ),
+    }
+
+    def expert(name: str, i: int) -> torch.Tensor:
+        base = f"{prefix.format(i)}experts.{name}"
+        if base in tensors:
+            return take(base).to(device)
+        return _mxfp4_dequant(
+            tensors.pop(base + "_blocks").to(device),
+            tensors.pop(base + "_scales").to(device),
+        )
+
+    E, D, F = cfg.num_experts, cfg.hidden_size, cfg.moe_intermediate_size
+    for key in ("we_gate", "we_up"):
+        out[key] = torch.empty(
+            (len(rng), E, D, F), dtype=torch.bfloat16, device=device
+        )
+    for j, i in enumerate(rng):
+        gu = expert("gate_up_proj", i)                       # [E, D, 2F]
+        out["we_gate"][j].copy_(gu[..., 0::2])
+        out["we_up"][j].copy_(gu[..., 1::2])
+        del gu
+    gub = stack(prefix + "experts.gate_up_proj_bias")        # [n, E, 2F]
+    out["we_gate_b"] = gub[..., 0::2].contiguous()
+    out["we_up_b"] = gub[..., 1::2].contiguous()
+    del gub
+    out["we_down"] = stacked(lambda i: expert("down_proj", i))
+    out["we_down_b"] = stack(prefix + "experts.down_proj_bias")
+    return out
+
+
 def load_hf_checkpoint(
     cfg: ModelConfig, model_dir: str, device=None
 ) -> Dict[str, Any]:
     """Load *.safetensors from a local HF model dir into the param tree on
     ``device`` (default: the CPU)."""
-    check_supported(cfg)
     return build_lm_params(cfg, _read_safetensors(model_dir), device)
 
 
@@ -293,7 +388,6 @@ def load_gguf_checkpoint(
     (engine/gguf.py), then the same mapping as safetensors."""
     from gpustack_tpu_torch.engine.gguf import load_gguf_tensors
 
-    check_supported(cfg)
     return build_lm_params(cfg, load_gguf_tensors(gguf_path), device)
 
 
@@ -520,15 +614,12 @@ def _to_tensor(arr, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_numpy(
-    tree: Dict[str, Any], cfg: ModelConfig, device=None
-) -> Dict[str, Any]:
+def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     """Convert a parameter tree of numpy arrays (the JAX package's
     ``init_params`` layout, leaves passed through ``np.asarray``) into the
     port's tree of tensors on ``device`` (default: the card): same keys,
     same stacked shapes, same dtypes. A JAX ``QuantW`` leaf (any node with
     ``q`` and ``s`` arrays) becomes the port's ``QuantW``."""
-    check_supported(cfg)
     device = resolve_device(device)
 
     def walk(node):

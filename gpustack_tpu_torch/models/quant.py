@@ -95,9 +95,10 @@ def _quantize_leaf(name: str, w: torch.Tensor) -> QuantW:
 
 def check_quantizable(cfg: ModelConfig) -> None:
     """Raise for a configuration int8 serving does not cover yet: an MoE
-    model's expert products need a batched-over-experts W8A16 variant, and
-    MLA's projections (``wq_a``, ``wq_b``, ``wkv_a``, ``wkv_b``) wait with
-    them (DeepSeek is MoE). Called before any weight is drawn or read."""
+    model's expert products (GPT-OSS's among them) need a
+    batched-over-experts W8A16 variant, and MLA's projections (``wq_a``,
+    ``wq_b``, ``wkv_a``, ``wkv_b``) wait with them (DeepSeek is MoE).
+    Called before any weight is drawn or read."""
     missing = []
     if cfg.is_moe:
         missing.append("MoE")
@@ -148,9 +149,7 @@ def init_quantized_params(
     wider, and at llama3-8b's depth that model amplifies a change of fp32
     summation order past a 5% logit check (PERF.md, PR 4)."""
     from gpustack_tpu_torch.device import resolve_device
-    from gpustack_tpu_torch.models.transformer import check_supported
 
-    check_supported(cfg)
     check_quantizable(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
@@ -184,9 +183,10 @@ def init_quantized_params(
     def zeros(*shape):
         return torch.zeros(shape, dtype=bf16, device=device)
 
+    gain = zeros if cfg.norm_delta_gain else ones    # Gemma: delta gains
     layers: Dict[str, Any] = {
-        "attn_norm": ones(L, d),
-        "mlp_norm": ones(L, d),
+        "attn_norm": gain(L, d),
+        "mlp_norm": gain(L, d),
         "wq": qw((L, d, cfg.q_dim), d, "wq"),
         "wk": qw((L, d, cfg.kv_dim), d, "wk"),
         "wv": qw((L, d, cfg.kv_dim), d, "wv"),
@@ -197,13 +197,16 @@ def init_quantized_params(
         layers["bk"] = zeros(L, cfg.kv_dim)
         layers["bv"] = zeros(L, cfg.kv_dim)
     if cfg.qk_norm:
-        layers["q_norm"] = ones(L, cfg.head_dim)
-        layers["k_norm"] = ones(L, cfg.head_dim)
+        layers["q_norm"] = gain(L, cfg.head_dim)
+        layers["k_norm"] = gain(L, cfg.head_dim)
+    if cfg.post_norms:
+        layers["post_attn_norm"] = gain(L, d)
+        layers["post_mlp_norm"] = gain(L, d)
     layers["w_gate"] = qw((L, d, f), d, "w_gate")
     layers["w_up"] = qw((L, d, f), d, "w_up")
     layers["w_down"] = qw((L, f, d), f, "w_down")
 
-    params: Dict[str, Any] = {"layers": layers, "final_norm": ones(d)}
+    params: Dict[str, Any] = {"layers": layers, "final_norm": gain(d)}
     if cfg.tie_word_embeddings:
         # the LM head contracts embed.T: embed stays bf16, as in
         # quantize_params' tied-embedding rule

@@ -1,5 +1,5 @@
-"""Transformer core, dense and MoE Llama/Qwen paths and DeepSeek's MLA, in
-PyTorch.
+"""Transformer core, dense and MoE Llama/Qwen paths, DeepSeek's MLA and
+the Gemma and GPT-OSS families, in PyTorch.
 
 The port of ``gpustack_tpu/models/transformer.py``. Layout and semantics
 follow the JAX module so its tests compare like with like:
@@ -18,8 +18,8 @@ follow the JAX module so its tests compare like with like:
 - bf16 matmuls, fp32 softmax and norm accumulation; every weight product
   goes through :func:`_mm`, so int8 ``QuantW`` weights (``models/quant.py``)
   run through the W8A16 kernel on the card;
-- MoE layers (Mixtral, Qwen2/3-MoE; :func:`_moe_mlp`) keep the JAX
-  module's dense dispatch: every expert runs over every token and the
+- MoE layers (Mixtral, Qwen2/3-MoE, GPT-OSS; :func:`_moe_mlp`) keep the
+  JAX module's dense dispatch: every expert runs over every token and the
   router's top-k weights combine the results. The expert products are
   batched torch products over the expert axis (XLA products in the JAX
   module, not Pallas), in token chunks that bound their transients;
@@ -29,17 +29,20 @@ follow the JAX module so its tests compare like with like:
   heads) and V (zero-padded to the same width), so the cache layout and
   the flash kernel are every family's. DeepSeek's ``first_k_dense``
   layers are a stack of their own (``params["dense_layers"]``) that runs
-  before the MoE stack over the cache's first layers.
+  before the MoE stack over the cache's first layers;
+- Gemma (1, 2, 3) and GPT-OSS: ``(1 + w)`` delta-gain norms, the scaled
+  embedding, sandwich post-norms, the tanh GELU, ``query_pre_attn_scalar``,
+  attention and final logit softcaps, learned attention sinks, sliding
+  windows (every layer, or per layer by ``layer_sliding``, with Gemma3's
+  local rope table on the sliding layers) and the attention output bias.
 
 Prefill attention on the card is the hand-written flash kernel
-(``ops/flash_attention.py``), and so is the cacheless embedding forward's;
-decode attention, and the speculative verify and draft ingest blocks,
-stay plain torch ops over the full ``S_max`` mask, as in the JAX module
-(XLA there, not Pallas).
-
-Configurations outside these paths (sliding windows, softcaps, attention
-sinks, post-norms, Gemma's norms and activations) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+(``ops/flash_attention.py``), and so is the cacheless embedding forward's,
+for every configuration the JAX ``forward`` sends to its kernel: none with
+a sliding window, an attention softcap or sinks (:func:`flash_eligible`).
+Those, decode attention, and the speculative verify and draft ingest
+blocks, are plain torch ops (:func:`_attend`, XLA in the JAX module, not
+Pallas), in query-row chunks that bound the fp32 score tensor.
 """
 
 from __future__ import annotations
@@ -62,28 +65,13 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configurations the port does not cover yet."""
-    unsupported = [
-        ("sliding-window attention", bool(cfg.sliding_window)),
-        ("per-layer sliding flags", cfg.layer_sliding is not None),
-        ("attention logit softcap", bool(cfg.attn_logit_softcap)),
-        ("final logit softcap", bool(cfg.final_logit_softcap)),
-        ("attention sinks", cfg.attn_sinks),
-        ("post-norms", cfg.post_norms),
-        ("delta-gain norms", cfg.norm_delta_gain),
-        ("embedding scale", cfg.embed_scale),
-        ("local rope theta", bool(cfg.rope_local_theta)),
-        ("attention output bias", cfg.o_bias),
-        ("query_pre_attn_scalar", bool(cfg.query_pre_attn_scalar)),
-        (f"hidden_act {cfg.hidden_act!r}", cfg.hidden_act != "silu"),
-    ]
-    missing = [name for name, present in unsupported if present]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
-            "'Modules to port': the other families — Gemma, GPT-OSS)"
-        )
+def flash_eligible(cfg: ModelConfig) -> bool:
+    """Whether a prefill of ``cfg`` may run the flash kernel: the JAX
+    ``forward``'s own condition (no sliding window, no attention softcap,
+    no sinks). Every other prefill is :func:`_attend`, as in JAX."""
+    return not (
+        cfg.sliding_window or cfg.attn_logit_softcap or cfg.attn_sinks
+    )
 
 
 def _mm(x: torch.Tensor, w) -> torch.Tensor:
@@ -160,8 +148,9 @@ def init_params(
     itself. With ``first_k_dense`` (DeepSeek) the first layers are a
     dense stack of their own, ``params["dense_layers"]``, and
     ``params["layers"]`` holds the MoE rest; each is drawn at its own
-    depth (JAX draws every leaf at full depth and slices)."""
-    check_supported(cfg)
+    depth (JAX draws every leaf at full depth and slices). Biases, sinks
+    (fp32) and delta gains (Gemma: ``1 + w``, so zero is the unit gain)
+    are zeros, as in JAX."""
     device = torch.device(device) if device is not None else generator.device
     d, f, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
 
@@ -177,6 +166,9 @@ def init_params(
 
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
+
+    # a norm's unit gain: 1, or a zero delta under norm_delta_gain
+    gain = zeros if cfg.norm_delta_gain else ones
 
     def w_layers(*shape, scale=None):
         """Like ``w``, drawn one layer at a time into the stacked tensor
@@ -243,9 +235,19 @@ def init_params(
             layers["bq"] = zeros(n, cfg.q_dim)
             layers["bk"] = zeros(n, cfg.kv_dim)
             layers["bv"] = zeros(n, cfg.kv_dim)
+        if cfg.o_bias:
+            layers["bo"] = zeros(n, d)
+        if cfg.attn_sinks:
+            layers["sinks"] = zeros(n, cfg.num_heads, dt=torch.float32)
+        if cfg.norm_delta_gain:
+            layers["attn_norm"] = gain(n, d)
+            layers["mlp_norm"] = gain(n, d)
         if cfg.qk_norm:
-            layers["q_norm"] = ones(n, cfg.head_dim)
-            layers["k_norm"] = ones(n, cfg.head_dim)
+            layers["q_norm"] = gain(n, cfg.head_dim)
+            layers["k_norm"] = gain(n, cfg.head_dim)
+        if cfg.post_norms:
+            layers["post_attn_norm"] = gain(n, d)
+            layers["post_mlp_norm"] = gain(n, d)
         return layers
 
     kd = cfg.first_k_dense if cfg.is_moe else 0
@@ -254,7 +256,7 @@ def init_params(
     params: Params = {
         "embed": w(cfg.vocab_size, d, scale=0.02),
         "layers": layers,
-        "final_norm": ones(d),
+        "final_norm": gain(d),
     }
     if dense is not None:
         params["dense_layers"] = dense
@@ -268,10 +270,17 @@ def init_params(
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(
+    x: torch.Tensor, w: torch.Tensor, eps: float, delta_gain: bool = False
+) -> torch.Tensor:
+    """RMSNorm in fp32. The gain ``w`` multiplies after the downcast, or,
+    with ``delta_gain`` (Gemma's convention: the stored weight is a delta
+    on a unit gain), ``1 + w`` multiplies in fp32 before it."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     n = xf * torch.rsqrt(var + eps)
+    if delta_gain:
+        return (n * (1.0 + w.float())).to(x.dtype)
     return n.to(x.dtype) * w
 
 
@@ -420,11 +429,12 @@ def mla_rope_params(cfg: ModelConfig) -> Tuple[torch.Tensor, float]:
 
 
 def attn_scale(cfg: ModelConfig) -> float:
-    """The softmax scale: ``1/sqrt(head_dim)``, and for MLA under YaRN
-    with ``mscale_all_dim`` times ``yarn_get_mscale(factor,
-    mscale_all_dim)²`` (HF DeepseekV2Attention; ~1.59 at
-    deepseek-v2-lite's config, whose sin/cos factor is 1)."""
-    scale = 1.0 / math.sqrt(cfg.head_dim)
+    """The softmax scale: ``1/sqrt(query_pre_attn_scalar or head_dim)``
+    (Gemma2/3 ship the scalar), and for MLA under YaRN with
+    ``mscale_all_dim`` times ``yarn_get_mscale(factor, mscale_all_dim)²``
+    (HF DeepseekV2Attention; ~1.59 at deepseek-v2-lite's config, whose
+    sin/cos factor is 1)."""
+    scale = 1.0 / math.sqrt(cfg.query_pre_attn_scalar or cfg.head_dim)
     rs = cfg.rope_scaling or {}
     if cfg.is_mla and (
         (rs.get("rope_type") or rs.get("type")) == "yarn"
@@ -435,17 +445,58 @@ def attn_scale(cfg: ModelConfig) -> float:
     return scale
 
 
+# The fp32 scores of one query-row chunk of :func:`_attend`, [B, Hkv, G,
+# rows, S]; the masked copy, the probabilities and their downcast add
+# about as much again. At gpt-oss-20b's heads (64) an 8 x 2048 embedding
+# batch holds 8.6 GB of scores: eight chunks of 256 rows.
+ATTN_CHUNK_BYTES = 1 << 30
+
+
 def _attend(
     q: torch.Tensor,       # [B, T, Hkv, G, hd]
     k: torch.Tensor,       # [B, S, Hkv, hd]
     v: torch.Tensor,       # [B, S, Hkv, hd]
     mask: torch.Tensor,    # [B, T, S] bool (True = attend)
     scale: float,
+    softcap: float = 0.0,
+    sinks: Optional[torch.Tensor] = None,   # [Hkv, G] sink logits
 ) -> torch.Tensor:
-    """Grouped-query attention; fp32 softmax; returns [B, T, Hkv*G*hd]."""
+    """Grouped-query attention; fp32 softmax; returns [B, T, Hkv*G*hd].
+
+    ``softcap`` (Gemma2) is ``softcap * tanh(s / softcap)`` on the scaled
+    scores, before the mask. ``sinks`` (GPT-OSS) are learned per-head
+    logits that join the softmax's fp32 max and its denominator only: the
+    mass they take has no value row. Both as in the JAX ``_attend``.
+
+    Query rows run in chunks of as many as keep the fp32 scores within
+    ``ATTN_CHUNK_BYTES``. Each row's softmax is its own, so a chunk
+    changes no value."""
+    B, T, Hkv, G, _ = q.shape
+    S = k.shape[1]
+    chunk_rows = max(1, ATTN_CHUNK_BYTES // (B * Hkv * G * S * 4))
+    if T <= chunk_rows:
+        return _attend_rows(q, k, v, mask, scale, softcap, sinks)
+    return torch.cat([
+        _attend_rows(q[:, t:t + chunk_rows], k, v, mask[:, t:t + chunk_rows],
+                     scale, softcap, sinks)
+        for t in range(0, T, chunk_rows)
+    ], dim=1)
+
+
+def _attend_rows(q, k, v, mask, scale, softcap, sinks):
+    """:func:`_attend` over one chunk of query rows."""
     scores = torch.einsum("bthgd,bshd->bhgts", q, k).float() * scale
-    scores = scores.masked_fill(~mask[:, None, None, :, :], _NEG)
-    weights = torch.softmax(scores, dim=-1).to(q.dtype)
+    if softcap:
+        scores = scores.div_(softcap).tanh_().mul_(softcap)
+    scores = scores.masked_fill_(~mask[:, None, None, :, :], _NEG)
+    if sinks is not None:
+        sink = sinks.float()[None, :, :, None]              # [1, Hkv, G, 1]
+        m = torch.maximum(scores.amax(dim=-1), sink)        # [B, Hkv, G, T]
+        p = scores.sub_(m[..., None]).exp_()
+        denom = p.sum(dim=-1) + torch.exp(sink - m)
+        weights = p.div_(denom[..., None]).to(q.dtype)
+    else:
+        weights = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhgts,bshd->bthgd", weights, v)
     return out.reshape(out.shape[0], out.shape[1], -1)
 
@@ -548,9 +599,12 @@ def _moe_mlp(
             u += biases[1][:, None, :].to(dtype)
         h = torch.empty((n, E, Fm), dtype=dtype, device=x.device)
         if cfg.moe_act == "gptoss":
+            # (u + 1) * (g * sigmoid(1.702 g)), JAX's order of roundings,
+            # built in h: g, u and h are the only transients
             g.clamp_(max=7.0)
             u.clamp_(-7.0, 7.0).add_(1.0)
-            torch.mul(u, g * torch.sigmoid(1.702 * g), out=h.transpose(0, 1))
+            hT = h.transpose(0, 1)
+            torch.mul(g, 1.702, out=hT).sigmoid_().mul_(g).mul_(u)
         else:
             torch.mul(
                 torch.nn.functional.silu(g, inplace=True), u,
@@ -639,7 +693,9 @@ def forward(
     the kernel's causal diagonal is set without reading ``positions`` back
     from the card. Without a cache (an embedding forward), ``"flash"``
     runs the kernel on the layer's own K/V (``S = T``, ``q_offset`` 0).
-    ``"plain"`` uses :func:`_attend`; decode always does.
+    ``"plain"`` uses :func:`_attend`; decode always does, and so does
+    every prefill of a configuration the kernel does not serve
+    (:func:`flash_eligible`: sliding windows, softcaps, sinks).
 
     ``clamp_writes`` gives the cache write the JAX module's
     ``dynamic_update_slice`` semantics: each row's block of ``T`` (its
@@ -651,29 +707,39 @@ def forward(
     Returns ``(logits [B, T, vocab] fp32, cache or None)``, or the final
     normalized hidden states (fp32) with ``return_hidden``.
     """
-    check_supported(cfg)
     if attn_impl not in ("plain", "flash"):
         raise ValueError(f"attn_impl must be 'plain' or 'flash': {attn_impl!r}")
     B, T = tokens.shape
     dtype = torch_dtype(cfg)
     device = tokens.device
     x = _embed_lookup(params["embed"], tokens, dtype)
+    if cfg.embed_scale:
+        # Gemma: times sqrt(d), cast to the compute dtype first (as HF
+        # and JAX do)
+        x = x * torch.tensor(math.sqrt(cfg.hidden_size)).to(dtype)
     # MLA rotates only its qk_rope part, with a table of its own
     inv, att_factor = mla_rope_params(cfg) if cfg.is_mla else rope_params(cfg)
     sin, cos = rope_sin_cos(positions, inv)
     if att_factor != 1.0:
         sin = sin * att_factor
         cos = cos * att_factor
+    hetero = cfg.layer_sliding is not None
+    if hetero and cfg.rope_local_theta:
+        # Gemma3: sliding layers rotate with their own, unscaled theta
+        sin_loc, cos_loc = rope_sin_cos(
+            positions, _inv_freq(cfg.rope_local_theta, cfg.head_dim)
+        )
+    else:
+        sin_loc, cos_loc = sin, cos
     scale = attn_scale(cfg)
-    use_flash = attn_impl == "flash" and T > 1
+    use_flash = attn_impl == "flash" and T > 1 and flash_eligible(cfg)
 
     if cache is None:
-        if not use_flash:
-            mask = positions[:, :, None] >= positions[:, None, :]
-        elif positions.device.type == "cpu" and bool(
+        if use_flash and positions.device.type == "cpu" and bool(
             (positions != torch.arange(T, device=device)).any()
         ):
             raise ValueError("cacheless flash rows must be at 0 .. T-1")
+        key_pos = positions[:, None, :]
     else:
         S = cache.max_len
         write_pos = positions
@@ -692,14 +758,30 @@ def forward(
             raise ValueError(
                 f"flash prefill rows must start at q_offset {q_offset}"
             )
-        cache_pos = torch.arange(S, device=device)
-        mask = cache_pos[None, None, :] <= positions[:, :, None]
+        key_pos = torch.arange(S, device=device)[None, None, :]
         rows = torch.arange(B, device=device)[:, None].expand(B, T)
-
-    if use_flash:
+    if not use_flash:
+        # mask[b, t, s]: query t attends key s. A sliding window keeps
+        # the keys less than ``sliding_window`` behind the query; with
+        # per-layer flags both masks exist and each layer takes its own
+        causal = key_pos <= positions[:, :, None]
+        mask_full = mask_slide = causal
+        if cfg.sliding_window:
+            mask_slide = causal & (
+                positions[:, :, None] - key_pos < cfg.sliding_window
+            )
+            if not hetero:
+                mask_full = mask_slide
+    else:
         from gpustack_tpu_torch.ops.flash_attention import (
             flash_attention_prefill,
         )
+
+    act = (
+        torch.nn.functional.silu if cfg.hidden_act == "silu"
+        else lambda z: torch.nn.functional.gelu(z, approximate="tanh")
+    )
+    delta = cfg.norm_delta_gain
 
     # DeepSeek's first_k_dense layers are a stack of their own: the dense
     # stack runs first, then the MoE stack, over the cache's absolute
@@ -717,7 +799,9 @@ def forward(
             f"{cfg.num_layers}"
         )
     for li, (lp, i, moe_layer) in enumerate(blocks):
-        h = rms_norm(x, lp["attn_norm"][i], cfg.rms_norm_eps)
+        sliding = hetero and cfg.layer_sliding[li]
+        sin_l, cos_l = (sin_loc, cos_loc) if sliding else (sin, cos)
+        h = rms_norm(x, lp["attn_norm"][i], cfg.rms_norm_eps, delta)
         if cfg.is_mla:
             q, k, v = _mla_qkv(h, lp, i, cfg, sin, cos)
         else:
@@ -730,16 +814,25 @@ def forward(
             k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
             v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
             if cfg.qk_norm:
-                q = rms_norm(q, lp["q_norm"][i], cfg.rms_norm_eps)
-                k = rms_norm(k, lp["k_norm"][i], cfg.rms_norm_eps)
-            q = apply_rope(q, sin, cos)
-            k = apply_rope(k, sin, cos)
+                q = rms_norm(q, lp["q_norm"][i], cfg.rms_norm_eps, delta)
+                k = rms_norm(k, lp["k_norm"][i], cfg.rms_norm_eps, delta)
+            q = apply_rope(q, sin_l, cos_l)
+            k = apply_rope(k, sin_l, cos_l)
         qg = q.reshape(B, T, cfg.num_kv_heads, cfg.group_size, cfg.head_dim)
+        if not use_flash:
+            plain = dict(
+                mask=mask_slide if sliding else mask_full, scale=scale,
+                softcap=cfg.attn_logit_softcap,
+                sinks=(
+                    lp["sinks"][i].reshape(cfg.num_kv_heads, cfg.group_size)
+                    if cfg.attn_sinks else None
+                ),
+            )
         if cache is None:
             if use_flash:
                 attn = flash_attention_prefill(q, k, v, scale)
             else:
-                attn = _attend(qg, k, v, mask, scale)
+                attn = _attend(qg, k, v, **plain)
         else:
             k_l, v_l = cache.k[li], cache.v[li]
             # in-place write at each row's absolute positions
@@ -750,16 +843,23 @@ def forward(
                     q, k_l, v_l, scale, q_offset=q_offset
                 )
             else:
-                attn = _attend(qg, k_l, v_l, mask, scale)
+                attn = _attend(qg, k_l, v_l, **plain)
         if cfg.is_mla:
             # drop V's zero-padded tail before wo ([H * v_head_dim, d])
             attn = attn.reshape(B, T, cfg.num_heads, cfg.head_dim)[
                 ..., :cfg.v_head_dim
             ].reshape(B, T, cfg.num_heads * cfg.v_head_dim)
-        x = x + _mm(attn, lp["wo"][i])
-        h2 = rms_norm(x, lp["mlp_norm"][i], cfg.rms_norm_eps)
+        attn_out = _mm(attn, lp["wo"][i])
+        if cfg.o_bias:
+            attn_out = attn_out + lp["bo"][i]
+        if cfg.post_norms:
+            attn_out = rms_norm(
+                attn_out, lp["post_attn_norm"][i], cfg.rms_norm_eps, delta
+            )
+        x = x + attn_out
+        h2 = rms_norm(x, lp["mlp_norm"][i], cfg.rms_norm_eps, delta)
         if moe_layer:
-            x = x + _moe_mlp(
+            mlp = _moe_mlp(
                 h2, lp["router"][i], lp["we_gate"][i], lp["we_up"][i],
                 lp["we_down"][i], cfg,
                 router_bias=(
@@ -781,17 +881,29 @@ def forward(
         else:
             g = _mm(h2, lp["w_gate"][i])
             u = _mm(h2, lp["w_up"][i])
-            x = x + _mm(torch.nn.functional.silu(g) * u, lp["w_down"][i])
+            mlp = _mm(act(g) * u, lp["w_down"][i])
+        if cfg.post_norms:
+            mlp = rms_norm(
+                mlp, lp["post_mlp_norm"][i], cfg.rms_norm_eps, delta
+            )
+        x = x + mlp
 
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, delta)
     if return_hidden:
         return x.float(), cache
     return lm_head(params, cfg, x), cache
 
 
 def lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Final-normed hidden states (compute dtype) → fp32 logits."""
+    """Final-normed hidden states (compute dtype) → fp32 logits: the tied
+    embedding's transpose or ``lm_head``, then Gemma2's final softcap
+    ``cap * tanh(logits / cap)`` in fp32."""
     x = x.to(torch_dtype(cfg))
     if cfg.tie_word_embeddings:
-        return _mm(x, params["embed"].T).float()
-    return _mm(x, params["lm_head"]).float()
+        logits = _mm(x, params["embed"].T).float()
+    else:
+        logits = _mm(x, params["lm_head"]).float()
+    if cfg.final_logit_softcap:
+        cap = cfg.final_logit_softcap
+        logits = cap * torch.tanh(logits / cap)
+    return logits

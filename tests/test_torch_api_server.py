@@ -35,7 +35,7 @@ def served():
     jparams = init_params(jcfg, jax.random.key(0), dtype=jnp.float32)
     cfg = dataclasses.replace(get_config("tiny"), dtype="float32")
     eng = LLMEngine(
-        cfg, params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu"),
+        cfg, params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu"),
         max_slots=2, max_seq_len=128, device="cpu",
     )
     eng.start()

@@ -199,7 +199,7 @@ def test_lora_on_dense_and_moe_layers_merges_like_jax(hf_checkpoint,
         lambda a: a.astype(jnp.float32), jw.load_hf_checkpoint(jcfg, model_dir)
     )
     tparams = pw.params_from_numpy(
-        jax.tree.map(np.asarray, jparams), cfg, "cpu"
+        jax.tree.map(np.asarray, jparams), "cpu"
     )
     before = {k: v.clone() for k, v in (
         ("d_wo", tparams["dense_layers"]["wo"]),

@@ -48,7 +48,7 @@ def models():
     jcfg = dataclasses.replace(jax_get_config("tiny"), dtype="float32")
     jparams = init_params(jcfg, jax.random.key(0), dtype=jnp.float32)
     cfg = dataclasses.replace(get_config("tiny"), dtype="float32")
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     return jcfg, jparams, cfg, tparams
 
 

@@ -36,7 +36,7 @@ def models():
     jparams = init_params(jcfg, jax.random.key(0), dtype=jnp.float32)
     cfg = dataclasses.replace(get_config("tiny"), dtype="float32")
     tparams = params_from_numpy(
-        jax.tree.map(np.asarray, jparams), cfg, "cpu"
+        jax.tree.map(np.asarray, jparams), "cpu"
     )
     return jcfg, jparams, cfg, tparams
 

@@ -6,9 +6,11 @@ clamps inside the cache for a row frozen at its end (out of range it
 would be a device-side assert); the embedding forward through the flash
 kernel against the plain attention; a profile capture whose trace
 holds the card's kernels; the MoE block (dense dispatch) on the card
-against the same call on the CPU; and an MLA prefill (DeepSeek's widths
-per head: K 192, V 128 padded to 192) through the flash kernel at
-head_dim 192 against the plain attention.
+against the same call on the CPU; an MLA prefill (DeepSeek's widths per
+head: K 192, V 128 padded to 192) through the flash kernel at head_dim
+192 against the plain attention; and a GPT-OSS prefill (sinks, a sliding
+window, biases) at its per-head widths, which launches no flash kernel,
+against the fp32 forward with its expert picks replayed.
 
 JAX-free like ``test_torch_kernels_gpu.py``: ``python -m pytest
 --noconftest -m gpu tests/test_torch_engine_gpu.py``. The model is
@@ -246,6 +248,73 @@ def test_mla_prefill_through_the_kernel_matches_plain_attention():
     torch.cuda.synchronize()
     assert flash_attention_prefill.launches == before + 2
     want = prefill("plain")
+    assert (got - want).abs().max() <= 5e-2 * want.abs().max()
+    assert torch.nn.functional.cosine_similarity(
+        got.flatten(), want.flatten(), dim=0
+    ) >= 0.999
+
+
+@pytest.mark.gpu
+def test_gptoss_prefill_matches_the_fp32_forward_with_its_picks_replayed():
+    """Two GPT-OSS layers at its per-head widths (64 q heads on 8 kv
+    heads, head_dim 64, a window of 128 on layer 0, sinks, q/k/v/o and
+    expert biases drawn nonzero, YaRN), narrow elsewhere: a bf16 prefill
+    of 300 tokens on the card (the runner asks for ``"flash"``; the
+    kernel is never launched, as the JAX ``forward`` never takes it with
+    sinks or a window) against the fp32 forward of the same weights on
+    the card, the bf16 run's expert picks replayed (a top-k pick near a
+    tie flips on any rounding change): within the smoke's logit gate, 5%
+    of the logit scale and cosine 0.999."""
+    from gpustack_tpu_torch.models import transformer as tf  # analysis: ignore[metrics-drift]
+
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card")
+    cfg = dataclasses.replace(
+        get_config("gpt-oss-20b"), name="gptoss-narrow", vocab_size=264,
+        hidden_size=512, intermediate_size=256, moe_intermediate_size=256,
+        num_layers=2, layer_sliding=(True, False), num_experts=8,
+    )
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    for key in ("bq", "bk", "bv", "bo", "sinks", "router_bias", "we_gate_b",
+                "we_up_b", "we_down_b"):
+        params["layers"][key].uniform_(-0.5, 0.5, generator=gen)
+    tokens = torch.randint(1, 264, (1, 300), generator=gen, device="cuda")
+    pos = torch.arange(300, device="cuda")[None, :]
+    picks = []
+    route = tf.moe_route
+
+    def prefill(p, c, replay=False):
+        def routed(x, router_w, rcfg, router_bias=None):
+            if not replay:
+                idx, combine = route(x, router_w, rcfg, router_bias)
+                picks.append(idx)
+                return idx, combine
+            idx = picks.pop(0)
+            logits = x.float() @ router_w.float() + router_bias.float()
+            top_w = torch.softmax(torch.gather(logits, -1, idx), dim=-1)
+            return idx, torch.zeros_like(logits).scatter_(-1, idx, top_w)
+
+        tf.moe_route = routed
+        try:
+            cache = tf.KVCache.create(c, 1, 512, torch.device("cuda"))
+            return tf.forward(p, c, tokens, pos, cache,
+                              attn_impl="flash")[0][0].float()
+        finally:
+            tf.moe_route = route
+
+    before = flash_attention_prefill.launches
+    got = prefill(params, cfg)
+    torch.cuda.synchronize()
+    assert flash_attention_prefill.launches == before
+    fp32 = {
+        k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict)
+            else v.float())
+        for k, v in params.items()
+    }
+    want = prefill(fp32, dataclasses.replace(cfg, dtype="float32"),
+                   replay=True)
+    assert not picks
     assert (got - want).abs().max() <= 5e-2 * want.abs().max()
     assert torch.nn.functional.cosine_similarity(
         got.flatten(), want.flatten(), dim=0

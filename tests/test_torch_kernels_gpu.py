@@ -159,6 +159,14 @@ _W8A16_SHAPES += [
     for K, N in ((4096, 14336), (14336, 4096), (4096, 4096), (4096, 1024))
     if (M, K, N) not in _W8A16_SHAPES
 ]
+# gemma2-9b's int8 path (d 3584, q 16 x 256, kv 8 x 256, F 14336): every
+# layer weight at a decode step's 8 slots, the 2048 bucket and a 64 one
+_W8A16_SHAPES += [
+    (M, K, N)
+    for M in (8, 64, 2048)
+    for K, N in ((3584, 4096), (3584, 2048), (4096, 3584), (3584, 14336),
+                 (14336, 3584))
+]
 # N % 16 but not % 64 or % 128, K % 8 but not % 64, on both tile widths
 _W8A16_SHAPES += [
     (2048, 4104, 4112), (512, 4104, 1040), (33, 4104, 4112),

@@ -93,7 +93,7 @@ def _pair(hf, dtype="float32", seed=0, router_bias=False):
         jparams["layers"]["router_bias"] = jnp.asarray(
             rng.standard_normal(shape) * 0.3, jnp.float32
         )
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     return cfg, jcfg, jparams, tparams
 
 

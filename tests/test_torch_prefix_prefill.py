@@ -37,7 +37,7 @@ def runners():
     jcfg = dataclasses.replace(jax_get_config("tiny"), dtype="float32")
     jparams = init_params(jcfg, jax.random.key(0), dtype=jnp.float32)
     cfg = dataclasses.replace(get_config("tiny"), dtype="float32")
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     jr = JaxRunner(jcfg, jparams, max_slots=2, max_seq_len=MAX_SEQ)
     tr = ModelRunner(
         cfg, tparams, torch.device("cpu"), max_slots=2, max_seq_len=MAX_SEQ

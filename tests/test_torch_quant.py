@@ -56,7 +56,7 @@ def _trees(name="tiny"):
     jcfg = dataclasses.replace(JAX_PRESETS[name], dtype="float32")
     jparams = jt.init_params(jcfg, jax.random.key(0), dtype=jnp.float32)
     jq_params = jq.quantize_params(jparams)
-    tq = params_from_numpy(jax.tree.map(np.asarray, jq_params), cfg, "cpu")
+    tq = params_from_numpy(jax.tree.map(np.asarray, jq_params), "cpu")
     return cfg, jcfg, jparams, jq_params, tq
 
 
@@ -70,8 +70,8 @@ def _leaves(tree, prefix=""):
 
 @pytest.mark.parametrize("name", ["tiny", "tiny-qwen3"])
 def test_quantize_params_bits_match_jax(name):
-    cfg, _, jparams, jq_params, _ = _trees(name)
-    fp = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    _, _, jparams, jq_params, _ = _trees(name)
+    fp = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     got = dict(_leaves(pq.quantize_params(fp)))
     want = dict(_leaves(jq_params))
     assert got.keys() == want.keys()

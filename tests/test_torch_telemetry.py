@@ -160,7 +160,7 @@ def served(tmp_path_factory):
     jparams = init_params(jcfg, jax.random.key(0), dtype=jnp.float32)
     cfg = dataclasses.replace(get_config("tiny"), dtype="float32")
     eng = LLMEngine(
-        cfg, params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu"),
+        cfg, params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu"),
         max_slots=2, max_seq_len=256, device="cpu", prefill_chunk=32,
         host_kv_cache_mb=16, kv_block_tokens=16, kv_spill_mb=4,
         kv_spill_dir=str(tmp_path_factory.mktemp("spill")),

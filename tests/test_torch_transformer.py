@@ -19,6 +19,7 @@ from gpustack_tpu.models.config import PRESETS as JAX_PRESETS
 from gpustack_tpu.models.config import ModelConfig as JaxModelConfig
 from gpustack_tpu_torch.engine.runner import greedy_reference  # analysis: ignore[metrics-drift]
 from gpustack_tpu_torch.engine.weights import params_from_numpy  # analysis: ignore[metrics-drift]
+from gpustack_tpu_torch.models import quant as pq  # analysis: ignore[metrics-drift]
 from gpustack_tpu_torch.models import transformer as pt  # analysis: ignore[metrics-drift]
 from gpustack_tpu_torch.models.config import PRESETS, get_config  # analysis: ignore[metrics-drift]
 
@@ -31,7 +32,7 @@ def _pair(name="tiny"):
     jcfg = dataclasses.replace(JAX_PRESETS[name], dtype="float32")
     jparams = jt.init_params(jcfg, jax.random.key(0), dtype=jnp.float32)
     tree = jax.tree.map(np.asarray, jparams)
-    return cfg, jcfg, jparams, params_from_numpy(tree, cfg, "cpu")
+    return cfg, jcfg, jparams, params_from_numpy(tree, "cpu")
 
 
 def _tokens(seed, B, T, vocab):
@@ -203,5 +204,26 @@ def test_init_params_shapes_match_jax():
     "name", ["gpt-oss-120b", "gemma2-9b", "gpt-oss-20b"]
 )
 def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.check_supported(get_config(name))
+    """The GPT-OSS and Gemma2 presets serve: ``init_params`` gives JAX's
+    tree, shapes and dtypes (on the meta device: no memory). int8 stays
+    refused for the MoE presets only (ROADMAP's int8 MoE item)."""
+    cfg = get_config(name)
+    tparams = pt.init_params(cfg, torch.Generator(), device="meta")
+    jshapes = jax.eval_shape(
+        lambda: jt.init_params(JAX_PRESETS[name], jax.random.key(0))
+    )
+
+    def shapes(tree, conv):
+        return {
+            k: shapes(v, conv) if isinstance(v, dict) else conv(v)
+            for k, v in tree.items()
+        }
+
+    assert shapes(tparams, lambda t: (tuple(t.shape), str(t.dtype)[6:])) == (
+        shapes(jshapes, lambda a: (tuple(a.shape), str(a.dtype)))
+    )
+    if cfg.is_moe:
+        with pytest.raises(NotImplementedError, match="ROADMAP.*int8 MoE"):
+            pq.check_quantizable(cfg)
+    else:
+        pq.check_quantizable(cfg)

@@ -290,10 +290,22 @@ def test_bf16_checkpoint_loads_bit_for_bit(tmp_path):
     )
 
 
-def test_unsupported_family_raises_before_reading(tmp_path):
-    cfg = get_config("gpt-oss-20b")
-    with pytest.raises(NotImplementedError, match="attention sinks"):
-        pw.load_hf_checkpoint(cfg, str(tmp_path / "nowhere"))
+def test_unsupported_family_raises_before_reading(monkeypatch):
+    """gpt-oss-20b serves in bf16; with ``--quantization int8`` the server
+    refuses it (int8 MoE) before any weight is read or drawn."""
+    from gpustack_tpu_torch.engine import api_server  # analysis: ignore[metrics-drift]
+
+    def no_load(*a, **k):
+        raise AssertionError("weights were read")
+
+    monkeypatch.setattr(pw, "load_or_init_params", no_load)
+    monkeypatch.setattr(pq, "init_quantized_params", no_load)
+    args = api_server.build_parser().parse_args([
+        "--preset", "gpt-oss-20b", "--device", "cpu", "--quantization",
+        "int8",
+    ])
+    with pytest.raises(NotImplementedError, match="int8 MoE"):
+        api_server.build_engine_from_args(args)
 
 
 # ---------------------------------------------------------------------------
@@ -347,7 +359,7 @@ def test_jax_saves_port_loads(tmp_path):
 def test_port_saves_jax_loads(tmp_path):
     jcfg, jparams = _jax_quantized()
     tparams = pw.params_from_numpy(
-        jax.tree.map(np.asarray, jparams), get_config("tiny"), "cpu"
+        jax.tree.map(np.asarray, jparams), "cpu"
     )
     path = str(tmp_path / "port.npz")
     pw.save_checkpoint(tparams, path)
@@ -404,7 +416,7 @@ def _fp32_pair():
     cfg = dataclasses.replace(get_config("tiny"), dtype="float32")
     jparams = jax_init_params(jcfg, jax.random.key(0), dtype=jnp.float32)
     tparams = pw.params_from_numpy(
-        jax.tree.map(np.asarray, jparams), cfg, "cpu"
+        jax.tree.map(np.asarray, jparams), "cpu"
     )
     return cfg, jcfg, tparams, jparams
 
