@@ -25,7 +25,13 @@ c. kernels: each hand-written kernel against its plain PyTorch version on
    the cacheless embedding shapes (B of 2, 4 and 8, T = S), at
    deepseek-v2-lite's heads (16 q and kv heads, d 192: every bucket phase
    i fills, a continuation, its 8 x 2048 embedding batch) and once at
-   d 64;
+   d 64; the W8A16 kernel batched over the experts (``w8a16_bmm``) at
+   mixtral-8x7b's gate and up products (x read by every expert in place)
+   and its down product (each expert's columns of h) and qwen3-30b-a3b's
+   gate and up products, at a decode step's 8 slots and the 2048 bucket,
+   every expert held to the plain version, timed beside the plain
+   version, cuBLAS ``bmm`` on the weights dequantized to bf16 and the
+   bound;
 d. main path: the port's OpenAI server in-process, serving llama3-8b at
    full width (bf16, random weights from a seed) with 8 slots and a
    2048-token context: chat, streaming chat, a completion whose prompt
@@ -76,7 +82,10 @@ h. the MoE family: qwen3-30b-a3b (qk-norm, 128 experts, top-8, dense
    and its routed bound (the experts the input's routing reaches), with
    its transient memory (no ``[E, tokens, D]`` copy of x) and its device
    time split by kernel. Phase c times the flash kernel at this model's
-   heads too (32 q heads on 4 kv heads, a group of 8);
+   heads too (32 q heads on 4 kv heads, a group of 8). The 2-layer
+   checkpoint is also served with ``--quantization int8``: its tree equals
+   ``quantize_params`` of the in-memory tree, bit for bit (quantized a
+   layer at a time on the card), and so do its logits;
 i. the DeepSeek family: deepseek-v2-lite (MLA served decompressed, K 192
    wide and V zero-padded to it; one dense layer then 26 DeepSeek-MoE
    layers of 64 experts, top-6, two shared; YaRN with its mscale² softmax
@@ -89,7 +98,11 @@ i. the DeepSeek family: deepseek-v2-lite (MLA served decompressed, K 192
    routing beside), ``/v1/embeddings`` at the 2048 bucket against the
    plain attention, a 20-step profile, and a ``moe`` line for one of its
    MoE layers with the shared experts in the layer, its reference and its
-   bounds;
+   bounds; then ``--quantization int8`` (~16 GB: MLA's projections, the
+   shared experts and the dense layer through the W8A16 kernel, the
+   experts through the batched one) with phase d's requests, exact
+   launches, and its kernel logits against the plain versions with the
+   kernel run's expert picks replayed;
 j. the GPT-OSS family: gpt-oss-20b (attention sinks, a window of 128 on
    the even layers, q/k/v/o biases, YaRN; 32 experts, top-4, the affine
    router, clamped GLU with expert biases) once phase i's tree is freed:
@@ -114,19 +127,33 @@ k. the Gemma family: gemma2-9b (delta-gain sandwich norms, the scaled and
    ``--quantization int8`` with phase d's requests, its W8A16 kernel
    logits against the plain version; each path's 2048-bucket prefill
    split into its attention time. Phase c times the W8A16 kernel at this
-   model's widths too.
+   model's widths too;
+l. int8 MoE at full width and depth: mixtral-8x7b (32 layers, d 4096, 32
+   q heads on 8 kv heads, 8 experts, top-2, width 14336, vocab 32000)
+   with ``--quantization int8``, ~46.7 GB drawn on the card (its 93 GB of
+   bf16 fit no card): phase d's requests with exact launches (a
+   2048-bucket forward runs 129 2-D W8A16 products and 96 batched ones),
+   its kernel logits against the W8A16 plain versions with the kernel
+   run's expert picks replayed (free routing beside), TTFT, prefill,
+   decode tokens/s, the int8 tree's GB and the peak memory; then a
+   ``moe`` line for one int8 MoE layer at the 2048 bucket and at 8
+   slots against the fp32 routed reference and its dense bound.
 
-In d to k every kernel's launches are counted around the served
+In d to l every kernel's launches are counted around the served
 requests alone and must equal what that path's model forwards need,
 derived from the runners' calls (a draft model's too): the flash kernel
 once per layer of every prefill and embedding forward of a model whose
 config takes it (none with a sliding window, softcap or sinks: phases j
-and k launch it never); on the int8 path the W8A16 kernel 7 per layer at
-M = B·T plus an untied lm_head at the rows it reads (a prefill's last
-position, a decode step's slots, every position of a verify block; none
-for an embedding; a tied lm_head is the bf16 embedding's transpose),
-never on a bf16 path, and counted per path by M: M ≤ 16 the GEMV, above
-it the ``wgmma`` path. Each kernel must launch on at least one path.
+and k launch it never); on the int8 path the W8A16 kernel 7 per layer of
+a dense model at M = B·T plus an untied lm_head at the rows it reads (a
+prefill's last position, a decode step's slots, every position of a
+verify block; none for an embedding; a tied lm_head is the bf16
+embedding's transpose), never on a bf16 path, and counted per path by M:
+M ≤ 16 the GEMV, above it the ``wgmma`` path; on an int8 MoE path the
+2-D products of MLA's projections, the shared experts and a dense layer
+too, and the batched kernel three times per MoE layer and token chunk,
+per path by the chunk's rows (0 on every path without int8 experts).
+Each kernel must launch on at least one path.
 
 The last lines are the ``kernels`` line, the ``nvidia-smi`` name and
 power-limit line, and ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -188,6 +215,16 @@ GEMMA2_9B_MATMULS = {
     "wo": (4096, 3584),
     "w_gate/w_up": (3584, 14336),
     "w_down": (14336, 3584),
+}
+# the batched W8A16 (one launch over an MoE layer's experts) at the expert
+# products phase l (mixtral-8x7b) and phase h's model (qwen3-30b-a3b)
+# give it: (E, K, N, x) with x "shared" (the gate and up products: one x
+# read by every expert, batch stride 0) or "h" (the down product: expert
+# e's columns of h [tokens, E, Fm])
+W8A16_BMM_PRODUCTS = {
+    "mixtral-8x7b we_gate/we_up": (8, 4096, 14336, "shared"),
+    "mixtral-8x7b we_down": (8, 14336, 4096, "h"),
+    "qwen3-30b-a3b we_gate/we_up": (128, 2048, 768, "shared"),
 }
 # the weights a decode step reads back to back never sit in the 50 MB L2:
 # time each shape over copies of its weight totalling at least this much
@@ -503,8 +540,21 @@ def phase_kernels():
                     "row_rtol": W8A16_ROW_RTOL},
          wgmma_smem_bytes_per_cta={bn: smem(bn) for bn in (128, 256)},
          cases=w8_rows, ragged=ragged)
+    # the batched W8A16 at a decode step's 8 slots (the GEMV) and the 2048
+    # bucket (the wgmma path), each expert against the fp32 plain version
+    bmm_rows = {
+        (weight, M): _w8a16_bmm_case(M, *W8A16_BMM_PRODUCTS[weight], weight,
+                                     gen, repeats=3 if M == 8 else 1)
+        for weight in W8A16_BMM_PRODUCTS for M in (8, 2048)
+    }
+    emit("kernels", name="w8a16_bmm",
+         tolerance={"rtol": W8A16_RTOL, "atol": W8A16_ATOL,
+                    "row_rtol": W8A16_ROW_RTOL},
+         cases=list(bmm_rows.values()))
     return {"flash_attention_prefill": rows[0], "w8a16_matmul": w8_rows[0],
+            "w8a16_bmm": bmm_rows["mixtral-8x7b we_gate/we_up", 8],
             "w8a16_large_m": w8_rows[large], "w8a16_gemma2": w8_rows[gemma2],
+            "w8a16_bmm_cases": bmm_rows,
             "flash_group8": rows[group8], "flash_mla": rows[mla]}
 
 
@@ -636,6 +686,77 @@ def _w8a16_case(M, K, N, weight, gen, repeats=1):
     }
 
 
+def _w8a16_bmm_case(M, E, K, N, x_kind, weight, gen, repeats=1):
+    """One batched product of ``E`` experts at M rows each: every expert's
+    output held to the fp32 plain version; the kernel timed over copies of
+    q of >= 128 MiB in all (CUDA events), beside the plain version, cuBLAS
+    ``bmm`` on the weights dequantized to bf16 ahead of time (what bf16
+    serving pays; x expanded or strided the same way) and the bound."""
+    from gpustack_tpu_torch.ops import w8a16
+
+    if x_kind == "shared":
+        x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+        xe = x.expand(E, M, K)
+    else:
+        h = torch.randn(M, E, K, generator=gen, device="cuda").bfloat16()
+        xe = h.transpose(0, 1)
+    q = torch.randint(-127, 128, (E, K, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = (
+        (0.5 + torch.rand(E, N, generator=gen, device="cuda"))
+        * (3.0 / K ** 0.5 / 127.0)
+    ).bfloat16()
+    out = w8a16.w8a16_bmm(xe, q, s)
+    torch.cuda.synchronize()
+    checks = [_check_w8a16(out[e], xe[e], q[e], s[e]) for e in range(E)]
+    max_err = max(c[0] for c in checks)
+    row_rel = max(c[1] for c in checks)
+    copies = max(1, -(-L2_FLUSH_BYTES // (E * K * N)))
+    qs = [q] + [q.clone() for _ in range(copies - 1)]
+    kernel = _rotating(w8a16.w8a16_bmm, [(xe, qi, s) for qi in qs])
+    ms_runs = [cuda_time_ms(kernel) for _ in range(repeats)]
+    host_us = host_us_per_call(kernel)
+    plain_ms = cuda_time_ms(
+        lambda: w8a16.w8a16_bmm_plain(xe, q, s), warmup=1, iters=3
+    )
+    ws = [(qi.float() * s.float()[:, None, :]).bfloat16() for qi in qs]
+    cublas_ms = cuda_time_ms(_rotating(torch.bmm, [(xe, w) for w in ws]))
+    del ws, qs
+    flops = 2 * E * M * N * K
+    # x read once: one [M, K] for every expert, or each expert's own
+    x_bytes = M * K * 2 * (1 if x_kind == "shared" else E)
+    nbytes = x_bytes + E * K * N + E * N * 2 + E * M * N * 2
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    ms = statistics.median(ms_runs)
+    sms = w8a16._sm_count(q.device.index)
+    if M <= w8a16.GEMV_MAX_M:
+        ksplit = w8a16.gemv_plan(N, K, sms, E)[1]
+        plan = {"path": "gemv", "ksplit": ksplit,
+                "ctas": E * -(-N // w8a16.GEMV_BN) * ksplit}
+    else:
+        bn, grid_m, grid_n, _, ksplit = w8a16.wgmma_plan(M, N, K, sms, E)
+        ctas = E * grid_m * grid_n * ksplit
+        plan = {"path": "wgmma", "bn": bn, "ksplit": ksplit, "ctas": ctas,
+                "waves": ctas / sms}
+    return {
+        "weight": weight, "x": x_kind,
+        "shape": {"E": E, "M": M, "K": K, "N": N}, **plan,
+        "max_abs_err": max_err, "max_row_rel_err": row_rel,
+        "ms": ms, "ms_runs": ms_runs, "plain_ms": plain_ms,
+        "library_ms": None,
+        "library_call": "none: no PyTorch call takes int8 [E, K, N] weights",
+        "cublas_bf16_dequantized_ms": cublas_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "host_us_per_call": host_us,
+        "limited_by": "host" if host_us / 1e3 >= ms else "device",
+        "weight_copies_timed": copies,
+        "gbytes_per_s": nbytes / ms / 1e6, "tflops": flops / ms / 1e9,
+        "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+    }
+
+
 def _w8a16_check_strided(M, K, N, gen):
     """One product on strided views, held to the plain version: q columns
     [0, N) of layer 1 of a stacked [2, K, N + 48] weight, x columns [0, K)
@@ -669,32 +790,47 @@ KERNEL_META = {
         "source": "gpustack_tpu_torch/ops/csrc/w8a16_gemm.cu",
         "replaces": "gpustack_tpu/models/transformer.py:46",
     },
+    # the int8 expert products of the JAX _moe_mlp (_mm over the expert
+    # axis, an XLA fusion): the same source's batched entry
+    "w8a16_bmm": {
+        "route": "cuda",
+        "source": "gpustack_tpu_torch/ops/csrc/w8a16_gemm.cu",
+        "replaces": "gpustack_tpu/models/transformer.py:487",
+    },
 }
+# the wrappers whose launches are also counted per path: {wrapper: prefix}
+W8A16_WRAPPERS = {"w8a16_matmul": "w8a16", "w8a16_bmm": "w8a16_bmm"}
 
 
 def _wrappers():
     from gpustack_tpu_torch.ops.flash_attention import flash_attention_prefill
-    from gpustack_tpu_torch.ops.w8a16 import w8a16_matmul
+    from gpustack_tpu_torch.ops.w8a16 import w8a16_bmm, w8a16_matmul
 
     return {
         "flash_attention_prefill": flash_attention_prefill,
         "w8a16_matmul": w8a16_matmul,
+        "w8a16_bmm": w8a16_bmm,
     }
 
 
 def launch_counts():
-    """Each wrapper's launches, and the W8A16 wrapper's per path."""
-    counts = {name: fn.launches for name, fn in _wrappers().items()}
-    by_path = _wrappers()["w8a16_matmul"].launches_by_path
-    counts.update({f"w8a16_{path}": n for path, n in by_path.items()})
+    """Each wrapper's launches, and each W8A16 wrapper's per path
+    (``w8a16_gemv`` ... ``w8a16_bmm_wgmma``)."""
+    wrappers = _wrappers()
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    for name, prefix in W8A16_WRAPPERS.items():
+        counts.update({f"{prefix}_{path}": n for path, n in
+                       wrappers[name].launches_by_path.items()})
     return counts
 
 
 def reset_launch_counts():
-    for fn in _wrappers().values():
+    wrappers = _wrappers()
+    for fn in wrappers.values():
         fn.launches = 0
-    by_path = _wrappers()["w8a16_matmul"].launches_by_path
-    by_path.update(dict.fromkeys(by_path, 0))
+    for name in W8A16_WRAPPERS:
+        by_path = wrappers[name].launches_by_path
+        by_path.update(dict.fromkeys(by_path, 0))
 
 
 class RunnerCalls:
@@ -740,27 +876,63 @@ class RunnerCalls:
                 for name in self.METHODS}
 
 
+def int8_products(cfg):
+    """(2-D W8A16 products, batched expert products) of one forward's
+    layers with every weight int8, from the config: attention's q, k, v
+    and o (MLA: ``wq`` or ``wq_a`` and ``wq_b``, then ``wkv_a``, ``wkv_b``
+    and ``wo``); a dense layer's gate, up and down; an MoE layer's shared
+    experts' gate, up and down (its ungated shared gate stays bf16) and
+    its experts' gate, up and down, each one batched product per token
+    chunk."""
+    attn = (3 + (2 if cfg.q_lora_rank else 1)) if cfg.is_mla else 4
+    moe = cfg.num_layers - cfg.first_k_dense if cfg.is_moe else 0
+    shared = 3 if moe and cfg.shared_expert_intermediate_size else 0
+    return (cfg.num_layers * attn + (cfg.num_layers - moe) * 3
+            + moe * shared, 3 * moe)
+
+
 def expected_launches(runner_calls):
     """What windows of runner forwards must launch, each
     :class:`RunnerCalls` with its own model: the flash kernel once per
     layer of every prefill forward (bucketed or continuation) and every
     embedding forward where the model's config takes it
     (``flash_eligible``: no sliding window, softcap or sinks, the JAX
-    ``forward``'s own condition), else never; with int8 weights the W8A16
-    kernel seven times per layer (q, k, v, o, gate, up, down) at M = B·T,
-    plus an untied lm_head at the rows it reads (a prefill's last
-    position, a decode step's slots, all of a verify block's positions;
-    an embedding forward and a draft's ingest read none; a tied lm_head
-    is the bf16 embedding's transpose), and never without. Each product
-    of M ≤ 16 rows takes the GEMV, any larger one the ``wgmma`` path."""
-    from gpustack_tpu_torch.models.transformer import flash_eligible
+    ``forward``'s own condition), else never; with int8 weights the 2-D
+    W8A16 kernel at M = B·T for every layer product of
+    :func:`int8_products` (seven a layer on a dense model: q, k, v, o,
+    gate, up, down), plus an untied lm_head at the rows it reads (a
+    prefill's last position, a decode step's slots, all of a verify
+    block's positions; an embedding forward and a draft's ingest read
+    none; a tied lm_head is the bf16 embedding's transpose), and on an
+    MoE model the batched kernel three times per MoE layer and token
+    chunk (``moe_chunk_tokens``: one chunk up to the 2048 bucket at every
+    served width), at the chunk's rows; never without int8. Each product
+    of M ≤ 16 rows (per expert, for the batched kernel) takes the GEMV,
+    any larger one the ``wgmma`` path."""
+    from gpustack_tpu_torch.models.transformer import (
+        flash_eligible,
+        moe_chunk_tokens,
+        torch_dtype,
+    )
     from gpustack_tpu_torch.ops.w8a16 import GEMV_MAX_M
 
     want = {"flash_attention_prefill": 0, "w8a16_matmul": 0,
-            "w8a16_gemv": 0, "w8a16_wgmma": 0}
+            "w8a16_gemv": 0, "w8a16_wgmma": 0, "w8a16_bmm": 0,
+            "w8a16_bmm_gemv": 0, "w8a16_bmm_wgmma": 0}
+
+    def count(prefix, wrapper, m, n):
+        path = "gemv" if m <= GEMV_MAX_M else "wgmma"
+        want[f"{prefix}_{path}"] += n
+        want[wrapper] += n
+
     for calls in runner_calls:
         cfg = calls.runner.cfg
         layers, flash = cfg.num_layers, flash_eligible(cfg)
+        two_d, batched = int8_products(cfg)
+        chunk = moe_chunk_tokens(
+            cfg.num_experts, cfg.moe_intermediate_size, cfg.hidden_size,
+            True, torch_dtype(cfg).itemsize,
+        ) if batched else 0
         for name, B, T in calls.forwards:
             if flash and name in ("prefill", "prefill_with_prefix", "embed"):
                 want["flash_attention_prefill"] += layers
@@ -770,12 +942,12 @@ def expected_launches(runner_calls):
                 "prefill": 1, "prefill_with_prefix": 1,
                 "decode_step": B, "verify_step": B * T,
             }.get(name)
-            for m, n in ((B * T, 7 * layers), (head, 1)):
-                if m is None:
-                    continue
-                path = "gemv" if m <= GEMV_MAX_M else "wgmma"
-                want[f"w8a16_{path}"] += n
-                want["w8a16_matmul"] += n
+            for m, n in ((B * T, two_d), (head, 1)):
+                if m is not None:
+                    count("w8a16", "w8a16_matmul", m, n)
+            for start in range(0, B * T if batched else 0, chunk or 1):
+                count("w8a16_bmm", "w8a16_bmm",
+                      min(chunk, B * T - start), batched)
     return want
 
 
@@ -1591,6 +1763,7 @@ def phase_prefix_reuse(kind, smi):
         check_launches("prefix reuse", counts, {
             "flash_attention_prefill": engine.cfg.num_layers * forwards,
             "w8a16_matmul": 0, "w8a16_gemv": 0, "w8a16_wgmma": 0,
+            "w8a16_bmm": 0, "w8a16_bmm_gemv": 0, "w8a16_bmm_wgmma": 0,
         })
         samples, types = parse_prometheus(_get(port, "/metrics"))
         h = health()
@@ -1908,7 +2081,7 @@ DELTA_GAINS = ("attn_norm", "mlp_norm", "post_attn_norm", "post_mlp_norm",
 
 
 def phase_checkpoint(kind, smi, preset="llama3-8b", device="cuda",
-                     mxfp4=False):
+                     mxfp4=False, int8=False):
     """``preset`` (llama3-8b, qwen3-30b-a3b in Qwen3-MoE naming,
     deepseek-v2-lite in DeepSeek-V2 naming: one dense layer, one MoE;
     gpt-oss-20b in GPT-OSS naming; gemma2-9b in Gemma2 naming, tied) at
@@ -1918,7 +2091,10 @@ def phase_checkpoint(kind, smi, preset="llama3-8b", device="cuda",
     loaded tree and a prompt's last-position logits must equal the
     in-memory tree's, bit for bit. With ``mxfp4`` the GPT-OSS expert
     weights go to disk as MXFP4 blocks and scales, and the in-memory tree
-    is the one the packing rounds them to."""
+    is the one the packing rounds them to. With ``int8`` the same
+    checkpoint is also served with ``--quantization int8``: its tree must
+    equal ``quantize_params`` of the in-memory tree, bit for bit, and so
+    must a prompt's logits through the kernels."""
     from gpustack_tpu_torch.engine.api_server import (
         OpenAIServer,
         build_engine_from_args,
@@ -1949,14 +2125,21 @@ def phase_checkpoint(kind, smi, preset="llama3-8b", device="cuda",
         with open(os.path.join(model_dir, "config.json"), "w") as f:
             json.dump(_hf_config(cfg), f)
         write_s = time.perf_counter() - t0
-        args = build_parser().parse_args([
+        argv = [
             "--model-dir", model_dir, "--max-slots", "8",
             "--max-seq-len", "2048", "--device", device,
-        ])
+        ]
         t0 = time.perf_counter()
-        engine = build_engine_from_args(args)
+        engine = build_engine_from_args(build_parser().parse_args(argv))
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
+        if int8:
+            t0 = time.perf_counter()
+            engine8 = build_engine_from_args(
+                build_parser().parse_args(argv + ["--quantization", "int8"])
+            )
+            torch.cuda.synchronize()
+            int8_load_s = time.perf_counter() - t0
     if dataclasses.replace(engine.cfg, name=cfg.name) != cfg:
         raise AssertionError(f"config.json read back as {engine.cfg}")
     loaded = engine.runner.params
@@ -1983,6 +2166,12 @@ def phase_checkpoint(kind, smi, preset="llama3-8b", device="cuda",
             "logits of the loaded checkpoint differ from the in-memory "
             f"tree's: max |err| {(got - want).abs().max().item()}"
         )
+    int8_report = None
+    if int8:
+        int8_report = _int8_checkpoint_check(engine8, tree, padded,
+                                             len(prompt))
+        int8_report["load_s"] = int8_load_s
+        del engine8
     del in_memory, tree, loaded, got, want
     engine.start()
     server = OpenAIServer(engine)
@@ -2002,13 +2191,54 @@ def phase_checkpoint(kind, smi, preset="llama3-8b", device="cuda",
          device=kind, nvidia_smi=smi, checkpoint_gb=nbytes / 1e9, write_s=write_s,
          load_s=load_s, load_gb_per_s=nbytes / 1e9 / load_s,
          logits="identical bits", prompt_tokens=len(prompt),
-         chat_usage=usage)
+         chat_usage=usage, **({"int8": int8_report} if int8 else {}))
+
+
+def _int8_checkpoint_check(engine8, tree, padded, n_prompt):
+    """The checkpoint served with ``--quantization int8`` (loaded, then
+    quantized a layer at a time on the card) against ``quantize_params``
+    of the in-memory bf16 tree: every leaf, int8 values and bf16 scales,
+    bit for bit, and a prompt's logits through the kernels."""
+    from gpustack_tpu_torch.engine.runner import ModelRunner
+    from gpustack_tpu_torch.models.quant import QuantW, quantize_params
+
+    want_tree = quantize_params(tree)
+    got, want = _leaves(engine8.runner.params), _leaves(want_tree)
+
+    def same(a, b):
+        if isinstance(b, QuantW):
+            return isinstance(a, QuantW) and all(
+                x.dtype == y.dtype and torch.equal(x, y)
+                for x, y in ((a.q, b.q), (a.s, b.s))
+            )
+        return a.dtype == b.dtype and torch.equal(a, b)
+
+    mismatched = [k for k, b in want.items() if k not in got
+                  or not same(got[k], b)]
+    if mismatched or got.keys() != want.keys():
+        raise AssertionError(f"int8 checkpoint tree differs at {mismatched}")
+    quantized = sorted(k for k, b in want.items() if isinstance(b, QuantW))
+    in_memory = ModelRunner(
+        engine8.cfg, want_tree, engine8.runner.device, max_slots=8,
+        max_seq_len=2048,
+    )
+    with torch.no_grad():
+        logits, _, _ = engine8.runner.prefill(padded, n_prompt)
+        ref, _, _ = in_memory.prefill(padded, n_prompt)
+    if not torch.isfinite(logits).all() or not torch.equal(logits, ref):
+        raise AssertionError("int8 checkpoint logits differ from the "
+                             "quantized in-memory tree's")
+    return {"tree": "identical bits", "quantized_leaves": quantized,
+            "int8_gb": _tree_gb(engine8.runner.params),
+            "logits": "identical bits"}
 
 
 def _int8_logit_check(engine):
-    """The int8 tree's last-position logits through the kernel against the
-    same tree through the W8A16 plain version (outside the counted
-    window)."""
+    """The int8 tree's last-position logits through the kernels against the
+    same tree through the W8A16 plain versions, 2-D and batched (outside
+    the counted window). On an MoE model the plain run replays the kernel
+    run's expert picks (:class:`_RoutingTape`), and the free-routing
+    comparison is reported beside it."""
     from gpustack_tpu_torch.ops import w8a16
 
     runner = engine.runner
@@ -2017,28 +2247,41 @@ def _int8_logit_check(engine):
     bucket = runner.bucket_for(len(prompt))
     padded = prompt + [0] * (bucket - len(prompt))
 
-    def through(matmul):
-        kernel = w8a16.w8a16_matmul
-        w8a16.w8a16_matmul = matmul
+    def plain_last():
+        kernels = w8a16.w8a16_matmul, w8a16.w8a16_bmm
+        w8a16.w8a16_matmul = w8a16.w8a16_plain
+        w8a16.w8a16_bmm = w8a16.w8a16_bmm_plain
         try:
             return runner.prefill(padded, len(prompt))[0]
         finally:
-            w8a16.w8a16_matmul = kernel
+            w8a16.w8a16_matmul, w8a16.w8a16_bmm = kernels
 
-    with torch.no_grad():
+    moe = {}
+    with torch.no_grad(), _RoutingTape() as tape:
         kernel_last, _, _ = runner.prefill(padded, len(prompt))
-        plain_last = through(w8a16.w8a16_plain)
+        tape.mode = "replay"
+        plain = plain_last()
+        if tape.picks:
+            tape.mode = "free"
+            moe = {
+                "routing": "the kernel run's expert picks replayed",
+                "free_routing": {
+                    **_compare_logits(kernel_last, plain_last()),
+                    "tokens_with_a_flipped_pick_per_layer": tape.flips,
+                },
+            }
     if kernel_last.shape != (cfg.vocab_size,) or not torch.isfinite(
         kernel_last
     ).all():
         raise AssertionError(f"bad logits {tuple(kernel_last.shape)}")
-    scale = plain_last.abs().max().item()
-    err = (kernel_last - plain_last).abs().max().item()
+    scale = plain.abs().max().item()
+    err = (kernel_last - plain).abs().max().item()
     cos = torch.nn.functional.cosine_similarity(
-        kernel_last, plain_last, dim=0
+        kernel_last, plain, dim=0
     ).item()
-    emit("int8_logit_check", prompt_tokens=len(prompt), bucket=bucket,
-         max_abs_err=err, logit_scale=scale, cosine=cos,
+    emit("int8_logit_check", model=cfg.name, prompt_tokens=len(prompt),
+         bucket=bucket, max_abs_err=err, logit_scale=scale, cosine=cos,
+         **moe,
          tolerance={"rel": LOGIT_REL_TOL, "min_cosine": LOGIT_MIN_COSINE})
     if err > LOGIT_REL_TOL * scale or cos < LOGIT_MIN_COSINE:
         raise AssertionError(
@@ -2543,6 +2786,16 @@ MOE_REL_TOL = 2e-2
 MOE_MIN_COSINE = 0.999
 
 
+def _wide(w):
+    """One [K, N] weight in fp32; an int8 ``QuantW`` dequantized exactly
+    (q times its per-column scale)."""
+    from gpustack_tpu_torch.models.quant import QuantW
+
+    if isinstance(w, QuantW):
+        return w.q.float() * w.s.float()
+    return w.float()
+
+
 def _moe_routed_reference(x, lp, li, cfg):
     """One MoE layer computed the routed way, in fp32: each expert over
     only the tokens that picked it, then ``routed_scaling_factor`` and the
@@ -2552,13 +2805,13 @@ def _moe_routed_reference(x, lp, li, cfg):
     from gpustack_tpu_torch.models import transformer as tf
 
     def mlp(xs, g, u, d, e=None):
-        g, u = xs @ g.float(), xs @ u.float()
+        g, u = xs @ _wide(g), xs @ _wide(u)
         if e is None or cfg.moe_act != "gptoss":
-            return (torch.nn.functional.silu(g) * u) @ d.float()
+            return (torch.nn.functional.silu(g) * u) @ _wide(d)
         g = (g + lp["we_gate_b"][li, e].float()).clamp(max=7.0)
         u = (u + lp["we_up_b"][li, e].float()).clamp(-7.0, 7.0)
         h = (u + 1.0) * (g * torch.sigmoid(1.702 * g))
-        return h @ d.float() + lp["we_down_b"][li, e].float()
+        return h @ _wide(d) + lp["we_down_b"][li, e].float()
 
     xf = x.reshape(-1, cfg.hidden_size).float()
     top_idx, combine = tf.moe_route(
@@ -2585,10 +2838,12 @@ def _moe_layer_case(params, cfg, tokens, gen, li=0):
     this input's routing reaches), its transient device memory, and a
     ``torch.profiler`` split of its device time by kernel."""
     from gpustack_tpu_torch.models import transformer as tf
+    from gpustack_tpu_torch.models.quant import QuantW
 
     lp = params["layers"]
     D, E, Fm, k = (cfg.hidden_size, cfg.num_experts,
                    cfg.moe_intermediate_size, cfg.num_experts_per_tok)
+    int8 = isinstance(lp["we_gate"], QuantW)
     Fs = cfg.shared_expert_intermediate_size if "ws_gate" in lp else 0
     x = tf.rms_norm(
         torch.randn(1, tokens, D, generator=gen, device=gen.device).bfloat16(),
@@ -2627,14 +2882,16 @@ def _moe_layer_case(params, cfg, tokens, gen, li=0):
             f"MoE layer at {tokens} tokens differs from the routed "
             f"reference: max |err| {err} (scale {scale}), cosine {cos}"
         )
-    # g, u and h of one chunk; an [E, tokens, D] copy of x would add its
-    # own size on top
-    gu_h = 3 * min(tokens, tf.MOE_CHUNK_BYTES // (3 * E * Fm * 2)) * E * Fm * 2
+    # g, u and h of one chunk (and with int8 experts the outputs y); an
+    # [E, tokens, D] copy of x would add its own size on top
+    chunk = min(tokens, tf.moe_chunk_tokens(E, Fm, D, int8, 2))
+    gu_h = chunk * (3 * E * Fm + (E * D if int8 else 0)) * 2
     x_copy = E * tokens * D * 2
     if transient > gu_h + max(x_copy // 2, 64 << 20):
         raise AssertionError(
             f"MoE layer at {tokens} tokens held {transient / 1e9} GB of "
-            f"transients; g, u and h are {gu_h / 1e9} GB"
+            f"transients; g, u and h{' and y' if int8 else ''} are "
+            f"{gu_h / 1e9} GB"
         )
     ms = cuda_time_ms(layer)
     # where a call's device time goes, by kernel (three calls traced)
@@ -2650,10 +2907,15 @@ def _moe_layer_case(params, cfg, tokens, gen, li=0):
         prof.export_chrome_trace(path)
         trace = summarize_trace(path, 3)
     reached = int(top_idx.unique().numel())
+    # a weight's bytes per value, and its scales: int8 q and a bf16 scale
+    # per output column, or bf16
+    wb = 1 if int8 else 2
     # x in, out, the router, and the shared experts (every token's)
-    io = 2 * tokens * D * 2 + D * E * 2 + 3 * D * Fs * 2
-    # one expert's weights (and GPT-OSS's biases)
-    expert_bytes = (3 * D * Fm + (2 * Fm + D if biases else 0)) * 2
+    io = (2 * tokens * D * 2 + D * E * 2 + 3 * D * Fs * wb
+          + ((2 * Fs + D) * 2 if int8 and Fs else 0))
+    # one expert's weights (their scales, GPT-OSS's biases)
+    expert_bytes = (3 * D * Fm * wb + ((2 * Fm + D) * 2 if int8 else 0)
+                    + (2 * Fm + D) * 2 * bool(biases))
     router_ops = 2 * tokens * D * E / PEAK_FP32_FLOPS * 1e3
 
     def bound(experts_read, expert_rows):
@@ -2666,12 +2928,13 @@ def _moe_layer_case(params, cfg, tokens, gen, li=0):
                 "gbytes": (io + experts_read * expert_bytes) / 1e9}
 
     return {
-        "tokens": tokens, "ms": ms, "ms_per_token": ms / tokens,
+        "tokens": tokens, "experts": "int8" if int8 else "bf16",
+        "ms": ms, "ms_per_token": ms / tokens,
         "dense_bound": bound(E, tokens * E),
         "routed_bound": bound(reached, tokens * k),
         "experts_reached": reached,
         "max_abs_err": err, "out_scale": scale, "cosine": cos,
-        "transient_gb": transient / 1e9, "g_u_h_gb": gu_h / 1e9,
+        "transient_gb": transient / 1e9, "chunk_transients_gb": gu_h / 1e9,
         "x_copy_gb_avoided": x_copy / 1e9,
         "trace": {
             "device_ms_per_call": trace["device_ms_per_step"],
@@ -2694,7 +2957,7 @@ def phase_moe(kind, smi, device="cuda"):
         build_parser,
     )
 
-    phase_checkpoint(kind, smi, preset=H_PRESET, device=device)
+    phase_checkpoint(kind, smi, preset=H_PRESET, device=device, int8=True)
     _free()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2737,8 +3000,10 @@ def phase_moe(kind, smi, device="cuda"):
 # ---------------------------------------------------------------------------
 
 def _tree_gb(params):
+    """The tree's device bytes, in GB (an int8 leaf's values and scales)."""
     return sum(
-        t.numel() * t.element_size() for t in _leaves(params).values()
+        t.numel() * t.element_size() for w in _leaves(params).values()
+        for t in ((w.q, w.s) if hasattr(w, "q") else (w,))
     ) / 1e9
 
 
@@ -2802,8 +3067,64 @@ def phase_deepseek(kind, smi, device="cuda"):
          "on every token",
          tolerance={"rel": MOE_REL_TOL, "min_cosine": MOE_MIN_COSINE},
          layers=layers)
+    bf16 = {**{k: report[k] for k in (
+        "ttft_ms_2048_bucket", "decode_tokens_per_s_8_slots",
+        "prefill_ms_2048_bucket",
+    )}, "peak_mem_gb": peak_gb, "tree_gb": tree_gb}
     del engine, params
-    return {f"deepseek_{w}": c for w, c in windows.items()}
+    _free()
+    # the same model as int8: MLA's projections, the shared experts and
+    # the dense layer through the 2-D kernel, the experts batched
+    engine, int8_windows = _int8_path(kind, smi, I_ARGV, "deepseek_int8",
+                                      bf16)
+    del engine
+    return {
+        **{f"deepseek_{w}": c for w, c in windows.items()},
+        **{f"deepseek_int8_{w}": c for w, c in int8_windows.items()},
+    }
+
+
+def _int8_path(kind, smi, argv, label, bf16=None):
+    """``argv`` with ``--quantization int8``, the tree drawn on the card:
+    every leaf ``quantize_params`` quantizes is int8 and no other; phase
+    d's requests through the server with exact launches, its kernel
+    logits against the W8A16 plain versions (expert picks replayed).
+    Emits ``<label>_path`` (beside ``bf16``'s numbers from this run where
+    given); returns (engine, {window: launch counts})."""
+    from gpustack_tpu_torch.engine.api_server import (
+        build_engine_from_args,
+        build_parser,
+    )
+    from gpustack_tpu_torch.models.quant import QuantW, quantizable
+
+    held_gb = _held_gb(label)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = build_engine_from_args(
+        build_parser().parse_args(argv + ["--quantization", "int8"])
+    )
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    leaves = _leaves(engine.runner.params)
+    wrong = [
+        key for key, w in leaves.items()
+        if isinstance(w, QuantW) != quantizable(key.split("/")[-1],
+                                                engine.cfg)
+    ]
+    if wrong:
+        raise AssertionError(f"{label}: not int8 as quantize_params makes "
+                             f"it: {wrong}")
+    tree_gb = _tree_gb(engine.runner.params)
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    report, windows = _serve_counted(engine, _int8_logit_check, int8=True)
+    emit(f"{label}_path", model=engine.cfg.name, device=kind,
+         nvidia_smi=smi, setup_s=setup_s, int8_tree_gb=tree_gb,
+         int8_leaves=sum(isinstance(w, QuantW) for w in leaves.values()),
+         init_peak_gb=init_peak_gb, held_before_gb=held_gb,
+         launches=windows, **report,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         **({"bf16_same_run": bf16} if bf16 else {}))
+    return engine, windows
 
 
 # ---------------------------------------------------------------------------
@@ -2943,6 +3264,40 @@ def phase_gemma(kind, smi, device="cuda"):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# l: int8 MoE at full width and depth
+# ---------------------------------------------------------------------------
+
+L_PRESET = "mixtral-8x7b"
+L_ARGV = ["--preset", L_PRESET] + MAIN_ARGV[2:]
+
+
+def phase_mixtral_int8(kind, smi, device="cuda"):
+    """mixtral-8x7b (32 layers, d 4096, 32 q heads on 8 kv heads, 8
+    experts, top-2, width 14336, vocab 32000) with ``--quantization
+    int8``: ~46.7 GB of int8 drawn on the card (93 GB in bf16: no bf16
+    tree fits). Phase d's requests through the server, exact launches
+    (per 2048-bucket forward 129 2-D W8A16 products and 96 batched expert
+    products), its kernel logits against the plain versions with the
+    kernel run's expert picks replayed; then one MoE layer at the 2048
+    bucket and at 8 decoding slots against the fp32 routed reference,
+    beside its dense-dispatch bound. Returns {window: launch counts}."""
+    engine, windows = _int8_path(kind, smi, L_ARGV, "mixtral_int8")
+    gen = torch.Generator(device=device).manual_seed(3)
+    with torch.no_grad():
+        layers = [
+            _moe_layer_case(engine.runner.params, engine.cfg, t, gen)
+            for t in (2048, engine.max_slots)
+        ]
+    emit("moe", model=engine.cfg.name, device=kind, nvidia_smi=smi,
+         dispatch="dense (every expert over every token), int8 experts "
+         "through the batched W8A16 kernel",
+         tolerance={"rel": MOE_REL_TOL, "min_cosine": MOE_MIN_COSINE},
+         layers=layers)
+    del engine
+    return {f"mixtral_int8_{w}": c for w, c in windows.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2977,7 +3332,10 @@ def main() -> int:
     paths.update(phase_gptoss(kind, smi))
     _free()
     paths.update(phase_gemma(kind, smi))
+    _free()
+    paths.update(phase_mixtral_int8(kind, smi))
     kernels = []
+    bmm_cases = rows.pop("w8a16_bmm_cases")
     large_m = rows.pop("w8a16_large_m")
     gemma2 = rows.pop("w8a16_gemma2")
     group8 = rows.pop("flash_group8")
@@ -3018,6 +3376,29 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "cublas_bf16_dequantized_ms",
         )},
+    })
+    # the batched W8A16: the row above is mixtral-8x7b's gate product at
+    # a decode step's 8 slots; beside it every other case of phase c
+    bmm = next(k for k in kernels if k["name"] == "w8a16_bmm")
+    bmm.update({
+        "launches_by_path": {
+            path: sum(counts[f"w8a16_bmm_{path}"]
+                      for counts in paths.values())
+            for path in ("gemv", "wgmma")
+        },
+        "launches_by_model": {
+            model: sum(counts["w8a16_bmm"] for path, counts in paths.items()
+                       if path.startswith(prefix))
+            for model, prefix in (("mixtral-8x7b", "mixtral_int8"),
+                                  ("deepseek-v2-lite", "deepseek_int8"))
+        },
+        "cases": [
+            {"weight": weight, "M": M, **{k: row[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "cublas_bf16_dequantized_ms",
+            )}}
+            for (weight, M), row in bmm_cases.items()
+        ],
     })
     # the flash kernel at qwen3-30b-a3b's heads (group 8) and at
     # deepseek-v2-lite's (d 192), T = S = 2048

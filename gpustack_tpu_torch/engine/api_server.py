@@ -859,9 +859,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def build_engine_from_args(args) -> LLMEngine:
     """Config, then weights, then the LoRA merge, then int8: the JAX
-    package's order. Config and weights come from the same checkpoint
-    (``checkpoint_source``: safetensors before GGUF); without one,
-    ``--quantization int8`` draws the int8 tree directly on the device."""
+    package's order, for every family (dense, MoE, MLA). Config and
+    weights come from the same checkpoint (``checkpoint_source``:
+    safetensors before GGUF); without one, ``--quantization int8`` draws
+    the int8 tree of any family directly on the device."""
     from gpustack_tpu_torch.device import resolve_device
     from gpustack_tpu_torch.engine.gguf import config_from_gguf
     from gpustack_tpu_torch.engine.weights import (
@@ -871,7 +872,6 @@ def build_engine_from_args(args) -> LLMEngine:
     )
     from gpustack_tpu_torch.models.config import get_config, load_hf_config
     from gpustack_tpu_torch.models.quant import (
-        check_quantizable,
         init_quantized_params,
         quantize_params,
     )
@@ -884,8 +884,6 @@ def build_engine_from_args(args) -> LLMEngine:
         cfg = load_hf_config(args.model_dir)
     else:
         cfg = get_config(args.preset)
-    if args.quantization == "int8":
-        check_quantizable(cfg)
     if kind == "none" and args.quantization == "int8" and not args.lora:
         params = init_quantized_params(cfg, seed=0, device=device)
     else:

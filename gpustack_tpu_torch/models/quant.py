@@ -5,8 +5,10 @@ with per-output-channel bf16 scales (``QuantW``), which halves the bytes a
 decode step reads against bf16. The JAX package contracts ``x @
 q.astype(bf16) * s`` and leaves the convert to XLA's fusion; eager PyTorch
 cannot fuse it, so on the card every int8 weight product goes through the
-hand-written W8A16 kernel (``ops/w8a16.py``), which widens the int8 values
-in registers: the dequantized weight never reaches device memory.
+hand-written W8A16 kernel (``ops/w8a16.py``; an MoE layer's expert
+products batched over the experts), which widens the int8 values in
+registers or shared memory: the dequantized weight never reaches device
+memory.
 
 Scale layout (as in JAX): for each weight the scales live on the *output*
 (non-contracted) dims, so the rescale multiplies the product's result.
@@ -21,7 +23,6 @@ Sharded specs (``quant_pspecs``) wait for the multi-GPU slice.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Dict, Optional
 
 import torch
@@ -84,33 +85,42 @@ def _axes(name: str, stacked: Optional[bool] = None) -> tuple:
     return axes
 
 
-def _quantize_leaf(name: str, w: torch.Tensor) -> QuantW:
-    axes = _axes(name)
+def _quantize_one(w: torch.Tensor, axes: tuple):
+    """(q, s) of one weight: absmax over the contracted ``axes`` in fp32,
+    round half to even, clip to ±127, the scale to bf16 (JAX's steps)."""
     wf = w.float()
     absmax = wf.abs().amax(dim=axes, keepdim=True)
     scale = absmax.clamp_min(1e-8) / 127.0
     q = torch.round(wf / scale).clamp(-127, 127).to(torch.int8)
-    return QuantW(q=q, s=scale.squeeze(axes).to(torch.bfloat16))
+    return q, scale.squeeze(axes).to(torch.bfloat16)
 
 
-def check_quantizable(cfg: ModelConfig) -> None:
-    """Raise for a configuration int8 serving does not cover yet: an MoE
-    model's expert products (GPT-OSS's among them) need a
-    batched-over-experts W8A16 variant, and MLA's projections (``wq_a``,
-    ``wq_b``, ``wkv_a``, ``wkv_b``) wait with them (DeepSeek is MoE).
-    Called before any weight is drawn or read."""
-    missing = []
-    if cfg.is_moe:
-        missing.append("MoE")
-    if cfg.is_mla:
-        missing.append("MLA's projections (wq_a, wq_b, wkv_a, wkv_b)")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: int8 with {' and '.join(missing)} is not ported "
-            "yet (ROADMAP 'Modules to port': int8 MoE, a "
-            "batched-over-experts W8A16 variant; MLA's int8 leaves wait "
-            "with it)"
-        )
+def _quantize_leaf(name: str, w: torch.Tensor) -> QuantW:
+    """A layer-stacked leaf is quantized one layer at a time into the int8
+    and scale tensors, so the fp32 copy is one layer's: a loaded
+    qwen3-30b-a3b's ``we_gate`` whole would be 38.6 GB of fp32. Each
+    layer's scales span only its own values (the contracted axes never
+    include the layer axis), so the bits are the whole leaf's."""
+    if name not in _STACKED:
+        q, s = _quantize_one(w, _axes(name))
+        return QuantW(q=q, s=s)
+    axes = _axes(name, stacked=False)
+    s_shape = tuple(n for i, n in enumerate(w.shape[1:]) if i not in axes)
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    s = torch.empty((w.shape[0], *s_shape), dtype=torch.bfloat16,
+                    device=w.device)
+    for layer in range(w.shape[0]):
+        q[layer], s[layer] = _quantize_one(w[layer], axes)
+    return QuantW(q=q, s=s)
+
+
+def quantizable(name: str, cfg: ModelConfig) -> bool:
+    """Whether ``quantize_params`` turns leaf ``name`` into a ``QuantW``:
+    every leaf with contracted axes, but a tied embedding (the LM head
+    contracts its transpose, which would need a second scale layout)."""
+    return name in _CONTRACT_AXES and not (
+        name == "embed" and cfg.tie_word_embeddings
+    )
 
 
 def quantize_params(params: Dict[str, Any]) -> Dict[str, Any]:
@@ -133,93 +143,58 @@ def quantize_params(params: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def draw_int8(
+    name: str, shape: tuple, std: float, generator: torch.Generator, device
+) -> QuantW:
+    """Random int8 leaf ``name`` of ``shape`` drawn on ``device``, for a
+    weight of init ``std``: the int8 values round(N(0, 1) * 127 / 3)
+    clipped to ±127 (the statistics of an absmax-quantized normal init;
+    fp32 draws of <= 256 MB at a time), the scales 3 * std / 127 in bf16."""
+    q = torch.empty(shape, dtype=torch.int8, device=device)
+    rows = q.view(-1, shape[-1])
+    step = max(1, (1 << 26) // shape[-1])
+    for r in range(0, rows.shape[0], step):
+        block = rows[r:r + step]
+        draw = torch.randn(
+            block.shape, generator=generator, dtype=torch.float32,
+            device=device,
+        )
+        block.copy_(draw.mul_(127.0 / 3.0).round_().clamp_(-127, 127))
+    axes = _axes(name)
+    s_shape = tuple(n for i, n in enumerate(shape) if i not in axes)
+    # fp32 first, then bf16: the JAX package's rounding of the scale
+    s = torch.full(
+        s_shape, 3.0 * std / 127.0, dtype=torch.float32, device=device
+    ).to(torch.bfloat16)
+    return QuantW(q=q, s=s)
+
+
 def init_quantized_params(
     cfg: ModelConfig, seed: int = 0, device=None
 ) -> Dict[str, Any]:
     """Random int8 params drawn *directly* on ``device`` (default: the
     card) from a ``torch.Generator`` seeded with ``seed``: no bf16 detour
-    (16 GB at llama3-8b). The tree, shapes, dtypes and scales (3 /
-    sqrt(fan_in) / 127, bf16) are those of the JAX
-    ``init_quantized_params``; the numbers are not.
+    (16 GB at llama3-8b, 93 GB at mixtral-8x7b). Every family: the tree,
+    shapes and dtypes are those of ``quantize_params(init_params(cfg))``
+    (MoE experts, routers and biases, MLA's projections, shared experts,
+    DeepSeek's ``dense_layers``), each leaf ``quantize_params`` would
+    quantize drawn by :func:`draw_int8` (``transformer.init_params(...,
+    int8=True)``), the rest as ``init_params`` draws them. The numbers are
+    not JAX's.
 
-    The int8 values are round(N(0, 1) * 127 / 3) clipped to ±127: the
-    statistics of an absmax-quantized normal init (weight std 1 /
-    sqrt(fan_in), as ``init_params``), which the JAX docstring names as
-    its target. Its uniform draw over [-127, 127] gives weights 1.73x
-    wider, and at llama3-8b's depth that model amplifies a change of fp32
-    summation order past a 5% logit check (PERF.md, PR 4)."""
+    The int8 values are round(N(0, 1) * 127 / 3): the statistics of an
+    absmax-quantized normal init (weight std 1 / sqrt(fan_in), as
+    ``init_params``), which the JAX ``init_quantized_params`` docstring
+    names as its target. Its uniform draw over [-127, 127] gives weights
+    1.73x wider, and at llama3-8b's depth that model amplifies a change
+    of fp32 summation order past a 5% logit check (PERF.md, PR 4)."""
     from gpustack_tpu_torch.device import resolve_device
+    from gpustack_tpu_torch.models.transformer import init_params
 
-    check_quantizable(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    d, f, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
-    bf16 = torch.bfloat16
-
-    def qw(shape, fan_in, name):
-        q = torch.empty(shape, dtype=torch.int8, device=device)
-        rows = q.view(-1, shape[-1])
-        step = max(1, (1 << 26) // shape[-1])    # <= 256 MB of fp32 a draw
-        for r in range(0, rows.shape[0], step):
-            block = rows[r:r + step]
-            draw = torch.randn(
-                block.shape, generator=gen, dtype=torch.float32,
-                device=device,
-            )
-            block.copy_(draw.mul_(127.0 / 3.0).round_().clamp_(-127, 127))
-        axes = _axes(name)
-        s_shape = tuple(n for i, n in enumerate(shape) if i not in axes)
-        # fp32 first, then bf16: the JAX package's rounding of the scale
-        s = torch.full(
-            s_shape, 3.0 / math.sqrt(fan_in) / 127.0, dtype=torch.float32,
-            device=device,
-        ).to(bf16)
-        return QuantW(q=q, s=s)
-
-    def ones(*shape):
-        return torch.ones(shape, dtype=bf16, device=device)
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=bf16, device=device)
-
-    gain = zeros if cfg.norm_delta_gain else ones    # Gemma: delta gains
-    layers: Dict[str, Any] = {
-        "attn_norm": gain(L, d),
-        "mlp_norm": gain(L, d),
-        "wq": qw((L, d, cfg.q_dim), d, "wq"),
-        "wk": qw((L, d, cfg.kv_dim), d, "wk"),
-        "wv": qw((L, d, cfg.kv_dim), d, "wv"),
-        "wo": qw((L, cfg.q_dim, d), cfg.q_dim, "wo"),
-    }
-    if cfg.qkv_bias:
-        layers["bq"] = zeros(L, cfg.q_dim)
-        layers["bk"] = zeros(L, cfg.kv_dim)
-        layers["bv"] = zeros(L, cfg.kv_dim)
-    if cfg.qk_norm:
-        layers["q_norm"] = gain(L, cfg.head_dim)
-        layers["k_norm"] = gain(L, cfg.head_dim)
-    if cfg.post_norms:
-        layers["post_attn_norm"] = gain(L, d)
-        layers["post_mlp_norm"] = gain(L, d)
-    layers["w_gate"] = qw((L, d, f), d, "w_gate")
-    layers["w_up"] = qw((L, d, f), d, "w_up")
-    layers["w_down"] = qw((L, f, d), f, "w_down")
-
-    params: Dict[str, Any] = {"layers": layers, "final_norm": gain(d)}
-    if cfg.tie_word_embeddings:
-        # the LM head contracts embed.T: embed stays bf16, as in
-        # quantize_params' tied-embedding rule
-        params["embed"] = (
-            torch.randn(
-                (cfg.vocab_size, d), generator=gen, dtype=torch.float32,
-                device=device,
-            ) * 0.02
-        ).to(bf16)
-    else:
-        params["embed"] = qw((cfg.vocab_size, d), 2500, "embed")  # ~0.02
-        params["lm_head"] = qw((d, cfg.vocab_size), d, "lm_head")
-    return params
+    return init_params(cfg, gen, torch.bfloat16, device, int8=True)
 
 
 def dequantize(

@@ -22,7 +22,9 @@ follow the JAX module so its tests compare like with like:
   JAX module's dense dispatch: every expert runs over every token and the
   router's top-k weights combine the results. The expert products are
   batched torch products over the expert axis (XLA products in the JAX
-  module, not Pallas), in token chunks that bound their transients;
+  module, not Pallas), or, for int8 experts, the W8A16 kernel batched over
+  the experts (``ops.w8a16_bmm``), in token chunks that bound their
+  transients;
 - MLA (DeepSeek-V2/V3) is served decompressed, as in the JAX module: the
   latent projections are expanded to per-head K (``qk_nope + qk_rope``
   wide, the rope part rotated in interleaved pairs and shared by the
@@ -139,7 +141,7 @@ class KVCache:
 
 def init_params(
     cfg: ModelConfig, generator: torch.Generator,
-    dtype: torch.dtype = torch.bfloat16, device=None,
+    dtype: torch.dtype = torch.bfloat16, device=None, int8: bool = False,
 ) -> Params:
     """Random init with layer weights stacked on a leading [L] axis, drawn
     on ``device`` (the generator's device) from ``generator``. Same
@@ -150,12 +152,19 @@ def init_params(
     ``params["layers"]`` holds the MoE rest; each is drawn at its own
     depth (JAX draws every leaf at full depth and slices). Biases, sinks
     (fp32) and delta gains (Gemma: ``1 + w``, so zero is the unit gain)
-    are zeros, as in JAX."""
+    are zeros, as in JAX. With ``int8`` every leaf ``quantize_params``
+    would quantize is drawn as int8 directly (``quant.draw_int8``, for the
+    leaf's init scale): the tree of ``quantize_params(init_params(cfg))``
+    without its bf16 detour (``quant.init_quantized_params``)."""
+    from gpustack_tpu_torch.models.quant import draw_int8, quantizable
+
     device = torch.device(device) if device is not None else generator.device
     d, f, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
 
-    def w(*shape, scale=None):
+    def w(name, *shape, scale=None):
         scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
+        if int8 and quantizable(name, cfg):
+            return draw_int8(name, shape, scale, generator, device)
         out = torch.randn(
             shape, generator=generator, dtype=dtype, device=device
         )
@@ -170,10 +179,12 @@ def init_params(
     # a norm's unit gain: 1, or a zero delta under norm_delta_gain
     gain = zeros if cfg.norm_delta_gain else ones
 
-    def w_layers(*shape, scale=None):
+    def w_layers(name, *shape, scale=None):
         """Like ``w``, drawn one layer at a time into the stacked tensor
         (qwen3-30b-a3b's ``we_gate`` alone is 19.3 GB)."""
         scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
+        if int8:
+            return draw_int8(name, shape, scale, generator, device)
         out = torch.empty(shape, dtype=dtype, device=device)
         for layer in out:
             layer.normal_(generator=generator).mul_(scale)
@@ -186,40 +197,42 @@ def init_params(
             H, r = cfg.num_heads, cfg.kv_lora_rank
             layers: Dict[str, torch.Tensor] = {
                 "attn_norm": ones(n, d),
-                "wkv_a": w(n, d, r + cfg.qk_rope_head_dim),
+                "wkv_a": w("wkv_a", n, d, r + cfg.qk_rope_head_dim),
                 "kv_a_norm": ones(n, r),
-                "wkv_b": w(n, r, H * (cfg.qk_nope_head_dim + cfg.v_head_dim)),
-                "wo": w(n, H * cfg.v_head_dim, d),
+                "wkv_b": w("wkv_b", n, r,
+                           H * (cfg.qk_nope_head_dim + cfg.v_head_dim)),
+                "wo": w("wo", n, H * cfg.v_head_dim, d),
                 "mlp_norm": ones(n, d),
             }
             if cfg.q_lora_rank:
-                layers["wq_a"] = w(n, d, cfg.q_lora_rank)
+                layers["wq_a"] = w("wq_a", n, d, cfg.q_lora_rank)
                 layers["q_a_norm"] = ones(n, cfg.q_lora_rank)
-                layers["wq_b"] = w(n, cfg.q_lora_rank, H * cfg.head_dim)
+                layers["wq_b"] = w("wq_b", n, cfg.q_lora_rank,
+                                   H * cfg.head_dim)
             else:
-                layers["wq"] = w(n, d, H * cfg.head_dim)
+                layers["wq"] = w("wq", n, d, H * cfg.head_dim)
         else:
             layers = {
                 "attn_norm": ones(n, d),
-                "wq": w(n, d, cfg.q_dim),
-                "wk": w(n, d, cfg.kv_dim),
-                "wv": w(n, d, cfg.kv_dim),
-                "wo": w(n, cfg.q_dim, d),
+                "wq": w("wq", n, d, cfg.q_dim),
+                "wk": w("wk", n, d, cfg.kv_dim),
+                "wv": w("wv", n, d, cfg.kv_dim),
+                "wo": w("wo", n, cfg.q_dim, d),
                 "mlp_norm": ones(n, d),
             }
         if moe:
             fm, E = cfg.moe_intermediate_size, cfg.num_experts
-            layers["router"] = w(n, d, E)
-            layers["we_gate"] = w_layers(n, E, d, fm)
-            layers["we_up"] = w_layers(n, E, d, fm)
-            layers["we_down"] = w_layers(n, E, fm, d)
+            layers["router"] = w("router", n, d, E)
+            layers["we_gate"] = w_layers("we_gate", n, E, d, fm)
+            layers["we_up"] = w_layers("we_up", n, E, d, fm)
+            layers["we_down"] = w_layers("we_down", n, E, fm, d)
             if cfg.shared_expert_intermediate_size:
                 fs = cfg.shared_expert_intermediate_size
-                layers["ws_gate"] = w(n, d, fs)
-                layers["ws_up"] = w(n, d, fs)
-                layers["ws_down"] = w(n, fs, d)
+                layers["ws_gate"] = w("ws_gate", n, d, fs)
+                layers["ws_up"] = w("ws_up", n, d, fs)
+                layers["ws_down"] = w("ws_down", n, fs, d)
                 if cfg.shared_expert_gated:
-                    layers["shared_gate"] = w(n, d, 1)
+                    layers["shared_gate"] = w("shared_gate", n, d, 1)
             if cfg.moe_scoring in ("sigmoid", "softmax_topk"):
                 # DeepSeek-V3 correction bias / GPT-OSS affine router, fp32
                 layers["router_bias"] = zeros(n, E, dt=torch.float32)
@@ -228,9 +241,9 @@ def init_params(
                 layers["we_up_b"] = zeros(n, E, fm)
                 layers["we_down_b"] = zeros(n, E, d)
         else:
-            layers["w_gate"] = w(n, d, f)
-            layers["w_up"] = w(n, d, f)
-            layers["w_down"] = w(n, f, d)
+            layers["w_gate"] = w("w_gate", n, d, f)
+            layers["w_up"] = w("w_up", n, d, f)
+            layers["w_down"] = w("w_down", n, f, d)
         if cfg.qkv_bias:
             layers["bq"] = zeros(n, cfg.q_dim)
             layers["bk"] = zeros(n, cfg.kv_dim)
@@ -254,14 +267,14 @@ def init_params(
     layers = stack(L - kd, cfg.is_moe)
     dense = stack(kd, False) if kd else None
     params: Params = {
-        "embed": w(cfg.vocab_size, d, scale=0.02),
+        "embed": w("embed", cfg.vocab_size, d, scale=0.02),
         "layers": layers,
         "final_norm": gain(d),
     }
     if dense is not None:
         params["dense_layers"] = dense
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = w(d, cfg.vocab_size)
+        params["lm_head"] = w("lm_head", d, cfg.vocab_size)
     return params
 
 
@@ -502,10 +515,20 @@ def _attend_rows(q, k, v, mask, scale, softcap, sinks):
 
 
 # Transients of one MoE token chunk: g, u and h, each [tokens, E, Fm] in
-# the compute dtype. At qwen3-30b-a3b widths (E 128, Fm 768, bf16) that is
-# 576 KiB a token: a 2048-token prefill is one chunk, an 8 x 2048
-# embedding batch five.
+# the compute dtype, and with int8 experts the outputs y [E, tokens, D]
+# too. At qwen3-30b-a3b widths (E 128, Fm 768, d 2048, bf16) that is 576
+# KiB a token (1088 KiB with y): a 2048-token prefill is one chunk, an 8 x
+# 2048 embedding batch five (eight with y).
 MOE_CHUNK_BYTES = 2 << 30
+
+
+def moe_chunk_tokens(E: int, Fm: int, D: int, int8: bool,
+                     itemsize: int) -> int:
+    """Tokens in one :func:`_moe_mlp` chunk of ``E`` experts of width
+    ``Fm`` over ``D``: as many as keep its transients within
+    ``MOE_CHUNK_BYTES``."""
+    per_token = 3 * E * Fm + (E * D if int8 else 0)
+    return max(1, MOE_CHUNK_BYTES // (per_token * itemsize))
 
 
 def moe_route(
@@ -557,7 +580,7 @@ def _moe_mlp(
     experts, ungated (DeepSeek) or gated by ``sigmoid(x @ g)`` (Qwen2-MoE).
     ``moe_act="gptoss"`` is GPT-OSS's clamped GLU, with its expert biases.
 
-    On the card:
+    With bf16 (or fp32) experts, on the card:
 
     - the gate and up products are ``bmm`` over the expert axis with x
       expanded (batch stride 0), so x is read in place and never copied
@@ -568,23 +591,35 @@ def _moe_mlp(
       ``h·c`` where JAX rounds each expert's output before the weighted
       sum (``PERF.md`` §6 states the tolerance); in fp32 the two differ
       only in summation order;
-    - tokens run in chunks of ``chunk_tokens`` (default: as many as keep
-      g, u and h within ``MOE_CHUNK_BYTES``). A chunk changes no value
-      beyond the summation order of products with fewer rows.
+    - tokens run in chunks of ``chunk_tokens`` (default:
+      :func:`moe_chunk_tokens`). A chunk changes no value beyond the
+      summation order of products with fewer rows.
+
+    With int8 ``QuantW`` experts (JAX's ``_mm`` over the expert axis),
+    each of the three products is one ``ops.w8a16_bmm`` launch: the W8A16
+    kernel batched over the experts on the card, its plain version on the
+    CPU. Gate and up read x expanded (batch stride 0); the down product
+    reads each expert's block of h in place and writes the expert outputs
+    ``y [E, tokens, D]``, which the combine weights then sum, as the JAX
+    einsum does: the scale is per (expert, output column), so the combine
+    cannot fold into h before it.
     """
-    if not isinstance(we_gate, torch.Tensor):
-        raise NotImplementedError(
-            "int8 expert weights are not ported yet (ROADMAP 'Modules to "
-            "port': int8 MoE, a batched-over-experts W8A16 variant)"
-        )
     B, T, D = x.shape
     E, _, Fm = we_gate.shape
     dtype = x.dtype
     xt = x.reshape(B * T, D)
     N = xt.shape[0]
+    int8 = isinstance(we_gate, QuantW)
     if chunk_tokens is None:
-        chunk_tokens = max(1, MOE_CHUNK_BYTES // (3 * E * Fm * x.element_size()))
-    w_down = we_down.reshape(E * Fm, D)
+        chunk_tokens = moe_chunk_tokens(E, Fm, D, int8, x.element_size())
+    if int8:
+        from gpustack_tpu_torch.ops.w8a16 import w8a16_bmm
+
+        def expert_mm(xe, w):                         # [E, n, K] -> [E, n, N]
+            return w8a16_bmm(xe, w.q, w.s)
+    else:
+        expert_mm = torch.bmm
+        w_down = we_down.reshape(E * Fm, D)
     out = torch.empty_like(xt)
     for s in range(0, N, chunk_tokens):
         xc = xt[s:s + chunk_tokens]
@@ -592,8 +627,8 @@ def _moe_mlp(
         _, combine = moe_route(xc, router_w, cfg, router_bias)
         combine = combine.to(dtype)
         xe = xc.expand(E, n, D)
-        g = torch.bmm(xe, we_gate)                  # [E, n, Fm]
-        u = torch.bmm(xe, we_up)
+        g = expert_mm(xe, we_gate)                  # [E, n, Fm]
+        u = expert_mm(xe, we_up)
         if biases is not None:
             g += biases[0][:, None, :].to(dtype)
             u += biases[1][:, None, :].to(dtype)
@@ -611,8 +646,13 @@ def _moe_mlp(
                 out=h.transpose(0, 1),
             )
         del g, u
-        h *= combine[:, :, None]
-        o = h.reshape(n, E * Fm) @ w_down
+        if int8:
+            y = expert_mm(h.transpose(0, 1), we_down)   # [E, n, D]
+            del h
+            o = torch.bmm(combine[:, None, :], y.transpose(0, 1))[:, 0]
+        else:
+            h *= combine[:, :, None]
+            o = h.reshape(n, E * Fm) @ w_down
         if biases is not None:
             o += combine @ biases[2].to(dtype)
         out[s:s + n] = o

@@ -78,9 +78,24 @@
 //     the register-A variant (q^T as wgmma's A from registers), which
 //     needs the weights repacked away from the JAX layout.
 //
-// Requirements the wrapper checks: K % 8 == 0, N % 16 == 0, x rows and q
-// rows 16-byte aligned (TMA's global-stride rule too), out rows 4-byte
-// aligned.
+// Batched over experts (w8a16_bmm_bf16): out[e] = bf16((x_e @ q[e]) * s[e])
+// for e < E, with q int8 [E, K, N], s bf16 [E, N], out [E, M, N], and x_e
+// read through a batch stride: 0 for the MoE gate and up products (every
+// expert reads the same token rows in place, never a copy of x), the
+// expert's column block of h [tokens, E, Fm] for the down product (rows
+// E*Fm apart, experts Fm apart). This is the dense-dispatch expert product
+// of the JAX _moe_mlp's int8 branch (gpustack_tpu/models/transformer.py:
+// 487-502, _mm over the expert axis), again an XLA fusion there. Both
+// paths take the expert axis as one more grid axis: the GEMV's z, and the
+// wgmma path's z beside the K split's cluster (z = expert * ksplit + rank,
+// a cluster of ksplit CTAs along z). The tensor maps are 3-D: q as {N, K,
+// E}, x as {K, E, M} or {K, M, E}, whichever keeps the strides growing,
+// with an extent of 1 on the expert axis for batch stride 0 (a stride-0
+// map is refused). The 2-D entry (w8a16_gemm_bf16) is the case E = 1.
+//
+// Requirements the wrapper checks: K % 8 == 0, N % 16 == 0, x rows, x
+// batch strides and q rows 16-byte aligned (TMA's global-stride rule too),
+// out rows 4-byte aligned.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -134,9 +149,14 @@ __global__ void __launch_bounds__(GV_THREADS, 2) w8a16_gemv(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
     const __nv_bfloat16* __restrict__ s, __nv_bfloat16* __restrict__ out,
     int M, int N, int K, long long ldx, long long ldq, long long ldo,
-    int kchunk) {
+    int kchunk, long long xb, long long qb, long long sb, long long ob) {
   constexpr int U = NT == 1 ? 2 : 1;
   __shared__ __align__(16) float red[GV_WARPS * GV_SUMS];
+  // this CTA's expert (grid z)
+  x += blockIdx.z * xb;
+  q += blockIdx.z * qb;
+  s += blockIdx.z * sb;
+  out += blockIdx.z * ob;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -448,15 +468,21 @@ __device__ __forceinline__ void split_k_reduce(
   }
 }
 
-// One CTA computes rows m0 .. m0 + 127 and columns n0 .. n0 + BN - 1 over
-// the k-tiles [blockIdx.z * ktile_chunk, ...): with a K split the CTAs of
-// one cluster (grid z) add their sums through distributed shared memory.
+// x's tensor map: whether it has an expert axis of its own (else every
+// expert reads the same rows), and whether that axis is its outermost
+constexpr int X_BATCHED = 1, X_EXPERT_OUTER = 2;
+
+// One CTA computes rows m0 .. m0 + 127 and columns n0 .. n0 + BN - 1 of
+// expert blockIdx.z / nsplit over the k-tiles [(blockIdx.z % nsplit) *
+// ktile_chunk, ...): with a K split the nsplit CTAs of one cluster (grid z)
+// add their sums through distributed shared memory.
 template <int BN>
 __global__ void __launch_bounds__(MM_THREADS, 1) w8a16_wgmma(
     __grid_constant__ const CUtensorMap tx,
     __grid_constant__ const CUtensorMap tq,
     const __nv_bfloat16* __restrict__ s, __nv_bfloat16* __restrict__ out,
-    int M, int N, int K, long long ldo, int ktile_chunk) {
+    int M, int N, int K, long long ldo, int ktile_chunk, int nsplit,
+    long long sb, long long ob, int xmode) {
   using L = MmSmem<BN>;
   constexpr int S = L::stages;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -472,9 +498,15 @@ __global__ void __launch_bounds__(MM_THREADS, 1) w8a16_wgmma(
   auto phase = [](int kt) { return uint32_t((kt / S) & 1); };
   const int m0 = blockIdx.x * MM_BM;       // m fastest: CTAs that run
   const int n0 = blockIdx.y * BN;          // together share weight columns
-  const int nsplit = gridDim.z;
+  const int ex = blockIdx.z / nsplit;      // the expert
+  s += ex * sb;
+  out += ex * ob;
+  // x's coordinates after k: (expert, m0) or (m0, expert)
+  const int xe = xmode & X_BATCHED ? ex : 0;
+  const int xc1 = xmode & X_EXPERT_OUTER ? m0 : xe;
+  const int xc2 = xmode & X_EXPERT_OUTER ? xe : m0;
   // this CTA's k-tiles: kt0 + 0 .. kt0 + ktiles - 1 (at least one)
-  const int kt0 = blockIdx.z * ktile_chunk;
+  const int kt0 = (blockIdx.z % nsplit) * ktile_chunk;
   const int ktiles = min((K + MM_BK - 1) / MM_BK - kt0, ktile_chunk);
 
   if (threadIdx.x == 0) {
@@ -527,8 +559,9 @@ __global__ void __launch_bounds__(MM_THREADS, 1) w8a16_wgmma(
     auto issue = [&](int t) {
       mbar_wait(bar(empty, t), phase(t) ^ 1);
       mbar_expect_tx(bar(full, t), L::x + L::q);
-      tma_load_2d(stage(t), &tx, bar(full, t), (kt0 + t) * MM_BK, m0);
-      tma_load_2d(stage(t) + L::x, &tq, bar(full, t), n0, (kt0 + t) * MM_BK);
+      tma_load_3d(stage(t), &tx, bar(full, t), (kt0 + t) * MM_BK, xc1, xc2);
+      tma_load_3d(stage(t) + L::x, &tq, bar(full, t), n0, (kt0 + t) * MM_BK,
+                  ex);
     };
     if (loader)
       for (int t = 0; t < min(S, ktiles); ++t) issue(t);
@@ -599,12 +632,13 @@ __global__ void __launch_bounds__(MM_THREADS, 1) w8a16_wgmma(
 
 template <int NT>
 cudaError_t launch_gemv(const __nv_bfloat16* x, const int8_t* q,
-                        const __nv_bfloat16* s, __nv_bfloat16* out, int M,
-                        int N, int K, long long ldx, long long ldq,
-                        long long ldo, int kchunk, int ksplit,
+                        const __nv_bfloat16* s, __nv_bfloat16* out, int E,
+                        int M, int N, int K, long long ldx, long long xb,
+                        long long ldq, long long qb, long long sb,
+                        long long ldo, long long ob, int kchunk, int ksplit,
                         cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + GV_BN - 1) / GV_BN, ksplit, 1);
+  cfg.gridDim = dim3((N + GV_BN - 1) / GV_BN, ksplit, E);
   cfg.blockDim = dim3(GV_THREADS, 1, 1);
   cfg.stream = st;
   // the CTAs that split one column slice's K form one cluster
@@ -616,30 +650,43 @@ cudaError_t launch_gemv(const __nv_bfloat16* x, const int8_t* q,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, w8a16_gemv<NT>, x, q, s, out, M, N, K,
-                            ldx, ldq, ldo, kchunk);
+                            ldx, ldq, ldo, kchunk, xb, qb, sb, ob);
 }
 
-// x [M, K] bf16 (rows ldx elements apart) in boxes of [128 rows][64 k],
-// 128-byte swizzle; q [K, N] int8 (rows ldq bytes apart) in unswizzled
-// boxes of [64 k rows][bn bytes]. Past M, N or K a box reads zeros.
+// x_e [M, K] bf16 (rows ldx elements apart, experts xb apart, xb 0 for
+// one x shared by every expert) in boxes of [128 rows][64 k], 128-byte
+// swizzle; q [E, K, N] int8 (rows ldq bytes apart, experts qb apart) in
+// unswizzled boxes of [64 k rows][bn bytes]. Both maps are 3-D, their
+// strides growing: x is {K, E, M} for xb <= ldx (1 expert for xb 0: a
+// stride of 0 is refused) and {K, M, E} above; *xmode says which. Past M,
+// N or K of an expert a box reads zeros.
 CUresult make_maps(EncodeTiled encode, CUtensorMap* tx, CUtensorMap* tq,
-                   const void* x, const void* q, int M, int N, int K,
-                   long long ldx, long long ldq, int bn) {
-  const cuuint32_t elem[2] = {1, 1};
-  const cuuint64_t xdims[2] = {cuuint64_t(K), cuuint64_t(M)};
-  const cuuint64_t xstride[1] = {cuuint64_t(ldx) * 2};
-  const cuuint32_t xbox[2] = {cuuint32_t(MM_BK), cuuint32_t(MM_BM)};
-  CUresult r = encode(tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                   const void* x, const void* q, int E, int M, int N, int K,
+                   long long ldx, long long xb, long long ldq, long long qb,
+                   int bn, int* xmode) {
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const bool outer = xb > ldx;
+  *xmode = (xb ? X_BATCHED : 0) | (outer ? X_EXPERT_OUTER : 0);
+  const cuuint64_t xe = xb ? cuuint64_t(E) : 1;
+  const cuuint64_t xdims[3] = {cuuint64_t(K), outer ? cuuint64_t(M) : xe,
+                               outer ? xe : cuuint64_t(M)};
+  // the expert axis of a shared x has one entry: any legal stride will do
+  const cuuint64_t xes = xb ? cuuint64_t(xb) * 2 : cuuint64_t(K) * 2;
+  const cuuint64_t xstride[2] = {outer ? cuuint64_t(ldx) * 2 : xes,
+                                 outer ? xes : cuuint64_t(ldx) * 2};
+  const cuuint32_t xbox[3] = {cuuint32_t(MM_BK), outer ? MM_BM : 1u,
+                              outer ? 1u : MM_BM};
+  CUresult r = encode(tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                       const_cast<void*>(x), xdims, xstride, xbox, elem,
                       CU_TENSOR_MAP_INTERLEAVE_NONE,
                       CU_TENSOR_MAP_SWIZZLE_128B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return r;
-  const cuuint64_t qdims[2] = {cuuint64_t(N), cuuint64_t(K)};
-  const cuuint64_t qstride[1] = {cuuint64_t(ldq)};
-  const cuuint32_t qbox[2] = {cuuint32_t(bn), cuuint32_t(MM_BK)};
-  return encode(tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(q),
+  const cuuint64_t qdims[3] = {cuuint64_t(N), cuuint64_t(K), cuuint64_t(E)};
+  const cuuint64_t qstride[2] = {cuuint64_t(ldq), cuuint64_t(qb)};
+  const cuuint32_t qbox[3] = {cuuint32_t(bn), cuuint32_t(MM_BK), 1};
+  return encode(tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(q),
                 qdims, qstride, qbox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -648,8 +695,9 @@ CUresult make_maps(EncodeTiled encode, CUtensorMap* tx, CUtensorMap* tq,
 
 template <int BN>
 cudaError_t launch_wgmma(const CUtensorMap& tx, const CUtensorMap& tq,
-                         const __nv_bfloat16* s, __nv_bfloat16* out, int M,
-                         int N, int K, long long ldo, int kchunk, int ksplit,
+                         const __nv_bfloat16* s, __nv_bfloat16* out, int E,
+                         int M, int N, int K, long long sb, long long ldo,
+                         long long ob, int kchunk, int ksplit, int xmode,
                          cudaStream_t st) {
   constexpr int MAX_DEVICES = 64;
   static bool smem_set[MAX_DEVICES] = {};
@@ -664,11 +712,12 @@ cudaError_t launch_wgmma(const CUtensorMap& tx, const CUtensorMap& tq,
     if (dev < MAX_DEVICES) smem_set[dev] = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((M + MM_BM - 1) / MM_BM, (N + BN - 1) / BN, ksplit);
+  cfg.gridDim = dim3((M + MM_BM - 1) / MM_BM, (N + BN - 1) / BN, E * ksplit);
   cfg.blockDim = dim3(MM_THREADS, 1, 1);
   cfg.dynamicSmemBytes = MmSmem<BN>::total;
   cfg.stream = st;
-  // the CTAs that split one output tile's K form one cluster
+  // the CTAs that split one output tile's K form one cluster (z is
+  // expert * ksplit + rank)
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
@@ -677,7 +726,7 @@ cudaError_t launch_wgmma(const CUtensorMap& tx, const CUtensorMap& tq,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, w8a16_wgmma<BN>, tx, tq, s, out, M, N, K,
-                           ldo, kchunk / MM_BK);
+                           ldo, kchunk / MM_BK, ksplit, sb, ob, xmode);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -711,23 +760,33 @@ extern "C" int w8a16_gemv_ctas_per_sm(int M) {
 // Most CTAs one output tile's K may be split over (one cluster).
 extern "C" int w8a16_max_ksplit() { return MAX_KSPLIT; }
 
+// Most experts one batched call may take (the grid's z extent over the
+// largest K split).
+extern "C" int w8a16_max_experts() { return 65535 / MAX_KSPLIT; }
+
 // Returns 0 when launched, a cudaError_t (> 0) when the launch failed, -1
 // when the driver has no cuTensorMapEncodeTiled and -(1000 + CUresult) when
 // a tensor map was refused. The plan: ``kchunk`` is the K slice of one CTA
 // (a multiple of 16 for M <= 16, of 64 above), with ceil(K / kchunk) at
 // most w8a16_max_ksplit(); for M > 16 ``bn`` is the wgmma path's tile
-// width, 128 or 256 (not read for M <= 16).
-extern "C" int w8a16_gemm_bf16(const void* x, const void* q, const void* s,
-                               void* out, int M, int N, int K, long long ldx,
-                               long long ldq, long long ldo, int bn,
-                               int kchunk, void* stream) {
+// width, 128 or 256 (not read for M <= 16). Expert e reads x + e * xb
+// (rows ldx apart), q + e * qb (rows ldq apart), s + e * sb and writes out
+// + e * ob (rows ldo apart); strides in elements.
+extern "C" int w8a16_bmm_bf16(const void* x, const void* q, const void* s,
+                              void* out, int E, int M, int N, int K,
+                              long long ldx, long long xb, long long ldq,
+                              long long qb, long long sb, long long ldo,
+                              long long ob, int bn, int kchunk,
+                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || N <= 0) return int(cudaSuccess);
-  if (K % 8 || N % 16 || K <= 0) return int(cudaErrorInvalidValue);
-  auto xb = static_cast<const __nv_bfloat16*>(x);
-  auto qb = static_cast<const int8_t*>(q);
-  auto sb = static_cast<const __nv_bfloat16*>(s);
-  auto ob = static_cast<__nv_bfloat16*>(out);
+  if (M <= 0 || N <= 0 || E <= 0) return int(cudaSuccess);
+  if (K % 8 || N % 16 || K <= 0 || xb % 8 || xb < 0 ||
+      E > w8a16_max_experts())
+    return int(cudaErrorInvalidValue);
+  auto xb16 = static_cast<const __nv_bfloat16*>(x);
+  auto qb8 = static_cast<const int8_t*>(q);
+  auto sb16 = static_cast<const __nv_bfloat16*>(s);
+  auto ob16 = static_cast<__nv_bfloat16*>(out);
   const int step = M > 16 ? MM_BK : GV_KSTEP;
   if (kchunk <= 0 || kchunk % step) return int(cudaErrorInvalidValue);
   const int ksplit = (K + kchunk - 1) / kchunk;
@@ -737,16 +796,29 @@ extern "C" int w8a16_gemm_bf16(const void* x, const void* q, const void* s,
     EncodeTiled encode = encode_fn();
     if (encode == nullptr) return -1;
     CUtensorMap tx, tq;
-    const CUresult r = make_maps(encode, &tx, &tq, x, q, M, N, K, ldx, ldq,
-                                 bn);
+    int xmode = 0;
+    const CUresult r = make_maps(encode, &tx, &tq, x, q, E, M, N, K, ldx, xb,
+                                 ldq, qb, bn, &xmode);
     if (r != CUDA_SUCCESS) return -(1000 + int(r));
-    return int(bn == 128 ? launch_wgmma<128>(tx, tq, sb, ob, M, N, K, ldo,
-                                             kchunk, ksplit, st)
-                         : launch_wgmma<256>(tx, tq, sb, ob, M, N, K, ldo,
-                                             kchunk, ksplit, st));
+    return int(bn == 128
+                   ? launch_wgmma<128>(tx, tq, sb16, ob16, E, M, N, K, sb,
+                                       ldo, ob, kchunk, ksplit, xmode, st)
+                   : launch_wgmma<256>(tx, tq, sb16, ob16, E, M, N, K, sb,
+                                       ldo, ob, kchunk, ksplit, xmode, st));
   }
-  return int(M <= 8 ? launch_gemv<1>(xb, qb, sb, ob, M, N, K, ldx, ldq, ldo,
-                                     kchunk, ksplit, st)
-                    : launch_gemv<2>(xb, qb, sb, ob, M, N, K, ldx, ldq, ldo,
-                                     kchunk, ksplit, st));
+  return int(M <= 8 ? launch_gemv<1>(xb16, qb8, sb16, ob16, E, M, N, K, ldx,
+                                     xb, ldq, qb, sb, ldo, ob, kchunk,
+                                     ksplit, st)
+                    : launch_gemv<2>(xb16, qb8, sb16, ob16, E, M, N, K, ldx,
+                                     xb, ldq, qb, sb, ldo, ob, kchunk,
+                                     ksplit, st));
+}
+
+// The 2-D product: w8a16_bmm_bf16 with one expert.
+extern "C" int w8a16_gemm_bf16(const void* x, const void* q, const void* s,
+                               void* out, int M, int N, int K, long long ldx,
+                               long long ldq, long long ldo, int bn,
+                               int kchunk, void* stream) {
+  return w8a16_bmm_bf16(x, q, s, out, 1, M, N, K, ldx, 0, ldq,
+                        (long long)K * ldq, 0, ldo, 0, bn, kchunk, stream);
 }

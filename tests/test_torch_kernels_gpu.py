@@ -250,3 +250,101 @@ def test_w8a16_kernel_refuses_what_it_cannot_run(bad):
         q = q.cpu()
     with pytest.raises((ValueError, TypeError)):
         w8a16.w8a16_matmul(x, q, s)
+
+
+# the batched (over experts) entry: (E, M, K, N, x) with x "shared" (one
+# [M, K] x expanded over the experts, batch stride 0: the gate and up
+# products) or "h" (expert e's columns of an [M, E, K] tensor: the down
+# product); M on both sides of 16, E, M, K and N off the tiles
+_W8A16_BMM_SHAPES = [
+    (8, 8, 4096, 14336, "shared"),      # mixtral-8x7b gate/up: decode,
+    (8, 8, 14336, 4096, "h"),           # down,
+    (8, 2048, 4096, 14336, "shared"),   # the 2048 bucket,
+    (8, 300, 14336, 4096, "h"),         # a ragged prompt's down product
+    (128, 8, 2048, 768, "shared"),      # qwen3-30b-a3b: 128 experts
+    (128, 64, 768, 2048, "h"),
+    (64, 16, 2048, 1408, "shared"),     # deepseek-v2-lite at M = 16,
+    (64, 17, 1408, 2048, "h"),          # 17 (the first wgmma M)
+    (3, 1, 136, 48, "shared"),          # ragged: one row, K % 64 != 0,
+    (5, 13, 4104, 1040, "h"),           # N % 64 != 0 (GEMV, two B
+    (5, 130, 4104, 1040, "shared"),     # tiles), M past one 128-row tile,
+    (7, 33, 264, 4112, "h"),            # E odd
+    (1, 100, 512, 256, "h"),
+]
+
+
+def _w8a16_bmm_inputs(E, M, K, N, x_kind, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if x_kind == "shared":
+        x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+        xe = x.expand(E, M, K)
+    else:
+        h = torch.randn(M, E, K, generator=gen, device="cuda").bfloat16()
+        xe = h.transpose(0, 1)
+    q = torch.randint(-127, 128, (E, K, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = (torch.rand(E, N, generator=gen, device="cuda") * 3e-3
+         + 1e-4).bfloat16()
+    return xe, q, s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,M,K,N,x_kind", _W8A16_BMM_SHAPES)
+def test_w8a16_bmm_kernel_matches_plain(E, M, K, N, x_kind):
+    """Each expert's bf16 output against the fp32 plain version of the
+    same inputs, with the 2-D kernel's bounds (|err| <= 2e-2 + 2e-2 |ref|,
+    each row within 1e-2 of its norm); x read in place (batch stride 0,
+    or h's expert columns), one launch counted on the path M chooses."""
+    _need_card()
+    from gpustack_tpu_torch.ops import w8a16  # analysis: ignore[metrics-drift]
+
+    xe, q, s = _w8a16_bmm_inputs(E, M, K, N, x_kind, E + M + K + N)
+    path = "gemv" if M <= w8a16.GEMV_MAX_M else "wgmma"
+    before = w8a16.w8a16_bmm.launches
+    by_path = dict(w8a16.w8a16_bmm.launches_by_path)
+    out = w8a16.w8a16_bmm(xe, q, s)
+    torch.cuda.synchronize()
+    assert w8a16.w8a16_bmm.launches == before + 1
+    by_path[path] += 1
+    assert w8a16.w8a16_bmm.launches_by_path == by_path
+    assert out.shape == (E, M, N) and out.dtype == torch.bfloat16
+    for e in range(E):
+        _assert_w8a16_close(out[e], xe[e], q[e], s[e])
+
+
+@pytest.mark.gpu
+def test_w8a16_bmm_reads_a_layer_view():
+    """The forward's shapes: q and s one layer of stacked [L, E, K, N] and
+    [L, E, N] leaves."""
+    _need_card()
+    from gpustack_tpu_torch.ops import w8a16  # analysis: ignore[metrics-drift]
+
+    xe, q, s = _w8a16_bmm_inputs(4, 40, 256, 512, "shared", 9)
+    qs, ss = torch.stack([torch.zeros_like(q), q]), torch.stack([s, s])
+    out = w8a16.w8a16_bmm(xe, qs[1], ss[1])
+    torch.cuda.synchronize()
+    for e in range(4):
+        _assert_w8a16_close(out[e], xe[e], q[e], s[e])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["k_odd", "q_2d", "s_shape", "x_fp32",
+                                 "x_batch_unaligned"])
+def test_w8a16_bmm_refuses_what_it_cannot_run(bad):
+    _need_card()
+    from gpustack_tpu_torch.ops import w8a16  # analysis: ignore[metrics-drift]
+
+    xe, q, s = _w8a16_bmm_inputs(2, 4, 64, 64, "shared", 0)
+    if bad == "k_odd":
+        xe, q = xe[..., :60], q[:, :60]
+    elif bad == "q_2d":
+        q = q[0]
+    elif bad == "s_shape":
+        s = s[0]
+    elif bad == "x_fp32":
+        xe = xe.float()
+    else:
+        h = torch.zeros(4, 2 * 68, device="cuda", dtype=torch.bfloat16)
+        xe = h.reshape(4, 2, 68)[..., :64].transpose(0, 1)
+    with pytest.raises((ValueError, TypeError)):
+        w8a16.w8a16_bmm(xe, q, s)

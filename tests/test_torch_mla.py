@@ -324,11 +324,36 @@ def test_init_params_shapes_match_jax(hf):
 
 
 def test_int8_with_mla_is_refused_before_any_weight_is_drawn():
-    cfg, _ = _cfgs(_hf(experts=0, layers=1), "bfloat16")
-    with pytest.raises(NotImplementedError, match="MLA's projections"):
-        pq.init_quantized_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE and MLA"):
-        pq.check_quantizable(PRESETS["deepseek-v2-lite"])
+    """int8 with MLA serves: a dense MLA config's int8 tree, drawn on the
+    CPU (``wq_a``, ``wq_b``, ``wkv_a``, ``wkv_b`` and ``wo`` int8, the
+    latent norms bf16), and deepseek-v2-lite's on the meta device, each
+    with the leaves, shapes and dtypes of ``jax.eval_shape`` of the JAX
+    ``quantize_params(init_params(cfg))``."""
+    from gpustack_tpu.models import quant as jq
+
+    def desc(tree, quant_cls, conv):
+        return {
+            k: desc(v, quant_cls, conv) if isinstance(v, dict)
+            else (conv(v.q), conv(v.s)) if isinstance(v, quant_cls)
+            else conv(v)
+            for k, v in tree.items()
+        }
+
+    cfg, jcfg = _cfgs(_hf(experts=0, layers=1), "bfloat16")
+    for got, jc in (
+        (pq.init_quantized_params(cfg, device="cpu"), jcfg),
+        (pt.init_params(PRESETS["deepseek-v2-lite"], torch.Generator(),
+                        device="meta", int8=True),
+         JAX_PRESETS["deepseek-v2-lite"]),
+    ):
+        want = jax.eval_shape(lambda: jq.quantize_params(
+            jt.init_params(jc, jax.random.key(0))
+        ))
+        assert desc(got, pq.QuantW,
+                    lambda t: (tuple(t.shape), str(t.dtype)[6:])) == desc(
+            want, jq.QuantW, lambda a: (tuple(a.shape), str(a.dtype))
+        )
+        assert isinstance(got["layers"]["wkv_b"], pq.QuantW)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 ``_moe_mlp`` per branch (scorings, shared experts, GPT-OSS's clamped GLU
 and biases, ``routed_scaling_factor``), ``forward`` on MoE configs,
 ``init_params`` shapes, the engine's greedy ids (plain, n-gram
-speculation, an embedding) and the int8 refusal. Inputs and weights come
+speculation, an embedding) and int8 serving (its tree, server and
+forward; ``test_torch_int8_moe.py`` has the rest). Inputs and weights come
 from numpy with a seed (trees carried across with ``params_from_numpy``).
 
 Tolerances (``PERF.md`` §6): fp32, the selected experts identical and the
@@ -439,19 +440,59 @@ def test_profile_capture_on_an_moe_engine(models, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# what stays refused, and the fields that serve since
+# int8 experts, and the fields that serve since GPT-OSS and Gemma
 # ---------------------------------------------------------------------------
 
 
+def _int8_desc(tree, quant_cls, conv):
+    return {
+        k: _int8_desc(v, quant_cls, conv) if isinstance(v, dict)
+        else (conv(v.q), conv(v.s)) if isinstance(v, quant_cls)
+        else conv(v)
+        for k, v in tree.items()
+    }
+
+
+def _assert_int8_tree_like_jax(tree, jcfg):
+    """The leaves, shapes and dtypes of ``jax.eval_shape`` of the JAX
+    ``quantize_params(init_params(jcfg))``, int8 values and scales."""
+    from gpustack_tpu.models import quant as jq
+
+    want = jax.eval_shape(
+        lambda: jq.quantize_params(jt.init_params(jcfg, jax.random.key(0)))
+    )
+    assert _int8_desc(
+        tree, pq.QuantW, lambda t: (tuple(t.shape), str(t.dtype)[6:])
+    ) == _int8_desc(
+        want, jq.QuantW, lambda a: (tuple(a.shape), str(a.dtype))
+    )
+
+
 def test_int8_moe_is_refused_before_any_weight_is_drawn(monkeypatch):
-    drawn = []
-    monkeypatch.setattr(torch, "randn", lambda *a, **k: drawn.append(a))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*int8 MoE"):
-        pq.init_quantized_params(get_config("tiny-moe"), device="cpu")
-    assert not drawn
+    """int8 MoE serves: ``init_quantized_params`` draws the int8 tree of
+    ``tiny-moe`` on the CPU, the int8 leaves from fp32 normal draws (no
+    bf16 detour), the router in bf16, with the JAX tree's leaves, shapes
+    and dtypes."""
+    drawn, randn = [], torch.randn
+
+    def spy(*a, **k):
+        drawn.append(k.get("dtype"))
+        return randn(*a, **k)
+
+    monkeypatch.setattr(torch, "randn", spy)
+    tree = pq.init_quantized_params(get_config("tiny-moe"), device="cpu")
+    _assert_int8_tree_like_jax(tree, JAX_PRESETS["tiny-moe"])
+    for key in ("we_gate", "we_up", "we_down"):
+        assert tree["layers"][key].q.dtype == torch.int8
+    assert set(drawn) == {torch.float32, torch.bfloat16}
 
 
 def test_server_refuses_int8_moe_before_loading(monkeypatch):
+    """``--preset tiny-moe --device cpu --quantization int8`` builds an
+    engine over the int8 tree drawn directly (no bf16 tree is read or
+    drawn) and answers a greedy request, the same ids twice; its first id
+    is the argmax of ``forward`` on that tree (later ids may part from a
+    cacheless bf16 forward at this model's exact bf16 ties)."""
     from gpustack_tpu_torch.engine import api_server, weights  # analysis: ignore[metrics-drift]
 
     def no_load(*a, **k):
@@ -459,20 +500,50 @@ def test_server_refuses_int8_moe_before_loading(monkeypatch):
 
     monkeypatch.setattr(weights, "load_or_init_params", no_load)
     args = api_server.build_parser().parse_args(
-        ["--preset", "tiny-moe", "--device", "cpu", "--quantization", "int8"]
+        ["--preset", "tiny-moe", "--device", "cpu", "--quantization", "int8",
+         "--max-seq-len", "64"]
     )
-    with pytest.raises(NotImplementedError, match="int8 MoE"):
-        api_server.build_engine_from_args(args)
+    eng = api_server.build_engine_from_args(args)
+    params = eng.runner.params
+    assert isinstance(params["layers"]["we_down"], pq.QuantW)
+    prompt = [3, 1, 4, 1, 5]
+    eng.start()
+    try:
+        got = [
+            eng.generate(GenRequest(prompt_ids=prompt, max_tokens=4,
+                                    temperature=0.0), timeout=120).output_ids
+            for _ in range(2)
+        ]
+    finally:
+        eng.stop()
+    assert got[0] == got[1] and len(got[0]) == 4
+    with torch.no_grad():
+        logits, _ = pt.forward(params, eng.cfg, torch.tensor([prompt]),
+                               torch.arange(len(prompt))[None, :])
+    assert got[0][0] == int(logits[0, -1].argmax())
 
 
 def test_int8_expert_weights_are_refused_in_the_forward():
-    cfg, _ = _cfgs({})
+    """int8 expert weights run in ``_moe_mlp``: the experts quantized by
+    the JAX package, against the JAX ``_moe_mlp`` on the same QuantW
+    leaves, fp32 within 1e-5."""
+    from gpustack_tpu.models import quant as jq
+
+    cfg, jcfg = _cfgs({})
     a = _case_arrays(None, False)
-    q = pq.QuantW(q=torch.zeros(E, D, FM, dtype=torch.int8),
-                  s=torch.ones(E, FM, dtype=torch.bfloat16))
-    with pytest.raises(NotImplementedError, match="int8 MoE"):
-        pt._moe_mlp(torch.from_numpy(a["x"]), torch.from_numpy(a["router"]),
-                    q, q, q, cfg)
+    names = ("we_gate", "we_up", "we_down")
+    jw = {k: jq._quantize_leaf(k, jnp.asarray(a[k][None])) for k in names}
+    want = jt._moe_mlp(
+        jnp.asarray(a["x"]), jnp.asarray(a["router"]),
+        *(jq.QuantW(q=jw[k].q[0], s=jw[k].s[0]) for k in names), jcfg,
+    )
+    tw = [pq.QuantW(q=torch.from_numpy(np.array(jw[k].q[0])),
+                    s=torch.from_numpy(np.array(jw[k].s[0]).view(np.int16))
+                    .view(torch.bfloat16))
+          for k in names]
+    got = pt._moe_mlp(torch.from_numpy(a["x"]),
+                      torch.from_numpy(a["router"]), *tw, cfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32_TOL)
 
 
 @pytest.mark.parametrize(
@@ -486,13 +557,15 @@ def test_int8_expert_weights_are_refused_in_the_forward():
 def test_moe_families_still_refused(name, fields):
     """Each field serves since the GPT-OSS and Gemma families were
     ported: a tiny MoE forward with it, 24 positions (past a window of
-    16), matches JAX's, its sinks and post-norm gains drawn nonzero. What
-    stays refused is int8 with MoE, for the GPT-OSS presets too
-    (ROADMAP's int8 MoE item)."""
+    16), matches JAX's, its sinks and post-norm gains drawn nonzero. The
+    GPT-OSS presets serve as int8 too: their int8 trees (meta device)
+    have JAX's leaves, shapes and dtypes."""
     cfg = dataclasses.replace(get_config(name), **fields)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*int8 MoE"):
-        pq.check_quantizable(cfg)
     if not fields:
+        _assert_int8_tree_like_jax(
+            pt.init_params(cfg, torch.Generator(), device="meta", int8=True),
+            JAX_PRESETS[name],
+        )
         return
     cfg, jcfg, jparams, _ = _pair(name, **fields)
     rng = np.random.default_rng(5)

@@ -205,8 +205,8 @@ def test_init_params_shapes_match_jax():
 )
 def test_unported_families_raise(name):
     """The GPT-OSS and Gemma2 presets serve: ``init_params`` gives JAX's
-    tree, shapes and dtypes (on the meta device: no memory). int8 stays
-    refused for the MoE presets only (ROADMAP's int8 MoE item)."""
+    tree, shapes and dtypes (on the meta device: no memory), and so does
+    its int8 draw against ``quantize_params`` of it, MoE presets too."""
     cfg = get_config(name)
     tparams = pt.init_params(cfg, torch.Generator(), device="meta")
     jshapes = jax.eval_shape(
@@ -222,8 +222,21 @@ def test_unported_families_raise(name):
     assert shapes(tparams, lambda t: (tuple(t.shape), str(t.dtype)[6:])) == (
         shapes(jshapes, lambda a: (tuple(a.shape), str(a.dtype)))
     )
-    if cfg.is_moe:
-        with pytest.raises(NotImplementedError, match="ROADMAP.*int8 MoE"):
-            pq.check_quantizable(cfg)
-    else:
-        pq.check_quantizable(cfg)
+    def int8(tree, quant_cls, conv):
+        return {
+            k: int8(v, quant_cls, conv) if isinstance(v, dict)
+            else (conv(v.q), conv(v.s)) if isinstance(v, quant_cls)
+            else conv(v)
+            for k, v in tree.items()
+        }
+
+    from gpustack_tpu.models import quant as jq
+
+    tq = pt.init_params(cfg, torch.Generator(), device="meta", int8=True)
+    jqs = jax.eval_shape(lambda: jq.quantize_params(
+        jt.init_params(JAX_PRESETS[name], jax.random.key(0))
+    ))
+    assert int8(tq, pq.QuantW,
+                lambda t: (tuple(t.shape), str(t.dtype)[6:])) == (
+        int8(jqs, jq.QuantW, lambda a: (tuple(a.shape), str(a.dtype)))
+    )

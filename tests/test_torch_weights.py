@@ -291,21 +291,29 @@ def test_bf16_checkpoint_loads_bit_for_bit(tmp_path):
 
 
 def test_unsupported_family_raises_before_reading(monkeypatch):
-    """gpt-oss-20b serves in bf16; with ``--quantization int8`` the server
-    refuses it (int8 MoE) before any weight is read or drawn."""
+    """gpt-oss-20b serves as int8 too: with ``--quantization int8`` and
+    no checkpoint the server draws its int8 tree on the device
+    (``init_quantized_params``), reading no weight and drawing no bf16
+    tree; the engine gets that tree."""
     from gpustack_tpu_torch.engine import api_server  # analysis: ignore[metrics-drift]
 
     def no_load(*a, **k):
         raise AssertionError("weights were read")
 
+    drawn, built = [], []
     monkeypatch.setattr(pw, "load_or_init_params", no_load)
-    monkeypatch.setattr(pq, "init_quantized_params", no_load)
+    monkeypatch.setattr(pq, "init_quantized_params",
+                        lambda cfg, seed, device: drawn.append(
+                            (cfg.name, seed, str(device))) or "int8 tree")
+    monkeypatch.setattr(api_server, "LLMEngine",
+                        lambda cfg, params, **kw: built.append(params))
     args = api_server.build_parser().parse_args([
         "--preset", "gpt-oss-20b", "--device", "cpu", "--quantization",
         "int8",
     ])
-    with pytest.raises(NotImplementedError, match="int8 MoE"):
-        api_server.build_engine_from_args(args)
+    api_server.build_engine_from_args(args)
+    assert drawn == [("gpt-oss-20b", 0, "cpu")]
+    assert built == ["int8 tree"]
 
 
 # ---------------------------------------------------------------------------
