@@ -24,8 +24,10 @@ c. kernels: each hand-written kernel against its plain PyTorch version on
    strided x and q views) checked without timing; the flash kernel also at
    the cacheless embedding shapes (B of 2, 4 and 8, T = S), at
    deepseek-v2-lite's heads (16 q and kv heads, d 192: every bucket phase
-   i fills, a continuation, its 8 x 2048 embedding batch) and once at
-   d 64; the W8A16 kernel batched over the experts (``w8a16_bmm``) at
+   i fills, a continuation, its 8 x 2048 embedding batch), at Gemma 1's
+   d 256 (gemma-7b's 16 heads on 16 at every bucket phase m fills, a
+   continuation at offset 1536, its embedding batch; gemma-2b's 8 q heads
+   on 1) and once at d 64; the W8A16 kernel batched over the experts (``w8a16_bmm``) at
    mixtral-8x7b's gate and up products (x read by every expert in place)
    and its down product (each expert's columns of h) and qwen3-30b-a3b's
    gate and up products, at a decode step's 8 slots and the 2048 bucket,
@@ -137,9 +139,26 @@ l. int8 MoE at full width and depth: mixtral-8x7b (32 layers, d 4096, 32
    run's expert picks replayed (free routing beside), TTFT, prefill,
    decode tokens/s, the int8 tree's GB and the peak memory; then a
    ``moe`` line for one int8 MoE layer at the 2048 bucket and at 8
-   slots against the fp32 routed reference and its dense bound.
+   slots against the fp32 routed reference and its dense bound;
+m. Gemma 1 at head_dim 256: gemma-7b's published widths (d 3072, 16
+   heads of 256, MLP 24576, vocab 256000, tied) at 2 of its 28 layers,
+   written as a Gemma safetensors checkpoint and served bf16 through
+   ``--model-dir`` (tree and logits identical to the in-memory tree's),
+   then phase d's requests with exact flash launches at d 256, its served
+   logits against the plain attention and ``/v1/embeddings`` at the 2048
+   bucket;
+n. disaggregated prefill/decode: llama3-8b bf16 at full width and depth
+   as two engines on the card (``--kv-role prefill`` and ``--kv-role
+   decode``, each with a host KV tier) behind two servers; a 1900-token
+   prompt sent to the decode server with ``X-GPUStack-KV-Source`` naming
+   the prefill server: the prefill replica prefills it for export, 7
+   blocks travel, the decode replica prefills the tail at ``q_offset``
+   1792. Reported: handoff seconds, bytes and blocks, the decode
+   replica's TTFT beside its cold TTFT, exact flash launches over both
+   runners, greedy ids against a cold single-engine run (phase g's rule);
+   then one ``json_schema`` request with a schema and one streamed.
 
-In d to l every kernel's launches are counted around the served
+In d to n every kernel's launches are counted around the served
 requests alone and must equal what that path's model forwards need,
 derived from the runners' calls (a draft model's too): the flash kernel
 once per layer of every prefill and embedding forward of a model whose
@@ -482,11 +501,25 @@ def phase_kernels():
         (8, 2048, 2048, 0, 16, 16, 192),
         # d 64 (no served model has it): its code and time are kept
         (1, 2048, 2048, 0, 32, 8, 64),
+        # Gemma 1 at d 256 (64-key tiles, 2 stages): gemma-7b's heads (16
+        # q on 16 kv) at every bucket phase m fills, a continuation and
+        # its cacheless embedding batch; gemma-2b's (8 q on 1 kv)
+        (1, 2048, 2048, 0, 16, 16, 256),
+        (1, 1024, 1024, 0, 16, 16, 256),
+        (1, 64, 64, 0, 16, 16, 256),
+        (1, 32, 32, 0, 16, 16, 256),
+        (1, 512, 2048, 1536, 16, 16, 256),
+        (8, 2048, 2048, 0, 16, 16, 256),
+        (1, 2048, 2048, 0, 8, 1, 256),
     ]
     group8 = cases.index((1, 2048, 2048, 0, 32, 4, 128))
     mla = cases.index((1, 2048, 2048, 0, 16, 16, 192))
+    gemma7b = cases.index((1, 2048, 2048, 0, 16, 16, 256))
+    gemma7b_cont = cases.index((1, 512, 2048, 1536, 16, 16, 256))
+    gemma2b = cases.index((1, 2048, 2048, 0, 8, 1, 256))
     rows = [
-        _flash_case(*c, gen, repeats=3 if i in (0, group8, mla) else 1)
+        _flash_case(*c, gen, repeats=3 if i in (
+            0, group8, mla, gemma7b, gemma2b) else 1)
         for i, c in enumerate(cases)
     ]
     from gpustack_tpu_torch.ops import _build
@@ -555,7 +588,10 @@ def phase_kernels():
             "w8a16_bmm": bmm_rows["mixtral-8x7b we_gate/we_up", 8],
             "w8a16_large_m": w8_rows[large], "w8a16_gemma2": w8_rows[gemma2],
             "w8a16_bmm_cases": bmm_rows,
-            "flash_group8": rows[group8], "flash_mla": rows[mla]}
+            "flash_group8": rows[group8], "flash_mla": rows[mla],
+            "flash_gemma7b": rows[gemma7b],
+            "flash_gemma7b_continuation": rows[gemma7b_cont],
+            "flash_gemma2b": rows[gemma2b]}
 
 
 def _check_w8a16(out, x, q, s):
@@ -1954,7 +1990,8 @@ def _mxfp4_experts(tree):
 def _hf_config(cfg):
     """``config.json`` for ``cfg``: LlamaForCausalLM, DeepseekV2ForCausalLM
     for MLA, GptOssForCausalLM for GPT-OSS, Qwen3MoeForCausalLM for the
-    other MoE models, or Gemma2ForCausalLM for the sandwich norms."""
+    other MoE models, GemmaForCausalLM for the delta-gain norms alone, or
+    Gemma2ForCausalLM for the sandwich norms."""
     hf = {
         "architectures": ["LlamaForCausalLM"],
         "model_type": "llama",
@@ -2021,6 +2058,12 @@ def _hf_config(cfg):
             "decoder_sparse_step": 1,
             "mlp_only_layers": [],
         })
+    elif cfg.norm_delta_gain and not cfg.post_norms:
+        hf.update({
+            "architectures": ["GemmaForCausalLM"],
+            "model_type": "gemma",
+            "hidden_activation": "gelu_pytorch_tanh",
+        })
     elif cfg.post_norms:
         hf.update({
             "architectures": ["Gemma2ForCausalLM"],
@@ -2081,7 +2124,7 @@ DELTA_GAINS = ("attn_norm", "mlp_norm", "post_attn_norm", "post_mlp_norm",
 
 
 def phase_checkpoint(kind, smi, preset="llama3-8b", device="cuda",
-                     mxfp4=False, int8=False):
+                     mxfp4=False, int8=False, cfg=None, serve=None):
     """``preset`` (llama3-8b, qwen3-30b-a3b in Qwen3-MoE naming,
     deepseek-v2-lite in DeepSeek-V2 naming: one dense layer, one MoE;
     gpt-oss-20b in GPT-OSS naming; gemma2-9b in Gemma2 naming, tied) at
@@ -2094,7 +2137,10 @@ def phase_checkpoint(kind, smi, preset="llama3-8b", device="cuda",
     is the one the packing rounds them to. With ``int8`` the same
     checkpoint is also served with ``--quantization int8``: its tree must
     equal ``quantize_params`` of the in-memory tree, bit for bit, and so
-    must a prompt's logits through the kernels."""
+    must a prompt's logits through the kernels. ``cfg`` stands in for the
+    preset's config (a published config.json read by ``load_hf_config``);
+    ``serve(engine)`` replaces the one chat the loaded engine answers
+    (it starts and stops the engine) and its result is returned."""
     from gpustack_tpu_torch.engine.api_server import (
         OpenAIServer,
         build_engine_from_args,
@@ -2104,7 +2150,8 @@ def phase_checkpoint(kind, smi, preset="llama3-8b", device="cuda",
     from gpustack_tpu_torch.models.config import get_config
     from gpustack_tpu_torch.models.transformer import init_params
 
-    cfg = dataclasses.replace(get_config(preset), num_layers=2)
+    base = cfg if cfg is not None else get_config(preset)
+    cfg = dataclasses.replace(base, num_layers=2)
     if cfg.layer_sliding:
         cfg = dataclasses.replace(cfg, layer_sliding=cfg.layer_sliding[:2])
     gen = torch.Generator(device=device).manual_seed(7)
@@ -2173,25 +2220,30 @@ def phase_checkpoint(kind, smi, preset="llama3-8b", device="cuda",
         int8_report["load_s"] = int8_load_s
         del engine8
     del in_memory, tree, loaded, got, want
-    engine.start()
-    server = OpenAIServer(engine)
-    port = server.start("127.0.0.1", 0)
-    try:
-        _, raw = _post(port, "/v1/chat/completions", {
-            "messages": [{"role": "user", "content": "Hello from disk."}],
-            "max_tokens": 8, "temperature": 0,
-        })
-        usage = _check_usage(json.loads(raw))
-    finally:
-        server.shutdown()
-        engine.stop()
-    depth = get_config(preset).num_layers
+    served = usage = None
+    if serve is not None:
+        served = serve(engine)
+    else:
+        engine.start()
+        server = OpenAIServer(engine)
+        port = server.start("127.0.0.1", 0)
+        try:
+            _, raw = _post(port, "/v1/chat/completions", {
+                "messages": [{"role": "user", "content": "Hello from disk."}],
+                "max_tokens": 8, "temperature": 0,
+            })
+            usage = _check_usage(json.loads(raw))
+        finally:
+            server.shutdown()
+            engine.stop()
+    depth = base.num_layers
     emit("checkpoint", model=f"{cfg.name} (2 of {depth} layers)",
          experts="MXFP4 blocks and scales" if mxfp4 else None,
          device=kind, nvidia_smi=smi, checkpoint_gb=nbytes / 1e9, write_s=write_s,
          load_s=load_s, load_gb_per_s=nbytes / 1e9 / load_s,
          logits="identical bits", prompt_tokens=len(prompt),
          chat_usage=usage, **({"int8": int8_report} if int8 else {}))
+    return served
 
 
 def _int8_checkpoint_check(engine8, tree, padded, n_prompt):
@@ -3298,6 +3350,240 @@ def phase_mixtral_int8(kind, smi, device="cuda"):
     return {f"mixtral_int8_{w}": c for w, c in windows.items()}
 
 
+# ---------------------------------------------------------------------------
+# m: Gemma 1 at head_dim 256
+# ---------------------------------------------------------------------------
+
+# gemma-7b's published config.json (google/gemma-7b), tied embeddings
+# written out (GemmaConfig's default); phase m cuts it to 2 layers
+GEMMA_7B_HF = {
+    "architectures": ["GemmaForCausalLM"], "model_type": "gemma",
+    "hidden_size": 3072, "intermediate_size": 24576,
+    "num_hidden_layers": 28, "num_attention_heads": 16,
+    "num_key_value_heads": 16, "head_dim": 256, "vocab_size": 256000,
+    "rope_theta": 10000.0, "rms_norm_eps": 1e-6,
+    "max_position_embeddings": 8192, "hidden_act": "gelu",
+    "hidden_activation": "gelu_pytorch_tanh", "tie_word_embeddings": True,
+}
+
+
+def phase_gemma1(kind, smi, device="cuda"):
+    """gemma-7b (d 3072, 16 heads of 256 on 16 kv heads, MLP 24576,
+    vocab 256000, tanh GELU, ``(1 + w)`` norms, the scaled and tied
+    embedding; no window, softcap or sinks, so every prefill takes the
+    flash kernel at d 256) at its full width and 2 of its 28 layers,
+    written as a Gemma safetensors checkpoint and served bf16 through
+    ``--model-dir``: the loaded tree and logits identical to the in-memory
+    tree's, then phase d's requests with exact flash launches, the served
+    logits against the plain attention and ``/v1/embeddings`` at the 2048
+    bucket. Returns {window: launch counts}."""
+    from gpustack_tpu_torch.models.config import config_from_hf
+
+    def serve(engine):
+        return _serve_counted(engine, _logit_check, int8=False, embed=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    report, windows = phase_checkpoint(
+        kind, smi, device=device, serve=serve,
+        cfg=config_from_hf(GEMMA_7B_HF, name="gemma-7b"),
+    )
+    emit("gemma1_path", model="gemma-7b (2 of 28 layers)", device=kind,
+         nvidia_smi=smi, launches=windows, **report,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return {f"gemma1_{w}": c for w, c in windows.items()}
+
+
+# ---------------------------------------------------------------------------
+# n: disaggregated prefill/decode
+# ---------------------------------------------------------------------------
+
+N_ARGV = MAIN_ARGV + ["--host-kv-cache-mb", "4096"]
+# the handed-off prompt fills the 2048 bucket: 7 blocks of 256 travel and
+# the decode replica prefills the last 108 tokens at q_offset 1792
+N_PROMPT = "".join(chr(ord("a") + (i * 5) % 26) for i in range(1900))
+N_COLD_PROMPT = "".join(chr(ord("a") + (i * 3) % 26) for i in range(1900))
+N_MAX_TOKENS = 16
+N_SCHEMA = {
+    "type": "object",
+    "properties": {"answer": {"type": "string"}},
+    "required": ["answer"],
+}
+
+
+def _stream_completion(port, prompt, max_tokens, headers=None):
+    """A streaming greedy completion biased to lowercase letters (text
+    that tokenizes back to the ids generated); returns (text, TTFT s on
+    the client's clock)."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/completions",
+        data=json.dumps({
+            "prompt": prompt, "max_tokens": max_tokens, "temperature": 0,
+            "stream": True, "logit_bias": LETTERS,
+        }).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})},
+    )
+    t0 = time.perf_counter()
+    ttft, text = None, []
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith("data: ") or line == "data: [DONE]":
+                continue
+            piece = json.loads(line[6:])["choices"][0].get("text")
+            if piece:
+                if ttft is None:
+                    ttft = time.perf_counter() - t0
+                text.append(piece)
+    return "".join(text), ttft
+
+
+def _schema_requests(port):
+    """One ``json_schema`` request with a schema (validated, one guided
+    retry) and one streamed (skipped), through the decode replica."""
+    body = {
+        "messages": [{"role": "user", "content": "Answer in JSON."}],
+        "max_tokens": 24, "temperature": 0,
+        "response_format": {"type": "json_schema", "json_schema": {
+            "name": "answer", "schema": N_SCHEMA,
+        }},
+    }
+    _, raw = _post(port, "/v1/chat/completions", body)
+    choice = json.loads(raw)["choices"][0]
+    verdict = choice.get("x_schema_validation", "")
+    if not (verdict == "passed" or verdict.startswith("failed: ")):
+        raise AssertionError(f"json_schema verdict {verdict!r}")
+    _, raw = _post(port, "/v1/chat/completions", {**body, "stream": True})
+    events = [json.loads(line[6:]) for line in raw.split("\n")
+              if line.startswith("data: ") and line != "data: [DONE]"]
+    streamed = events[-1]["choices"][0].get("x_schema_validation")
+    if streamed != "skipped (stream)":
+        raise AssertionError(f"streamed json_schema verdict {streamed!r}")
+    return {"verdict": verdict, "stream_verdict": streamed,
+            "content": choice["message"]["content"]}
+
+
+def phase_disaggregation(kind, smi):
+    """llama3-8b bf16 at full width and depth as two engines on the card,
+    ``--kv-role prefill`` and ``--kv-role decode``, each with a 4 GiB host
+    KV tier, behind two servers. A 1900-token prompt goes to the decode
+    server naming the prefill server in ``X-GPUStack-KV-Source``: the
+    prefill replica prefills it for export (flash, offset 0), its 7 blocks
+    travel over ``/kv/export``, and the decode replica imports them and
+    prefills the 108-token tail (flash at ``q_offset`` 1792). Launches are
+    counted over both runners; the decode replica's greedy ids are held to
+    a cold single-engine run of the prompt (the prefill engine with its
+    host tier detached) by phase g's rule; its TTFT is reported beside its
+    own cold TTFT for a prompt of the same length. Then one
+    ``json_schema`` request with a schema, and one streamed. Returns
+    {window: launch counts}."""
+    from gpustack_tpu_torch.engine.api_server import (
+        OpenAIServer,
+        build_engine_from_args,
+        build_parser,
+    )
+    from gpustack_tpu_torch.engine.engine import GenRequest
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engines = [
+        build_engine_from_args(build_parser().parse_args(
+            N_ARGV + ["--kv-role", role]
+        ))
+        for role in ("prefill", "decode")
+    ]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    pre, dec = engines
+    calls = [RunnerCalls(e.runner, False) for e in engines]
+    servers = []
+    try:
+        ports = []
+        for e in engines:
+            e.start()
+            servers.append(OpenAIServer(e))
+            ports.append(servers[-1].start("127.0.0.1", 0))
+        tok = dec.tokenizer
+        ids = tok.encode(N_PROMPT)
+        for port in ports:                 # first calls: warm-up
+            _stream_completion(port, "warm up", 2)
+        # the reference: a cold run of the prompt on one engine (the
+        # prefill engine with its host tier detached, so it neither
+        # matches nor stores), each position's top-2 logprobs kept
+        cache, pre.host_kv_cache = pre.host_kv_cache, None
+        try:
+            ref = pre.generate(GenRequest(
+                prompt_ids=ids, max_tokens=N_MAX_TOKENS, temperature=0.0,
+                logit_bias={int(k): v for k, v in LETTERS.items()},
+                logprobs=True, top_logprobs=2,
+            ), timeout=600)
+        finally:
+            pre.host_kv_cache = cache
+        gaps = [t[0][1] - t[1][1] for t in ref.output_top_logprobs]
+        _, ttft_cold = _stream_completion(ports[1], N_COLD_PROMPT,
+                                          N_MAX_TOKENS)
+        # the handoff, every launch counted over both runners
+        reset_launch_counts()
+        for c in calls:
+            c.reset()
+        h0 = dec.health()
+        sent0 = pre.kv_handoff.snapshot()
+        got0 = dec.kv_handoff.snapshot()
+        secs0 = dec.kv_handoff.seconds.snapshot()[1]
+        source = f"http://127.0.0.1:{ports[0]}/kv/export"
+        text, ttft_warm = _stream_completion(
+            ports[1], N_PROMPT, N_MAX_TOKENS,
+            headers={"X-GPUStack-KV-Source": source},
+        )
+        counts = launch_counts()
+        check_launches("disaggregation", counts, expected_launches(calls))
+        h1 = dec.health()
+        sent = {k: v - sent0[k] for k, v in pre.kv_handoff.snapshot().items()}
+        got = {k: v - got0[k] for k, v in dec.kv_handoff.snapshot().items()}
+        reused = (h1["kv_cache_prefix_tokens_reused"]
+                  - h0["kv_cache_prefix_tokens_reused"])
+        forwards = [c.counts() for c in calls]
+        blocks = (len(ids) - 1) // BLOCK
+        if (
+            forwards[0]["prefill"] != 1 or forwards[0]["prefill_with_prefix"]
+            or forwards[1]["prefill"] or forwards[1]["prefill_with_prefix"] != 1
+        ):
+            raise AssertionError(f"runner calls {forwards}: want one full "
+                                 "prefill there and one tail prefill here")
+        if (
+            got["pulls"] != 1 or got["failures"] or got["blocks_in"] != blocks
+            or sent["blocks_out"] != blocks or reused != blocks * BLOCK
+        ):
+            raise AssertionError(
+                f"handoff sent {sent}, received {got}, reused {reused} "
+                f"tokens: want {blocks} blocks ({blocks * BLOCK} tokens)"
+            )
+        rule = _ids_rule([(ref.output_ids, gaps)], [(tok.encode(text), None)],
+                         IDS_GAP_REL)
+        schema = _schema_requests(ports[1])
+        emit("disaggregation", model=dec.cfg.name, device=kind,
+             nvidia_smi=smi, setup_s=setup_s, prompt_tokens=len(ids),
+             handoff={
+                 "seconds": dec.kv_handoff.seconds.snapshot()[1] - secs0,
+                 "bytes": got["bytes_in"], "blocks": got["blocks_in"],
+                 "block_tokens": BLOCK, "tail_tokens": len(ids) - reused,
+                 "q_offset": reused,
+             },
+             sent=sent, received=got,
+             ttft_ms_decode_replica_handoff=ttft_warm * 1e3,
+             ttft_ms_decode_replica_cold=ttft_cold * 1e3,
+             runner_calls={"prefill": forwards[0], "decode": forwards[1]},
+             launches=counts, greedy_ids_vs_single_engine=rule,
+             json_schema=schema,
+             roles=[e.health()["kv_role"] for e in engines],
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        return {"disaggregation": counts}
+    finally:
+        for server in servers:
+            server.shutdown()
+        for e in engines:
+            e.stop()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3334,12 +3620,18 @@ def main() -> int:
     paths.update(phase_gemma(kind, smi))
     _free()
     paths.update(phase_mixtral_int8(kind, smi))
+    _free()
+    paths.update(phase_gemma1(kind, smi))
+    _free()
+    paths.update(phase_disaggregation(kind, smi))
     kernels = []
     bmm_cases = rows.pop("w8a16_bmm_cases")
     large_m = rows.pop("w8a16_large_m")
     gemma2 = rows.pop("w8a16_gemma2")
     group8 = rows.pop("flash_group8")
     mla = rows.pop("flash_mla")
+    gemma = {tag: rows.pop(f"flash_{tag}") for tag in (
+        "gemma7b", "gemma7b_continuation", "gemma2b")}
     for name, row in rows.items():
         launches = sum(counts[name] for counts in paths.values())
         if launches < 1:
@@ -3400,10 +3692,15 @@ def main() -> int:
             for (weight, M), row in bmm_cases.items()
         ],
     })
-    # the flash kernel at qwen3-30b-a3b's heads (group 8) and at
-    # deepseek-v2-lite's (d 192), T = S = 2048
+    # the flash kernel at qwen3-30b-a3b's heads (group 8), at
+    # deepseek-v2-lite's (d 192) and at Gemma 1's (d 256), T = S = 2048,
+    # and at d 256 for a 512-row continuation at offset 1536
     fl = next(k for k in kernels if k["name"] == "flash_attention_prefill")
-    for tag, row in (("group8", group8), ("mla", mla)):
+    fl["gemma1_launches"] = sum(
+        counts["flash_attention_prefill"] for path, counts in paths.items()
+        if path.startswith("gemma1_")
+    )
+    for tag, row in (("group8", group8), ("mla", mla), *gemma.items()):
         fl.update({
             f"{tag}_shape": row["shape"],
             **{f"{tag}_{k}": row[k] for k in (

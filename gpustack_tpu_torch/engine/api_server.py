@@ -6,9 +6,22 @@ engine gauges, host KV cache, spill tier, flight recorder, TTFT/TPOT/e2e
 histograms), ``GET /debug/flight`` (raw flight records and aggregates),
 ``POST /debug/profile`` (a ``torch.profiler`` capture of the next steps),
 ``POST /v1/completions`` and ``POST /v1/chat/completions`` (streaming and
-not), ``POST /v1/embeddings`` and ``POST /v1/rerank``, with the same JSON
-shapes. ``--speculative ngram|draft`` serves greedy speculative decoding
-(requests that leave temperature unset default to 0 there). It runs on ``http.server.ThreadingHTTPServer`` (one thread per
+not; streamed choices interleave; ``response_format`` ``json_object`` or
+``json_schema``, a schema validated with one guided retry), ``POST
+/v1/embeddings`` and ``POST /v1/rerank``, with the same JSON shapes.
+``--speculative ngram|draft`` serves greedy speculative decoding
+(requests that leave temperature unset default to 0 there).
+
+Disaggregated prefill/decode serving (with a host KV cache): ``POST
+/kv/export`` (a prompt's cached blocks as ``kv_transfer`` frames,
+prefilling on a miss), ``POST /kv/import``, ``GET``/``POST /kv/summary``
+(the cluster KV directory's scrape) and ``POST /kv/pull`` (202, then a
+background pull). A completion whose request carries
+``X-GPUStack-KV-Source: <peer>/kv/export`` first pulls its prompt's blocks
+from that peer, so it prefills only the tail; ``--kv-role`` tags the
+replica. Peers are reached with ``http.client`` on the handler's thread.
+
+It runs on ``http.server.ThreadingHTTPServer`` (one thread per
 connection; each handler blocks on its request's ``done`` event or token
 queue) and streams Server-Sent Events as HTTP/1.1 chunked transfer.
 
@@ -20,6 +33,9 @@ from __future__ import annotations
 
 import argparse
 import base64
+import concurrent.futures
+import dataclasses
+import http.client
 import json
 import logging
 import math
@@ -34,6 +50,23 @@ from typing import Any, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlsplit
 
 from gpustack_tpu_torch.engine.engine import GenRequest, LLMEngine
+from gpustack_tpu_torch.engine.json_schema import (
+    SchemaError,
+    ValidationError,
+    check_schema,
+    validate,
+)
+from gpustack_tpu_torch.engine.kv_fabric import (
+    DEFAULT_SUMMARY_KEYS,
+    conversation_chain,
+)
+from gpustack_tpu_torch.engine.kv_transfer import (
+    MAGIC,
+    FrameDecoder,
+    decode_stream,
+    encode_block,
+    prepare_import,
+)
 from gpustack_tpu_torch.engine.openai_tools import (
     JSON_MODE_INSTRUCTION,
     ToolCallHoldback,
@@ -112,6 +145,66 @@ def _completion_logprobs(req: GenRequest, tokenizer) -> Dict[str, Any]:
     }
 
 
+@dataclasses.dataclass
+class _Call:
+    """One parsed completion request."""
+
+    body: Dict[str, Any]
+    gens: List[GenRequest]
+    chat: bool
+    tools_active: bool = False
+    json_mode: bool = False
+    schema: Any = None                  # a json_schema's schema, else None
+    msgs: Optional[List[Dict[str, Any]]] = None   # the templated messages
+    conv_chain: Optional[List[str]] = None        # for the KV directory
+
+
+def _post_stream(url: str, payload, auth: str, deadline: float):
+    """POST ``payload`` as JSON to a peer's ``url`` and yield the response
+    body as it arrives (``http.client``; ``deadline`` on the monotonic
+    clock bounds the whole exchange). Raises on a status other than 200,
+    a cut stream or the deadline; the chunks already yielded stand."""
+    u = urlsplit(url)
+    if u.scheme not in ("http", "https") or not u.hostname:
+        raise ValueError(f"kv source {url!r} is not an http(s) URL")
+
+    def remaining() -> float:
+        left = deadline - time.monotonic()
+        if left <= 0:
+            raise TimeoutError("kv transfer exceeded its timeout")
+        return left
+
+    cls = (http.client.HTTPSConnection if u.scheme == "https"
+           else http.client.HTTPConnection)
+    conn = cls(u.hostname, u.port, timeout=remaining())
+    try:
+        headers = {"Content-Type": "application/json"}
+        if auth:
+            headers["Authorization"] = auth
+        conn.request(
+            "POST", (u.path or "/") + (f"?{u.query}" if u.query else ""),
+            body=json.dumps(payload), headers=headers,
+        )
+        # the socket itself: a response that closes the connection takes
+        # it over from ``conn``
+        sock = conn.sock
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise RuntimeError(f"peer answered HTTP {resp.status}")
+        while True:
+            sock.settimeout(remaining())
+            chunk = resp.read1(1 << 20)
+            if not chunk:
+                break
+            yield chunk
+        if resp.length:
+            # the peer closed before its Content-Length (a cut chunked
+            # body raises inside read1)
+            raise http.client.IncompleteRead(b"", resp.length)
+    finally:
+        conn.close()
+
+
 def _shrink(vec: List[float], dimensions: int) -> List[float]:
     """Matryoshka truncation: the first ``dimensions`` values,
     renormalised (OpenAI's ``dimensions``)."""
@@ -131,6 +224,10 @@ class OpenAIServer:
         self._started = time.time()
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        # background prefetch pulls (POST /kv/pull) by outcome, for the
+        # gpustack_kv_prefetch_total family
+        self.prefetch_ok = 0
+        self.prefetch_failed = 0
 
     # ---- request parsing ------------------------------------------------
 
@@ -197,8 +294,11 @@ class OpenAIServer:
             gens.append(gen)
         return gens
 
-    def _chat_prompt(self, body) -> Tuple[List[int], bool, bool]:
-        """(prompt ids, tools_active, json_mode) for a chat body."""
+    def _chat_prompt(self, body) -> Tuple[List[int], _Call]:
+        """(prompt ids, the call's chat fields) for a chat body. A
+        ``response_format`` of ``json_object`` or ``json_schema`` is JSON
+        mode; a ``json_schema`` that carries a schema is checked here (400
+        before any generation) and rides the system instruction."""
         messages = body.get("messages")
         if not isinstance(messages, list) or not messages:
             raise HTTPError(400, "missing 'messages'")
@@ -229,22 +329,51 @@ class OpenAIServer:
                     "content": "You MUST call one of the available functions.",
                 })
         rf = body.get("response_format") or {}
-        json_mode = False
-        if isinstance(rf, dict) and rf.get("type") == "json_schema":
-            raise HTTPError(
-                400, "response_format json_schema is not supported by "
-                "this engine yet; use json_object"
-            )
-        if isinstance(rf, dict) and rf.get("type") == "json_object":
-            json_mode = True
-            msgs.append({"role": "system", "content": JSON_MODE_INSTRUCTION})
+        json_mode = isinstance(rf, dict) and rf.get("type") in (
+            "json_object", "json_schema"
+        )
+        schema = None
+        if json_mode:
+            instruction = JSON_MODE_INSTRUCTION
+            spec = rf.get("json_schema") or {}
+            if not isinstance(spec, dict):
+                raise HTTPError(400, "json_schema must be an object")
+            schema = spec.get("schema")
+            if schema:
+                # a broken schema is the client's: refuse it now instead of
+                # spending two generations that can only fail
+                if not isinstance(schema, (dict, bool)):
+                    raise HTTPError(
+                        400, "json_schema.schema must be an object"
+                    )
+                try:
+                    check_schema(schema)
+                except SchemaError as e:
+                    raise HTTPError(
+                        400, f"invalid json_schema: {e.message}"
+                    ) from None
+                instruction += (
+                    " The object must conform to this JSON schema: "
+                    + json.dumps(schema)
+                )
+            elif not isinstance(schema, (dict, bool)):
+                schema = None        # no schema: JSON mode alone
+            msgs.append({"role": "system", "content": instruction})
         try:
             prompt_ids = self.engine.tokenizer.apply_chat_template(
                 msgs, tools=tools if tools_active else None
             )
         except Exception as e:  # tokenizer/template errors: client's
             raise HTTPError(400, f"chat template failed: {e}") from e
-        return prompt_ids, tools_active, json_mode
+        call = _Call(
+            body=body, gens=[], chat=True, tools_active=tools_active,
+            json_mode=json_mode, schema=schema, msgs=msgs,
+        )
+        if self.engine.kv_conv is not None:
+            # the message-prefix hashes the proxy's affinity map and the
+            # cluster KV directory key on; recorded at finish
+            call.conv_chain = conversation_chain(self.model_name, messages)
+        return prompt_ids, call
 
     # ---- responses ------------------------------------------------------
 
@@ -254,8 +383,7 @@ class OpenAIServer:
 
     def metrics(self) -> str:
         """Prometheus exposition text: the family names and shapes the JAX
-        engine's exporter emits, less the KV handoff and prefetch families
-        (their routes are not ported yet)."""
+        engine's exporter emits."""
         from gpustack_tpu_torch.observability.metrics import type_line
 
         h = self.engine.health()
@@ -281,6 +409,21 @@ class OpenAIServer:
             ("gpustack_kv_cache_bytes", h["kv_cache_host_bytes"]),
         ):
             lines += [type_line(family), f"{family} {value}"]
+        # disaggregated KV handoff: wire bytes and blocks per direction,
+        # pull failures (the seconds histogram rides the loop below)
+        ho = self.engine.kv_handoff
+        for family, in_, out_ in (
+            ("gpustack_kv_handoff_bytes_total", ho.bytes_in, ho.bytes_out),
+            ("gpustack_kv_handoff_blocks_total", ho.blocks_in,
+             ho.blocks_out),
+        ):
+            lines += [
+                type_line(family),
+                f'{family}{{direction="in"}} {in_}',
+                f'{family}{{direction="out"}} {out_}',
+            ]
+        family = "gpustack_kv_handoff_failures_total"
+        lines += [type_line(family), f"{family} {ho.failures}"]
         s = h["kv_spill"]
         if s:
             for family, out_, in_ in (
@@ -301,11 +444,19 @@ class OpenAIServer:
                 ("gpustack_kv_spill_faultbacks_total", h["kv_faultbacks"]),
             ):
                 lines += [type_line(family), f"{family} {value}"]
+        if self.engine.host_kv_cache is not None:
+            family = "gpustack_kv_prefetch_total"
+            lines += [
+                type_line(family),
+                f'{family}{{result="ok"}} {self.prefetch_ok}',
+                f'{family}{{result="failed"}} {self.prefetch_failed}',
+            ]
         lines += self.engine.flight.metrics_lines()
         for name, hist in (
             ("gpustack_engine_ttft_seconds", self.engine.ttft_hist),
             ("gpustack_engine_tpot_seconds", self.engine.tpot_hist),
             ("gpustack_engine_e2e_seconds", self.engine.e2e_hist),
+            ("gpustack_kv_handoff_seconds", ho.seconds),
         ):
             cum, total, count = hist.snapshot()
             lines.append(f"# TYPE {name} histogram")
@@ -490,12 +641,10 @@ class OpenAIServer:
             }],
         }
 
-    def prepare(self, path: str, body: Dict[str, Any]):
-        """Parse a completion body into (gens, chat, tools_active)."""
-        chat = path == "/v1/chat/completions"
-        tools_active = json_mode = False
-        if chat:
-            prompt_ids, tools_active, json_mode = self._chat_prompt(body)
+    def prepare(self, path: str, body: Dict[str, Any]) -> _Call:
+        """Parse a completion body into its :class:`_Call`."""
+        if path == "/v1/chat/completions":
+            prompt_ids, call = self._chat_prompt(body)
         else:
             prompt = body.get("prompt")
             if prompt is None:
@@ -503,11 +652,14 @@ class OpenAIServer:
             if isinstance(prompt, list):
                 prompt = prompt[0] if prompt else ""
             prompt_ids = self.engine.tokenizer.encode(str(prompt))
+            call = _Call(body=body, gens=[], chat=False)
         try:
-            gens = self._make_gens(body, prompt_ids, chat, json_mode)
+            call.gens = self._make_gens(
+                body, prompt_ids, call.chat, call.json_mode
+            )
         except (TypeError, ValueError) as e:
             raise HTTPError(400, f"bad sampling params: {e}") from e
-        return gens, chat, tools_active
+        return call
 
     def submit_all(self, gens: List[GenRequest]) -> None:
         try:
@@ -518,14 +670,87 @@ class OpenAIServer:
                 gen.abort()
             raise HTTPError(400, str(e)) from e
 
-    def complete(self, gens, chat: bool, tools_active: bool) -> Dict[str, Any]:
+    def _validate_schema(self, call: _Call, gen: GenRequest,
+                         remaining_s: float, allow_retry: bool):
+        """Validate a finished generation against the request's schema,
+        with one guided retry on failure (the failed attempt and the
+        validator's message re-enter the prompt). Returns (the winning
+        request, ``passed`` or ``failed: ...``, the retry or None; the
+        retry comes back for usage). Schemas are validated, not enforced
+        by a grammar, so the verdict always rides the choice."""
+        schema = call.schema
+
+        def verdict_of(text):
+            try:
+                validate(json.loads(text), schema)
+                return "passed"
+            except json.JSONDecodeError as e:
+                return f"failed: not valid JSON ({e})"
+            except ValidationError as e:
+                return f"failed: {e.message}"
+
+        verdict = verdict_of(gen.output_text)
+        if verdict == "passed" or not allow_retry or remaining_s < 30:
+            return gen, verdict, None
+        try:
+            # a family template may refuse assistant-then-system turns: a
+            # retry that cannot be rendered keeps the first verdict
+            retry_ids = self.engine.tokenizer.apply_chat_template(
+                call.msgs + [
+                    {"role": "assistant", "content": gen.output_text},
+                    {"role": "system", "content": (
+                        "Your JSON failed schema validation: "
+                        f"{verdict[:400]}. Respond again with ONLY a "
+                        "corrected JSON object."
+                    )},
+                ]
+            )
+            retry = self._gen_request(
+                call.body, retry_ids, chat=True, json_mode=True
+            )
+            self.engine.submit(retry)
+        except Exception as e:
+            logger.warning("schema retry not possible: %s", e)
+            return gen, verdict, None
+        if not retry.done.wait(remaining_s):
+            # the orphan ends at its max_tokens on its own
+            logger.warning("schema retry timed out; keeping original")
+            return gen, verdict, retry
+        return retry, verdict_of(retry.output_text), retry
+
+    def complete(self, call: _Call) -> Dict[str, Any]:
         """Non-streaming response body (after the gens were submitted)."""
+        gens, chat, tools_active = call.gens, call.chat, call.tools_active
         deadline = time.monotonic() + GENERATION_TIMEOUT_S
         for gen in gens:
             if not gen.done.wait(max(0.1, deadline - time.monotonic())):
                 for g in gens:
                     g.abort()
                 raise HTTPError(504, "generation timed out")
+        self._record_conv(call)
+        # usage bills the client's prompt once and everything generated,
+        # a discarded schema attempt included
+        usage = _usage(gens)
+        verdicts: List[Optional[str]] = [None] * len(gens)
+        if call.schema is not None:
+            for i in range(len(gens)):
+                # a tool-call turn is no schema violation: the contract
+                # holds for the final content answer
+                if tools_active and parse_tool_calls(
+                    gens[i].output_text
+                )[1]:
+                    continue
+                # a length-cut attempt would only be cut again
+                allow_retry = (
+                    len(gens) == 1 and gens[i].finish_reason != "length"
+                )
+                gens[i], verdicts[i], retry = self._validate_schema(
+                    call, gens[i], max(0.0, deadline - time.monotonic()),
+                    allow_retry,
+                )
+                if retry is not None:
+                    usage["completion_tokens"] += len(retry.output_ids)
+                    usage["total_tokens"] += len(retry.output_ids)
         tok = self.engine.tokenizer
         choices = []
         for i, gen in enumerate(gens):
@@ -549,6 +774,8 @@ class OpenAIServer:
                 }
                 if gen.logprobs:
                     choice["logprobs"] = _chat_logprobs(gen, tok)
+                if verdicts[i] is not None:
+                    choice["x_schema_validation"] = verdicts[i]
             else:
                 choice = {
                     "index": i,
@@ -564,15 +791,18 @@ class OpenAIServer:
             "created": int(time.time()),
             "model": self.model_name,
             "choices": choices,
-            "usage": _usage(gens),
+            "usage": usage,
         }
         if gens[0].seed is not None:
             payload["system_fingerprint"] = SYSTEM_FINGERPRINT
         return payload
 
-    def stream_events(self, gens, chat: bool, tools_active: bool):
+    def stream_events(self, call: _Call):
         """Yield the SSE payload dicts of a streaming response (after the
-        gens were submitted with stream queues); the caller writes them."""
+        gens were submitted with stream queues); the caller writes them.
+        Choices interleave as their tokens arrive: one reader thread per
+        choice feeds a merged queue."""
+        gens, chat, tools_active = call.gens, call.chat, call.tools_active
         rid = f"{'chatcmpl' if chat else 'cmpl'}-{gens[0].request_id}"
         obj = "chat.completion.chunk" if chat else "text_completion"
 
@@ -598,25 +828,45 @@ class OpenAIServer:
             ToolCallHoldback() if (chat and tools_active) else None
             for _ in gens
         ]
-        deadline = time.monotonic() + GENERATION_TIMEOUT_S
-        for i, gen in enumerate(gens):
-            # choices stream one after another (each queue is complete by
-            # its None sentinel); tokens of later choices wait in order
+        merged: "queue.Queue" = queue.Queue()
+
+        def pump(i: int, gen: GenRequest) -> None:
+            # a bounded get, so a reader notices an aborted request (the
+            # client gone) instead of waiting on its queue for good
             while True:
                 try:
-                    item = gen.stream.get(
-                        timeout=max(0.1, deadline - time.monotonic())
-                    )
+                    item = gen.stream.get(timeout=0.5)
                 except queue.Empty:
-                    raise HTTPError(504, "generation timed out") from None
+                    if gen.aborted.is_set():
+                        return
+                    continue
+                merged.put((i, item))
                 if item is None:
-                    break
-                _tok, piece = item
-                hb = holdbacks[i]
-                if hb is not None:
-                    piece = hb.filter(piece)
-                if piece:
-                    yield chunk_for(i, {"content": piece} if chat else piece)
+                    return
+
+        for i, gen in enumerate(gens):
+            threading.Thread(
+                target=pump, args=(i, gen), name=f"sse-choice-{i}",
+                daemon=True,
+            ).start()
+        deadline = time.monotonic() + GENERATION_TIMEOUT_S
+        open_streams = len(gens)
+        while open_streams:
+            try:
+                i, item = merged.get(
+                    timeout=max(0.1, deadline - time.monotonic())
+                )
+            except queue.Empty:
+                raise HTTPError(504, "generation timed out") from None
+            if item is None:
+                open_streams -= 1
+                continue
+            _tok, piece = item
+            hb = holdbacks[i]
+            if hb is not None:
+                piece = hb.filter(piece)
+            if piece:
+                yield chunk_for(i, {"content": piece} if chat else piece)
         for i, gen in enumerate(gens):
             gen.done.wait(max(0.1, deadline - time.monotonic()))
             had_calls = False
@@ -641,6 +891,11 @@ class OpenAIServer:
                 i, {} if chat else "",
                 "tool_calls" if had_calls else gen.finish_reason,
             )
+            if call.schema is not None:
+                # a stream cannot be validated after the fact: say so
+                final["choices"][0]["x_schema_validation"] = (
+                    "skipped (stream)"
+                )
             if gen.logprobs:
                 final["choices"][0]["logprobs"] = (
                     _chat_logprobs(gen, self.engine.tokenizer) if chat
@@ -649,6 +904,258 @@ class OpenAIServer:
             if i == len(gens) - 1:
                 final["usage"] = _usage(gens)
             yield final
+        self._record_conv(call)
+
+    def _record_conv(self, call: _Call) -> None:
+        """Feed the conversation index at chat finish: the message-prefix
+        hash chain and the token sequence whose KV blocks the cache now
+        holds (prompt + generated: what the next turn prefix-matches)."""
+        conv = self.engine.kv_conv
+        if not call.conv_chain or conv is None:
+            return
+        g = call.gens[0]
+        try:
+            conv.record(call.conv_chain, list(g.prompt_ids) + list(g.output_ids))
+        except Exception:  # accounting never fails a request
+            logger.exception("conversation-index record failed")
+
+    # ---- disaggregated KV handoff ---------------------------------------
+
+    @staticmethod
+    def _handoff_timeout() -> float:
+        return float(
+            os.environ.get("GPUSTACK_TPU_KV_HANDOFF_TIMEOUT") or 10.0
+        )
+
+    def _kv_cache(self):
+        cache = self.engine.host_kv_cache
+        if cache is None:
+            raise HTTPError(404, "engine has no host KV cache")
+        return cache
+
+    def kv_export(self, body: Dict[str, Any]) -> Tuple[List[bytes], int]:
+        """The host cache's matched block run for a prompt as wire frames
+        (``kv_transfer``): ``(chunks, payload blocks)``.
+
+        Body: ``{"prompt_ids": [...], "have": [hex...], "prefill": bool}``
+        or ``{"tail_key": hex}``. ``have`` keys travel as token-only dedup
+        frames. ``prefill`` on a miss first runs a one-token generation,
+        so a prefill-role replica can hand over a prompt it has never
+        seen: the disaggregated hop (the prefill compute happens here; the
+        decode replica imports the blocks and prefills only the tail).
+        ``tail_key`` (fleet prefetch: the puller has only the directory's
+        chain key) walks the chain back from that block."""
+        cache = self._kv_cache()
+        try:
+            prompt_ids = [int(t) for t in body.get("prompt_ids") or []]
+        except (TypeError, ValueError):
+            raise HTTPError(400, "'prompt_ids' must be integers") from None
+        tail_key = str(body.get("tail_key") or "")
+        if not prompt_ids and not tail_key:
+            raise HTTPError(400, "missing 'prompt_ids' or 'tail_key'")
+        have = frozenset(str(k) for k in body.get("have") or [])
+        want = (
+            (len(prompt_ids) - 1) // cache.block_tokens * cache.block_tokens
+            if prompt_ids else 0
+        )
+        if body.get("prefill") and want > 0 and (
+            cache.peek_prefix_len(prompt_ids) < want
+        ):
+            err = self._prefill_for_export(prompt_ids, want)
+            if err:
+                raise HTTPError(503, err)
+        # one trie walk: encode straight off the export and count payload
+        # frames as they are made (a second walk could disagree under a
+        # concurrent eviction)
+        blocks = (
+            cache.export_blocks(prompt_ids) if prompt_ids
+            else cache.export_chain(tail_key)
+        )
+        chunks, payload_blocks = [MAGIC], 0
+        for blk in blocks:
+            frame, carried = encode_block(blk, have)
+            chunks.append(frame)
+            payload_blocks += int(carried)
+        return chunks, payload_blocks
+
+    def _prefill_for_export(self, prompt_ids, want_tokens: int) -> str:
+        """Run a one-token generation so the prompt's KV lands in the host
+        cache (the prefill's own store), then wait, bounded, until it can
+        be matched. Returns an error message, or "" on success."""
+        timeout = self._handoff_timeout()
+        try:
+            self.engine.generate(GenRequest(
+                prompt_ids=list(prompt_ids), max_tokens=1, temperature=0.0,
+            ), timeout=timeout)
+        except (TimeoutError, ValueError) as e:
+            return f"prefill for export failed: {e}"
+        cache = self.engine.host_kv_cache
+        deadline = time.monotonic() + timeout
+        while (
+            cache.peek_prefix_len(prompt_ids) < want_tokens
+            and time.monotonic() < deadline
+        ):
+            time.sleep(0.01)
+        return ""
+
+    def kv_import(self, raw: bytes) -> Tuple[int, Dict[str, Any]]:
+        """Land wire frames (a prefill replica's push, or a relay) in the
+        host cache through the engine's stager: decoding slots never wait
+        on the insert."""
+        eng = self.engine
+        cache = self._kv_cache()
+        try:
+            tokens, prepared, bytes_in = prepare_import(
+                cache, decode_stream(raw)
+            )
+        except ValueError as e:
+            eng.kv_handoff.failures += 1
+            return 400, _error_body(str(e))
+        timeout = self._handoff_timeout()
+        try:
+            attached = eng.kv_import_prepared(tokens, prepared).result(
+                timeout
+            )
+        except concurrent.futures.TimeoutError:
+            eng.kv_handoff.failures += 1
+            return 503, _error_body(
+                f"kv import did not land within {timeout}s (stager busy); "
+                "retry"
+            )
+        eng.kv_handoff.bytes_in += bytes_in
+        return 200, {
+            "blocks_attached": attached,
+            "tokens": len(tokens),
+            "bytes": bytes_in,
+        }
+
+    def kv_summary(self, body: Dict[str, Any]) -> Tuple[int, Dict[str, Any]]:
+        """The cluster KV directory's scrape: fold the fleet's sharing
+        counts into the local eviction score, then return this replica's
+        bounded prefix-key summary, re-checked against both cache tiers
+        now. Body (all optional): ``{"sharing": {hash: replicas},
+        "max_keys": n}``."""
+        cache = self._kv_cache()
+        conv = self.engine.kv_conv
+        sharing = body.get("sharing") or {}
+        if not isinstance(sharing, dict):
+            return 400, _error_body("'sharing' must be an object")
+        try:
+            max_keys = int(body.get("max_keys") or DEFAULT_SUMMARY_KEYS)
+        except (TypeError, ValueError):
+            return 400, _error_body("'max_keys' must be an integer")
+        boosted = conv.apply_sharing(cache, sharing)
+        summary = conv.summary(cache, max_keys=max(1, max_keys))
+        summary["sharing_boosted"] = boosted
+        return 200, summary
+
+    def kv_pull(self, body: Dict[str, Any]) -> Tuple[int, Dict[str, Any]]:
+        """Background prefetch (the fleet fabric's warm-ahead): pull a
+        conversation's block chain from a peer by its directory-advertised
+        tail chain key. Answers 202 at once; the pull runs on a thread of
+        its own, and a dead or slow source leaves this replica cold, with
+        the failure counted."""
+        self._kv_cache()
+        source = str(body.get("source") or "")
+        tail_key = str(body.get("tail_key") or "")
+        if not source or not tail_key:
+            return 400, _error_body("missing 'source' or 'tail_key'")
+        auth = str(body.get("auth") or "")
+        threading.Thread(
+            target=self._kv_pull_chain, args=(source, auth, tail_key),
+            name="kv-pull", daemon=True,
+        ).start()
+        return 202, {"accepted": True}
+
+    def _pull_frames(self, source: str, payload, auth: str,
+                     deadline: float):
+        """The frames a peer streams for ``payload``, and the fault that
+        ended the stream ("" when none): frames complete before a fault
+        stand."""
+        decoder, frames = FrameDecoder(), []
+        try:
+            for chunk in _post_stream(source, payload, auth, deadline):
+                frames.extend(decoder.feed(chunk))
+        except Exception as e:  # any peer fault ends the stream
+            return frames, str(e) or type(e).__name__
+        return frames, ""
+
+    def _land(self, frames, deadline: float) -> Tuple[int, int]:
+        """Import frames through the engine's stager: (blocks attached,
+        wire bytes)."""
+        eng = self.engine
+        tokens, prepared, bytes_in = prepare_import(eng.host_kv_cache, frames)
+        blocks = eng.kv_import_prepared(tokens, prepared).result(
+            max(0.5, deadline - time.monotonic())
+        )
+        eng.kv_handoff.bytes_in += bytes_in
+        return blocks, bytes_in
+
+    def _kv_pull_chain(self, source: str, auth: str, tail_key: str) -> None:
+        """The prefetch pull: stream the peer's chain export and land it
+        through the stager. Failures are counted and logged, never raised:
+        prefetch is advisory."""
+        deadline = time.monotonic() + self._handoff_timeout()
+        frames, failed = self._pull_frames(
+            source, {"tail_key": tail_key}, auth, deadline
+        )
+        try:
+            if failed or not frames:
+                raise RuntimeError(failed or "peer exported no blocks")
+            blocks, bytes_in = self._land(frames, deadline)
+        except Exception as e:  # advisory: the replica stays cold
+            self.prefetch_failed += 1
+            logger.warning(
+                "kv prefetch from %s failed (replica stays cold): %s",
+                source, str(e) or type(e).__name__,
+            )
+            return
+        self.prefetch_ok += 1
+        logger.info("kv prefetch from %s landed %d block(s) (%d bytes)",
+                    source, blocks, bytes_in)
+
+    def kv_prefetch(self, source: str, prompt_ids, auth: str = ""):
+        """Pull the prompt's prefix blocks from a peer before the
+        generation is submitted: the decode half of the disaggregated
+        handoff (``X-GPUStack-KV-Source``). Never fails the request: a
+        dead peer, a cut stream or a slow transfer leaves a cold (or
+        partly warm) prefill, with the failure counted and logged; the
+        complete frames that arrived before a failure are imported.
+        Returns what happened (``None`` when nothing was pulled)."""
+        cache = self.engine.host_kv_cache
+        stats = self.engine.kv_handoff
+        bt = cache.block_tokens
+        want_tokens = (len(prompt_ids) - 1) // bt * bt
+        if want_tokens <= 0:
+            return None
+        have = cache.prefix_keys(prompt_ids)
+        if len(have) * bt >= want_tokens:
+            return None          # the whole run is already here
+        t0 = time.monotonic()
+        deadline = t0 + self._handoff_timeout()
+        stats.pulls += 1
+        frames, failed = self._pull_frames(
+            source,
+            {"prompt_ids": [int(t) for t in prompt_ids], "have": have,
+             "prefill": True},
+            auth, deadline,
+        )
+        imported = bytes_in = 0
+        if frames:
+            try:
+                imported, bytes_in = self._land(frames, deadline)
+            except Exception as e:
+                failed = failed or (str(e) or type(e).__name__)
+        dur = time.monotonic() - t0
+        stats.seconds.observe(dur)
+        if failed:
+            stats.failures += 1
+            logger.warning(
+                "kv handoff from %s failed after %.3fs (%d block(s) landed; "
+                "continuing cold): %s", source, dur, imported, failed,
+            )
+        return {"source": source, "blocks": imported, "bytes": bytes_in,
+                "seconds": dur, "failed": failed}
 
     # ---- HTTP plumbing --------------------------------------------------
 
@@ -686,8 +1193,21 @@ class OpenAIServer:
                     self.wfile.write(data)
                 elif url.path == "/debug/flight":
                     self._send_json(*server.debug_flight(url.query))
+                elif url.path == "/kv/summary":
+                    self._json_route(server.kv_summary, b"")
                 else:
                     self._send_json(404, _error_body("not found"))
+
+            def _json_route(self, route, raw: bytes) -> None:
+                try:
+                    body = json.loads(raw or b"{}")
+                    if not isinstance(body, dict):
+                        raise HTTPError(400, "body must be a JSON object")
+                    self._send_json(*route(body))
+                except json.JSONDecodeError:
+                    self._send_json(400, _error_body("invalid JSON body"))
+                except HTTPError as e:
+                    self._send_json(e.status, _error_body(e.message))
 
             def do_POST(self):
                 url = urlsplit(self.path)
@@ -696,28 +1216,46 @@ class OpenAIServer:
                 if url.path == "/debug/profile":
                     self._send_json(*server.debug_profile(url.query))
                     return
+                if url.path == "/kv/import":
+                    try:
+                        self._send_json(*server.kv_import(raw))
+                    except HTTPError as e:
+                        self._send_json(e.status, _error_body(e.message))
+                    return
+                if url.path == "/kv/export":
+                    self._kv_export(raw)
+                    return
                 route = {
                     "/v1/embeddings": server.embeddings,
                     "/v1/rerank": server.rerank,
+                    "/kv/summary": server.kv_summary,
+                    "/kv/pull": server.kv_pull,
                 }.get(url.path)
-                if route is None and url.path not in (
-                    "/v1/completions", "/v1/chat/completions"
-                ):
+                if route is not None:
+                    self._json_route(route, raw)
+                    return
+                if url.path not in ("/v1/completions", "/v1/chat/completions"):
                     self._send_json(404, _error_body("not found"))
                     return
                 try:
                     body = json.loads(raw or b"{}")
                     if not isinstance(body, dict):
                         raise HTTPError(400, "body must be a JSON object")
-                    if route is not None:
-                        self._send_json(*route(body))
-                        return
-                    gens, chat, tools_active = server.prepare(url.path, body)
+                    call = server.prepare(url.path, body)
+                    # disaggregated handoff: the peer named in the header
+                    # holds (or prefills) this prompt's prefix; pull its
+                    # blocks before admission so the start prefix-hits
+                    source = self.headers.get("X-GPUStack-KV-Source", "")
+                    if source and server.engine.host_kv_cache is not None:
+                        server.kv_prefetch(
+                            source, call.gens[0].prompt_ids,
+                            self.headers.get("X-GPUStack-KV-Source-Auth", ""),
+                        )
                     stream = bool(body.get("stream"))
                     if stream:
-                        for gen in gens:
+                        for gen in call.gens:
                             gen.stream = queue.Queue()
-                    server.submit_all(gens)
+                    server.submit_all(call.gens)
                 except json.JSONDecodeError:
                     self._send_json(400, _error_body("invalid JSON body"))
                     return
@@ -726,28 +1264,52 @@ class OpenAIServer:
                     return
                 if not stream:
                     try:
-                        payload = server.complete(gens, chat, tools_active)
+                        payload = server.complete(call)
                     except HTTPError as e:
                         self._send_json(e.status, _error_body(e.message))
                         return
                     self._send_json(200, payload)
                     return
-                self._stream(gens, chat, tools_active)
+                self._stream(call)
+
+            def _kv_export(self, raw: bytes) -> None:
+                try:
+                    body = json.loads(raw or b"{}")
+                    if not isinstance(body, dict):
+                        raise HTTPError(400, "body must be a JSON object")
+                    chunks, payload_blocks = server.kv_export(body)
+                except json.JSONDecodeError:
+                    self._send_json(400, _error_body("invalid JSON body"))
+                    return
+                except HTTPError as e:
+                    self._send_json(e.status, _error_body(e.message))
+                    return
+                stats = server.engine.kv_handoff
+                self.send_response(200)
+                self.send_header("Content-Type", "application/x-gpustack-kv")
+                self.send_header("Transfer-Encoding", "chunked")
+                self.end_headers()
+                try:
+                    for chunk in chunks:
+                        self._chunk(chunk)
+                        stats.bytes_out += len(chunk)
+                    self.wfile.write(b"0\r\n\r\n")
+                    stats.blocks_out += payload_blocks
+                except OSError:
+                    self.close_connection = True
 
             def _chunk(self, data: bytes) -> None:
                 self.wfile.write(b"%x\r\n%s\r\n" % (len(data), data))
                 self.wfile.flush()
 
-            def _stream(self, gens, chat, tools_active) -> None:
+            def _stream(self, call) -> None:
                 self.send_response(200)
                 self.send_header("Content-Type", "text/event-stream")
                 self.send_header("Cache-Control", "no-cache")
                 self.send_header("Transfer-Encoding", "chunked")
                 self.end_headers()
                 try:
-                    for payload in server.stream_events(
-                        gens, chat, tools_active
-                    ):
+                    for payload in server.stream_events(call):
                         self._chunk(
                             f"data: {json.dumps(payload)}\n\n".encode()
                         )
@@ -758,7 +1320,7 @@ class OpenAIServer:
                     # end the connection; the engine frees the slots
                     self.close_connection = True
                 finally:
-                    for gen in gens:
+                    for gen in call.gens:
                         gen.abort()
 
         return Handler
@@ -826,6 +1388,13 @@ def build_parser() -> argparse.ArgumentParser:
         help="spill directory (default: a per-process temp directory)",
     )
     p.add_argument(
+        "--kv-role", choices=["", "prefill", "decode"], default="",
+        help="disaggregated serving role tag: a prefill replica hands its "
+        "prompts' KV blocks over /kv/export, a decode replica pulls them "
+        "for requests naming X-GPUStack-KV-Source (needs "
+        "--host-kv-cache-mb)",
+    )
+    p.add_argument(
         "--quantization", choices=["", "int8"], default="",
         help="int8: weight-only int8 with per-channel scales, every weight "
         "product through the W8A16 kernel on the card",
@@ -862,7 +1431,9 @@ def build_engine_from_args(args) -> LLMEngine:
     package's order, for every family (dense, MoE, MLA). Config and
     weights come from the same checkpoint (``checkpoint_source``:
     safetensors before GGUF); without one, ``--quantization int8`` draws
-    the int8 tree of any family directly on the device."""
+    the int8 tree of any family directly on the device. Before any weight
+    is read, a config the card's kernels cannot serve is refused
+    (``check_kernel_shapes``)."""
     from gpustack_tpu_torch.device import resolve_device
     from gpustack_tpu_torch.engine.gguf import config_from_gguf
     from gpustack_tpu_torch.engine.weights import (
@@ -875,6 +1446,7 @@ def build_engine_from_args(args) -> LLMEngine:
         init_quantized_params,
         quantize_params,
     )
+    from gpustack_tpu_torch.models.transformer import check_kernel_shapes
 
     device = resolve_device(args.device)
     kind, path = checkpoint_source(args.model_dir or None)
@@ -884,6 +1456,7 @@ def build_engine_from_args(args) -> LLMEngine:
         cfg = load_hf_config(args.model_dir)
     else:
         cfg = get_config(args.preset)
+    check_kernel_shapes(cfg, device, int8=args.quantization == "int8")
     if kind == "none" and args.quantization == "int8" and not args.lora:
         params = init_quantized_params(cfg, seed=0, device=device)
     else:
@@ -903,11 +1476,13 @@ def build_engine_from_args(args) -> LLMEngine:
             raise ValueError("--speculative draft needs --draft-source")
         if os.path.isdir(source):
             draft_cfg = load_hf_config(source)
+            check_kernel_shapes(draft_cfg, device, int8=False)
             draft_params = load_or_init_params(
                 draft_cfg, source, seed=0, device=device
             )
         else:
             draft_cfg = get_config(source)
+            check_kernel_shapes(draft_cfg, device, int8=False)
             draft_params = load_or_init_params(
                 draft_cfg, None, seed=0, device=device
             )
@@ -924,6 +1499,7 @@ def build_engine_from_args(args) -> LLMEngine:
         kv_cache_int8=args.kv_cache_int8,
         kv_spill_mb=args.kv_spill_mb,
         kv_spill_dir=args.kv_spill_dir,
+        kv_role=args.kv_role,
         speculative=args.speculative,
         spec_tokens=args.spec_tokens,
         draft_cfg=draft_cfg,

@@ -69,9 +69,14 @@ The flight recorder (``observability/flight.py``) keeps one record per
 scheduler step (modes ``prefill``, ``prefill_chunk``, ``decode``,
 ``spec_verify``, ``embed``).
 
-Not ported yet (the constructor raises ``ValueError`` when asked for
-them; ROADMAP lists them): disaggregated kv roles (and the ``/kv/*``
-handoff) and vision inputs.
+**Disaggregated serving** (``kv_role``, ``kv_import_prepared``): a
+prefill-role replica's blocks arrive over the server's ``/kv/*`` routes
+and land in the host cache through the ``_KVStager`` on the kv-copy
+thread; the next request for the prompt prefix-hits them and prefills
+only its tail. ``kv_handoff`` counts the wire traffic, ``kv_conv`` feeds
+the cluster KV directory.
+
+Not ported yet (ROADMAP lists it): vision inputs.
 """
 
 from __future__ import annotations
@@ -92,6 +97,8 @@ import torch
 
 from gpustack_tpu_torch.device import resolve_device
 from gpustack_tpu_torch.engine.host_bf16 import from_numpy, to_numpy
+from gpustack_tpu_torch.engine.kv_fabric import ConvIndex
+from gpustack_tpu_torch.engine.kv_transfer import HandoffStats
 from gpustack_tpu_torch.engine.runner import DecodeState, ModelRunner
 from gpustack_tpu_torch.engine.sampling import MAX_BIAS
 from gpustack_tpu_torch.engine.tokenizer import load_tokenizer
@@ -495,15 +502,13 @@ class LLMEngine:
         kv_block_tokens: int = 0,    # block granularity (0 = default 256)
         kv_cache_int8: bool = False,  # int8 host tier (per-block scales)
         prefill_chunk: int = 0,      # >0: chunked prefill (tokens/chunk)
-        kv_role: str = "",
+        kv_role: str = "",           # ""|"prefill"|"decode" (disagg tag)
         kv_spill_mb: int = 0,        # >0: disk spill tier under host RAM
         kv_spill_dir: str = "",      # spill directory ("" = derived tmp)
     ):
-        not_ported = {"kv roles": bool(kv_role)}
-        asked = [name for name, on in not_ported.items() if on]
-        if asked:
+        if kv_role not in ("", "prefill", "decode"):
             raise ValueError(
-                f"not ported to the PyTorch engine yet: {', '.join(asked)}"
+                f"kv_role must be '', 'prefill' or 'decode': {kv_role!r}"
             )
         if speculative not in ("", "ngram", "draft"):
             raise ValueError(
@@ -602,6 +607,13 @@ class LLMEngine:
         self._kv_copy_pool = None
         self._kv_stage = None
         self._copy_stream = self._upload_stream = None
+        # disaggregated serving: the role is a tag (the engine serves what
+        # arrives; the server's /kv/* routes and the proxy's routing give
+        # it meaning), and the handoff's wire accounting
+        self.kv_role = kv_role
+        self.kv_handoff = HandoffStats()
+        # conversation index feeding the cluster KV directory (/kv/summary)
+        self.kv_conv = None
         if host_kv_cache_mb > 0:
             from gpustack_tpu_torch.engine.kv_host_cache import (
                 DEFAULT_BLOCK_TOKENS,
@@ -626,6 +638,7 @@ class LLMEngine:
                 self.host_kv_cache.spill = DiskKVSpill(
                     spill_dir, kv_spill_mb * 2**20
                 )
+            self.kv_conv = ConvIndex()
             # device↔host KV copies run off the scheduler thread; staged
             # prefix uploads share the thread behind a two-slot bound
             self._kv_copy_pool = concurrent.futures.ThreadPoolExecutor(
@@ -801,8 +814,11 @@ class LLMEngine:
             ),
             "kv_cache_blocks": kv.entries if kv else 0,
             "kv_cache_host_bytes": kv.bytes_used if kv else 0,
+            "kv_role": self.kv_role,
+            "kv_handoff": self.kv_handoff.snapshot(),
             "kv_spill": kv.spill.snapshot() if kv and kv.spill else {},
             "kv_faultbacks": kv.faultbacks if kv else 0,
+            "kv_conversations": len(self.kv_conv) if self.kv_conv else 0,
         }
 
     # ---- scheduling loop ------------------------------------------------
@@ -1452,6 +1468,30 @@ class LLMEngine:
         (a CUDA error) raises here and ends the engine."""
         while self._kv_copies and self._kv_copies[0].done():
             self._kv_copies.pop(0).result()
+
+    def kv_import_prepared(self, tokens, prepared):
+        """Land a handed-off block run (decoded and converted to the
+        cache's tier by ``kv_transfer.prepare_import``) through the
+        ``_KVStager`` on the kv-copy thread, so the scheduler, and every
+        decoding slot with it, never waits on a transfer. Returns a
+        ``concurrent.futures.Future`` of the blocks attached (0 without a
+        cache)."""
+        kv_cache = self.host_kv_cache
+        if kv_cache is None:
+            fut = concurrent.futures.Future()
+            fut.set_result(0)
+            return fut
+
+        def land():
+            t0 = time.perf_counter()
+            try:
+                n = kv_cache.import_blocks(tokens, prepared)
+                self.kv_handoff.blocks_in += n
+                return n
+            finally:
+                self._note_overlap(time.perf_counter() - t0)
+
+        return self._kv_stage.submit(land)
 
     def _store_finished_sequence(self, slot: int, req: GenRequest) -> None:
         """Cache the FULL finished sequence (prompt + generated tokens) so

@@ -65,7 +65,7 @@ class _Block:
     __slots__ = (
         "key", "tokens", "parent", "children", "refs",
         "k", "v", "k_scale", "v_scale", "dtype",
-        "nbytes", "last_used", "touches",
+        "nbytes", "last_used", "touches", "sharing",
     )
 
     def __init__(self, key: bytes, tokens: Tuple[int, ...], parent):
@@ -80,6 +80,7 @@ class _Block:
         self.nbytes = 0
         self.last_used = 0
         self.touches = 0     # local reuse count (walk touches)
+        self.sharing = 0     # replicas holding it (the KV directory's count)
 
 
 # concurrency contract: the trie and its accounting are shared between the
@@ -313,20 +314,44 @@ class HostKVCache:
             for b in self._walk(prompt, max_blocks, touch=False)
         ]
 
-    def export_blocks(
-        self, prompt_ids, max_blocks: int = 0
-    ) -> List[dict]:
-        """The matched block run for ``prompt_ids`` AS STORED (int8 tiers
-        export quantized + scales), for ``kv_transfer.export_frames``."""
+    def resident_keys(self, prompt_ids) -> Tuple[List[str], List[str]]:
+        """``(ram_keys, disk_keys)`` of the longest resident block run
+        prefixing ``prompt_ids`` across both tiers (side-effect free).
+        ``prefix_keys`` stays RAM-only: it feeds the wire ``have`` dedup,
+        and a skipped frame for a disk-resident block would end the
+        import's run at the RAM trie's gap."""
+        prompt = tuple(int(t) for t in prompt_ids)
+        max_blocks = (len(prompt) - 1) // self.block_tokens
+        if max_blocks <= 0:
+            return [], []
+        run = self._walk(prompt, max_blocks, touch=False)
+        disk = self._disk_extension(
+            prompt, run[-1].key if run else b"", len(run), max_blocks
+        )
+        return [b.key.hex() for b in run], disk
+
+    def boost_sharing(self, keys_hex, count: int) -> int:
+        """Record the fleet-wide sharing count the cluster directory
+        reports for these chain keys: the eviction score divides by it,
+        so a block many replicas hold (a shared system prompt) outlives
+        cold per-conversation suffixes. Returns the blocks updated."""
+        count = max(0, int(count))
+        updated = 0
+        with self._lock:
+            for key_hex in keys_hex:
+                try:
+                    blk = self._blocks.get(bytes.fromhex(key_hex))
+                except ValueError:
+                    continue
+                if blk is not None and blk.sharing < count:
+                    blk.sharing = count
+                    updated += 1
+        return updated
+
+    @staticmethod
+    def _exported(run: List[_Block]) -> List[dict]:
         from gpustack_tpu_torch.engine.kv_transfer import _dtype_name
 
-        prompt = tuple(int(t) for t in prompt_ids)
-        limit = (len(prompt) - 1) // self.block_tokens
-        if max_blocks > 0:
-            limit = min(limit, max_blocks)
-        if limit <= 0:
-            return []
-        run = self._walk(prompt, limit, touch=True)
         return [
             {
                 "key": b.key.hex(),
@@ -340,6 +365,39 @@ class HostKVCache:
             }
             for b in run
         ]
+
+    def export_chain(self, tail_key_hex: str) -> List[dict]:
+        """The RAM-resident block chain ending at ``tail_key_hex`` (root
+        to tail), in :meth:`export_blocks`' shape: the prefetch export,
+        keyed by chain key because the puller has only the directory's
+        summary, no token ids."""
+        try:
+            tail = bytes.fromhex(tail_key_hex)
+        except ValueError:
+            return []
+        chain: List[_Block] = []
+        with self._lock:
+            node = self._blocks.get(tail)
+            self._tick += 1
+            while node is not None and node is not self._root:
+                node.last_used = self._tick
+                chain.append(node)
+                node = node.parent
+        chain.reverse()
+        return self._exported(chain)
+
+    def export_blocks(
+        self, prompt_ids, max_blocks: int = 0
+    ) -> List[dict]:
+        """The matched block run for ``prompt_ids`` AS STORED (int8 tiers
+        export quantized + scales), for ``kv_transfer.export_frames``."""
+        prompt = tuple(int(t) for t in prompt_ids)
+        limit = (len(prompt) - 1) // self.block_tokens
+        if max_blocks > 0:
+            limit = min(limit, max_blocks)
+        if limit <= 0:
+            return []
+        return self._exported(self._walk(prompt, limit, touch=True))
 
     def import_blocks(self, token_ids, prepared: Dict[int, Tuple]) -> int:
         """Attach pre-converted blocks: ``prepared[b]`` is ``(k, v,
@@ -476,11 +534,12 @@ class HostKVCache:
         return inserted, self._evict_locked()
 
     def _eviction_score_locked(self, blk: _Block) -> float:
-        """bytes × age / (1 + reuse): a large stale block evicts before a
-        small one, a block many requests touched survives past its raw
-        recency. Highest score evicts first."""
+        """bytes × age / (1 + sharing + reuse): a large stale block evicts
+        before a small one, a block many requests touched (or many
+        replicas hold, ``boost_sharing``) survives past its raw recency.
+        Highest score evicts first."""
         age = max(1, self._tick - blk.last_used + 1)
-        reuse = min(blk.touches, 8)
+        reuse = blk.sharing + min(blk.touches, 8)
         return (blk.nbytes * age) / (1.0 + reuse)
 
     def _evict_locked(self) -> List[_Block]:

@@ -1,11 +1,12 @@
 """Content-addressed KV block frames: the wire and spill-file codec.
 
-The port's copy of ``gpustack_tpu/engine/kv_transfer.py`` (frame codec,
-cache export/import, tier conversion). The disk spill tier
-(``kv_spill.py``) stores one frame per file and the host cache's
-fault-back (``kv_host_cache._fault_back``) converts frames back into its
-storage tier; the ``/kv/*`` handoff routes that stream frames between
-engines are not ported yet.
+The port's copy of ``gpustack_tpu/engine/kv_transfer.py``: the frame
+codec, cache export/import, tier conversion and the handoff accounting
+(``SecondsHist``, ``HandoffStats``). The server's ``/kv/*`` routes stream
+these frames between engines (a prefill-role replica hands a prompt's
+blocks to a decode-role one), the disk spill tier (``kv_spill.py``) stores
+one frame per file, and the host cache's fault-back converts frames back
+into its storage tier.
 
 Wire format — a stream of self-describing frames, no stream trailer (the
 decoder yields every frame whose bytes fully arrived, so a peer dying
@@ -33,6 +34,7 @@ import binascii
 import dataclasses
 import json
 import struct
+import threading
 from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -74,6 +76,12 @@ def _array_bytes(arr: Optional[np.ndarray]) -> bytes:
     if arr is None:
         return b""
     return np.ascontiguousarray(arr).tobytes()
+
+
+def encode_stream(frames: Iterable[bytes]) -> Iterator[bytes]:
+    """Prepend the magic; yield each encoded frame."""
+    yield MAGIC
+    yield from frames
 
 
 def encode_frame(
@@ -214,6 +222,23 @@ def decode_stream(data: bytes) -> List[Frame]:
 # ---------------------------------------------------------------------------
 
 
+def encode_block(blk: Dict[str, Any], have_set) -> Tuple[bytes, bool]:
+    """One exported cache block → ``(wire frame, carried_payload)``: a
+    block the requester already holds travels as a token-only dedup frame
+    (payload False)."""
+    if blk["key"] in have_set:
+        return encode_frame(blk["key"], blk["tokens"]), False
+    return (
+        encode_frame(
+            blk["key"], blk["tokens"],
+            k=blk["k"], v=blk["v"],
+            k_scale=blk["k_scale"], v_scale=blk["v_scale"],
+            dtype=blk["dtype"],
+        ),
+        True,
+    )
+
+
 def export_frames(
     cache,
     prompt_ids,
@@ -224,27 +249,20 @@ def export_frames(
     frames AS STORED, eliding payloads for blocks whose chain key the
     requester declared in ``have``."""
     have_set = frozenset(have or ())
-    yield MAGIC
-    for blk in cache.export_blocks(prompt_ids, max_blocks=max_blocks):
-        if blk["key"] in have_set:
-            yield encode_frame(blk["key"], blk["tokens"])
-        else:
-            yield encode_frame(
-                blk["key"], blk["tokens"],
-                k=blk["k"], v=blk["v"],
-                k_scale=blk["k_scale"], v_scale=blk["v_scale"],
-                dtype=blk["dtype"],
-            )
+    blocks = cache.export_blocks(prompt_ids, max_blocks=max_blocks)
+    yield from encode_stream(encode_block(b, have_set)[0] for b in blocks)
 
 
-def import_frames(cache, frames: List[Frame]) -> Tuple[int, int, int]:
-    """Land decoded frames in ``cache``: rebuild the token chain (keys are
-    recomputed from tokens), convert payloads to the cache's tier, attach.
-    Returns ``(blocks_attached, tokens, bytes_in)``. Every frame must carry
-    the cache's block granularity; a skipped frame for a block the cache
-    does not hold ends the run."""
-    if not frames:
-        return 0, 0, 0
+def prepare_import(
+    cache, frames: List[Frame]
+) -> Tuple[List[int], Dict[int, Tuple], int]:
+    """Decoded frames in the receiving cache's storage tier: ``(token_chain,
+    prepared_blocks, wire_bytes)`` for ``cache.import_blocks`` or the
+    engine's stager-backed ``kv_import_prepared``. CPU work only. Every
+    frame must carry the cache's block granularity: ``import_blocks``
+    re-slices the token chain by its own ``block_tokens``, so a peer with
+    another block size would attach K/V to the wrong token runs; it is
+    refused here instead (callers fall back to a cold prefill)."""
     tokens: List[int] = []
     prepared: Dict[int, Tuple] = {}
     bytes_in = 0
@@ -260,6 +278,17 @@ def import_frames(cache, frames: List[Frame]) -> Tuple[int, int, int]:
             continue
         bytes_in += fr.nbytes
         prepared[i] = _to_cache_tier(cache, fr)
+    return tokens, prepared, bytes_in
+
+
+def import_frames(cache, frames: List[Frame]) -> Tuple[int, int, int]:
+    """Land decoded frames in ``cache``: rebuild the token chain (keys are
+    recomputed from tokens), convert payloads to the cache's tier, attach.
+    Returns ``(blocks_attached, tokens, bytes_in)``. A skipped frame for a
+    block the cache does not hold ends the run."""
+    if not frames:
+        return 0, 0, 0
+    tokens, prepared, bytes_in = prepare_import(cache, frames)
     attached = cache.import_blocks(tokens, prepared)
     return attached, len(tokens), bytes_in
 
@@ -294,3 +323,74 @@ def _to_cache_tier(cache, fr: Frame) -> Tuple:
     k = np.ascontiguousarray(k)
     v = np.ascontiguousarray(v)
     return k, v, None, logical, k.nbytes + v.nbytes
+
+
+# ---------------------------------------------------------------------------
+# Handoff accounting (rendered by the server's /metrics)
+# ---------------------------------------------------------------------------
+
+HANDOFF_BUCKETS_S = (
+    0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+)
+
+
+class SecondsHist:
+    """Fixed-bucket histogram with the engine's ``LatencyHistogram``
+    ``snapshot()`` contract (the exporter renders both through one loop).
+    Observed from request handler threads, so it takes a lock."""
+
+    def __init__(self, buckets=HANDOFF_BUCKETS_S):
+        self.buckets = tuple(buckets)
+        self.counts = [0] * (len(self.buckets) + 1)
+        self.total = 0.0
+        self.count = 0
+        self._mu = threading.Lock()
+
+    def observe(self, value: float) -> None:
+        with self._mu:
+            self.total += value
+            for i, ub in enumerate(self.buckets):
+                if value <= ub:
+                    self.counts[i] += 1
+                    break
+            else:
+                self.counts[-1] += 1
+            self.count += 1
+
+    def snapshot(self):
+        with self._mu:
+            counts = list(self.counts)
+            total, count = self.total, self.count
+        cum, out = 0, []
+        for ub, c in zip(self.buckets, counts):
+            cum += c
+            out.append((ub, cum))
+        inf = cum + counts[-1]
+        out.append((float("inf"), inf))
+        return out, total, min(count, inf)
+
+
+class HandoffStats:
+    """Engine-side handoff accounting: wire bytes and blocks in either
+    direction, failures, pulls and end-to-end pull seconds. Counter writes
+    are single int adds from handler and kv-copy threads (atomic under the
+    GIL); the histogram locks itself."""
+
+    def __init__(self) -> None:
+        self.bytes_in = 0
+        self.bytes_out = 0
+        self.blocks_in = 0
+        self.blocks_out = 0
+        self.failures = 0
+        self.pulls = 0
+        self.seconds = SecondsHist()
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {
+            "bytes_in": self.bytes_in,
+            "bytes_out": self.bytes_out,
+            "blocks_in": self.blocks_in,
+            "blocks_out": self.blocks_out,
+            "failures": self.failures,
+            "pulls": self.pulls,
+        }

@@ -76,6 +76,48 @@ def flash_eligible(cfg: ModelConfig) -> bool:
     )
 
 
+def check_kernel_shapes(cfg: ModelConfig, device, int8: bool) -> None:
+    """Refuse, before any weight is read, a config the card's kernels
+    cannot serve (on the card only; the CPU's plain versions take any
+    shape). A prefill that takes the flash kernel (``flash_eligible``)
+    needs its head_dim in ``SUPPORTED_HEAD_DIMS``: there is no plain
+    fallback on the card, so without this the engine would load the
+    weights and die at its first prefill. With ``int8``, every ``QuantW``
+    leaf that goes through the W8A16 kernel (all but the embedding, a
+    gather) must have the shapes the kernel takes; the leaves' shapes come
+    from an init on the ``meta`` device, which allocates nothing."""
+    if torch.device(device).type != "cuda":
+        return
+    from gpustack_tpu_torch.ops.flash_attention import SUPPORTED_HEAD_DIMS
+    from gpustack_tpu_torch.ops.w8a16 import shape_refusal
+
+    if flash_eligible(cfg) and cfg.head_dim not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(
+            f"{cfg.name}: head_dim {cfg.head_dim} is not one the flash "
+            f"kernel takes {SUPPORTED_HEAD_DIMS}, and on the card every "
+            "prefill of this config runs it"
+        )
+    if not int8:
+        return
+    leaves = {}
+    for name, node in init_params(
+        cfg, torch.Generator(), device="meta", int8=True
+    ).items():
+        if isinstance(node, dict):       # a layer stack
+            leaves.update({f"{name}/{k}": v for k, v in node.items()})
+        else:
+            leaves[name] = node
+    for path, leaf in leaves.items():
+        if isinstance(leaf, QuantW) and path != "embed":
+            K, N = leaf.q.shape[-2:]
+            refusal = shape_refusal(K, N)
+            if refusal:
+                raise ValueError(
+                    f"{cfg.name}: int8 leaf {path} of shape "
+                    f"{tuple(leaf.q.shape)}: {refusal}"
+                )
+
+
 def _mm(x: torch.Tensor, w) -> torch.Tensor:
     """Weight product ``x @ w`` over x's last axis, for plain and int8
     ``QuantW`` weights (the JAX ``_mm``). A ``QuantW`` goes through

@@ -2,10 +2,10 @@
 
 The subset of ``gpustack_tpu/observability/metrics.py`` ``METRIC_FAMILIES``
 that the port renders on ``/metrics``: the host KV cache, its disk spill
-tier and the flight recorder. Names and kinds are the JAX package's, so
-the worker's metric normalization and the fleet dashboards read an engine
-of either package alike. The KV handoff and prefetch families wait for
-the ``/kv/*`` routes.
+tier, the disaggregated KV handoff, the fleet prefetch and the flight
+recorder. Names and kinds are the JAX package's, so the worker's metric
+normalization and the fleet dashboards read an engine of either package
+alike.
 """
 
 METRIC_FAMILIES = {
@@ -14,6 +14,13 @@ METRIC_FAMILIES = {
     "gpustack_kv_cache_misses": "counter",
     "gpustack_kv_cache_prefix_tokens_reused": "counter",
     "gpustack_kv_cache_bytes": "gauge",
+    # disaggregated KV handoff (engine/kv_transfer.py): wire bytes and
+    # blocks per direction (label direction=in|out), pull failures, and
+    # end-to-end pull seconds
+    "gpustack_kv_handoff_bytes_total": "counter",
+    "gpustack_kv_handoff_blocks_total": "counter",
+    "gpustack_kv_handoff_failures_total": "counter",
+    "gpustack_kv_handoff_seconds": "histogram",
     # disk spill tier under the host cache (engine/kv_spill.py): bytes and
     # blocks per direction (out spilled to disk, in faulted back)
     "gpustack_kv_spill_bytes_total": "counter",
@@ -22,6 +29,9 @@ METRIC_FAMILIES = {
     "gpustack_kv_spill_corrupt_total": "counter",
     "gpustack_kv_spill_evictions_total": "counter",
     "gpustack_kv_spill_faultbacks_total": "counter",
+    # background fleet prefetch pulls landed by this engine (POST
+    # /kv/pull; label result=ok|failed)
+    "gpustack_kv_prefetch_total": "counter",
     # engine flight recorder (observability/flight.py)
     "gpustack_engine_step_seconds": "histogram",
     "gpustack_engine_dispatched_tokens_total": "counter",

@@ -30,12 +30,15 @@
 //     128 keys in 2 stages at d = 64 and 128; at d = 192 (MLA served
 //     decompressed) a 128-key stage of K and V is 96 KB, two of them and
 //     the 48 KB Q tile overflow the 227 KB a CTA may have, so 64 keys in 3
-//     stages (48 + 3 x 48 KB);
+//     stages (48 + 3 x 48 KB); at d = 256 (Gemma) the Q tile is 64 KB and
+//     a 64-key stage of K and V 64 KB, so 64 keys in 2 stages (64 + 2 x 64
+//     KB; a third stage would need 256 KB);
 //   - S = Q K^T is wgmma m64n{BK}k16 with both operands in shared memory
 //     (K-major). O += P V is wgmma m64n{d}k16 with A = P in registers,
 //     repacked from S's accumulator layout, and B = V read MN-major
 //     (transposed) from shared memory; O holds d / 2 fp32 registers a
-//     thread (96 at d = 192), S BK / 2. Each consumer issues tile j's Q K^T
+//     thread (96 at d = 192, 128 at d = 256: m64n256k16 is wgmma's widest
+//     N), S BK / 2, P BK / 4. Each consumer issues tile j's Q K^T
 //     together with tile j-1's P V and runs tile j's softmax while P V is
 //     still on the tensor cores; the two consumers take turns issuing
 //     (named barriers), so one's softmax overlaps the other's products;
@@ -75,7 +78,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // keys per k-tile and K/V ring depth for head_dim d (see the header)
 constexpr int bk_for(int d) { return d > 128 ? 64 : 128; }
-constexpr int stages_for(int d) { return d > 128 ? 3 : 2; }
+constexpr int stages_for(int d) { return d > 192 ? 2 : d > 128 ? 3 : 2; }
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle
 // repeats every 1024 bytes): Q as D / 64 boxes of [BQ rows][64 cols], then
@@ -230,6 +233,47 @@ __device__ __forceinline__ void wgmma_rs<192>(float (&d)[96],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // 2^x in one MUFU op (exp2f adds a range fix-up around it); results below
 // 2^-126 flush to 0, which a probability can afford.
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -259,7 +303,8 @@ __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q_wg,
 }
 
 // Issue O += P V: k16 steps advance 16 key rows of the V tile; V's
-// 64-column boxes (two at d = 128, three at 192) are the descriptor's
+// 64-column boxes (two at d = 128, three at 192, four at 256) are the
+// descriptor's
 // leading-byte-offset apart.
 template <int D, int BK = bk_for(D)>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
@@ -659,7 +704,8 @@ extern "C" int flash_prefill_bf16(
     int q_offset, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (T == 0 || B == 0) return int(cudaSuccess);
-  if (d != 64 && d != 128 && d != 192) return int(cudaErrorInvalidValue);
+  if (d != 64 && d != 128 && d != 192 && d != 256)
+    return int(cudaErrorInvalidValue);
   EncodeTiled encode = encode_fn();
   if (encode == nullptr) return -1;
   CUtensorMap tq, tk, tv, to;
@@ -673,6 +719,9 @@ extern "C" int flash_prefill_bf16(
   if (r == CUDA_SUCCESS)
     r = make_map(encode, &to, out, B, T, Hq, d, T * ot, ot, d, WG_ROWS);
   if (r != CUDA_SUCCESS) return -(1000 + int(r));
+  if (d == 256)
+    return int(launch<256>(tq, tk, tv, to, B, T, S, Hq, Hkv, q_offset,
+                           scale, st));
   if (d == 192)
     return int(launch<192>(tq, tk, tv, to, B, T, S, Hq, Hkv, q_offset,
                            scale, st));
@@ -685,6 +734,7 @@ extern "C" int flash_prefill_bf16(
 
 // Dynamic shared memory of one CTA for head_dim d (0 if unsupported).
 extern "C" int flash_prefill_smem_bytes(int d) {
+  if (d == 256) return int(Smem<256>::total);
   if (d == 192) return int(Smem<192>::total);
   if (d == 128) return int(Smem<128>::total);
   if (d == 64) return int(Smem<64>::total);

@@ -7,8 +7,10 @@ with ``ctypes``) replaces the Pallas TPU kernel
 ``flash_attention_prefill``). Same function and public layout: q
 ``[B, T, Hq, d]`` at absolute positions ``q_offset .. q_offset+T-1``
 against k, v ``[B, S, Hkv, d]``; returns ``[B, T, Hq*d]`` in q's dtype.
-The kernel takes d of 64, 128 and 192 (DeepSeek's MLA served
-decompressed: K is qk_nope + qk_rope = 192 wide, V zero-padded to it).
+The kernel takes d of 64, 128, 192 (DeepSeek's MLA served decompressed:
+K is qk_nope + qk_rope = 192 wide, V zero-padded to it) and 256 (Gemma).
+The engine refuses at build a config that would take it at any other d
+(``transformer.check_flash_head_dim``).
 
 Bound on the card: compute. One causal call at llama3-8b widths
 (T = S = 2048, Hq 32, d 128) is ~34.4 GFLOP (~35 us at 989 TFLOP/s bf16)
@@ -30,7 +32,7 @@ import ctypes
 import torch
 
 _NEG = -1e30
-SUPPORTED_HEAD_DIMS = (64, 128, 192)
+SUPPORTED_HEAD_DIMS = (64, 128, 192, 256)
 
 _lib = None
 

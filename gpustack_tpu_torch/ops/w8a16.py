@@ -146,6 +146,19 @@ def _sm_count(dev: int) -> int:
     return n
 
 
+def shape_refusal(K: int, N: int) -> str:
+    """Why the kernel cannot take a weight of ``K`` input and ``N`` output
+    columns ("" when it can): its TMA maps read 16-byte rows of x (K % 8
+    bf16) and of q (N % 16 int8). The engine asks this of every int8 leaf
+    before it reads a weight."""
+    if K % 8 or N % 16:
+        return (
+            "W8A16 kernel needs K % 8 == 0 and N % 16 == 0 (16-byte rows); "
+            f"got K {K}, N {N}"
+        )
+    return ""
+
+
 def _check_cuda_inputs(x, q, s) -> None:
     """Raise on what the kernel cannot take (x is already 2-D)."""
     M, K = x.shape
@@ -161,11 +174,9 @@ def _check_cuda_inputs(x, q, s) -> None:
     if q.dtype != torch.int8:
         raise TypeError(f"W8A16 kernel takes int8 q; got {q.dtype}")
     N = q.shape[1]
-    if K % 8 or N % 16:
-        raise ValueError(
-            f"W8A16 kernel needs K % 8 == 0 and N % 16 == 0 (16-byte rows); "
-            f"got K {K}, N {N}"
-        )
+    refusal = shape_refusal(K, N)
+    if refusal:
+        raise ValueError(refusal)
     if q.device != x.device or s.device != x.device:
         raise ValueError(f"x, q, s on {x.device}, {q.device}, {s.device}")
     if (
@@ -254,11 +265,9 @@ def _bmm_strides(x, q, s) -> tuple:
     if q.dtype != torch.int8:
         raise TypeError(f"W8A16 kernel takes int8 q; got {q.dtype}")
     N = q.shape[2]
-    if K % 8 or N % 16:
-        raise ValueError(
-            f"W8A16 kernel needs K % 8 == 0 and N % 16 == 0 (16-byte rows); "
-            f"got K {K}, N {N}"
-        )
+    refusal = shape_refusal(K, N)
+    if refusal:
+        raise ValueError(refusal)
     if E > MAX_EXPERTS:
         raise ValueError(f"W8A16 kernel takes at most {MAX_EXPERTS} experts")
     if q.device != x.device or s.device != x.device:

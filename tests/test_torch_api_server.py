@@ -156,9 +156,11 @@ def test_logprobs_and_seed_fields(served):
     ("/v1/completions", {"max_tokens": 2}, 400),
     ("/v1/completions", {"prompt": "x", "max_tokens": -1}, 400),
     ("/v1/completions", {"prompt": "x" * 200}, 400),   # >= max_seq_len
-    ("/v1/chat/completions", {
+    ("/v1/chat/completions", {     # a schema the server cannot check
         "messages": MESSAGES,
-        "response_format": {"type": "json_schema"},
+        "response_format": {"type": "json_schema", "json_schema": {
+            "schema": {"type": "not-a-real-type"},
+        }},
     }, 400),
 ])
 def test_bad_requests_are_client_errors(served, path, body, status):

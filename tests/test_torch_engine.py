@@ -152,15 +152,15 @@ def test_logprobs_match_jax_engine(models):
         ({"speculative": "medusa"}, "speculative must be"),
         ({"speculative": "draft"}, "needs draft_cfg"),
         ({"draft_params": {}}, "needs speculative='draft'"),
-        ({"kv_role": "prefill"}, "not ported"),
-        ({"kv_role": "decode"}, "not ported"),
+        ({"kv_role": "relay"}, "kv_role must be"),
+        ({"kv_role": "Prefill"}, "kv_role must be"),
     ])
 ])
 def test_unported_features_raise(models, kw, match):
-    """kv roles are not ported yet (the KV tiers and chunked prefill are:
-    test_torch_engine_kv.py; speculation is: test_torch_speculative.py),
-    and a speculative mode the engine does not know, a draft mode without
-    a draft or a draft without its mode are refused."""
+    """A kv role the engine does not know (the prefill and decode roles
+    serve: test_torch_kv_handoff.py), a speculative mode the engine does
+    not know, a draft mode without a draft or a draft without its mode
+    are refused."""
     _, _, cfg, tparams = models
     with pytest.raises(ValueError, match=match):
         LLMEngine(cfg, tparams, device="cpu", **kw)

@@ -56,6 +56,12 @@ def _assert_rows_close(out, ref, Hq, d, row_rtol=1e-2):
     (1, 512, 2048, 1536, 16, 16, 192),  # ragged T and S off the 64-key
     (1, 100, 300, 200, 16, 16, 192),    # tile, and a cacheless batch
     (4, 2048, 2048, 0, 16, 16, 192),
+    (1, 2048, 2048, 0, 16, 16, 256),    # gemma-7b's heads (d 256: 64-key
+    (1, 512, 2048, 1536, 16, 16, 256),  # tiles, 2 stages), a continuation,
+    (1, 2048, 2048, 0, 8, 1, 256),      # gemma-2b's MQA heads, ragged T
+    (1, 100, 300, 200, 8, 1, 256),      # and S off the tiles, a batch
+    (2, 130, 250, 120, 4, 2, 256),
+    (1, 64, 64, 0, 16, 16, 256),
 ])
 def test_flash_kernel_matches_plain(B, T, S, off, Hq, Hkv, d):
     """bf16 kernel output against the fp32 plain version of the same bf16
