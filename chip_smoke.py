@@ -27,13 +27,19 @@ c. kernels: each hand-written kernel against its plain PyTorch version on
    i fills, a continuation, its 8 x 2048 embedding batch), at Gemma 1's
    d 256 (gemma-7b's 16 heads on 16 at every bucket phase m fills, a
    continuation at offset 1536, its embedding batch; gemma-2b's 8 q heads
-   on 1) and once at d 64; the W8A16 kernel batched over the experts (``w8a16_bmm``) at
-   mixtral-8x7b's gate and up products (x read by every expert in place)
-   and its down product (each expert's columns of h) and qwen3-30b-a3b's
-   gate and up products, at a decode step's 8 slots and the 2048 bucket,
-   every expert held to the plain version, timed beside the plain
-   version, cuBLAS ``bmm`` on the weights dequantized to bf16 and the
-   bound;
+   on 1) and once at d 64; the grouped expert kernel (the routed MoE
+   products: a token chunk's (token, expert) pairs sorted by expert, one
+   launch over the experts they reach), int8 (``w8a16_grouped``) at
+   mixtral-8x7b's, qwen3-30b-a3b's and deepseek-v2-lite's gate/up and
+   down products and bf16 (``bf16_grouped``) at qwen3-30b-a3b's,
+   deepseek-v2-lite's and gpt-oss-20b's, each at the routed rows of a
+   seeded top-k pick of a decode step's 8 slots (the GEMV) and the 2048
+   bucket (the ``wgmma`` path), every segment held to the plain version,
+   timed beside the plain version, ``torch._grouped_mm`` (bf16; on the
+   dequantized weight for int8) and the bound for the rows and experts
+   the pick reaches; then, checked only, routings that stress the
+   segments (an expert no token picks, every token on one expert, a
+   segment ending mid-tile, one token, 17 tokens);
 d. main path: the port's OpenAI server in-process, serving llama3-8b at
    full width (bf16, random weights from a seed) with 8 slots and a
    2048-token context: chat, streaming chat, a completion whose prompt
@@ -67,8 +73,8 @@ g. speculation, embeddings and profile: llama3-8b int8 with
    ``/debug/profile?steps=20`` while 8 chats decode, its Chrome trace
    summarised (device-busy share, the 10 ops with the most device time,
    idle time per step);
-h. the MoE family: qwen3-30b-a3b (qk-norm, 128 experts, top-8, dense
-   dispatch as in the JAX module): its full widths at 2 layers written in
+h. the MoE family: qwen3-30b-a3b (qk-norm, 128 experts, top-8, routed
+   through the bf16 grouped kernel): its full widths at 2 layers written in
    Qwen3-MoE naming and served through ``--model-dir`` (loaded tree and
    logits identical to the in-memory tree's); then bf16 at full width and
    depth (48 layers, ~61 GB, random weights from a seed) through the
@@ -80,10 +86,13 @@ h. the MoE family: qwen3-30b-a3b (qk-norm, 128 experts, top-8, dense
    ``/debug/profile`` while 8 chats decode (``moe_profile``); then a
    ``moe`` line: one MoE layer at the 2048 bucket and at 8 decoding
    slots, held against an fp32 routed reference (each token through its
-   own experts), timed with CUDA events beside its dense-dispatch bound
-   and its routed bound (the experts the input's routing reaches), with
-   its transient memory (no ``[E, tokens, D]`` copy of x) and its device
-   time split by kernel. Phase c times the flash kernel at this model's
+   own experts), run once under ``set_sync_debug_mode("error")`` (no
+   host sync on the MoE path), timed with CUDA events beside its
+   dense-dispatch bound (which the 2048-bucket layer must beat: only a
+   layer reading the picked experts alone can) and its routed bound (the
+   experts the input's routing reaches), with its transient memory
+   (within the routed x, g, u, h and y of one chunk) and its device time
+   split by kernel. Phase c times the flash kernel at this model's
    heads too (32 q heads on 4 kv heads, a group of 8). The 2-layer
    checkpoint is also served with ``--quantization int8``: its tree equals
    ``quantize_params`` of the in-memory tree, bit for bit (quantized a
@@ -102,7 +111,7 @@ i. the DeepSeek family: deepseek-v2-lite (MLA served decompressed, K 192
    MoE layers with the shared experts in the layer, its reference and its
    bounds; then ``--quantization int8`` (~16 GB: MLA's projections, the
    shared experts and the dense layer through the W8A16 kernel, the
-   experts through the batched one) with phase d's requests, exact
+   experts through the grouped one) with phase d's requests, exact
    launches, and its kernel logits against the plain versions with the
    kernel run's expert picks replayed;
 j. the GPT-OSS family: gpt-oss-20b (attention sinks, a window of 128 on
@@ -134,7 +143,7 @@ l. int8 MoE at full width and depth: mixtral-8x7b (32 layers, d 4096, 32
    q heads on 8 kv heads, 8 experts, top-2, width 14336, vocab 32000)
    with ``--quantization int8``, ~46.7 GB drawn on the card (its 93 GB of
    bf16 fit no card): phase d's requests with exact launches (a
-   2048-bucket forward runs 129 2-D W8A16 products and 96 batched ones),
+   2048-bucket forward runs 129 2-D W8A16 products and 96 grouped ones),
    its kernel logits against the W8A16 plain versions with the kernel
    run's expert picks replayed (free routing beside), TTFT, prefill,
    decode tokens/s, the int8 tree's GB and the peak memory; then a
@@ -170,9 +179,11 @@ verify block; none for an embedding; a tied lm_head is the bf16
 embedding's transpose), never on a bf16 path, and counted per path by M:
 M ≤ 16 the GEMV, above it the ``wgmma`` path; on an int8 MoE path the
 2-D products of MLA's projections, the shared experts and a dense layer
-too, and the batched kernel three times per MoE layer and token chunk,
-per path by the chunk's rows (0 on every path without int8 experts).
-Each kernel must launch on at least one path.
+too; on every MoE path the grouped kernel of its expert type
+(``w8a16_grouped`` for int8 experts: phases i's int8 run and l;
+``bf16_grouped`` for bf16 ones: phases h, i and j) three times per MoE
+layer and token chunk, per path by the chunk's rows (0 on every other
+path). Each kernel must launch on at least one path.
 
 The last lines are the ``kernels`` line, the ``nvidia-smi`` name and
 power-limit line, and ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -181,6 +192,7 @@ result.
 """
 
 import base64
+import contextlib
 import dataclasses
 import gc
 import json
@@ -235,15 +247,18 @@ GEMMA2_9B_MATMULS = {
     "w_gate/w_up": (3584, 14336),
     "w_down": (14336, 3584),
 }
-# the batched W8A16 (one launch over an MoE layer's experts) at the expert
-# products phase l (mixtral-8x7b) and phase h's model (qwen3-30b-a3b)
-# give it: (E, K, N, x) with x "shared" (the gate and up products: one x
-# read by every expert, batch stride 0) or "h" (the down product: expert
-# e's columns of h [tokens, E, Fm])
-W8A16_BMM_PRODUCTS = {
-    "mixtral-8x7b we_gate/we_up": (8, 4096, 14336, "shared"),
-    "mixtral-8x7b we_down": (8, 14336, 4096, "h"),
-    "qwen3-30b-a3b we_gate/we_up": (128, 2048, 768, "shared"),
+# the grouped expert kernel (the routed MoE products, one launch over the
+# experts a token chunk picked) at the products the served MoE paths give
+# it: (E, top-k, K, N, weight types served). int8 experts serve in phases h
+# (its checkpoint), i and l; bf16 experts in phases h, i and j
+GROUPED_PRODUCTS = {
+    "mixtral-8x7b we_gate/we_up": (8, 2, 4096, 14336, ("int8",)),
+    "mixtral-8x7b we_down": (8, 2, 14336, 4096, ("int8",)),
+    "qwen3-30b-a3b we_gate/we_up": (128, 8, 2048, 768, ("int8", "bf16")),
+    "qwen3-30b-a3b we_down": (128, 8, 768, 2048, ("int8", "bf16")),
+    "deepseek-v2-lite we_gate/we_up": (64, 6, 2048, 1408, ("int8", "bf16")),
+    "deepseek-v2-lite we_down": (64, 6, 1408, 2048, ("int8", "bf16")),
+    "gpt-oss-20b we_gate/we_up/we_down": (32, 4, 2880, 2880, ("bf16",)),
 }
 # the weights a decode step reads back to back never sit in the 50 MB L2:
 # time each shape over copies of its weight totalling at least this much
@@ -305,9 +320,9 @@ def phase_device():
 
 
 def _kernel_name(mangled: str) -> str:
-    """``name`` or ``name<N>`` from an Itanium-mangled kernel name: the last
-    of its length-prefixed identifiers, with an ``int`` template argument
-    if one follows."""
+    """``name`` or ``name<N, ...>`` from an Itanium-mangled kernel name:
+    the last of its length-prefixed identifiers, with the ``int`` and
+    ``bool`` template arguments that follow it."""
     pos = 3 if mangled.startswith("_ZN") else 2
     name = mangled
     while True:
@@ -317,8 +332,14 @@ def _kernel_name(mangled: str) -> str:
         start = pos + len(d.group())
         end = start + int(d.group())
         name, pos = mangled[start:end], end
-    t = re.match(r"ILi(\d+)E", mangled[pos:])
-    return f"{name}<{t.group(1)}>" if t else name
+    t = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
+    if not t:
+        return name
+    args = re.findall(r"L([ib])(\d+)E", t.group(1))
+    return name + "<" + ", ".join(
+        v if kind == "i" else ("true" if v == "1" else "false")
+        for kind, v in args
+    ) + ">"
 
 
 def _ptxas_kernels(log: str) -> dict:
@@ -573,21 +594,39 @@ def phase_kernels():
                     "row_rtol": W8A16_ROW_RTOL},
          wgmma_smem_bytes_per_cta={bn: smem(bn) for bn in (128, 256)},
          cases=w8_rows, ragged=ragged)
-    # the batched W8A16 at a decode step's 8 slots (the GEMV) and the 2048
-    # bucket (the wgmma path), each expert against the fp32 plain version
-    bmm_rows = {
-        (weight, M): _w8a16_bmm_case(M, *W8A16_BMM_PRODUCTS[weight], weight,
-                                     gen, repeats=3 if M == 8 else 1)
-        for weight in W8A16_BMM_PRODUCTS for M in (8, 2048)
-    }
-    emit("kernels", name="w8a16_bmm",
-         tolerance={"rtol": W8A16_RTOL, "atol": W8A16_ATOL,
-                    "row_rtol": W8A16_ROW_RTOL},
-         cases=list(bmm_rows.values()))
+    # the grouped kernel at a decode step's 8 slots (the GEMV) and the 2048
+    # bucket (the wgmma path), each segment against the fp32 plain version;
+    # then the routings that stress the segments, checked only
+    grouped = {"int8": {}, "bf16": {}}
+    for weight, (E, k, K, N, types) in GROUPED_PRODUCTS.items():
+        for wtype in types:
+            for n in (8, 2048):
+                grouped[wtype][weight, n] = _grouped_case(
+                    n, E, k, K, N, weight, wtype, gen,
+                    repeats=3 if n == 2048 else 1,
+                )
+    for wtype in grouped:
+        ragged = [
+            _grouped_case(n, E, k, 4096, 1024, f"ragged {routing}", wtype,
+                          gen, routing=routing, timed=False)
+            for routing, n, E, k in (
+                ("empty", 300, 8, 2), ("empty", 12, 8, 2),
+                ("one", 300, 8, 1), ("one", 16, 8, 1),
+                ("midtile", 500, 4, 2), ("random", 1, 8, 2),
+                ("random", 17, 16, 4),
+            )
+        ]
+        emit("kernels", name=GROUPED_WRAPPERS[wtype],
+             tolerance={"rtol": W8A16_RTOL, "atol": W8A16_ATOL,
+                        "row_rtol": W8A16_ROW_RTOL},
+             cases=list(grouped[wtype].values()), ragged=ragged)
     return {"flash_attention_prefill": rows[0], "w8a16_matmul": w8_rows[0],
-            "w8a16_bmm": bmm_rows["mixtral-8x7b we_gate/we_up", 8],
+            "w8a16_grouped": grouped["int8"][
+                "mixtral-8x7b we_gate/we_up", 2048],
+            "bf16_grouped": grouped["bf16"][
+                "qwen3-30b-a3b we_gate/we_up", 2048],
             "w8a16_large_m": w8_rows[large], "w8a16_gemma2": w8_rows[gemma2],
-            "w8a16_bmm_cases": bmm_rows,
+            "grouped_cases": grouped,
             "flash_group8": rows[group8], "flash_mla": rows[mla],
             "flash_gemma7b": rows[gemma7b],
             "flash_gemma7b_continuation": rows[gemma7b_cont],
@@ -722,67 +761,167 @@ def _w8a16_case(M, K, N, weight, gen, repeats=1):
     }
 
 
-def _w8a16_bmm_case(M, E, K, N, x_kind, weight, gen, repeats=1):
-    """One batched product of ``E`` experts at M rows each: every expert's
-    output held to the fp32 plain version; the kernel timed over copies of
-    q of >= 128 MiB in all (CUDA events), beside the plain version, cuBLAS
-    ``bmm`` on the weights dequantized to bf16 ahead of time (what bf16
-    serving pays; x expanded or strided the same way) and the bound."""
+def _grouped_routing(n, E, k, routing, gen):
+    """A seeded top-k pick of ``n`` tokens over ``E`` experts: uniform
+    scores ("random"), expert 0 never picked ("empty"), every token's
+    first pick the last expert ("one"), or 200 tokens on expert 0 (a
+    segment ending mid-tile, "midtile")."""
+    scores = torch.rand(n, E, generator=gen, device="cuda")
+    if routing == "empty":
+        scores[:, 0] = -1.0
+    elif routing == "one":
+        scores[:, E - 1] = 2.0
+    elif routing == "midtile":
+        scores[:200, 0] = 2.0
+    return scores.topk(k, dim=-1).indices
+
+
+def _check_grouped(out, xs, w, s, offsets):
+    """Each expert's segment against its fp32 plain product (int8: the
+    W8A16 plain version), with the W8A16 bounds."""
+    bounds = offsets.tolist()
+    worst = (0.0, 0.0)
+    for e in range(w.shape[0]):
+        a, b = bounds[e], bounds[e + 1]
+        if b == a:
+            continue
+        if s is not None:
+            got = _check_w8a16(out[a:b], xs[a:b], w[e], s[e])
+        else:
+            ref = xs[a:b].float() @ w[e].float()
+            err = (out[a:b].float() - ref).abs()
+            row_rel = (err.norm(dim=-1)
+                       / ref.norm(dim=-1).clamp_min(1e-30)).max().item()
+            if (not torch.isfinite(out[a:b].float()).all()
+                    or (err > W8A16_ATOL + W8A16_RTOL * ref.abs()).any()
+                    or not row_rel <= W8A16_ROW_RTOL):
+                raise AssertionError(
+                    f"bf16 grouped kernel disagrees at expert {e} of "
+                    f"{tuple(w.shape)}, rows {b - a}: max |err| "
+                    f"{err.max().item()}, max row |err|/|ref| {row_rel}"
+                )
+            got = err.max().item(), row_rel
+        worst = max(worst[0], got[0]), max(worst[1], got[1])
+    return worst
+
+
+def _grouped_mm_ms(xs, ws, s, offsets):
+    """``torch._grouped_mm`` (bf16; on the weights dequantized ahead of
+    time for int8), the one PyTorch call for a routed expert product: a
+    yardstick the port never calls. Returns (ms or None, what was timed or
+    why nothing was)."""
     from gpustack_tpu_torch.ops import w8a16
 
-    if x_kind == "shared":
-        x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
-        xe = x.expand(E, M, K)
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "this torch has no torch._grouped_mm"
+    if s is not None:
+        ws = [(wi.float() * s.float()[:, None, :]).bfloat16() for wi in ws]
+    offs = offsets[1:].contiguous()
+    try:
+        out = fn(xs, ws[0], offs=offs)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        return None, ("torch._grouped_mm refused the card's tensors: "
+                      + str(e).strip().splitlines()[0][:200])
+    ref = w8a16.bf16_grouped_plain(xs, ws[0], offsets).float()
+    if (out.float() - ref).abs().max().item() > 2e-2 * (
+        1 + ref.abs().max().item()
+    ):
+        return None, "torch._grouped_mm computes another function"
+    return cuda_time_ms(_rotating(
+        lambda xi, wi: fn(xi, wi, offs=offs), [(xs, wi) for wi in ws]
+    )), "torch._grouped_mm"
+
+
+def _grouped_case(n, E, k, K, N, weight, wtype, gen, routing="random",
+                  timed=True, repeats=1):
+    """One grouped product of ``n`` tokens' top-``k`` pairs over ``E``
+    experts (``wtype`` "int8" or "bf16" weights [E, K, N]), x gathered in
+    the routed order as ``_moe_mlp`` gives it: every segment held to the
+    fp32 plain version; with ``timed``, the kernel timed over copies of
+    the weight of >= 128 MiB in all (CUDA events) beside its plain
+    version, ``torch._grouped_mm`` and the bound for the rows and experts
+    this routing reaches."""
+    from gpustack_tpu_torch.models import transformer as tf
+    from gpustack_tpu_torch.ops import w8a16
+
+    bf16w = wtype == "bf16"
+    top = _grouped_routing(n, E, k, routing, gen)
+    perm, offsets, _ = tf.moe_dispatch(top, E)
+    xs = torch.randn(n, K, generator=gen, device="cuda").bfloat16()[
+        perm // k
+    ].contiguous()
+    if bf16w:
+        w = (torch.randn(E, K, N, generator=gen, device="cuda")
+             / K ** 0.5).bfloat16()
+        s = None
+
+        def call(xi, wi):
+            return w8a16.bf16_grouped(xi, wi, offsets, n)
+
+        def plain():
+            return w8a16.bf16_grouped_plain(xs, w, offsets)
     else:
-        h = torch.randn(M, E, K, generator=gen, device="cuda").bfloat16()
-        xe = h.transpose(0, 1)
-    q = torch.randint(-127, 128, (E, K, N), generator=gen, device="cuda",
-                      dtype=torch.int8)
-    s = (
-        (0.5 + torch.rand(E, N, generator=gen, device="cuda"))
-        * (3.0 / K ** 0.5 / 127.0)
-    ).bfloat16()
-    out = w8a16.w8a16_bmm(xe, q, s)
+        w = torch.randint(-127, 128, (E, K, N), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        s = ((0.5 + torch.rand(E, N, generator=gen, device="cuda"))
+             * (3.0 / K ** 0.5 / 127.0)).bfloat16()
+
+        def call(xi, wi):
+            return w8a16.w8a16_grouped(xi, wi, s, offsets, n)
+
+        def plain():
+            return w8a16.w8a16_grouped_plain(xs, w, s, offsets)
+    out = call(xs, w)
     torch.cuda.synchronize()
-    checks = [_check_w8a16(out[e], xe[e], q[e], s[e]) for e in range(E)]
-    max_err = max(c[0] for c in checks)
-    row_rel = max(c[1] for c in checks)
-    copies = max(1, -(-L2_FLUSH_BYTES // (E * K * N)))
-    qs = [q] + [q.clone() for _ in range(copies - 1)]
-    kernel = _rotating(w8a16.w8a16_bmm, [(xe, qi, s) for qi in qs])
+    max_err, row_rel = _check_grouped(out, xs, w, s, offsets)
+    bounds = offsets.tolist()
+    reached = sum(b > a for a, b in zip(bounds, bounds[1:]))
+    P = n * k
+    row = {"weight": weight, "experts": wtype, "routing": routing,
+           "shape": {"E": E, "k": k, "n": n, "P": P, "K": K, "N": N},
+           "experts_reached": reached,
+           "max_rows_per_expert": max(b - a for a, b in zip(bounds,
+                                                            bounds[1:])),
+           "max_abs_err": max_err, "max_row_rel_err": row_rel}
+    if not timed:
+        return row
+    copies = max(1, -(-L2_FLUSH_BYTES // (w.numel() * w.element_size())))
+    ws = [w] + [w.clone() for _ in range(copies - 1)]
+    kernel = _rotating(call, [(xs, wi) for wi in ws])
     ms_runs = [cuda_time_ms(kernel) for _ in range(repeats)]
     host_us = host_us_per_call(kernel)
-    plain_ms = cuda_time_ms(
-        lambda: w8a16.w8a16_bmm_plain(xe, q, s), warmup=1, iters=3
-    )
-    ws = [(qi.float() * s.float()[:, None, :]).bfloat16() for qi in qs]
-    cublas_ms = cuda_time_ms(_rotating(torch.bmm, [(xe, w) for w in ws]))
-    del ws, qs
-    flops = 2 * E * M * N * K
-    # x read once: one [M, K] for every expert, or each expert's own
-    x_bytes = M * K * 2 * (1 if x_kind == "shared" else E)
-    nbytes = x_bytes + E * K * N + E * N * 2 + E * M * N * 2
+    plain_ms = cuda_time_ms(plain, warmup=1, iters=3)
+    library_ms, library_call = _grouped_mm_ms(xs, ws, s, offsets)
+    del ws
+    # the routed work: every pair's row of x read once, the weights (and
+    # int8 scales) of the experts reached once, the offsets, the output
+    wb = 2 if bf16w else 1
+    flops = 2 * P * K * N
+    nbytes = (P * K * 2 + reached * K * N * wb
+              + (0 if bf16w else reached * N * 2) + (E + 1) * 4 + P * N * 2)
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     ms = statistics.median(ms_runs)
-    sms = w8a16._sm_count(q.device.index)
-    if M <= w8a16.GEMV_MAX_M:
-        ksplit = w8a16.gemv_plan(N, K, sms, E)[1]
+    sms = w8a16._sm_count(w.device.index)
+    if n <= w8a16.GEMV_MAX_M:
+        ksplit = w8a16.gemv_plan(N, K, sms, min(E, P))[1]
         plan = {"path": "gemv", "ksplit": ksplit,
-                "ctas": E * -(-N // w8a16.GEMV_BN) * ksplit}
+                "ctas": E * -(-N // w8a16.GEMV_BN) * ksplit,
+                "working_ctas": reached * -(-N // w8a16.GEMV_BN) * ksplit}
     else:
-        bn, grid_m, grid_n, _, ksplit = w8a16.wgmma_plan(M, N, K, sms, E)
-        ctas = E * grid_m * grid_n * ksplit
-        plan = {"path": "wgmma", "bn": bn, "ksplit": ksplit, "ctas": ctas,
-                "waves": ctas / sms}
+        bn, grid_m, grid_n, _, ksplit = w8a16.wgmma_plan(P, N, K, sms, E)
+        tiles = sum(-(-(b - a) // w8a16.WGMMA_BM)
+                    for a, b in zip(bounds, bounds[1:]))
+        plan = {"path": "wgmma", "bn": bn, "ksplit": ksplit,
+                "ctas": grid_m * grid_n * ksplit,
+                "working_ctas": tiles * grid_n * ksplit,
+                "waves": tiles * grid_n * ksplit / sms}
     return {
-        "weight": weight, "x": x_kind,
-        "shape": {"E": E, "M": M, "K": K, "N": N}, **plan,
-        "max_abs_err": max_err, "max_row_rel_err": row_rel,
+        **row, **plan,
         "ms": ms, "ms_runs": ms_runs, "plain_ms": plain_ms,
-        "library_ms": None,
-        "library_call": "none: no PyTorch call takes int8 [E, K, N] weights",
-        "cublas_bf16_dequantized_ms": cublas_ms,
+        "library_ms": library_ms, "library_call": library_call,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "host_us_per_call": host_us,
@@ -826,32 +965,46 @@ KERNEL_META = {
         "source": "gpustack_tpu_torch/ops/csrc/w8a16_gemm.cu",
         "replaces": "gpustack_tpu/models/transformer.py:46",
     },
-    # the int8 expert products of the JAX _moe_mlp (_mm over the expert
-    # axis, an XLA fusion): the same source's batched entry
-    "w8a16_bmm": {
+    # the expert products of the JAX _moe_mlp's dense dispatch (_mm or
+    # einsum over the expert axis, XLA products), routed: the same source's
+    # grouped entries, int8 experts and bf16 ones
+    "w8a16_grouped": {
+        "route": "cuda",
+        "source": "gpustack_tpu_torch/ops/csrc/w8a16_gemm.cu",
+        "replaces": "gpustack_tpu/models/transformer.py:487",
+    },
+    "bf16_grouped": {
         "route": "cuda",
         "source": "gpustack_tpu_torch/ops/csrc/w8a16_gemm.cu",
         "replaces": "gpustack_tpu/models/transformer.py:487",
     },
 }
 # the wrappers whose launches are also counted per path: {wrapper: prefix}
-W8A16_WRAPPERS = {"w8a16_matmul": "w8a16", "w8a16_bmm": "w8a16_bmm"}
+W8A16_WRAPPERS = {"w8a16_matmul": "w8a16", "w8a16_grouped": "w8a16_grouped",
+                  "bf16_grouped": "bf16_grouped"}
+# the grouped wrapper of each expert weight type
+GROUPED_WRAPPERS = {"int8": "w8a16_grouped", "bf16": "bf16_grouped"}
 
 
 def _wrappers():
     from gpustack_tpu_torch.ops.flash_attention import flash_attention_prefill
-    from gpustack_tpu_torch.ops.w8a16 import w8a16_bmm, w8a16_matmul
+    from gpustack_tpu_torch.ops.w8a16 import (
+        bf16_grouped,
+        w8a16_grouped,
+        w8a16_matmul,
+    )
 
     return {
         "flash_attention_prefill": flash_attention_prefill,
         "w8a16_matmul": w8a16_matmul,
-        "w8a16_bmm": w8a16_bmm,
+        "w8a16_grouped": w8a16_grouped,
+        "bf16_grouped": bf16_grouped,
     }
 
 
 def launch_counts():
     """Each wrapper's launches, and each W8A16 wrapper's per path
-    (``w8a16_gemv`` ... ``w8a16_bmm_wgmma``)."""
+    (``w8a16_gemv`` ... ``bf16_grouped_wgmma``)."""
     wrappers = _wrappers()
     counts = {name: fn.launches for name, fn in wrappers.items()}
     for name, prefix in W8A16_WRAPPERS.items():
@@ -913,18 +1066,21 @@ class RunnerCalls:
 
 
 def int8_products(cfg):
-    """(2-D W8A16 products, batched expert products) of one forward's
-    layers with every weight int8, from the config: attention's q, k, v
-    and o (MLA: ``wq`` or ``wq_a`` and ``wq_b``, then ``wkv_a``, ``wkv_b``
-    and ``wo``); a dense layer's gate, up and down; an MoE layer's shared
-    experts' gate, up and down (its ungated shared gate stays bf16) and
-    its experts' gate, up and down, each one batched product per token
-    chunk."""
+    """The 2-D W8A16 products of one forward's layers with every weight
+    int8, from the config: attention's q, k, v and o (MLA: ``wq`` or
+    ``wq_a`` and ``wq_b``, then ``wkv_a``, ``wkv_b`` and ``wo``); a dense
+    layer's gate, up and down; an MoE layer's shared experts' gate, up and
+    down (its ungated shared gate stays bf16)."""
     attn = (3 + (2 if cfg.q_lora_rank else 1)) if cfg.is_mla else 4
-    moe = cfg.num_layers - cfg.first_k_dense if cfg.is_moe else 0
+    moe = moe_layers(cfg)
     shared = 3 if moe and cfg.shared_expert_intermediate_size else 0
-    return (cfg.num_layers * attn + (cfg.num_layers - moe) * 3
-            + moe * shared, 3 * moe)
+    return cfg.num_layers * attn + (cfg.num_layers - moe) * 3 + moe * shared
+
+
+def moe_layers(cfg):
+    """MoE layers of one forward: each runs its experts' gate, up and down
+    as three grouped products per token chunk."""
+    return cfg.num_layers - cfg.first_k_dense if cfg.is_moe else 0
 
 
 def expected_launches(runner_calls):
@@ -939,12 +1095,13 @@ def expected_launches(runner_calls):
     gate, up, down), plus an untied lm_head at the rows it reads (a
     prefill's last position, a decode step's slots, all of a verify
     block's positions; an embedding forward and a draft's ingest read
-    none; a tied lm_head is the bf16 embedding's transpose), and on an
-    MoE model the batched kernel three times per MoE layer and token
-    chunk (``moe_chunk_tokens``: one chunk up to the 2048 bucket at every
-    served width), at the chunk's rows; never without int8. Each product
-    of M ≤ 16 rows (per expert, for the batched kernel) takes the GEMV,
-    any larger one the ``wgmma`` path."""
+    none; a tied lm_head is the bf16 embedding's transpose), never
+    without int8; on an MoE model the grouped kernel of its expert type
+    (``w8a16_grouped`` for int8 experts, ``bf16_grouped`` for bf16 ones)
+    three times per MoE layer and token chunk (``moe_chunk_tokens``: one
+    chunk up to the 2048 bucket at every served width), at the chunk's
+    rows. Each product of M ≤ 16 rows (a chunk's tokens, for the grouped
+    kernel) takes the GEMV, any larger one the ``wgmma`` path."""
     from gpustack_tpu_torch.models.transformer import (
         flash_eligible,
         moe_chunk_tokens,
@@ -952,9 +1109,9 @@ def expected_launches(runner_calls):
     )
     from gpustack_tpu_torch.ops.w8a16 import GEMV_MAX_M
 
-    want = {"flash_attention_prefill": 0, "w8a16_matmul": 0,
-            "w8a16_gemv": 0, "w8a16_wgmma": 0, "w8a16_bmm": 0,
-            "w8a16_bmm_gemv": 0, "w8a16_bmm_wgmma": 0}
+    want = {"flash_attention_prefill": 0}
+    for name, prefix in W8A16_WRAPPERS.items():
+        want.update({name: 0, f"{prefix}_gemv": 0, f"{prefix}_wgmma": 0})
 
     def count(prefix, wrapper, m, n):
         path = "gemv" if m <= GEMV_MAX_M else "wgmma"
@@ -964,14 +1121,17 @@ def expected_launches(runner_calls):
     for calls in runner_calls:
         cfg = calls.runner.cfg
         layers, flash = cfg.num_layers, flash_eligible(cfg)
-        two_d, batched = int8_products(cfg)
+        two_d, moe = int8_products(cfg), moe_layers(cfg)
+        grouped = GROUPED_WRAPPERS["int8" if calls.int8 else "bf16"]
         chunk = moe_chunk_tokens(
-            cfg.num_experts, cfg.moe_intermediate_size, cfg.hidden_size,
-            True, torch_dtype(cfg).itemsize,
-        ) if batched else 0
+            cfg.num_experts_per_tok, cfg.moe_intermediate_size,
+            cfg.hidden_size, torch_dtype(cfg).itemsize,
+        ) if moe else 0
         for name, B, T in calls.forwards:
             if flash and name in ("prefill", "prefill_with_prefix", "embed"):
                 want["flash_attention_prefill"] += layers
+            for start in range(0, B * T if moe else 0, chunk or 1):
+                count(grouped, grouped, min(chunk, B * T - start), 3 * moe)
             if not calls.int8:
                 continue
             head = None if cfg.tie_word_embeddings else {
@@ -981,9 +1141,6 @@ def expected_launches(runner_calls):
             for m, n in ((B * T, two_d), (head, 1)):
                 if m is not None:
                     count("w8a16", "w8a16_matmul", m, n)
-            for start in range(0, B * T if batched else 0, chunk or 1):
-                count("w8a16_bmm", "w8a16_bmm",
-                      min(chunk, B * T - start), batched)
     return want
 
 
@@ -1075,6 +1232,32 @@ class _RoutingTape:
         tf.moe_route = self._route
 
 
+class _PlainGrouped:
+    """Inside ``with``, both grouped expert wrappers are their plain
+    versions (the fp32 references on the card: the kernel takes bf16
+    activations only; the int8 logit check's plain run). ``_moe_mlp``
+    reads the wrappers from ``ops.w8a16`` at each call."""
+
+    def __enter__(self):
+        from gpustack_tpu_torch.ops import w8a16
+
+        self._kept = w8a16.w8a16_grouped, w8a16.bf16_grouped
+        w8a16.w8a16_grouped = (
+            lambda x, q, s, offsets, rows: w8a16.w8a16_grouped_plain(
+                x, q, s, offsets)
+        )
+        w8a16.bf16_grouped = (
+            lambda x, w, offsets, rows: w8a16.bf16_grouped_plain(
+                x, w, offsets)
+        )
+        return self
+
+    def __exit__(self, *exc):
+        from gpustack_tpu_torch.ops import w8a16
+
+        w8a16.w8a16_grouped, w8a16.bf16_grouped = self._kept
+
+
 class _Widened:
     """A stacked leaf read a layer at a time in fp32 (``lp[key][i]``): an
     fp32 forward over a bf16 tree without an fp32 copy of the tree
@@ -1142,10 +1325,11 @@ def _logit_check(engine):
         tokens = torch.tensor([padded], device=runner.device)
         positions = torch.arange(bucket, device=runner.device)[None, :]
         cache = tf.KVCache.create(ref_cfg, 1, bucket, runner.device)
-        hidden, _ = tf.forward(
-            params, ref_cfg, tokens, positions, cache,
-            return_hidden=True, attn_impl="plain",
-        )
+        with _PlainGrouped() if ref_cfg is not cfg else contextlib.nullcontext():
+            hidden, _ = tf.forward(
+                params, ref_cfg, tokens, positions, cache,
+                return_hidden=True, attn_impl="plain",
+            )
         return tf.lm_head(params, ref_cfg, hidden[0, len(prompt) - 1])
 
     moe = {}
@@ -1797,9 +1981,8 @@ def phase_prefix_reuse(kind, smi):
         ]
         counts = launch_counts()
         check_launches("prefix reuse", counts, {
+            **dict.fromkeys(counts, 0),
             "flash_attention_prefill": engine.cfg.num_layers * forwards,
-            "w8a16_matmul": 0, "w8a16_gemv": 0, "w8a16_wgmma": 0,
-            "w8a16_bmm": 0, "w8a16_bmm_gemv": 0, "w8a16_bmm_wgmma": 0,
         })
         samples, types = parse_prometheus(_get(port, "/metrics"))
         h = health()
@@ -2287,7 +2470,7 @@ def _int8_checkpoint_check(engine8, tree, padded, n_prompt):
 
 def _int8_logit_check(engine):
     """The int8 tree's last-position logits through the kernels against the
-    same tree through the W8A16 plain versions, 2-D and batched (outside
+    same tree through the W8A16 plain versions, 2-D and grouped (outside
     the counted window). On an MoE model the plain run replays the kernel
     run's expert picks (:class:`_RoutingTape`), and the free-routing
     comparison is reported beside it."""
@@ -2300,13 +2483,13 @@ def _int8_logit_check(engine):
     padded = prompt + [0] * (bucket - len(prompt))
 
     def plain_last():
-        kernels = w8a16.w8a16_matmul, w8a16.w8a16_bmm
+        kernel = w8a16.w8a16_matmul
         w8a16.w8a16_matmul = w8a16.w8a16_plain
-        w8a16.w8a16_bmm = w8a16.w8a16_bmm_plain
         try:
-            return runner.prefill(padded, len(prompt))[0]
+            with _PlainGrouped():
+                return runner.prefill(padded, len(prompt))[0]
         finally:
-            w8a16.w8a16_matmul, w8a16.w8a16_bmm = kernels
+            w8a16.w8a16_matmul = kernel
 
     moe = {}
     with torch.no_grad(), _RoutingTape() as tape:
@@ -2558,7 +2741,7 @@ def _embed_reference(engine, vecs, tape=None):
             tokens = torch.tensor(padded, device=runner.device)
             positions = torch.arange(2048, device=runner.device)[None, :]
             tape.mode = "replay"
-            with tape:
+            with tape, _PlainGrouped():
                 hidden, _ = tf.forward(
                     params, cfg32, tokens, positions.expand(len(padded), -1),
                     return_hidden=True, attn_impl="plain",
@@ -2885,9 +3068,13 @@ def _moe_routed_reference(x, lp, li, cfg):
 
 def _moe_layer_case(params, cfg, tokens, gen, li=0):
     """Layer ``li``'s MoE block over ``tokens`` rows (normalised random
-    input): held against the routed fp32 reference, timed with CUDA
-    events, beside its dense-dispatch and routed bounds (the experts
-    this input's routing reaches), its transient device memory, and a
+    input): held against the routed fp32 reference, run once under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host read of a device
+    value: the engine's dispatch-ahead never waits on it), timed with
+    CUDA events beside its dense-dispatch and routed bounds (the experts
+    this input's routing reaches; at the 2048 bucket it must beat the
+    dense bound, which only a layer that reads the picked experts alone
+    can), its transient device memory (the routed formula's), and a
     ``torch.profiler`` split of its device time by kernel."""
     from gpustack_tpu_torch.models import transformer as tf
     from gpustack_tpu_torch.models.quant import QuantW
@@ -2934,17 +3121,22 @@ def _moe_layer_case(params, cfg, tokens, gen, li=0):
             f"MoE layer at {tokens} tokens differs from the routed "
             f"reference: max |err| {err} (scale {scale}), cosine {cos}"
         )
-    # g, u and h of one chunk (and with int8 experts the outputs y); an
-    # [E, tokens, D] copy of x would add its own size on top
-    chunk = min(tokens, tf.moe_chunk_tokens(E, Fm, D, int8, 2))
-    gu_h = chunk * (3 * E * Fm + (E * D if int8 else 0)) * 2
+    # one chunk's routed transients: x gathered, g, u, h and y, k·(3·Fm +
+    # 2·D) values a token; beyond them only small tensors (the router's,
+    # the fp32 token sum, indices, the shared experts', the output)
+    chunk = min(tokens, tf.moe_chunk_tokens(k, Fm, D, 2))
+    routed = chunk * k * (3 * Fm + 2 * D) * 2
     x_copy = E * tokens * D * 2
-    if transient > gu_h + max(x_copy // 2, 64 << 20):
+    if transient > routed + (64 << 20):
         raise AssertionError(
             f"MoE layer at {tokens} tokens held {transient / 1e9} GB of "
-            f"transients; g, u and h{' and y' if int8 else ''} are "
-            f"{gu_h / 1e9} GB"
+            f"transients; the routed x, g, u, h and y are {routed / 1e9} GB"
         )
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        layer()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     ms = cuda_time_ms(layer)
     # where a call's device time goes, by kernel (three calls traced)
     with tempfile.TemporaryDirectory(prefix="moe-trace-") as d:
@@ -2979,14 +3171,21 @@ def _moe_layer_case(params, cfg, tokens, gen, li=0):
                 "tflop": flop / 1e12,
                 "gbytes": (io + experts_read * expert_bytes) / 1e9}
 
+    dense = bound(E, tokens * E)
+    if tokens >= 2048 and not ms < dense["ms"]:
+        raise AssertionError(
+            f"MoE layer at {tokens} tokens took {ms} ms, not below its dense "
+            f"bound {dense['ms']} ms: it reads more than the picked experts"
+        )
     return {
         "tokens": tokens, "experts": "int8" if int8 else "bf16",
         "ms": ms, "ms_per_token": ms / tokens,
-        "dense_bound": bound(E, tokens * E),
+        "dense_bound": dense,
         "routed_bound": bound(reached, tokens * k),
-        "experts_reached": reached,
+        "experts_reached": reached, "sync_free": True,
         "max_abs_err": err, "out_scale": scale, "cosine": cos,
-        "transient_gb": transient / 1e9, "chunk_transients_gb": gu_h / 1e9,
+        "transient_gb": transient / 1e9,
+        "chunk_transients_gb": routed / 1e9,
         "x_copy_gb_avoided": x_copy / 1e9,
         "trace": {
             "device_ms_per_call": trace["device_ms_per_step"],
@@ -3040,7 +3239,8 @@ def phase_moe(kind, smi, device="cuda"):
             for t in (2048, engine.max_slots)
         ]
     emit("moe", model=engine.cfg.name, device=kind, nvidia_smi=smi,
-         dispatch="dense (every expert over every token)",
+         dispatch="routed (each token through its own k experts), bf16 "
+         "experts through the grouped kernel",
          tolerance={"rel": MOE_REL_TOL, "min_cosine": MOE_MIN_COSINE},
          layers=layers)
     del engine
@@ -3115,8 +3315,8 @@ def phase_deepseek(kind, smi, device="cuda"):
             for t in (2048, engine.max_slots)
         ]
     emit("moe", model=engine.cfg.name, device=kind, nvidia_smi=smi,
-         dispatch="dense (every expert over every token), shared experts "
-         "on every token",
+         dispatch="routed (each token through its own k experts), shared "
+         "experts on every token",
          tolerance={"rel": MOE_REL_TOL, "min_cosine": MOE_MIN_COSINE},
          layers=layers)
     bf16 = {**{k: report[k] for k in (
@@ -3126,7 +3326,7 @@ def phase_deepseek(kind, smi, device="cuda"):
     del engine, params
     _free()
     # the same model as int8: MLA's projections, the shared experts and
-    # the dense layer through the 2-D kernel, the experts batched
+    # the dense layer through the 2-D kernel, the experts grouped
     engine, int8_windows = _int8_path(kind, smi, I_ARGV, "deepseek_int8",
                                       bf16)
     del engine
@@ -3232,8 +3432,8 @@ def phase_gptoss(kind, smi, device="cuda"):
             for t in (2048, engine.max_slots)
         ]
     emit("moe", model=engine.cfg.name, device=kind, nvidia_smi=smi,
-         dispatch="dense (every expert over every token), expert biases "
-         "and the clamped GLU",
+         dispatch="routed (each token through its own k experts), expert "
+         "biases and the clamped GLU",
          tolerance={"rel": MOE_REL_TOL, "min_cosine": MOE_MIN_COSINE},
          layers=layers)
     del engine, params
@@ -3329,7 +3529,7 @@ def phase_mixtral_int8(kind, smi, device="cuda"):
     experts, top-2, width 14336, vocab 32000) with ``--quantization
     int8``: ~46.7 GB of int8 drawn on the card (93 GB in bf16: no bf16
     tree fits). Phase d's requests through the server, exact launches
-    (per 2048-bucket forward 129 2-D W8A16 products and 96 batched expert
+    (per 2048-bucket forward 129 2-D W8A16 products and 96 grouped expert
     products), its kernel logits against the plain versions with the
     kernel run's expert picks replayed; then one MoE layer at the 2048
     bucket and at 8 decoding slots against the fp32 routed reference,
@@ -3342,8 +3542,8 @@ def phase_mixtral_int8(kind, smi, device="cuda"):
             for t in (2048, engine.max_slots)
         ]
     emit("moe", model=engine.cfg.name, device=kind, nvidia_smi=smi,
-         dispatch="dense (every expert over every token), int8 experts "
-         "through the batched W8A16 kernel",
+         dispatch="routed (each token through its own k experts), int8 "
+         "experts through the grouped W8A16 kernel",
          tolerance={"rel": MOE_REL_TOL, "min_cosine": MOE_MIN_COSINE},
          layers=layers)
     del engine
@@ -3625,7 +3825,7 @@ def main() -> int:
     _free()
     paths.update(phase_disaggregation(kind, smi))
     kernels = []
-    bmm_cases = rows.pop("w8a16_bmm_cases")
+    grouped_cases = rows.pop("grouped_cases")
     large_m = rows.pop("w8a16_large_m")
     gemma2 = rows.pop("w8a16_gemma2")
     group8 = rows.pop("flash_group8")
@@ -3669,29 +3869,36 @@ def main() -> int:
             "library_ms", "cublas_bf16_dequantized_ms",
         )},
     })
-    # the batched W8A16: the row above is mixtral-8x7b's gate product at
-    # a decode step's 8 slots; beside it every other case of phase c
-    bmm = next(k for k in kernels if k["name"] == "w8a16_bmm")
-    bmm.update({
-        "launches_by_path": {
-            path: sum(counts[f"w8a16_bmm_{path}"]
-                      for counts in paths.values())
-            for path in ("gemv", "wgmma")
-        },
-        "launches_by_model": {
-            model: sum(counts["w8a16_bmm"] for path, counts in paths.items()
-                       if path.startswith(prefix))
-            for model, prefix in (("mixtral-8x7b", "mixtral_int8"),
-                                  ("deepseek-v2-lite", "deepseek_int8"))
-        },
-        "cases": [
-            {"weight": weight, "M": M, **{k: row[k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "cublas_bf16_dequantized_ms",
-            )}}
-            for (weight, M), row in bmm_cases.items()
-        ],
-    })
+    # the grouped kernels: the rows above are mixtral-8x7b's int8 gate
+    # product and qwen3-30b-a3b's bf16 one at the 2048 bucket; beside them
+    # every other case of phase c, and the launches per path and model
+    for wtype, name in GROUPED_WRAPPERS.items():
+        row = next(k for k in kernels if k["name"] == name)
+        row.update({
+            "launches_by_path": {
+                path: sum(counts[f"{name}_{path}"]
+                          for counts in paths.values())
+                for path in ("gemv", "wgmma")
+            },
+            "launches_by_model": {
+                model: sum(counts[name] for path, counts in paths.items()
+                           if path.startswith(prefixes))
+                for model, prefixes in (
+                    ("mixtral-8x7b", ("mixtral_int8",)),
+                    ("deepseek-v2-lite", ("deepseek",)),
+                    ("qwen3-30b-a3b", ("moe_",)),
+                    ("gpt-oss-20b", ("gptoss",)),
+                )
+            },
+            "cases": [
+                {"weight": weight, "n": n, **{k: case[k] for k in (
+                    "path", "experts_reached", "max_abs_err", "ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "library_call",
+                )}}
+                for (weight, n), case in grouped_cases[wtype].items()
+            ],
+        })
     # the flash kernel at qwen3-30b-a3b's heads (group 8), at
     # deepseek-v2-lite's (d 192) and at Gemma 1's (d 256), T = S = 2048,
     # and at d 256 for a 512-row continuation at offset 1536

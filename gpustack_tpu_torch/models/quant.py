@@ -6,7 +6,7 @@ decode step reads against bf16. The JAX package contracts ``x @
 q.astype(bf16) * s`` and leaves the convert to XLA's fusion; eager PyTorch
 cannot fuse it, so on the card every int8 weight product goes through the
 hand-written W8A16 kernel (``ops/w8a16.py``; an MoE layer's expert
-products batched over the experts), which widens the int8 values in
+products grouped over the experts its tokens picked), which widens the int8 values in
 registers or shared memory: the dequantized weight never reaches device
 memory.
 

@@ -18,13 +18,14 @@ follow the JAX module so its tests compare like with like:
 - bf16 matmuls, fp32 softmax and norm accumulation; every weight product
   goes through :func:`_mm`, so int8 ``QuantW`` weights (``models/quant.py``)
   run through the W8A16 kernel on the card;
-- MoE layers (Mixtral, Qwen2/3-MoE, GPT-OSS; :func:`_moe_mlp`) keep the
-  JAX module's dense dispatch: every expert runs over every token and the
-  router's top-k weights combine the results. The expert products are
-  batched torch products over the expert axis (XLA products in the JAX
-  module, not Pallas), or, for int8 experts, the W8A16 kernel batched over
-  the experts (``ops.w8a16_bmm``), in token chunks that bound their
-  transients;
+- MoE layers (Mixtral, Qwen2/3-MoE, GPT-OSS; :func:`_moe_mlp`) read only
+  the experts their tokens picked: the (token, expert) pairs sorted by
+  expert run through the grouped expert kernel (``ops.w8a16_grouped``
+  for int8 experts, ``ops.bf16_grouped`` for bf16 ones), and the combine
+  weights sum each token's k outputs. The values are the JAX module's
+  dense dispatch (every expert over every token, zero weights off the
+  picks) up to summation order: no capacity, no dropped token. Token
+  chunks bound the transients;
 - MLA (DeepSeek-V2/V3) is served decompressed, as in the JAX module: the
   latent projections are expanded to per-head K (``qk_nope + qk_rope``
   wide, the rope part rotated in interleaved pairs and shared by the
@@ -556,21 +557,43 @@ def _attend_rows(q, k, v, mask, scale, softcap, sinks):
     return out.reshape(out.shape[0], out.shape[1], -1)
 
 
-# Transients of one MoE token chunk: g, u and h, each [tokens, E, Fm] in
-# the compute dtype, and with int8 experts the outputs y [E, tokens, D]
-# too. At qwen3-30b-a3b widths (E 128, Fm 768, d 2048, bf16) that is 576
-# KiB a token (1088 KiB with y): a 2048-token prefill is one chunk, an 8 x
-# 2048 embedding batch five (eight with y).
+# Transients of one MoE token chunk of n tokens and P = n·k pairs: the
+# gathered x [P, D], g, u and h [P, Fm] and the outputs y [P, D], in the
+# compute dtype. At qwen3-30b-a3b widths (top-8, Fm 768, d 2048, bf16) that
+# is 100 KiB a token: a 2048-token prefill and an 8 x 2048 embedding batch
+# are one chunk each; at mixtral-8x7b's (top-2, Fm 14336, d 4096) 200 KiB.
 MOE_CHUNK_BYTES = 2 << 30
 
 
-def moe_chunk_tokens(E: int, Fm: int, D: int, int8: bool,
-                     itemsize: int) -> int:
-    """Tokens in one :func:`_moe_mlp` chunk of ``E`` experts of width
-    ``Fm`` over ``D``: as many as keep its transients within
-    ``MOE_CHUNK_BYTES``."""
-    per_token = 3 * E * Fm + (E * D if int8 else 0)
-    return max(1, MOE_CHUNK_BYTES // (per_token * itemsize))
+def moe_chunk_tokens(k: int, Fm: int, D: int, itemsize: int) -> int:
+    """Tokens in one :func:`_moe_mlp` chunk of top-``k`` routing over
+    experts of width ``Fm`` on ``D``: as many as keep its routed
+    transients, k·(3·Fm + 2·D) values a token, within ``MOE_CHUNK_BYTES``."""
+    return max(1, MOE_CHUNK_BYTES // (k * (3 * Fm + 2 * D) * itemsize))
+
+
+def moe_dispatch(
+    top_idx: torch.Tensor, E: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The routed order of one chunk's picks ``top_idx [n, k]``: ``(perm,
+    offsets, inv)`` with ``perm [P]`` the pair indices (``t·k + j``) sorted
+    by expert (stable, so each expert's rows keep token order and a run
+    repeats bit for bit), ``offsets [E + 1]`` int32 the segments' bounds,
+    ``inv [P]`` each pair's sorted row. Plain index ops with no host read
+    of a device value (no ``bincount``, ``nonzero``, ``unique`` or
+    ``.item()``), so the engine's dispatch never waits on the card; the
+    segments' bounds are a search of the sorted experts, the fewest
+    launches (a decode step runs this once per MoE layer)."""
+    pairs = top_idx.flatten()
+    P, dev = pairs.numel(), pairs.device
+    experts, perm = torch.sort(pairs, stable=True)
+    offsets = torch.searchsorted(
+        experts, torch.arange(E + 1, device=dev), out_int32=True
+    )
+    inv = torch.empty_like(perm).scatter_(
+        0, perm, torch.arange(P, device=dev)
+    )
+    return perm, offsets, inv
 
 
 def moe_route(
@@ -616,88 +639,72 @@ def _moe_mlp(
     biases=None,                # (bg [E, Fm], bu [E, Fm], bd [E, D])
     chunk_tokens: Optional[int] = None,
 ) -> torch.Tensor:
-    """Top-k MoE with the JAX module's dense dispatch: every expert runs
-    over every token and the router's top-k weights (zero elsewhere)
-    combine the results; then ``routed_scaling_factor``, then the shared
-    experts, ungated (DeepSeek) or gated by ``sigmoid(x @ g)`` (Qwen2-MoE).
-    ``moe_act="gptoss"`` is GPT-OSS's clamped GLU, with its expert biases.
+    """Top-k MoE, routed: each token through its own k experts, weighted
+    by the router's top-k weights; then ``routed_scaling_factor``, then
+    the shared experts, ungated (DeepSeek) or gated by ``sigmoid(x @ g)``
+    (Qwen2-MoE). ``moe_act="gptoss"`` is GPT-OSS's clamped GLU, with its
+    expert biases. The values are those of the JAX module's dense
+    dispatch up to summation order: no capacity, no dropped token.
 
-    With bf16 (or fp32) experts, on the card:
-
-    - the gate and up products are ``bmm`` over the expert axis with x
-      expanded (batch stride 0), so x is read in place and never copied
-      into an ``[E, tokens, D]`` tensor;
-    - the combine weights fold into ``h`` before the down product, which
-      becomes one ``[tokens, E·Fm] @ [E·Fm, D]`` product: the
-      ``[tokens, E, D]`` expert outputs never exist. In bf16 this rounds
-      ``h·c`` where JAX rounds each expert's output before the weighted
-      sum (``PERF.md`` §6 states the tolerance); in fp32 the two differ
-      only in summation order;
-    - tokens run in chunks of ``chunk_tokens`` (default:
-      :func:`moe_chunk_tokens`). A chunk changes no value beyond the
-      summation order of products with fewer rows.
-
-    With int8 ``QuantW`` experts (JAX's ``_mm`` over the expert axis),
-    each of the three products is one ``ops.w8a16_bmm`` launch: the W8A16
-    kernel batched over the experts on the card, its plain version on the
-    CPU. Gate and up read x expanded (batch stride 0); the down product
-    reads each expert's block of h in place and writes the expert outputs
-    ``y [E, tokens, D]``, which the combine weights then sum, as the JAX
-    einsum does: the scale is per (expert, output column), so the combine
-    cannot fold into h before it.
+    Per token chunk (``chunk_tokens``, default :func:`moe_chunk_tokens`;
+    a chunk changes no value): :func:`moe_dispatch` sorts the n·k
+    (token, expert) pairs by expert; x is gathered into that order,
+    ``[n·k, D]``; the gate, up and down products are each one grouped
+    launch (``ops.w8a16_grouped`` over int8 ``QuantW`` experts,
+    ``ops.bf16_grouped`` over bf16 ones: the kernel on the card, the
+    plain version on the CPU) that reads only the experts with rows. Each
+    pair's output is rounded to the compute dtype, as JAX rounds each
+    expert's, and each token's k outputs are summed with its combine
+    weights in one small product per token (fp32 accumulation, rounded
+    once, as JAX's ``einsum`` over the experts).
     """
+    from gpustack_tpu_torch.ops import w8a16
+
     B, T, D = x.shape
     E, _, Fm = we_gate.shape
+    k = cfg.num_experts_per_tok
     dtype = x.dtype
     xt = x.reshape(B * T, D)
     N = xt.shape[0]
-    int8 = isinstance(we_gate, QuantW)
     if chunk_tokens is None:
-        chunk_tokens = moe_chunk_tokens(E, Fm, D, int8, x.element_size())
-    if int8:
-        from gpustack_tpu_torch.ops.w8a16 import w8a16_bmm
-
-        def expert_mm(xe, w):                         # [E, n, K] -> [E, n, N]
-            return w8a16_bmm(xe, w.q, w.s)
+        chunk_tokens = moe_chunk_tokens(k, Fm, D, x.element_size())
+    if isinstance(we_gate, QuantW):
+        def expert_mm(xs, w, offsets, rows):        # [P, K] -> [P, N]
+            return w8a16.w8a16_grouped(xs, w.q, w.s, offsets, rows)
     else:
-        expert_mm = torch.bmm
-        w_down = we_down.reshape(E * Fm, D)
+        expert_mm = w8a16.bf16_grouped
     out = torch.empty_like(xt)
     for s in range(0, N, chunk_tokens):
         xc = xt[s:s + chunk_tokens]
         n = xc.shape[0]
-        _, combine = moe_route(xc, router_w, cfg, router_bias)
-        combine = combine.to(dtype)
-        xe = xc.expand(E, n, D)
-        g = expert_mm(xe, we_gate)                  # [E, n, Fm]
-        u = expert_mm(xe, we_up)
+        top_idx, combine = moe_route(xc, router_w, cfg, router_bias)
+        perm, offsets, inv = moe_dispatch(top_idx, E)
+        # the combine weight of each pick, in the compute dtype as JAX's
+        c = combine.gather(1, top_idx).to(dtype)
+        xs = xc.index_select(0, perm // k)          # [P, D]
+        g = expert_mm(xs, we_gate, offsets, n)      # [P, Fm]
+        u = expert_mm(xs, we_up, offsets, n)
+        del xs
         if biases is not None:
-            g += biases[0][:, None, :].to(dtype)
-            u += biases[1][:, None, :].to(dtype)
-        h = torch.empty((n, E, Fm), dtype=dtype, device=x.device)
+            e_sorted = top_idx.flatten().index_select(0, perm)
+            g += biases[0].to(dtype).index_select(0, e_sorted)
+            u += biases[1].to(dtype).index_select(0, e_sorted)
         if cfg.moe_act == "gptoss":
-            # (u + 1) * (g * sigmoid(1.702 g)), JAX's order of roundings,
-            # built in h: g, u and h are the only transients
+            # (u + 1) * (g * sigmoid(1.702 g)), JAX's order of roundings:
+            # g, u and h are the only transients
             g.clamp_(max=7.0)
             u.clamp_(-7.0, 7.0).add_(1.0)
-            hT = h.transpose(0, 1)
-            torch.mul(g, 1.702, out=hT).sigmoid_().mul_(g).mul_(u)
+            h = torch.mul(g, 1.702).sigmoid_().mul_(g).mul_(u)
         else:
-            torch.mul(
-                torch.nn.functional.silu(g, inplace=True), u,
-                out=h.transpose(0, 1),
-            )
+            h = torch.nn.functional.silu(g, inplace=True).mul_(u)
         del g, u
-        if int8:
-            y = expert_mm(h.transpose(0, 1), we_down)   # [E, n, D]
-            del h
-            o = torch.bmm(combine[:, None, :], y.transpose(0, 1))[:, 0]
-        else:
-            h *= combine[:, :, None]
-            o = h.reshape(n, E * Fm) @ w_down
+        y = expert_mm(h, we_down, offsets, n)       # [P, D], rounded per pair
+        del h
         if biases is not None:
-            o += combine @ biases[2].to(dtype)
-        out[s:s + n] = o
+            y += biases[2].to(dtype).index_select(0, e_sorted)
+        # the token sum (not an expert product): [1, k] @ [k, D] a token
+        mine = y.index_select(0, inv).view(n, k, D)
+        out[s:s + n] = torch.bmm(c[:, None, :], mine)[:, 0]
     if cfg.routed_scaling_factor != 1.0:
         # the factor in the compute dtype first, as JAX's asarray does
         out = out * torch.tensor(cfg.routed_scaling_factor, dtype=dtype).item()

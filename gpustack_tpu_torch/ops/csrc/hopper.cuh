@@ -79,8 +79,19 @@ __device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar,
 
 // ---- TMA ------------------------------------------------------------------
 
-// One box of a 3-D tensor map (coordinates innermost first) into shared
+// One box of a 2-D tensor map (coordinates innermost first) into shared
 // memory; the bytes are reported to `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One box of a 3-D tensor map into shared memory.
 __device__ __forceinline__ void tma_load_3d(uint32_t dst,
                                             const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1,

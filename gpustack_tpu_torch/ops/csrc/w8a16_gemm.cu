@@ -78,29 +78,54 @@
 //     the register-A variant (q^T as wgmma's A from registers), which
 //     needs the weights repacked away from the JAX layout.
 //
-// Batched over experts (w8a16_bmm_bf16): out[e] = bf16((x_e @ q[e]) * s[e])
-// for e < E, with q int8 [E, K, N], s bf16 [E, N], out [E, M, N], and x_e
-// read through a batch stride: 0 for the MoE gate and up products (every
-// expert reads the same token rows in place, never a copy of x), the
-// expert's column block of h [tokens, E, Fm] for the down product (rows
-// E*Fm apart, experts Fm apart). This is the dense-dispatch expert product
-// of the JAX _moe_mlp's int8 branch (gpustack_tpu/models/transformer.py:
-// 487-502, _mm over the expert axis), again an XLA fusion there. Both
-// paths take the expert axis as one more grid axis: the GEMV's z, and the
-// wgmma path's z beside the K split's cluster (z = expert * ksplit + rank,
-// a cluster of ksplit CTAs along z). The tensor maps are 3-D: q as {N, K,
-// E}, x as {K, E, M} or {K, M, E}, whichever keeps the strides growing,
-// with an extent of 1 on the expert axis for batch stride 0 (a stride-0
-// map is refused). The 2-D entry (w8a16_gemm_bf16) is the case E = 1.
+// Grouped over an MoE layer's experts (w8a16_grouped_bf16): the routed
+// expert product. x holds the (token, expert) pairs of one token chunk
+// sorted by expert, [P, K]; offsets [E + 1] (int32, on the card) bound each
+// expert's segment of rows, and
 //
-// Requirements the wrapper checks: K % 8 == 0, N % 16 == 0, x rows, x
-// batch strides and q rows 16-byte aligned (TMA's global-stride rule too),
-// out rows 4-byte aligned.
+//   out[r] = bf16( (x[r] @ q[e(r)]) * s[e(r)] ),  offsets[e] <= r < offsets[e+1]
+//
+// with q int8 [E, K, N] and s bf16 [E, N]. Only the experts some token
+// picked are read: this replaces the JAX _moe_mlp's dense dispatch
+// (gpustack_tpu/models/transformer.py:432-524, every expert over every
+// token; _mm over the expert axis there, an XLA fusion) with the same
+// values up to summation order, no capacity and no dropped token. The host
+// never reads the counts (the serving loop must not wait on the card), so
+// both paths size their grids for the worst case and each CTA finds its
+// work on the card:
+//   - rows per expert <= 16 (decode): the GEMV's grid is column slices x K
+//     split x E; a CTA reads its expert's offset and count and returns
+//     before it reads a byte of weight when no token picked the expert;
+//   - above: the wgmma path's grid is (ceil(P / 128) + E) row tiles x
+//     column tiles x K split. In its prologue one warp of each CTA reads
+//     offsets, scans the experts' tile counts ceil(c_e / 128) and finds its
+//     (expert, first row); a CTA past the last tile exits before its first
+//     TMA load. x is one 2-D tensor map over [P, K]; q the 3-D {N, K, E}
+//     map at the tile's expert. Rows of a tile past its expert's segment
+//     (the next expert's) are computed and never stored; rows past P read
+//     as TMA's zeros.
+// The 2-D entry (w8a16_gemm_bf16) is the case of one expert whose segment
+// is every row (no offsets).
+//
+// bf16 experts (bf16_grouped_bf16) are the same kernels with the weight
+// type a template parameter (BF16W): the GEMV loads 32 bytes of a weight
+// row per lane in place of 16 and builds the same mma fragments without
+// widening; the wgmma path has no widening stage: its first warpgroup is
+// the TMA producer, and q's map reads bf16 boxes of [64 k][64 n] with the
+// 128-byte swizzle straight into the layout the widening warps write for
+// int8 (N-major, wgmma's transposed B). No scale: out[r] = bf16(x[r] @
+// w[e(r)]).
+//
+// Requirements the wrapper checks: K % 8 == 0, N % 16 == 0, x rows, q rows
+// and q's experts 16-byte aligned (TMA's global-stride rule too), out rows
+// 4-byte aligned.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -121,6 +146,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 // Small M: the GEMV
 // ---------------------------------------------------------------------------
 
+constexpr int GEMV_MAX_M = 16;                  // rows per expert
 constexpr int GV_WARPS = 8;
 constexpr int GV_THREADS = 32 * GV_WARPS;
 constexpr int GV_BN = 128;                       // columns per CTA
@@ -143,20 +169,52 @@ __device__ __forceinline__ uint32_t bf16_pair(uint32_t lo, uint32_t hi,
                      __float_as_uint(widen_byte(hi, i)), 0x7632u);
 }
 
-// NT B tiles of 8 tokens; loads for U k steps in flight per warp
-template <int NT>
+// bf16 pair {low halves of a and b} or {high halves}: column 2j or 2j + 1
+// of two k rows of bf16 weights, word j of each row
+__device__ __forceinline__ uint32_t bf16_lo(uint32_t a, uint32_t b) {
+  return __byte_perm(a, b, 0x5410u);
+}
+__device__ __forceinline__ uint32_t bf16_hi(uint32_t a, uint32_t b) {
+  return __byte_perm(a, b, 0x7632u);
+}
+
+// Expert e's rows of a grouped call, [offsets[e], offsets[e + 1]); without
+// offsets (the 2-D entry) every row of the single expert.
+struct Segment {
+  int begin, rows;
+};
+
+__device__ __forceinline__ Segment segment(const int* offsets, int e, int M) {
+  if (offsets == nullptr) return {0, M};
+  const int b = offsets[e];
+  return {b, offsets[e + 1] - b};
+}
+
+// NT B tiles of 8 tokens; loads for U k steps in flight per warp. BF16W:
+// bf16 weights (32 bytes of a row per lane, no scale) in place of int8.
+// Grid: column slices x K split (one cluster along y) x experts.
+template <int NT, bool BF16W>
 __global__ void __launch_bounds__(GV_THREADS, 2) w8a16_gemv(
-    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+    const __nv_bfloat16* __restrict__ x, const void* __restrict__ wq,
     const __nv_bfloat16* __restrict__ s, __nv_bfloat16* __restrict__ out,
-    int M, int N, int K, long long ldx, long long ldq, long long ldo,
-    int kchunk, long long xb, long long qb, long long sb, long long ob) {
+    const int* __restrict__ offsets, int M, int N, int K, long long ldx,
+    long long ldq, long long ldo, int kchunk, long long qb, long long sb) {
+  using W = typename std::conditional<BF16W, __nv_bfloat16, int8_t>::type;
   constexpr int U = NT == 1 ? 2 : 1;
+  constexpr int WV = BF16W ? 2 : 1;              // 16-byte loads per row
   __shared__ __align__(16) float red[GV_WARPS * GV_SUMS];
-  // this CTA's expert (grid z)
-  x += blockIdx.z * xb;
-  q += blockIdx.z * qb;
-  s += blockIdx.z * sb;
-  out += blockIdx.z * ob;
+  // this CTA's expert (grid z) and its rows; every CTA of a cluster has
+  // the same expert, so a cluster returns whole
+  const Segment seg = segment(offsets, blockIdx.z, M);
+  if (seg.rows <= 0) return;                     // no weight byte read
+  // a segment longer than the plan's B tiles is the caller's fault: a
+  // token picks an expert at most once, so max_rows bounds every segment
+  if (seg.rows > 8 * NT) __trap();
+  M = seg.rows;
+  x += seg.begin * ldx;
+  out += seg.begin * ldo;
+  const W* q = static_cast<const W*>(wq) + blockIdx.z * qb;
+  if (!BF16W) s += blockIdx.z * sb;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -175,7 +233,7 @@ __global__ void __launch_bounds__(GV_THREADS, 2) w8a16_gemv(
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
   for (int st = warp; st < steps; st += GV_WARPS * U) {
-    uint4 w[U][4];
+    uint4 w[U][4][WV];
     uint2 b[U][NT];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -185,10 +243,13 @@ __global__ void __launch_bounds__(GV_THREADS, 2) w8a16_gemv(
       const bool k_ok = k < k_end;
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        w[u][r] = k_ok && n_ok
-                      ? __ldg(reinterpret_cast<const uint4*>(
-                            q + (long long)(k + r) * ldq + n))
-                      : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int v = 0; v < WV; ++v)
+          w[u][r][v] = k_ok && n_ok
+                           ? __ldg(reinterpret_cast<const uint4*>(
+                                       q + (long long)(k + r) * ldq + n) +
+                                   v)
+                           : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
       for (int i = 0; i < NT; ++i) {
         const int m = g + 8 * i;
@@ -201,25 +262,35 @@ __global__ void __launch_bounds__(GV_THREADS, 2) w8a16_gemv(
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (st + u * GV_WARPS >= steps) break;     // the same in every lane
-      uint32_t r0[4], r1[4], r2[4], r3[4];
-      const uint32_t bias = 0x80808080u;
-      r0[0] = w[u][0].x ^ bias; r0[1] = w[u][0].y ^ bias;
-      r0[2] = w[u][0].z ^ bias; r0[3] = w[u][0].w ^ bias;
-      r1[0] = w[u][1].x ^ bias; r1[1] = w[u][1].y ^ bias;
-      r1[2] = w[u][1].z ^ bias; r1[3] = w[u][1].w ^ bias;
-      r2[0] = w[u][2].x ^ bias; r2[1] = w[u][2].y ^ bias;
-      r2[2] = w[u][2].z ^ bias; r2[3] = w[u][2].w ^ bias;
-      r3[0] = w[u][3].x ^ bias; r3[1] = w[u][3].y ^ bias;
-      r3[2] = w[u][3].z ^ bias; r3[3] = w[u][3].w ^ bias;
+      // r[row][word]: int8 rows biased (v + 128) for the 2^23 trick; bf16
+      // rows as they are, word j holding columns 2j and 2j + 1
+      uint32_t r[4][4 * WV];
+#pragma unroll
+      for (int row = 0; row < 4; ++row)
+#pragma unroll
+        for (int v = 0; v < WV; ++v) {
+          const uint32_t bias = BF16W ? 0u : 0x80808080u;
+          r[row][4 * v + 0] = w[u][row][v].x ^ bias;
+          r[row][4 * v + 1] = w[u][row][v].y ^ bias;
+          r[row][4 * v + 2] = w[u][row][v].z ^ bias;
+          r[row][4 * v + 3] = w[u][row][v].w ^ bias;
+        }
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         // mma rows g and g + 8 are columns n + 2j and n + 2j + 1
-        const int wd = j / 2, by = 2 * (j % 2);
         uint32_t a[4];
-        a[0] = bf16_pair(r0[wd], r1[wd], by);
-        a[1] = bf16_pair(r0[wd], r1[wd], by + 1);
-        a[2] = bf16_pair(r2[wd], r3[wd], by);
-        a[3] = bf16_pair(r2[wd], r3[wd], by + 1);
+        if constexpr (BF16W) {
+          a[0] = bf16_lo(r[0][j], r[1][j]);
+          a[1] = bf16_hi(r[0][j], r[1][j]);
+          a[2] = bf16_lo(r[2][j], r[3][j]);
+          a[3] = bf16_hi(r[2][j], r[3][j]);
+        } else {
+          const int wd = j / 2, by = 2 * (j % 2);
+          a[0] = bf16_pair(r[0][wd], r[1][wd], by);
+          a[1] = bf16_pair(r[0][wd], r[1][wd], by + 1);
+          a[2] = bf16_pair(r[2][wd], r[3][wd], by);
+          a[3] = bf16_pair(r[2][wd], r[3][wd], by + 1);
+        }
 #pragma unroll
         for (int i = 0; i < NT; ++i)
           mma_bf16(acc[i][j], a, b[u][i].x, b[u][i].y);
@@ -268,7 +339,8 @@ __global__ void __launch_bounds__(GV_THREADS, 2) w8a16_gemv(
         for (int r = 0; r < ksplit; ++r)
           sum += cg::this_cluster().map_shared_rank(red, r)[idx];
       }
-      out[m * ldo + col] = __float2bfloat16(sum * __bfloat162float(s[col]));
+      out[m * ldo + col] = __float2bfloat16(
+          BF16W ? sum : sum * __bfloat162float(s[col]));
     }
     // no CTA reuses or frees its slots while another may still read them
     if (split)
@@ -438,7 +510,7 @@ __device__ __forceinline__ void widen_tile(uint32_t sw, int wt) {
 // its consumers' fp32 sums in shared memory at red, sum i of consumer
 // thread ct at red[i * 256 + ct]. This CTA adds up its share of the
 // column pairs over the cluster's CTAs, scales and stores.
-template <int BN>
+template <int BN, bool BF16W>
 __device__ __forceinline__ void split_k_reduce(
     float* red, const __nv_bfloat16* __restrict__ s,
     __nv_bfloat16* __restrict__ out, int M, int N, long long ldo, int m0,
@@ -463,32 +535,69 @@ __device__ __forceinline__ void split_k_reduce(
       s1 += r[(2 * pi + 1) * 256 + ct];
     }
     *reinterpret_cast<__nv_bfloat162*>(out + m * ldo + n) =
-        __floats2bfloat162_rn(s0 * __bfloat162float(s[n]),
-                              s1 * __bfloat162float(s[n + 1]));
+        __floats2bfloat162_rn(BF16W ? s0 : s0 * __bfloat162float(s[n]),
+                              BF16W ? s1 : s1 * __bfloat162float(s[n + 1]));
   }
 }
 
-// x's tensor map: whether it has an expert axis of its own (else every
-// expert reads the same rows), and whether that axis is its outermost
-constexpr int X_BATCHED = 1, X_EXPERT_OUTER = 2;
+// The row tile of grouped CTA `tile` (blockIdx.x), found by the first warp:
+// each expert e holds ceil(c_e / 128) tiles, in expert order. Lane l takes
+// experts l, l + 32, ...; a warp scan of their tile counts places each
+// expert's first tile, and the lane whose expert holds `tile` writes
+// (expert, first row, end row) to `out`. Left at expert -1 when `tile` lies
+// past the last one. Without offsets, tile i of the one expert's M rows.
+__device__ __forceinline__ void find_tile(const int* offsets, int E, int M,
+                                          int tile, int lane,
+                                          volatile int* out) {
+  if (offsets == nullptr) {
+    if (lane == 0) {
+      out[0] = 0;
+      out[1] = tile * MM_BM;
+      out[2] = M;
+    }
+    return;
+  }
+  int before = 0;                          // tiles of the experts passed
+  for (int e0 = 0; e0 < E; e0 += 32) {
+    const int e = e0 + lane;
+    const int lo = e < E ? offsets[e] : 0;
+    const int hi = e < E ? offsets[e + 1] : 0;
+    const int nt = (hi - lo + MM_BM - 1) / MM_BM;
+    int incl = nt;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += v;
+    }
+    const int first = before + incl - nt;
+    if (tile >= first && tile < first + nt) {   // one lane at most
+      out[0] = e;
+      out[1] = lo + (tile - first) * MM_BM;
+      out[2] = hi;
+    }
+    before += __shfl_sync(0xffffffffu, incl, 31);
+  }
+}
 
-// One CTA computes rows m0 .. m0 + 127 and columns n0 .. n0 + BN - 1 of
-// expert blockIdx.z / nsplit over the k-tiles [(blockIdx.z % nsplit) *
-// ktile_chunk, ...): with a K split the nsplit CTAs of one cluster (grid z)
-// add their sums through distributed shared memory.
-template <int BN>
+// One CTA computes rows m0 .. m0 + 127 (those before its segment's end)
+// and columns n0 .. n0 + BN - 1 of its tile's expert over the k-tiles
+// [blockIdx.z * ktile_chunk, ...): with a K split the nsplit CTAs of one
+// cluster (grid z) add their sums through distributed shared memory.
+// BF16W: bf16 weights, loaded by TMA in place (no widening, no scale).
+template <int BN, bool BF16W>
 __global__ void __launch_bounds__(MM_THREADS, 1) w8a16_wgmma(
     __grid_constant__ const CUtensorMap tx,
     __grid_constant__ const CUtensorMap tq,
     const __nv_bfloat16* __restrict__ s, __nv_bfloat16* __restrict__ out,
-    int M, int N, int K, long long ldo, int ktile_chunk, int nsplit,
-    long long sb, long long ob, int xmode) {
+    const int* __restrict__ offsets, int E, int M, int N, int K,
+    long long ldo, int ktile_chunk, int nsplit, long long sb) {
   using L = MmSmem<BN>;
   constexpr int S = L::stages;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ int tile[3];                  // expert, first row, end row
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   // barriers, 8 bytes each, one per stage: TMA bytes of x and q landed;
-  // the widened tile written (one arrival per widening warp); the
+  // the widened tile written (int8: one arrival per widening warp); the
   // consumers done with the stage (one per consumer warp)
   const uint32_t full = base + L::bars;
   const uint32_t wide = full + 8 * S;
@@ -496,44 +605,70 @@ __global__ void __launch_bounds__(MM_THREADS, 1) w8a16_wgmma(
   auto stage = [&](int kt) { return base + (kt % S) * L::stage; };
   auto bar = [](uint32_t b, int kt) { return b + 8 * (kt % S); };
   auto phase = [](int kt) { return uint32_t((kt / S) & 1); };
-  const int m0 = blockIdx.x * MM_BM;       // m fastest: CTAs that run
-  const int n0 = blockIdx.y * BN;          // together share weight columns
-  const int ex = blockIdx.z / nsplit;      // the expert
-  s += ex * sb;
-  out += ex * ob;
-  // x's coordinates after k: (expert, m0) or (m0, expert)
-  const int xe = xmode & X_BATCHED ? ex : 0;
-  const int xc1 = xmode & X_EXPERT_OUTER ? m0 : xe;
-  const int xc2 = xmode & X_EXPERT_OUTER ? xe : m0;
   // this CTA's k-tiles: kt0 + 0 .. kt0 + ktiles - 1 (at least one)
-  const int kt0 = (blockIdx.z % nsplit) * ktile_chunk;
+  const int kt0 = blockIdx.z * ktile_chunk;
   const int ktiles = min((K + MM_BK - 1) / MM_BK - kt0, ktile_chunk);
 
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < S; ++i) {
-      mbar_init(full + 8 * i, 1);
-      mbar_init(wide + 8 * i, MM_WIDEN_THREADS / 32);
-      mbar_init(empty + 8 * i, MM_CONSUMER_WARPS);
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0) {
+      tile[0] = -1;
+      for (int i = 0; i < S; ++i) {
+        mbar_init(full + 8 * i, 1);
+        mbar_init(wide + 8 * i, MM_WIDEN_THREADS / 32);
+        mbar_init(empty + 8 * i, MM_CONSUMER_WARPS);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    __syncwarp();
+    find_tile(offsets, E, M, blockIdx.x, threadIdx.x, tile);
   }
   __syncthreads();
+  // a CTA past the last tile leaves before any load (its whole cluster,
+  // which shares blockIdx.x, with it)
+  const int ex = tile[0];
+  if (ex < 0) return;
+  const int m0 = tile[1];                  // x fastest: CTAs that run
+  const int m_end = tile[2];               // together share weight columns
+  const int n0 = blockIdx.y * BN;
+  if (!BF16W) s += ex * sb;
+  // q boxes of a stage: int8 one [64 k][BN] box; bf16 the [64 k][64 n]
+  // boxes that hold columns below N (the epilogue drops the others)
+  const int qboxes = BF16W ? min(BN / 64, (N - n0 + 63) / 64) : 1;
+  const uint32_t stage_bytes =
+      L::x + (BF16W ? qboxes * MM_BOX_BYTES : L::q);
+  auto issue = [&](int t) {
+    mbar_expect_tx(bar(full, t), stage_bytes);
+    tma_load_2d(stage(t), &tx, bar(full, t), (kt0 + t) * MM_BK, m0);
+    for (int j = 0; j < qboxes; ++j)
+      tma_load_3d(stage(t) + L::x + j * MM_BOX_BYTES, &tq, bar(full, t),
+                  n0 + 64 * j, (kt0 + t) * MM_BK, ex);
+  };
 
   if (threadIdx.x < 128) {
-    // ---- widening warpgroup ---------------------------------------------
+    // ---- first warpgroup: int8 widens, bf16 loads ----------------------
     setmaxnreg_dec<MM_WIDEN_REGS>();
-    for (int kt = 0; kt < ktiles; ++kt) {
-      const uint32_t st = stage(kt);
-      mbar_wait_or_trap(bar(full, kt), phase(kt));
-      widen_tile<BN>(st + L::x, threadIdx.x);
-      // the generic-proxy stores become visible to wgmma (the async proxy)
-      // before the consumers see the barrier
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      __syncwarp();
-      if (threadIdx.x % 32 == 0) mbar_arrive(bar(wide, kt));
+    if constexpr (BF16W) {
+      // the TMA producer: tile t into its stage once the stage's previous
+      // tile t - S is released (the first pass finds every stage empty)
+      if (threadIdx.x == 0)
+        for (int t = 0; t < ktiles; ++t) {
+          mbar_wait_or_trap(bar(empty, t), phase(t) ^ 1);
+          issue(t);
+        }
+    } else {
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const uint32_t st = stage(kt);
+        mbar_wait_or_trap(bar(full, kt), phase(kt));
+        widen_tile<BN>(st + L::x, threadIdx.x);
+        // the generic-proxy stores become visible to wgmma (the async
+        // proxy) before the consumers see the barrier
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncwarp();
+        if (threadIdx.x % 32 == 0) mbar_arrive(bar(wide, kt));
+      }
     }
     // the last stages' release: a consumer stuck on a barrier traps here
-    // (or at the full-barrier wait above) instead of hanging the card
+    // (or at a wait above) instead of hanging the card
     if (threadIdx.x == 0)
       for (int kt = max(0, ktiles - S); kt < ktiles; ++kt)
         mbar_wait_or_trap(bar(empty, kt), phase(kt));
@@ -549,29 +684,23 @@ __global__ void __launch_bounds__(MM_THREADS, 1) w8a16_wgmma(
     const int cw = ct / 128;                 // consumer warpgroup
     const int warp = (ct / 32) % 4;          // its warp: 16 rows
     const int lane = ct % 32;
-    // a warpgroup whose rows all lie past M runs no products, but keeps
-    // releasing the stages
-    const bool active = m0 + cw * 64 < M;
-    // one thread of the first consumer issues the TMA loads: tile t into
-    // its stage once the stage's previous tile t - S is released (the
-    // first pass over the ring finds every stage empty)
-    const bool loader = ct == 0;
-    auto issue = [&](int t) {
-      mbar_wait(bar(empty, t), phase(t) ^ 1);
-      mbar_expect_tx(bar(full, t), L::x + L::q);
-      tma_load_3d(stage(t), &tx, bar(full, t), (kt0 + t) * MM_BK, xc1, xc2);
-      tma_load_3d(stage(t) + L::x, &tq, bar(full, t), n0, (kt0 + t) * MM_BK,
-                  ex);
-    };
+    // a warpgroup whose rows all lie past the segment runs no products,
+    // but keeps releasing the stages
+    const bool active = m0 + cw * 64 < m_end;
+    // int8: one thread of the first consumer issues the TMA loads
+    const bool loader = !BF16W && ct == 0;
     if (loader)
-      for (int t = 0; t < min(S, ktiles); ++t) issue(t);
+      for (int t = 0; t < min(S, ktiles); ++t) {
+        mbar_wait(bar(empty, t), phase(t) ^ 1);
+        issue(t);
+      }
     float acc[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     for (int kt = 0; kt < ktiles; ++kt) {
       const uint32_t st = stage(kt);
       mbar_wait(bar(full, kt), phase(kt));
-      mbar_wait(bar(wide, kt), phase(kt));
+      if (!BF16W) mbar_wait(bar(wide, kt), phase(kt));
       if (active) {
         fence_regs(acc);
         wgmma_fence();
@@ -587,7 +716,10 @@ __global__ void __launch_bounds__(MM_THREADS, 1) w8a16_wgmma(
       }
       if (kt > 0 && lane == 0) mbar_arrive(bar(empty, kt - 1));
       // refill tile kt - 1's stage with tile kt - 1 + S
-      if (loader && kt > 0 && kt - 1 + S < ktiles) issue(kt - 1 + S);
+      if (loader && kt > 0 && kt - 1 + S < ktiles) {
+        mbar_wait(bar(empty, kt - 1 + S), phase(kt - 1 + S) ^ 1);
+        issue(kt - 1 + S);
+      }
     }
     wgmma_wait<0>();
     fence_regs(acc);
@@ -603,8 +735,8 @@ __global__ void __launch_bounds__(MM_THREADS, 1) w8a16_wgmma(
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) red[i * 256 + ct] = acc[i];
       cg::this_cluster().sync();
-      split_k_reduce<BN>(red, s, out, M, N, ldo, m0, n0,
-                         cg::this_cluster().block_rank(), nsplit, ct);
+      split_k_reduce<BN, BF16W>(red, s, out, m_end, N, ldo, m0, n0,
+                                cg::this_cluster().block_rank(), nsplit, ct);
       cg::this_cluster().sync();
     } else if (active) {
       // epilogue: scale in fp32, round once to bf16, two columns per
@@ -615,12 +747,12 @@ __global__ void __launch_bounds__(MM_THREADS, 1) w8a16_wgmma(
       for (int nb = 0; nb < BN / 8; ++nb) {
         const int n = n0 + nb * 8 + 2 * t;
         if (n >= N) continue;
-        const float s0 = __bfloat162float(s[n]);
-        const float s1 = __bfloat162float(s[n + 1]);
+        const float s0 = BF16W ? 1.f : __bfloat162float(s[n]);
+        const float s1 = BF16W ? 1.f : __bfloat162float(s[n + 1]);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int m = row + 8 * h;
-          if (m < M)
+          if (m < m_end)
             *reinterpret_cast<__nv_bfloat162*>(out + m * ldo + n) =
                 __floats2bfloat162_rn(acc[4 * nb + 2 * h] * s0,
                                       acc[4 * nb + 2 * h + 1] * s1);
@@ -630,12 +762,12 @@ __global__ void __launch_bounds__(MM_THREADS, 1) w8a16_wgmma(
   }
 }
 
-template <int NT>
-cudaError_t launch_gemv(const __nv_bfloat16* x, const int8_t* q,
-                        const __nv_bfloat16* s, __nv_bfloat16* out, int E,
-                        int M, int N, int K, long long ldx, long long xb,
-                        long long ldq, long long qb, long long sb,
-                        long long ldo, long long ob, int kchunk, int ksplit,
+template <int NT, bool BF16W>
+cudaError_t launch_gemv(const __nv_bfloat16* x, const void* q,
+                        const __nv_bfloat16* s, __nv_bfloat16* out,
+                        const int* offsets, int E, int M, int N, int K,
+                        long long ldx, long long ldq, long long qb,
+                        long long sb, long long ldo, int kchunk, int ksplit,
                         cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((N + GV_BN - 1) / GV_BN, ksplit, E);
@@ -649,75 +781,69 @@ cudaError_t launch_gemv(const __nv_bfloat16* x, const int8_t* q,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, w8a16_gemv<NT>, x, q, s, out, M, N, K,
-                            ldx, ldq, ldo, kchunk, xb, qb, sb, ob);
+  return cudaLaunchKernelEx(&cfg, w8a16_gemv<NT, BF16W>, x, q, s, out,
+                            offsets, M, N, K, ldx, ldq, ldo, kchunk, qb, sb);
 }
 
-// x_e [M, K] bf16 (rows ldx elements apart, experts xb apart, xb 0 for
-// one x shared by every expert) in boxes of [128 rows][64 k], 128-byte
-// swizzle; q [E, K, N] int8 (rows ldq bytes apart, experts qb apart) in
-// unswizzled boxes of [64 k rows][bn bytes]. Both maps are 3-D, their
-// strides growing: x is {K, E, M} for xb <= ldx (1 expert for xb 0: a
-// stride of 0 is refused) and {K, M, E} above; *xmode says which. Past M,
-// N or K of an expert a box reads zeros.
+// x [M, K] bf16 (rows ldx elements apart) as a 2-D map in boxes of [128
+// rows][64 k], 128-byte swizzle; q [E, K, N] (rows ldq elements apart,
+// experts qb apart) as a 3-D map {N, K, E}: int8 in unswizzled boxes of [64
+// k rows][bn bytes], bf16 in boxes of [64 k][64 n] with the 128-byte
+// swizzle. Past M, N or K a box reads zeros.
 CUresult make_maps(EncodeTiled encode, CUtensorMap* tx, CUtensorMap* tq,
-                   const void* x, const void* q, int E, int M, int N, int K,
-                   long long ldx, long long xb, long long ldq, long long qb,
-                   int bn, int* xmode) {
+                   const void* x, const void* q, bool bf16w, int E, int M,
+                   int N, int K, long long ldx, long long ldq, long long qb,
+                   int bn) {
   const cuuint32_t elem[3] = {1, 1, 1};
-  const bool outer = xb > ldx;
-  *xmode = (xb ? X_BATCHED : 0) | (outer ? X_EXPERT_OUTER : 0);
-  const cuuint64_t xe = xb ? cuuint64_t(E) : 1;
-  const cuuint64_t xdims[3] = {cuuint64_t(K), outer ? cuuint64_t(M) : xe,
-                               outer ? xe : cuuint64_t(M)};
-  // the expert axis of a shared x has one entry: any legal stride will do
-  const cuuint64_t xes = xb ? cuuint64_t(xb) * 2 : cuuint64_t(K) * 2;
-  const cuuint64_t xstride[2] = {outer ? cuuint64_t(ldx) * 2 : xes,
-                                 outer ? xes : cuuint64_t(ldx) * 2};
-  const cuuint32_t xbox[3] = {cuuint32_t(MM_BK), outer ? MM_BM : 1u,
-                              outer ? 1u : MM_BM};
-  CUresult r = encode(tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  const cuuint64_t xdims[2] = {cuuint64_t(K), cuuint64_t(M)};
+  const cuuint64_t xstride[1] = {cuuint64_t(ldx) * 2};
+  const cuuint32_t xbox[2] = {cuuint32_t(MM_BK), cuuint32_t(MM_BM)};
+  CUresult r = encode(tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                       const_cast<void*>(x), xdims, xstride, xbox, elem,
                       CU_TENSOR_MAP_INTERLEAVE_NONE,
                       CU_TENSOR_MAP_SWIZZLE_128B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return r;
+  const cuuint64_t wb = bf16w ? 2 : 1;
   const cuuint64_t qdims[3] = {cuuint64_t(N), cuuint64_t(K), cuuint64_t(E)};
-  const cuuint64_t qstride[2] = {cuuint64_t(ldq), cuuint64_t(qb)};
-  const cuuint32_t qbox[3] = {cuuint32_t(bn), cuuint32_t(MM_BK), 1};
-  return encode(tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(q),
-                qdims, qstride, qbox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_NONE,
+  const cuuint64_t qstride[2] = {cuuint64_t(ldq) * wb, cuuint64_t(qb) * wb};
+  const cuuint32_t qbox[3] = {bf16w ? 64u : cuuint32_t(bn),
+                              cuuint32_t(MM_BK), 1};
+  return encode(tq,
+                bf16w ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                3, const_cast<void*>(q), qdims, qstride, qbox, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                bf16w ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int BN>
+template <int BN, bool BF16W>
 cudaError_t launch_wgmma(const CUtensorMap& tx, const CUtensorMap& tq,
-                         const __nv_bfloat16* s, __nv_bfloat16* out, int E,
-                         int M, int N, int K, long long sb, long long ldo,
-                         long long ob, int kchunk, int ksplit, int xmode,
-                         cudaStream_t st) {
+                         const __nv_bfloat16* s, __nv_bfloat16* out,
+                         const int* offsets, int E, int tiles, int M, int N,
+                         int K, long long sb, long long ldo, int kchunk,
+                         int ksplit, cudaStream_t st) {
   constexpr int MAX_DEVICES = 64;
   static bool smem_set[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= MAX_DEVICES || !smem_set[dev]) {
-    err = cudaFuncSetAttribute(w8a16_wgmma<BN>,
+    err = cudaFuncSetAttribute(w8a16_wgmma<BN, BF16W>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                int(MmSmem<BN>::total));
     if (err != cudaSuccess) return err;
     if (dev < MAX_DEVICES) smem_set[dev] = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((M + MM_BM - 1) / MM_BM, (N + BN - 1) / BN, E * ksplit);
+  cfg.gridDim = dim3(tiles, (N + BN - 1) / BN, ksplit);
   cfg.blockDim = dim3(MM_THREADS, 1, 1);
   cfg.dynamicSmemBytes = MmSmem<BN>::total;
   cfg.stream = st;
-  // the CTAs that split one output tile's K form one cluster (z is
-  // expert * ksplit + rank)
+  // the CTAs that split one output tile's K form one cluster (along z)
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
@@ -725,16 +851,67 @@ cudaError_t launch_wgmma(const CUtensorMap& tx, const CUtensorMap& tq,
   attr[0].val.clusterDim.z = ksplit;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, w8a16_wgmma<BN>, tx, tq, s, out, M, N, K,
-                           ldo, kchunk / MM_BK, ksplit, sb, ob, xmode);
+  err = cudaLaunchKernelEx(&cfg, w8a16_wgmma<BN, BF16W>, tx, tq, s, out,
+                           offsets, E, M, N, K, ldo, kchunk / MM_BK, ksplit,
+                           sb);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+// The product of every entry: x [M, K] (rows ldx apart) against expert
+// e's q + e * qb (rows ldq apart; s + e * sb its scales for int8) for the
+// rows of its segment (offsets; all M rows of expert 0 without), out rows
+// ldo apart; strides in elements. max_rows bounds every segment: <= 16 the
+// GEMV, above the wgmma path.
+template <bool BF16W>
+int run(const void* x, const void* q, const void* s, const int* offsets,
+        void* out, int E, int M, int N, int K, long long ldx, long long ldq,
+        long long qb, long long sb, long long ldo, int max_rows, int bn,
+        int kchunk, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || N <= 0 || E <= 0) return int(cudaSuccess);
+  if (K % 8 || N % 16 || K <= 0 || max_rows <= 0 || E > 65535)
+    return int(cudaErrorInvalidValue);
+  auto xb16 = static_cast<const __nv_bfloat16*>(x);
+  auto sb16 = static_cast<const __nv_bfloat16*>(s);
+  auto ob16 = static_cast<__nv_bfloat16*>(out);
+  const bool wgmma = max_rows > GEMV_MAX_M;
+  const int step = wgmma ? MM_BK : GV_KSTEP;
+  if (kchunk <= 0 || kchunk % step) return int(cudaErrorInvalidValue);
+  const int ksplit = (K + kchunk - 1) / kchunk;
+  if (ksplit > MAX_KSPLIT) return int(cudaErrorInvalidValue);
+  if (wgmma) {
+    if (bn != 128 && bn != 256) return int(cudaErrorInvalidValue);
+    EncodeTiled encode = encode_fn();
+    if (encode == nullptr) return -1;
+    CUtensorMap tx, tq;
+    const CUresult r =
+        make_maps(encode, &tx, &tq, x, q, BF16W, E, M, N, K, ldx, ldq, qb, bn);
+    if (r != CUDA_SUCCESS) return -(1000 + int(r));
+    // the worst case of sum(ceil(c_e / 128)) over the experts
+    const int tiles = (M + MM_BM - 1) / MM_BM + (offsets ? E : 0);
+    return int(bn == 128 ? launch_wgmma<128, BF16W>(tx, tq, sb16, ob16,
+                                                    offsets, E, tiles, M, N,
+                                                    K, sb, ldo, kchunk,
+                                                    ksplit, st)
+                         : launch_wgmma<256, BF16W>(tx, tq, sb16, ob16,
+                                                    offsets, E, tiles, M, N,
+                                                    K, sb, ldo, kchunk,
+                                                    ksplit, st));
+  }
+  return int(max_rows <= 8
+                 ? launch_gemv<1, BF16W>(xb16, q, sb16, ob16, offsets, E, M,
+                                         N, K, ldx, ldq, qb, sb, ldo, kchunk,
+                                         ksplit, st)
+                 : launch_gemv<2, BF16W>(xb16, q, sb16, ob16, offsets, E, M,
+                                         N, K, ldx, ldq, qb, sb, ldo, kchunk,
+                                         ksplit, st));
+}
+
 }  // namespace
 
-// Largest M the GEMV path takes; above it, the wgmma path.
-extern "C" int w8a16_gemv_max_m() { return 16; }
+// Largest M (rows per expert) the GEMV path takes; above it, the wgmma path.
+extern "C" int w8a16_gemv_max_m() { return GEMV_MAX_M; }
 
 // Rows of one wgmma-path CTA.
 extern "C" int w8a16_wgmma_tile_m() { return MM_BM; }
@@ -746,79 +923,63 @@ extern "C" int w8a16_wgmma_smem_bytes(int bn) {
   return 0;
 }
 
-// GEMV CTAs one SM holds at once for this M (0 if the query fails).
+// int8 GEMV CTAs one SM holds at once for this M (0 if the query fails).
 extern "C" int w8a16_gemv_ctas_per_sm(int M) {
   int n = 0;
   const cudaError_t err =
       M <= 8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &n, w8a16_gemv<1>, GV_THREADS, 0)
+                   &n, w8a16_gemv<1, false>, GV_THREADS, 0)
              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &n, w8a16_gemv<2>, GV_THREADS, 0);
+                   &n, w8a16_gemv<2, false>, GV_THREADS, 0);
   return err == cudaSuccess ? n : 0;
 }
 
 // Most CTAs one output tile's K may be split over (one cluster).
 extern "C" int w8a16_max_ksplit() { return MAX_KSPLIT; }
 
-// Most experts one batched call may take (the grid's z extent over the
-// largest K split).
-extern "C" int w8a16_max_experts() { return 65535 / MAX_KSPLIT; }
+// Most experts one grouped call may take (the GEMV grid's z extent).
+extern "C" int w8a16_max_experts() { return 65535; }
 
-// Returns 0 when launched, a cudaError_t (> 0) when the launch failed, -1
-// when the driver has no cuTensorMapEncodeTiled and -(1000 + CUresult) when
-// a tensor map was refused. The plan: ``kchunk`` is the K slice of one CTA
-// (a multiple of 16 for M <= 16, of 64 above), with ceil(K / kchunk) at
-// most w8a16_max_ksplit(); for M > 16 ``bn`` is the wgmma path's tile
-// width, 128 or 256 (not read for M <= 16). Expert e reads x + e * xb
-// (rows ldx apart), q + e * qb (rows ldq apart), s + e * sb and writes out
-// + e * ob (rows ldo apart); strides in elements.
-extern "C" int w8a16_bmm_bf16(const void* x, const void* q, const void* s,
-                              void* out, int E, int M, int N, int K,
-                              long long ldx, long long xb, long long ldq,
-                              long long qb, long long sb, long long ldo,
-                              long long ob, int bn, int kchunk,
-                              void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || N <= 0 || E <= 0) return int(cudaSuccess);
-  if (K % 8 || N % 16 || K <= 0 || xb % 8 || xb < 0 ||
-      E > w8a16_max_experts())
-    return int(cudaErrorInvalidValue);
-  auto xb16 = static_cast<const __nv_bfloat16*>(x);
-  auto qb8 = static_cast<const int8_t*>(q);
-  auto sb16 = static_cast<const __nv_bfloat16*>(s);
-  auto ob16 = static_cast<__nv_bfloat16*>(out);
-  const int step = M > 16 ? MM_BK : GV_KSTEP;
-  if (kchunk <= 0 || kchunk % step) return int(cudaErrorInvalidValue);
-  const int ksplit = (K + kchunk - 1) / kchunk;
-  if (ksplit > MAX_KSPLIT) return int(cudaErrorInvalidValue);
-  if (M > 16) {
-    if (bn != 128 && bn != 256) return int(cudaErrorInvalidValue);
-    EncodeTiled encode = encode_fn();
-    if (encode == nullptr) return -1;
-    CUtensorMap tx, tq;
-    int xmode = 0;
-    const CUresult r = make_maps(encode, &tx, &tq, x, q, E, M, N, K, ldx, xb,
-                                 ldq, qb, bn, &xmode);
-    if (r != CUDA_SUCCESS) return -(1000 + int(r));
-    return int(bn == 128
-                   ? launch_wgmma<128>(tx, tq, sb16, ob16, E, M, N, K, sb,
-                                       ldo, ob, kchunk, ksplit, xmode, st)
-                   : launch_wgmma<256>(tx, tq, sb16, ob16, E, M, N, K, sb,
-                                       ldo, ob, kchunk, ksplit, xmode, st));
-  }
-  return int(M <= 8 ? launch_gemv<1>(xb16, qb8, sb16, ob16, E, M, N, K, ldx,
-                                     xb, ldq, qb, sb, ldo, ob, kchunk,
-                                     ksplit, st)
-                    : launch_gemv<2>(xb16, qb8, sb16, ob16, E, M, N, K, ldx,
-                                     xb, ldq, qb, sb, ldo, ob, kchunk,
-                                     ksplit, st));
-}
+// Every entry returns 0 when launched, a cudaError_t (> 0) when the launch
+// failed, -1 when the driver has no cuTensorMapEncodeTiled and -(1000 +
+// CUresult) when a tensor map was refused. The plan: ``kchunk`` is the K
+// slice of one CTA (a multiple of 16 on the GEMV path, of 64 on the wgmma
+// path), with ceil(K / kchunk) at most w8a16_max_ksplit(); ``bn`` is the
+// wgmma path's tile width, 128 or 256 (not read by the GEMV).
 
-// The 2-D product: w8a16_bmm_bf16 with one expert.
+// The 2-D product: x [M, K] (rows ldx apart), q [K, N] int8 (rows ldq
+// bytes apart), s [N], out [M, N] (rows ldo apart).
 extern "C" int w8a16_gemm_bf16(const void* x, const void* q, const void* s,
                                void* out, int M, int N, int K, long long ldx,
                                long long ldq, long long ldo, int bn,
                                int kchunk, void* stream) {
-  return w8a16_bmm_bf16(x, q, s, out, 1, M, N, K, ldx, 0, ldq,
-                        (long long)K * ldq, 0, ldo, 0, bn, kchunk, stream);
+  return run<false>(x, q, s, nullptr, out, 1, M, N, K, ldx, ldq,
+                    (long long)K * ldq, 0, ldo, M, bn, kchunk, stream);
+}
+
+// The grouped int8 product: x [P, K] and out [P, N] contiguous, the rows
+// sorted by expert and bounded by offsets [E + 1] (int32, on the card), q
+// [E, K, N] int8 and s [E, N] contiguous; no segment holds more than
+// max_rows rows.
+extern "C" int w8a16_grouped_bf16(const void* x, const void* q,
+                                  const void* s, const void* offsets,
+                                  void* out, int E, int P, int N, int K,
+                                  int max_rows, int bn, int kchunk,
+                                  void* stream) {
+  if (offsets == nullptr) return int(cudaErrorInvalidValue);
+  return run<false>(x, q, s, static_cast<const int*>(offsets), out, E, P, N,
+                    K, K, N, (long long)K * N, N, N, max_rows, bn, kchunk,
+                    stream);
+}
+
+// The grouped bf16 product: as w8a16_grouped_bf16 with w [E, K, N] bf16
+// and no scales.
+extern "C" int bf16_grouped_bf16(const void* x, const void* w,
+                                 const void* offsets, void* out, int E,
+                                 int P, int N, int K, int max_rows, int bn,
+                                 int kchunk, void* stream) {
+  if (offsets == nullptr) return int(cudaErrorInvalidValue);
+  return run<true>(x, w, nullptr, static_cast<const int*>(offsets), out, E,
+                   P, N, K, K, N, (long long)K * N, 0, N, max_rows, bn,
+                   kchunk, stream);
 }

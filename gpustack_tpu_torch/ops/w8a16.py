@@ -14,18 +14,23 @@ XLA fuses. Bound on the card: bytes at decode (w_gate at M = 8: 58.7 MB,
 ~17.5 us at 3.35 TB/s), operations at prefill (M = 2048: 240.5 GFLOP,
 ~0.243 ms at 989 TFLOP/s bf16).
 
-``w8a16_bmm`` is the same product batched over an MoE layer's experts,
-``out[e] = (x[e] @ q[e]) * s[e]`` with q ``[E, K, N]`` and s ``[E, N]``,
-in one launch: the dense-dispatch expert products of the JAX
-``_moe_mlp``'s int8 branch (``gpustack_tpu/models/transformer.py:487-502``,
-``_mm`` over the expert axis; again an XLA fusion). x is read through its
-batch stride: 0 for the gate and up products (x expanded over the experts,
-read in place), the expert's column block of h for the down product.
+``w8a16_grouped`` is the routed expert product of an MoE layer: the
+(token, expert) pairs of a token chunk sorted by expert, ``x [P, K]``, with
+``offsets [E + 1]`` bounding each expert's segment, and
+``out[r] = (x[r] @ q[e(r)]) * s[e(r)]`` for q ``[E, K, N]``, s ``[E, N]``:
+only the experts some token picked are read. ``bf16_grouped`` is the same
+kernel with bf16 expert weights and no scale. They stand for the JAX
+``_moe_mlp``'s dense-dispatch expert products
+(``gpustack_tpu/models/transformer.py:487-502``, ``_mm`` or ``einsum``
+over the expert axis; XLA products there, no Pallas kernel) with the same
+values up to summation order. The host never reads ``offsets``: the grid
+is sized for the worst case and each CTA finds its rows on the card, so
+the serving loop never waits on the device.
 
 Each wrapper launches its kernel for CUDA tensors (or raises: no fallback
 on the card) and takes its plain version only for CPU tensors. Its
 ``launches`` counts kernel calls, and ``launches_by_path`` splits them into
-``gemv`` (M <= 16 rows per expert) and ``wgmma``.
+``gemv`` (at most 16 rows per expert) and ``wgmma``.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ GEMV_BN = 128              # columns per GEMV CTA
 GEMV_KSTEP = 16            # k rows per mma step
 GEMV_WARPS = 8             # warps per GEMV CTA, each on its own k steps
 MAX_KSPLIT = 8             # csrc: w8a16_max_ksplit() (one cluster)
-MAX_EXPERTS = 65535 // MAX_KSPLIT   # csrc: w8a16_max_experts() (grid z)
+MAX_EXPERTS = 65535        # csrc: w8a16_max_experts() (the GEMV's grid z)
 WGMMA_BM = 128             # csrc: w8a16_wgmma_tile_m(), rows per CTA
 WGMMA_BK = 64              # k rows per stage of the wgmma path
 WGMMA_MIN_KTILES = 8       # k stages a CTA of a split keeps at least
@@ -55,9 +60,10 @@ def _kernel_lib():
     return load("w8a16_gemm")
 
 
-def _kernel(batched: bool = False):
-    """The compiled library's entry point, the 2-D ``w8a16_gemm_bf16`` or
-    the batched ``w8a16_bmm_bf16``; the library's ABI checked once."""
+def _kernel(entry: str = "gemm"):
+    """The compiled library's entry point: the 2-D ``w8a16_gemm_bf16``,
+    the grouped ``w8a16_grouped_bf16`` or ``bf16_grouped_bf16``; the
+    library's ABI checked once."""
     global _lib
     if _lib is None:
         lib = _kernel_lib()
@@ -68,22 +74,25 @@ def _kernel(batched: bool = False):
             or lib.w8a16_max_experts() != MAX_EXPERTS
         ):
             raise RuntimeError("w8a16_gemm.cu and ops/w8a16.py disagree")
-        gemm, bmm = lib.w8a16_gemm_bf16, lib.w8a16_bmm_bf16
-        gemm.restype = bmm.restype = ctypes.c_int
+        gemm = lib.w8a16_gemm_bf16
         gemm.argtypes = (
             [ctypes.c_void_p] * 4
             + [ctypes.c_int] * 3
             + [ctypes.c_longlong] * 3
             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
-        bmm.argtypes = (
-            [ctypes.c_void_p] * 4
-            + [ctypes.c_int] * 4
-            + [ctypes.c_longlong] * 7
-            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        )
-        _lib = (gemm, bmm)
-    return _lib[batched]
+        int8 = lib.w8a16_grouped_bf16
+        int8.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p
+        ]
+        bf16 = lib.bf16_grouped_bf16
+        bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p
+        ]
+        _lib = {"gemm": gemm, "int8": int8, "bf16": bf16}
+        for fn in _lib.values():
+            fn.restype = ctypes.c_int
+    return _lib[entry]
 
 
 def w8a16_plain(
@@ -100,11 +109,12 @@ def w8a16_plain(
 def gemv_plan(N: int, K: int, sms: int, E: int = 1) -> tuple:
     """(kchunk, ksplit) for the small-M path: K is split over ``ksplit``
     CTAs (one cluster, at most ``MAX_KSPLIT``, each warp with at least
-    one 16-row step) only until the grid, ``E`` experts of column slices,
-    has a CTA for every SM. A CTA's sums and its cluster's reduction cost
-    the same however few rows it reads, so on the card fewer and longer
-    CTAs stream closer to the memory rate than a grid cut finer to fill
-    whole waves."""
+    one 16-row step) only until the grid's working CTAs, column slices of
+    ``E`` experts (a grouped call passes the most experts its rows can
+    reach, ``min(E, P)``), have one for every SM. A CTA's sums and its
+    cluster's reduction cost the same however few rows it reads, so on the
+    card fewer and longer CTAs stream closer to the memory rate than a
+    grid cut finer to fill whole waves."""
     nb = -(-N // GEMV_BN) * E
     steps = -(-K // GEMV_KSTEP)
     cap = max(1, min(MAX_KSPLIT, steps // GEMV_WARPS))
@@ -113,22 +123,31 @@ def gemv_plan(N: int, K: int, sms: int, E: int = 1) -> tuple:
     return kchunk, -(-K // kchunk)
 
 
-def wgmma_plan(M: int, N: int, K: int, sms: int, E: int = 1) -> tuple:
+def grouped_tiles(P: int, E: int) -> int:
+    """Row tiles of a grouped ``wgmma`` grid over ``P`` sorted rows of
+    ``E`` experts: the worst case of sum(ceil(c_e / 128)), sized without
+    the counts (csrc ``run``). Tiles past the routing's last exit. E = 0
+    is the 2-D product's grid."""
+    return -(-P // WGMMA_BM) + E
+
+
+def wgmma_plan(M: int, N: int, K: int, sms: int, E: int = 0) -> tuple:
     """(BN, grid_m, grid_n, kchunk, ksplit) for the large-M path: CTAs of
-    ``WGMMA_BM`` x BN outputs for each of ``E`` experts, BN 256 (each x
-    tile feeds twice the columns, so fewer shared-memory bytes per
+    ``WGMMA_BM`` x BN outputs, ``grid_m`` row tiles (a grouped call of
+    ``E`` experts over M sorted rows: :func:`grouped_tiles`), BN 256 (each
+    x tile feeds twice the columns, so fewer shared-memory bytes per
     product) when that grid still gives every SM a CTA, else 128. A grid
     smaller than the card splits K over ``ksplit`` CTAs of one cluster
     (``kchunk`` rows each, at least ``WGMMA_MIN_KTILES`` stages), so the
-    weights stream from every SM. The grid's x axis walks M, so CTAs that
-    run together share weight columns."""
-    grid_m = -(-M // WGMMA_BM)
-    slices = E * -(-N // 256)       # 256-wide column tiles of every expert
-    bn = 256 if grid_m * slices >= sms else 128
+    weights stream from every SM. The grid's x axis walks the rows (and
+    an expert's tiles are neighbours), so CTAs that run together share
+    weight columns."""
+    grid_m = grouped_tiles(M, E)
+    bn = 256 if grid_m * -(-N // 256) >= sms else 128
     grid_n = -(-N // bn)
     ktiles = -(-K // WGMMA_BK)
     cap = max(1, min(
-        MAX_KSPLIT, sms // (E * grid_m * grid_n), ktiles // WGMMA_MIN_KTILES
+        MAX_KSPLIT, sms // (grid_m * grid_n), ktiles // WGMMA_MIN_KTILES
     ))
     per = -(-ktiles // cap)
     return bn, grid_m, grid_n, per * WGMMA_BK, -(-ktiles // per)
@@ -230,99 +249,146 @@ w8a16_matmul.launches = 0
 w8a16_matmul.launches_by_path = {"gemv": 0, "wgmma": 0}
 
 
-def w8a16_bmm_plain(
-    x: torch.Tensor, q: torch.Tensor, s: torch.Tensor
+def w8a16_grouped_plain(
+    x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, offsets: torch.Tensor
 ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`w8a16_bmm`: each expert's product
-    against its weight widened to fp32, scaled in fp32, in x's dtype (one
-    expert's fp32 weight at a time). In fp32 this is the JAX ``_mm``
-    int8 branch over the expert axis exactly; in bf16 it is the kernel's
-    arithmetic with one rounding at the end."""
+    """Plain PyTorch version of :func:`w8a16_grouped`: a loop over the
+    experts' segments (``offsets.tolist()``: the host reads the counts),
+    each through :func:`w8a16_plain`. In fp32 this is the JAX ``_mm``
+    int8 branch row for row; in bf16 the kernel's arithmetic with one
+    rounding at the end."""
     out = torch.empty(
-        (q.shape[0], x.shape[1], q.shape[2]), dtype=x.dtype, device=x.device
+        (x.shape[0], q.shape[-1]), dtype=x.dtype, device=x.device
     )
+    bounds = offsets.tolist()
     for e in range(q.shape[0]):
-        out[e] = w8a16_plain(x[e], q[e], s[e])
+        a, b = bounds[e], bounds[e + 1]
+        if b > a:
+            out[a:b] = w8a16_plain(x[a:b], q[e], s[e])
     return out
 
 
-def _bmm_strides(x, q, s) -> tuple:
-    """(ldx, xb, ldq, qb, sb) for the batched kernel; raises on what it
-    cannot take (x is [E, M, K], its batch stride 0 or not)."""
-    E, M, K = x.shape
+def bf16_grouped_plain(
+    x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bf16_grouped`: each segment's rows
+    times its expert's weight, both widened to fp32, rounded once to x's
+    dtype (in fp32 JAX's ``einsum`` row for row)."""
+    out = torch.empty(
+        (x.shape[0], w.shape[-1]), dtype=x.dtype, device=x.device
+    )
+    bounds = offsets.tolist()
+    for e in range(w.shape[0]):
+        a, b = bounds[e], bounds[e + 1]
+        if b > a:
+            out[a:b] = (x[a:b].float() @ w[e].float()).to(x.dtype)
+    return out
+
+
+def _check_grouped(x, w, s, offsets) -> None:
+    """Raise on what the grouped kernel cannot take: x ``[P, K]`` bf16,
+    w ``[E, K, N]`` (int8 with s ``[E, N]`` bf16, or bf16 with no s),
+    offsets ``[E + 1]`` int32, all contiguous on one card."""
     if (
-        q.dim() != 3 or q.shape[:2] != (E, K)
-        or s.shape != (E, q.shape[2])
+        x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1]
+        or offsets.shape != (w.shape[0] + 1,)
+        or (s is not None and s.shape != (w.shape[0], w.shape[2]))
     ):
         raise ValueError(
-            f"x {tuple(x.shape)}, q {tuple(q.shape)}, s {tuple(s.shape)}: "
-            "want x [E, M, K], q [E, K, N], s [E, N]"
+            f"x {tuple(x.shape)}, w {tuple(w.shape)}, offsets "
+            f"{tuple(offsets.shape)}: want x [P, K], w [E, K, N], offsets "
+            "[E + 1]" + ("" if s is None else f", s [E, N] (s {tuple(s.shape)})")
         )
-    if x.dtype != torch.bfloat16 or s.dtype != torch.bfloat16:
+    wtype = torch.int8 if s is not None else torch.bfloat16
+    if (
+        x.dtype != torch.bfloat16 or w.dtype != wtype
+        or (s is not None and s.dtype != torch.bfloat16)
+        or offsets.dtype != torch.int32
+    ):
         raise TypeError(
-            f"W8A16 kernel takes bf16 x and s; got {x.dtype}, {s.dtype}"
+            f"grouped kernel takes bf16 x, {wtype} w"
+            + (", bf16 s" if s is not None else "")
+            + f" and int32 offsets; got {x.dtype}, {w.dtype}, "
+            + (f"{s.dtype}, " if s is not None else "") + f"{offsets.dtype}"
         )
-    if q.dtype != torch.int8:
-        raise TypeError(f"W8A16 kernel takes int8 q; got {q.dtype}")
-    N = q.shape[2]
-    refusal = shape_refusal(K, N)
+    refusal = shape_refusal(x.shape[1], w.shape[2])
     if refusal:
         raise ValueError(refusal)
-    if E > MAX_EXPERTS:
-        raise ValueError(f"W8A16 kernel takes at most {MAX_EXPERTS} experts")
-    if q.device != x.device or s.device != x.device:
-        raise ValueError(f"x, q, s on {x.device}, {q.device}, {s.device}")
-    # a stride of a size-1 dimension is never stepped: take the packed one
-    ldx = x.stride(1) if M > 1 else K
-    xb = x.stride(0) if E > 1 else 0
-    if (
-        q.stride(2) != 1 or q.stride(1) % 16 or q.stride(0) % 16
-        or q.data_ptr() % 16 or x.stride(2) != 1 or ldx % 8 or xb % 8
-        or x.data_ptr() % 16 or s.stride(1) != 1
-    ):
+    if w.shape[0] > MAX_EXPERTS:
+        raise ValueError(f"grouped kernel takes at most {MAX_EXPERTS} experts")
+    tensors = (x, w, offsets) + (() if s is None else (s,))
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"tensors on {[str(t.device) for t in tensors]}")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
         raise ValueError(
-            "W8A16 kernel needs 16-byte aligned rows and batch strides with "
-            f"a contiguous last dimension (x strides {x.stride()}, q strides "
-            f"{q.stride()}, s strides {s.stride()})"
+            "grouped kernel needs contiguous, 16-byte aligned x, w, s and "
+            "offsets"
         )
-    return ldx, xb, q.stride(1), q.stride(0), s.stride(0)
 
 
-def w8a16_bmm(
-    x: torch.Tensor, q: torch.Tensor, s: torch.Tensor
-) -> torch.Tensor:
-    """``out[e] = (x[e] @ q[e]) * s[e]`` for every expert e, in one launch:
-    x ``[E, M, K]`` (any batch stride, 0 included: ``xt.expand(E, M, K)``
-    is read in place; rows 16-byte aligned), q ``[E, K, N]`` int8, s ``[E,
-    N]``. Returns ``[E, M, N]`` in x's dtype."""
-    if not x.is_cuda:
-        if x.device.type == "cpu":
-            return w8a16_bmm_plain(x, q, s)
-        raise ValueError(f"unsupported device {x.device}")
-    ldx, xb, ldq, qb, sb = _bmm_strides(x, q, s)
-    E, M, K = x.shape
-    N = q.shape[2]
-    out = torch.empty((E, M, N), dtype=torch.bfloat16, device=x.device)
+def _grouped_launch(entry, wrapper, x, w, s, offsets, max_rows):
+    """Plan and launch one grouped product; count it on ``wrapper``."""
+    _check_grouped(x, w, s, offsets)
+    P, K = x.shape
+    E, _, N = w.shape
+    out = torch.empty((P, N), dtype=torch.bfloat16, device=x.device)
     sms = _sm_count(x.device.index)
-    if M <= GEMV_MAX_M:
-        path, bn, kchunk = "gemv", 0, gemv_plan(N, K, sms, E)[0]
+    if max_rows <= GEMV_MAX_M:
+        path, bn = "gemv", 0
+        kchunk = gemv_plan(N, K, sms, min(E, P))[0]
     else:
         path = "wgmma"
-        bn, _, _, kchunk, _ = wgmma_plan(M, N, K, sms, E)
-    err = _kernel(batched=True)(
-        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-        E, M, N, K, ldx, xb, ldq, qb, sb, N, M * N, bn, kchunk,
+        bn, _, _, kchunk, _ = wgmma_plan(P, N, K, sms, E)
+    ptrs = [x.data_ptr(), w.data_ptr()] + (
+        [] if s is None else [s.data_ptr()]
+    ) + [offsets.data_ptr(), out.data_ptr()]
+    err = _kernel(entry)(
+        *ptrs, E, P, N, K, max_rows, bn, kchunk,
         torch._C._cuda_getCurrentRawStream(x.device.index),
     )
     if err != 0:
         raise RuntimeError(
-            f"w8a16_bmm_bf16 launch failed: {err} (> 0 a cudaError, -1 no "
+            f"{entry} grouped launch failed: {err} (> 0 a cudaError, -1 no "
             "tensor-map encoder, -(1000 + CUresult) a refused tensor map)"
         )
-    w8a16_bmm.launches += 1
-    w8a16_bmm.launches_by_path[path] += 1
+    wrapper.launches += 1
+    wrapper.launches_by_path[path] += 1
     return out
 
 
-w8a16_bmm.launches = 0
-w8a16_bmm.launches_by_path = {"gemv": 0, "wgmma": 0}
+def w8a16_grouped(
+    x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+    offsets: torch.Tensor, max_rows: int,
+) -> torch.Tensor:
+    """``out[r] = (x[r] @ q[e]) * s[e]`` for the rows ``offsets[e] <= r <
+    offsets[e + 1]`` of every expert e, in one launch: x ``[P, K]`` (the
+    pairs sorted by expert), q ``[E, K, N]`` int8, s ``[E, N]``, offsets
+    ``[E + 1]`` int32 on x's device, ``max_rows`` the most rows any one
+    segment may hold (a token chunk's token count: a token picks an expert
+    once), which picks the path. Returns ``[P, N]`` in x's dtype."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return w8a16_grouped_plain(x, q, s, offsets)
+        raise ValueError(f"unsupported device {x.device}")
+    return _grouped_launch("int8", w8a16_grouped, x, q, s, offsets, max_rows)
+
+
+w8a16_grouped.launches = 0
+w8a16_grouped.launches_by_path = {"gemv": 0, "wgmma": 0}
+
+
+def bf16_grouped(
+    x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor, max_rows: int
+) -> torch.Tensor:
+    """``out[r] = x[r] @ w[e]`` for the rows of every expert's segment, as
+    :func:`w8a16_grouped` with bf16 expert weights ``[E, K, N]`` and no
+    scale. On the CPU the plain version takes any float dtype."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return bf16_grouped_plain(x, w, offsets)
+        raise ValueError(f"unsupported device {x.device}")
+    return _grouped_launch("bf16", bf16_grouped, x, w, None, offsets, max_rows)
+
+
+bf16_grouped.launches = 0
+bf16_grouped.launches_by_path = {"gemv": 0, "wgmma": 0}

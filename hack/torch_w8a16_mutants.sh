@@ -47,8 +47,8 @@ cp "$src" orig.cu
 python3 - <<'PY'
 src = open("orig.cu").read()
 mutants = {
-    "gemv_drops_scale": ("__float2bfloat16(sum * __bfloat162float(s[col]))",
-                         "__float2bfloat16(sum)"),
+    "gemv_drops_scale": ("BF16W ? sum : sum * __bfloat162float(s[col])",
+                         "sum"),
     "cluster_drops_last_rank": ("for (int r = 0; r < ksplit; ++r)",
                                 "for (int r = 0; r + 1 < ksplit; ++r)"),
     "gemv_skips_last_k_step": ("const bool k_ok = k < k_end;",
@@ -63,8 +63,8 @@ mutants = {
     "widen_drops_sign_bias": ("b[e] = v[i][e] ^ 0x80808080u;",
                               "b[e] = v[i][e];"),
     "wgmma_drops_last_m_tile_rows": (
-        "if (m < M)\n",
-        "if (m < M && blockIdx.x + 1 < gridDim.x)\n"),
+        "if (m < m_end)\n",
+        "if (m < m_end && blockIdx.x + 1 < gridDim.x)\n"),
     "loader_waits_wrong_phase": (
         "mbar_wait(bar(empty, t), phase(t) ^ 1);",
         "mbar_wait(bar(empty, t), phase(t));"),

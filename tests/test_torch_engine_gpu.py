@@ -175,12 +175,16 @@ def test_profile_capture_traces_the_card(tmp_path):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_moe_mlp_on_the_card_matches_the_cpu(dtype):
-    """``_moe_mlp`` (dense dispatch, a gated shared expert, token chunks)
-    on the card against the same call on the CPU, at tiny widths: the
-    same experts picked, the output within 1e-4 (fp32; TF32 is off for
-    matmuls) or 2% of its scale (bf16, the two devices' rounding)."""
+def test_moe_mlp_on_the_card_matches_the_cpu(monkeypatch, dtype):
+    """``_moe_mlp`` (routed, a gated shared expert, token chunks) on the
+    card against the same call on the CPU, at tiny widths: the same
+    experts picked, the output within 1e-4 (fp32; TF32 is off for matmuls)
+    or 2% of its scale (bf16, the two devices' rounding). bf16 runs the
+    grouped kernel; the kernel takes no fp32, so the fp32 case holds the
+    card's routing bookkeeping (sort, segments, gathers, the fp32 token
+    sum) with the grouped product's plain version swapped in."""
     from gpustack_tpu_torch.models import transformer as tf  # analysis: ignore[metrics-drift]
+    from gpustack_tpu_torch.ops import w8a16  # analysis: ignore[metrics-drift]
 
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card")
@@ -198,6 +202,11 @@ def test_moe_mlp_on_the_card_matches_the_cpu(dtype):
             w(E, D, F), w(E, D, F), w(E, F, D)]
     shared = (w(D, 48), w(D, 48), w(48, D), w(D, 1))
     cpu = tf._moe_mlp(*args, cfg, shared=shared, chunk_tokens=50).float()
+    launches = w8a16.bf16_grouped.launches
+    if dtype == torch.float32:
+        monkeypatch.setattr(w8a16, "bf16_grouped",
+                            lambda x, w, o, rows: w8a16.bf16_grouped_plain(
+                                x, w, o))
     card = tf._moe_mlp(
         *(a.cuda() for a in args), cfg,
         shared=tuple(s.cuda() for s in shared), chunk_tokens=50,
@@ -210,6 +219,8 @@ def test_moe_mlp_on_the_card_matches_the_cpu(dtype):
         torch.testing.assert_close(card, cpu, rtol=1e-4, atol=1e-4)
     else:
         assert (card - cpu).abs().max() <= 2e-2 * cpu.abs().max()
+        # three grouped launches per chunk of 50 of the 111 tokens
+        assert w8a16.bf16_grouped.launches == launches + 9
 
 
 @pytest.mark.gpu
@@ -255,17 +266,22 @@ def test_mla_prefill_through_the_kernel_matches_plain_attention():
 
 
 @pytest.mark.gpu
-def test_gptoss_prefill_matches_the_fp32_forward_with_its_picks_replayed():
+def test_gptoss_prefill_matches_the_fp32_forward_with_its_picks_replayed(
+    monkeypatch,
+):
     """Two GPT-OSS layers at its per-head widths (64 q heads on 8 kv
     heads, head_dim 64, a window of 128 on layer 0, sinks, q/k/v/o and
     expert biases drawn nonzero, YaRN), narrow elsewhere: a bf16 prefill
     of 300 tokens on the card (the runner asks for ``"flash"``; the
     kernel is never launched, as the JAX ``forward`` never takes it with
-    sinks or a window) against the fp32 forward of the same weights on
-    the card, the bf16 run's expert picks replayed (a top-k pick near a
+    sinks or a window; the experts run the bf16 grouped kernel) against
+    the fp32 forward of the same weights on the card (its expert products
+    through the grouped product's plain version: the kernel takes bf16
+    only), the bf16 run's expert picks replayed (a top-k pick near a
     tie flips on any rounding change): within the smoke's logit gate, 5%
     of the logit scale and cosine 0.999."""
     from gpustack_tpu_torch.models import transformer as tf  # analysis: ignore[metrics-drift]
+    from gpustack_tpu_torch.ops import w8a16  # analysis: ignore[metrics-drift]
 
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card")
@@ -312,6 +328,9 @@ def test_gptoss_prefill_matches_the_fp32_forward_with_its_picks_replayed():
             else v.float())
         for k, v in params.items()
     }
+    monkeypatch.setattr(w8a16, "bf16_grouped",
+                        lambda x, w, o, rows: w8a16.bf16_grouped_plain(
+                            x, w, o))
     want = prefill(fp32, dataclasses.replace(cfg, dtype="float32"),
                    replay=True)
     assert not picks

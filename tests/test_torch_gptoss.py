@@ -256,13 +256,15 @@ def test_attend_default_chunks_follow_the_byte_budget(monkeypatch):
 
 
 def test_gptoss_glu_holds_only_g_u_h():
-    """The clamped GLU is built in h: an MoE token chunk holds g, u and h
-    (``[tokens, E, Fm]`` each) and nothing of their size besides, by the
-    peak of the CPU allocator's live bytes in the profiler's memory
-    events. (It once held two more: 1.90 GB against 1.13 at gpt-oss-20b's
-    2048 bucket.)"""
+    """The clamped GLU is built in h: an MoE token chunk holds at most
+    three ``[n·k, Fm]`` transients at once (the routed pairs' gathered x,
+    g and u, then g, u and h) and nothing of their size besides the
+    layer's output, by the peak of the CPU allocator's live bytes in the
+    profiler's memory events. (It once held two more: 1.90 GB against
+    1.13 at gpt-oss-20b's 2048 bucket.)"""
     cfg, _ = _cfgs(num_experts=8, moe_intermediate_size=64)
     E, D, F, N = 8, cfg.hidden_size, 64, 512
+    P = N * cfg.num_experts_per_tok
     gen = torch.Generator().manual_seed(0)
 
     def w(*shape):
@@ -279,8 +281,8 @@ def test_gptoss_glu_holds_only_g_u_h():
                      if e.name() == "[memory]"), key=lambda e: e.start_ns()):
         live += e.nbytes()
         peak = max(peak, live)
-    one = N * E * F * 4
-    assert 3 * one <= peak < 3.5 * one, peak / one
+    one, output = P * F * 4, N * D * 4
+    assert 3 * one <= peak - output < 3.5 * one, (peak - output) / one
 
 
 # ---------------------------------------------------------------------------

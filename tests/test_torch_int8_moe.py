@@ -1,8 +1,8 @@
 """int8 MoE and MLA of the PyTorch port against the JAX package.
 
-The W8A16 product batched over the experts (``ops.w8a16_bmm``, here its
-plain version: these tensors lie on the CPU) against the JAX ``_mm`` over
-the expert axis; ``_moe_mlp`` with int8 experts against the JAX
+The grouped W8A16 expert product (``ops.w8a16_grouped``, here its plain
+version: these tensors lie on the CPU) against the JAX ``_mm`` over the
+expert axis, row for row; ``_moe_mlp`` with int8 experts against the JAX
 ``_moe_mlp`` on ``quantize_params`` of the same weights, per branch; int8
 forwards of tiny Mixtral, Qwen3-MoE, DeepSeek (with and without
 ``q_lora_rank``, a ``first_k_dense`` layer) and GPT-OSS configurations
@@ -59,7 +59,7 @@ def _jbits(a):
 
 
 # ---------------------------------------------------------------------------
-# the batched product
+# the grouped product
 # ---------------------------------------------------------------------------
 
 
@@ -73,34 +73,42 @@ def _expert_weights(rng, K, N):
 
 @pytest.mark.parametrize("x_kind", ["shared", "h"])
 def test_w8a16_bmm_plain_matches_jax_mm(x_kind):
-    """x shared by every expert (batch stride 0, the gate and up products)
-    or each expert's columns of h [tokens, E, K] (the down product):
-    each expert's product against the JAX ``_mm`` over the expert axis,
-    fp32."""
+    """The grouped product over a chunk's (token, expert) pairs sorted by
+    expert: the gate and up products' rows of x (each token's row once
+    per pick) or the down product's rows of h (each pair's own): every
+    row against the JAX ``_mm`` over the expert axis at that (token,
+    expert), fp32; each segment bit for bit the 2-D plain version."""
     rng = np.random.default_rng(0)
-    n, K, N = 5, 24, 16
+    n, K, N, k = 5, 24, 16, 3
     jqq, jqs = _expert_weights(rng, K, N)
-    q, s = _port_quant(jq.QuantW(q=jqq, s=jqs)).q, _port_quant(
-        jq.QuantW(q=jqq, s=jqs)
-    ).s
+    qw = _port_quant(jq.QuantW(q=jqq, s=jqs))
+    q, s = qw.q, qw.s
+    top = torch.from_numpy(np.stack([
+        rng.choice(E, size=k, replace=False) for _ in range(n)
+    ]))
+    perm, offsets, _ = pt.moe_dispatch(top, E)
+    tok, ex = perm // k, top.flatten()[perm]
     if x_kind == "shared":
         x = rng.standard_normal((1, n, K)).astype(np.float32)
         want = jt._mm("btd,edf->btef", jnp.asarray(x), jq.QuantW(jqq, jqs))
-        xe = torch.from_numpy(x[0]).expand(E, n, K)
+        xs = torch.from_numpy(x[0])[tok]
     else:
         h = rng.standard_normal((1, n, E, K)).astype(np.float32)
         want = jt._mm("btef,efd->bted", jnp.asarray(h), jq.QuantW(jqq, jqs))
-        xe = torch.from_numpy(h[0]).transpose(0, 1)
-    assert xe.stride(0) == (0 if x_kind == "shared" else K)
-    before = w8a16.w8a16_bmm.launches
-    got = w8a16.w8a16_bmm(xe, q, s)             # a CPU tensor: the plain
-    assert w8a16.w8a16_bmm.launches == before   # version, no launch
+        xs = torch.from_numpy(h[0])[tok, ex]
+    before = w8a16.w8a16_grouped.launches
+    got = w8a16.w8a16_grouped(xs, q, s, offsets, n)   # a CPU tensor: the
+    assert w8a16.w8a16_grouped.launches == before     # plain version
     np.testing.assert_allclose(
-        got.transpose(0, 1).numpy(), np.asarray(want)[0], **FP32_TOL
+        got.numpy(), np.asarray(want)[0][tok.numpy(), ex.numpy()],
+        **FP32_TOL
     )
-    np.testing.assert_array_equal(
-        got.numpy(), w8a16.w8a16_bmm_plain(xe, q, s).numpy()
-    )
+    bounds = offsets.tolist()
+    for e in range(E):
+        rows = slice(bounds[e], bounds[e + 1])
+        np.testing.assert_array_equal(
+            got[rows].numpy(), w8a16.w8a16_plain(xs[rows], q[e], s[e]).numpy()
+        )
 
 
 @pytest.mark.parametrize("E,M,N,K", [
@@ -109,30 +117,37 @@ def test_w8a16_bmm_plain_matches_jax_mm(x_kind):
     (64, 17, 1408, 2048), (2, 40, 16, 1024), (1, 64, 1024, 4096),
 ])
 def test_batched_plans_count_every_expert_in_the_grid(E, M, N, K):
-    """The plans see the whole grid, E experts of tiles: K is split (over
-    a cluster) only while that grid has fewer CTAs than SMs, the wgmma
-    tile is 256 wide only when the grid still fills the card, and the
-    splits cover K once; E = 1 is the 2-D plan."""
+    """The grouped plans over M sorted rows of E experts see the grid the
+    card runs, sized without the counts: the GEMV's column slices of the
+    min(E, M) experts its rows can reach, the wgmma path's worst case of
+    ceil(M / 128) + E row tiles. K is split (over a cluster) only while
+    that grid has fewer CTAs than SMs, the wgmma tile is 256 wide only
+    when the grid still fills the card, and the splits cover K once;
+    E = 0 is the 2-D plan."""
     sms = 132
-    kchunk, ksplit = w8a16.gemv_plan(N, K, sms, E)
-    nb = E * -(-N // w8a16.GEMV_BN)
+    kchunk, ksplit = w8a16.gemv_plan(N, K, sms, min(E, M))
+    nb = min(E, M) * -(-N // w8a16.GEMV_BN)
     assert (ksplit - 1) * kchunk < K <= ksplit * kchunk
     assert ksplit == 1 or nb * (ksplit - 1) < sms
     bn, grid_m, grid_n, kchunk, ksplit = w8a16.wgmma_plan(M, N, K, sms, E)
-    assert (bn == 256) == (E * grid_m * -(-N // 256) >= sms)
+    assert grid_m == w8a16.grouped_tiles(M, E) == -(-M // 128) + E
+    assert (bn == 256) == (grid_m * -(-N // 256) >= sms)
     assert (ksplit - 1) * kchunk < K <= ksplit * kchunk
-    assert ksplit == 1 or E * grid_m * grid_n * ksplit <= sms
-    if E == 1:
-        assert w8a16.wgmma_plan(M, N, K, sms) == (
-            bn, grid_m, grid_n, kchunk, ksplit
-        )
+    assert ksplit == 1 or grid_m * grid_n * ksplit <= sms
+    bn, grid_m, grid_n, kchunk, ksplit = w8a16.wgmma_plan(M, N, K, sms)
+    assert grid_m == -(-M // 128)
+    assert (bn == 256) == (grid_m * -(-N // 256) >= sms)
+    assert ksplit == 1 or grid_m * grid_n * ksplit <= sms
 
 
 def test_w8a16_bmm_raises_off_the_cpu_and_the_card():
-    xe = torch.zeros(2, 3, 8, device="meta")
+    xs = torch.zeros(6, 8, device="meta")
+    offsets = torch.zeros(3, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        w8a16.w8a16_bmm(xe, torch.zeros(2, 8, 16, dtype=torch.int8),
-                        torch.zeros(2, 16))
+        w8a16.w8a16_grouped(xs, torch.zeros(2, 8, 16, dtype=torch.int8),
+                            torch.zeros(2, 16), offsets, 3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        w8a16.bf16_grouped(xs, torch.zeros(2, 8, 16), offsets, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -305,38 +320,44 @@ def test_int8_token_chunks_change_no_value(chunk):
 
 
 def test_int8_expert_products_are_three_batched_calls(monkeypatch):
-    """One batched call per product: gate and up read x in place (batch
-    stride 0, x's own storage), the down product reads h's expert columns
-    (batch stride Fm, rows E·Fm apart); no per-expert loop."""
+    """Three grouped calls per token chunk, one per product: gate and up
+    read one gathered x (the chunk's n·k pairs sorted by expert, ``[n·k,
+    D]``), the down product the ``[n·k, Fm]`` h, all three under the
+    chunk's one ``offsets``, the chunk's rows the bound on a segment; no
+    per-expert loop and no ``[E, tokens, ·]`` tensor."""
     cfg, _ = _cfgs({})
+    k = cfg.num_experts_per_tok
     plain, quant = _case(None, False)
     x = torch.from_numpy(plain["x"])
-    seen, bmm = [], w8a16.w8a16_bmm
+    seen, grouped = [], w8a16.w8a16_grouped
 
-    def spy(xe, q, s):
-        seen.append((tuple(xe.shape), xe.stride()[:2], tuple(q.shape)))
-        if not seen[1:]:
-            assert xe.data_ptr() == x.data_ptr()
-        return bmm(xe, q, s)
+    def spy(xs, q, s, offsets, rows):
+        seen.append((xs, tuple(q.shape), offsets, rows))
+        return grouped(xs, q, s, offsets, rows)
 
-    monkeypatch.setattr(w8a16, "w8a16_bmm", spy)
+    monkeypatch.setattr(w8a16, "w8a16_grouped", spy)
     qw = {k: _port_quant(v) for k, v in quant.items()}
     pt._moe_mlp(x, torch.from_numpy(plain["router"]), qw["we_gate"],
-                qw["we_up"], qw["we_down"], cfg)
-    assert seen == [
-        ((E, 10, D), (0, D), (E, D, FM)),
-        ((E, 10, D), (0, D), (E, D, FM)),
-        ((E, 10, FM), (FM, E * FM), (E, FM, D)),
-    ]
+                qw["we_up"], qw["we_down"], cfg, chunk_tokens=4)
+    want = []
+    for n in (4, 4, 2):
+        want += [((n * k, D), (E, D, FM), n), ((n * k, D), (E, D, FM), n),
+                 ((n * k, FM), (E, FM, D), n)]
+    assert [(tuple(c[0].shape), c[1], c[3]) for c in seen] == want
+    for c in range(0, len(seen), 3):
+        assert seen[c][0] is seen[c + 1][0]
+        assert seen[c][2] is seen[c + 1][2] is seen[c + 2][2]
 
 
 def test_int8_chunk_budget_counts_the_expert_outputs():
-    """With int8 experts a chunk also holds y [E, tokens, D]: at
-    qwen3-30b-a3b's widths 1088 KiB a token against bf16's 576."""
-    tokens = pt.moe_chunk_tokens(128, 768, 2048, False, 2)
-    assert tokens == pt.MOE_CHUNK_BYTES // (576 * 1024)
-    assert pt.moe_chunk_tokens(128, 768, 2048, True, 2) == (
-        pt.MOE_CHUNK_BYTES // (1088 * 1024)
+    """A chunk holds the routed transients, x gathered, g, u, h and the
+    outputs y: k·(3·Fm + 2·D) values a token, 100 KiB at qwen3-30b-a3b's
+    widths (top-8, Fm 768, d 2048, bf16) against the dense dispatch's
+    1088 KiB; 200 KiB at mixtral-8x7b's (top-2, Fm 14336, d 4096)."""
+    tokens = pt.moe_chunk_tokens(8, 768, 2048, 2)
+    assert tokens == pt.MOE_CHUNK_BYTES // (100 * 1024) >= 8 * 2048
+    assert pt.moe_chunk_tokens(2, 14336, 4096, 2) == (
+        pt.MOE_CHUNK_BYTES // (200 * 1024)
     )
 
 

@@ -262,95 +262,160 @@ def test_w8a16_kernel_refuses_what_it_cannot_run(bad):
 # [M, K] x expanded over the experts, batch stride 0: the gate and up
 # products) or "h" (expert e's columns of an [M, E, K] tensor: the down
 # product); M on both sides of 16, E, M, K and N off the tiles
-_W8A16_BMM_SHAPES = [
-    (8, 8, 4096, 14336, "shared"),      # mixtral-8x7b gate/up: decode,
-    (8, 8, 14336, 4096, "h"),           # down,
-    (8, 2048, 4096, 14336, "shared"),   # the 2048 bucket,
-    (8, 300, 14336, 4096, "h"),         # a ragged prompt's down product
-    (128, 8, 2048, 768, "shared"),      # qwen3-30b-a3b: 128 experts
-    (128, 64, 768, 2048, "h"),
-    (64, 16, 2048, 1408, "shared"),     # deepseek-v2-lite at M = 16,
-    (64, 17, 1408, 2048, "h"),          # 17 (the first wgmma M)
-    (3, 1, 136, 48, "shared"),          # ragged: one row, K % 64 != 0,
-    (5, 13, 4104, 1040, "h"),           # N % 64 != 0 (GEMV, two B
-    (5, 130, 4104, 1040, "shared"),     # tiles), M past one 128-row tile,
-    (7, 33, 264, 4112, "h"),            # E odd
-    (1, 100, 512, 256, "h"),
+# the grouped expert kernel (the routed MoE products): (E, tokens n, top-k,
+# K, N, routing). Every MoE product of the main paths at a decode step's 8
+# slots (the GEMV) and the 2048 bucket (the wgmma path), then the routings
+# that stress the segments: an expert no token picks, every token on one
+# expert, a segment ending mid-tile, one token, n = 16 and 17 (the path's
+# edge), K off 64 and N off 64
+_GROUPED_SHAPES = [
+    (8, 8, 2, 4096, 14336, "random"),       # mixtral-8x7b gate/up
+    (8, 8, 2, 14336, 4096, "random"),       # and down
+    (8, 2048, 2, 4096, 14336, "random"),
+    (8, 2048, 2, 14336, 4096, "random"),
+    (128, 8, 8, 2048, 768, "random"),       # qwen3-30b-a3b
+    (128, 8, 8, 768, 2048, "random"),
+    (128, 2048, 8, 2048, 768, "random"),
+    (128, 2048, 8, 768, 2048, "random"),
+    (32, 8, 4, 2880, 2880, "random"),       # gpt-oss-20b (gate = up = down)
+    (32, 2048, 4, 2880, 2880, "random"),
+    (64, 8, 6, 2048, 1408, "random"),       # deepseek-v2-lite
+    (64, 8, 6, 1408, 2048, "random"),
+    (64, 2048, 6, 2048, 1408, "random"),
+    (64, 2048, 6, 1408, 2048, "random"),
+    (8, 300, 2, 4096, 1024, "empty"),       # expert 0 never picked
+    (8, 12, 2, 4096, 1024, "empty"),
+    (8, 300, 1, 1024, 512, "one"),          # every row on one expert
+    (8, 16, 1, 1024, 512, "one"),
+    (4, 500, 2, 1024, 512, "midtile"),      # 200 rows on expert 0
+    (8, 1, 2, 4096, 1024, "random"),        # one token
+    (16, 16, 4, 1024, 256, "random"),       # the GEMV's last n
+    (16, 17, 4, 1024, 256, "random"),       # the wgmma path's first
+    (5, 13, 2, 4104, 1040, "random"),       # K % 64, N % 64 != 0
+    (5, 130, 2, 4104, 1040, "random"),
+    (7, 33, 3, 264, 4112, "random"),
 ]
 
 
-def _w8a16_bmm_inputs(E, M, K, N, x_kind, seed):
+def _grouped_inputs(E, n, k, K, N, routing, bf16w, seed):
+    """(xs [n·k, K], w, s or None, offsets, top) for one routing: x's rows
+    gathered in the routed order, as ``_moe_mlp`` gives them."""
+    from gpustack_tpu_torch.models import transformer as tf  # analysis: ignore[metrics-drift]
+
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    if x_kind == "shared":
-        x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
-        xe = x.expand(E, M, K)
+    scores = torch.rand(n, E, generator=gen, device="cuda")
+    if routing == "empty":
+        scores[:, 0] = -1.0
+    elif routing == "one":
+        scores[:, E - 1] = 2.0
+    elif routing == "midtile":
+        scores[:200, 0] = 2.0
+    top = scores.topk(k, dim=-1).indices
+    perm, offsets, _ = tf.moe_dispatch(top, E)
+    x = torch.randn(n, K, generator=gen, device="cuda").bfloat16()
+    if bf16w:
+        w = (torch.randn(E, K, N, generator=gen, device="cuda")
+             / K ** 0.5).bfloat16()
+        s = None
     else:
-        h = torch.randn(M, E, K, generator=gen, device="cuda").bfloat16()
-        xe = h.transpose(0, 1)
-    q = torch.randint(-127, 128, (E, K, N), generator=gen, device="cuda",
-                      dtype=torch.int8)
-    s = (torch.rand(E, N, generator=gen, device="cuda") * 3e-3
-         + 1e-4).bfloat16()
-    return xe, q, s
+        w = torch.randint(-127, 128, (E, K, N), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        s = (torch.rand(E, N, generator=gen, device="cuda") * 3e-3
+             + 1e-4).bfloat16()
+    return x[perm // k].contiguous(), w, s, offsets, top
+
+
+def _assert_grouped_close(out, xs, w, s, offsets):
+    """Each expert's segment against its fp32 plain product, with the 2-D
+    kernel's bounds (|err| <= 2e-2 + 2e-2 |ref|, rows within 1e-2)."""
+    bounds = offsets.tolist()
+    assert bounds[-1] == out.shape[0]
+    for e in range(w.shape[0]):
+        a, b = bounds[e], bounds[e + 1]
+        if b == a:
+            continue
+        if s is not None:
+            _assert_w8a16_close(out[a:b], xs[a:b], w[e], s[e])
+            continue
+        ref = xs[a:b].float() @ w[e].float()
+        err = (out[a:b].float() - ref).abs()
+        assert torch.isfinite(out[a:b].float()).all()
+        assert (err <= W8A16_ATOL + W8A16_RTOL * ref.abs()).all(), err.max()
+        row = err.norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)
+        assert row.max().item() <= W8A16_ROW_RTOL, row.max().item()
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("E,M,K,N,x_kind", _W8A16_BMM_SHAPES)
-def test_w8a16_bmm_kernel_matches_plain(E, M, K, N, x_kind):
-    """Each expert's bf16 output against the fp32 plain version of the
-    same inputs, with the 2-D kernel's bounds (|err| <= 2e-2 + 2e-2 |ref|,
-    each row within 1e-2 of its norm); x read in place (batch stride 0,
-    or h's expert columns), one launch counted on the path M chooses."""
+@pytest.mark.parametrize("bf16w", [False, True], ids=["int8", "bf16"])
+@pytest.mark.parametrize("E,n,k,K,N,routing", _GROUPED_SHAPES)
+def test_grouped_kernel_matches_plain(E, n, k, K, N, routing, bf16w):
+    """Each segment's bf16 output against the fp32 plain product of the
+    same inputs; one launch, counted on the path the chunk's n rows choose
+    (at most n rows on one expert)."""
     _need_card()
     from gpustack_tpu_torch.ops import w8a16  # analysis: ignore[metrics-drift]
 
-    xe, q, s = _w8a16_bmm_inputs(E, M, K, N, x_kind, E + M + K + N)
-    path = "gemv" if M <= w8a16.GEMV_MAX_M else "wgmma"
-    before = w8a16.w8a16_bmm.launches
-    by_path = dict(w8a16.w8a16_bmm.launches_by_path)
-    out = w8a16.w8a16_bmm(xe, q, s)
+    xs, w, s, offsets, _ = _grouped_inputs(E, n, k, K, N, routing, bf16w,
+                                           E + n + K + N)
+    wrapper = w8a16.bf16_grouped if bf16w else w8a16.w8a16_grouped
+    path = "gemv" if n <= w8a16.GEMV_MAX_M else "wgmma"
+    before = wrapper.launches
+    by_path = dict(wrapper.launches_by_path)
+    out = (w8a16.bf16_grouped(xs, w, offsets, n) if bf16w
+           else w8a16.w8a16_grouped(xs, w, s, offsets, n))
     torch.cuda.synchronize()
-    assert w8a16.w8a16_bmm.launches == before + 1
+    assert wrapper.launches == before + 1
     by_path[path] += 1
-    assert w8a16.w8a16_bmm.launches_by_path == by_path
-    assert out.shape == (E, M, N) and out.dtype == torch.bfloat16
-    for e in range(E):
-        _assert_w8a16_close(out[e], xe[e], q[e], s[e])
+    assert wrapper.launches_by_path == by_path
+    assert out.shape == (n * k, N) and out.dtype == torch.bfloat16
+    _assert_grouped_close(out, xs, w, s, offsets)
+    plain = (w8a16.bf16_grouped_plain(xs, w, offsets) if bf16w
+             else w8a16.w8a16_grouped_plain(xs, w, s, offsets))
+    assert (out.float() - plain.float()).abs().max() <= 2e-2 * (
+        1 + plain.float().abs().max()
+    )
 
 
 @pytest.mark.gpu
-def test_w8a16_bmm_reads_a_layer_view():
-    """The forward's shapes: q and s one layer of stacked [L, E, K, N] and
-    [L, E, N] leaves."""
+@pytest.mark.parametrize("bf16w", [False, True], ids=["int8", "bf16"])
+def test_grouped_kernel_reads_a_layer_view(bf16w):
+    """The forward's shapes: w (and s) one layer of stacked [L, E, K, N]
+    (and [L, E, N]) leaves."""
     _need_card()
     from gpustack_tpu_torch.ops import w8a16  # analysis: ignore[metrics-drift]
 
-    xe, q, s = _w8a16_bmm_inputs(4, 40, 256, 512, "shared", 9)
-    qs, ss = torch.stack([torch.zeros_like(q), q]), torch.stack([s, s])
-    out = w8a16.w8a16_bmm(xe, qs[1], ss[1])
+    xs, w, s, offsets, _ = _grouped_inputs(4, 40, 2, 256, 512, "random",
+                                           bf16w, 9)
+    ws = torch.stack([torch.zeros_like(w), w])
+    if bf16w:
+        out = w8a16.bf16_grouped(xs, ws[1], offsets, 40)
+    else:
+        out = w8a16.w8a16_grouped(xs, ws[1], torch.stack([s, s])[1],
+                                  offsets, 40)
     torch.cuda.synchronize()
-    for e in range(4):
-        _assert_w8a16_close(out[e], xe[e], q[e], s[e])
+    _assert_grouped_close(out, xs, w, s, offsets)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("bad", ["k_odd", "q_2d", "s_shape", "x_fp32",
-                                 "x_batch_unaligned"])
-def test_w8a16_bmm_refuses_what_it_cannot_run(bad):
+@pytest.mark.parametrize("bad", ["k_odd", "w_2d", "s_shape", "x_fp32",
+                                 "offsets_int64", "w_strided"])
+def test_grouped_kernel_refuses_what_it_cannot_run(bad):
     _need_card()
     from gpustack_tpu_torch.ops import w8a16  # analysis: ignore[metrics-drift]
 
-    xe, q, s = _w8a16_bmm_inputs(2, 4, 64, 64, "shared", 0)
+    xs, q, s, offsets, _ = _grouped_inputs(2, 4, 1, 64, 64, "random", False,
+                                           0)
     if bad == "k_odd":
-        xe, q = xe[..., :60], q[:, :60]
-    elif bad == "q_2d":
+        xs, q = xs[:, :60].contiguous(), q[:, :60].contiguous()
+    elif bad == "w_2d":
         q = q[0]
     elif bad == "s_shape":
         s = s[0]
     elif bad == "x_fp32":
-        xe = xe.float()
+        xs = xs.float()
+    elif bad == "offsets_int64":
+        offsets = offsets.long()
     else:
-        h = torch.zeros(4, 2 * 68, device="cuda", dtype=torch.bfloat16)
-        xe = h.reshape(4, 2, 68)[..., :64].transpose(0, 1)
+        q = torch.zeros(2, 64, 128, device="cuda", dtype=torch.int8)[..., :64]
     with pytest.raises((ValueError, TypeError)):
-        w8a16.w8a16_bmm(xe, q, s)
+        w8a16.w8a16_grouped(xs, q, s, offsets, 4)

@@ -8,12 +8,11 @@ forward; ``test_torch_int8_moe.py`` has the rest). Inputs and weights come
 from numpy with a seed (trees carried across with ``params_from_numpy``).
 
 Tolerances (``PERF.md`` §6): fp32, the selected experts identical and the
-outputs within 1e-5 (summation order only: the port folds the combine
-weights into ``h`` before one down product, JAX sums the weighted expert
-outputs); bf16, the selected experts identical and the output within 2%
-of its largest magnitude (the fold rounds ``h·c`` to bf16 where JAX
-rounds each expert's output, one bf16 step of each, 2^-8 relative, and
-the two frameworks round silu at other places).
+outputs within 1e-5 (summation order only: the port runs each token
+through its own experts and sums their k outputs, JAX sums all E with
+zeros off the picks); bf16, the selected experts identical and the output
+within 2% of its largest magnitude (both round each expert's output to
+bf16, but the two frameworks round silu at other places).
 """
 
 import dataclasses
@@ -34,6 +33,7 @@ from gpustack_tpu_torch.engine.weights import params_from_numpy  # analysis: ign
 from gpustack_tpu_torch.models import quant as pq  # analysis: ignore[metrics-drift]
 from gpustack_tpu_torch.models import transformer as pt  # analysis: ignore[metrics-drift]
 from gpustack_tpu_torch.models.config import PRESETS, get_config  # analysis: ignore[metrics-drift]
+from gpustack_tpu_torch.ops import w8a16 as pt_ops  # analysis: ignore[metrics-drift]
 
 FP32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_REL = 2e-2
@@ -193,22 +193,36 @@ def test_token_chunks_change_no_value(chunk):
 
 
 def test_expert_products_read_x_in_place(monkeypatch):
-    """The gate and up products take x expanded over the experts (batch
-    stride 0, x's own storage), never an [E, tokens, D] copy."""
+    """The gate and up products read one gathered x, the n·k (token,
+    expert) pairs sorted by expert (``[n·k, D]``: x's rows, each once per
+    pick), and the down product the ``[n·k, Fm]`` h; no tensor of the
+    dense dispatch's ``[E, tokens, D]`` size ever reaches a product."""
     cfg, _ = _cfgs({})
+    k = cfg.num_experts_per_tok
     a = _case_arrays(None, False)
     x = torch.from_numpy(a["x"])
-    seen, bmm = [], torch.bmm
+    seen, grouped = [], pt_ops.bf16_grouped
 
-    def spy(lhs, rhs):
-        seen.append((lhs.stride(0), lhs.data_ptr()))
-        return bmm(lhs, rhs)
+    def spy(xs, w, offsets, rows):
+        seen.append((xs, tuple(w.shape), offsets, rows))
+        return grouped(xs, w, offsets, rows)
 
-    monkeypatch.setattr(torch, "bmm", spy)
+    monkeypatch.setattr(pt_ops, "bf16_grouped", spy)
     pt._moe_mlp(x, torch.from_numpy(a["router"]),
                 *(torch.from_numpy(a[k]) for k in ("we_gate", "we_up",
                                                    "we_down")), cfg)
-    assert seen == [(0, x.data_ptr())] * 2
+    n = x.shape[0] * x.shape[1]
+    assert [(tuple(c[0].shape), c[1], c[3]) for c in seen] == [
+        ((n * k, D), (E, D, FM), n), ((n * k, D), (E, D, FM), n),
+        ((n * k, FM), (E, FM, D), n),
+    ]
+    assert seen[0][0] is seen[1][0]
+    assert seen[0][2] is seen[1][2] is seen[2][2]
+    idx, _ = pt.moe_route(x.reshape(n, D), torch.from_numpy(a["router"]),
+                          cfg)
+    perm, _, _ = pt.moe_dispatch(idx, E)
+    assert torch.equal(seen[0][0], x.reshape(n, D)[perm // k])
+    assert all(c[0].numel() < E * n * D for c in seen)
 
 
 def test_sigmoid_selection_adds_bias_but_weights_use_raw_scores():
