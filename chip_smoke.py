@@ -165,9 +165,34 @@ n. disaggregated prefill/decode: llama3-8b bf16 at full width and depth
    1792. Reported: handoff seconds, bytes and blocks, the decode
    replica's TTFT beside its cold TTFT, exact flash launches over both
    runners, greedy ids against a cold single-engine run (phase g's rule);
-   then one ``json_schema`` request with a schema and one streamed.
+   then one ``json_schema`` request with a schema and one streamed;
+o. image chat: the repo's vision tower (64 x 64 images, 8 x 8 patches,
+   dim 64, 2 layers) projected into llama3-8b (bf16, full width and
+   depth) as ``llama3-8b-vision``, attached to the engine as the JAX
+   server attaches one, through the server: chats with a 64 x 64 PNG and
+   a 97 x 53 one (resized), a streamed one, a remote URL and a JPEG (400s),
+   then image and text chats of one token count for TTFT; one flash launch
+   a layer for each image prefill (``prefill_with_embeds``), its logits
+   against the plain attention over the same spliced embeddings, the tower
+   in bf16 against its fp32 plain version, the served greedy ids against
+   the runner called directly; the tower's ms and the host ms of the PNG
+   decode and resize;
+p. speech to text: whisper-large-v3 (32 + 32 layers, d 1280, 20 heads,
+   128 mels, vocab 51866) in bf16 from a seed behind the port's audio
+   server: a 10 s WAV to ``/v1/audio/transcriptions`` and
+   ``/translations``, the encoder and every forced decoder step against an
+   fp32 plain forward, ``/healthz`` and ``/metrics``, encode ms, decode ms
+   a token, request latency and peak memory; then a 2 + 2-layer HF Whisper
+   checkpoint at the same widths through ``--model-dir`` (tree and greedy
+   ids identical);
+q. text to speech: tts-base (dim 256, 4 + 4 layers, 80 mels) through
+   ``/v1/audio/speech``: a valid WAV, frame counts equal to the fp32 plain
+   reference's and the mel within 2% of its scale (the frame owners
+   replayed), ``synthesize_mel`` ms on the card and the host Griffin-Lim
+   ms. Phases p and q launch no hand-written kernel (their attention is
+   plain torch, as it is XLA in JAX), and their windows must count none.
 
-In d to n every kernel's launches are counted around the served
+In d to o every kernel's launches are counted around the served
 requests alone and must equal what that path's model forwards need,
 derived from the runners' calls (a draft model's too): the flash kernel
 once per layer of every prefill and embedding forward of a model whose
@@ -196,6 +221,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -205,6 +231,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import torch
@@ -1027,8 +1054,8 @@ class RunnerCalls:
     over the methods the engine calls), each as (method, B, T): the rows
     its weight products see are M = B·T."""
 
-    METHODS = ("prefill", "prefill_with_prefix", "decode_step",
-               "verify_step", "ingest_step", "embed")
+    METHODS = ("prefill", "prefill_with_prefix", "prefill_with_embeds",
+               "decode_step", "verify_step", "ingest_step", "embed")
 
     def __init__(self, runner, int8):
         self.runner, self.int8 = runner, int8
@@ -1044,7 +1071,7 @@ class RunnerCalls:
 
     def _shape(self, name, args):
         slots = self.runner.max_slots
-        if name == "prefill":
+        if name in ("prefill", "prefill_with_embeds"):
             return 1, len(args[0])
         if name == "prefill_with_prefix":
             return 1, len(args[3])
@@ -1086,7 +1113,8 @@ def moe_layers(cfg):
 def expected_launches(runner_calls):
     """What windows of runner forwards must launch, each
     :class:`RunnerCalls` with its own model: the flash kernel once per
-    layer of every prefill forward (bucketed or continuation) and every
+    layer of every prefill forward (bucketed, continuation or with image
+    embeddings) and every
     embedding forward where the model's config takes it
     (``flash_eligible``: no sliding window, softcap or sinks, the JAX
     ``forward``'s own condition), else never; with int8 weights the 2-D
@@ -1128,7 +1156,8 @@ def expected_launches(runner_calls):
             cfg.hidden_size, torch_dtype(cfg).itemsize,
         ) if moe else 0
         for name, B, T in calls.forwards:
-            if flash and name in ("prefill", "prefill_with_prefix", "embed"):
+            if flash and name in ("prefill", "prefill_with_prefix",
+                                  "prefill_with_embeds", "embed"):
                 want["flash_attention_prefill"] += layers
             for start in range(0, B * T if moe else 0, chunk or 1):
                 count(grouped, grouped, min(chunk, B * T - start), 3 * moe)
@@ -1136,6 +1165,7 @@ def expected_launches(runner_calls):
                 continue
             head = None if cfg.tie_word_embeddings else {
                 "prefill": 1, "prefill_with_prefix": 1,
+                "prefill_with_embeds": 1,
                 "decode_step": B, "verify_step": B * T,
             }.get(name)
             for m, n in ((B * T, two_d), (head, 1)):
@@ -3784,6 +3814,710 @@ def phase_disaggregation(kind, smi):
             e.stop()
 
 
+# ---------------------------------------------------------------------------
+# o: image chat (the VLM path)
+# ---------------------------------------------------------------------------
+
+VISION_MIN_COSINE = 0.999
+O_MAX_TOKENS = 16
+O_TTFT_REPS = 3
+O_TEXT = "Describe this image: "
+
+
+def _png(arr):
+    """uint8 RGB ``[H, W, 3]`` → PNG bytes (the script's own writer: rows
+    with filter 0, one zlib stream)."""
+    import zlib
+
+    h, w, _ = arr.shape
+    raw = b"".join(b"\x00" + arr[y].tobytes() for y in range(h))
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def _seeded_image(seed, w, h):
+    """A colour gradient with seeded noise, uint8 ``[h, w, 3]``."""
+    gen = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    base = torch.stack([
+        xx * 255 // max(w - 1, 1), yy * 255 // max(h - 1, 1),
+        (xx + yy) * 127 // max(w + h - 2, 1),
+    ], -1)
+    noise = torch.randint(-40, 41, (h, w, 3), generator=gen)
+    return (base + noise).clamp(0, 255).to(torch.uint8).numpy()
+
+
+def _image_msgs(data, mime="image/png"):
+    url = f"data:{mime};base64," + base64.b64encode(data).decode()
+    return [{"role": "user", "content": [
+        {"type": "text", "text": O_TEXT},
+        {"type": "image_url", "image_url": {"url": url}},
+    ]}]
+
+
+def _post_status(port, path, body):
+    """(status, body) of a request whose answer may be an error."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"},
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _widen(tree):
+    """A copy of a param tree with every leaf in fp32 (the plain
+    references of the small towers and the audio models)."""
+    return {k: _widen(v) if isinstance(v, dict) else v.float()
+            for k, v in tree.items()}
+
+
+def _mm_prompt(engine, msgs):
+    """A VLM prompt built as the server builds it, bucket-padded:
+    (ids, padded ids, embeds, mask)."""
+    import numpy as np
+
+    from gpustack_tpu_torch.models.vlm import build_mm_prompt
+
+    ids, embeds, mask = build_mm_prompt(engine.tokenizer, msgs, engine.vision)
+    pad = engine.runner.bucket_for(len(ids)) - len(ids)
+    return (ids, ids + [0] * pad, np.pad(embeds, ((0, pad), (0, 0))),
+            np.pad(mask, (0, pad)))
+
+
+def _image_logit_check(engine, msgs):
+    """An image prompt's prefill through ``prefill_with_embeds`` (the
+    flash kernel) against the same spliced embeddings through the plain
+    attention: last-position logits within the served-logit tolerance."""
+    from gpustack_tpu_torch.models import transformer as tf
+
+    runner = engine.runner
+    ids, padded, embeds, mask = _mm_prompt(engine, msgs)
+    with torch.no_grad():
+        served, _, _ = runner.prefill_with_embeds(
+            padded, len(ids), embeds, mask
+        )
+        bucket = len(padded)
+        hidden, _ = tf.forward(
+            runner.params, runner.cfg,
+            torch.tensor([padded], device=runner.device),
+            torch.arange(bucket, device=runner.device)[None, :],
+            tf.KVCache.create(runner.cfg, 1, bucket, runner.device),
+            return_hidden=True, attn_impl="plain",
+            embeds_override=(torch.from_numpy(embeds).to(runner.device)[None],
+                             torch.from_numpy(mask).to(runner.device)[None]),
+        )
+        plain = tf.lm_head(runner.params, runner.cfg, hidden[0, len(ids) - 1])
+    gate = _compare_logits(served, plain)
+    if not torch.isfinite(served).all() or (
+        gate["max_abs_err"] > LOGIT_REL_TOL * gate["logit_scale"]
+        or gate["cosine"] < LOGIT_MIN_COSINE
+    ):
+        raise AssertionError(f"image prefill logits differ: {gate}")
+    return {"prompt_tokens": len(ids), "bucket": len(padded),
+            "image_tokens": int(mask.sum()), **gate}
+
+
+def _direct_image_greedy(engine, msgs, n):
+    """Greedy ids of an image chat from the runner called directly:
+    ``prefill_with_embeds``, ``sample_first``, ``insert`` into a decode
+    state of its own, then ``decode_step``s, under the letters' logit bias
+    the served requests carry."""
+    runner = engine.runner
+    bias = {int(k): v for k, v in LETTERS.items()}
+    ids, padded, embeds, mask = _mm_prompt(engine, msgs)
+    with torch.no_grad():
+        last, k, v = runner.prefill_with_embeds(
+            padded, len(ids), embeds, mask
+        )
+        toks = runner.sample_first(
+            last, 0.0, 0, 1.0, 0, False, len(ids) - 1, 0, logit_bias=bias
+        )[0]
+        state = runner.new_state()
+        runner.insert(state, k, v, 0, len(ids), toks[0], 0.0, 0, 1.0,
+                      logit_bias=bias)
+        out = [int(toks[0])]
+        for step in range(n - 1):
+            state, sampled = runner.decode_step(state, step + 1)
+            out.append(int(sampled[0][0]))
+    del state
+    return out
+
+
+O_ARGV = MAIN_ARGV
+
+
+def phase_vlm(kind, smi, device="cuda"):
+    """Image chat at full width: the repo's vision tower (64 x 64 images,
+    8 x 8 patches, dim 64, 2 layers) projected into llama3-8b (bf16, full
+    width and depth, random weights from a seed) as ``llama3-8b-vision``,
+    attached to the engine as the JAX server attaches one. Through the
+    server: a chat with a 64 x 64 PNG, one with a 97 x 53 PNG (resized),
+    a streamed one, a remote URL and a JPEG (each a 400), then image and
+    text chats of one token count for TTFT. Gates: one flash launch a
+    layer for every prefill (``prefill_with_embeds`` for the image ones),
+    the image prefill's logits against the plain attention, the tower in
+    bf16 against its fp32 plain version, the served greedy ids against the
+    runner called directly. Returns {window: launch counts}."""
+    from gpustack_tpu_torch.engine.api_server import (
+        OpenAIServer,
+        build_engine_from_args,
+        build_parser,
+    )
+    from gpustack_tpu_torch.models.config import get_config
+    from gpustack_tpu_torch.models.vlm import (
+        VisionBundle,
+        VisionConfig,
+        VLMConfig,
+        encode_image,
+        init_vision_params,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = build_engine_from_args(build_parser().parse_args(O_ARGV))
+    vcfg = VLMConfig(name=f"{engine.cfg.name}-vision",
+                     language=get_config(engine.cfg.name),
+                     vision=VisionConfig())
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    tower = init_vision_params(vcfg, gen)
+    engine.vision = VisionBundle(vcfg, tower, device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    tok = engine.tokenizer
+    png64 = _png(_seeded_image(64, 64, 64))
+    png97 = _png(_seeded_image(97, 97, 53))
+    host_ms = {}
+    for name, data in (("64x64", png64), ("97x53_resized", png97)):
+        t = time.perf_counter()
+        for _ in range(5):
+            pre = engine.vision.preprocess(data)
+        host_ms[name] = (time.perf_counter() - t) / 5 * 1e3
+    x = torch.from_numpy(pre).to(device)
+    with torch.no_grad():
+        got = encode_image(tower, vcfg, x).float()
+        want = encode_image(_widen(tower), vcfg, x)
+        encode_ms = cuda_time_ms(lambda: encode_image(tower, vcfg, x))
+    tower_gate = {
+        **_compare_logits(got.flatten(), want.flatten()),
+        "shape": list(got.shape), "tolerance": {"min_cosine":
+                                                VISION_MIN_COSINE},
+    }
+    if tower_gate["cosine"] < VISION_MIN_COSINE:
+        raise AssertionError(f"vision tower bf16 vs fp32: {tower_gate}")
+    msgs64, msgs97 = _image_msgs(png64), _image_msgs(png97)
+    text_msgs = [{"role": "user",
+                  "content": O_TEXT + "x" * engine.vision.n_image_tokens}]
+    calls = RunnerCalls(engine.runner, False)
+    engine.start()
+    server = OpenAIServer(engine)
+    port = server.start("127.0.0.1", 0)
+    try:
+        logit_gate = _image_logit_check(engine, msgs64)
+        if len(tok.apply_chat_template(text_msgs)) != (
+            logit_gate["prompt_tokens"]
+        ):
+            raise AssertionError("the text chat's token count differs")
+        reset_launch_counts()
+        calls.reset()
+        served = {}
+        for name, msgs in (("64x64", msgs64), ("97x53", msgs97)):
+            _, raw = _post(port, "/v1/chat/completions", {
+                "messages": msgs, "max_tokens": O_MAX_TOKENS,
+                "temperature": 0, "logit_bias": LETTERS,
+            })
+            data = json.loads(raw)
+            _check_usage(data, logit_gate["prompt_tokens"])
+            served[name] = data["choices"][0]["message"]["content"]
+        streamed, _ = _stream_chat(port, msgs64, O_MAX_TOKENS)
+        if streamed != served["64x64"]:
+            raise AssertionError(f"stream {streamed!r} != {served['64x64']!r}")
+        refusals = {}
+        for name, msgs in (
+            ("remote_url", [{"role": "user", "content": [
+                {"type": "image_url",
+                 "image_url": {"url": "https://example.com/a.png"}}]}]),
+            ("jpeg", _image_msgs(b"\xff\xd8\xff\xe0" + bytes(64),
+                                 "image/jpeg")),
+        ):
+            status, raw = _post_status(port, "/v1/chat/completions", {
+                "messages": msgs, "max_tokens": 2})
+            if status != 400:
+                raise AssertionError(f"{name}: HTTP {status} {raw[:200]}")
+            refusals[name] = json.loads(raw)["error"]["message"]
+        ttft = {"image": [], "text": []}
+        for _ in range(O_TTFT_REPS):
+            for name, msgs in (("image", msgs64), ("text", text_msgs)):
+                ttft[name].append(_stream_chat(port, msgs, 4)[1] * 1e3)
+        counts = launch_counts()
+        window = calls.counts()
+        images = 3 + O_TTFT_REPS
+        if window["prefill_with_embeds"] != images or window[
+            "prefill"
+        ] != O_TTFT_REPS or window["prefill_with_prefix"]:
+            raise AssertionError(f"runner calls {window}: want {images} "
+                                 f"image prefills, {O_TTFT_REPS} text ones")
+        check_launches("vlm path", counts, expected_launches([calls]))
+        direct = {
+            name: _direct_image_greedy(engine, msgs, O_MAX_TOKENS)
+            for name, msgs in (("64x64", msgs64), ("97x53", msgs97))
+        }
+        for name, ids in direct.items():
+            if tok.encode(served[name]) != ids:
+                raise AssertionError(
+                    f"{name}: served {served[name]!r}, direct {ids}")
+        emit("vlm_path", model=vcfg.name, device=kind, nvidia_smi=smi,
+             setup_s=setup_s, vision=dataclasses.asdict(vcfg.vision),
+             runner_calls=window, launches=counts,
+             flash_per_image_prefill=engine.runner.cfg.num_layers,
+             logit_check={**logit_gate, "served": "flash kernel",
+                          "reference": "plain attention, bf16",
+                          "tolerance": {"rel": LOGIT_REL_TOL,
+                                        "min_cosine": LOGIT_MIN_COSINE}},
+             tower_vs_fp32=tower_gate, vision_encode_ms=encode_ms,
+             png_decode_resize_host_ms=host_ms,
+             greedy_ids_vs_runner={k: "identical" for k in direct},
+             refusals=refusals,
+             ttft_ms_image=statistics.median(ttft["image"]),
+             ttft_ms_text_same_tokens=statistics.median(ttft["text"]),
+             ttft_ms_runs=ttft,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        return {"vlm": counts}
+    finally:
+        server.shutdown()
+        engine.stop()
+
+
+# ---------------------------------------------------------------------------
+# p + q: the audio server (speech to text, text to speech)
+# ---------------------------------------------------------------------------
+
+P_ARGV = ["--preset", "whisper-large-v3", "--port", "0"]
+P_WAV_SECONDS = 10
+P_FORCED_STEPS = 24
+Q_ARGV = ["--preset", "tts-base", "--port", "0"]
+Q_TEXT = "The port reads this sentence aloud on the card."
+
+
+def _seeded_wav(seconds, seed):
+    """16 kHz 16-bit mono WAV bytes: two gliding tones and seeded noise."""
+    import io
+    import wave
+
+    gen = torch.Generator().manual_seed(seed)
+    t = torch.arange(seconds * 16000, dtype=torch.float64) / 16000
+    x = (0.3 * torch.sin(2 * math.pi * 220 * t)
+         * torch.sin(2 * math.pi * 3 * t)
+         + 0.2 * torch.sin(2 * math.pi * (440 + 100 * torch.sin(t)) * t)
+         + 0.05 * torch.randn(len(t), generator=gen, dtype=torch.float64))
+    pcm = (x.clamp(-1, 1) * 32767).to(torch.int16).numpy()
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as wf:
+        wf.setnchannels(1)
+        wf.setsampwidth(2)
+        wf.setframerate(16000)
+        wf.writeframes(pcm.tobytes())
+    return buf.getvalue()
+
+
+def _post_multipart(port, path, fields):
+    """POST ``{name: (bytes, filename or None)}`` as multipart/form-data;
+    returns (status, content type, body bytes)."""
+    boundary = "chip-smoke-boundary"
+    body = bytearray()
+    for name, (value, filename) in fields.items():
+        disp = f'form-data; name="{name}"' + (
+            f'; filename="{filename}"' if filename else "")
+        body += (f"--{boundary}\r\nContent-Disposition: {disp}\r\n\r\n"
+                 .encode() + value + b"\r\n")
+    body += f"--{boundary}--\r\n".encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=bytes(body),
+        headers={"Content-Type":
+                 f"multipart/form-data; boundary={boundary}"},
+    )
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return resp.status, resp.headers.get("Content-Type", ""), resp.read()
+
+
+def _audio_health(port, modality, requests):
+    health = json.loads(_get(port, "/healthz"))
+    if health["status"] != "ok" or health["modality"] != f"audio/{modality}" \
+            or health["requests"] != requests:
+        raise AssertionError(f"healthz {health}")
+    metrics = _get(port, "/metrics")
+    if f"gpustack_tpu_audio_requests_total {requests}\n" not in metrics or (
+        "gpustack_tpu_audio_seconds_total " not in metrics
+    ):
+        raise AssertionError(f"metrics {metrics!r}")
+    return health, metrics.strip().splitlines()
+
+
+def _count_calls(module, name, counter):
+    """Wrap ``module.name`` so each call appends to ``counter``; returns
+    the original (restore it after)."""
+    fn = getattr(module, name)
+
+    def counted(*args, **kw):
+        counter.append(1)
+        return fn(*args, **kw)
+
+    setattr(module, name, counted)
+    return fn
+
+
+def _hf_whisper(tree, cfg):
+    """A ``models/whisper.py`` tree under HF Whisper names (torch
+    layouts: linear weights ``[out, in]``, conv weights as they are)."""
+    out = {
+        "model.encoder.conv1.weight": tree["conv1"],
+        "model.encoder.conv1.bias": tree["conv1_b"],
+        "model.encoder.conv2.weight": tree["conv2"],
+        "model.encoder.conv2.bias": tree["conv2_b"],
+        "model.encoder.layer_norm.weight": tree["enc_ln"],
+        "model.encoder.layer_norm.bias": tree["enc_ln_b"],
+        "model.decoder.embed_tokens.weight": tree["tok_embed"],
+        "model.decoder.embed_positions.weight": tree["pos_embed"],
+        "model.decoder.layer_norm.weight": tree["dec_ln"],
+        "model.decoder.layer_norm.bias": tree["dec_ln_b"],
+    }
+    names = {
+        "ln1": "self_attn_layer_norm.weight",
+        "ln1_b": "self_attn_layer_norm.bias",
+        "ln2": "final_layer_norm.weight", "ln2_b": "final_layer_norm.bias",
+        "w_up": "fc1.weight", "b_up": "fc1.bias",
+        "w_down": "fc2.weight", "b_down": "fc2.bias",
+        "lnx": "encoder_attn_layer_norm.weight",
+        "lnx_b": "encoder_attn_layer_norm.bias",
+    }
+    for tag, attn in (("", "self_attn"), ("x", "encoder_attn")):
+        for leaf, proj in (("wq", "q_proj.weight"), ("bq", "q_proj.bias"),
+                           ("wk", "k_proj.weight"), ("wv", "v_proj.weight"),
+                           ("bv", "v_proj.bias"), ("wo", "out_proj.weight"),
+                           ("bo", "out_proj.bias")):
+            names[tag + leaf] = f"{attn}.{proj}"
+    for side, key in (("encoder", "enc_layers"), ("decoder", "dec_layers")):
+        for leaf, stacked in tree[key].items():
+            for i, t in enumerate(stacked):
+                out[f"model.{side}.layers.{i}.{names[leaf]}"] = (
+                    t.T.contiguous() if t.dim() == 2 else t
+                )
+    return out
+
+
+def _whisper_checkpoint(cfg, mel_np, device):
+    """The preset's widths at 2 + 2 layers, biases drawn at random (the
+    init's are zeros), written as an HF Whisper safetensors checkpoint and
+    loaded through the audio server's ``--model-dir``: the loaded tree and
+    its greedy ids identical to the in-memory tree's."""
+    from gpustack_tpu_torch.engine.audio_server import (
+        build_audio_engine_from_args,
+        build_parser,
+    )
+    from gpustack_tpu_torch.models import whisper as wh
+
+    cfg2 = dataclasses.replace(cfg, encoder_layers=2, decoder_layers=2)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    tree = wh.init_whisper_params(cfg2, gen)
+    for path, t in _leaves(tree).items():
+        if path.split("/")[-1].startswith(("b", "xb")) or path.endswith("_b"):
+            t.normal_(generator=gen).mul_(0.1)
+    with tempfile.TemporaryDirectory(prefix="whisper-ckpt-") as d:
+        t0 = time.perf_counter()
+        nbytes = write_safetensors(os.path.join(d, "model.safetensors"),
+                                   _hf_whisper(tree, cfg2))
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump({
+                "model_type": "whisper", "_name_or_path": "whisper-2-layer",
+                "vocab_size": cfg.vocab_size,
+                "num_mel_bins": cfg.num_mel_bins, "d_model": cfg.d_model,
+                "encoder_layers": 2, "decoder_layers": 2,
+                "encoder_attention_heads": cfg.num_heads,
+                "max_source_positions": cfg.max_source_positions,
+                "max_target_positions": cfg.max_target_positions,
+                "eos_token_id": cfg.eos_token_id,
+                "decoder_start_token_id": cfg.decoder_start_token_id,
+            }, f)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = build_audio_engine_from_args(build_parser().parse_args(
+            ["--model-dir", d, "--port", "0", "--device", str(device)]))
+        load_s = time.perf_counter() - t0
+    want, got = _leaves(tree), _leaves(loaded.params)
+    bad = sorted(k for k in want if k not in got or not torch.equal(
+        got[k], want[k]))
+    if bad or set(got) != set(want):
+        raise AssertionError(f"loaded whisper tree differs at {bad[:5]}")
+    ids = wh.greedy_transcribe(loaded.params, loaded.cfg, mel_np,
+                               max_tokens=8)
+    if ids != wh.greedy_transcribe(tree, cfg2, mel_np, max_tokens=8):
+        raise AssertionError("checkpoint greedy ids differ")
+    return {"layers": "2 + 2", "bytes": nbytes, "write_s": write_s,
+            "load_s": load_s, "tree": "identical", "greedy_ids": "identical"}
+
+
+def phase_whisper(kind, smi):
+    """whisper-large-v3 (32 + 32 layers, d 1280, 20 heads of 64, 128 mels,
+    vocab 51866) at full width and depth in bf16, random weights from seed
+    0, behind the port's audio server: a 10 s WAV from the seed to
+    ``/v1/audio/transcriptions`` and ``/translations``; the encoder output
+    against an fp32 plain forward over the same weights, the decoder's
+    logits against it at every forced step, ``/healthz`` and ``/metrics``;
+    then a 2 + 2-layer checkpoint at the same widths through
+    ``--model-dir``. The path launches no hand-written kernel (attention
+    is plain torch, as it is XLA in JAX): its window must count none.
+    Returns {window: launch counts}."""
+    from gpustack_tpu_torch.engine.audio_server import (
+        AudioServer,
+        build_audio_engine_from_args,
+        build_parser,
+    )
+    from gpustack_tpu_torch.models import whisper as wh
+    from gpustack_tpu_torch.models.audio import decode_wav, features_for_model
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = build_audio_engine_from_args(build_parser().parse_args(P_ARGV))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg, params = engine.cfg, engine.params
+    device = params["tok_embed"].device
+    wav = _seeded_wav(P_WAV_SECONDS, 0)
+    mel_np = features_for_model(decode_wav(wav), cfg)
+    mel = torch.from_numpy(mel_np)[None].to(device)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = _widen(params)
+    with torch.no_grad():
+        enc = wh.encode(params, cfg, mel)
+        enc32 = wh.encode(params32, cfg32, mel)
+        enc_gate = _compare_logits(enc.float().flatten(), enc32.flatten())
+        if enc_gate["cosine"] < LOGIT_MIN_COSINE:
+            raise AssertionError(f"encoder bf16 vs fp32: {enc_gate}")
+        encode_ms = cuda_time_ms(lambda: wh.encode(params, cfg, mel),
+                                 warmup=1, iters=5)
+        ids = wh.greedy_transcribe(params, cfg, mel_np,
+                                   max_tokens=P_FORCED_STEPS)
+        forced = [cfg.decoder_start_token_id, *ids]
+        xk, xv = wh.cross_kv(params, cfg, enc)
+        xk32, xv32 = wh.cross_kv(params32, cfg32, enc32)
+        cache = wh.DecCache.create(cfg, 1, torch.bfloat16, device)
+        cache32 = wh.DecCache.create(cfg, 1, torch.float32, device)
+        steps = []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for pos, tid in enumerate(forced):
+            tok = torch.tensor([[tid]], device=device)
+            start.record()
+            logits, cache = wh.decode_step(params, cfg, tok, pos, xk, xv,
+                                           cache)
+            end.record()
+            logits32, cache32 = wh.decode_step(params32, cfg32, tok, pos,
+                                               xk32, xv32, cache32)
+            torch.cuda.synchronize()
+            gate = _compare_logits(logits[0], logits32[0])
+            gate["ms"] = start.elapsed_time(end)
+            steps.append(gate)
+            if gate["max_abs_err"] > LOGIT_REL_TOL * gate["logit_scale"] or (
+                gate["cosine"] < LOGIT_MIN_COSINE
+            ):
+                raise AssertionError(f"decoder step {pos}: {gate}")
+    del params32, enc32, xk32, xv32, cache32
+    _free()
+    server = AudioServer(engine)
+    port = server.start("127.0.0.1", 0)
+    decode_calls = []
+    kept = _count_calls(wh, "decode_step", decode_calls)
+    try:
+        reset_launch_counts()
+        served = {}
+        for route in ("transcriptions", "translations"):
+            decode_calls.clear()
+            t = time.perf_counter()
+            status, ctype, raw = _post_multipart(
+                port, f"/v1/audio/{route}",
+                {"file": (wav, "speech.wav"), "model": (b"whisper", None)})
+            wall_ms = (time.perf_counter() - t) * 1e3
+            data = json.loads(raw)
+            want_obj = ("audio.translation" if route == "translations"
+                        else "audio.transcription")
+            if data["object"] != want_obj or not isinstance(
+                data["text"], str
+            ) or data["duration_s"] != P_WAV_SECONDS:
+                raise AssertionError(f"{route}: {data}")
+            served[route] = {
+                "request_ms": wall_ms, "server_latency_ms": data["latency_ms"],
+                "decode_steps": len(decode_calls),
+                "eos_before_cap": len(decode_calls)
+                < cfg.max_target_positions - 1,
+                "text_chars": len(data["text"]),
+            }
+        counts = launch_counts()
+        if any(counts.values()):
+            raise AssertionError(f"the audio path launched kernels {counts}")
+        health, metrics = _audio_health(port, "stt", 2)
+    finally:
+        setattr(wh, "decode_step", kept)
+        server.shutdown()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    checkpoint = _whisper_checkpoint(cfg, mel_np, device)
+    emit("whisper_path", model=cfg.name, device=kind, nvidia_smi=smi,
+         setup_s=setup_s, weights_gb=_tree_gb(params),
+         wav_seconds=P_WAV_SECONDS, mel_frames=list(mel.shape[1:]),
+         encoder_vs_fp32=enc_gate, encode_ms=encode_ms,
+         forced_steps=len(forced), forced_ids=ids,
+         decode_ms_per_token=statistics.median(s["ms"] for s in steps),
+         decoder_vs_fp32_worst={
+             "max_rel_err": max(s["max_abs_err"] / s["logit_scale"]
+                                for s in steps),
+             "min_cosine": min(s["cosine"] for s in steps)},
+         tolerance={"rel": LOGIT_REL_TOL, "min_cosine": LOGIT_MIN_COSINE},
+         served=served, launches=counts, healthz=health, metrics=metrics,
+         checkpoint=checkpoint, peak_mem_gb=peak_gb)
+    return {"whisper": counts}
+
+
+class _OwnerTape:
+    """Inside ``with``, ``tts.frame_owners`` (the length regulation: which
+    token each frame repeats) records its owners (``mode = "record"``) or
+    replays the recorded ones (``"replay"``), as :class:`_RoutingTape`
+    does for expert picks: a duration a hair apart in bf16 moves a frame
+    across a token boundary, a discrete step that no tolerance on values
+    covers. Any other mode regulates freely, and ``flips`` counts the
+    frames whose owner differs from the recorded one."""
+
+    def __init__(self):
+        self.owners, self.mode, self.flips = None, "record", None
+
+    def __enter__(self):
+        from gpustack_tpu_torch.models import tts
+
+        self._fn = tts.frame_owners
+
+        def owners(cum, cfg):
+            got = self._fn(cum, cfg)
+            if self.mode == "record":
+                self.owners = got
+            elif self.mode == "replay":
+                return self.owners
+            else:
+                self.flips = int((got != self.owners).sum())
+            return got
+
+        tts.frame_owners = owners
+        return self
+
+    def __exit__(self, *exc):
+        from gpustack_tpu_torch.models import tts
+
+        tts.frame_owners = self._fn
+
+
+def phase_tts(kind, smi):
+    """tts-base (dim 256, 4 + 4 layers, 80 mels, 1024-frame grid) in bf16,
+    random weights from seed 0, behind the audio server's
+    ``/v1/audio/speech``: a valid WAV of the frames the model predicts;
+    ``synthesize_mel`` on the card against the fp32 plain reference over
+    the same weights (frame counts equal, the mel within 2% of its scale
+    with the card run's frame owners replayed in the reference; the free
+    comparison and its owner flips beside it); ``synthesize_mel``'s device
+    time and the host Griffin-Lim's. No hand-written kernel on this path.
+    Returns {window: launch counts}."""
+    import io
+    import wave
+
+    from gpustack_tpu_torch.engine.audio_server import (
+        AudioServer,
+        build_audio_engine_from_args,
+        build_parser,
+    )
+    from gpustack_tpu_torch.models import tts
+
+    t0 = time.perf_counter()
+    engine = build_audio_engine_from_args(build_parser().parse_args(Q_ARGV))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg, params = engine.cfg, engine.params
+    ids = engine.tokenizer.encode(Q_TEXT)
+    padded = torch.tensor(ids + [0] * (cfg.max_text_len - len(ids)),
+                          device=params["tok_emb"].device)
+    voice = tts.voice_index("alloy", cfg)
+    params32 = _widen(params)
+    with torch.no_grad(), _OwnerTape() as tape:
+        mel, n, raw = tts.synthesize_mel(params, cfg, padded, len(ids),
+                                         voice, 1.0)
+        tape.mode = "replay"
+        mel32, n32, raw32 = tts.synthesize_mel(params32, cfg, padded,
+                                               len(ids), voice, 1.0)
+        tape.mode = "free"
+        free32 = tts.synthesize_mel(params32, cfg, padded, len(ids),
+                                    voice, 1.0)[0]
+    with torch.no_grad():
+        synth_ms = cuda_time_ms(lambda: tts.synthesize_mel(
+            params, cfg, padded, len(ids), voice, 1.0))
+    frames = int(n)
+    gate = {"n_frames": frames, "raw_frames": int(raw),
+            "n_frames_fp32": int(n32), "raw_frames_fp32": int(raw32),
+            "owners": "the card run's replayed",
+            **_compare_logits(mel[:frames].flatten(),
+                              mel32[:frames].flatten()),
+            "free_owners": {
+                "flipped_frames": tape.flips,
+                **_compare_logits(mel[:frames].flatten(),
+                                  free32[:frames].flatten())}}
+    if (frames, int(raw)) != (int(n32), int(raw32)) or (
+        gate["max_abs_err"] > 0.02 * gate["logit_scale"]
+    ):
+        raise AssertionError(f"synthesize_mel bf16 vs fp32: {gate}")
+    t = time.perf_counter()
+    tts.griffin_lim(mel[:frames].cpu().numpy(), cfg)
+    griffin_lim_ms = (time.perf_counter() - t) * 1e3
+    server = AudioServer(engine)
+    port = server.start("127.0.0.1", 0)
+    try:
+        reset_launch_counts()
+        t = time.perf_counter()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/audio/speech",
+            data=json.dumps({"input": Q_TEXT, "voice": "alloy"}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            ctype, data = resp.headers.get("Content-Type", ""), resp.read()
+        request_ms = (time.perf_counter() - t) * 1e3
+        counts = launch_counts()
+        if any(counts.values()):
+            raise AssertionError(f"the audio path launched kernels {counts}")
+        with wave.open(io.BytesIO(data)) as wf:
+            header = (wf.getnchannels(), wf.getsampwidth(),
+                      wf.getframerate(), wf.getnframes())
+        want = (1, 2, cfg.sample_rate, cfg.hop * (frames - 1) + cfg.n_fft)
+        if ctype != "audio/wav" or header != want:
+            raise AssertionError(f"WAV {ctype} {header}, want {want}")
+        health, metrics = _audio_health(port, "tts", 1)
+    finally:
+        server.shutdown()
+    emit("tts_path", model=cfg.name, device=kind, nvidia_smi=smi,
+         setup_s=setup_s, weights_gb=_tree_gb(params),
+         input_tokens=len(ids), mel_vs_fp32=gate,
+         tolerance={"mel_rel": 0.02, "frames": "equal"},
+         synthesize_mel_ms=synth_ms, griffin_lim_host_ms=griffin_lim_ms,
+         request_ms=request_ms, wav={"channels": header[0],
+                                     "sample_width": header[1],
+                                     "rate": header[2], "frames": header[3]},
+         launches=counts, healthz=health, metrics=metrics)
+    return {"tts": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3824,6 +4558,12 @@ def main() -> int:
     paths.update(phase_gemma1(kind, smi))
     _free()
     paths.update(phase_disaggregation(kind, smi))
+    _free()
+    paths.update(phase_vlm(kind, smi))
+    _free()
+    paths.update(phase_whisper(kind, smi))
+    _free()
+    paths.update(phase_tts(kind, smi))
     kernels = []
     grouped_cases = rows.pop("grouped_cases")
     large_m = rows.pop("w8a16_large_m")
@@ -3907,6 +4647,7 @@ def main() -> int:
         counts["flash_attention_prefill"] for path, counts in paths.items()
         if path.startswith("gemma1_")
     )
+    fl["vlm_launches"] = paths["vlm"]["flash_attention_prefill"]
     for tag, row in (("group8", group8), ("mla", mla), *gemma.items()):
         fl.update({
             f"{tag}_shape": row["shape"],

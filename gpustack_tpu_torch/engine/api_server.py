@@ -10,7 +10,13 @@ not; streamed choices interleave; ``response_format`` ``json_object`` or
 ``json_schema``, a schema validated with one guided retry), ``POST
 /v1/embeddings`` and ``POST /v1/rerank``, with the same JSON shapes.
 ``--speculative ngram|draft`` serves greedy speculative decoding
-(requests that leave temperature unset default to 0 there).
+(requests that leave temperature unset default to 0 there). Chat
+messages may carry ``image_url`` parts (``data:`` PNG URLs) when the
+engine has a vision bundle (``engine.vision``; ``--preset tiny-vlm``
+builds one): the prompt is built on the handler thread
+(``models/vlm.build_mm_prompt``) and its image embeddings ride the
+request to one fused prefill. The audio routes are
+``engine/audio_server.py``'s.
 
 Disaggregated prefill/decode serving (with a host KV cache): ``POST
 /kv/export`` (a prompt's cached blocks as ``kv_transfer`` frames,
@@ -157,6 +163,8 @@ class _Call:
     schema: Any = None                  # a json_schema's schema, else None
     msgs: Optional[List[Dict[str, Any]]] = None   # the templated messages
     conv_chain: Optional[List[str]] = None        # for the KV directory
+    # an image chat's (embeds [T, D], mask [T]) for the engine
+    embeds_override: Optional[Tuple[Any, Any]] = None
 
 
 def _post_stream(url: str, payload, auth: str, deadline: float):
@@ -279,7 +287,8 @@ class OpenAIServer:
             request_id=str(uuid.uuid4()),
         )
 
-    def _make_gens(self, body, prompt_ids, chat: bool, json_mode: bool):
+    def _make_gens(self, body, prompt_ids, chat: bool, json_mode: bool,
+                   embeds_override=None):
         n = int(body.get("n") or 1)
         if n < 1 or n > MAX_N:
             raise ValueError(f"n must be 1..{MAX_N}, got {n}")
@@ -288,6 +297,7 @@ class OpenAIServer:
             gen = self._gen_request(
                 body, prompt_ids, chat=chat, json_mode=json_mode
             )
+            gen.embeds_override = embeds_override
             if gen.seed is not None and i > 0:
                 # per-choice seeds must differ or every choice is the same
                 gen.seed = gen.seed + i
@@ -298,20 +308,26 @@ class OpenAIServer:
         """(prompt ids, the call's chat fields) for a chat body. A
         ``response_format`` of ``json_object`` or ``json_schema`` is JSON
         mode; a ``json_schema`` that carries a schema is checked here (400
-        before any generation) and rides the system instruction."""
+        before any generation) and rides the system instruction. Image
+        parts need the engine's vision bundle: the prompt is then built by
+        ``build_mm_prompt`` here, on the request's handler thread (decode,
+        resize and the tower's forward), never on the scheduler thread."""
         messages = body.get("messages")
         if not isinstance(messages, list) or not messages:
             raise HTTPError(400, "missing 'messages'")
-        for m in messages:
-            content = m.get("content") if isinstance(m, dict) else None
-            if isinstance(content, list) and any(
+        has_images = any(
+            isinstance(m, dict) and isinstance(m.get("content"), list)
+            and any(
                 isinstance(p, dict) and p.get("type") == "image_url"
-                for p in content
-            ):
-                raise HTTPError(
-                    400,
-                    f"model {self.model_name!r} does not accept image input",
-                )
+                for p in m["content"]
+            )
+            for m in messages
+        )
+        vision = getattr(self.engine, "vision", None)   # as JAX reads it
+        if has_images and vision is None:
+            raise HTTPError(
+                400, f"model {self.model_name!r} does not accept image input",
+            )
         tools = body.get("tools") or []
         tool_choice = body.get("tool_choice", "auto")
         tools_active = bool(tools) and tool_choice != "none"
@@ -359,15 +375,35 @@ class OpenAIServer:
             elif not isinstance(schema, (dict, bool)):
                 schema = None        # no schema: JSON mode alone
             msgs.append({"role": "system", "content": instruction})
-        try:
-            prompt_ids = self.engine.tokenizer.apply_chat_template(
-                msgs, tools=tools if tools_active else None
+        embeds_override = None
+        if has_images:
+            from gpustack_tpu_torch.engine.tokenizer import (
+                _inject_tools_fallback,
             )
-        except Exception as e:  # tokenizer/template errors: client's
-            raise HTTPError(400, f"chat template failed: {e}") from e
+            from gpustack_tpu_torch.models.vlm import build_mm_prompt
+
+            # the multimodal prompt takes no tools= kwarg: the function
+            # schemas ride the system-block fallback
+            if tools_active:
+                msgs = _inject_tools_fallback(msgs, tools)
+            try:
+                prompt_ids, embeds, mask = build_mm_prompt(
+                    self.engine.tokenizer, msgs, vision
+                )
+            except ValueError as e:
+                raise HTTPError(400, str(e)) from None
+            embeds_override = (embeds, mask)
+        else:
+            try:
+                prompt_ids = self.engine.tokenizer.apply_chat_template(
+                    msgs, tools=tools if tools_active else None
+                )
+            except Exception as e:  # tokenizer/template errors: client's
+                raise HTTPError(400, f"chat template failed: {e}") from e
         call = _Call(
             body=body, gens=[], chat=True, tools_active=tools_active,
             json_mode=json_mode, schema=schema, msgs=msgs,
+            embeds_override=embeds_override,
         )
         if self.engine.kv_conv is not None:
             # the message-prefix hashes the proxy's affinity map and the
@@ -655,7 +691,8 @@ class OpenAIServer:
             call = _Call(body=body, gens=[], chat=False)
         try:
             call.gens = self._make_gens(
-                body, prompt_ids, call.chat, call.json_mode
+                body, prompt_ids, call.chat, call.json_mode,
+                call.embeds_override,
             )
         except (TypeError, ValueError) as e:
             raise HTTPError(400, f"bad sampling params: {e}") from e
@@ -740,9 +777,11 @@ class OpenAIServer:
                     gens[i].output_text
                 )[1]:
                     continue
-                # a length-cut attempt would only be cut again
+                # a length-cut attempt would only be cut again, and a
+                # retry re-templates without the images: validate only
                 allow_retry = (
                     len(gens) == 1 and gens[i].finish_reason != "length"
+                    and call.embeds_override is None
                 )
                 gens[i], verdicts[i], retry = self._validate_schema(
                     call, gens[i], max(0.0, deadline - time.monotonic()),
@@ -1246,7 +1285,9 @@ class OpenAIServer:
                     # holds (or prefills) this prompt's prefix; pull its
                     # blocks before admission so the start prefix-hits
                     source = self.headers.get("X-GPUStack-KV-Source", "")
-                    if source and server.engine.host_kv_cache is not None:
+                    if source and server.engine.host_kv_cache is not None and (
+                        call.embeds_override is None
+                    ):
                         server.kv_prefetch(
                             source, call.gens[0].prompt_ids,
                             self.headers.get("X-GPUStack-KV-Source-Auth", ""),
@@ -1433,7 +1474,11 @@ def build_engine_from_args(args) -> LLMEngine:
     safetensors before GGUF); without one, ``--quantization int8`` draws
     the int8 tree of any family directly on the device. Before any weight
     is read, a config the card's kernels cannot serve is refused
-    (``check_kernel_shapes``)."""
+    (``check_kernel_shapes``; on the card that refuses ``tiny-vlm``, whose
+    language half has head_dim 16). A VLM preset serves its language half
+    in the engine and attaches the vision tower as ``engine.vision``."""
+    import torch
+
     from gpustack_tpu_torch.device import resolve_device
     from gpustack_tpu_torch.engine.gguf import config_from_gguf
     from gpustack_tpu_torch.engine.weights import (
@@ -1447,13 +1492,23 @@ def build_engine_from_args(args) -> LLMEngine:
         quantize_params,
     )
     from gpustack_tpu_torch.models.transformer import check_kernel_shapes
+    from gpustack_tpu_torch.models.vlm import (
+        VLM_PRESETS,
+        VisionBundle,
+        get_vlm_config,
+        init_vision_params,
+    )
 
     device = resolve_device(args.device)
     kind, path = checkpoint_source(args.model_dir or None)
+    vlm_cfg = None
     if kind == "gguf":
         cfg = config_from_gguf(path, name=args.served_name or "")
     elif args.model_dir:
         cfg = load_hf_config(args.model_dir)
+    elif args.preset in VLM_PRESETS:
+        vlm_cfg = get_vlm_config(args.preset)
+        cfg = vlm_cfg.language
     else:
         cfg = get_config(args.preset)
     check_kernel_shapes(cfg, device, int8=args.quantization == "int8")
@@ -1486,7 +1541,7 @@ def build_engine_from_args(args) -> LLMEngine:
             draft_params = load_or_init_params(
                 draft_cfg, None, seed=0, device=device
             )
-    return LLMEngine(
+    engine = LLMEngine(
         cfg, params,
         model_dir=args.model_dir or None,
         max_slots=args.max_slots,
@@ -1505,6 +1560,15 @@ def build_engine_from_args(args) -> LLMEngine:
         draft_cfg=draft_cfg,
         draft_params=draft_params,
     )
+    if vlm_cfg is not None:
+        # the language tree takes the server's seed 0; the tower seed 1,
+        # as the JAX server's key(1)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(1)
+        engine.vision = VisionBundle(
+            vlm_cfg, init_vision_params(vlm_cfg, gen), device
+        )
+    return engine
 
 
 def main(argv=None) -> None:

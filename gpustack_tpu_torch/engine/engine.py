@@ -76,7 +76,11 @@ thread; the next request for the prompt prefix-hits them and prefills
 only its tail. ``kv_handoff`` counts the wire traffic, ``kv_conv`` feeds
 the cluster KV directory.
 
-Not ported yet (ROADMAP lists it): vision inputs.
+**Vision inputs** (``GenRequest.embeds_override``): a VLM prompt's
+image embeddings ride the request and its one fused prefill
+(``runner.prefill_with_embeds``); it bypasses the host KV tier and
+chunked prefill, since placeholder ids alias across images, and its KV
+never enters the token-keyed host cache.
 """
 
 from __future__ import annotations
@@ -93,6 +97,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from gpustack_tpu_torch.device import resolve_device
@@ -280,6 +285,8 @@ class GenRequest:
     logprobs: bool = False                 # collect per-token logprobs
     top_logprobs: int = 0                  # alternatives per position (<= 20)
     json_mode: bool = False                # stop after one complete JSON value
+    # VLM: (embeds [T, D] f32, mask [T] bool) overriding placeholder rows
+    embeds_override: Optional[Tuple[Any, Any]] = None
     stream: Optional[queue.Queue] = None   # receives (token_id, text_piece)
     request_id: str = ""
 
@@ -612,6 +619,8 @@ class LLMEngine:
         # it meaning), and the handoff's wire accounting
         self.kv_role = kv_role
         self.kv_handoff = HandoffStats()
+        # a VisionBundle (models/vlm.py) the server attaches for image chat
+        self.vision = None
         # conversation index feeding the cluster KV directory (/kv/summary)
         self.kv_conv = None
         if host_kv_cache_mb > 0:
@@ -670,6 +679,11 @@ class LLMEngine:
                 raise ValueError(
                     "logprobs are unavailable under speculative decoding "
                     "(verification produces no per-token distribution)"
+                )
+            if req.embeds_override is not None:
+                raise ValueError(
+                    "image inputs are unavailable under speculative "
+                    "decoding (the draft model has no vision tower)"
                 )
             if req.logit_bias:
                 raise ValueError(
@@ -1149,6 +1163,22 @@ class LLMEngine:
 
     def _start_request(self, slot: int, req: GenRequest) -> None:
         ids = req.prompt_ids
+        if req.embeds_override is not None:
+            # VLM prompt: placeholder ids alias across different images,
+            # so the token-keyed host KV cache and chunked prefill do not
+            # apply; one fused prefill with the embedding override
+            bucket = self.runner.bucket_for(max(1, len(ids)))
+            padded = list(ids) + [0] * (bucket - len(ids))
+            self._step_mode = self._step_mode or "prefill"
+            self._step_real += len(ids)
+            self._step_prompt += len(ids)
+            self._step_padded += bucket
+            embeds, mask = self._padded_embeds(req, bucket, len(ids))
+            last_logits, k, v = self.runner.prefill_with_embeds(
+                padded, len(ids), embeds, mask
+            )
+            self._finalize_start(slot, req, last_logits, k, v)
+            return
         # ONE prefix probe per request (counts one hit or miss), shared by
         # the chunked and one-shot paths
         kv_cache = self.host_kv_cache
@@ -1493,13 +1523,26 @@ class LLMEngine:
 
         return self._kv_stage.submit(land)
 
+    @staticmethod
+    def _padded_embeds(req: GenRequest, bucket: int, n_ids: int):
+        """Bucket-pad a VLM request's override embeddings (host numpy)."""
+        embeds, mask = req.embeds_override
+        pad_rows = bucket - n_ids
+        embeds = np.pad(
+            np.asarray(embeds, np.float32), ((0, pad_rows), (0, 0))
+        )
+        mask = np.pad(np.asarray(mask, bool), (0, pad_rows))
+        return embeds, mask
+
     def _store_finished_sequence(self, slot: int, req: GenRequest) -> None:
         """Cache the FULL finished sequence (prompt + generated tokens) so
         turn N+1 of a conversation prefix-hits the blocks turn N decoded.
         The trailing output token is dropped: its KV is written only when
-        it is fed, which may not have happened by finish time."""
+        it is fed, which may not have happened by finish time. A VLM
+        request's KV never enters the token-keyed cache: its placeholder
+        ids alias across images."""
         kv_cache = self.host_kv_cache
-        if kv_cache is None:
+        if kv_cache is None or req.embeds_override is not None:
             return
         seq = list(req.prompt_ids) + list(req.output_ids[:-1])
         bt = kv_cache.block_tokens

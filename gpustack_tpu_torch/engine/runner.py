@@ -7,7 +7,8 @@ The port of ``gpustack_tpu/engine/runner.py`` for a single card (no mesh):
 - **prefill** runs per request at a power-of-two bucketed length into a
   scratch cache; **prefill_with_prefix** continues one from a prefix on
   the device (a host KV cache hit, or a chunked prefill's earlier
-  chunks); **insert** copies the prompt KV into the slot's rows. Pad
+  chunks); **prefill_with_embeds** splices a VLM prompt's image
+  embeddings in; **insert** copies the prompt KV into the slot's rows. Pad
   positions are harmless: a slot's decode write at position p lands
   before any query attends p;
 - all sequencing state (last token, position, active mask) lives **on the
@@ -137,6 +138,42 @@ class ModelRunner:
             return_hidden=True, attn_impl=self.attn_impl_for(Tb),
         )
         # logits for the one position the sampler reads, not all Tb rows
+        last = lm_head(self.params, self.cfg, hidden[0, true_len - 1])
+        return last, cache.k[:, 0], cache.v[:, 0]
+
+    def prefill_with_embeds(
+        self, token_ids: Sequence[int], true_len: int, embeds, mask,
+    ):
+        """Like :meth:`prefill`, with per-token embedding overrides (a VLM
+        prompt, ``models/vlm.py``): ``embeds`` ``[Tb, D]`` fp32 and
+        ``mask`` ``[Tb]`` bool (numpy or host tensors), bucket-padded.
+        They go to the card through pinned memory without blocking, as
+        :meth:`_ids_on_device` sends ids. One fused forward with a fresh
+        cache, through the flash kernel on the card at every bucket.
+        Returns ``(last_logits [V] fp32, k, v [L, Tb, H, hd])``."""
+        Tb = len(token_ids)
+        if Tb not in self.prefill_buckets:
+            raise ValueError(f"{Tb} is not a bucket {self.prefill_buckets}")
+        if not 0 < true_len <= Tb:
+            raise ValueError(f"true_len {true_len} outside 1..{Tb}")
+        embeds = torch.as_tensor(embeds, dtype=torch.float32)
+        mask = torch.as_tensor(mask, dtype=torch.bool)
+        if embeds.shape != (Tb, self.cfg.hidden_size) or mask.shape != (Tb,):
+            raise ValueError(
+                f"embeds {tuple(embeds.shape)} / mask {tuple(mask.shape)} "
+                f"do not match bucket {Tb} x {self.cfg.hidden_size}"
+            )
+        if self.device.type == "cuda":
+            embeds = embeds.pin_memory().to(self.device, non_blocking=True)
+            mask = mask.pin_memory().to(self.device, non_blocking=True)
+        tokens = self._ids_on_device([list(token_ids)])
+        positions = torch.arange(Tb, device=self.device)[None, :]
+        cache = KVCache.create(self.cfg, 1, Tb, self.device)
+        hidden, cache = forward(
+            self.params, self.cfg, tokens, positions, cache,
+            return_hidden=True, attn_impl=self.attn_impl_for(Tb),
+            embeds_override=(embeds[None], mask[None]),
+        )
         last = lm_head(self.params, self.cfg, hidden[0, true_len - 1])
         return last, cache.k[:, 0], cache.v[:, 0]
 

@@ -15,8 +15,11 @@ The safetensors reader is the port's own (the card's machine has no
 ``safetensors`` package): an 8-byte little-endian header length, a JSON
 header, then each tensor's bytes at its offsets.
 
-Not ported yet: ``load_npz_params`` and ``load_whisper_params`` (with the
-other modalities).
+The modalities: ``load_whisper_params`` (an HF Whisper safetensors dir
+on the same reader) and ``load_npz_params`` (the in-repo TTS model's npz
+tree); ``params_from_numpy`` also carries the vision, Whisper and TTS
+trees across, transposing Whisper's conv weights once (JAX's HIO
+``[K, Cin, Cout]`` to ``[Cout, Cin, K]``).
 """
 
 from __future__ import annotations
@@ -614,12 +617,18 @@ def _to_tensor(arr, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+# Whisper's conv leaves: HIO [K, Cin, Cout] in JAX, [Cout, Cin, K] here
+_WHISPER_CONVS = ("conv1", "conv2")
+
+
 def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
-    """Convert a parameter tree of numpy arrays (the JAX package's
-    ``init_params`` layout, leaves passed through ``np.asarray``) into the
+    """Convert a parameter tree of numpy arrays (a JAX package tree:
+    ``init_params``, ``init_vision_params``, ``init_whisper_params`` or
+    ``init_tts_params``, leaves passed through ``np.asarray``) into the
     port's tree of tensors on ``device`` (default: the card): same keys,
-    same stacked shapes, same dtypes. A JAX ``QuantW`` leaf (any node with
-    ``q`` and ``s`` arrays) becomes the port's ``QuantW``."""
+    same stacked shapes, same dtypes, except Whisper's two conv weights,
+    transposed here once to ``[Cout, Cin, K]``. A JAX ``QuantW`` leaf (any
+    node with ``q`` and ``s`` arrays) becomes the port's ``QuantW``."""
     device = resolve_device(device)
 
     def walk(node):
@@ -631,4 +640,112 @@ def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
             )
         return _to_tensor(node, device)
 
-    return walk(tree)
+    out = walk(tree)
+    for key in _WHISPER_CONVS:
+        if key in out and out[key].dim() == 3:
+            out[key] = out[key].permute(2, 1, 0).contiguous()
+    return out
+
+
+def load_npz_params(path: str, init_fn, device=None) -> Dict[str, Any]:
+    """A flat-or-nested param tree saved as .npz ('/'-joined keys, each
+    array as stored) on ``device`` (default: the card), or ``init_fn()``
+    when no file exists: the checkpoint format of in-repo models without an
+    HF counterpart (the TTS model)."""
+    device = resolve_device(device)
+    try:
+        z = np.load(path)
+    except OSError:
+        logger.warning("no checkpoint at %r — random init", path)
+        return init_fn()
+    tree: Dict[str, Any] = {}
+    with z:
+        for key in z.files:
+            node = tree
+            parts = key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = _to_tensor(z[key], device)
+    return tree
+
+
+def load_whisper_params(
+    cfg, model_dir: str, device=None
+) -> Dict[str, Any]:
+    """An HF Whisper safetensors checkpoint as the ``models/whisper.py``
+    tree on ``device`` (default: the card): bf16 leaves, linear weights
+    transposed to ``[in, out]``, the conv weights kept as HF's ``[Cout,
+    Cin, K]``. Without a checkpoint, random weights from seed 0 (the
+    ``load_or_init_params`` contract)."""
+    from gpustack_tpu_torch.models.whisper import init_whisper_params
+
+    device = resolve_device(device)
+    try:
+        tensors = _read_safetensors(model_dir)
+    except FileNotFoundError:
+        logger.warning(
+            "no whisper checkpoint at %r — random init", model_dir
+        )
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        return init_whisper_params(cfg, gen)
+    take = _taker(tensors)
+
+    def stack(side: str, L: int, fmt: str, transpose=False) -> torch.Tensor:
+        return torch.stack([
+            take(f"model.{side}.layers.{i}.{fmt}", transpose).to(device)
+            for i in range(L)
+        ])
+
+    def attn_block(side: str, L: int, prefix: str, out: dict, tag: str):
+        out[f"{tag}wq"] = stack(side, L, f"{prefix}.q_proj.weight", True)
+        out[f"{tag}bq"] = stack(side, L, f"{prefix}.q_proj.bias")
+        out[f"{tag}wk"] = stack(side, L, f"{prefix}.k_proj.weight", True)
+        out[f"{tag}wv"] = stack(side, L, f"{prefix}.v_proj.weight", True)
+        out[f"{tag}bv"] = stack(side, L, f"{prefix}.v_proj.bias")
+        out[f"{tag}wo"] = stack(side, L, f"{prefix}.out_proj.weight", True)
+        out[f"{tag}bo"] = stack(side, L, f"{prefix}.out_proj.bias")
+
+    def layer_group(side: str, L: int) -> dict:
+        out = {
+            "ln1": stack(side, L, "self_attn_layer_norm.weight"),
+            "ln1_b": stack(side, L, "self_attn_layer_norm.bias"),
+            "ln2": stack(side, L, "final_layer_norm.weight"),
+            "ln2_b": stack(side, L, "final_layer_norm.bias"),
+            "w_up": stack(side, L, "fc1.weight", True),
+            "b_up": stack(side, L, "fc1.bias"),
+            "w_down": stack(side, L, "fc2.weight", True),
+            "b_down": stack(side, L, "fc2.bias"),
+        }
+        attn_block(side, L, "self_attn", out, "")
+        if side == "decoder":
+            out["lnx"] = stack(side, L, "encoder_attn_layer_norm.weight")
+            out["lnx_b"] = stack(side, L, "encoder_attn_layer_norm.bias")
+            attn_block(side, L, "encoder_attn", out, "x")
+        return out
+
+    def one(name: str) -> torch.Tensor:
+        return take(name).to(device)
+
+    params = {
+        "conv1": one("model.encoder.conv1.weight"),
+        "conv1_b": one("model.encoder.conv1.bias"),
+        "conv2": one("model.encoder.conv2.weight"),
+        "conv2_b": one("model.encoder.conv2.bias"),
+        "enc_layers": layer_group("encoder", cfg.encoder_layers),
+        "enc_ln": one("model.encoder.layer_norm.weight"),
+        "enc_ln_b": one("model.encoder.layer_norm.bias"),
+        "tok_embed": one("model.decoder.embed_tokens.weight"),
+        "pos_embed": one("model.decoder.embed_positions.weight"),
+        "dec_layers": layer_group("decoder", cfg.decoder_layers),
+        "dec_ln": one("model.decoder.layer_norm.weight"),
+        "dec_ln_b": one("model.decoder.layer_norm.bias"),
+    }
+    # encoder position embeddings are fixed sinusoids (recomputed)
+    tensors.pop("model.encoder.embed_positions.weight", None)
+    tensors.pop("proj_out.weight", None)  # tied to tok_embed
+    if tensors:
+        logger.warning(
+            "unused whisper tensors: %s", sorted(tensors)[:8]
+        )
+    return params

@@ -765,6 +765,7 @@ def forward(
     attn_impl: str = "plain",
     q_offset: int = 0,
     clamp_writes: bool = False,
+    embeds_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the model.
 
@@ -793,6 +794,11 @@ def forward(
     on it for rows it has deactivated (a frozen position near the end);
     everywhere else a write past the cache is an error.
 
+    ``embeds_override`` ``(embeds [B, T, D], mask [B, T] bool)`` splices
+    vision embeddings into the prompt (``models/vlm.py``): rows under the
+    mask take ``embeds`` in the compute dtype instead of the vocab row,
+    before Gemma's embedding scale, as in JAX.
+
     Returns ``(logits [B, T, vocab] fp32, cache or None)``, or the final
     normalized hidden states (fp32) with ``return_hidden``.
     """
@@ -802,6 +808,9 @@ def forward(
     dtype = torch_dtype(cfg)
     device = tokens.device
     x = _embed_lookup(params["embed"], tokens, dtype)
+    if embeds_override is not None:
+        ov, ov_mask = embeds_override
+        x = torch.where(ov_mask[..., None], ov.to(dtype), x)
     if cfg.embed_scale:
         # Gemma: times sqrt(d), cast to the compute dtype first (as HF
         # and JAX do)
