@@ -190,7 +190,21 @@ q. text to speech: tts-base (dim 256, 4 + 4 layers, 80 mels) through
    reference's and the mel within 2% of its scale (the frame owners
    replayed), ``synthesize_mel`` ms on the card and the host Griffin-Lim
    ms. Phases p and q launch no hand-written kernel (their attention is
-   plain torch, as it is XLA in JAX), and their windows must count none.
+   plain torch, as it is XLA in JAX), and their windows must count none;
+r. image generation: sd15-shaped (1.03 B parameters, 512 px) and
+   sdxl-shaped (3.43 B, 1024 px, two text encoders, depth 10 at its
+   lowest level) at full width in bf16 from a seed behind the port's image
+   server: the text encoders, a UNet call at the guided batch of 2 and
+   the VAE against an fp32 run over the same weights, each step of a
+   30-step sample against an fp32 step from the same latents; device
+   times of the encoders, the UNet at batch 2 and 8 (its attention's
+   share) and the VAE; ``/v1/images/generations`` at 30 steps (request
+   ms, the host's PNG encode), n = 2, a seed twice and another (bytes
+   identical, then not), 256 px on sd15-shaped, n = 4 on sdxl-shaped
+   (peak memory), each of JAX's refusals, ``/healthz`` and ``/metrics``;
+   sd15-shaped written whole as a diffusers checkpoint and served through
+   ``--model-dir`` (config, tree and PNG bytes identical). Like p and q,
+   phase r launches no hand-written kernel, and its windows count none.
 
 In d to o every kernel's launches are counted around the served
 requests alone and must equal what that path's model forwards need,
@@ -2317,13 +2331,15 @@ def write_safetensors(path, tensors):
 
 def _leaves(tree, prefix=""):
     """{path: tensor} over a param tree, nested stacks (``layers``,
-    ``dense_layers``) included."""
+    ``dense_layers``) and a diffusion tree's lists included (its ``None``
+    nodes hold no leaf)."""
     out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
             out.update(_leaves(v, f"{prefix}{k}/"))
-        else:
-            out[prefix + k] = v
+        elif v is not None:
+            out[f"{prefix}{k}"] = v
     return out
 
 
@@ -3824,23 +3840,6 @@ O_TTFT_REPS = 3
 O_TEXT = "Describe this image: "
 
 
-def _png(arr):
-    """uint8 RGB ``[H, W, 3]`` → PNG bytes (the script's own writer: rows
-    with filter 0, one zlib stream)."""
-    import zlib
-
-    h, w, _ = arr.shape
-    raw = b"".join(b"\x00" + arr[y].tobytes() for y in range(h))
-
-    def chunk(tag, body):
-        return (struct.pack(">I", len(body)) + tag + body
-                + struct.pack(">I", zlib.crc32(tag + body)))
-
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
-
-
 def _seeded_image(seed, w, h):
     """A colour gradient with seeded noise, uint8 ``[h, w, 3]``."""
     gen = torch.Generator().manual_seed(seed)
@@ -3874,11 +3873,19 @@ def _post_status(port, path, body):
         return e.code, e.read().decode()
 
 
+def _tree_map(fn, tree):
+    """``fn`` over every leaf of a param tree (dicts, lists, ``None``)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return None if tree is None else fn(tree)
+
+
 def _widen(tree):
     """A copy of a param tree with every leaf in fp32 (the plain
-    references of the small towers and the audio models)."""
-    return {k: _widen(v) if isinstance(v, dict) else v.float()
-            for k, v in tree.items()}
+    references of the small towers, the audio and the diffusion models)."""
+    return _tree_map(lambda t: t.float(), tree)
 
 
 def _mm_prompt(engine, msgs):
@@ -3974,6 +3981,7 @@ def phase_vlm(kind, smi, device="cuda"):
         build_parser,
     )
     from gpustack_tpu_torch.models.config import get_config
+    from gpustack_tpu_torch.models.png import encode_png
     from gpustack_tpu_torch.models.vlm import (
         VisionBundle,
         VisionConfig,
@@ -3995,8 +4003,8 @@ def phase_vlm(kind, smi, device="cuda"):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     tok = engine.tokenizer
-    png64 = _png(_seeded_image(64, 64, 64))
-    png97 = _png(_seeded_image(97, 97, 53))
+    png64 = encode_png(_seeded_image(64, 64, 64))
+    png97 = encode_png(_seeded_image(97, 97, 53))
     host_ms = {}
     for name, data in (("64x64", png64), ("97x53_resized", png97)):
         t = time.perf_counter()
@@ -4518,6 +4526,612 @@ def phase_tts(kind, smi):
     return {"tts": counts}
 
 
+# ---------------------------------------------------------------------------
+# r: image generation (the image server)
+# ---------------------------------------------------------------------------
+
+R_MODELS = (
+    # the server's arguments, the sizes served beside the native one,
+    # whether to serve n = 4 (else: the diffusers checkpoint)
+    (["--preset", "sd15-shaped", "--port", "0"], (256,), False),
+    (["--preset", "sdxl-shaped", "--port", "0"], (), True),
+)
+R_PROMPT = "a lighthouse on a cliff at dusk, oil on canvas"
+R_NEGATIVE = "blurry, low quality"
+R_STEPS = 30                 # the server's default
+R_FEW_STEPS = 3              # determinism, extra sizes, n = 4, checkpoint
+R_GUIDANCE = 7.5
+R_GEN = "/v1/images/generations"
+# bf16 against an fp32 run of the same functions over the same weights
+# (no TF32): the text encoders and a UNet call within LOGIT_REL_TOL of the
+# output's scale (the card's tolerance for deep bf16 forwards against fp32,
+# as in phases j, k and p; the largest error measured is 2.3% of the
+# scale, sdxl-shaped's 32-layer text2), cosine >= 0.999. The VAE's output
+# is 0.8-3.1 M clipped values whose largest error is 5.8-6.2% of the
+# scale at cosine >= 0.9998 (99.9% of them within 3%): its maximum is
+# held within twice that, so a fault confined to a border or a tile still
+# shows. Each DDIM step from the bf16 run's latents at cosine >= 0.99; the
+# free 30-step runs are reported beside it (random weights saturate the
+# x0 clip at +-10, so a rounding near its threshold moves a value by up
+# to 20 and the runs part)
+DIFFUSION_REL_TOL = LOGIT_REL_TOL
+VAE_REL_TOL = 2 * LOGIT_REL_TOL
+DIFFUSION_MIN_COSINE = 0.999
+LATENTS_MIN_COSINE = 0.99
+# each refusal of the JAX server's validation, with its body
+R_REFUSALS = [
+    (b"{not json", "invalid JSON"),
+    ({}, "'prompt' is required"),
+    ({"prompt": "x", "size": "123x123"},
+     "size must be one of ['256x256', '512x512', '768x768', '1024x1024']"),
+    ({"prompt": "x", "size": "512x256"}, "only square sizes are supported"),
+    ({"prompt": "x", "size": "axb"}, "bad size 'axb'"),
+    ({"prompt": "x", "n": "two"},
+     "bad numeric parameter: invalid literal for int() with base 10: 'two'"),
+]
+
+
+@contextlib.contextmanager
+def _exact_fp32():
+    """fp32 products and convolutions without TF32 (cuDNN allows it by
+    default): the references round only where fp32 does."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def _diffusion_gate(got, want, min_cosine=DIFFUSION_MIN_COSINE,
+                    rel=DIFFUSION_REL_TOL):
+    got, want = got.float().flatten(), want.float().flatten()
+    gate = _compare_logits(got, want)
+    err = (got - want).abs()
+    gate["p999_abs_err"] = torch.quantile(
+        err[:: max(1, err.numel() // 2**24)], 0.999).item()
+    gate["rms_err"] = err.square().mean().sqrt().item()
+    gate["rms"] = want.square().mean().sqrt().item()
+    if gate["max_abs_err"] > rel * gate["logit_scale"] or (
+        gate["cosine"] < min_cosine
+    ):
+        raise AssertionError(f"bf16 vs fp32: {gate}")
+    return gate
+
+
+class _AttentionTimer:
+    """Inside ``with``, each ``diffusion._attention`` call runs between
+    two CUDA events; ``ms()`` sums their device time."""
+
+    def __enter__(self):
+        from gpustack_tpu_torch.models import diffusion as dm
+
+        self._fn, self.events = dm._attention, []
+
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._fn(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        dm._attention = timed
+        return self
+
+    def __exit__(self, *exc):
+        from gpustack_tpu_torch.models import diffusion as dm
+
+        dm._attention = self._fn
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def _image_gates(engine):
+    """The bf16 pipeline against an fp32 run of the same functions over
+    the same weights upcast (no TF32), at the tolerances above: both text
+    encoders (last, penultimate, pooled), one UNet call at the guided
+    batch of 2, ``vae_decode``, and each step of a 30-step sample (the
+    free fp32 run's final latents reported beside). Then the device
+    times. Returns (gates, latents, times)."""
+    from gpustack_tpu_torch.models import diffusion as dm
+
+    cfg, params = engine.cfg, engine.params
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = _widen(params)
+    size, ls = cfg.image_size, cfg.latent_size
+    cond = engine._on_device(R_PROMPT, engine.tokenizer, 1)
+    uncond = engine._on_device(R_NEGATIVE, engine.tokenizer, 1)
+    enc = [("text", cond)]
+    kw = {}
+    if cfg.text2_dim:
+        kw = {"cond_tokens2": engine._on_device(R_PROMPT, engine.tokenizer2,
+                                                1),
+              "uncond_tokens2": engine._on_device(
+                  R_NEGATIVE, engine.tokenizer2, 1)}
+        enc.append(("text2", kw["cond_tokens2"]))
+    gen = torch.Generator(device=engine.device)
+    gen.manual_seed(1)
+    noise = torch.randn((1, cfg.latent_channels, ls, ls), generator=gen,
+                        device=engine.device)
+    gates = {}
+    with torch.no_grad(), _exact_fp32():
+        for which, toks in enc:
+            got = dm.encode_text(params, cfg, toks, which)
+            want = dm.encode_text(params32, cfg32, toks, which)
+            for part, g, w in zip(("last", "penultimate", "pooled"), got,
+                                  want):
+                gates[f"{which}_{part}"] = _diffusion_gate(g, w)
+        context, added = dm.encode_prompts(params, cfg, cond, uncond, size,
+                                           size, **kw)
+        lat2 = torch.cat([noise, noise])
+        t2 = torch.full((2,), 500, dtype=torch.int32, device=noise.device)
+        gates["unet_batch2"] = _diffusion_gate(
+            dm.unet_apply(params, cfg, lat2, t2, context, added),
+            dm.unet_apply(params32, cfg32, lat2, t2, context, added))
+        z = noise * cfg.scaling_factor
+        gates["vae_decode"] = _diffusion_gate(
+            dm.vae_decode(params, cfg, z), dm.vae_decode(params32, cfg32, z),
+            rel=VAE_REL_TOL)
+        # 30 steps from one noise: each fp32 step starts from the bf16
+        # run's latents (the gate); the free fp32 run beside it
+        context32, added32 = dm.encode_prompts(params32, cfg32, cond, uncond,
+                                               size, size, **kw)
+        lat, steps = noise, []
+        for step in dm.ddim_schedule(cfg, R_STEPS):
+            nxt = dm.ddim_step(params, cfg, lat, context, added, step,
+                               R_GUIDANCE)
+            steps.append(_diffusion_gate(
+                nxt, dm.ddim_step(params32, cfg32, lat, context32, added32,
+                                  step, R_GUIDANCE),
+                LATENTS_MIN_COSINE, math.inf))
+            lat = nxt
+        lat32 = dm.denoise(params32, cfg32, noise, context32, added32,
+                           R_STEPS, R_GUIDANCE)
+        latents = {
+            "per_step_min_cosine": min(g["cosine"] for g in steps),
+            "per_step_max_rel_err": max(g["max_abs_err"] / g["logit_scale"]
+                                        for g in steps),
+            "per_step_last": steps[-1],
+            "free_run": _compare_logits(lat.flatten(), lat32.flatten()),
+        }
+        del params32, context32, added32, lat32
+        _free()
+
+        times = {"text_encode_ms": cuda_time_ms(
+            lambda: dm.encode_prompts(params, cfg, cond, uncond, size, size,
+                                      **kw), warmup=1, iters=5)}
+        times["unet_batch2_ms"] = cuda_time_ms(
+            lambda: dm.unet_apply(params, cfg, lat2, t2, context, added),
+            warmup=1, iters=5)
+        lat8 = noise.expand(8, -1, -1, -1)
+        t8 = torch.full((8,), 500, dtype=torch.int32, device=noise.device)
+        context8 = context.repeat_interleave(4, dim=0)
+        added8 = None if added is None else {
+            k: v.repeat_interleave(4, dim=0) for k, v in added.items()}
+        times["unet_batch8_ms"] = cuda_time_ms(
+            lambda: dm.unet_apply(params, cfg, lat8, t8, context8, added8),
+            warmup=1, iters=3)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with _AttentionTimer() as timer:
+            start.record()
+            dm.unet_apply(params, cfg, lat2, t2, context, added)
+            end.record()
+            attn_ms = timer.ms()
+        unet_ms = start.elapsed_time(end)
+        times["unet_batch2_attention"] = {
+            "calls": len(timer.events), "attention_ms": attn_ms,
+            "unet_ms_timed_with_events": unet_ms, "share": attn_ms / unet_ms}
+        times["vae_decode_ms"] = cuda_time_ms(
+            lambda: dm.vae_decode(params, cfg, z), warmup=1, iters=3)
+    return gates, latents, times
+
+
+def _post_image(port, body):
+    """(status, parsed body) of one generation request."""
+    raw = body if isinstance(body, bytes) else json.dumps(body).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{R_GEN}", data=raw,
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _served_pngs(port, body, n, size):
+    """A generation that must succeed with ``n`` RGB PNGs of ``size``:
+    (the PNG bytes, request ms)."""
+    from gpustack_tpu_torch.models.png import decode_png
+
+    t = time.perf_counter()
+    status, data = _post_image(port, body)
+    ms = (time.perf_counter() - t) * 1e3
+    if status != 200 or len(data["data"]) != n:
+        raise AssertionError(f"{body}: {status} {str(data)[:200]}")
+    pngs = [base64.b64decode(d["b64_json"]) for d in data["data"]]
+    for png in pngs:
+        if decode_png(png).shape != (size, size, 3):
+            raise AssertionError(f"{body}: a PNG is not {size} x {size} RGB")
+    return pngs, ms
+
+
+def _image_requests(engine, extra_sizes, n4):
+    """The image server's requests, their checks and their times."""
+    from gpustack_tpu_torch.engine.image_server import ImageServer, _png_bytes
+    from gpustack_tpu_torch.models.png import decode_png
+
+    cfg = engine.cfg
+    native = cfg.image_size
+    base = {"prompt": R_PROMPT, "negative_prompt": R_NEGATIVE}
+    server = ImageServer(engine)
+    port = server.start("127.0.0.1", 0)
+    served, images, requests = {}, 0, 0
+    try:
+        pngs, ms = _served_pngs(port, {**base, "seed": 0}, 1, native)
+        served["default_steps_n1"] = {"steps": R_STEPS, "size": native,
+                                      "request_ms": ms, "png_bytes": len(pngs[0])}
+        arr = decode_png(pngs[0]).astype("float32") / 255
+        host = []
+        for _ in range(3):
+            t = time.perf_counter()
+            _png_bytes(arr)
+            host.append((time.perf_counter() - t) * 1e3)
+        served["png_encode_host_ms"] = statistics.median(host)
+        steps2 = R_FEW_STEPS if n4 else R_STEPS
+        pngs, ms = _served_pngs(port, {**base, "seed": 1, "n": 2,
+                                       "steps": steps2}, 2, native)
+        if pngs[0] == pngs[1]:
+            raise AssertionError("n = 2 gave two identical images")
+        served["n2"] = {"steps": steps2, "request_ms": ms}
+        few = {**base, "steps": R_FEW_STEPS}
+        same = [_served_pngs(port, {**few, "seed": 42}, 1, native)[0][0]
+                for _ in range(2)]
+        other = _served_pngs(port, {**few, "seed": 43}, 1, native)[0][0]
+        if same[0] != same[1] or other == same[0]:
+            raise AssertionError("a seed does not fix the PNG bytes")
+        served["seed"] = {"same_seed_bytes": "identical",
+                          "other_seed_bytes": "differ"}
+        images, requests = 1 + 2 + 3, 5
+        for size in extra_sizes:
+            _, ms = _served_pngs(port, {**few, "seed": 2,
+                                        "size": f"{size}x{size}"}, 1, size)
+            served[f"size_{size}"] = {"steps": R_FEW_STEPS, "request_ms": ms}
+            images, requests = images + 1, requests + 1
+        if n4:
+            _free()
+            torch.cuda.reset_peak_memory_stats()
+            _, ms = _served_pngs(port, {**few, "seed": 3, "n": 4}, 4, native)
+            served["n4"] = {"steps": R_FEW_STEPS, "request_ms": ms,
+                            "peak_mem_gb":
+                            torch.cuda.max_memory_allocated() / 1e9}
+            images, requests = images + 4, requests + 1
+        refusals = R_REFUSALS + [
+            ({"prompt": "x", "size": f"{s}x{s}"},
+             f"size {s} exceeds this model's native {native}")
+            for s in (768, 1024) if s > native][:1]
+        for body, error in refusals:
+            status, data = _post_image(port, body)
+            if (status, data) != (400, {"error": error}):
+                raise AssertionError(f"{body}: {status} {data}")
+        health = json.loads(_get(port, "/healthz"))
+        want = {"status": "ok", "model": cfg.name, "modality": "image",
+                "requests": requests, "images": images}
+        if health != want:
+            raise AssertionError(f"healthz {health}, want {want}")
+        metrics = _get(port, "/metrics")
+        for line in (f"gpustack_tpu_image_requests_total {requests}\n",
+                     f"gpustack_tpu_images_generated_total {images}\n"):
+            if line not in metrics:
+                raise AssertionError(f"metrics {metrics!r}")
+    finally:
+        server.shutdown()
+    return served, len(refusals), health, metrics.strip().splitlines()
+
+
+def _randomized_tree(params, seed):
+    """A copy of a diffusion tree with its biases N(0, 0.1) and norm gains
+    1 + N(0, 0.1) (the init's are zeros and ones; a swapped or dropped one
+    must show in a round trip)."""
+    gen = torch.Generator(device=params["unet"]["conv_in_w"].device)
+    gen.manual_seed(seed)
+
+    def walk(node, key=""):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, key) for v in node]
+        if node is None:
+            return None
+        t = node.clone()
+        if key.endswith("_g"):
+            t.normal_(generator=gen).mul_(0.1).add_(1)
+        elif re.fullmatch(r"b|b\w|.*_b\d?|.*_ob", key):
+            t.normal_(generator=gen).mul_(0.1)
+        return t
+
+    return walk(params)
+
+
+def _diffusers_files(tree, cfg):
+    """An SD 1.x diffusion tree under diffusers names and torch layouts (linear
+    ``[out, in]``; conv OIHW; SD 1.x's ``proj_in``/``proj_out``,
+    ``conv_shortcut`` and ``post_quant_conv`` as 1x1 convs):
+    {component: ({name: tensor}, config.json)}."""
+
+    def lin(w):
+        return w.T
+
+    def conv1x1(w):
+        return w.T[:, :, None, None]
+
+    def clip(p):
+        out = {
+            "text_model.embeddings.token_embedding.weight": p["tok_emb"],
+            "text_model.embeddings.position_embedding.weight": p["pos_emb"],
+            "text_model.final_layer_norm.weight": p["lnf_g"],
+            "text_model.final_layer_norm.bias": p["lnf_b"],
+        }
+        names = {"wq": "self_attn.q_proj.weight",
+                 "bq": "self_attn.q_proj.bias",
+                 "wk": "self_attn.k_proj.weight",
+                 "bk": "self_attn.k_proj.bias",
+                 "wv": "self_attn.v_proj.weight",
+                 "bv": "self_attn.v_proj.bias",
+                 "wo": "self_attn.out_proj.weight",
+                 "bo": "self_attn.out_proj.bias",
+                 "ln1_g": "layer_norm1.weight", "ln1_b": "layer_norm1.bias",
+                 "ln2_g": "layer_norm2.weight", "ln2_b": "layer_norm2.bias",
+                 "w1": "mlp.fc1.weight", "b1": "mlp.fc1.bias",
+                 "w2": "mlp.fc2.weight", "b2": "mlp.fc2.bias"}
+        for leaf, name in names.items():
+            for i, t in enumerate(p["layers"][leaf]):
+                out[f"text_model.encoder.layers.{i}.{name}"] = (
+                    lin(t) if t.dim() == 2 else t)
+        if "proj" in p:
+            out["text_projection.weight"] = lin(p["proj"])
+        return out
+
+    def res(p, pre):
+        out = {f"{pre}.{n}.{w}": p[f"{n}_{'g' if w == 'weight' else 'b'}"]
+               for n in ("norm1", "norm2") for w in ("weight", "bias")}
+        out.update({f"{pre}.{c}.weight": p[f"{c}_w"] for c in ("conv1",
+                                                               "conv2")})
+        out.update({f"{pre}.{c}.bias": p[f"{c}_b"] for c in ("conv1",
+                                                             "conv2")})
+        if "temb_w" in p:
+            out[f"{pre}.time_emb_proj.weight"] = lin(p["temb_w"])
+            out[f"{pre}.time_emb_proj.bias"] = p["temb_b"]
+        if "skip_w" in p:
+            out[f"{pre}.conv_shortcut.weight"] = conv1x1(p["skip_w"])
+            out[f"{pre}.conv_shortcut.bias"] = p["skip_b"]
+        return out
+
+    def spatial(p, pre):
+        out = {f"{pre}.norm.weight": p["norm_g"],
+               f"{pre}.norm.bias": p["norm_b"],
+               f"{pre}.proj_in.weight": conv1x1(p["proj_in_w"]),
+               f"{pre}.proj_in.bias": p["proj_in_b"],
+               f"{pre}.proj_out.weight": conv1x1(p["proj_out_w"]),
+               f"{pre}.proj_out.bias": p["proj_out_b"]}
+        for k, bp in enumerate(p["blocks"]):
+            b = f"{pre}.transformer_blocks.{k}"
+            for i in (1, 2, 3):
+                out[f"{b}.norm{i}.weight"] = bp[f"ln{i}_g"]
+                out[f"{b}.norm{i}.bias"] = bp[f"ln{i}_b"]
+            for a in ("attn1", "attn2"):
+                for x in "qkv":
+                    out[f"{b}.{a}.to_{x}.weight"] = lin(bp[f"{a}_{x}"])
+                out[f"{b}.{a}.to_out.0.weight"] = lin(bp[f"{a}_o"])
+                out[f"{b}.{a}.to_out.0.bias"] = bp[f"{a}_ob"]
+            out[f"{b}.ff.net.0.proj.weight"] = lin(bp["ff_w1"])
+            out[f"{b}.ff.net.0.proj.bias"] = bp["ff_b1"]
+            out[f"{b}.ff.net.2.weight"] = lin(bp["ff_w2"])
+            out[f"{b}.ff.net.2.bias"] = bp["ff_b2"]
+        return out
+
+    def updown(p, pre):
+        return {} if p is None else {f"{pre}.conv.weight": p["w"],
+                                     f"{pre}.conv.bias": p["b"]}
+
+    u = tree["unet"]
+    unet = {"time_embedding.linear_1.weight": lin(u["time_w1"]),
+            "time_embedding.linear_1.bias": u["time_b1"],
+            "time_embedding.linear_2.weight": lin(u["time_w2"]),
+            "time_embedding.linear_2.bias": u["time_b2"],
+            "conv_in.weight": u["conv_in_w"], "conv_in.bias": u["conv_in_b"],
+            "conv_norm_out.weight": u["norm_out_g"],
+            "conv_norm_out.bias": u["norm_out_b"],
+            "conv_out.weight": u["conv_out_w"],
+            "conv_out.bias": u["conv_out_b"]}
+    for side, key, sampler in (("down_blocks", "down", "downsamplers"),
+                               ("up_blocks", "up", "upsamplers")):
+        for li, lv in enumerate(u[key]):
+            for j, rp in enumerate(lv["res"]):
+                unet.update(res(rp, f"{side}.{li}.resnets.{j}"))
+                if lv["attn"] is not None:
+                    unet.update(spatial(lv["attn"][j],
+                                        f"{side}.{li}.attentions.{j}"))
+            unet.update(updown(lv[key], f"{side}.{li}.{sampler}.0"))
+    unet.update(res(u["mid"]["res1"], "mid_block.resnets.0"))
+    unet.update(spatial(u["mid"]["attn"], "mid_block.attentions.0"))
+    unet.update(res(u["mid"]["res2"], "mid_block.resnets.1"))
+
+    v, at = tree["vae"], "decoder.mid_block.attentions.0"
+    vae = {"post_quant_conv.weight": conv1x1(v["post_quant_w"]),
+           "post_quant_conv.bias": v["post_quant_b"],
+           "decoder.conv_in.weight": v["conv_in_w"],
+           "decoder.conv_in.bias": v["conv_in_b"],
+           "decoder.conv_norm_out.weight": v["norm_out_g"],
+           "decoder.conv_norm_out.bias": v["norm_out_b"],
+           "decoder.conv_out.weight": v["conv_out_w"],
+           "decoder.conv_out.bias": v["conv_out_b"],
+           f"{at}.group_norm.weight": v["mid"]["attn"]["norm_g"],
+           f"{at}.group_norm.bias": v["mid"]["attn"]["norm_b"]}
+    for x, name in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"),
+                    ("o", "to_out.0")):
+        vae[f"{at}.{name}.weight"] = lin(v["mid"]["attn"][f"{x}_w"])
+        vae[f"{at}.{name}.bias"] = v["mid"]["attn"][f"{x}_b"]
+    vae.update(res(v["mid"]["res1"], "decoder.mid_block.resnets.0"))
+    vae.update(res(v["mid"]["res2"], "decoder.mid_block.resnets.1"))
+    for ui, lv in enumerate(v["up"]):
+        for j, rp in enumerate(lv["res"]):
+            vae.update(res(rp, f"decoder.up_blocks.{ui}.resnets.{j}"))
+        vae.update(updown(lv["up"], f"decoder.up_blocks.{ui}.upsamplers.0"))
+
+    mc = cfg.model_channels
+    return {
+        "text_encoder": (clip(tree["text"]), {
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.text_dim,
+            "num_hidden_layers": cfg.text_layers,
+            "num_attention_heads": cfg.text_heads,
+            "max_position_embeddings": cfg.max_text_len,
+            "hidden_act": cfg.text_act}),
+        "unet": (unet, {
+            "in_channels": cfg.latent_channels,
+            "sample_size": cfg.latent_size,
+            "block_out_channels": [mc * m for m in cfg.channel_mult],
+            "layers_per_block": cfg.num_res_blocks,
+            "down_block_types": [
+                "CrossAttnDownBlock2D" if i in cfg.attn_levels
+                else "DownBlock2D" for i in range(len(cfg.channel_mult))],
+            "transformer_layers_per_block": list(cfg.transformer_depth),
+            "attention_head_dim": list(cfg.num_heads),
+            "cross_attention_dim": cfg.context_dim,
+            "prediction_type": cfg.prediction_type}),
+        "vae": (vae, {
+            "block_out_channels": [cfg.vae_channels * m
+                                   for m in cfg.vae_channel_mult],
+            "layers_per_block": cfg.vae_res_blocks,
+            "scaling_factor": cfg.scaling_factor}),
+    }
+
+
+def _diffusion_checkpoint(engine):
+    """The served model whole (its biases and norm gains drawn at random)
+    written as a diffusers directory by the script's own writer and served
+    through ``--model-dir``: the loaded config and tree (dtypes and
+    values) identical to the in-memory ones, and the same seed's PNG bytes
+    identical."""
+    from gpustack_tpu_torch.engine.image_server import (
+        ImageEngine,
+        build_image_engine_from_args,
+        build_parser,
+    )
+
+    cfg = engine.cfg
+    tree = _randomized_tree(engine.params, 3)
+    with tempfile.TemporaryDirectory(prefix="diffusers-ckpt-") as d:
+        t0 = time.perf_counter()
+        nbytes = 0
+        with open(os.path.join(d, "model_index.json"), "w") as f:
+            json.dump({"_class_name": "StableDiffusionPipeline"}, f)
+        for sub, (tensors, config) in _diffusers_files(tree, cfg).items():
+            os.makedirs(os.path.join(d, sub))
+            nbytes += write_safetensors(os.path.join(
+                d, sub, "diffusion_pytorch_model.safetensors"), tensors)
+            with open(os.path.join(d, sub, "config.json"), "w") as f:
+                json.dump(config, f)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = build_image_engine_from_args(build_parser().parse_args(
+            ["--model-dir", d, "--port", "0", "--device",
+             str(engine.device)]))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    if dataclasses.replace(loaded.cfg, name=cfg.name) != cfg:
+        raise AssertionError(f"loaded config {loaded.cfg}")
+    want, got = _leaves(tree), _leaves(loaded.params)
+    bad = sorted(k for k in want if k not in got or got[k].dtype
+                 != want[k].dtype or not torch.equal(got[k], want[k]))
+    if bad or set(got) != set(want):
+        raise AssertionError(f"loaded diffusion tree differs at {bad[:5]}")
+    kw = {"prompt": R_PROMPT, "negative": R_NEGATIVE, "steps": R_FEW_STEPS,
+          "seed": 5}
+    if ImageEngine(cfg, tree).generate(**kw) != loaded.generate(**kw):
+        raise AssertionError("checkpoint PNG bytes differ")
+    return {"bytes": nbytes, "write_s": write_s, "load_s": load_s,
+            "tree": "identical", "png_bytes": "identical"}
+
+
+def _image_path(kind, smi, argv, extra_sizes, n4):
+    from gpustack_tpu_torch.engine.image_server import (
+        build_image_engine_from_args,
+        build_parser,
+    )
+
+    held_gb = _held_gb(argv[1])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = build_image_engine_from_args(build_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg = engine.cfg
+    n_params = sum(t.numel() for t in _leaves(engine.params).values())
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    gates, latents, times = _image_gates(engine)
+    gates_s = time.perf_counter() - t0
+    _free()
+    served, n_refusals, health, metrics = _image_requests(
+        engine, extra_sizes, n4)
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the image path launched kernels {counts}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    checkpoint = None
+    if not n4:
+        checkpoint = _diffusion_checkpoint(engine)
+    emit("image_path", model=cfg.name, device=kind, nvidia_smi=smi,
+         setup_s=setup_s, held_gb_before=held_gb, params_b=n_params / 1e9,
+         weights_gb=_tree_gb(engine.params), image_size=cfg.image_size,
+         latent_size=cfg.latent_size, text_encoders=2 if cfg.text2_dim else 1,
+         vs_fp32=gates, tolerance={"rel": DIFFUSION_REL_TOL,
+                                   "vae_rel": VAE_REL_TOL,
+                                   "min_cosine": DIFFUSION_MIN_COSINE,
+                                   "latents_min_cosine": LATENTS_MIN_COSINE},
+         latents_30_steps_vs_fp32=latents, gates_s=gates_s, **times,
+         served=served, refusals=n_refusals, launches=counts,
+         healthz=health, metrics=metrics, peak_mem_gb=peak_gb,
+         checkpoint=checkpoint)
+    return counts
+
+
+def phase_images(kind, smi):
+    """sd15-shaped (0.96 B parameters, 512 px, 64 x 64 latents) and
+    sdxl-shaped (3.39 B, 1024 px, 128 x 128 latents, two text encoders,
+    depth 10 at its lowest level) at full width in bf16, random weights
+    from seed 0, behind the port's image server. For each: both text
+    encoders, one UNet call at the guided batch of 2 and ``vae_decode``
+    against an fp32 run of the same functions over the same weights
+    upcast (5% of the scale, the VAE 10%; cosine 0.999), each step of a
+    30-step sample against an fp32 step from the same latents (cosine
+    0.99; the free fp32 run beside it); the device times of the text
+    encoders, a UNet call at batch 2 and 8 (with its attention's share)
+    and the VAE; then ``/v1/images/generations`` at the default 30 steps
+    (timed, with the host ms of its PNG encode), n = 2, one seed twice and
+    another, the other sizes, n = 4 on sdxl-shaped (peak memory), every
+    refusal of JAX's validation, ``/healthz`` and ``/metrics``. sd15-shaped
+    is also written whole as a diffusers checkpoint and served through
+    ``--model-dir``. No hand-written kernel serves this path (its
+    attention is plain torch, as it is XLA in JAX): its windows must count
+    none. Returns {window: launch counts}."""
+    paths = {}
+    for argv, extra_sizes, n4 in R_MODELS:
+        paths[f"image_{argv[1].split('-')[0]}"] = _image_path(
+            kind, smi, argv, extra_sizes, n4)
+        _free()
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4564,6 +5178,8 @@ def main() -> int:
     paths.update(phase_whisper(kind, smi))
     _free()
     paths.update(phase_tts(kind, smi))
+    _free()
+    paths.update(phase_images(kind, smi))
     kernels = []
     grouped_cases = rows.pop("grouped_cases")
     large_m = rows.pop("w8a16_large_m")

@@ -17,9 +17,10 @@ header, then each tensor's bytes at its offsets.
 
 The modalities: ``load_whisper_params`` (an HF Whisper safetensors dir
 on the same reader) and ``load_npz_params`` (the in-repo TTS model's npz
-tree); ``params_from_numpy`` also carries the vision, Whisper and TTS
-trees across, transposing Whisper's conv weights once (JAX's HIO
-``[K, Cin, Cout]`` to ``[Cout, Cin, K]``).
+tree); ``params_from_numpy`` also carries the vision, Whisper, TTS and
+diffusion trees across, transposing the conv weights once (Whisper's HIO
+``[K, Cin, Cout]`` to ``[Cout, Cin, K]``, a diffusion tree's HWIO to
+OIHW). The diffusers loader is ``engine/image_weights.py``.
 """
 
 from __future__ import annotations
@@ -623,22 +624,34 @@ _WHISPER_CONVS = ("conv1", "conv2")
 
 def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     """Convert a parameter tree of numpy arrays (a JAX package tree:
-    ``init_params``, ``init_vision_params``, ``init_whisper_params`` or
-    ``init_tts_params``, leaves passed through ``np.asarray``) into the
-    port's tree of tensors on ``device`` (default: the card): same keys,
-    same stacked shapes, same dtypes, except Whisper's two conv weights,
-    transposed here once to ``[Cout, Cin, K]``. A JAX ``QuantW`` leaf (any
-    node with ``q`` and ``s`` arrays) becomes the port's ``QuantW``."""
+    ``init_params``, ``init_vision_params``, ``init_whisper_params``,
+    ``init_tts_params`` or ``init_diffusion_params``, leaves passed through
+    ``np.asarray``) into the port's tree of tensors on ``device`` (default:
+    the card): same keys, lists and ``None`` nodes, same stacked shapes,
+    same dtypes, except the conv weights, transposed here once: Whisper's
+    two (JAX's HIO ``[K, Cin, Cout]`` to ``[Cout, Cin, K]``) and every 4-D
+    leaf of a diffusion tree (one with ``unet`` and ``vae``: HWIO to OIHW,
+    in ``channels_last`` memory). A JAX ``QuantW`` leaf (any node with
+    ``q`` and ``s`` arrays) becomes the port's ``QuantW``."""
     device = resolve_device(device)
+    diffusion = "unet" in tree and "vae" in tree
 
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if node is None:
+            return None
         if hasattr(node, "q") and hasattr(node, "s"):
             return QuantW(
                 q=_to_tensor(node.q, device), s=_to_tensor(node.s, device)
             )
-        return _to_tensor(node, device)
+        t = _to_tensor(node, device)
+        if diffusion and t.dim() == 4:
+            t = t.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+        return t
 
     out = walk(tree)
     for key in _WHISPER_CONVS:

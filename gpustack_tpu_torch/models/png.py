@@ -1,5 +1,6 @@
-"""Image input for the vision path without PIL: a PNG decoder and a
-bicubic resize that reproduces Pillow's ``Image.resize`` default.
+"""Images without PIL: a PNG decoder and a bicubic resize that reproduces
+Pillow's ``Image.resize`` default (the vision path's input), and a PNG
+encoder (the image server's output).
 
 The JAX ``VisionBundle.preprocess`` calls
 ``PIL.Image.open(...).convert("RGB").resize((s, s))``. The card's machine
@@ -169,6 +170,32 @@ def decode_png(data: bytes) -> np.ndarray:
     if colour == 0:
         return np.repeat(px, 3, axis=2)
     return np.ascontiguousarray(px[..., :3])
+
+
+def _chunk(ctype: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + ctype + body
+            + struct.pack(">I", zlib.crc32(ctype + body)))
+
+
+def encode_png(rgb: np.ndarray) -> bytes:
+    """uint8 RGB ``[height, width, 3]`` -> PNG bytes: bit depth 8, colour
+    type RGB, no interlace, filter 0 on every row, one zlib stream in one
+    IDAT chunk, each chunk with its CRC."""
+    rgb = np.asarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(
+            f"encode_png takes uint8 [H, W, 3], not {rgb.dtype} {rgb.shape}"
+        )
+    height, width = rgb.shape[:2]
+    if width == 0 or height == 0:
+        raise ValueError("cannot encode an empty image")
+    rows = np.zeros((height, 1 + 3 * width), np.uint8)    # filter byte 0
+    rows[:, 1:] = rgb.reshape(height, 3 * width)
+    return (PNG_SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 2,
+                                          0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + _chunk(b"IEND", b""))
 
 
 def decode_image(data: bytes) -> np.ndarray:
