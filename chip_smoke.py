@@ -205,6 +205,23 @@ r. image generation: sd15-shaped (1.03 B parameters, 512 px) and
    sd15-shaped written whole as a diffusers checkpoint and served through
    ``--model-dir`` (config, tree and PNG bytes identical). Like p and q,
    phase r launches no hand-written kernel, and its windows count none.
+s. four GPUs, when the machine has them (else one line says phase s did
+   not run, and why): llama3-70b (bf16, 80 layers) under ``tp4`` and
+   mixtral-8x7b (bf16) under ``ep2xtp2`` through the port's server, this
+   process rank 0 and one follower process per other GPU: the served
+   logits against a prefill through the plain attention on the same
+   ranks, TTFT at the 2048, 512 and 128 buckets, a chat, 8 chats of 128
+   tokens decoding at once, every rank's launches equal to what the
+   leader's forwards need (80 flash launches a prefill on each rank for
+   llama3-70b), every follower's slot state equal to the leader's, peak
+   memory per rank, and the NCCL kernels' share of a decode step's
+   (20-step profile) and of a 2048-bucket prefill's device time; then, one
+   process per GPU: llama3-70b at 4 layers in fp32 (TF32 off) under
+   ``tp4`` against the one-card forward of the same tree (each rank's
+   leaves equal to the one-card tree's slices first, logits within 1e-4
+   of their scale), the same in int8 (W8A16 and flash on the shards)
+   against one-card int8, and one mixtral-8x7b MoE layer under
+   ``ep2xtp2`` against the fp32 routed reference with the picks replayed.
 
 In d to o every kernel's launches are counted around the served
 requests alone and must equal what that path's model forwards need,
@@ -2893,9 +2910,10 @@ def _short_kernel_name(name):
     return name[:cut][:240]
 
 
-def _profile(port, label):
+def _profile(port, label, read_trace=None):
     """``/debug/profile?steps=20`` while 8 chats decode; the trace
-    summarised."""
+    summarised (and read by ``read_trace``, when given, into more
+    fields)."""
     from gpustack_tpu_torch.engine.engine import PROFILE_TRACE_FILE
 
     started = [threading.Event() for _ in range(8)]
@@ -2928,6 +2946,9 @@ def _profile(port, label):
         summary = summarize_trace(
             os.path.join(out_dir, PROFILE_TRACE_FILE), PROFILE_STEPS - 1
         )
+        if read_trace is not None:
+            summary.update(read_trace(
+                os.path.join(out_dir, PROFILE_TRACE_FILE)))
     finally:
         for t in chats:
             t.join(timeout=600)
@@ -5132,6 +5153,471 @@ def phase_images(kind, smi):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# s: four GPUs, tensor- and expert-parallel serving
+# ---------------------------------------------------------------------------
+
+S_GPUS = 4
+S1_ARGV = ["--preset", "llama3-70b", "--num-devices", "4"] + MAIN_ARGV[2:]
+S3_ARGV = ["--preset", "mixtral-8x7b", "--num-devices", "4"] + MAIN_ARGV[2:]
+# prompt tokens of the TTFT requests, by the bucket each fills
+S_TTFT_TOKENS = {2048: 1900, 512: 480, 128: 100}
+S_DECODE_TOKENS = 128
+# the sharded-forward checks (s2, s4): llama3-70b at full width, cut in
+# depth; the MoE layer (s3): one mixtral-8x7b layer at full width
+S_DENSE_PRESET = "llama3-70b"
+S_MOE_PRESET = "mixtral-8x7b"
+S_SHARD_LAYERS = 4
+S_SHARD_TOKENS = 512
+S_MOE_TOKENS = (2048, 8)
+# fp32 with TF32 off, tp4 against one card: the same products summed in
+# another order (the all-reduce adds four partial sums)
+SHARD_REL_TOL = 1e-4
+S_RANK_TIMEOUT_S = 900
+S_RANK_DEVICE = "cuda"
+# the kernels whose launches each rank reports (ModelRunner.probe)
+S_KERNELS = ("flash_attention_prefill", "w8a16_matmul", "w8a16_grouped",
+             "bf16_grouped")
+
+
+def _s_ids(n, vocab, seed):
+    """``n`` prompt ids from a seed, inside the vocab."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(10, min(vocab, 30000), (n,), generator=gen).tolist()
+
+
+def _nccl_share(path):
+    """From a Chrome trace: the device time of NCCL kernels, of all
+    kernels, and the share."""
+    with open(path) as f:
+        kernels = [e for e in json.load(f)["traceEvents"]
+                   if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    total = sum(e["dur"] for e in kernels)
+    nccl = sum(e["dur"] for e in kernels if "nccl" in e["name"].lower())
+    return {"nccl_ms": nccl / 1e3, "kernel_ms": total / 1e3,
+            "nccl_share": nccl / max(total, 1e-9),
+            "nccl_kernels": sum("nccl" in e["name"].lower() for e in kernels)}
+
+
+def _s_prefill_profile(engine, n_tokens):
+    """One prefill of the bucket ``n_tokens`` fills, from this thread on
+    an idle engine (the leader broadcasts it; every rank runs it), timed
+    with CUDA events, then once more under ``torch.profiler`` on rank 0:
+    its NCCL share."""
+    runner = engine.runner
+    ids = _s_ids(n_tokens, runner.cfg.vocab_size, 5)
+    padded = ids + [0] * (runner.bucket_for(len(ids)) - len(ids))
+    times = []
+    with torch.no_grad():
+        for i in range(4):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            runner.prefill(padded, len(ids))
+            end.record()
+            torch.cuda.synchronize()
+            if i:
+                times.append(start.elapsed_time(end))
+        with tempfile.TemporaryDirectory(prefix="s-prefill-") as d:
+            path = os.path.join(d, "trace.json")
+            with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA,
+            ]) as prof:
+                runner.prefill(padded, len(ids))
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(path)
+            share = _nccl_share(path)
+    return {"prefill_ms": statistics.median(times),
+            "prefill_ms_runs": times, **share}
+
+
+def _s_logit_gate(engine):
+    """The standing logit gate over the mesh: a prefill through the
+    served path (the flash kernel on every rank) against a prefill of the
+    same prompt through the plain attention on the same ranks
+    (``probe("prefill_plain")``), last-position logits. MoE routing is
+    free in both runs (each rank's router sees the same activations; a
+    pick near a tie may flip between the two runs)."""
+    runner, state = engine.runner, engine._state
+    ids = _s_ids(1900, runner.cfg.vocab_size, 3)
+    padded = ids + [0] * (runner.bucket_for(len(ids)) - len(ids))
+    with torch.no_grad():
+        served, _, _ = runner.prefill(padded, len(ids))
+        plain = runner.probe(state, "prefill_plain", padded, len(ids))
+    if served.shape != (runner.cfg.vocab_size,) or not torch.isfinite(
+        served
+    ).all():
+        raise AssertionError(f"bad logits {tuple(served.shape)}")
+    gate = _compare_logits(served, plain)
+    if gate["max_abs_err"] > LOGIT_REL_TOL * gate["logit_scale"] or (
+        gate["cosine"] < LOGIT_MIN_COSINE
+    ):
+        raise AssertionError(f"served prefill logits differ: {gate}")
+    return {**gate, "prompt_tokens": len(ids),
+            "reference": "plain attention, bf16, the same ranks",
+            "tolerance": {"rel": LOGIT_REL_TOL,
+                          "min_cosine": LOGIT_MIN_COSINE}}
+
+
+def _s_decode_rate(engine):
+    """8 chats decoding at once, ``S_DECODE_TOKENS`` each: tokens/s after
+    every first token."""
+    from gpustack_tpu_torch.engine.engine import GenRequest
+
+    reqs = [
+        engine.submit(GenRequest(
+            prompt_ids=_s_ids(24, engine.cfg.vocab_size, 100 + i),
+            max_tokens=S_DECODE_TOKENS, temperature=0.0, stop_ids=(),
+        ))
+        for i in range(engine.max_slots)
+    ]
+    for r in reqs:
+        if not r.done.wait(600):
+            raise AssertionError("a decode-rate request timed out")
+    if any(len(r.output_ids) != S_DECODE_TOKENS for r in reqs):
+        raise AssertionError("a chat stopped early")
+    t_first = max(r.first_token_at for r in reqs)
+    t_end = max(r.finished_at for r in reqs)
+    after_first = sum(len(r.output_ids) - 1 for r in reqs)
+    return after_first / max(t_end - t_first, 1e-9), len(reqs)
+
+
+def _s_served(argv, label, kind, smi):
+    """One model across the GPUs through the port's server: this process
+    is rank 0 (``build_engine_from_args`` starts a follower process per
+    other GPU) and serves HTTP. The standing logit gate; then, counted on
+    every rank: one prompt at each TTFT bucket, a chat over HTTP and 8
+    chats decoding at once; every rank's launches equal what the leader's
+    runner calls need (``expected_launches``: the flash kernel once per
+    layer of each prefill, the grouped kernel three times per MoE layer
+    of each forward); every follower's slot state equal to the leader's;
+    peak memory per rank; then the NCCL share of a 20-step decode profile
+    and of a 2048-bucket prefill on rank 0."""
+    from gpustack_tpu_torch.engine.api_server import (
+        OpenAIServer,
+        build_engine_from_args,
+        build_parser,
+        shutdown_replica,
+    )
+    from gpustack_tpu_torch.engine.engine import GenRequest
+
+    t0 = time.perf_counter()
+    engine = build_engine_from_args(build_parser().parse_args(argv))
+    runner = engine.runner
+    state = engine._state
+    cfg, plan = runner.cfg, runner.plan
+    world = plan.chips
+    runner.probe(state, "memory")         # every rank is up
+    setup_s = time.perf_counter() - t0
+    engine.start()
+    server = OpenAIServer(engine)
+    port = server.start("127.0.0.1", 0)
+    try:
+        gate = _s_logit_gate(engine)
+        for n in S_TTFT_TOKENS.values():          # warm every bucket
+            engine.generate(GenRequest(
+                prompt_ids=_s_ids(n, cfg.vocab_size, n), max_tokens=2,
+                temperature=0.0), timeout=600)
+        runner.probe(state, "reset_memory")
+        calls = RunnerCalls(engine.runner, int8=False)
+        runner.probe(state, "reset_launches")
+        calls.reset()
+        ttft = {}
+        for bucket, n in S_TTFT_TOKENS.items():
+            req = engine.generate(GenRequest(
+                prompt_ids=_s_ids(n, cfg.vocab_size, 7 + bucket),
+                max_tokens=2, temperature=0.0), timeout=600)
+            ttft[f"ttft_ms_{bucket}_bucket"] = req.ttft_ms
+        msgs = [{"role": "user", "content": f"Say hello to {world} H100s."}]
+        _, raw = _post(port, "/v1/chat/completions", {
+            "messages": msgs, "max_tokens": 16, "temperature": 0})
+        _check_usage(json.loads(raw),
+                     len(engine.tokenizer.apply_chat_template(msgs)))
+        rate, chats = _s_decode_rate(engine)
+        launches = runner.probe(state, "launches")
+        memory = runner.probe(state, "memory")
+        states = runner.probe(state, "slot_state")
+        window = calls.counts()
+        want = expected_launches([calls])
+        for name in S_KERNELS:
+            if launches[name] != [want[name]] * world:
+                raise AssertionError(
+                    f"{label}: {name} launched {launches[name]} per rank, "
+                    f"the leader's forwards need {want[name]} on each"
+                )
+        if window["prefill"] != len(S_TTFT_TOKENS) + 1 + chats:
+            raise AssertionError(f"{label}: runner calls {window}")
+        for rank, st in enumerate(states[1:], start=1):
+            if not torch.equal(st, states[0]):
+                raise AssertionError(
+                    f"{label}: rank {rank}'s slot state parted from the "
+                    f"leader's: {st.tolist()} vs {states[0].tolist()}"
+                )
+        health = engine.health()
+        if health["status"] != "ok":
+            raise AssertionError(f"{label}: engine unhealthy: {health}")
+        decode_profile = _profile(port, label, read_trace=_nccl_share)
+        prefill = _s_prefill_profile(engine, S_TTFT_TOKENS[2048])
+        report = {
+            "model": cfg.name, "plan": str(plan), "layers": cfg.num_layers,
+            "device": kind, "nvidia_smi": smi, "setup_s": setup_s,
+            "logit_check": gate, **ttft,
+            "decode_tokens_per_s_8_slots": rate,
+            "decode_tokens_per_chat": S_DECODE_TOKENS,
+            "launches_per_rank": {n: launches[n] for n in S_KERNELS},
+            "runner_calls": window,
+            "peak_mem_gb_per_rank": [m / 1e9 for m in memory],
+            "followers_slot_state_equal": True,
+            "layout": health["layout"],
+            "decode_profile": {k: decode_profile[k] for k in (
+                "device_busy_share", "device_ms_per_step", "idle_ms_per_step",
+                "step_ms_unprofiled", "nccl_ms", "kernel_ms", "nccl_share",
+                "nccl_kernels", "top_device_ops")},
+            "prefill_2048": prefill,
+        }
+        emit(f"multi_gpu_{label}", **report)
+        return report
+    finally:
+        server.shutdown()
+        engine.stop()
+        shutdown_replica(engine, timeout=120)
+
+
+def _s_same(a, b):
+    from gpustack_tpu_torch.models.quant import QuantW
+
+    if isinstance(a, QuantW):
+        return torch.equal(a.q, b.q) and torch.equal(a.s, b.s)
+    return torch.equal(a, b)
+
+
+def _s_sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _s_dense_case(mesh, device, int8, preset):
+    """llama3-70b at ``S_SHARD_LAYERS`` layers: this rank's shard drawn as
+    the server draws it, against the slice of the one-card tree from the
+    same seed (bit for bit, every leaf); then a prefill of
+    ``S_SHARD_TOKENS`` through the sharded forward against the one-card
+    forward of the same tree on this rank's card. fp32 with TF32 off and
+    the plain attention: within ``SHARD_REL_TOL`` of the logit scale;
+    int8 (bf16 activations, the flash and W8A16 kernels on the shards):
+    the standing logit gate. The launches are the sharded run's."""
+    from gpustack_tpu_torch.engine.weights import load_or_init_params
+    from gpustack_tpu_torch.models import transformer as tf
+    from gpustack_tpu_torch.models.config import get_config
+    from gpustack_tpu_torch.models.quant import init_quantized_params
+    from gpustack_tpu_torch.parallel.sharding import shard_params
+
+    cfg = dataclasses.replace(
+        get_config(preset), num_layers=S_SHARD_LAYERS,
+        dtype="bfloat16" if int8 else "float32",
+    )
+
+    def draw(mesh_or_none):
+        if int8:
+            return init_quantized_params(cfg, seed=0, device=device,
+                                         mesh=mesh_or_none)
+        return load_or_init_params(cfg, None, seed=0, device=device,
+                                   mesh=mesh_or_none)
+
+    shard, full = draw(mesh), draw(None)
+    cut = _leaves(shard_params(full, mesh, cfg.num_kv_heads))
+    mine = _leaves(shard)
+    unequal = [p for p, leaf in mine.items() if not _s_same(leaf, cut[p])]
+    del cut
+    T = S_SHARD_TOKENS
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (1, T), generator=gen).to(device)
+    pos = torch.arange(T, device=device)[None]
+    attn = "flash" if int8 else "plain"
+    with torch.no_grad():
+        reset_launch_counts()
+        cache = tf.KVCache.create(cfg, 1, T, device, mesh.tp)
+        got, _ = tf.forward(shard, cfg, toks, pos, cache, attn_impl=attn,
+                            mesh=mesh)
+        _s_sync(device)
+        launches = {n: launch_counts()[n] for n in S_KERNELS}
+        cache = tf.KVCache.create(cfg, 1, T, device)
+        want, _ = tf.forward(full, cfg, toks, pos, cache, attn_impl=attn)
+    cmp = _compare_logits(got.flatten(), want.flatten())
+    if int8:
+        ok = (cmp["max_abs_err"] <= LOGIT_REL_TOL * cmp["logit_scale"]
+              and cmp["cosine"] >= LOGIT_MIN_COSINE)
+        tol = {"rel": LOGIT_REL_TOL, "min_cosine": LOGIT_MIN_COSINE}
+    else:
+        ok = cmp["max_abs_err"] <= SHARD_REL_TOL * cmp["logit_scale"]
+        tol = {"rel": SHARD_REL_TOL}
+    return {"model": cfg.name, "layers": cfg.num_layers, "tokens": T,
+            "weights": "int8" if int8 else "fp32, TF32 off",
+            "attention": attn, "leaves": len(mine), "unequal_leaves": unequal,
+            **cmp, "tolerance": tol, "ok": ok and not unequal,
+            "launches": launches}
+
+
+def _s_moe_layer(mesh, device, preset):
+    """One mixtral-8x7b MoE layer at full width under ``ep2xtp2``: the
+    rank's experts and width (its shard, drawn as the server draws it;
+    equal to the one-card tree's slice) through ``_moe_mlp`` on the mesh,
+    against the fp32 routed reference over the one-card layer's weights
+    with the sharded run's picks replayed (phase h's check), at 2048 and 8
+    tokens; CUDA-event ms per call (its all-reduce included)."""
+    from gpustack_tpu_torch.engine.weights import load_or_init_params
+    from gpustack_tpu_torch.models import transformer as tf
+    from gpustack_tpu_torch.models.config import get_config
+    from gpustack_tpu_torch.parallel.sharding import shard_params
+
+    cfg = dataclasses.replace(get_config(preset), num_layers=1)
+    shard = load_or_init_params(cfg, None, seed=0, device=device, mesh=mesh)
+    full = load_or_init_params(cfg, None, seed=0, device=device)
+    cut = shard_params(full, mesh, cfg.num_kv_heads)
+    unequal = [k for k, v in shard["layers"].items()
+               if not torch.equal(v, cut["layers"][k])]
+    del cut
+    lp, fl = shard["layers"], full["layers"]
+    out = {"model": cfg.name, "plan": str(mesh.plan),
+           "local_experts": lp["we_gate"].shape[1],
+           "local_expert_width": lp["we_gate"].shape[-1],
+           "unequal_leaves": unequal, "cases": []}
+    for tokens in S_MOE_TOKENS:
+        gen = torch.Generator(device=device).manual_seed(tokens)
+        x = tf.rms_norm(
+            torch.randn(1, tokens, cfg.hidden_size, generator=gen,
+                        device=device).bfloat16(),
+            lp["mlp_norm"][0], cfg.rms_norm_eps,
+        )
+
+        def layer():
+            return tf._moe_mlp(x, lp["router"][0], lp["we_gate"][0],
+                               lp["we_up"][0], lp["we_down"][0], cfg,
+                               mesh=mesh)
+
+        with torch.no_grad(), _RoutingTape() as tape:
+            reset_launch_counts()
+            got = layer().reshape(-1, cfg.hidden_size).float()
+            _s_sync(device)
+            launches = {n: launch_counts()[n] for n in S_KERNELS}
+            tape.mode = "replay"
+            ref, _ = _moe_routed_reference(x, fl, 0, cfg)
+        with torch.no_grad():      # routing free again
+            if device.type == "cuda":
+                ms = cuda_time_ms(layer)
+            else:
+                layer()            # the same collectives, untimed
+                ms = None
+        cmp = _compare_logits(got.flatten(), ref.flatten())
+        ok = (torch.isfinite(got).all().item()
+              and cmp["max_abs_err"] <= MOE_REL_TOL * cmp["logit_scale"]
+              and cmp["cosine"] >= MOE_MIN_COSINE)
+        out["cases"].append({
+            "tokens": tokens, "ms": ms, "launches": launches,
+            "max_abs_err": cmp["max_abs_err"], "out_scale":
+            cmp["logit_scale"], "cosine": cmp["cosine"],
+            "flipped_picks": sum(tape.flips), "ok": bool(ok),
+            "tolerance": {"rel": MOE_REL_TOL, "min_cosine": MOE_MIN_COSINE},
+        })
+    out["ok"] = not unequal and all(c["ok"] for c in out["cases"])
+    return out
+
+
+def _s_allreduce(mesh, device, shape):
+    """One ``tp`` all-reduce of a bf16 ``shape`` (the sharded forward's
+    own): host µs per call (wall clock around back-to-back enqueues) and
+    device ms per call (CUDA events), on this rank."""
+    x = torch.ones(shape, dtype=torch.bfloat16, device=device)
+    out = {"shape": list(shape), "mbytes": x.numel() * 2 / 1e6}
+    if device.type == "cuda":
+        out["host_us_per_call"] = host_us_per_call(
+            lambda: mesh.all_reduce_tp(x), iters=100)
+        out["device_ms"] = cuda_time_ms(lambda: mesh.all_reduce_tp(x))
+    else:
+        mesh.all_reduce_tp(x)
+    return out
+
+
+def _s_shard_rank(rank, world, coordinator, dense, moe, device_type):
+    """One rank of the sharded checks (s2, s4, the s3 MoE layer) on
+    presets ``dense`` and ``moe``, in a process of its own: on
+    ``cuda:<rank>`` over NCCL (``device_type`` "cpu": gloo, for a
+    rehearsal)."""
+    from gpustack_tpu_torch.parallel.mesh import Mesh, MeshPlan, init_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device_type, rank if device_type == "cuda" else None)
+    mesh = init_mesh(MeshPlan(tp=world), rank, coordinator, device)
+    out = {"rank": rank}
+    # the all-reduce after an attention or MLP block of llama3-70b: a
+    # decode step's (8 slots) and a 2048-bucket prefill's
+    out["allreduce"] = [_s_allreduce(mesh, device, shape)
+                        for shape in ((8, 1, 8192), (1, 2048, 8192))]
+    out["fp32_tp4"] = _s_dense_case(mesh, device, False, dense)
+    _s_free(device)
+    out["int8_tp4"] = _s_dense_case(mesh, device, True, dense)
+    _s_free(device)
+    out["moe_layer"] = _s_moe_layer(Mesh(MeshPlan(ep=2, tp=world // 2), rank),
+                                    device, moe)
+    return out
+
+
+def _s_free(device):
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _s_sharded_checks(kind, smi):
+    """s2, s4 and s3's MoE layer, one process per GPU
+    (``parallel.launch.run_ranks``): each check's lines, each rank held
+    to its gates. Returns the ranks' reports."""
+    from gpustack_tpu_torch.parallel.launch import run_ranks
+
+    ranks = run_ranks(_s_shard_rank, S_GPUS, S_DENSE_PRESET, S_MOE_PRESET,
+                      S_RANK_DEVICE, timeout=S_RANK_TIMEOUT_S)
+    emit("multi_gpu_allreduce", device=kind, nvidia_smi=smi,
+         per_rank=[r["allreduce"] for r in ranks])
+    for key in ("fp32_tp4", "int8_tp4", "moe_layer"):
+        emit(f"multi_gpu_{key}", device=kind, nvidia_smi=smi,
+             **ranks[0][key], per_rank_ok=[r[key]["ok"] for r in ranks],
+             per_rank_unequal_leaves=[len(r[key]["unequal_leaves"])
+                                      for r in ranks])
+        bad = [r["rank"] for r in ranks if not r[key]["ok"]]
+        if bad:
+            raise AssertionError(f"phase s {key}: ranks {bad} failed")
+    return ranks
+
+
+def phase_multi_gpu(kind, smi):
+    """s1. llama3-70b, bf16, 80 layers, ``tp4`` through the server; s3.
+    mixtral-8x7b, bf16, ``ep2xtp2`` through the server (``_s_served``
+    each); then, in one process per GPU (:func:`_s_sharded_checks`): s2,
+    the sharding at full width (llama3-70b at 4 layers, fp32, tp4 against
+    one card), s4, int8 under tp4 against one-card int8, and s3's MoE
+    layer against its fp32 routed reference. Returns each kernel's
+    launches per rank on those paths."""
+    if S_RANK_DEVICE == "cuda" and torch.cuda.device_count() < S_GPUS:
+        raise AssertionError(f"phase s needs {S_GPUS} cards")
+    dense = _s_served(S1_ARGV, "tp4", kind, smi)
+    # the served engine's reference cycles (the counting wrappers) hold
+    # its weights until a collection: free them before the next model
+    _free()
+    moe = _s_served(S3_ARGV, "ep2xtp2", kind, smi)
+    _free()
+    ranks = _s_sharded_checks(kind, smi)
+    per_rank = {}
+    for report in (dense, moe):
+        for name, counts in report["launches_per_rank"].items():
+            per_rank.setdefault(name, {})[report["model"]] = counts
+    for key in ("fp32_tp4", "int8_tp4"):
+        for name, n in ranks[0][key]["launches"].items():
+            per_rank.setdefault(name, {})[f"{S_DENSE_PRESET} {key}"] = [
+                r[key]["launches"][name] for r in ranks]
+    return per_rank
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5180,6 +5666,13 @@ def main() -> int:
     paths.update(phase_tts(kind, smi))
     _free()
     paths.update(phase_images(kind, smi))
+    multi_gpu = None
+    if torch.cuda.device_count() >= S_GPUS:
+        _free()
+        multi_gpu = phase_multi_gpu(kind, smi)
+    else:
+        emit("s", ran=False, reason=f"needs {S_GPUS} cards, found "
+             f"{torch.cuda.device_count()}")
     kernels = []
     grouped_cases = rows.pop("grouped_cases")
     large_m = rows.pop("w8a16_large_m")
@@ -5272,6 +5765,10 @@ def main() -> int:
                 "library_ms",
             )},
         })
+    if multi_gpu is not None:
+        # phase s: each rank's launches, by model and path
+        for row in kernels:
+            row["multi_gpu_launches_per_rank"] = multi_gpu.get(row["name"], {})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,3 +31,15 @@ def resolve_device(
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev} (cuda or cpu)")
     return dev
+
+
+def rank_device(device: torch.device, rank: int) -> torch.device:
+    """The device of rank ``rank`` of a multi-GPU replica whose processes
+    were asked for ``device``: ``cuda:<local rank>`` on the card (one host,
+    so the local rank is the rank, modulo the cards it has), the CPU when
+    the CPU was asked for."""
+    if device.type == "cpu":
+        return device
+    return resolve_device(
+        torch.device("cuda", rank % torch.cuda.device_count())
+    )

@@ -1464,7 +1464,204 @@ def build_parser() -> argparse.ArgumentParser:
         help="torch device (default: the CUDA card; 'cpu' to run on the "
         "CPU — never chosen implicitly)",
     )
+    p.add_argument(
+        "--mesh-plan", default="",
+        help="explicit parallelism plan, e.g. 'tp4' or 'ep2xtp2' (default: "
+        "planned from --num-devices, the model's KV heads and experts)",
+    )
+    p.add_argument(
+        "--num-devices", type=int, default=None,
+        help="GPUs of one replica (default 1): with N > 1 this process is "
+        "rank 0, serves HTTP and starts N - 1 follower processes, one per "
+        "GPU (under --device cpu, processes on the CPU over gloo)",
+    )
     return p
+
+
+# The replica's environment contract (the JAX server's): set from outside,
+# these make this process one rank; a rank-0 server with --num-devices > 1
+# sets them for the followers it starts.
+ENV_COORDINATOR = "GPUSTACK_TPU_COORDINATOR"
+ENV_NUM_PROCESSES = "GPUSTACK_TPU_NUM_PROCESSES"
+ENV_PROCESS_ID = "GPUSTACK_TPU_PROCESS_ID"
+ENV_CMD_ADDRESS = "GPUSTACK_TPU_CMD_ADDRESS"
+ENV_CMD_TOKEN = "GPUSTACK_TPU_CMD_TOKEN"
+# a follower started by a rank-0 server exits when that server is gone
+ENV_PARENT_PID = "GPUSTACK_TPU_PARENT_PID"
+
+
+def _argv_of(args) -> List[str]:
+    """The command line that parses to ``args`` (the flags that differ
+    from their defaults), for the followers a rank-0 server starts."""
+    argv: List[str] = []
+    for action in build_parser()._actions:
+        if not action.option_strings or action.dest == "help":
+            continue
+        value = getattr(args, action.dest, action.default)
+        if value == action.default:
+            continue
+        flag = action.option_strings[0]
+        if isinstance(action, argparse._StoreTrueAction):
+            argv.append(flag)
+        elif isinstance(action, argparse._AppendAction):
+            for v in value:
+                argv += [flag, str(v)]
+        else:
+            argv += [flag, str(value)]
+    return argv
+
+
+def _refuse_multi_gpu(args, cfg, plan, vlm: bool) -> None:
+    """What a multi-GPU replica cannot serve yet, refused before any
+    weight is read, naming the plan (the JAX package refuses the same
+    features for multi-host placements, ``gpustack_tpu/engine/
+    multihost.py``; here every multi-GPU placement is multi-process)."""
+    from gpustack_tpu_torch.models.transformer import check_plan
+
+    if plan.sp > 1:
+        raise ValueError(
+            f"plan {plan}: sp > 1 (ring-attention prefill) is not ported yet"
+        )
+    if plan.dp > 1:
+        raise ValueError(
+            f"plan {plan}: dp > 1 (a dp-sharded decode batch) is not "
+            "ported yet"
+        )
+    refused = [
+        (args.host_kv_cache_mb > 0, "the host KV tier (--host-kv-cache-mb)"),
+        (bool(args.speculative), "speculative decoding (--speculative)"),
+        (bool(args.kv_role), "disaggregated serving (--kv-role)"),
+        (vlm, "the vision path (a VLM preset)"),
+    ]
+    for hit, what in refused:
+        if hit:
+            raise ValueError(
+                f"plan {plan}: {what} is not supported on a multi-GPU "
+                "replica"
+            )
+    check_plan(cfg, plan)
+
+
+def _start_followers(args, plan) -> Tuple[Dict[str, str], list]:
+    """Rank 0 of a replica started by hand: free ports for the rendezvous
+    and the command channel, a fresh token, and one follower process per
+    other rank (this module, the same flags, the environment contract,
+    the package importable whatever the working directory). Returns
+    (this process's environment view, the follower processes)."""
+    import secrets
+    import subprocess
+    import sys
+
+    from gpustack_tpu_torch.parallel.mesh import free_port
+
+    env = {
+        ENV_COORDINATOR: f"127.0.0.1:{free_port()}",
+        ENV_NUM_PROCESSES: str(plan.chips),
+        ENV_CMD_ADDRESS: f"127.0.0.1:{free_port()}",
+        ENV_CMD_TOKEN: secrets.token_hex(16),
+    }
+    argv = _argv_of(args)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    path = os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH", "")) if p)
+    procs = []
+    for rank in range(1, plan.chips):
+        child = dict(os.environ, **env, **{
+            ENV_PROCESS_ID: str(rank), ENV_PARENT_PID: str(os.getpid()),
+            "PYTHONPATH": path,
+        })
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "gpustack_tpu_torch.engine.api_server",
+             *argv], env=child,
+        ))
+    return dict(env, **{ENV_PROCESS_ID: "0"}), procs
+
+
+def _watch_followers(procs, joined: threading.Event) -> None:
+    """Until ``joined`` is set: a follower that exits means the
+    rendezvous can never complete, and this rank would wait in it for its
+    whole timeout. End the process, naming the follower."""
+    def watch():
+        while not joined.wait(0.5):
+            for rank, proc in enumerate(procs, start=1):
+                code = proc.poll()
+                if code is not None:
+                    logger.error(
+                        "follower rank %d exited (code %d) before the "
+                        "replica's rendezvous; exiting", rank, code,
+                    )
+                    for other in procs:
+                        if other.poll() is None:
+                            other.kill()
+                    os._exit(13)
+
+    threading.Thread(target=watch, name="follower-watch", daemon=True).start()
+
+
+def _placement(args, cfg, vlm: bool):
+    """This process's place in its replica: ``(plan, rank, env, procs)``.
+    The plan is chosen as the JAX server chooses it: ``--mesh-plan``, else
+    ``plan_mesh`` over ``--num-devices`` (default 1). ``env`` is the
+    replica's environment contract (empty on one GPU), ``procs`` the
+    followers this process started."""
+    from gpustack_tpu_torch.parallel.mesh import MeshPlan, plan_mesh
+
+    if args.mesh_plan:
+        plan = MeshPlan.parse(args.mesh_plan)
+    else:
+        plan = plan_mesh(args.num_devices or 1, cfg.num_kv_heads,
+                         cfg.num_experts)
+    n_env = int(os.environ.get(ENV_NUM_PROCESSES) or 0)
+    if n_env and n_env != plan.chips:
+        raise ValueError(
+            f"plan {plan} needs {plan.chips} processes, "
+            f"{ENV_NUM_PROCESSES}={n_env}"
+        )
+    if plan.chips == 1:
+        return plan, 0, {}, []
+    _refuse_multi_gpu(args, cfg, plan, vlm)
+    if os.environ.get(ENV_COORDINATOR):
+        env = {k: os.environ[k] for k in (
+            ENV_COORDINATOR, ENV_NUM_PROCESSES, ENV_PROCESS_ID,
+            ENV_CMD_ADDRESS,
+        )}
+        env[ENV_CMD_TOKEN] = os.environ.get(ENV_CMD_TOKEN, "")
+        return plan, int(env[ENV_PROCESS_ID]), env, []
+    env, procs = _start_followers(args, plan)
+    return plan, 0, env, procs
+
+
+def _watch_parent(pid: int) -> None:
+    """Exit when the rank-0 process that started this follower is gone
+    (it may die before the command channel would tell)."""
+    def watch():
+        while os.getppid() == pid:
+            time.sleep(1.0)
+        logger.error("the rank-0 server (pid %d) is gone; exiting", pid)
+        os._exit(14)
+
+    threading.Thread(target=watch, name="parent-watch", daemon=True).start()
+
+
+def shutdown_replica(engine, timeout: float = 60.0) -> None:
+    """Stop a replica's rank 0 (its engine already stopped): close the
+    command channel, which ends every follower, reap the followers it
+    started (killing any that outlive ``timeout``), leave the process
+    group."""
+    import subprocess
+
+    from gpustack_tpu_torch.parallel.mesh import close_mesh
+
+    if hasattr(engine.runner, "close"):
+        engine.runner.close()
+    for proc in engine.follower_procs:
+        try:
+            proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    close_mesh(engine.mesh)
 
 
 def build_engine_from_args(args) -> LLMEngine:
@@ -1476,15 +1673,28 @@ def build_engine_from_args(args) -> LLMEngine:
     is read, a config the card's kernels cannot serve is refused
     (``check_kernel_shapes``; on the card that refuses ``tiny-vlm``, whose
     language half has head_dim 16). A VLM preset serves its language half
-    in the engine and attaches the vision tower as ``engine.vision``."""
+    in the engine and attaches the vision tower as ``engine.vision``.
+
+    Multi-GPU (``--num-devices`` or ``--mesh-plan`` over more than one
+    GPU, or the environment contract set from outside): this process is
+    one rank. It joins the replica's process group (NCCL on the card,
+    gloo under ``--device cpu``), builds only its shard of the weights
+    (random ones drawn whole a layer at a time and cut, so they equal the
+    one-card tree's slice; a checkpoint read on the host and cut), and
+    wires the command channel: rank 0's runner broadcasts each op
+    (``engine/multihost.py``), another rank's engine gets a
+    ``follower_loop`` to run instead of a server. Rank 0 started without
+    the environment starts the followers itself (``engine.follower_procs``;
+    :func:`shutdown_replica` reaps them)."""
     import torch
 
-    from gpustack_tpu_torch.device import resolve_device
+    from gpustack_tpu_torch.device import rank_device, resolve_device
     from gpustack_tpu_torch.engine.gguf import config_from_gguf
     from gpustack_tpu_torch.engine.weights import (
         checkpoint_source,
         load_or_init_params,
         merge_lora_adapters,
+        params_to_device,
     )
     from gpustack_tpu_torch.models.config import get_config, load_hf_config
     from gpustack_tpu_torch.models.quant import (
@@ -1499,6 +1709,9 @@ def build_engine_from_args(args) -> LLMEngine:
         init_vision_params,
     )
 
+    from gpustack_tpu_torch.parallel.mesh import init_mesh
+    from gpustack_tpu_torch.parallel.sharding import shard_params
+
     device = resolve_device(args.device)
     kind, path = checkpoint_source(args.model_dir or None)
     vlm_cfg = None
@@ -1511,17 +1724,41 @@ def build_engine_from_args(args) -> LLMEngine:
         cfg = vlm_cfg.language
     else:
         cfg = get_config(args.preset)
-    check_kernel_shapes(cfg, device, int8=args.quantization == "int8")
-    if kind == "none" and args.quantization == "int8" and not args.lora:
-        params = init_quantized_params(cfg, seed=0, device=device)
+    plan, rank, env, procs = _placement(args, cfg, vlm_cfg is not None)
+    mesh = None
+    if plan.chips > 1:
+        if rank and os.environ.get(ENV_PARENT_PID):
+            _watch_parent(int(os.environ[ENV_PARENT_PID]))
+        device = rank_device(device, rank)
+        joined = threading.Event()
+        if procs:
+            _watch_followers(procs, joined)
+        mesh = init_mesh(plan, rank, env[ENV_COORDINATOR], device)
+        joined.set()
+    int8 = args.quantization == "int8"
+    check_kernel_shapes(cfg, device, int8=int8, mesh=mesh)
+    # a multi-GPU rank draws its shard alone
+    shard = {} if mesh is None else {"mesh": mesh}
+    if kind == "none" and int8 and not args.lora:
+        params = init_quantized_params(cfg, seed=0, device=device, **shard)
+    elif kind == "none" and not args.lora:
+        params = load_or_init_params(cfg, None, seed=0, device=device,
+                                     **shard)
     else:
+        # a checkpoint (or LoRA) is read and merged whole, on the host
+        # for a multi-GPU rank, then quantized and cut to the rank's shard
         params = load_or_init_params(
-            cfg, args.model_dir or None, seed=0, device=device
+            cfg, args.model_dir or None, seed=0,
+            device=device if mesh is None else "cpu",
         )
         if args.lora:
             params = merge_lora_adapters(cfg, params, args.lora)
-        if args.quantization == "int8":
+        if int8:
             params = quantize_params(params)
+        if mesh is not None:
+            params = params_to_device(
+                shard_params(params, mesh, kv_heads=cfg.num_kv_heads), device
+            )
     draft_cfg = draft_params = None
     if args.speculative == "draft":
         # the draft is never quantized, as in the JAX server; a preset
@@ -1559,7 +1796,27 @@ def build_engine_from_args(args) -> LLMEngine:
         spec_tokens=args.spec_tokens,
         draft_cfg=draft_cfg,
         draft_params=draft_params,
+        plan=plan,
+        mesh=mesh,
     )
+    if mesh is not None:
+        engine.follower_procs = procs
+        from gpustack_tpu_torch.engine.multihost import (
+            BroadcastingRunner,
+            CommandLeader,
+            FollowerLoop,
+        )
+
+        cmd, token = env[ENV_CMD_ADDRESS], env[ENV_CMD_TOKEN]
+        if rank == 0:
+            leader = CommandLeader(
+                int(cmd.rsplit(":", 1)[1]), plan.chips - 1, token=token
+            )
+            engine.runner = BroadcastingRunner(engine.runner, leader)
+        else:
+            engine.follower_loop = FollowerLoop(
+                engine.runner, cmd, state=engine._state, token=token
+            )
     if vlm_cfg is not None:
         # the language tree takes the server's seed 0; the tower seed 1,
         # as the JAX server's key(1)
@@ -1575,6 +1832,15 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     engine = build_engine_from_args(args)
+    if engine.follower_loop is not None:
+        # a follower rank serves no HTTP: it replays the leader's ops
+        # until the leader closes the channel
+        engine.follower_loop.start()
+        engine.follower_loop.join()
+        if engine.follower_loop.error:
+            logger.error("follower: %s", engine.follower_loop.error)
+            os._exit(13)
+        os._exit(0)
     engine.start()
     server = OpenAIServer(engine, model_name=args.served_name or None)
     port = server.start(args.host, args.port)
@@ -1589,6 +1855,8 @@ def main(argv=None) -> None:
     finally:
         server.shutdown()
         engine.stop()
+        if engine.mesh is not None:
+            shutdown_replica(engine, timeout=10.0)
     if engine._fatal:
         os._exit(13)
 

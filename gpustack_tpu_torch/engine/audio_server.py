@@ -34,7 +34,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional, Tuple
 from urllib.parse import urlsplit
 
-from gpustack_tpu_torch.engine.tokenizer import load_tokenizer
+from gpustack_tpu_torch.engine.tokenizer import load_tokenizer_or_bytes
 
 logger = logging.getLogger(__name__)
 
@@ -48,7 +48,7 @@ class AudioEngine:
         self.params = params
         self.model_dir = model_dir
         self.modality = modality
-        self.tokenizer = load_tokenizer(model_dir or None)
+        self.tokenizer = load_tokenizer_or_bytes(model_dir or None)
         self._lock = threading.Lock()
         self.requests = 0
         self.audio_seconds = 0.0

@@ -487,7 +487,9 @@ class _KVStager:
 
 
 class LLMEngine:
-    """Single-device continuous-batching LLM engine."""
+    """Continuous-batching LLM engine on one device, or on rank 0 of a
+    multi-GPU replica (``plan`` and ``mesh``; ``api_server`` wires the
+    command channel to the followers)."""
 
     def __init__(
         self,
@@ -512,6 +514,8 @@ class LLMEngine:
         kv_role: str = "",           # ""|"prefill"|"decode" (disagg tag)
         kv_spill_mb: int = 0,        # >0: disk spill tier under host RAM
         kv_spill_dir: str = "",      # spill directory ("" = derived tmp)
+        plan=None,                   # parallel.mesh.MeshPlan (None: one card)
+        mesh=None,                   # this rank's parallel.mesh.Mesh
     ):
         if kv_role not in ("", "prefill", "decode"):
             raise ValueError(
@@ -532,7 +536,14 @@ class LLMEngine:
         self.runner = ModelRunner(
             cfg, params, self.device,
             max_slots=max_slots, max_seq_len=max_seq_len,
+            plan=plan, mesh=mesh,
         )
+        # a multi-GPU rank: its mesh; on a follower, the loop that replays
+        # the leader's ops (multihost.py); on a rank 0 that started its
+        # followers, their processes (api_server.shutdown_replica)
+        self.mesh = mesh
+        self.follower_loop = None
+        self.follower_procs: List[Any] = []
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
         self._state: DecodeState = self.runner.new_state()
@@ -755,6 +766,11 @@ class LLMEngine:
         engine."""
         if self._fatal:
             raise ValueError(f"engine is down: {self._fatal}")
+        if self.runner.plan.chips > 1:
+            raise ValueError(
+                "embeddings are not supported on a multi-GPU replica "
+                f"(plan {self.runner.plan})"
+            )
         if not batch_prompt_ids or any(not ids for ids in batch_prompt_ids):
             raise ValueError("embedding inputs must be non-empty")
         for ids in batch_prompt_ids:
@@ -833,6 +849,8 @@ class LLMEngine:
             "kv_spill": kv.spill.snapshot() if kv and kv.spill else {},
             "kv_faultbacks": kv.faultbacks if kv else 0,
             "kv_conversations": len(self.kv_conv) if self.kv_conv else 0,
+            # the replica's multi-GPU layout (parallel/sharding.SpecLayout)
+            "layout": self.runner.layout.describe(),
         }
 
     # ---- scheduling loop ------------------------------------------------
@@ -919,6 +937,11 @@ class LLMEngine:
     def step(self) -> bool:
         """One scheduling iteration. Returns False when fully idle."""
         t0 = time.perf_counter()
+        # a multi-GPU replica whose follower is gone cannot run another
+        # collective: end the loop, which makes the engine fatal
+        channel_error = getattr(self.runner, "channel_error", "")
+        if channel_error:
+            raise RuntimeError(channel_error)
         self._step_mode = ""
         self._step_real = self._step_padded = 0
         self._step_out = self._step_prompt = 0
@@ -1381,6 +1404,10 @@ class LLMEngine:
         if job.req.aborted.is_set():
             # abandon the remaining chunks; the slot never activated. An
             # upload still in flight is read later, like a store.
+            if job.done and not job.one_shot:
+                abort_op = getattr(self.runner, "chunk_abort", None)
+                if abort_op is not None:
+                    abort_op()
             del self._chunk_jobs[slot]
             self._free.append(slot)
             if job.pending_kv is not None:
@@ -1401,15 +1428,25 @@ class LLMEngine:
         self._step_real += len(chunk)
         self._step_prompt += len(chunk)
         self._step_padded += sb
+        # a multi-GPU leader's runner names the chunk ops, so its
+        # followers keep the chunk's K/V apart from one-shot prefills
         if start == 0:
-            job.last, job.k, job.v = r.prefill(padded, len(chunk))
+            first = getattr(r, "prefill_chunk", None) or r.prefill
+            job.last, job.k, job.v = first(padded, len(chunk))
         else:
-            job.last, job.k, job.v = r.prefill_with_prefix(
+            cont = (
+                getattr(r, "prefill_continue_chunk", None)
+                or r.prefill_with_prefix
+            )
+            job.last, job.k, job.v = cont(
                 job.k, job.v, start, padded, len(chunk),
                 r.bucket_for(start + sb),
             )
         job.done += len(chunk)
         if job.done >= len(job.ids):
+            commit = getattr(r, "chunk_commit", None)
+            if commit is not None:
+                commit()
             del self._chunk_jobs[slot]
             self._submit_kv_copy(job.ids, job.k, job.v, len(job.ids))
             self._finalize_start(slot, job.req, job.last, job.k, job.v)
@@ -1600,7 +1637,10 @@ class LLMEngine:
             seed, req.seed is not None, len(ids) - 1, self._step_key(),
             logit_bias=req.logit_bias,
         )
-        if self.overlap and not self.speculative and not req.logprobs:
+        if (
+            self.overlap and not self.speculative and not req.logprobs
+            and getattr(self.runner, "supports_async_insert", True)
+        ):
             self._state = self.runner.insert(
                 self._state, k, v, slot, len(ids), toks[0],
                 req.temperature, req.top_k, req.top_p,

@@ -35,7 +35,7 @@ from urllib.parse import urlsplit
 import numpy as np
 import torch
 
-from gpustack_tpu_torch.engine.tokenizer import load_tokenizer
+from gpustack_tpu_torch.engine.tokenizer import load_tokenizer_or_bytes
 from gpustack_tpu_torch.models.png import encode_png
 
 logger = logging.getLogger(__name__)
@@ -53,7 +53,8 @@ def _png_bytes(arr) -> bytes:
 class ImageEngine:
     """Owns the pipeline params and a serialised sampling executor (one
     lock). The tokenizers are ``<model_dir>/tokenizer`` and
-    ``tokenizer_2`` through ``load_tokenizer``, else the byte tokenizer."""
+    ``tokenizer_2`` through ``load_tokenizer_or_bytes``: the byte
+    tokenizer when none is there or none can be built."""
 
     def __init__(self, cfg, params, model_dir: str = ""):
         self.cfg = cfg
@@ -69,8 +70,12 @@ class ImageEngine:
 
     @staticmethod
     def _load_tokenizer(model_dir: str, sub: str = "tokenizer"):
-        return load_tokenizer(os.path.join(model_dir, sub) if model_dir
-                              else None)
+        """The directory's tokenizer, or the byte tokenizer when none can
+        be built from it (no ``transformers``, or unreadable files), with
+        a warning, as the JAX server does."""
+        return load_tokenizer_or_bytes(
+            os.path.join(model_dir, sub) if model_dir else None
+        )
 
     def _tokens(self, prompt: str, tokenizer) -> np.ndarray:
         """[1, max_text_len] int32 ids: an HF tokenizer pads and truncates

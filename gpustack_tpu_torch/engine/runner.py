@@ -1,6 +1,7 @@
-"""Model execution on one device: prefill, insert, decode.
+"""Model execution on one device, or one rank of a mesh: prefill, insert,
+decode.
 
-The port of ``gpustack_tpu/engine/runner.py`` for a single card (no mesh):
+The port of ``gpustack_tpu/engine/runner.py``:
 
 - one resident **decode batch** of ``max_slots`` rows over a shared KV
   cache; ``decode_step`` advances every slot one token per call;
@@ -22,6 +23,16 @@ The port of ``gpustack_tpu/engine/runner.py`` for a single card (no mesh):
 - **embed**: one cacheless forward over a padded batch, mean-pooled and
   l2-normalised.
 
+- **a mesh** (``plan`` and ``mesh``, one process per GPU): the params
+  are the rank's shard, the KV cache holds the rank's KV heads
+  (``SpecLayout.cache``), the slot state is whole on every rank
+  (``SpecLayout.slot_state``), and every forward is the sharded one
+  (``models.transformer``). After each decode step rank 0's sampled
+  tokens are broadcast to every rank on the device, with no host read, so
+  the ranks' slot states cannot part even where a tie would break
+  differently. Every rank runs the same calls in the same order (the
+  leader's command channel, ``engine/multihost.py``).
+
 PyTorch runs eagerly, so there are no per-shape compilations to cache:
 the buckets bound the set of prefill shapes the kernel sees.
 """
@@ -29,7 +40,7 @@ the buckets bound the set of prefill shapes the kernel sees.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -40,6 +51,16 @@ from gpustack_tpu_torch.models.transformer import (
     KVCache,
     forward,
     lm_head,
+)
+from gpustack_tpu_torch.parallel.mesh import Mesh, MeshPlan
+from gpustack_tpu_torch.parallel.sharding import SpecLayout
+
+# the hand-written kernels' wrappers, by module (launch counts, ``probe``)
+KERNEL_WRAPPERS = (
+    ("flash_attention", "flash_attention_prefill"),
+    ("w8a16", "w8a16_matmul"),
+    ("w8a16", "w8a16_grouped"),
+    ("w8a16", "bf16_grouped"),
 )
 
 
@@ -55,10 +76,10 @@ class DecodeState:
 
     @staticmethod
     def create(
-        cfg: ModelConfig, batch: int, max_len: int, device
+        cfg: ModelConfig, batch: int, max_len: int, device, tp: int = 1
     ) -> "DecodeState":
         return DecodeState(
-            cache=KVCache.create(cfg, batch, max_len, device),
+            cache=KVCache.create(cfg, batch, max_len, device, tp),
             last_tokens=torch.zeros(batch, dtype=torch.int64, device=device),
             positions=torch.zeros(batch, dtype=torch.int64, device=device),
             active=torch.zeros(batch, dtype=torch.bool, device=device),
@@ -67,7 +88,8 @@ class DecodeState:
 
 
 class ModelRunner:
-    """Owns the params and the prefill/insert/decode ops for one model."""
+    """Owns the params and the prefill/insert/decode ops for one model
+    (or, with a multi-rank ``mesh``, for this rank's shard of it)."""
 
     def __init__(
         self,
@@ -77,9 +99,23 @@ class ModelRunner:
         max_slots: int = 8,
         max_seq_len: int = 1024,
         prefill_buckets: Tuple[int, ...] = (),
+        plan: Optional[MeshPlan] = None,
+        mesh: Optional[Mesh] = None,
     ):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.plan = plan or (mesh.plan if mesh is not None else MeshPlan())
+        if self.plan.chips > 1 and (
+            mesh is None or mesh.plan != self.plan
+        ):
+            raise ValueError(
+                f"plan {self.plan} needs this rank's mesh of that plan"
+            )
+        # None on one card: the forward then runs no collective
+        self.mesh = mesh if self.plan.chips > 1 else None
+        self.tp = self.plan.tp
+        # the replica's layout as one inspectable object (/healthz)
+        self.layout = SpecLayout(long_context=self.plan.sp > 1)
         # int8 QuantW leaves go to the device as they are, never widened
         self.params = params_to_device(params, self.device)
         self.max_slots = max_slots
@@ -97,8 +133,12 @@ class ModelRunner:
 
     def new_state(self) -> DecodeState:
         return DecodeState.create(
-            self.cfg, self.max_slots, self.max_seq_len, self.device
+            self.cfg, self.max_slots, self.max_seq_len, self.device, self.tp
         )
+
+    def _cache(self, rows: int) -> KVCache:
+        """A scratch cache of one row, ``rows`` long (the rank's heads)."""
+        return KVCache.create(self.cfg, 1, rows, self.device, self.tp)
 
     # -- prefill ----------------------------------------------------------
 
@@ -119,9 +159,13 @@ class ModelRunner:
         main path must not take.)"""
         return "flash" if self.device.type == "cuda" else "plain"
 
-    def prefill(self, token_ids: Sequence[int], true_len: int):
+    def prefill(
+        self, token_ids: Sequence[int], true_len: int,
+        attn_impl: Optional[str] = None,
+    ):
         """Run prefill at the bucket for ``true_len``. ``token_ids`` must be
-        padded to the bucket length already (any pad id). Returns
+        padded to the bucket length already (any pad id). ``attn_impl``
+        overrides :meth:`attn_impl_for` (a plain reference run). Returns
         ``(last_logits [V] fp32, k, v [L, Tb, H, hd])``."""
         Tb = len(token_ids)
         if Tb not in self.prefill_buckets:
@@ -132,14 +176,18 @@ class ModelRunner:
             [list(token_ids)], dtype=torch.int64, device=self.device
         )
         positions = torch.arange(Tb, device=self.device)[None, :]
-        cache = KVCache.create(self.cfg, 1, Tb, self.device)
+        cache = self._cache(Tb)
         hidden, cache = forward(
             self.params, self.cfg, tokens, positions, cache,
-            return_hidden=True, attn_impl=self.attn_impl_for(Tb),
+            return_hidden=True, attn_impl=attn_impl or self.attn_impl_for(Tb),
+            mesh=self.mesh,
         )
         # logits for the one position the sampler reads, not all Tb rows
-        last = lm_head(self.params, self.cfg, hidden[0, true_len - 1])
+        last = self._head(hidden[0, true_len - 1])
         return last, cache.k[:, 0], cache.v[:, 0]
+
+    def _head(self, hidden: torch.Tensor) -> torch.Tensor:
+        return lm_head(self.params, self.cfg, hidden, self.mesh)
 
     def prefill_with_embeds(
         self, token_ids: Sequence[int], true_len: int, embeds, mask,
@@ -168,13 +216,13 @@ class ModelRunner:
             mask = mask.pin_memory().to(self.device, non_blocking=True)
         tokens = self._ids_on_device([list(token_ids)])
         positions = torch.arange(Tb, device=self.device)[None, :]
-        cache = KVCache.create(self.cfg, 1, Tb, self.device)
+        cache = self._cache(Tb)
         hidden, cache = forward(
             self.params, self.cfg, tokens, positions, cache,
             return_hidden=True, attn_impl=self.attn_impl_for(Tb),
-            embeds_override=(embeds[None], mask[None]),
+            embeds_override=(embeds[None], mask[None]), mesh=self.mesh,
         )
-        last = lm_head(self.params, self.cfg, hidden[0, true_len - 1])
+        last = self._head(hidden[0, true_len - 1])
         return last, cache.k[:, 0], cache.v[:, 0]
 
     def prefill_with_prefix(
@@ -216,7 +264,7 @@ class ModelRunner:
             raise ValueError(
                 f"suffix_true_len {suffix_true_len} outside 1..{Tsb}"
             )
-        cache = KVCache.create(self.cfg, 1, total_bucket, self.device)
+        cache = self._cache(total_bucket)
         cache.k[:, 0, :Pb] = prefix_k
         cache.v[:, 0, :Pb] = prefix_v
         tokens = torch.tensor(
@@ -228,9 +276,9 @@ class ModelRunner:
         hidden, cache = forward(
             self.params, self.cfg, tokens, positions, cache,
             return_hidden=True, attn_impl=self.attn_impl_for(total_bucket),
-            q_offset=prefix_len,
+            q_offset=prefix_len, mesh=self.mesh,
         )
-        last = lm_head(self.params, self.cfg, hidden[0, suffix_true_len - 1])
+        last = self._head(hidden[0, suffix_true_len - 1])
         return last, cache.k[:, 0], cache.v[:, 0]
 
     # -- embeddings -------------------------------------------------------
@@ -257,7 +305,7 @@ class ModelRunner:
         )
         hidden, _ = forward(
             self.params, self.cfg, tokens, positions, return_hidden=True,
-            attn_impl=self.attn_impl_for(Tb),
+            attn_impl=self.attn_impl_for(Tb), mesh=self.mesh,
         )
         lens_t = self._ids_on_device(lens)
         mask = (positions < lens_t[:, None])[..., None].float()
@@ -310,6 +358,66 @@ class ModelRunner:
         state.active[slot] = False
         return state
 
+    # -- diagnostics (every rank in step, through the command channel) ----
+
+    def probe(
+        self, state: DecodeState, what: str, ids=None, true_len: int = 0
+    ):
+        """Read or reset what a check of a multi-GPU replica needs, on
+        every rank at once (a collective: the leader broadcasts the probe
+        first). ``what``:
+
+        - ``"slot_state"``: every rank's ``[last_tokens, positions]``
+          (int64 ``[2, B]``), gathered, in rank order;
+        - ``"launches"``: every rank's kernel launch counts
+          (``{wrapper: [n per rank]}``);
+        - ``"reset_launches"``: each rank's counts to 0;
+        - ``"memory"``: every rank's peak device bytes since the last
+          ``"reset_memory"`` (0 on the CPU);
+        - ``"prefill_plain"``: a prefill of the bucket-padded ``ids``
+          (``true_len`` real) through the plain attention; the last real
+          position's logits.
+        """
+        import importlib
+
+        def gather(t: torch.Tensor):
+            parts = (self.mesh.all_gather_world(t) if self.mesh is not None
+                     else [t])
+            return [p.cpu() for p in parts]
+
+        cuda = self.device.type == "cuda"
+        wrappers = [
+            (name, getattr(importlib.import_module(
+                f"gpustack_tpu_torch.ops.{mod}"), name))
+            for mod, name in KERNEL_WRAPPERS
+        ]
+        if what == "slot_state":
+            return gather(torch.stack([state.last_tokens, state.positions]))
+        if what == "launches":
+            mine = torch.tensor([fn.launches for _, fn in wrappers],
+                                device=self.device)
+            per_rank = gather(mine)
+            return {name: [int(p[i]) for p in per_rank]
+                    for i, (name, _) in enumerate(wrappers)}
+        if what == "reset_launches":
+            for _, fn in wrappers:
+                fn.launches = 0
+                if hasattr(fn, "launches_by_path"):
+                    fn.launches_by_path.update(
+                        dict.fromkeys(fn.launches_by_path, 0))
+            return None
+        if what == "memory":
+            peak = torch.cuda.max_memory_allocated(self.device) if cuda else 0
+            return [int(p) for p in gather(
+                torch.tensor([peak], device=self.device))]
+        if what == "reset_memory":
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(self.device)
+            return None
+        if what == "prefill_plain":
+            return self.prefill(ids, true_len, attn_impl="plain")[0]
+        raise ValueError(f"unknown probe {what!r}")
+
     def slot_kv(self, state: DecodeState, slot: int, width: int):
         """Copies of a slot's KV rows ``[:width]``."""
         return (
@@ -345,9 +453,13 @@ class ModelRunner:
         positions = state.positions[:, None]
         logits, _ = forward(
             self.params, self.cfg, tokens, positions, state.cache,
+            mesh=self.mesh,
         )
         out = sample(logits[:, 0], state.sampling, key, state.positions)
         sampled = out[0]
+        if self.mesh is not None:
+            # rank 0's tokens on every rank, on the device
+            self.mesh.broadcast_(sampled)
         # inactive slots keep feeding their last token at a frozen
         # position; their writes stay in their own rows, invisible to any
         # later tenant through the causal mask
@@ -383,6 +495,7 @@ class ModelRunner:
         forward(
             self.params, self.cfg, fed, self._block_positions(state, P),
             state.cache, return_hidden=True, clamp_writes=True,
+            mesh=self.mesh,
         )
         last_idx = (counts - 1).clamp_min(0)
         new_last = tokens.gather(1, last_idx[:, None])[:, 0]
@@ -431,7 +544,7 @@ class ModelRunner:
         )
         logits, _ = forward(
             self.params, self.cfg, fed, self._block_positions(state, P),
-            state.cache, clamp_writes=True,
+            state.cache, clamp_writes=True, mesh=self.mesh,
         )
         greedy = logits.argmax(dim=-1)                          # [B, P]
         match = (proposals[:, : P - 1] == greedy[:, : P - 1]).long()

@@ -10,8 +10,11 @@ The port's own copy of ``gpustack_tpu/engine/tokenizer.py``.
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import List, Optional, Sequence
+
+logger = logging.getLogger(__name__)
 
 
 class ByteTokenizer:
@@ -131,3 +134,18 @@ def load_tokenizer(model_dir: Optional[str]):
             except (ValueError, KeyError):
                 pass
     return ByteTokenizer()
+
+
+def load_tokenizer_or_bytes(model_dir: Optional[str]):
+    """:func:`load_tokenizer` for the image and audio servers: when the
+    directory's tokenizer cannot be built (no ``transformers`` on the
+    host, unreadable files), a warning and the byte tokenizer, as the JAX
+    servers do. The chat server calls :func:`load_tokenizer` and fails,
+    as the JAX chat server does."""
+    try:
+        return load_tokenizer(model_dir)
+    except Exception:
+        logger.warning(
+            "no HF tokenizer under %s; using byte fallback", model_dir
+        )
+        return ByteTokenizer()

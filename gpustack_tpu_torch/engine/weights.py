@@ -517,13 +517,22 @@ def params_to_device(tree: Dict[str, Any], device) -> Dict[str, Any]:
 
 def load_or_init_params(
     cfg: ModelConfig, model_dir: Optional[str] = None, seed: int = 0,
-    device: Optional[torch.device] = None,
+    device: Optional[torch.device] = None, mesh=None,
 ) -> Dict[str, Any]:
     """The checkpoint under ``model_dir`` (safetensors before GGUF) on
     ``device`` (default: the card); without one, random weights drawn on
-    ``device`` from a generator seeded with ``seed``."""
+    ``device`` from a generator seeded with ``seed``. With a multi-rank
+    ``mesh`` (``parallel.mesh.Mesh``) the random tree is this rank's
+    shard, drawn whole a layer at a time and cut: the one-card tree's
+    slice bit for bit (``transformer.init_params``). A checkpoint is read
+    whole and cut by the caller (``parallel.sharding.shard_params``,
+    after any LoRA merge and quantization)."""
     device = resolve_device(device)
     kind, path = checkpoint_source(model_dir)
+    if kind != "none" and mesh is not None and mesh.world > 1:
+        raise ValueError(
+            "a checkpoint is read whole: cut it with shard_params"
+        )
     if kind == "safetensors":
         logger.info("loading checkpoint from %s", path)
         return load_hf_checkpoint(cfg, path, device)
@@ -536,7 +545,8 @@ def load_or_init_params(
     )
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return init_params(cfg, gen, dtype=torch_dtype(cfg), device=device)
+    return init_params(cfg, gen, dtype=torch_dtype(cfg), device=device,
+                       mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -622,7 +632,9 @@ def _to_tensor(arr, device: torch.device) -> torch.Tensor:
 _WHISPER_CONVS = ("conv1", "conv2")
 
 
-def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+def params_from_numpy(
+    tree: Dict[str, Any], device=None, mesh=None, kv_heads=None,
+) -> Dict[str, Any]:
     """Convert a parameter tree of numpy arrays (a JAX package tree:
     ``init_params``, ``init_vision_params``, ``init_whisper_params``,
     ``init_tts_params`` or ``init_diffusion_params``, leaves passed through
@@ -632,7 +644,10 @@ def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     two (JAX's HIO ``[K, Cin, Cout]`` to ``[Cout, Cin, K]``) and every 4-D
     leaf of a diffusion tree (one with ``unet`` and ``vae``: HWIO to OIHW,
     in ``channels_last`` memory). A JAX ``QuantW`` leaf (any node with
-    ``q`` and ``s`` arrays) becomes the port's ``QuantW``."""
+    ``q`` and ``s`` arrays) becomes the port's ``QuantW``. With a
+    multi-rank ``mesh``, a transformer tree is cut to this rank's shard
+    (``parallel.sharding.shard_params``; ``kv_heads`` the config's, for
+    ``tp`` above it) on the host before it moves."""
     device = resolve_device(device)
     diffusion = "unet" in tree and "vae" in tree
 
@@ -653,6 +668,11 @@ def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
                 memory_format=torch.channels_last)
         return t
 
+    if mesh is not None and mesh.world > 1:
+        from gpustack_tpu_torch.parallel.sharding import shard_params
+
+        host = params_from_numpy(tree, "cpu")
+        return params_to_device(shard_params(host, mesh, kv_heads), device)
     out = walk(tree)
     for key in _WHISPER_CONVS:
         if key in out and out[key].dim() == 3:

@@ -17,7 +17,10 @@ The trees, rounding (half to even), clip (±127) and bf16 scale bits are
 the JAX package's: both give identical ``q`` and ``s`` on the same fp32
 tree, and their npz checkpoints load in either package.
 
-Sharded specs (``quant_pspecs``) wait for the multi-GPU slice.
+Sharded specs (:func:`quant_spec`, :func:`quant_pspecs`): ``q`` splits
+as its weight does, ``s`` only along the weight's output axes. Unlike the
+JAX ``quant_pspecs``, which adapts ``layers`` only, they cover DeepSeek's
+``dense_layers`` stack too.
 """
 
 from __future__ import annotations
@@ -143,13 +146,45 @@ def quantize_params(params: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def quant_spec(name: str, spec, stacked: bool = True):
+    """``(q_spec, s_spec)`` of int8 leaf ``name`` under the weight's spec
+    (a ``parallel.sharding.PSpec``): ``q`` keeps it, ``s`` keeps the
+    entries of the output (non-contracted) axes."""
+    axes = _axes(name, stacked)
+    return spec, type(spec)(*(a for i, a in enumerate(spec) if i not in axes))
+
+
+def quant_pspecs(specs: Dict[str, Any], params: Dict[str, Any]):
+    """Adapt a spec tree (``SpecLayout.params``) to a quantized param
+    tree: each ``QuantW`` leaf's spec becomes ``QuantW(q=..., s=...)`` by
+    :func:`quant_spec`, in ``layers`` and ``dense_layers`` alike."""
+
+    def adapt(name, spec, leaf, stacked):
+        if not isinstance(leaf, QuantW):
+            return spec
+        q, s = quant_spec(name, spec, stacked)
+        return QuantW(q=q, s=s)
+
+    out: Dict[str, Any] = {}
+    for k, v in params.items():
+        if k in ("layers", "dense_layers"):
+            out[k] = {
+                lk: adapt(lk, specs[k][lk], lv, True) for lk, lv in v.items()
+            }
+        else:
+            out[k] = adapt(k, specs[k], v, False)
+    return out
+
+
 def draw_int8(
-    name: str, shape: tuple, std: float, generator: torch.Generator, device
+    name: str, shape: tuple, std: float, generator: torch.Generator, device,
+    stacked: Optional[bool] = None,
 ) -> QuantW:
     """Random int8 leaf ``name`` of ``shape`` drawn on ``device``, for a
     weight of init ``std``: the int8 values round(N(0, 1) * 127 / 3)
     clipped to ±127 (the statistics of an absmax-quantized normal init;
-    fp32 draws of <= 256 MB at a time), the scales 3 * std / 127 in bf16."""
+    fp32 draws of <= 256 MB at a time), the scales 3 * std / 127 in bf16.
+    ``stacked`` False: ``shape`` is one layer of a stacked leaf."""
     q = torch.empty(shape, dtype=torch.int8, device=device)
     rows = q.view(-1, shape[-1])
     step = max(1, (1 << 26) // shape[-1])
@@ -160,7 +195,7 @@ def draw_int8(
             device=device,
         )
         block.copy_(draw.mul_(127.0 / 3.0).round_().clamp_(-127, 127))
-    axes = _axes(name)
+    axes = _axes(name, stacked)
     s_shape = tuple(n for i, n in enumerate(shape) if i not in axes)
     # fp32 first, then bf16: the JAX package's rounding of the scale
     s = torch.full(
@@ -170,7 +205,7 @@ def draw_int8(
 
 
 def init_quantized_params(
-    cfg: ModelConfig, seed: int = 0, device=None
+    cfg: ModelConfig, seed: int = 0, device=None, mesh=None,
 ) -> Dict[str, Any]:
     """Random int8 params drawn *directly* on ``device`` (default: the
     card) from a ``torch.Generator`` seeded with ``seed``: no bf16 detour
@@ -187,14 +222,20 @@ def init_quantized_params(
     ``init_params``), which the JAX ``init_quantized_params`` docstring
     names as its target. Its uniform draw over [-127, 127] gives weights
     1.73x wider, and at llama3-8b's depth that model amplifies a change
-    of fp32 summation order past a 5% logit check (PERF.md, PR 4)."""
+    of fp32 summation order past a 5% logit check (PERF.md §6).
+
+    With a multi-rank ``mesh`` (``parallel.mesh.Mesh``) the tree is this
+    rank's shard: each leaf drawn whole, a layer at a time, and cut
+    (``transformer.init_params``), so it equals the slice of the one-card
+    tree from the same seed bit for bit."""
     from gpustack_tpu_torch.device import resolve_device
     from gpustack_tpu_torch.models.transformer import init_params
 
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return init_params(cfg, gen, torch.bfloat16, device, int8=True)
+    return init_params(cfg, gen, torch.bfloat16, device, int8=True,
+                       mesh=mesh)
 
 
 def dequantize(

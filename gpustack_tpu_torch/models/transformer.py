@@ -77,7 +77,44 @@ def flash_eligible(cfg: ModelConfig) -> bool:
     )
 
 
-def check_kernel_shapes(cfg: ModelConfig, device, int8: bool) -> None:
+def local_heads(cfg: ModelConfig, tp: int = 1) -> Tuple[int, int]:
+    """(query heads, KV heads) one ``tp`` rank holds: ``H / tp`` and
+    ``Hkv / tp``, or one whole KV head where ``tp`` is above ``Hkv`` (its
+    query heads all read it)."""
+    return cfg.num_heads // tp, max(1, cfg.num_kv_heads // tp)
+
+
+def check_plan(cfg: ModelConfig, plan) -> None:
+    """Refuse a mesh plan the sharded forward cannot run on ``cfg``:
+    query heads, vocab and FFN width must divide over ``tp``; KV heads
+    must divide over it or it over them; experts must divide over ``ep``
+    and their width over ``tp``."""
+    tp, ep = plan.tp, plan.ep
+    need = [("query heads", cfg.num_heads, tp), ("vocab", cfg.vocab_size, tp)]
+    if cfg.num_kv_heads % tp and tp % cfg.num_kv_heads:
+        raise ValueError(
+            f"plan {plan}: {cfg.name}'s {cfg.num_kv_heads} KV heads neither "
+            f"divide over tp={tp} nor it over them"
+        )
+    if cfg.is_moe:
+        need += [("experts", cfg.num_experts, ep),
+                 ("expert width", cfg.moe_intermediate_size, tp)]
+        if cfg.shared_expert_intermediate_size:
+            need.append(("shared expert width",
+                         cfg.shared_expert_intermediate_size, tp))
+    if not cfg.is_moe or cfg.first_k_dense:
+        need.append(("FFN width", cfg.intermediate_size, tp))
+    for what, n, k in need:
+        if n % k:
+            raise ValueError(
+                f"plan {plan}: {cfg.name}'s {what} ({n}) does not divide "
+                f"over {k}"
+            )
+
+
+def check_kernel_shapes(
+    cfg: ModelConfig, device, int8: bool, mesh=None
+) -> None:
     """Refuse, before any weight is read, a config the card's kernels
     cannot serve (on the card only; the CPU's plain versions take any
     shape). A prefill that takes the flash kernel (``flash_eligible``)
@@ -86,7 +123,10 @@ def check_kernel_shapes(cfg: ModelConfig, device, int8: bool) -> None:
     weights and die at its first prefill. With ``int8``, every ``QuantW``
     leaf that goes through the W8A16 kernel (all but the embedding, a
     gather) must have the shapes the kernel takes; the leaves' shapes come
-    from an init on the ``meta`` device, which allocates nothing."""
+    from an init on the ``meta`` device, which allocates nothing. With a
+    multi-rank ``mesh`` the shapes are the rank's shard's: the kernel sees
+    the local heads (flash's group at ``Hq / tp`` on ``Hkv / tp``) and
+    each weight after its split."""
     if torch.device(device).type != "cuda":
         return
     from gpustack_tpu_torch.ops.flash_attention import SUPPORTED_HEAD_DIMS
@@ -102,7 +142,7 @@ def check_kernel_shapes(cfg: ModelConfig, device, int8: bool) -> None:
         return
     leaves = {}
     for name, node in init_params(
-        cfg, torch.Generator(), device="meta", int8=True
+        cfg, torch.Generator(), device="meta", int8=True, mesh=mesh
     ).items():
         if isinstance(node, dict):       # a layer stack
             leaves.update({f"{name}/{k}": v for k, v in node.items()})
@@ -137,9 +177,23 @@ def _mm(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
-def _embed_lookup(embed, tokens: torch.Tensor, dtype) -> torch.Tensor:
+def _embed_lookup(
+    embed, tokens: torch.Tensor, dtype, mesh=None
+) -> torch.Tensor:
     """Embedding rows for ``tokens`` in ``dtype``; an int8 ``QuantW``
-    table is gathered, widened and scaled per row (a gather, as in JAX)."""
+    table is gathered, widened and scaled per row (a gather, as in JAX).
+    A vocab-sharded table (``tp`` > 1, spec ``P(tp, None)``) looks up the
+    ids in its rank's range, zeros the rest, and sums over ``tp``."""
+    if mesh is None or mesh.tp == 1:
+        return _rows(embed, tokens, dtype)
+    rows = embed.shape[0]
+    local = tokens - mesh.tp_rank * rows
+    inside = (local >= 0) & (local < rows)
+    x = _rows(embed, local.clamp(0, rows - 1), dtype)
+    return mesh.all_reduce_tp(x.masked_fill_(~inside[..., None], 0))
+
+
+def _rows(embed, tokens: torch.Tensor, dtype) -> torch.Tensor:
     if isinstance(embed, QuantW):
         x = embed.q[tokens].to(dtype)
         return x * embed.s[tokens].to(dtype)[..., None]
@@ -165,10 +219,14 @@ class KVCache:
 
     @staticmethod
     def create(
-        cfg: ModelConfig, batch: int, max_len: int, device: torch.device
+        cfg: ModelConfig, batch: int, max_len: int, device: torch.device,
+        tp: int = 1,
     ) -> "KVCache":
+        """Zeros for ``batch`` rows of ``max_len``; under ``tp`` a rank's
+        cache holds its own KV heads (``local_heads``)."""
         shape = (
-            cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim
+            cfg.num_layers, batch, max_len, local_heads(cfg, tp)[1],
+            cfg.head_dim,
         )
         dtype = torch_dtype(cfg)
         return KVCache(
@@ -185,12 +243,14 @@ class KVCache:
 def init_params(
     cfg: ModelConfig, generator: torch.Generator,
     dtype: torch.dtype = torch.bfloat16, device=None, int8: bool = False,
+    mesh=None,
 ) -> Params:
     """Random init with layer weights stacked on a leading [L] axis, drawn
     on ``device`` (the generator's device) from ``generator``. Same
     shapes and scales as the JAX ``init_params``; not the same numbers.
-    Expert weights are drawn one layer at a time, so the peak is the tree
-    itself. With ``first_k_dense`` (DeepSeek) the first layers are a
+    Every stacked leaf is drawn one layer at a time (qwen3-30b-a3b's
+    ``we_gate`` alone is 19.3 GB), so the peak is the tree itself plus
+    one layer. With ``first_k_dense`` (DeepSeek) the first layers are a
     dense stack of their own, ``params["dense_layers"]``, and
     ``params["layers"]`` holds the MoE rest; each is drawn at its own
     depth (JAX draws every leaf at full depth and slices). Biases, sinks
@@ -198,40 +258,74 @@ def init_params(
     are zeros, as in JAX. With ``int8`` every leaf ``quantize_params``
     would quantize is drawn as int8 directly (``quant.draw_int8``, for the
     leaf's init scale): the tree of ``quantize_params(init_params(cfg))``
-    without its bf16 detour (``quant.init_quantized_params``)."""
+    without its bf16 detour (``quant.init_quantized_params``).
+
+    With a multi-rank ``mesh`` (``parallel.mesh.Mesh``) the tree is this
+    rank's shard: each layer of each leaf is drawn whole, in the one-card
+    order, and cut by ``parallel.sharding.shard_leaf``, so a rank's tree
+    is the slice of the one-card tree from the same seed, bit for bit."""
     from gpustack_tpu_torch.models.quant import draw_int8, quantizable
 
     device = torch.device(device) if device is not None else generator.device
     d, f, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    if mesh is not None and mesh.world > 1:
+        from gpustack_tpu_torch.parallel.sharding import shard_leaf
 
-    def w(name, *shape, scale=None):
-        scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
+        def cut(name, leaf, stacked):
+            return shard_leaf(name, leaf, mesh, stacked=stacked,
+                              kv_heads=cfg.num_kv_heads)
+    else:
+        def cut(name, leaf, stacked):
+            return leaf
+
+    def draw(name, shape, scale, stacked):
         if int8 and quantizable(name, cfg):
-            return draw_int8(name, shape, scale, generator, device)
+            return draw_int8(name, shape, scale, generator, device,
+                             stacked=stacked)
         out = torch.randn(
             shape, generator=generator, dtype=dtype, device=device
         )
         return out.mul_(scale)
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=dtype, device=device)
+    def layers_of(name, n, layer_fn):
+        """The stacked leaf of ``n`` layers, each ``cut(layer_fn())``."""
+        first = cut(name, layer_fn(), False)
 
-    def zeros(*shape, dt=dtype):
-        return torch.zeros(shape, dtype=dt, device=device)
+        def alloc(t):
+            return torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+
+        if isinstance(first, QuantW):
+            out = QuantW(q=alloc(first.q), s=alloc(first.s))
+        else:
+            out = alloc(first)
+        for i in range(n):
+            layer = first if i == 0 else cut(name, layer_fn(), False)
+            if isinstance(out, QuantW):
+                out.q[i].copy_(layer.q)
+                out.s[i].copy_(layer.s)
+            else:
+                out[i].copy_(layer)
+        return out
+
+    def w(name, *shape, scale=None):
+        """Stacked leaf ``[n, ...]``, one layer drawn at a time."""
+        scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
+        return layers_of(
+            name, shape[0], lambda: draw(name, shape[1:], scale, False)
+        )
+
+    def const(name, fill, *shape, dt=dtype):
+        return cut(name, torch.full(shape, fill, dtype=dt, device=device),
+                   True)
+
+    def ones(name, *shape):
+        return const(name, 1.0, *shape)
+
+    def zeros(name, *shape, dt=dtype):
+        return const(name, 0.0, *shape, dt=dt)
 
     # a norm's unit gain: 1, or a zero delta under norm_delta_gain
     gain = zeros if cfg.norm_delta_gain else ones
-
-    def w_layers(name, *shape, scale=None):
-        """Like ``w``, drawn one layer at a time into the stacked tensor
-        (qwen3-30b-a3b's ``we_gate`` alone is 19.3 GB)."""
-        scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
-        if int8:
-            return draw_int8(name, shape, scale, generator, device)
-        out = torch.empty(shape, dtype=dtype, device=device)
-        for layer in out:
-            layer.normal_(generator=generator).mul_(scale)
-        return out
 
     def stack(n: int, moe: bool) -> Dict[str, torch.Tensor]:
         """The leaves of ``n`` stacked layers, with the MoE MLP or the
@@ -239,36 +333,36 @@ def init_params(
         if cfg.is_mla:
             H, r = cfg.num_heads, cfg.kv_lora_rank
             layers: Dict[str, torch.Tensor] = {
-                "attn_norm": ones(n, d),
+                "attn_norm": ones("attn_norm", n, d),
                 "wkv_a": w("wkv_a", n, d, r + cfg.qk_rope_head_dim),
-                "kv_a_norm": ones(n, r),
+                "kv_a_norm": ones("kv_a_norm", n, r),
                 "wkv_b": w("wkv_b", n, r,
                            H * (cfg.qk_nope_head_dim + cfg.v_head_dim)),
                 "wo": w("wo", n, H * cfg.v_head_dim, d),
-                "mlp_norm": ones(n, d),
+                "mlp_norm": ones("mlp_norm", n, d),
             }
             if cfg.q_lora_rank:
                 layers["wq_a"] = w("wq_a", n, d, cfg.q_lora_rank)
-                layers["q_a_norm"] = ones(n, cfg.q_lora_rank)
+                layers["q_a_norm"] = ones("q_a_norm", n, cfg.q_lora_rank)
                 layers["wq_b"] = w("wq_b", n, cfg.q_lora_rank,
                                    H * cfg.head_dim)
             else:
                 layers["wq"] = w("wq", n, d, H * cfg.head_dim)
         else:
             layers = {
-                "attn_norm": ones(n, d),
+                "attn_norm": ones("attn_norm", n, d),
                 "wq": w("wq", n, d, cfg.q_dim),
                 "wk": w("wk", n, d, cfg.kv_dim),
                 "wv": w("wv", n, d, cfg.kv_dim),
                 "wo": w("wo", n, cfg.q_dim, d),
-                "mlp_norm": ones(n, d),
+                "mlp_norm": ones("mlp_norm", n, d),
             }
         if moe:
             fm, E = cfg.moe_intermediate_size, cfg.num_experts
             layers["router"] = w("router", n, d, E)
-            layers["we_gate"] = w_layers("we_gate", n, E, d, fm)
-            layers["we_up"] = w_layers("we_up", n, E, d, fm)
-            layers["we_down"] = w_layers("we_down", n, E, fm, d)
+            layers["we_gate"] = w("we_gate", n, E, d, fm)
+            layers["we_up"] = w("we_up", n, E, d, fm)
+            layers["we_down"] = w("we_down", n, E, fm, d)
             if cfg.shared_expert_intermediate_size:
                 fs = cfg.shared_expert_intermediate_size
                 layers["ws_gate"] = w("ws_gate", n, d, fs)
@@ -278,46 +372,52 @@ def init_params(
                     layers["shared_gate"] = w("shared_gate", n, d, 1)
             if cfg.moe_scoring in ("sigmoid", "softmax_topk"):
                 # DeepSeek-V3 correction bias / GPT-OSS affine router, fp32
-                layers["router_bias"] = zeros(n, E, dt=torch.float32)
+                layers["router_bias"] = zeros("router_bias", n, E,
+                                              dt=torch.float32)
             if cfg.moe_bias:
-                layers["we_gate_b"] = zeros(n, E, fm)
-                layers["we_up_b"] = zeros(n, E, fm)
-                layers["we_down_b"] = zeros(n, E, d)
+                layers["we_gate_b"] = zeros("we_gate_b", n, E, fm)
+                layers["we_up_b"] = zeros("we_up_b", n, E, fm)
+                layers["we_down_b"] = zeros("we_down_b", n, E, d)
         else:
             layers["w_gate"] = w("w_gate", n, d, f)
             layers["w_up"] = w("w_up", n, d, f)
             layers["w_down"] = w("w_down", n, f, d)
         if cfg.qkv_bias:
-            layers["bq"] = zeros(n, cfg.q_dim)
-            layers["bk"] = zeros(n, cfg.kv_dim)
-            layers["bv"] = zeros(n, cfg.kv_dim)
+            layers["bq"] = zeros("bq", n, cfg.q_dim)
+            layers["bk"] = zeros("bk", n, cfg.kv_dim)
+            layers["bv"] = zeros("bv", n, cfg.kv_dim)
         if cfg.o_bias:
-            layers["bo"] = zeros(n, d)
+            layers["bo"] = zeros("bo", n, d)
         if cfg.attn_sinks:
-            layers["sinks"] = zeros(n, cfg.num_heads, dt=torch.float32)
+            layers["sinks"] = zeros("sinks", n, cfg.num_heads,
+                                    dt=torch.float32)
         if cfg.norm_delta_gain:
-            layers["attn_norm"] = gain(n, d)
-            layers["mlp_norm"] = gain(n, d)
+            layers["attn_norm"] = gain("attn_norm", n, d)
+            layers["mlp_norm"] = gain("mlp_norm", n, d)
         if cfg.qk_norm:
-            layers["q_norm"] = gain(n, cfg.head_dim)
-            layers["k_norm"] = gain(n, cfg.head_dim)
+            layers["q_norm"] = gain("q_norm", n, cfg.head_dim)
+            layers["k_norm"] = gain("k_norm", n, cfg.head_dim)
         if cfg.post_norms:
-            layers["post_attn_norm"] = gain(n, d)
-            layers["post_mlp_norm"] = gain(n, d)
+            layers["post_attn_norm"] = gain("post_attn_norm", n, d)
+            layers["post_mlp_norm"] = gain("post_mlp_norm", n, d)
         return layers
+
+    def top(name, *shape, scale=None):
+        scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
+        return cut(name, draw(name, shape, scale, False), False)
 
     kd = cfg.first_k_dense if cfg.is_moe else 0
     layers = stack(L - kd, cfg.is_moe)
     dense = stack(kd, False) if kd else None
     params: Params = {
-        "embed": w("embed", cfg.vocab_size, d, scale=0.02),
+        "embed": top("embed", cfg.vocab_size, d, scale=0.02),
         "layers": layers,
-        "final_norm": gain(d),
+        "final_norm": gain("final_norm", d),
     }
     if dense is not None:
         params["dense_layers"] = dense
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = w("lm_head", d, cfg.vocab_size)
+        params["lm_head"] = top("lm_head", d, cfg.vocab_size)
     return params
 
 
@@ -638,6 +738,7 @@ def _moe_mlp(
     shared=None,                # (ws_gate, ws_up, ws_down, gate_w | None)
     biases=None,                # (bg [E, Fm], bu [E, Fm], bd [E, D])
     chunk_tokens: Optional[int] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Top-k MoE, routed: each token through its own k experts, weighted
     by the router's top-k weights; then ``routed_scaling_factor``, then
@@ -657,11 +758,26 @@ def _moe_mlp(
     expert's, and each token's k outputs are summed with its combine
     weights in one small product per token (fp32 accumulation, rounded
     once, as JAX's ``einsum`` over the experts).
+
+    Expert parallelism (a ``mesh`` whose ``ep x tp`` group has more than
+    one rank): the expert leaves are the rank's shard, its ``E / ep``
+    experts at its ``tp`` slice of the expert width; the router is whole.
+    The pairs are sorted over all E experts as above, and the grouped
+    launches run over the local experts' segments only (their offsets,
+    which lie in one run of the sorted pairs); each token's k outputs are
+    summed in fp32 with the other pairs zeroed, the routed scaling and
+    (on ``ep`` rank 0, since its ``tp`` partial is the same on every
+    ``ep`` rank) the shared experts' partial added, and the sum reduced
+    over ``ep x tp`` in one all-reduce before the one rounding: the JAX
+    module's "local experts, then one psum", over routed pairs.
     """
     from gpustack_tpu_torch.ops import w8a16
 
     B, T, D = x.shape
-    E, _, Fm = we_gate.shape
+    E_loc, _, Fm = we_gate.shape
+    sharded = mesh is not None and mesh.moe_size > 1
+    E = cfg.num_experts if sharded else E_loc
+    e0 = mesh.ep_rank * E_loc if sharded else 0
     k = cfg.num_experts_per_tok
     dtype = x.dtype
     xt = x.reshape(B * T, D)
@@ -673,7 +789,9 @@ def _moe_mlp(
             return w8a16.w8a16_grouped(xs, w.q, w.s, offsets, rows)
     else:
         expert_mm = w8a16.bf16_grouped
-    out = torch.empty_like(xt)
+    out = torch.empty(
+        xt.shape, dtype=torch.float32 if sharded else dtype, device=x.device
+    )
     for s in range(0, N, chunk_tokens):
         xc = xt[s:s + chunk_tokens]
         n = xc.shape[0]
@@ -681,12 +799,18 @@ def _moe_mlp(
         perm, offsets, inv = moe_dispatch(top_idx, E)
         # the combine weight of each pick, in the compute dtype as JAX's
         c = combine.gather(1, top_idx).to(dtype)
+        if sharded:
+            # the local experts' segments, as a tensor of its own (the
+            # kernel takes a 16-byte aligned offsets array)
+            offsets = offsets[e0:e0 + E_loc + 1].clone()
         xs = xc.index_select(0, perm // k)          # [P, D]
         g = expert_mm(xs, we_gate, offsets, n)      # [P, Fm]
         u = expert_mm(xs, we_up, offsets, n)
         del xs
         if biases is not None:
             e_sorted = top_idx.flatten().index_select(0, perm)
+            if sharded:
+                e_sorted = (e_sorted - e0).clamp_(0, E_loc - 1)
             g += biases[0].to(dtype).index_select(0, e_sorted)
             u += biases[1].to(dtype).index_select(0, e_sorted)
         if cfg.moe_act == "gptoss":
@@ -700,24 +824,47 @@ def _moe_mlp(
         del g, u
         y = expert_mm(h, we_down, offsets, n)       # [P, D], rounded per pair
         del h
-        if biases is not None:
+        if biases is not None and (not sharded or mesh.tp_rank == 0):
+            # once per expert: on one tp rank of its ep rank
             y += biases[2].to(dtype).index_select(0, e_sorted)
+        if sharded:
+            # rows of other ranks' experts were never written: zero them
+            rows = torch.arange(y.shape[0], device=y.device)
+            y.masked_fill_(((rows < offsets[0]) | (rows >= offsets[-1]))
+                           [:, None], 0)
+            mine = y.index_select(0, inv).view(n, k, D)
+            out[s:s + n] = torch.bmm(
+                c.float()[:, None, :], mine.float()
+            )[:, 0]
+            continue
         # the token sum (not an expert product): [1, k] @ [k, D] a token
         mine = y.index_select(0, inv).view(n, k, D)
         out[s:s + n] = torch.bmm(c[:, None, :], mine)[:, 0]
+    if sharded:
+        if cfg.routed_scaling_factor != 1.0:
+            out *= torch.tensor(cfg.routed_scaling_factor, dtype=dtype).item()
+        if shared is not None and mesh.ep_rank == 0:
+            out += _shared_experts(xt, shared).float()
+        return mesh.all_reduce_moe(out).to(dtype).reshape(B, T, D)
     if cfg.routed_scaling_factor != 1.0:
         # the factor in the compute dtype first, as JAX's asarray does
         out = out * torch.tensor(cfg.routed_scaling_factor, dtype=dtype).item()
     if shared is not None:
-        ws_gate, ws_up, ws_down, gate_w = shared
-        sh = _mm(
-            torch.nn.functional.silu(_mm(xt, ws_gate)) * _mm(xt, ws_up),
-            ws_down,
-        )
-        if gate_w is not None:
-            sh = sh * torch.sigmoid(_mm(xt, gate_w))
-        out = out + sh
+        out = out + _shared_experts(xt, shared)
     return out.reshape(B, T, D)
+
+
+def _shared_experts(xt: torch.Tensor, shared) -> torch.Tensor:
+    """The shared experts' output (under ``tp``, the rank's partial sum):
+    ungated (DeepSeek) or gated by ``sigmoid(x @ g)`` (Qwen2-MoE)."""
+    ws_gate, ws_up, ws_down, gate_w = shared
+    sh = _mm(
+        torch.nn.functional.silu(_mm(xt, ws_gate)) * _mm(xt, ws_up),
+        ws_down,
+    )
+    if gate_w is not None:
+        sh = sh * torch.sigmoid(_mm(xt, gate_w))
+    return sh
 
 
 # ---------------------------------------------------------------------------
@@ -725,7 +872,7 @@ def _moe_mlp(
 # ---------------------------------------------------------------------------
 
 
-def _mla_qkv(h, lp, i, cfg: ModelConfig, sin, cos):
+def _mla_qkv(h, lp, i, cfg: ModelConfig, sin, cos, H: Optional[int] = None):
     """MLA served decompressed (the JAX module's ``is_mla`` branch): q
     through ``wq`` or ``wq_a`` → ``q_a_norm`` → ``wq_b``; ``wkv_a`` splits
     into the latent ``c_kv`` (normed, then expanded per head by
@@ -733,9 +880,12 @@ def _mla_qkv(h, lp, i, cfg: ModelConfig, sin, cos):
     shared by every head. Returns q, k, v ``[B, T, H, head_dim]``: K is
     ``[k_nope, k_pe]`` and V zero-padded to ``head_dim``, both real
     tensors (the cache write and the kernel's TMA maps, which refuse a
-    stride of 0, read them as they are)."""
+    stride of 0, read them as they are). ``H``: the heads this rank holds
+    (``wq``/``wq_b`` and ``wkv_b`` split their head axis over ``tp``;
+    default all of them)."""
     B, T, _ = h.shape
-    H, hd, r = cfg.num_heads, cfg.head_dim, cfg.kv_lora_rank
+    H = H or cfg.num_heads
+    hd, r = cfg.head_dim, cfg.kv_lora_rank
     nope, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
     if cfg.q_lora_rank:
         q_c = rms_norm(_mm(h, lp["wq_a"][i]), lp["q_a_norm"][i],
@@ -766,6 +916,7 @@ def forward(
     q_offset: int = 0,
     clamp_writes: bool = False,
     embeds_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the model.
 
@@ -799,6 +950,18 @@ def forward(
     mask take ``embeds`` in the compute dtype instead of the vocab row,
     before Gemma's embedding scale, as in JAX.
 
+    ``mesh`` (``parallel.mesh.Mesh``, one rank of a multi-GPU replica):
+    the Megatron forward on the rank's shard (``parallel.sharding``).
+    ``wq``/``wk``/``wv`` and their biases are column-split, so attention
+    runs on the rank's heads (the cache holds its KV heads); ``wo`` is
+    row-split and its partial sums all-reduced over ``tp``, and only then
+    is GPT-OSS's ``bo`` added, once. Gate and up are column-split, down
+    row-split, then all-reduced. Sinks are taken at the rank's heads; MLA
+    splits ``wq``/``wq_b`` and ``wkv_b`` by head. The embedding and the
+    LM head are vocab-split (:func:`_embed_lookup`, :func:`lm_head`); an
+    MoE layer runs its local experts (:func:`_moe_mlp`). Every rank
+    computes the same activations between layers, and the same logits.
+
     Returns ``(logits [B, T, vocab] fp32, cache or None)``, or the final
     normalized hidden states (fp32) with ``return_hidden``.
     """
@@ -807,7 +970,11 @@ def forward(
     B, T = tokens.shape
     dtype = torch_dtype(cfg)
     device = tokens.device
-    x = _embed_lookup(params["embed"], tokens, dtype)
+    tp = mesh.tp if mesh is not None else 1
+    Hq, Hkv = local_heads(cfg, tp)
+    G = Hq // Hkv
+    h0 = mesh.tp_rank * Hq if mesh is not None else 0
+    x = _embed_lookup(params["embed"], tokens, dtype, mesh)
     if embeds_override is not None:
         ov, ov_mask = embeds_override
         x = torch.where(ov_mask[..., None], ov.to(dtype), x)
@@ -901,28 +1068,28 @@ def forward(
         sin_l, cos_l = (sin_loc, cos_loc) if sliding else (sin, cos)
         h = rms_norm(x, lp["attn_norm"][i], cfg.rms_norm_eps, delta)
         if cfg.is_mla:
-            q, k, v = _mla_qkv(h, lp, i, cfg, sin, cos)
+            q, k, v = _mla_qkv(h, lp, i, cfg, sin, cos, Hq)
         else:
             q = _mm(h, lp["wq"][i])
             k = _mm(h, lp["wk"][i])
             v = _mm(h, lp["wv"][i])
             if cfg.qkv_bias:
                 q, k, v = q + lp["bq"][i], k + lp["bk"][i], v + lp["bv"][i]
-            q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
-            k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-            v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+            q = q.reshape(B, T, Hq, cfg.head_dim)
+            k = k.reshape(B, T, Hkv, cfg.head_dim)
+            v = v.reshape(B, T, Hkv, cfg.head_dim)
             if cfg.qk_norm:
                 q = rms_norm(q, lp["q_norm"][i], cfg.rms_norm_eps, delta)
                 k = rms_norm(k, lp["k_norm"][i], cfg.rms_norm_eps, delta)
             q = apply_rope(q, sin_l, cos_l)
             k = apply_rope(k, sin_l, cos_l)
-        qg = q.reshape(B, T, cfg.num_kv_heads, cfg.group_size, cfg.head_dim)
+        qg = q.reshape(B, T, Hkv, G, cfg.head_dim)
         if not use_flash:
             plain = dict(
                 mask=mask_slide if sliding else mask_full, scale=scale,
                 softcap=cfg.attn_logit_softcap,
                 sinks=(
-                    lp["sinks"][i].reshape(cfg.num_kv_heads, cfg.group_size)
+                    lp["sinks"][i][h0:h0 + Hq].reshape(Hkv, G)
                     if cfg.attn_sinks else None
                 ),
             )
@@ -944,10 +1111,12 @@ def forward(
                 attn = _attend(qg, k_l, v_l, **plain)
         if cfg.is_mla:
             # drop V's zero-padded tail before wo ([H * v_head_dim, d])
-            attn = attn.reshape(B, T, cfg.num_heads, cfg.head_dim)[
+            attn = attn.reshape(B, T, Hq, cfg.head_dim)[
                 ..., :cfg.v_head_dim
-            ].reshape(B, T, cfg.num_heads * cfg.v_head_dim)
+            ].reshape(B, T, Hq * cfg.v_head_dim)
         attn_out = _mm(attn, lp["wo"][i])
+        if mesh is not None:
+            attn_out = mesh.all_reduce_tp(attn_out)
         if cfg.o_bias:
             attn_out = attn_out + lp["bo"][i]
         if cfg.post_norms:
@@ -975,11 +1144,14 @@ def forward(
                      lp["we_down_b"][i])
                     if cfg.moe_bias else None
                 ),
+                mesh=mesh,
             )
         else:
             g = _mm(h2, lp["w_gate"][i])
             u = _mm(h2, lp["w_up"][i])
             mlp = _mm(act(g) * u, lp["w_down"][i])
+            if mesh is not None:
+                mlp = mesh.all_reduce_tp(mlp)
         if cfg.post_norms:
             mlp = rms_norm(
                 mlp, lp["post_mlp_norm"][i], cfg.rms_norm_eps, delta
@@ -989,18 +1161,23 @@ def forward(
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, delta)
     if return_hidden:
         return x.float(), cache
-    return lm_head(params, cfg, x), cache
+    return lm_head(params, cfg, x, mesh), cache
 
 
-def lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def lm_head(
+    params: Params, cfg: ModelConfig, x: torch.Tensor, mesh=None
+) -> torch.Tensor:
     """Final-normed hidden states (compute dtype) → fp32 logits: the tied
     embedding's transpose or ``lm_head``, then Gemma2's final softcap
-    ``cap * tanh(logits / cap)`` in fp32."""
+    ``cap * tanh(logits / cap)`` in fp32. Under ``tp`` both are
+    vocab-split: each rank's logits are gathered over ``tp``."""
     x = x.to(torch_dtype(cfg))
     if cfg.tie_word_embeddings:
         logits = _mm(x, params["embed"].T).float()
     else:
         logits = _mm(x, params["lm_head"]).float()
+    if mesh is not None:
+        logits = mesh.all_gather_tp(logits)
     if cfg.final_logit_softcap:
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)

@@ -1,0 +1,261 @@
+"""Mesh plans and the per-process mesh of a multi-GPU replica.
+
+The port of ``gpustack_tpu/parallel/mesh.py``. ``MeshPlan`` and
+``plan_mesh`` are the JAX module's, with the same answers. Canonical axes,
+outer to inner:
+
+- ``dp``: data/replica parallelism (independent request batches);
+- ``sp``: sequence/context parallelism (ring-attention prefill);
+- ``ep``: expert parallelism (the MoE expert dimension);
+- ``tp``: tensor parallelism (attention heads and FFN width).
+
+Where JAX's ``make_mesh`` builds one ``Mesh`` of devices that XLA
+partitions programs over, the port runs one process per GPU: :class:`Mesh`
+is one rank's view, its (dp, sp, ep, tp) coordinates in JAX's outer to
+inner order (``tp`` innermost, so a ``tp`` group is ranks that differ by
+1) and the ``torch.distributed`` process groups its forward needs: the
+``tp`` group (the attention and dense MLP all-reduces), the ``ep x tp``
+group (an MoE layer's combine) and the world (the sampled tokens'
+broadcast). Collectives are NCCL on the card and gloo on the CPU; a group
+of one rank makes each collective a no-op, so one process needs no
+process group at all.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import socket
+from typing import Dict, List, Optional
+
+import torch
+import torch.distributed as dist
+
+AXIS_DP = "dp"
+AXIS_SP = "sp"
+AXIS_EP = "ep"
+AXIS_TP = "tp"
+MESH_AXES = (AXIS_DP, AXIS_SP, AXIS_EP, AXIS_TP)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    """A concrete parallelism plan: axis sizes for one model replica.
+    ``chips`` (the product) is the number of GPUs, one process each."""
+
+    dp: int = 1
+    sp: int = 1
+    ep: int = 1
+    tp: int = 1
+
+    @property
+    def chips(self) -> int:
+        return self.dp * self.sp * self.ep * self.tp
+
+    def axis_sizes(self) -> Dict[str, int]:
+        return {
+            AXIS_DP: self.dp,
+            AXIS_SP: self.sp,
+            AXIS_EP: self.ep,
+            AXIS_TP: self.tp,
+        }
+
+    def __str__(self) -> str:
+        return f"dp{self.dp}xsp{self.sp}xep{self.ep}xtp{self.tp}"
+
+    @staticmethod
+    def parse(s: str) -> "MeshPlan":
+        """Parse 'dp2xsp1xep1xtp4' (any subset/order of axes)."""
+        sizes = {"dp": 1, "sp": 1, "ep": 1, "tp": 1}
+        for part in s.lower().split("x"):
+            for ax in sizes:
+                if part.startswith(ax):
+                    sizes[ax] = int(part[len(ax):])
+                    break
+            else:
+                raise ValueError(f"bad mesh plan component {part!r} in {s!r}")
+        return MeshPlan(**sizes)
+
+
+def _largest_pow2_divisor(n: int, cap: int) -> int:
+    best = 1
+    d = 1
+    while d <= cap and n % d == 0:
+        best = d
+        d *= 2
+    return best
+
+
+def plan_mesh(
+    n_devices: int,
+    num_kv_heads: int,
+    num_experts: int = 0,
+    long_context: bool = False,
+) -> MeshPlan:
+    """Auto-parallelism: a mesh shape for ``n_devices`` GPUs (the JAX
+    heuristic). MoE models give up to half the factor to ``ep``; ``tp``
+    goes up to the KV-head count (under ``long_context`` up to half the
+    rest, ``sp`` taking the other half); what is left goes to ``dp``."""
+    if n_devices <= 0 or n_devices & (n_devices - 1):
+        raise ValueError(f"device count must be a power of two, got {n_devices}")
+    rest = n_devices
+    ep = 1
+    if num_experts:
+        ep = _largest_pow2_divisor(num_experts, max(1, rest // 2))
+        rest //= ep
+    if long_context and rest >= 2:
+        tp = _largest_pow2_divisor(num_kv_heads, rest // 2)
+        return MeshPlan(dp=1, sp=rest // tp, ep=ep, tp=tp)
+    tp = _largest_pow2_divisor(num_kv_heads, rest)
+    return MeshPlan(dp=rest // tp, sp=1, ep=ep, tp=tp)
+
+
+def free_port() -> int:
+    """A TCP port free on this host now (the rendezvous and the command
+    channel pick theirs so, never a fixed one)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_coords(plan: MeshPlan, rank: int) -> Dict[str, int]:
+    """Rank ``rank``'s index along each axis: row-major over (dp, sp, ep,
+    tp), where JAX's ``make_mesh`` puts device ``rank``."""
+    idx, rest = [], rank
+    for n in reversed([plan.dp, plan.sp, plan.ep, plan.tp]):
+        idx.append(rest % n)
+        rest //= n
+    return dict(zip(MESH_AXES, reversed(idx)))
+
+
+class Mesh:
+    """One rank's place in a plan's mesh and its process groups.
+
+    ``coords`` maps each axis to this rank's index along it; rank r sits
+    at ``(dp, sp, ep, tp)`` of ``r`` in row-major order over the plan's
+    axis sizes, as JAX's ``make_mesh`` reshapes its device list. Without
+    an initialised process group the mesh must be a single rank."""
+
+    def __init__(self, plan: MeshPlan, rank: int = 0):
+        self.plan = plan
+        self.rank = rank
+        self.coords = rank_coords(plan, rank)
+        self.tp_group = self.moe_group = self.world_group = None
+        if plan.chips > 1:
+            if not dist.is_initialized():
+                raise RuntimeError(
+                    f"plan {plan} spans {plan.chips} ranks: initialise the "
+                    "process group first (init_mesh)"
+                )
+            if dist.get_world_size() != plan.chips:
+                raise ValueError(
+                    f"plan {plan} needs {plan.chips} ranks, the process "
+                    f"group has {dist.get_world_size()}"
+                )
+            self.world_group = dist.group.WORLD
+            self.tp_group = self._groups(("tp",))
+            self.moe_group = self._groups(("ep", "tp"))
+
+    def _groups(self, inner):
+        """This rank's group over the ``inner`` axes: every group is made
+        on every rank in one order (``new_group`` is collective), and a
+        group that is the whole world is the world group."""
+        p = self.plan
+        width = 1
+        for ax in inner:
+            width *= p.axis_sizes()[ax]
+        if width == p.chips:
+            return dist.group.WORLD
+        mine = None
+        for start in range(0, p.chips, width):
+            ranks = list(range(start, start + width))
+            g = dist.new_group(ranks)
+            if self.rank in ranks:
+                mine = g
+        return mine
+
+    # ---- coordinates ------------------------------------------------------
+
+    @property
+    def tp(self) -> int:
+        return self.plan.tp
+
+    @property
+    def tp_rank(self) -> int:
+        return self.coords[AXIS_TP]
+
+    @property
+    def ep_rank(self) -> int:
+        return self.coords[AXIS_EP]
+
+    @property
+    def moe_size(self) -> int:
+        return self.plan.ep * self.plan.tp
+
+    @property
+    def world(self) -> int:
+        return self.plan.chips
+
+    # ---- collectives (no-ops on a group of one) ---------------------------
+
+    def all_reduce_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum ``x`` over the ``tp`` group, in place."""
+        if self.tp > 1:
+            dist.all_reduce(x, group=self.tp_group)
+        return x
+
+    def all_reduce_moe(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum ``x`` over the ``ep x tp`` group, in place."""
+        if self.moe_size > 1:
+            dist.all_reduce(x, group=self.moe_group)
+        return x
+
+    def all_gather_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """The ``tp`` ranks' ``x`` side by side along the last axis."""
+        if self.tp == 1:
+            return x
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.tp)]
+        dist.all_gather(parts, x, group=self.tp_group)
+        return torch.cat(parts, dim=-1)
+
+    def broadcast_(self, x: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``x`` on every rank, in place."""
+        if self.world > 1:
+            dist.broadcast(x, src=0, group=self.world_group)
+        return x
+
+    def all_gather_world(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """Every rank's ``x`` (same shape), in rank order."""
+        if self.world == 1:
+            return [x]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.world)]
+        dist.all_gather(parts, x, group=self.world_group)
+        return parts
+
+
+def init_mesh(
+    plan: MeshPlan, rank: int, coordinator: str, device: torch.device,
+    timeout_s: float = 600.0,
+) -> Mesh:
+    """Join the replica's process group (``coordinator`` ``host:port`` is
+    rank 0's rendezvous) and build this rank's :class:`Mesh`: NCCL when
+    ``device`` is a CUDA device, gloo when it is the CPU. There is no
+    switch between them: a CUDA device without NCCL fails here."""
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    if plan.chips > 1:
+        dist.init_process_group(
+            backend, init_method=f"tcp://{coordinator}",
+            world_size=plan.chips, rank=rank,
+            timeout=datetime.timedelta(seconds=timeout_s),
+        )
+    return Mesh(plan, rank)
+
+
+def close_mesh(mesh: Optional[Mesh]) -> None:
+    """Leave the process group (a no-op for a single rank)."""
+    if mesh is not None and mesh.world > 1 and dist.is_initialized():
+        dist.destroy_process_group()
