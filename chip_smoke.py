@@ -305,6 +305,24 @@ GEMMA2_9B_MATMULS = {
     "w_gate/w_up": (3584, 14336),
     "w_down": (14336, 3584),
 }
+# llama3-70b's weight products on one rank of its tp4 shard (phase s):
+# column-split q/k/v, gate and up and the vocab-split lm_head, row-split o
+# and down
+LLAMA3_70B_TP4_MATMULS = {
+    "wq": (8192, 2048),
+    "wk/wv": (8192, 256),
+    "wo": (2048, 8192),
+    "w_gate/w_up": (8192, 7168),
+    "w_down": (7168, 8192),
+    "lm_head": (8192, 32064),
+}
+# mixtral-8x7b's experts on one rank of its ep2xtp2 shard (phase s): 4 of
+# the 8 experts at half the expert width, as (E, top-k, local experts, K,
+# N)
+MIXTRAL_EP2TP2_GROUPED = {
+    "we_gate/we_up": (8, 2, 4, 4096, 7168),
+    "we_down": (8, 2, 4, 7168, 4096),
+}
 # the grouped expert kernel (the routed MoE products, one launch over the
 # experts a token chunk picked) at the products the served MoE paths give
 # it: (E, top-k, K, N, weight types served). int8 experts serve in phases h
@@ -678,6 +696,7 @@ def phase_kernels():
              tolerance={"rtol": W8A16_RTOL, "atol": W8A16_ATOL,
                         "row_rtol": W8A16_ROW_RTOL},
              cases=list(grouped[wtype].values()), ragged=ragged)
+    _shard_cases(gen)
     return {"flash_attention_prefill": rows[0], "w8a16_matmul": w8_rows[0],
             "w8a16_grouped": grouped["int8"][
                 "mixtral-8x7b we_gate/we_up", 2048],
@@ -689,6 +708,61 @@ def phase_kernels():
             "flash_gemma7b": rows[gemma7b],
             "flash_gemma7b_continuation": rows[gemma7b_cont],
             "flash_gemma2b": rows[gemma2b]}
+
+
+def _shard_cases(gen):
+    """The kernels at the shapes phase s gives one rank, checked only (on
+    one card, so the one-card smoke holds them too): W8A16 at llama3-70b's
+    tp4 shards for a decode step (M = 8), phase s's 512-token int8 forward
+    and the 2048 bucket (lm_head at a prefill's last position, 8 and 512);
+    ``bf16_grouped`` as an ``ep`` rank of mixtral-8x7b's ep2xtp2 runs it:
+    the pairs routed over all 8 experts, the kernel given the rank's 4
+    experts and its slice of the offsets, at 8 and 2048 tokens."""
+    w8 = [
+        dict(_w8a16_check_strided(M, K, N, gen, strided=False), weight=name)
+        for name, (K, N) in LLAMA3_70B_TP4_MATMULS.items()
+        for M in ((1, 8, 512) if name == "lm_head" else (8, 512, 2048))
+    ]
+    grouped = [
+        _grouped_shard_case(n, E, k, e0, E_loc, K, N, name, gen)
+        for name, (E, k, E_loc, K, N) in MIXTRAL_EP2TP2_GROUPED.items()
+        for n in (8, 2048) for e0 in (0, E_loc)
+    ]
+    emit("kernels_shards",
+         tolerance={"rtol": W8A16_RTOL, "atol": W8A16_ATOL,
+                    "row_rtol": W8A16_ROW_RTOL},
+         w8a16_matmul={"model": "llama3-70b", "plan": "tp4", "cases": w8},
+         bf16_grouped={"model": "mixtral-8x7b", "plan": "ep2xtp2",
+                       "cases": grouped})
+
+
+def _grouped_shard_case(n, E, k, e0, E_loc, K, N, weight, gen):
+    """``bf16_grouped`` as an ``ep`` rank runs it (``_moe_mlp`` on a
+    mesh): ``n`` tokens' top-``k`` pairs sorted over all ``E`` experts,
+    the kernel given only the ``E_loc`` local experts' weights and
+    ``offsets[e0:e0 + E_loc + 1]``, so its rows start mid-array and the
+    other ranks' rows stay unwritten; each local segment held to its fp32
+    plain product."""
+    from gpustack_tpu_torch.models import transformer as tf
+    from gpustack_tpu_torch.ops import w8a16
+
+    top = _grouped_routing(n, E, k, "random", gen)
+    perm, offsets, _ = tf.moe_dispatch(top, E)
+    local = offsets[e0:e0 + E_loc + 1].clone()
+    xs = torch.randn(n, K, generator=gen, device="cuda").bfloat16()[
+        perm // k
+    ].contiguous()
+    w = (torch.randn(E_loc, K, N, generator=gen, device="cuda")
+         / K ** 0.5).bfloat16()
+    out = w8a16.bf16_grouped(xs, w, local, n)
+    torch.cuda.synchronize()
+    max_err, row_rel = _check_grouped(out, xs, w, None, local)
+    bounds = local.tolist()
+    return {"weight": weight, "shape": {"E": E, "E_local": E_loc, "e0": e0,
+                                        "k": k, "n": n, "P": n * k, "K": K,
+                                        "N": N},
+            "local_rows": [bounds[0], bounds[-1]],
+            "max_abs_err": max_err, "max_row_rel_err": row_rel}
 
 
 def _check_w8a16(out, x, q, s):
@@ -990,14 +1064,15 @@ def _grouped_case(n, E, k, K, N, weight, wtype, gen, routing="random",
     }
 
 
-def _w8a16_check_strided(M, K, N, gen):
-    """One product on strided views, held to the plain version: q columns
+def _w8a16_check_strided(M, K, N, gen, strided=True):
+    """One product held to the plain version, on strided views: q columns
     [0, N) of layer 1 of a stacked [2, K, N + 48] weight, x columns [0, K)
-    of [M, K + 64]."""
+    of [M, K + 64] (``strided`` False: on whole tensors)."""
     from gpustack_tpu_torch.ops import w8a16
 
-    xw = torch.randn(M, K + 64, generator=gen, device="cuda").bfloat16()
-    qw = torch.randint(-127, 128, (2, K, N + 48), generator=gen,
+    pad_x, pad_q = (64, 48) if strided else (0, 0)
+    xw = torch.randn(M, K + pad_x, generator=gen, device="cuda").bfloat16()
+    qw = torch.randint(-127, 128, (2, K, N + pad_q), generator=gen,
                        device="cuda", dtype=torch.int8)
     s = ((0.5 + torch.rand(N, generator=gen, device="cuda"))
          * (3.0 / K ** 0.5 / 127.0)).bfloat16()
@@ -5175,7 +5250,7 @@ S_MOE_TOKENS = (2048, 8)
 SHARD_REL_TOL = 1e-4
 S_RANK_TIMEOUT_S = 900
 S_RANK_DEVICE = "cuda"
-# the kernels whose launches each rank reports (ModelRunner.probe)
+# the kernels whose launches each rank reports (diagnostics.probe)
 S_KERNELS = ("flash_attention_prefill", "w8a16_matmul", "w8a16_grouped",
              "bf16_grouped")
 

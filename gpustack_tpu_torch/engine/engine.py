@@ -939,9 +939,8 @@ class LLMEngine:
         t0 = time.perf_counter()
         # a multi-GPU replica whose follower is gone cannot run another
         # collective: end the loop, which makes the engine fatal
-        channel_error = getattr(self.runner, "channel_error", "")
-        if channel_error:
-            raise RuntimeError(channel_error)
+        if self.runner.channel_error:
+            raise RuntimeError(self.runner.channel_error)
         self._step_mode = ""
         self._step_real = self._step_padded = 0
         self._step_out = self._step_prompt = 0
@@ -1405,9 +1404,7 @@ class LLMEngine:
             # abandon the remaining chunks; the slot never activated. An
             # upload still in flight is read later, like a store.
             if job.done and not job.one_shot:
-                abort_op = getattr(self.runner, "chunk_abort", None)
-                if abort_op is not None:
-                    abort_op()
+                self.runner.chunk_abort()
             del self._chunk_jobs[slot]
             self._free.append(slot)
             if job.pending_kv is not None:
@@ -1428,25 +1425,16 @@ class LLMEngine:
         self._step_real += len(chunk)
         self._step_prompt += len(chunk)
         self._step_padded += sb
-        # a multi-GPU leader's runner names the chunk ops, so its
-        # followers keep the chunk's K/V apart from one-shot prefills
         if start == 0:
-            first = getattr(r, "prefill_chunk", None) or r.prefill
-            job.last, job.k, job.v = first(padded, len(chunk))
+            job.last, job.k, job.v = r.prefill_chunk(padded, len(chunk))
         else:
-            cont = (
-                getattr(r, "prefill_continue_chunk", None)
-                or r.prefill_with_prefix
-            )
-            job.last, job.k, job.v = cont(
+            job.last, job.k, job.v = r.prefill_continue_chunk(
                 job.k, job.v, start, padded, len(chunk),
                 r.bucket_for(start + sb),
             )
         job.done += len(chunk)
         if job.done >= len(job.ids):
-            commit = getattr(r, "chunk_commit", None)
-            if commit is not None:
-                commit()
+            r.chunk_commit()
             del self._chunk_jobs[slot]
             self._submit_kv_copy(job.ids, job.k, job.v, len(job.ids))
             self._finalize_start(slot, job.req, job.last, job.k, job.v)
@@ -1639,7 +1627,7 @@ class LLMEngine:
         )
         if (
             self.overlap and not self.speculative and not req.logprobs
-            and getattr(self.runner, "supports_async_insert", True)
+            and self.runner.supports_async_insert
         ):
             self._state = self.runner.insert(
                 self._state, k, v, slot, len(ids), toks[0],

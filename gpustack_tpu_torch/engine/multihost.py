@@ -9,7 +9,7 @@ decode, deactivate, the chunked-prefill ops) over a TCP channel of
 newline-delimited JSON, and each follower replays the same call on its own
 runner. The op vocabulary, the ``AUTH <token>`` handshake and
 ``GPUSTACK_TPU_CMD_TOKEN`` are the JAX module's; ``probe`` is the port's
-own (``ModelRunner.probe``: slot state, launch counts and memory gathered
+own (``diagnostics.probe``: slot state, launch counts and memory gathered
 from every rank, for checks).
 
 Determinism contract:
@@ -41,6 +41,8 @@ import socket
 import threading
 import time
 from typing import Any, Dict, List, Optional
+
+from gpustack_tpu_torch.engine import diagnostics
 
 logger = logging.getLogger(__name__)
 
@@ -302,12 +304,13 @@ class BroadcastingRunner:
         return self._runner.deactivate(state, slot)
 
     def probe(self, state, what: str, ids=None, true_len: int = 0):
+        """A check on every rank at once (``diagnostics.probe``)."""
         self._leader.broadcast({
             "op": "probe", "what": what,
             "ids": None if ids is None else [int(t) for t in ids],
             "true_len": int(true_len),
         })
-        return self._runner.probe(state, what, ids, true_len)
+        return diagnostics.probe(self._runner, state, what, ids, true_len)
 
     # -- single-process features (refused at build; here defensively) ----
 
@@ -469,8 +472,8 @@ class FollowerLoop:
         elif kind == "deactivate":
             self.state = r.deactivate(self.state, op["slot"])
         elif kind == "probe":
-            r.probe(self.state, op["what"], op.get("ids"),
-                    op.get("true_len", 0))
+            diagnostics.probe(r, self.state, op["what"], op.get("ids"),
+                              op.get("true_len", 0))
         else:
             logger.warning("unknown multihost op %r", kind)
             return

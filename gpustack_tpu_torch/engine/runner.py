@@ -55,14 +55,6 @@ from gpustack_tpu_torch.models.transformer import (
 from gpustack_tpu_torch.parallel.mesh import Mesh, MeshPlan
 from gpustack_tpu_torch.parallel.sharding import SpecLayout
 
-# the hand-written kernels' wrappers, by module (launch counts, ``probe``)
-KERNEL_WRAPPERS = (
-    ("flash_attention", "flash_attention_prefill"),
-    ("w8a16", "w8a16_matmul"),
-    ("w8a16", "w8a16_grouped"),
-    ("w8a16", "bf16_grouped"),
-)
-
 
 @dataclasses.dataclass
 class DecodeState:
@@ -90,6 +82,12 @@ class DecodeState:
 class ModelRunner:
     """Owns the params and the prefill/insert/decode ops for one model
     (or, with a multi-rank ``mesh``, for this rank's shard of it)."""
+
+    # the engine may hand insert() a first token still on the device
+    # (its dispatch-ahead admission); a leader's BroadcastingRunner may not
+    supports_async_insert = True
+    # why the replica's command channel failed ("" : it has not)
+    channel_error = ""
 
     def __init__(
         self,
@@ -159,13 +157,9 @@ class ModelRunner:
         main path must not take.)"""
         return "flash" if self.device.type == "cuda" else "plain"
 
-    def prefill(
-        self, token_ids: Sequence[int], true_len: int,
-        attn_impl: Optional[str] = None,
-    ):
+    def prefill(self, token_ids: Sequence[int], true_len: int):
         """Run prefill at the bucket for ``true_len``. ``token_ids`` must be
-        padded to the bucket length already (any pad id). ``attn_impl``
-        overrides :meth:`attn_impl_for` (a plain reference run). Returns
+        padded to the bucket length already (any pad id). Returns
         ``(last_logits [V] fp32, k, v [L, Tb, H, hd])``."""
         Tb = len(token_ids)
         if Tb not in self.prefill_buckets:
@@ -179,7 +173,7 @@ class ModelRunner:
         cache = self._cache(Tb)
         hidden, cache = forward(
             self.params, self.cfg, tokens, positions, cache,
-            return_hidden=True, attn_impl=attn_impl or self.attn_impl_for(Tb),
+            return_hidden=True, attn_impl=self.attn_impl_for(Tb),
             mesh=self.mesh,
         )
         # logits for the one position the sampler reads, not all Tb rows
@@ -281,6 +275,26 @@ class ModelRunner:
         last = self._head(hidden[0, suffix_true_len - 1])
         return last, cache.k[:, 0], cache.v[:, 0]
 
+    # a chunked prefill (engine._advance_chunk) is a prefill, then
+    # continuations; a leader's BroadcastingRunner names each step to its
+    # followers, which keep the chunk's K/V apart from one-shot prefills
+    def prefill_chunk(self, token_ids: Sequence[int], true_len: int):
+        return self.prefill(token_ids, true_len)
+
+    def prefill_continue_chunk(
+        self, k, v, start: int, token_ids: Sequence[int], true_len: int,
+        total_bucket: int,
+    ):
+        return self.prefill_with_prefix(
+            k, v, start, token_ids, true_len, total_bucket
+        )
+
+    def chunk_commit(self) -> None:
+        """The chunk job completed (nothing to do on one process)."""
+
+    def chunk_abort(self) -> None:
+        """The chunk job was abandoned (nothing to do on one process)."""
+
     # -- embeddings -------------------------------------------------------
 
     def embed(self, batch_token_ids, true_lens) -> torch.Tensor:
@@ -357,66 +371,6 @@ class ModelRunner:
     def deactivate(self, state: DecodeState, slot: int) -> DecodeState:
         state.active[slot] = False
         return state
-
-    # -- diagnostics (every rank in step, through the command channel) ----
-
-    def probe(
-        self, state: DecodeState, what: str, ids=None, true_len: int = 0
-    ):
-        """Read or reset what a check of a multi-GPU replica needs, on
-        every rank at once (a collective: the leader broadcasts the probe
-        first). ``what``:
-
-        - ``"slot_state"``: every rank's ``[last_tokens, positions]``
-          (int64 ``[2, B]``), gathered, in rank order;
-        - ``"launches"``: every rank's kernel launch counts
-          (``{wrapper: [n per rank]}``);
-        - ``"reset_launches"``: each rank's counts to 0;
-        - ``"memory"``: every rank's peak device bytes since the last
-          ``"reset_memory"`` (0 on the CPU);
-        - ``"prefill_plain"``: a prefill of the bucket-padded ``ids``
-          (``true_len`` real) through the plain attention; the last real
-          position's logits.
-        """
-        import importlib
-
-        def gather(t: torch.Tensor):
-            parts = (self.mesh.all_gather_world(t) if self.mesh is not None
-                     else [t])
-            return [p.cpu() for p in parts]
-
-        cuda = self.device.type == "cuda"
-        wrappers = [
-            (name, getattr(importlib.import_module(
-                f"gpustack_tpu_torch.ops.{mod}"), name))
-            for mod, name in KERNEL_WRAPPERS
-        ]
-        if what == "slot_state":
-            return gather(torch.stack([state.last_tokens, state.positions]))
-        if what == "launches":
-            mine = torch.tensor([fn.launches for _, fn in wrappers],
-                                device=self.device)
-            per_rank = gather(mine)
-            return {name: [int(p[i]) for p in per_rank]
-                    for i, (name, _) in enumerate(wrappers)}
-        if what == "reset_launches":
-            for _, fn in wrappers:
-                fn.launches = 0
-                if hasattr(fn, "launches_by_path"):
-                    fn.launches_by_path.update(
-                        dict.fromkeys(fn.launches_by_path, 0))
-            return None
-        if what == "memory":
-            peak = torch.cuda.max_memory_allocated(self.device) if cuda else 0
-            return [int(p) for p in gather(
-                torch.tensor([peak], device=self.device))]
-        if what == "reset_memory":
-            if cuda:
-                torch.cuda.reset_peak_memory_stats(self.device)
-            return None
-        if what == "prefill_plain":
-            return self.prefill(ids, true_len, attn_impl="plain")[0]
-        raise ValueError(f"unknown probe {what!r}")
 
     def slot_kv(self, state: DecodeState, slot: int, width: int):
         """Copies of a slot's KV rows ``[:width]``."""
