@@ -39,7 +39,13 @@ c. kernels: each hand-written kernel against its plain PyTorch version on
    dequantized weight for int8) and the bound for the rows and experts
    the pick reaches; then, checked only, routings that stress the
    segments (an expert no token picks, every token on one expert, a
-   segment ending mid-tile, one token, 17 tokens);
+   segment ending mid-tile, one token, 17 tokens); the flash kernel's LSE
+   mode (a ring block's fp32 output and row log-sum-exp) against its
+   plain version at llama3-8b's heads (T = S = 2048) and at the three
+   blocks of qwen3-8b's sp4 ring over 32768 tokens (the diagonal,
+   ``q_offset`` 8192 and 24576), the output to the kernel gate and the
+   log-sum-exp within 1e-3, timed beside the causal mode, the plain
+   version and SDPA's flash backend with its logsumexp;
 d. main path: the port's OpenAI server in-process, serving llama3-8b at
    full width (bf16, random weights from a seed) with 8 slots and a
    2048-token context: chat, streaming chat, a completion whose prompt
@@ -47,11 +53,18 @@ d. main path: the port's OpenAI server in-process, serving llama3-8b at
    prompt. A kernel prefill's last-position logits are held against a
    prefill through the plain attention. Reported: TTFT of one 2048-bucket
    prompt, decode tokens/s with 8 slots busy, peak memory, and the
-   2048-bucket prefill timed with CUDA events;
+   2048-bucket prefill timed with CUDA events. The chat and the streamed
+   chat carry a caller's ``traceparent``: each answer has
+   ``X-Request-ID`` and a ``traceparent`` of the caller's trace with a new
+   span id, and the port's ``get_store("engine")`` holds that hop;
+   ``/healthz`` and ``/metrics`` answer without them and leave no hop (in
+   every phase that serves phase d's requests);
 e. prefix reuse: the same model with ``--prefill-chunk 512
    --host-kv-cache-mb 4096``: continuations against one prefill,
    multi-turn chats with exact hit and reuse counts, a 1900-token prompt
-   chunked while four chats decode, ``/metrics``;
+   chunked while four chats decode, ``/metrics``; each warm turn's traced
+   hop carries a ``kv_upload`` span and a ``kv_prefix_hit`` event with the
+   reused tokens;
 f. checkpoints and int8: llama3-8b's full widths at 2 layers written as a
    safetensors checkpoint (the script's own writer) and served through
    ``--model-dir``, the loaded tree and logits identical to the in-memory
@@ -164,7 +177,8 @@ n. disaggregated prefill/decode: llama3-8b bf16 at full width and depth
    blocks travel, the decode replica prefills the tail at ``q_offset``
    1792. Reported: handoff seconds, bytes and blocks, the decode
    replica's TTFT beside its cold TTFT, exact flash launches over both
-   runners, greedy ids against a cold single-engine run (phase g's rule);
+   runners, greedy ids against a cold single-engine run (phase g's rule),
+   the decode replica's traced hop with its ``kv_handoff`` span and event;
    then one ``json_schema`` request with a schema and one streamed;
 o. image chat: the repo's vision tower (64 x 64 images, 8 x 8 patches,
    dim 64, 2 layers) projected into llama3-8b (bf16, full width and
@@ -222,6 +236,23 @@ s. four GPUs, when the machine has them (else one line says phase s did
    of their scale), the same in int8 (W8A16 and flash on the shards)
    against one-card int8, and one mixtral-8x7b MoE layer under
    ``ep2xtp2`` against the fp32 routed reference with the picks replayed.
+t. sequence parallelism on four GPUs, when the machine has them (else one
+   line says phase t did not run): qwen3-8b (bf16, 36 layers, random
+   weights from a seed) under ``sp4`` with a 32768-token context and 4
+   slots through the port's server: a 30000-token prefill and 8 decode
+   steps' logits against one card's forward of the same tree and tokens
+   (flash, no ring) after the replica is down, within 5% of the scale at
+   cosine 0.999; TTFT at 32768 and 4096 beside the one-card engine's,
+   decode tokens/s with 4 chats, rank ``r``'s LSE-mode flash launches
+   ``(r + 1)`` a layer of each prefill, every follower's slot state equal
+   to the leader's, peak memory per rank, the NCCL share of rank 0's
+   32768 prefill; then, one process per GPU, llama3-8b's widths at 4
+   layers in fp32 (TF32 off, the flash modes' plain versions) under
+   ``sp4`` and ``sp2xtp2``: a 2000-token prefill, a chunk and a
+   continuation, 8 decode steps, each logit row within 1e-4 of the one-card
+   runner's scale; and the ring alone at qwen3-8b's heads over 32768
+   tokens against the one-card flash kernel and the fp32 plain version
+   (the kernel gate), with ms per ring call, per hop and one card's call.
 
 In d to o every kernel's launches are counted around the served
 requests alone and must equal what that path's model forwards need,
@@ -239,7 +270,10 @@ too; on every MoE path the grouped kernel of its expert type
 (``w8a16_grouped`` for int8 experts: phases i's int8 run and l;
 ``bf16_grouped`` for bf16 ones: phases h, i and j) three times per MoE
 layer and token chunk, per path by the chunk's rows (0 on every other
-path). Each kernel must launch on at least one path.
+path). Each kernel must launch on at least one path. The flash kernel's
+launches are split by mode (``flash_causal``, ``flash_lse``): every
+one-card path launches only the causal mode; phase t's ring launches the
+LSE mode, counted per rank.
 
 The last lines are the ``kernels`` line, the ``nvidia-smi`` name and
 power-limit line, and ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -553,6 +587,127 @@ def _flash_case(B, T, S, off, Hq, Hkv, d, gen, repeats=1):
     }
 
 
+# the flash kernel's LSE mode (a ring block): its fp32 log-sum-exp
+# against the fp32 plain version's, absolute (the output keeps the
+# standing kernel gate)
+LSE_ATOL = 1e-3
+# (B, T, S, q_offset, Hq, Hkv, d): llama3-8b's heads at the 2048 bucket;
+# qwen3-8b's on the three blocks of an sp4 ring over 32768 tokens (T_loc
+# 8192): the diagonal, the neighbour's block, the farthest one
+LSE_CASES = [
+    (1, 2048, 2048, 0, 32, 8, 128),
+    (1, 8192, 8192, 0, 32, 8, 128),
+    (1, 8192, 8192, 8192, 32, 8, 128),
+    (1, 8192, 8192, 3 * 8192, 32, 8, 128),
+]
+# plain-version query rows at a time (its fp32 scores and probabilities)
+LSE_REF_ROWS = 2048
+
+
+def _lse_ref(q, k, v, scale, off, rows=LSE_REF_ROWS):
+    """The LSE mode's plain version on the card, in query-row chunks (at
+    8192 x 8192 x 32 heads its fp32 scores alone are 8.6 GB)."""
+    from gpustack_tpu_torch.ops import flash_attention as fa
+
+    outs, lses = [], []
+    for t in range(0, q.shape[1], rows):
+        o, lse = fa.flash_attention_lse_ref(
+            q[:, t:t + rows], k, v, scale, off + t)
+        outs.append(o)
+        lses.append(lse)
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=2)
+
+
+def _check_lse(out, lse, q, ref, ref_lse, what):
+    """The standing kernel gate on the fp32 output (each element, then
+    each row against its norm) and ``LSE_ATOL`` on the log-sum-exp."""
+    err = (out - ref).abs()
+    bad = err > KERNEL_ATOL + KERNEL_RTOL * ref.abs()
+    shape = (*ref.shape[:2], q.shape[2], q.shape[3])
+    row_rel = ((out.reshape(shape) - ref.reshape(shape)).norm(dim=-1)
+               / ref.reshape(shape).norm(dim=-1).clamp_min(1e-30)).max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    if (not torch.isfinite(out).all() or not torch.isfinite(lse).all()
+            or bad.any() or not row_rel <= KERNEL_ROW_RTOL
+            or not lse_err <= LSE_ATOL):
+        raise AssertionError(
+            f"{what}: max |err| {err.max().item()} ({int(bad.sum())} "
+            f"outside tolerance), max row |err|/|ref| {row_rel}, max LSE "
+            f"|err| {lse_err}"
+        )
+    return err.max().item(), row_rel, lse_err
+
+
+def _sdpa_lse_ms(q, k, v, scale, causal):
+    """SDPA's flash backend with its logsumexp, the yardstick of the LSE
+    mode: K/V repeated to the query heads ahead of the timing (the
+    backend takes no GQA). None, with the reason, where the backend
+    refuses the call."""
+    G = q.shape[2] // k.shape[2]
+    qh = q.transpose(1, 2)
+    kh, vh = (t.repeat_interleave(G, dim=2).transpose(1, 2) for t in (k, v))
+
+    def call():
+        return torch.ops.aten._scaled_dot_product_flash_attention(
+            qh, kh, vh, 0.0, causal, False, scale=scale)
+
+    try:
+        call()
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0]
+    return cuda_time_ms(call), None
+
+
+def _lse_case(B, T, S, off, Hq, Hkv, d, gen):
+    """The LSE mode against its plain version at one shape: the output's
+    kernel gate and the LSE's ``LSE_ATOL``; ms beside the causal mode's
+    call at the same shape, the plain version, SDPA's flash backend with
+    its logsumexp and the bound (inputs read once, fp32 output and LSE
+    written once; the operations of the visible pairs)."""
+    from gpustack_tpu_torch.ops import flash_attention as fa
+
+    q = torch.randn(B, T, Hq, d, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(B, S, Hkv, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(B, S, Hkv, d, generator=gen, device="cuda").bfloat16()
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_lse(q, k, v, scale, off)
+    torch.cuda.synchronize()
+    ref, ref_lse = _lse_ref(q, k, v, scale, off)
+    max_err, row_rel, lse_err = _check_lse(
+        out, lse, q, ref, ref_lse, f"flash LSE mode at {(B, T, S, off)}")
+    del ref, ref_lse
+    ms = cuda_time_ms(lambda: fa.flash_attention_lse(q, k, v, scale, off))
+    causal_ms = cuda_time_ms(
+        lambda: fa.flash_attention_prefill(q, k, v, scale, off))
+    plain_ms = cuda_time_ms(lambda: _lse_ref(q, k, v, scale, off),
+                            warmup=1, iters=2)
+    # the diagonal block is causal; a block wholly below it is not
+    library_ms, library_refused = (
+        _sdpa_lse_ms(q, k, v, scale, True) if off == 0 and T == S
+        else _sdpa_lse_ms(q, k, v, scale, False) if off >= S
+        else (None, "no SDPA call takes this offset")
+    )
+    pairs = sum(min(S, off + t + 1) for t in range(T))
+    flops = 4 * B * Hq * d * pairs
+    nbytes = 2 * (B * T * Hq * d + 2 * B * S * Hkv * d) + 4 * (
+        B * T * Hq * d + B * Hq * T)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return {
+        "shape": {"B": B, "T": T, "S": S, "q_offset": off, "Hq": Hq,
+                  "Hkv": Hkv, "d": d},
+        "max_abs_err": max_err, "max_row_rel_err": row_rel,
+        "max_lse_abs_err": lse_err, "ms": ms, "causal_mode_ms": causal_ms,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_call": "aten._scaled_dot_product_flash_attention "
+                        "(logsumexp), K/V repeated to Hq",
+        "library_refused": library_refused,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "tflops": flops / ms / 1e9,
+    }
+
+
 def phase_kernels():
     """Returns {kernel name: the row for the main path's shape}."""
     gen = torch.Generator(device="cuda")
@@ -628,6 +783,12 @@ def phase_kernels():
                     "row_rtol": KERNEL_ROW_RTOL},
          smem_bytes_per_cta={d: smem(d) for d in fa.SUPPORTED_HEAD_DIMS},
          cases=rows)
+    lse_rows = [_lse_case(*c, gen) for c in LSE_CASES]
+    _free()
+    emit("kernels", name="flash_attention_prefill", mode="lse",
+         tolerance={"rtol": KERNEL_RTOL, "atol": KERNEL_ATOL,
+                    "row_rtol": KERNEL_ROW_RTOL, "lse_atol": LSE_ATOL},
+         cases=lse_rows)
     # W8A16 at the shapes the int8 path gives it: decode (8 slots) for
     # every weight and the prefill's last position through lm_head (the
     # GEMV); the 2048 bucket, a 512 chunk and a 64-token bucket for every
@@ -707,7 +868,7 @@ def phase_kernels():
             "flash_group8": rows[group8], "flash_mla": rows[mla],
             "flash_gemma7b": rows[gemma7b],
             "flash_gemma7b_continuation": rows[gemma7b_cont],
-            "flash_gemma2b": rows[gemma2b]}
+            "flash_gemma2b": rows[gemma2b], "flash_lse": lse_rows}
 
 
 def _shard_cases(gen):
@@ -1113,8 +1274,11 @@ KERNEL_META = {
     },
 }
 # the wrappers whose launches are also counted per path: {wrapper: prefix}
-W8A16_WRAPPERS = {"w8a16_matmul": "w8a16", "w8a16_grouped": "w8a16_grouped",
-                  "bf16_grouped": "bf16_grouped"}
+# (the flash kernel's paths are its modes: causal, and the LSE mode of a
+# ring block)
+PATH_WRAPPERS = {"w8a16_matmul": "w8a16", "w8a16_grouped": "w8a16_grouped",
+                  "bf16_grouped": "bf16_grouped",
+                  "flash_attention_prefill": "flash"}
 # the grouped wrapper of each expert weight type
 GROUPED_WRAPPERS = {"int8": "w8a16_grouped", "bf16": "bf16_grouped"}
 
@@ -1140,7 +1304,7 @@ def launch_counts():
     (``w8a16_gemv`` ... ``bf16_grouped_wgmma``)."""
     wrappers = _wrappers()
     counts = {name: fn.launches for name, fn in wrappers.items()}
-    for name, prefix in W8A16_WRAPPERS.items():
+    for name, prefix in PATH_WRAPPERS.items():
         counts.update({f"{prefix}_{path}": n for path, n in
                        wrappers[name].launches_by_path.items()})
     return counts
@@ -1150,7 +1314,7 @@ def reset_launch_counts():
     wrappers = _wrappers()
     for fn in wrappers.values():
         fn.launches = 0
-    for name in W8A16_WRAPPERS:
+    for name in PATH_WRAPPERS:
         by_path = wrappers[name].launches_by_path
         by_path.update(dict.fromkeys(by_path, 0))
 
@@ -1216,7 +1380,7 @@ def moe_layers(cfg):
     return cfg.num_layers - cfg.first_k_dense if cfg.is_moe else 0
 
 
-def expected_launches(runner_calls):
+def expected_launches(runner_calls, sp_rank=0):
     """What windows of runner forwards must launch, each
     :class:`RunnerCalls` with its own model: the flash kernel once per
     layer of every prefill forward (bucketed, continuation or with image
@@ -1235,7 +1399,13 @@ def expected_launches(runner_calls):
     three times per MoE layer and token chunk (``moe_chunk_tokens``: one
     chunk up to the 2048 bucket at every served width), at the chunk's
     rows. Each product of M ≤ 16 rows (a chunk's tokens, for the grouped
-    kernel) takes the GEMV, any larger one the ``wgmma`` path."""
+    kernel) takes the GEMV, any larger one the ``wgmma`` path. The flash
+    launches are counted per mode too: a runner under ``sp`` runs each
+    prefill from zero as a ring, whose rank ``sp_rank`` (the rank the
+    counts are taken on) launches the kernel's LSE mode ``sp_rank + 1``
+    times a layer, and its continuations and decode steps merge over the
+    sequence-sharded cache with no launch; every other flash launch is the
+    causal mode."""
     from gpustack_tpu_torch.models.transformer import (
         flash_eligible,
         moe_chunk_tokens,
@@ -1243,9 +1413,10 @@ def expected_launches(runner_calls):
     )
     from gpustack_tpu_torch.ops.w8a16 import GEMV_MAX_M
 
-    want = {"flash_attention_prefill": 0}
-    for name, prefix in W8A16_WRAPPERS.items():
-        want.update({name: 0, f"{prefix}_gemv": 0, f"{prefix}_wgmma": 0})
+    want = {"flash_attention_prefill": 0, "flash_causal": 0, "flash_lse": 0}
+    for name, prefix in PATH_WRAPPERS.items():
+        if prefix != "flash":
+            want.update({name: 0, f"{prefix}_gemv": 0, f"{prefix}_wgmma": 0})
 
     def count(prefix, wrapper, m, n):
         path = "gemv" if m <= GEMV_MAX_M else "wgmma"
@@ -1261,10 +1432,17 @@ def expected_launches(runner_calls):
             cfg.num_experts_per_tok, cfg.moe_intermediate_size,
             cfg.hidden_size, torch_dtype(cfg).itemsize,
         ) if moe else 0
+        sp = getattr(calls.runner, "sp_mode", False)
         for name, B, T in calls.forwards:
-            if flash and name in ("prefill", "prefill_with_prefix",
-                                  "prefill_with_embeds", "embed"):
+            if sp and name == "prefill":
+                want["flash_attention_prefill"] += (sp_rank + 1) * layers
+                want["flash_lse"] += (sp_rank + 1) * layers
+            elif flash and not sp and name in (
+                "prefill", "prefill_with_prefix", "prefill_with_embeds",
+                "embed",
+            ):
                 want["flash_attention_prefill"] += layers
+                want["flash_causal"] += layers
             for start in range(0, B * T if moe else 0, chunk or 1):
                 count(grouped, grouped, min(chunk, B * T - start), 3 * moe)
             if not calls.int8:
@@ -1292,15 +1470,83 @@ def check_launches(path, counts, want):
 # ---------------------------------------------------------------------------
 
 
-def _post(port, path, body, timeout=600):
+def _post(port, path, body, timeout=600, headers=None, reply_headers=None):
+    """POST ``body``; returns (Content-Type, text). ``reply_headers``, a
+    dict, receives the response's headers."""
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
-        headers={"Content-Type": "application/json"},
+        headers={"Content-Type": "application/json", **(headers or {})},
     )
     with urllib.request.urlopen(req, timeout=timeout) as resp:
         if resp.status != 200:
             raise AssertionError(f"{path}: HTTP {resp.status}")
+        if reply_headers is not None:
+            reply_headers.update(resp.headers.items())
         return resp.headers.get("Content-Type", ""), resp.read().decode()
+
+
+_TRACEPARENT = re.compile(r"^00-([0-9a-f]{32})-([0-9a-f]{16})-01$")
+
+
+def _caller_trace():
+    """A fresh caller's trace context (the worker proxy's, as the engine's
+    hop sees it): (trace id, the caller's span id, the request headers)."""
+    trace_id, span = os.urandom(16).hex(), os.urandom(8).hex()
+    return trace_id, span, {"traceparent": f"00-{trace_id}-{span}-01"}
+
+
+def _check_hop(reply_headers, trace_id, parent, phases=(), events=()):
+    """The engine hop of a traced request: the response carries
+    ``X-Request-ID`` and a ``traceparent`` of the caller's trace with a new
+    span id; the port's ``get_store("engine")`` holds that hop, parented on
+    the caller's span, with ``phases`` among its spans and ``events``
+    among its events. Returns the hop's summary."""
+    from gpustack_tpu_torch.observability.tracing import get_store
+
+    m = _TRACEPARENT.match(reply_headers.get("traceparent", ""))
+    if (not m or m.group(1) != trace_id or m.group(2) == parent
+            or reply_headers.get("X-Request-ID") != trace_id):
+        raise AssertionError(
+            f"trace headers {reply_headers.get('traceparent')!r} / "
+            f"{reply_headers.get('X-Request-ID')!r} for trace {trace_id}"
+        )
+    # the hop is sealed just after the handler's last byte: wait for it
+    deadline = time.monotonic() + 10
+    hops = get_store("engine").query(trace_id=trace_id)
+    while not hops and time.monotonic() < deadline:
+        time.sleep(0.01)
+        hops = get_store("engine").query(trace_id=trace_id)
+    if len(hops) != 1:
+        raise AssertionError(f"trace {trace_id}: {len(hops)} engine hops")
+    hop = hops[0]
+    names = [p["phase"] for p in hop["spans"]]
+    fired = [e["event"] for e in hop.get("events", ())]
+    if (hop["span_id"] != m.group(2) or hop["parent_id"] != parent
+            or hop["status"] != 200 or not set(phases) <= set(names)
+            or not set(events) <= set(fired)):
+        raise AssertionError(f"engine hop {hop}: want phases {phases}, "
+                             f"events {events}")
+    return {"name": hop["name"], "span_id": hop["span_id"],
+            "duration_ms": hop["duration_ms"], "spans": hop["spans"],
+            "events": hop.get("events", [])}
+
+
+def _check_untraced(port):
+    """``/healthz`` and ``/metrics``, sent a traceparent, answer without
+    the trace headers and leave no engine hop."""
+    from gpustack_tpu_torch.observability.tracing import get_store
+
+    trace_id, _, headers = _caller_trace()
+    for path in ("/healthz", "/metrics"):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                     headers=headers)
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            resp.read()
+            if "traceparent" in resp.headers or "X-Request-ID" in resp.headers:
+                raise AssertionError(f"{path} answered with trace headers")
+    if get_store("engine").query(trace_id=trace_id):
+        raise AssertionError("an untraced path left an engine hop")
+    return ["/healthz", "/metrics"]
 
 
 def _check_usage(data, prompt_tokens=None):
@@ -1606,18 +1852,27 @@ def _serve_script(engine, port):
 
     msgs = [{"role": "user", "content": "Say hello to the H100."}]
     chat_prompt = len(tok.apply_chat_template(msgs))
+    # both chats carry a caller's traceparent: the engine hop's headers
+    # and stored span (the trace middleware)
+    traces = []
+    trace_id, parent, headers = _caller_trace()
+    got = {}
     _, raw = _post(port, "/v1/chat/completions", {
         "messages": msgs, "max_tokens": 16, "temperature": 0,
-    })
+    }, headers=headers, reply_headers=got)
     prefills += 1
+    traces.append(_check_hop(got, trace_id, parent))
     chat = json.loads(raw)
     chat_usage = _check_usage(chat, chat_prompt)
 
+    trace_id, parent, headers = _caller_trace()
+    got = {}
     ctype, raw = _post(port, "/v1/chat/completions", {
         "messages": msgs, "max_tokens": 16, "temperature": 0,
         "stream": True,
-    })
+    }, headers=headers, reply_headers=got)
     prefills += 1
+    traces.append(_check_hop(got, trace_id, parent))
     events = [
         line[6:] for line in raw.split("\n") if line.startswith("data: ")
     ]
@@ -1686,7 +1941,10 @@ def _serve_script(engine, port):
         "prefills": prefills,
         "usage": {"chat": chat_usage, "stream": stream_usage,
                   "long_completion": long_usage},
-        "greedy_ids": first.output_ids, **metrics,
+        "greedy_ids": first.output_ids,
+        "trace": {"hops": traces,
+                  "untraced_paths": _check_untraced(port)},
+        **metrics,
     }
 
 
@@ -1832,21 +2090,25 @@ def _get(port, path):
         return resp.read().decode()
 
 
-def _stream_chat(port, messages, max_tokens, arrivals=None, started=None):
+def _stream_chat(port, messages, max_tokens, arrivals=None, started=None,
+                 headers=None, reply_headers=None):
     """A streaming chat; returns (reply text, TTFT s). ``arrivals`` collects
     the host time of every content chunk; ``started`` is set at the
-    first one."""
+    first one; ``reply_headers``, a dict, receives the response's
+    headers."""
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/v1/chat/completions",
         data=json.dumps({
             "messages": messages, "max_tokens": max_tokens,
             "temperature": 0, "stream": True, "logit_bias": LETTERS,
         }).encode(),
-        headers={"Content-Type": "application/json"},
+        headers={"Content-Type": "application/json", **(headers or {})},
     )
     t0 = time.perf_counter()
     ttft, text = None, []
     with urllib.request.urlopen(req, timeout=600) as resp:
+        if reply_headers is not None:
+            reply_headers.update(resp.headers.items())
         for raw in resp:
             line = raw.decode().strip()
             if not line.startswith("data: ") or line == "data: [DONE]":
@@ -2041,8 +2303,17 @@ def phase_prefix_reuse(kind, smi):
             p2 = tok.apply_chat_template(msgs2)
             want = _expected_match(p2, stored)
             h1 = health()
-            _, ttft_warm = _stream_chat(port, msgs2, 16)
+            trace_id, parent, headers = _caller_trace()
+            got = {}
+            _, ttft_warm = _stream_chat(port, msgs2, 16, headers=headers,
+                                        reply_headers=got)
             h2 = health()
+            hop = _check_hop(got, trace_id, parent, phases=("kv_upload",),
+                             events=("kv_prefix_hit",))
+            hit = next(e for e in hop["events"]
+                       if e["event"] == "kv_prefix_hit")
+            if hit["attrs"]["tokens_reused"] != want:
+                raise AssertionError(f"traced prefix hit {hit}, want {want}")
             forwards += _forwards(len(p2), want)
             stored.append(p2)      # its prefill store; reply under a block
             drain()
@@ -2059,7 +2330,7 @@ def phase_prefix_reuse(kind, smi):
             conversations.append({
                 "turn1_tokens": len(p1), "turn2_tokens": len(p2),
                 "reused_tokens": reused, "ttft_ms_cold": ttft_cold * 1e3,
-                "ttft_ms_warm": ttft_warm * 1e3,
+                "ttft_ms_warm": ttft_warm * 1e3, "warm_turn_trace": hop,
             })
 
         # one 1900-token completion while 4 chats decode
@@ -2119,6 +2390,7 @@ def phase_prefix_reuse(kind, smi):
         check_launches("prefix reuse", counts, {
             **dict.fromkeys(counts, 0),
             "flash_attention_prefill": engine.cfg.num_layers * forwards,
+            "flash_causal": engine.cfg.num_layers * forwards,
         })
         samples, types = parse_prometheus(_get(port, "/metrics"))
         h = health()
@@ -3752,10 +4024,12 @@ N_SCHEMA = {
 }
 
 
-def _stream_completion(port, prompt, max_tokens, headers=None):
+def _stream_completion(port, prompt, max_tokens, headers=None,
+                       reply_headers=None):
     """A streaming greedy completion biased to lowercase letters (text
     that tokenizes back to the ids generated); returns (text, TTFT s on
-    the client's clock)."""
+    the client's clock). ``reply_headers``, a dict, receives the
+    response's headers."""
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/v1/completions",
         data=json.dumps({
@@ -3767,6 +4041,8 @@ def _stream_completion(port, prompt, max_tokens, headers=None):
     t0 = time.perf_counter()
     ttft, text = None, []
     with urllib.request.urlopen(req, timeout=600) as resp:
+        if reply_headers is not None:
+            reply_headers.update(resp.headers.items())
         for raw in resp:
             line = raw.decode().strip()
             if not line.startswith("data: ") or line == "data: [DONE]":
@@ -3872,10 +4148,15 @@ def phase_disaggregation(kind, smi):
         got0 = dec.kv_handoff.snapshot()
         secs0 = dec.kv_handoff.seconds.snapshot()[1]
         source = f"http://127.0.0.1:{ports[0]}/kv/export"
+        trace_id, parent, headers = _caller_trace()
+        got_headers = {}
         text, ttft_warm = _stream_completion(
             ports[1], N_PROMPT, N_MAX_TOKENS,
-            headers={"X-GPUStack-KV-Source": source},
+            headers={"X-GPUStack-KV-Source": source, **headers},
+            reply_headers=got_headers,
         )
+        hop = _check_hop(got_headers, trace_id, parent,
+                         phases=("kv_handoff",), events=("kv_handoff",))
         counts = launch_counts()
         check_launches("disaggregation", counts, expected_launches(calls))
         h1 = dec.health()
@@ -3899,6 +4180,12 @@ def phase_disaggregation(kind, smi):
                 f"handoff sent {sent}, received {got}, reused {reused} "
                 f"tokens: want {blocks} blocks ({blocks * BLOCK} tokens)"
             )
+        handoff_event = next(e for e in hop["events"]
+                             if e["event"] == "kv_handoff")
+        attrs = handoff_event["attrs"]
+        if (attrs["source"] != source or attrs["blocks"] != blocks
+                or not attrs["bytes"] > 0 or "failed" in attrs):
+            raise AssertionError(f"traced handoff {handoff_event}")
         rule = _ids_rule([(ref.output_ids, gaps)], [(tok.encode(text), None)],
                          IDS_GAP_REL)
         schema = _schema_requests(ports[1])
@@ -3912,6 +4199,7 @@ def phase_disaggregation(kind, smi):
              },
              sent=sent, received=got,
              ttft_ms_decode_replica_handoff=ttft_warm * 1e3,
+             decode_replica_trace=hop,
              ttft_ms_decode_replica_cold=ttft_cold * 1e3,
              runner_calls={"prefill": forwards[0], "decode": forwards[1]},
              launches=counts, greedy_ids_vs_single_engine=rule,
@@ -5693,6 +5981,427 @@ def phase_multi_gpu(kind, smi):
     return per_rank
 
 
+# ---------------------------------------------------------------------------
+# t: sequence parallelism (sp > 1) across four GPUs
+# ---------------------------------------------------------------------------
+
+T_GPUS = 4
+T_PRESET = "qwen3-8b"
+T_MAX_SEQ = 32768
+T1_ARGV = ["--preset", T_PRESET, "--mesh-plan", "sp4", "--max-seq-len",
+           str(T_MAX_SEQ), "--max-slots", "4", "--host", "127.0.0.1",
+           "--port", "0"]
+# prompt tokens of the TTFT requests, by the bucket each fills
+T_TTFT_TOKENS = {32768: 30000, 4096: 4000}
+T_DECODE_STEPS = 8
+# t2: the sequence-parallel runner at llama3-8b's widths, cut in depth,
+# fp32 with TF32 off, against one card (the ring's blocks and the merges
+# add the same terms in another order)
+T2_PRESET = "llama3-8b"
+T2_LAYERS = 4
+T2_PLANS = ("sp4", "sp2xtp2")
+T2_PROMPT = 2000           # the 2048 bucket
+T2_CHUNKS = (1024, 776)    # a chunk, then a continuation into 2048
+# t3: the ring alone at qwen3-8b's heads over 32768 tokens on sp4
+T3_TOKENS = 32768
+T3_HEADS = (32, 8, 128)
+T_RANK_DEVICE = "cuda"
+
+
+class _PlainAttention:
+    """Both modes of the flash kernel swapped for their plain versions
+    (the fp32 checks of t2: the kernel takes bf16 only; phase c and t3
+    hold the kernel itself)."""
+
+    def __enter__(self):
+        from gpustack_tpu_torch.ops import flash_attention as fa
+
+        self._fa = fa
+        self._saved = (fa.flash_attention_prefill, fa.flash_attention_lse)
+        fa.flash_attention_prefill = fa.flash_attention_prefill_ref
+        fa.flash_attention_lse = fa.flash_attention_lse_ref
+        return self
+
+    def __exit__(self, *exc):
+        (self._fa.flash_attention_prefill,
+         self._fa.flash_attention_lse) = self._saved
+
+
+def _t_served_logits(engine):
+    """On the idle replica, from this thread (every op broadcast, so every
+    rank runs it): a prefill of a 30000-token prompt through the ring, its
+    greedy first token inserted into a free slot, then
+    ``T_DECODE_STEPS`` decode steps, each step's logits read first
+    (``probe("decode_logits")``); the slot is deactivated at the end.
+    Returns (prompt ids, prefill logits, [step logits], [tokens fed])."""
+    runner, state = engine.runner, engine._state
+    ids = _s_ids(T_TTFT_TOKENS[T_MAX_SEQ], runner.cfg.vocab_size, 3)
+    padded = ids + [0] * (runner.bucket_for(len(ids)) - len(ids))
+    slot = engine._free[0]
+    with torch.no_grad():
+        last, k, v = runner.prefill(padded, len(ids))
+        fed = [int(last.argmax())]
+        runner.insert(state, k, v, slot, len(ids), fed[0], 0.0, 0, 1.0)
+        del k, v
+        steps = []
+        for step in range(T_DECODE_STEPS):
+            steps.append(
+                runner.probe(state, "decode_logits")[slot].float().cpu())
+            state, out = runner.decode_step(state, 1000 + step)
+            fed.append(int(out[0][slot]))
+        runner.deactivate(state, slot)
+    return ids, last.float().cpu(), steps, fed[:-1]
+
+
+def _t_one_card(params, cfg, ids, served_last, served_steps, fed):
+    """The one-card reference over the leader's tree (an sp rank holds it
+    whole): a one-slot engine on this card with the flash kernel and no
+    ring. Its TTFT for each TTFT prompt; then the served prefill's logits
+    and each decode step's (the served tokens fed) against it, each held
+    to the standing logit gate."""
+    from gpustack_tpu_torch.engine import diagnostics
+    from gpustack_tpu_torch.engine.engine import GenRequest, LLMEngine
+
+    engine = LLMEngine(cfg, params, max_slots=1, max_seq_len=T_MAX_SEQ,
+                       device=params["final_norm"].device)
+    engine.start()
+    try:
+        ttft = {}
+        for bucket, n in T_TTFT_TOKENS.items():
+            prompt = _s_ids(n, cfg.vocab_size, 7 + bucket)
+            engine.generate(GenRequest(prompt_ids=prompt, max_tokens=2,
+                                       temperature=0.0), timeout=900)
+            req = engine.generate(GenRequest(
+                prompt_ids=prompt, max_tokens=2, temperature=0.0),
+                timeout=900)
+            ttft[f"one_card_ttft_ms_{bucket}_bucket"] = req.ttft_ms
+    finally:
+        engine.stop()
+    runner = engine.runner
+    padded = ids + [0] * (runner.bucket_for(len(ids)) - len(ids))
+    gates = []
+    with torch.no_grad():
+        last, k, v = runner.prefill(padded, len(ids))
+        gates.append(_compare_logits(served_last, last.float().cpu()))
+        state = runner.new_state()
+        runner.insert(state, k, v, 0, len(ids), fed[0], 0.0, 0, 1.0)
+        del k, v
+        for step, served in enumerate(served_steps):
+            want = diagnostics.probe(runner, state, "decode_logits")[0]
+            gates.append(_compare_logits(served, want.float().cpu()))
+            state, _ = runner.decode_step(state, step)
+            if step + 1 < len(fed):
+                state.last_tokens[0] = fed[step + 1]
+    del engine, runner, state
+    bad = [i for i, g in enumerate(gates)
+           if g["max_abs_err"] > LOGIT_REL_TOL * g["logit_scale"]
+           or g["cosine"] < LOGIT_MIN_COSINE]
+    if bad:
+        raise AssertionError(
+            f"sp4 logits part from one card at {bad} (0: the prefill, i: "
+            f"decode step i): {[gates[i] for i in bad]}")
+    return ttft, {
+        "prefill": gates[0], "decode_steps": gates[1:],
+        "prompt_tokens": len(ids), "tokens_fed": fed,
+        "reference": "one card, the same tree, flash, no ring",
+        "tolerance": {"rel": LOGIT_REL_TOL, "min_cosine": LOGIT_MIN_COSINE},
+    }
+
+
+def _t_served(kind, smi):
+    """t1. qwen3-8b whole (36 layers, bf16, random weights from a seed)
+    under ``sp4`` through the port's server, this process rank 0 and one
+    follower process per other GPU: the served logits (a 30000-token
+    prefill and ``T_DECODE_STEPS`` decode steps); then, counted on every
+    rank, one prompt at each TTFT bucket, a chat over HTTP and 4 chats
+    decoding at once: rank ``r`` launches the flash kernel's LSE mode
+    ``r + 1`` times a layer of each prefill and the causal mode never;
+    every follower's slot state equal to the leader's; peak memory per
+    rank; the NCCL share of a 32768-bucket prefill on rank 0. After the
+    replica is down, the one-card reference (:func:`_t_one_card`)."""
+    from gpustack_tpu_torch.engine.api_server import (
+        OpenAIServer,
+        build_engine_from_args,
+        build_parser,
+        shutdown_replica,
+    )
+    from gpustack_tpu_torch.engine.engine import GenRequest
+    from gpustack_tpu_torch.parallel.mesh import rank_coords
+
+    t0 = time.perf_counter()
+    engine = build_engine_from_args(build_parser().parse_args(T1_ARGV))
+    runner, state = engine.runner, engine._state
+    cfg, plan = runner.cfg, runner.plan
+    world = plan.chips
+    runner.probe(state, "memory")         # every rank is up
+    setup_s = time.perf_counter() - t0
+    engine.start()
+    server = OpenAIServer(engine)
+    port = server.start("127.0.0.1", 0)
+    try:
+        for n in (*T_TTFT_TOKENS.values(), 24):       # warm every bucket
+            engine.generate(GenRequest(
+                prompt_ids=_s_ids(n, cfg.vocab_size, n), max_tokens=2,
+                temperature=0.0), timeout=900)
+        ids, served_last, served_steps, fed = _t_served_logits(engine)
+        runner.probe(state, "reset_memory")
+        calls = RunnerCalls(engine.runner, int8=False)
+        runner.probe(state, "reset_launches")
+        calls.reset()
+        ttft = {}
+        for bucket, n in T_TTFT_TOKENS.items():
+            req = engine.generate(GenRequest(
+                prompt_ids=_s_ids(n, cfg.vocab_size, 7 + bucket),
+                max_tokens=2, temperature=0.0), timeout=900)
+            ttft[f"ttft_ms_{bucket}_bucket"] = req.ttft_ms
+        msgs = [{"role": "user", "content": "Say hello to 4 H100s."}]
+        _, raw = _post(port, "/v1/chat/completions", {
+            "messages": msgs, "max_tokens": 16, "temperature": 0})
+        _check_usage(json.loads(raw),
+                     len(engine.tokenizer.apply_chat_template(msgs)))
+        rate, chats = _s_decode_rate(engine)
+        launches = runner.probe(state, "launches")
+        memory = runner.probe(state, "memory")
+        states = runner.probe(state, "slot_state")
+        window = calls.counts()
+        if window["prefill"] != len(T_TTFT_TOKENS) + 1 + chats:
+            raise AssertionError(f"sp4: runner calls {window}")
+        per_rank_want = []
+        for r in range(world):
+            want = expected_launches([calls], rank_coords(plan, r)["sp"])
+            per_rank_want.append(want["flash_lse"])
+            got = {n: launches[n][r] for n in S_KERNELS}
+            got["flash_lse"] = launches["flash_attention_prefill_lse"][r]
+            got["flash_causal"] = launches[
+                "flash_attention_prefill_causal"][r]
+            if any(got[n] != want[n] for n in got):
+                raise AssertionError(
+                    f"sp4 rank {r}: launches {got}, the leader's forwards "
+                    f"need {({n: want[n] for n in got})}")
+        for rank, st in enumerate(states[1:], start=1):
+            if not torch.equal(st, states[0]):
+                raise AssertionError(
+                    f"sp4: rank {rank}'s slot state parted from the "
+                    f"leader's: {st.tolist()} vs {states[0].tolist()}")
+        health = engine.health()
+        if health["status"] != "ok":
+            raise AssertionError(f"sp4: engine unhealthy: {health}")
+        prefill = _s_prefill_profile(engine, T_TTFT_TOKENS[T_MAX_SEQ])
+        params = runner.params
+    finally:
+        server.shutdown()
+        engine.stop()
+        shutdown_replica(engine, timeout=120)
+    # the replica's KV cache goes; rank 0's tree (whole under sp) stays
+    del engine, server, runner, state, calls
+    _free()
+    one_ttft, gate = _t_one_card(params, cfg, ids, served_last,
+                                 served_steps, fed)
+    report = {
+        "model": cfg.name, "plan": str(plan), "layers": cfg.num_layers,
+        "max_seq_len": T_MAX_SEQ, "device": kind, "nvidia_smi": smi,
+        "setup_s": setup_s, "logit_check": gate, **ttft, **one_ttft,
+        "decode_tokens_per_s_4_slots": rate,
+        "decode_tokens_per_chat": S_DECODE_TOKENS,
+        "flash_lse_launches_per_rank": launches[
+            "flash_attention_prefill_lse"],
+        "flash_lse_launches_want": per_rank_want,
+        "launches_per_rank": launches, "runner_calls": window,
+        "peak_mem_gb_per_rank": [m / 1e9 for m in memory],
+        "followers_slot_state_equal": True, "layout": health["layout"],
+        "prefill_32768_rank0": prefill,
+    }
+    emit("sp_served", **report)
+    return report
+
+
+def _t_sp_case(mesh, device, preset, layers, prompt, chunks):
+    """t2 on one plan: llama3-8b at ``T2_LAYERS`` layers in fp32 (TF32
+    off; the plain versions of the flash modes) through the
+    sequence-parallel runner on this rank against the one-card runner on
+    the same tree: a ``T2_PROMPT``-token prefill, a prompt prefilled as a
+    chunk and a continuation, both inserted, then ``T_DECODE_STEPS``
+    decode steps (the one-card runner fed the sp runner's tokens). Every
+    logit row within ``SHARD_REL_TOL`` of its scale."""
+    from gpustack_tpu_torch.engine import diagnostics
+    from gpustack_tpu_torch.engine.runner import ModelRunner
+    from gpustack_tpu_torch.engine.weights import load_or_init_params
+    from gpustack_tpu_torch.models.config import get_config
+
+    cfg = dataclasses.replace(get_config(preset), num_layers=layers,
+                              dtype="float32")
+    runners = [
+        ModelRunner(cfg, load_or_init_params(cfg, None, seed=0,
+                                             device=device, mesh=m),
+                    device, max_slots=2, max_seq_len=4096, mesh=m)
+        for m in (mesh, None)
+    ]
+    ids = _s_ids(prompt, cfg.vocab_size, 11)
+    chunked = _s_ids(sum(chunks), cfg.vocab_size, 12)
+    logits = []
+    with torch.no_grad(), _PlainAttention():
+        states = []
+        for r in runners:
+            got = []
+            last, k, v = r.prefill(
+                ids + [0] * (r.bucket_for(len(ids)) - len(ids)), len(ids))
+            got.append(last)
+            a, b = chunks
+            _, kc, vc = r.prefill_chunk(chunked[:a], a)
+            lc, kc, vc = r.prefill_continue_chunk(
+                kc, vc, a, chunked[a:] + [0] * (r.bucket_for(b) - b), b,
+                r.bucket_for(a + r.bucket_for(b)))
+            got.append(lc)
+            st = r.new_state()
+            r.insert(st, k, v, 0, len(ids), int(last.argmax()), 0.0, 0, 1.0)
+            r.insert(st, kc, vc, 1, len(chunked), int(lc.argmax()), 0.0, 0,
+                     1.0)
+            states.append(st)
+            logits.append(got)
+        parted = 0
+        for step in range(T_DECODE_STEPS):
+            for r, st, got in zip(runners, states, logits):
+                got.extend(diagnostics.probe(r, st, "decode_logits"))
+                r.decode_step(st, step)
+            parted += int((states[0].last_tokens
+                           != states[1].last_tokens).sum())
+            states[1].last_tokens.copy_(states[0].last_tokens)
+    cmps = [_compare_logits(g.float(), w.float())
+            for g, w in zip(*logits)]
+    worst = max(c["max_abs_err"] / c["logit_scale"] for c in cmps)
+    del runners, states, logits
+    return {"plan": str(mesh.plan), "model": cfg.name,
+            "layers": cfg.num_layers, "weights": "fp32, TF32 off",
+            "rows": len(cmps), "worst_rel_err": worst,
+            "min_cosine": min(c["cosine"] for c in cmps),
+            "decode_tokens_parted": parted,
+            "tolerance": {"rel": SHARD_REL_TOL},
+            "ok": worst <= SHARD_REL_TOL}
+
+
+def _t_ring_case(mesh, device, tokens, heads):
+    """t3: the ring alone at qwen3-8b's heads over ``T3_TOKENS`` tokens
+    (bf16, this rank's block) against the one-card flash kernel over the
+    whole sequence and the fp32 plain version of this rank's rows, each
+    with the standing kernel gate; ms per ring call, the one-card call and
+    one hop's send/recv of a K/V block."""
+    from gpustack_tpu_torch.ops import flash_attention as fa
+    from gpustack_tpu_torch.ops.ring_attention import ring_attention
+
+    Hq, Hkv, d = heads
+    T, sp, i = tokens, mesh.sp, mesh.sp_rank
+    n = T // sp
+    gen = torch.Generator(device=device).manual_seed(31)
+    q, k, v = (torch.randn(1, T, h, d, generator=gen, device=device)
+               .bfloat16() for h in (Hq, Hkv, Hkv))
+    scale = d ** -0.5
+    rows = slice(i * n, (i + 1) * n)
+    ql, kl, vl = (t[:, rows].contiguous() for t in (q, k, v))
+    with torch.no_grad():
+        reset_launch_counts()
+        out = ring_attention(ql, kl, vl, scale, mesh)
+        _s_sync(device)
+        launches = fa.flash_attention_prefill.launches_by_path["lse"]
+        whole = fa.flash_attention_prefill(q, k, v, scale)[:, rows].float()
+        ref = torch.cat([
+            fa.flash_attention_prefill_ref(
+                q[:, i * n + t:i * n + min(t + LSE_REF_ROWS, n)].float(),
+                k[:, :(i + 1) * n].float(), v[:, :(i + 1) * n].float(),
+                scale, i * n + t)
+            for t in range(0, n, LSE_REF_ROWS)
+        ], dim=1)
+    gates = {}
+    for name, want in (("plain_fp32", ref), ("one_card_flash", whole)):
+        err = (out.float() - want).abs()
+        bad = int((err > KERNEL_ATOL + KERNEL_RTOL * want.abs()).sum())
+        shape = (1, n, Hq, d)
+        row_rel = ((out.float().reshape(shape) - want.reshape(shape))
+                   .norm(dim=-1) / want.reshape(shape).norm(dim=-1)
+                   .clamp_min(1e-30)).max().item()
+        gates[name] = {"max_abs_err": err.max().item(),
+                       "outside_tolerance": bad, "max_row_rel_err": row_rel,
+                       "ok": bad == 0 and row_rel <= KERNEL_ROW_RTOL
+                       and bool(torch.isfinite(out).all())}
+    del whole, ref, out
+    report = {"rank": i, "tokens": T, "heads": heads, "block": n,
+              "lse_launches": launches, "gates": gates,
+              "tolerance": {"rtol": KERNEL_RTOL, "atol": KERNEL_ATOL,
+                            "row_rtol": KERNEL_ROW_RTOL}}
+    if device.type == "cuda":
+        report["ring_ms"] = cuda_time_ms(
+            lambda: ring_attention(ql, kl, vl, scale, mesh),
+            warmup=2, iters=10)
+        buf = torch.stack([kl, vl])
+        spare = torch.empty_like(buf)
+
+        def hop():
+            for r in mesh.sp_p2p([(buf, i + 1)], [(spare, i - 1)]):
+                r.wait()
+
+        report["hop_ms"] = cuda_time_ms(hop, warmup=2, iters=10)
+        report["hop_mbytes"] = buf.numel() * buf.element_size() / 1e6
+        # one batch sends a block and receives one: MB per ms is GB/s
+        report["hop_gb_per_s_each_way"] = (
+            report["hop_mbytes"] / report["hop_ms"])
+        report["one_card_flash_ms"] = cuda_time_ms(
+            lambda: fa.flash_attention_prefill(q, k, v, scale),
+            warmup=1, iters=5)
+    # (the plain version a CPU rehearsal runs counts no launch)
+    report["ok"] = all(g["ok"] for g in gates.values()) and (
+        launches == i + 1 or device.type == "cpu")
+    return report
+
+
+def _t_rank(rank, world, coordinator, device_type, t2, t3):
+    """One rank of t2 and t3, in a process of its own: on
+    ``cuda:<rank>`` over NCCL (``device_type`` "cpu": gloo, for a
+    rehearsal). ``t2``: (preset, layers, prompt tokens, chunks); ``t3``:
+    (tokens, heads)."""
+    from gpustack_tpu_torch.parallel.mesh import Mesh, MeshPlan, init_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device_type, rank if device_type == "cuda" else None)
+    sp4 = init_mesh(MeshPlan(sp=world), rank, coordinator, device)
+    out = {"rank": rank, "t2": []}
+    for plan in T2_PLANS:
+        mesh = sp4 if plan == "sp4" else Mesh(MeshPlan.parse(plan), rank)
+        out["t2"].append(_t_sp_case(mesh, device, *t2))
+        _s_free(device)
+    out["t3"] = _t_ring_case(sp4, device, *t3)
+    return out
+
+
+def phase_sequence_parallel(kind, smi):
+    """t1 (:func:`_t_served`), then t2 and t3 in one process per GPU
+    (:func:`_t_rank`), every rank held to its gates. Returns the flash
+    kernel's LSE launches per rank on the served path."""
+    from gpustack_tpu_torch.parallel.launch import run_ranks
+
+    if T_RANK_DEVICE == "cuda" and torch.cuda.device_count() < T_GPUS:
+        raise AssertionError(f"phase t needs {T_GPUS} cards")
+    served = _t_served(kind, smi)
+    _free()
+    ranks = run_ranks(
+        _t_rank, T_GPUS, T_RANK_DEVICE,
+        (T2_PRESET, T2_LAYERS, T2_PROMPT, T2_CHUNKS), (T3_TOKENS, T3_HEADS),
+        timeout=S_RANK_TIMEOUT_S)
+    for j, plan in enumerate(T2_PLANS):
+        emit("sp_runner", device=kind, nvidia_smi=smi, **ranks[0]["t2"][j],
+             per_rank_ok=[r["t2"][j]["ok"] for r in ranks],
+             per_rank_worst_rel_err=[r["t2"][j]["worst_rel_err"]
+                                     for r in ranks])
+    emit("sp_ring", device=kind, nvidia_smi=smi,
+         per_rank=[r["t3"] for r in ranks])
+    bad = [(r["rank"], j) for r in ranks for j, c in enumerate(r["t2"])
+           if not c["ok"]] + [(r["rank"], "t3") for r in ranks
+                              if not r["t3"]["ok"]]
+    if bad:
+        raise AssertionError(f"phase t: failed (rank, check) {bad}")
+    return {"flash_attention_prefill": {
+        f"{T_PRESET} sp4 (lse)": served["flash_lse_launches_per_rank"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5748,6 +6457,13 @@ def main() -> int:
     else:
         emit("s", ran=False, reason=f"needs {S_GPUS} cards, found "
              f"{torch.cuda.device_count()}")
+    if torch.cuda.device_count() >= T_GPUS:
+        _free()
+        for name, per_model in phase_sequence_parallel(kind, smi).items():
+            multi_gpu.setdefault(name, {}).update(per_model)
+    else:
+        emit("t", ran=False, reason=f"needs {T_GPUS} cards, found "
+             f"{torch.cuda.device_count()}")
     kernels = []
     grouped_cases = rows.pop("grouped_cases")
     large_m = rows.pop("w8a16_large_m")
@@ -5756,6 +6472,7 @@ def main() -> int:
     mla = rows.pop("flash_mla")
     gemma = {tag: rows.pop(f"flash_{tag}") for tag in (
         "gemma7b", "gemma7b_continuation", "gemma2b")}
+    lse_rows = rows.pop("flash_lse")
     for name, row in rows.items():
         launches = sum(counts[name] for counts in paths.values())
         if launches < 1:
@@ -5840,6 +6557,21 @@ def main() -> int:
                 "library_ms",
             )},
         })
+    # the LSE mode (a ring block): launches on the served paths by mode,
+    # and each phase-c case (llama3-8b's 2048 bucket, qwen3-8b's three
+    # sp4 ring blocks)
+    fl["launches_by_path"] = {
+        mode: sum(counts[f"flash_{mode}"] for counts in paths.values())
+        for mode in ("causal", "lse")
+    }
+    fl["lse_cases"] = [
+        {k: row[k] for k in (
+            "shape", "max_abs_err", "max_lse_abs_err", "ms",
+            "causal_mode_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms",
+        )}
+        for row in lse_rows
+    ]
     if multi_gpu is not None:
         # phase s: each rank's launches, by model and path
         for row in kernels:

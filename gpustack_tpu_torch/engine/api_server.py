@@ -79,6 +79,7 @@ from gpustack_tpu_torch.engine.openai_tools import (
     forced_function,
     parse_tool_calls,
 )
+from gpustack_tpu_torch.observability.tracing import trace_middleware
 
 logger = logging.getLogger(__name__)
 
@@ -1153,12 +1154,14 @@ class OpenAIServer:
         logger.info("kv prefetch from %s landed %d block(s) (%d bytes)",
                     source, blocks, bytes_in)
 
-    def kv_prefetch(self, source: str, prompt_ids, auth: str = ""):
+    def kv_prefetch(self, source: str, prompt_ids, auth: str = "",
+                    trace=None):
         """Pull the prompt's prefix blocks from a peer before the
         generation is submitted: the decode half of the disaggregated
         handoff (``X-GPUStack-KV-Source``). Never fails the request: a
         dead peer, a cut stream or a slow transfer leaves a cold (or
-        partly warm) prefill, with the failure counted and logged; the
+        partly warm) prefill, with the failure counted, logged and traced
+        (the hop's ``kv_handoff`` phase and event on ``trace``); the
         complete frames that arrived before a failure are imported.
         Returns what happened (``None`` when nothing was pulled)."""
         cache = self.engine.host_kv_cache
@@ -1193,14 +1196,39 @@ class OpenAIServer:
                 "kv handoff from %s failed after %.3fs (%d block(s) landed; "
                 "continuing cold): %s", source, dur, imported, failed,
             )
+        if trace is not None:
+            # the engine hop's kv_handoff phase: transfer + import wait
+            trace.add_phase("kv_handoff", dur)
+            attrs = dict(source=source, blocks=imported, bytes=bytes_in)
+            if failed:
+                attrs["failed"] = failed
+            trace.event("kv_handoff", **attrs)
         return {"source": source, "blocks": imported, "bytes": bytes_in,
                 "seconds": dur, "failed": failed}
+
+    @staticmethod
+    def _trace_kv(trace, gens: List[GenRequest]) -> None:
+        """Attach the host KV tier's phases to this hop's trace: the
+        ``kv_upload`` span (the host→device upload of matched prefix
+        blocks, measured by the engine) and a ``kv_prefix_hit`` event with
+        the reused-token count."""
+        if trace is None:
+            return
+        upload_s = sum(g.kv_upload_s for g in gens)
+        if upload_s > 0:
+            trace.add_phase("kv_upload", upload_s)
+        reused = sum(g.prefix_tokens_reused for g in gens)
+        if reused:
+            trace.event("kv_prefix_hit", tokens_reused=reused)
 
     # ---- HTTP plumbing --------------------------------------------------
 
     def make_handler(self):
         server = self
 
+        # the engine is the last hop of the trace: the middleware adopts
+        # the worker proxy's traceparent and logs this hop's trace=… line
+        @trace_middleware("engine")
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
 
@@ -1291,6 +1319,7 @@ class OpenAIServer:
                         server.kv_prefetch(
                             source, call.gens[0].prompt_ids,
                             self.headers.get("X-GPUStack-KV-Source-Auth", ""),
+                            self.trace,
                         )
                     stream = bool(body.get("stream"))
                     if stream:
@@ -1309,6 +1338,7 @@ class OpenAIServer:
                     except HTTPError as e:
                         self._send_json(e.status, _error_body(e.message))
                         return
+                    server._trace_kv(self.trace, call.gens)
                     self._send_json(200, payload)
                     return
                 self._stream(call)
@@ -1356,6 +1386,7 @@ class OpenAIServer:
                         )
                     self._chunk(b"data: [DONE]\n\n")
                     self.wfile.write(b"0\r\n\r\n")
+                    server._trace_kv(self.trace, call.gens)
                 except (HTTPError, OSError):
                     # client gone or timed out: the headers are out, so
                     # end the connection; the engine frees the slots
@@ -1518,9 +1549,14 @@ def _refuse_multi_gpu(args, cfg, plan, vlm: bool) -> None:
     multihost.py``; here every multi-GPU placement is multi-process)."""
     from gpustack_tpu_torch.models.transformer import check_plan
 
-    if plan.sp > 1:
+    if plan.sp > 1 and plan.ep > 1:
         raise ValueError(
-            f"plan {plan}: sp > 1 (ring-attention prefill) is not ported yet"
+            f"plan {plan}: sp > 1 together with ep > 1 is not ported yet"
+        )
+    if plan.sp > 1 and args.max_seq_len % plan.sp:
+        raise ValueError(
+            f"plan {plan}: max_seq_len {args.max_seq_len} must divide "
+            f"evenly over sp={plan.sp}"
         )
     if plan.dp > 1:
         raise ValueError(

@@ -38,13 +38,17 @@ def probe(runner, state, what: str, ids=None, true_len: int = 0):
     - ``"slot_state"``: every rank's ``[last_tokens, positions]`` (int64
       ``[2, B]``), gathered, in rank order;
     - ``"launches"``: every rank's kernel launch counts
-      (``{wrapper: [n per rank]}``);
+      (``{wrapper: [n per rank]}``, and ``{wrapper_path: [n per rank]}``
+      for a wrapper that splits its launches by path);
     - ``"reset_launches"``: each rank's counts to 0;
     - ``"memory"``: every rank's peak device bytes since the last
       ``"reset_memory"`` (0 on the CPU);
     - ``"prefill_plain"``: a prefill of the bucket-padded ``ids``
       (``true_len`` real) through the plain attention; the last real
-      position's logits.
+      position's logits;
+    - ``"decode_logits"``: the logits ``[B, V]`` a decode step would
+      sample from (it writes the K/V that step would write, and leaves
+      the slot state as it is).
     """
     device = runner.device
     cuda = device.type == "cuda"
@@ -57,11 +61,16 @@ def probe(runner, state, what: str, ids=None, true_len: int = 0):
     if what == "slot_state":
         return gather(torch.stack([state.last_tokens, state.positions]))
     if what == "launches":
-        wrappers = _wrappers()
-        per_rank = gather(torch.tensor([fn.launches for _, fn in wrappers],
-                                       device=device))
+        names, counts = [], []
+        for name, fn in _wrappers():
+            names.append(name)
+            counts.append(fn.launches)
+            for path, n in getattr(fn, "launches_by_path", {}).items():
+                names.append(f"{name}_{path}")
+                counts.append(n)
+        per_rank = gather(torch.tensor(counts, device=device))
         return {name: [int(p[i]) for p in per_rank]
-                for i, (name, _) in enumerate(wrappers)}
+                for i, name in enumerate(names)}
     if what == "reset_launches":
         for _, fn in _wrappers():
             fn.launches = 0
@@ -85,4 +94,12 @@ def probe(runner, state, what: str, ids=None, true_len: int = 0):
             return_hidden=True, attn_impl="plain", mesh=runner.mesh,
         )
         return runner._head(hidden[0, true_len - 1])
+    if what == "decode_logits":
+        logits, _ = forward(
+            runner.params, runner.cfg, state.last_tokens[:, None],
+            state.positions[:, None], state.cache,
+            attn_impl="sp_cache" if runner.sp_mode else "plain",
+            mesh=runner.mesh,
+        )
+        return logits[:, 0]
     raise ValueError(f"unknown probe {what!r}")

@@ -42,6 +42,8 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
+import torch
+
 from gpustack_tpu_torch.engine import diagnostics
 
 logger = logging.getLogger(__name__)
@@ -392,6 +394,11 @@ class FollowerLoop:
                 time.sleep(0.2)
 
     def run(self) -> None:
+        device = getattr(self.runner, "device", None)
+        if device is not None and device.type == "cuda":
+            # the current device is per thread: this one replays every op
+            # (NCCL's batched point-to-point ops use it)
+            torch.cuda.set_device(device)
         try:
             sock = self._connect()
         except OSError as e:

@@ -32,6 +32,19 @@ The port of ``gpustack_tpu/engine/runner.py``:
   the ranks' slot states cannot part even where a tie would break
   differently. Every rank runs the same calls in the same order (the
   leader's command channel, ``engine/multihost.py``).
+- **sequence parallelism** (``plan.sp > 1``, the JAX runner's
+  ``sp_mode``): the KV cache is sequence-sharded for the whole
+  generation, each rank holding ``max_seq_len / sp`` positions of every
+  slot (``SpecLayout(long_context=True).cache``). A prefill from zero
+  splits its bucket's tokens over ``sp`` (every layer but attention runs
+  on the rank's own tokens; the attention is the ring,
+  ``ops/ring_attention.py``) and returns the rank's block of the bucket's
+  K/V; the last position's hidden row comes from the rank that holds it.
+  A continuation chunk and a decode step run their tokens whole on every
+  rank against the sharded cache (the merged attention). ``insert`` moves
+  each prefill block's K/V to the ranks that own those cache positions,
+  point to point over the ``sp`` group, planned from host integers alone.
+  Only buckets that divide over ``sp`` are kept.
 
 PyTorch runs eagerly, so there are no per-shape compilations to cache:
 the buckets bound the set of prefill shapes the kernel sees.
@@ -113,7 +126,20 @@ class ModelRunner:
         self.mesh = mesh if self.plan.chips > 1 else None
         self.tp = self.plan.tp
         # the replica's layout as one inspectable object (/healthz)
-        self.layout = SpecLayout(long_context=self.plan.sp > 1)
+        self.sp = self.plan.sp
+        self.sp_mode = self.sp > 1
+        if self.sp_mode:
+            if self.plan.dp != 1:
+                raise ValueError(
+                    "sp>1 serving requires dp=1 (one sequence-sharded "
+                    f"replica); got plan {self.plan}"
+                )
+            if max_seq_len % self.sp:
+                raise ValueError(
+                    f"plan {self.plan}: max_seq_len {max_seq_len} must "
+                    f"divide evenly over sp={self.sp}"
+                )
+        self.layout = SpecLayout(long_context=self.sp_mode)
         # int8 QuantW leaves go to the device as they are, never widened
         self.params = params_to_device(params, self.device)
         self.max_slots = max_slots
@@ -125,18 +151,86 @@ class ModelRunner:
                 b *= 2
             buckets.append(max_seq_len)
             prefill_buckets = tuple(buckets)
+        if self.sp_mode:
+            prefill_buckets = tuple(
+                b for b in prefill_buckets if b % self.sp == 0
+            )
+            if not prefill_buckets:
+                raise ValueError(
+                    f"plan {self.plan}: no prefill bucket divides over "
+                    f"sp={self.sp}"
+                )
         self.prefill_buckets = tuple(sorted(set(prefill_buckets)))
 
     # -- state ------------------------------------------------------------
 
     def new_state(self) -> DecodeState:
+        """The decode batch's state; under ``sp`` its cache holds this
+        rank's ``max_seq_len / sp`` positions of every slot."""
         return DecodeState.create(
-            self.cfg, self.max_slots, self.max_seq_len, self.device, self.tp
+            self.cfg, self.max_slots, self.max_seq_len // self.sp,
+            self.device, self.tp,
         )
 
     def _cache(self, rows: int) -> KVCache:
         """A scratch cache of one row, ``rows`` long (the rank's heads)."""
         return KVCache.create(self.cfg, 1, rows, self.device, self.tp)
+
+    # -- sequence parallelism ---------------------------------------------
+
+    def _single_sequence_shard(self, what: str) -> None:
+        """Refuse an op the sequence-sharded cache does not serve (the
+        multi-GPU replica refuses each of them at build as well)."""
+        if self.sp_mode:
+            raise ValueError(f"{what} is not supported under plan {self.plan}")
+
+    def _sp_last_hidden(self, hidden, true_len: int) -> torch.Tensor:
+        """The hidden row of position ``true_len - 1`` of a ring prefill,
+        from the ``sp`` rank whose block holds it, on every rank."""
+        T = hidden.shape[1]
+        owner, row = divmod(true_len - 1, T)
+        last = hidden[0, row].clone()
+        return self.mesh.broadcast_sp_(last, owner)
+
+    def _sp_move(self, src_k, src_v, src_width: int, dst_k, dst_v,
+                 dst_width: int, n: int) -> None:
+        """Copy positions ``0 .. n-1`` of a sequence-sharded K/V of global
+        width ``src_width`` (``src_k``/``src_v`` ``[L, src_width / sp, H,
+        hd]``, this rank's block) into one of ``dst_width`` (``dst_k``/
+        ``dst_v``, this rank's ``[L, dst_width / sp, H, hd]``). Each
+        position goes from the rank whose source block holds it to the
+        rank whose destination block does: a local copy, or one message a
+        pair of ranks, point to point over the ``sp`` group. The plan
+        follows from the host integers alone, the same on every rank."""
+        sp, r = self.sp, self.mesh.sp_rank
+        a, b = src_width // sp, dst_width // sp
+        s0, d0 = r * a, r * b          # this rank's first position in each
+        sends, recvs, landed = [], [], []
+        for src in range(sp):
+            for dst in range(sp):
+                lo = max(src * a, dst * b)
+                hi = min((src + 1) * a, (dst + 1) * b, n)
+                if lo >= hi or r not in (src, dst):
+                    continue
+                if src == dst:
+                    dst_k[:, lo - d0:hi - d0] = src_k[:, lo - s0:hi - s0]
+                    dst_v[:, lo - d0:hi - d0] = src_v[:, lo - s0:hi - s0]
+                elif src == r:
+                    sends.append((torch.stack([
+                        src_k[:, lo - s0:hi - s0], src_v[:, lo - s0:hi - s0],
+                    ]), dst))
+                else:
+                    buf = torch.empty(
+                        (2, dst_k.shape[0], hi - lo, *dst_k.shape[2:]),
+                        dtype=dst_k.dtype, device=dst_k.device,
+                    )
+                    recvs.append((buf, src))
+                    landed.append((buf, lo - d0, hi - d0))
+        for req in self.mesh.sp_p2p(sends, recvs):
+            req.wait()
+        for buf, lo, hi in landed:
+            dst_k[:, lo:hi] = buf[0]
+            dst_v[:, lo:hi] = buf[1]
 
     # -- prefill ----------------------------------------------------------
 
@@ -154,7 +248,10 @@ class ModelRunner:
         EVERY bucket on the card, the plain version on the CPU. (The JAX
         runner's >= 1024 threshold is a TPU reason — the XLA score tensor;
         on the card the alternative would be the plain version, which the
-        main path must not take.)"""
+        main path must not take.) Under ``sp``: the ring, whose blocks run
+        the kernel's LSE mode on the card."""
+        if self.sp_mode:
+            return "ring"
         return "flash" if self.device.type == "cuda" else "plain"
 
     def prefill(self, token_ids: Sequence[int], true_len: int):
@@ -166,6 +263,8 @@ class ModelRunner:
             raise ValueError(f"{Tb} is not a bucket {self.prefill_buckets}")
         if not 0 < true_len <= Tb:
             raise ValueError(f"true_len {true_len} outside 1..{Tb}")
+        if self.sp_mode:
+            return self._sp_prefill(token_ids, true_len)
         tokens = torch.tensor(
             [list(token_ids)], dtype=torch.int64, device=self.device
         )
@@ -178,6 +277,24 @@ class ModelRunner:
         )
         # logits for the one position the sampler reads, not all Tb rows
         last = self._head(hidden[0, true_len - 1])
+        return last, cache.k[:, 0], cache.v[:, 0]
+
+    def _sp_prefill(self, token_ids: Sequence[int], true_len: int):
+        """:meth:`prefill` under ``sp``: this rank's ``Tb / sp`` tokens
+        through the ring. Returns ``(last_logits [V] fp32, k, v [L,
+        Tb / sp, H, hd])``, the K/V of this rank's block of positions."""
+        T = len(token_ids) // self.sp
+        start = self.mesh.sp_rank * T
+        tokens = torch.tensor(
+            [list(token_ids[start:start + T])], dtype=torch.int64,
+            device=self.device,
+        )
+        positions = start + torch.arange(T, device=self.device)[None, :]
+        hidden, cache = forward(
+            self.params, self.cfg, tokens, positions, self._cache(T),
+            return_hidden=True, attn_impl="ring", mesh=self.mesh,
+        )
+        last = self._head(self._sp_last_hidden(hidden, true_len))
         return last, cache.k[:, 0], cache.v[:, 0]
 
     def _head(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -193,6 +310,7 @@ class ModelRunner:
         :meth:`_ids_on_device` sends ids. One fused forward with a fresh
         cache, through the flash kernel on the card at every bucket.
         Returns ``(last_logits [V] fp32, k, v [L, Tb, H, hd])``."""
+        self._single_sequence_shard("vision-token prefill")
         Tb = len(token_ids)
         if Tb not in self.prefill_buckets:
             raise ValueError(f"{Tb} is not a bucket {self.prefill_buckets}")
@@ -238,8 +356,14 @@ class ModelRunner:
         Bounds: the suffix block must fit inside ``total_bucket``
         (``prefix_len + Tsb <= total_bucket``); the engine's guards trim
         the prefix so it always does, and a call that breaks it raises
-        here instead of writing past the cache."""
-        Pb = prefix_k.shape[1]
+        here instead of writing past the cache.
+
+        Under ``sp`` the prefix is sequence-sharded (``[L, Pb / sp, H,
+        hd]``, this rank's block: a chunk's output) and so are the
+        returned K/V (``total_bucket / sp`` rows); the suffix runs whole on
+        every rank against the sharded scratch cache (JAX's
+        ``sp_cache_attention`` branch), no flash launch."""
+        Pb = prefix_k.shape[1] * self.sp
         Tsb = len(suffix_ids)
         if Tsb not in self.prefill_buckets:
             raise ValueError(f"{Tsb} is not a bucket {self.prefill_buckets}")
@@ -258,9 +382,13 @@ class ModelRunner:
             raise ValueError(
                 f"suffix_true_len {suffix_true_len} outside 1..{Tsb}"
             )
-        cache = self._cache(total_bucket)
-        cache.k[:, 0, :Pb] = prefix_k
-        cache.v[:, 0, :Pb] = prefix_v
+        cache = self._cache(total_bucket // self.sp)
+        if self.sp_mode:
+            self._sp_move(prefix_k, prefix_v, Pb, cache.k[:, 0],
+                          cache.v[:, 0], total_bucket, prefix_len)
+        else:
+            cache.k[:, 0, :Pb] = prefix_k
+            cache.v[:, 0, :Pb] = prefix_v
         tokens = torch.tensor(
             [list(suffix_ids)], dtype=torch.int64, device=self.device
         )
@@ -269,7 +397,11 @@ class ModelRunner:
         )[None, :]
         hidden, cache = forward(
             self.params, self.cfg, tokens, positions, cache,
-            return_hidden=True, attn_impl=self.attn_impl_for(total_bucket),
+            return_hidden=True,
+            attn_impl=(
+                "sp_cache" if self.sp_mode
+                else self.attn_impl_for(total_bucket)
+            ),
             q_offset=prefix_len, mesh=self.mesh,
         )
         last = self._head(hidden[0, suffix_true_len - 1])
@@ -304,6 +436,7 @@ class ModelRunner:
         a power of two with empty rows (true length 0, pooled to zero) so
         the kernel sees a bounded set of shapes. On the card the attention
         is the flash kernel (``attn_impl_for``), as for every prefill."""
+        self._single_sequence_shard("embeddings")
         Tb = len(batch_token_ids[0])
         if Tb not in self.prefill_buckets:
             raise ValueError(f"{Tb} is not a bucket {self.prefill_buckets}")
@@ -351,12 +484,20 @@ class ModelRunner:
         ``k``/``v`` are a bucket wide, or ``total_bucket`` wide after a
         continuation prefill; rows past ``true_len`` are pad that decode
         overwrites before any query reads it. ``first_token`` may be an int
-        or a one-element device tensor."""
-        Tb = k.shape[1]
+        or a one-element device tensor. Under ``sp``, ``k``/``v`` are this
+        rank's block of the prefill's positions, and positions ``0 ..
+        true_len-1`` move to the ranks whose cache segments own them
+        (:meth:`_sp_move`)."""
+        Tb = k.shape[1] * self.sp
         if Tb > self.max_seq_len:
             raise ValueError(f"prefill width {Tb} > max_seq_len")
-        state.cache.k[:, slot, :Tb] = k
-        state.cache.v[:, slot, :Tb] = v
+        if self.sp_mode:
+            self._sp_move(k, v, Tb, state.cache.k[:, slot],
+                          state.cache.v[:, slot], self.max_seq_len,
+                          int(true_len))
+        else:
+            state.cache.k[:, slot, :Tb] = k
+            state.cache.v[:, slot, :Tb] = v
         if isinstance(first_token, torch.Tensor):
             state.last_tokens[slot] = first_token.reshape(())
         else:
@@ -374,6 +515,7 @@ class ModelRunner:
 
     def slot_kv(self, state: DecodeState, slot: int, width: int):
         """Copies of a slot's KV rows ``[:width]``."""
+        self._single_sequence_shard("copying a slot's KV out")
         return (
             state.cache.k[:, slot, :width].clone(),
             state.cache.v[:, slot, :width].clone(),
@@ -407,6 +549,7 @@ class ModelRunner:
         positions = state.positions[:, None]
         logits, _ = forward(
             self.params, self.cfg, tokens, positions, state.cache,
+            attn_impl="sp_cache" if self.sp_mode else "plain",
             mesh=self.mesh,
         )
         out = sample(logits[:, 0], state.sampling, key, state.positions)
@@ -442,6 +585,7 @@ class ModelRunner:
         both. Pad positions land above the new position, hidden by the
         causal mask until overwritten. The JAX forward's logits are
         discarded, so this one stops at the hidden states."""
+        self._single_sequence_shard("draft ingestion")
         tokens = self._ids_on_device(tokens)
         counts = self._ids_on_device(counts)
         P = tokens.shape[1]
@@ -491,6 +635,7 @@ class ModelRunner:
         (the engine falls back to plain decode near capacity): the block's
         KV write is contiguous. An inactive row's block is clamped inside
         the cache, as the JAX write is."""
+        self._single_sequence_shard("speculative decoding")
         proposals = self._ids_on_device(proposals)
         P = proposals.shape[1]
         fed = torch.cat(

@@ -88,8 +88,19 @@ def check_plan(cfg: ModelConfig, plan) -> None:
     """Refuse a mesh plan the sharded forward cannot run on ``cfg``:
     query heads, vocab and FFN width must divide over ``tp``; KV heads
     must divide over it or it over them; experts must divide over ``ep``
-    and their width over ``tp``."""
+    and their width over ``tp``. Under ``sp`` the attention is the ring
+    (:mod:`ops.ring_attention`), which takes no sliding window, softcap
+    or sinks, as JAX's ``attn_impl="ring"`` refuses them."""
     tp, ep = plan.tp, plan.ep
+    if plan.sp > 1:
+        for what, hit in (("a sliding window", cfg.sliding_window),
+                          ("an attention softcap", cfg.attn_logit_softcap),
+                          ("attention sinks", cfg.attn_sinks)):
+            if hit:
+                raise ValueError(
+                    f"plan {plan}: {cfg.name} has {what}, which the ring "
+                    "attention of sp > 1 does not take"
+                )
     need = [("query heads", cfg.num_heads, tp), ("vocab", cfg.vocab_size, tp)]
     if cfg.num_kv_heads % tp and tp % cfg.num_kv_heads:
         raise ValueError(
@@ -962,12 +973,44 @@ def forward(
     MoE layer runs its local experts (:func:`_moe_mlp`). Every rank
     computes the same activations between layers, and the same logits.
 
+    Under a mesh with ``sp > 1`` (a sequence-parallel replica, as JAX's
+    ``attn_impl="ring"``) the cache is this rank's segment of the
+    sequence (``S_loc`` positions from ``sp_rank * S_loc``) and the
+    attention is one of two (:mod:`ops.ring_attention`):
+    ``attn_impl="ring"`` is a prefill from zero whose ``T`` tokens are
+    this rank's contiguous block (``cache.max_len == T``, positions
+    ``sp_rank * T + t``; every other layer runs on these tokens alone),
+    written at the cache's rows ``0 .. T-1``; ``attn_impl="sp_cache"`` is
+    every other step (decode, a continuation chunk): the tokens are whole
+    on every ``sp`` rank, only the rank that owns a position writes its
+    K/V (a decode step's write is masked on the device; a block of ``T >
+    1``, all rows at ``q_offset``, is cut on the host), and the attention
+    merges over the group. Neither takes a sliding window, softcap or
+    sinks (:func:`check_plan`).
+
     Returns ``(logits [B, T, vocab] fp32, cache or None)``, or the final
     normalized hidden states (fp32) with ``return_hidden``.
     """
-    if attn_impl not in ("plain", "flash"):
-        raise ValueError(f"attn_impl must be 'plain' or 'flash': {attn_impl!r}")
+    if attn_impl not in ("plain", "flash", "ring", "sp_cache"):
+        raise ValueError(
+            "attn_impl must be 'plain', 'flash', 'ring' or 'sp_cache': "
+            f"{attn_impl!r}"
+        )
     B, T = tokens.shape
+    sp_attn = attn_impl in ("ring", "sp_cache")
+    if sp_attn and (
+        mesh is None or mesh.sp == 1 or cache is None
+        or not flash_eligible(cfg)
+    ):
+        raise ValueError(
+            f"attn_impl={attn_impl!r} needs a cache, a mesh with sp > 1, "
+            "no sliding window, no attention softcap and no attention sinks"
+        )
+    if attn_impl == "ring" and cache.max_len != T:
+        raise ValueError(
+            f"a ring prefill writes its {T} tokens into a cache of {T} "
+            f"rows, not {cache.max_len}"
+        )
     dtype = torch_dtype(cfg)
     device = tokens.device
     tp = mesh.tp if mesh is not None else 1
@@ -1005,7 +1048,20 @@ def forward(
         ):
             raise ValueError("cacheless flash rows must be at 0 .. T-1")
         key_pos = positions[:, None, :]
-    else:
+    elif attn_impl == "sp_cache":
+        S = cache.max_len
+        base = mesh.sp_rank * S                 # this rank's first position
+        if T == 1:
+            # the owner of each row's position writes; another rank
+            # writes back what its clamped row already holds
+            rows = torch.arange(B, device=device)[:, None]
+            own = ((positions >= base) & (positions < base + S))[..., None, None]
+            write_pos = (positions - base).clamp(0, S - 1)
+        else:
+            # a block at q_offset (host int): this rank's part of it
+            lo = max(q_offset, base)
+            hi = min(q_offset + T, base + S)
+    elif attn_impl != "ring":               # a ring block writes rows 0..T-1
         S = cache.max_len
         write_pos = positions
         if clamp_writes:
@@ -1025,7 +1081,12 @@ def forward(
             )
         key_pos = torch.arange(S, device=device)[None, None, :]
         rows = torch.arange(B, device=device)[:, None].expand(B, T)
-    if not use_flash:
+    if sp_attn:
+        from gpustack_tpu_torch.ops.ring_attention import (
+            ring_attention,
+            sp_cache_attention,
+        )
+    elif not use_flash:
         # mask[b, t, s]: query t attends key s. A sliding window keeps
         # the keys less than ``sliding_window`` behind the query; with
         # per-layer flags both masks exist and each layer takes its own
@@ -1084,7 +1145,7 @@ def forward(
             q = apply_rope(q, sin_l, cos_l)
             k = apply_rope(k, sin_l, cos_l)
         qg = q.reshape(B, T, Hkv, G, cfg.head_dim)
-        if not use_flash:
+        if not (use_flash or sp_attn):
             plain = dict(
                 mask=mask_slide if sliding else mask_full, scale=scale,
                 softcap=cfg.attn_logit_softcap,
@@ -1098,6 +1159,22 @@ def forward(
                 attn = flash_attention_prefill(q, k, v, scale)
             else:
                 attn = _attend(qg, k, v, **plain)
+        elif attn_impl == "ring":
+            # the rank's own block of a prefill from zero
+            cache.k[li][:, :T] = k
+            cache.v[li][:, :T] = v
+            attn = ring_attention(q, k.to(cache.k.dtype),
+                                  v.to(cache.v.dtype), scale, mesh)
+        elif sp_attn:
+            k_l, v_l = cache.k[li], cache.v[li]
+            k, v = k.to(k_l.dtype), v.to(v_l.dtype)
+            if T == 1:
+                k_l[rows, write_pos] = torch.where(own, k, k_l[rows, write_pos])
+                v_l[rows, write_pos] = torch.where(own, v, v_l[rows, write_pos])
+            elif lo < hi:
+                k_l[:, lo - base:hi - base] = k[:, lo - q_offset:hi - q_offset]
+                v_l[:, lo - base:hi - base] = v[:, lo - q_offset:hi - q_offset]
+            attn = sp_cache_attention(q, k_l, v_l, positions, scale, mesh)
         else:
             k_l, v_l = cache.k[li], cache.v[li]
             # in-place write at each row's absolute positions

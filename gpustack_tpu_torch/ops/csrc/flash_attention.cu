@@ -49,6 +49,17 @@
 //   - the epilogue writes O / l as bf16 into the consumer's own rows of the
 //     Q tile (128-byte swizzled, free of bank conflicts) and one TMA store
 //     per box sends it to [B, T, Hq * d], rows past T dropped.
+//
+// LSE mode (flash_prefill_lse_f32, the same kernel with LSE = true): the
+// block of one ring-attention step (ops/ring_attention.py). The epilogue
+// writes the normalised partial output in fp32, [B, T, Hq * d], and each
+// row's natural log-sum-exp of its scaled visible scores, (m + log2 l) ln 2
+// with m the running max in the log2 domain, in fp32, [B, Hq, T], with
+// plain stores from the accumulator registers (no TMA store: the fp32
+// rows are twice the Q tile's bf16 rows). A row that sees no key gets 0
+// and an LSE of -1e30. The merge of several such blocks (one a visible
+// ring step) weighs each by exp(lse - max lse), in fp32.
+//
 // Not done yet: a persistent tile scheduler (one CTA per SM walking the
 // q-tiles, so one tile's epilogue overlaps the next one's loads),
 // splitting the diagonal tile so the first consumer skips keys its rows
@@ -75,6 +86,7 @@ constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;   // 128 * 40 + 256 * 232 = 384 * 168
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // keys per k-tile and K/V ring depth for head_dim d (see the header)
 constexpr int bk_for(int d) { return d > 128 ? 64 : 128; }
@@ -393,14 +405,17 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[BK / 16][4],
       p[j][i] = pack_bf16(s[8 * j + 2 * i], s[8 * j + 2 * i + 1]);
 }
 
-template <int D>
+// LSE: write fp32 O / l to out32 and each row's log-sum-exp to lse (the
+// ring's block mode) instead of bf16 O / l through the `to` map
+template <int D, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_prefill_kernel(__grid_constant__ const CUtensorMap tq,
                      __grid_constant__ const CUtensorMap tk,
                      __grid_constant__ const CUtensorMap tv,
                      __grid_constant__ const CUtensorMap to,
                      int T, int S, int Hq, int Hkv, int q_offset,
-                     float scale) {
+                     float scale, float* __restrict__ out32,
+                     float* __restrict__ lse) {
   using L = Smem<D>;
   constexpr int BK = L::BK;
   constexpr int STAGES = L::STAGES;
@@ -607,7 +622,28 @@ flash_prefill_kernel(__grid_constant__ const CUtensorMap tq,
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float inv0 = 1.f / fmaxf(l0, 1e-30f);
     const float inv1 = 1.f / fmaxf(l1, 1e-30f);
-    if (wg_row < T) {
+    if constexpr (LSE) {
+      // fp32 rows straight from the registers: a quad writes 32
+      // contiguous bytes of a row per 8-column block
+      float* o0 = out32 + ((size_t(b) * T + row0) * Hq + h) * D + t4 * 2;
+      float* o1 = out32 + ((size_t(b) * T + row1) * Hq + h) * D + t4 * 2;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        if (row0 < T)
+          *reinterpret_cast<float2*>(o0 + n * 8) =
+              make_float2(o[4 * n] * inv0, o[4 * n + 1] * inv0);
+        if (row1 < T)
+          *reinterpret_cast<float2*>(o1 + n * 8) =
+              make_float2(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
+      }
+      if (t4 == 0) {
+        float* lrow = lse + (size_t(b) * Hq + h) * T;
+        if (row0 < T)
+          lrow[row0] = rs.m0 <= NEG / 2 ? NEG : (rs.m0 + log2f(l0)) * LN2;
+        if (row1 < T)
+          lrow[row1] = rs.m1 <= NEG / 2 ? NEG : (rs.m1 + log2f(l1)) * LN2;
+      }
+    } else if (wg_row < T) {
       const int r0 = warp * 16 + g;         // row within the warpgroup's 64
 #pragma unroll
       for (int n = 0; n < DT; ++n) {
@@ -664,27 +700,68 @@ CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int D>
+template <int D, bool LSE>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, const CUtensorMap& to, int B,
                    int T, int S, int Hq, int Hkv, int q_offset, float scale,
-                   cudaStream_t stream) {
+                   float* out32, float* lse, cudaStream_t stream) {
   constexpr int MAX_DEVICES = 64;
   static bool smem_set[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= MAX_DEVICES || !smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_prefill_kernel<D>,
+    err = cudaFuncSetAttribute(flash_prefill_kernel<D, LSE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                int(Smem<D>::total));
     if (err != cudaSuccess) return err;
     if (dev < MAX_DEVICES) smem_set[dev] = true;
   }
   dim3 grid((T + BQ - 1) / BQ, Hq, B);
-  flash_prefill_kernel<D><<<grid, THREADS, Smem<D>::total, stream>>>(
-      tq, tk, tv, to, T, S, Hq, Hkv, q_offset, scale);
+  flash_prefill_kernel<D, LSE><<<grid, THREADS, Smem<D>::total, stream>>>(
+      tq, tk, tv, to, T, S, Hq, Hkv, q_offset, scale, out32, lse);
   return cudaGetLastError();
+}
+
+// Both entries: the q, k, v maps, then the output map (bf16 mode only; LSE
+// mode stores without one) and the launch at head_dim d.
+template <bool LSE>
+int run(const void* q, const void* k, const void* v, void* out, float* lse,
+        int B, int T, int S, int Hq, int Hkv, int d, long long qsb,
+        long long qst, long long qsh, long long ksb, long long kss,
+        long long ksh, long long vsb, long long vss, long long vsh,
+        int q_offset, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (T == 0 || B == 0) return int(cudaSuccess);
+  if (d != 64 && d != 128 && d != 192 && d != 256)
+    return int(cudaErrorInvalidValue);
+  EncodeTiled encode = encode_fn();
+  if (encode == nullptr) return -1;
+  CUtensorMap tq, tk, tv, to;
+  CUresult r = make_map(encode, &tq, q, B, T, Hq, d, qsb, qst, qsh, BQ);
+  if (r == CUDA_SUCCESS)
+    r = make_map(encode, &tk, k, B, S, Hkv, d, ksb, kss, ksh, bk_for(d));
+  if (r == CUDA_SUCCESS)
+    r = make_map(encode, &tv, v, B, S, Hkv, d, vsb, vss, vsh, bk_for(d));
+  // out is [B, T, Hq * d] contiguous: [B, T, Hq, d], stored 64 rows a box
+  const long long ot = (long long)Hq * d;
+  if (LSE)
+    to = tq;                            // not read in LSE mode
+  else if (r == CUDA_SUCCESS)
+    r = make_map(encode, &to, out, B, T, Hq, d, T * ot, ot, d, WG_ROWS);
+  if (r != CUDA_SUCCESS) return -(1000 + int(r));
+  float* out32 = LSE ? static_cast<float*>(out) : nullptr;
+  if (d == 256)
+    return int(launch<256, LSE>(tq, tk, tv, to, B, T, S, Hq, Hkv, q_offset,
+                                scale, out32, lse, st));
+  if (d == 192)
+    return int(launch<192, LSE>(tq, tk, tv, to, B, T, S, Hq, Hkv, q_offset,
+                                scale, out32, lse, st));
+  if (d == 128)
+    return int(launch<128, LSE>(tq, tk, tv, to, B, T, S, Hq, Hkv, q_offset,
+                                scale, out32, lse, st));
+  return int(launch<64, LSE>(tq, tk, tv, to, B, T, S, Hq, Hkv, q_offset,
+                             scale, out32, lse, st));
 }
 
 }  // namespace
@@ -702,34 +779,23 @@ extern "C" int flash_prefill_bf16(
     long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh,
     int q_offset, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (T == 0 || B == 0) return int(cudaSuccess);
-  if (d != 64 && d != 128 && d != 192 && d != 256)
-    return int(cudaErrorInvalidValue);
-  EncodeTiled encode = encode_fn();
-  if (encode == nullptr) return -1;
-  CUtensorMap tq, tk, tv, to;
-  CUresult r = make_map(encode, &tq, q, B, T, Hq, d, qsb, qst, qsh, BQ);
-  if (r == CUDA_SUCCESS)
-    r = make_map(encode, &tk, k, B, S, Hkv, d, ksb, kss, ksh, bk_for(d));
-  if (r == CUDA_SUCCESS)
-    r = make_map(encode, &tv, v, B, S, Hkv, d, vsb, vss, vsh, bk_for(d));
-  // out is [B, T, Hq * d] contiguous: [B, T, Hq, d], stored 64 rows a box
-  const long long ot = (long long)Hq * d;
-  if (r == CUDA_SUCCESS)
-    r = make_map(encode, &to, out, B, T, Hq, d, T * ot, ot, d, WG_ROWS);
-  if (r != CUDA_SUCCESS) return -(1000 + int(r));
-  if (d == 256)
-    return int(launch<256>(tq, tk, tv, to, B, T, S, Hq, Hkv, q_offset,
-                           scale, st));
-  if (d == 192)
-    return int(launch<192>(tq, tk, tv, to, B, T, S, Hq, Hkv, q_offset,
-                           scale, st));
-  if (d == 128)
-    return int(launch<128>(tq, tk, tv, to, B, T, S, Hq, Hkv, q_offset,
-                           scale, st));
-  return int(launch<64>(tq, tk, tv, to, B, T, S, Hq, Hkv, q_offset, scale,
-                        st));
+  return run<false>(q, k, v, out, nullptr, B, T, S, Hq, Hkv, d, qsb, qst,
+                    qsh, ksb, kss, ksh, vsb, vss, vsh, q_offset, scale,
+                    stream);
+}
+
+// LSE mode (the ring's block): out32 fp32 [B, T, Hq * d] is O / l and lse
+// fp32 [B, Hq, T] each row's natural log-sum-exp of its scaled visible
+// scores; everything else as flash_prefill_bf16, return codes included.
+extern "C" int flash_prefill_lse_f32(
+    const void* q, const void* k, const void* v, float* out32, float* lse,
+    int B, int T, int S, int Hq, int Hkv, int d,
+    long long qsb, long long qst, long long qsh,
+    long long ksb, long long kss, long long ksh,
+    long long vsb, long long vss, long long vsh,
+    int q_offset, float scale, void* stream) {
+  return run<true>(q, k, v, out32, lse, B, T, S, Hq, Hkv, d, qsb, qst, qsh,
+                   ksb, kss, ksh, vsb, vss, vsh, q_offset, scale, stream);
 }
 
 // Dynamic shared memory of one CTA for head_dim d (0 if unsupported).

@@ -21,8 +21,14 @@ source's header for the block design.
 
 ``flash_attention_prefill`` launches the kernel for a CUDA tensor (or
 raises: there is no fallback on the card) and takes the plain version only
-for a CPU tensor. ``flash_attention_prefill.launches`` counts kernel
-launches.
+for a CPU tensor. ``flash_attention_lse`` is the same kernel in its LSE
+mode (the C entry ``flash_prefill_lse_f32``), one block of the ring
+attention of a sequence-parallel prefill (``ops/ring_attention.py``): it
+returns the normalised partial output and each row's log-sum-exp, both
+fp32, and ``flash_attention_lse_ref`` is its plain version.
+``flash_attention_prefill.launches`` counts the kernel's launches in both
+modes, and ``flash_attention_prefill.launches_by_path`` splits them
+(``"causal"``, ``"lse"``).
 """
 
 from __future__ import annotations
@@ -34,26 +40,27 @@ import torch
 _NEG = -1e30
 SUPPORTED_HEAD_DIMS = (64, 128, 192, 256)
 
-_lib = None
+_entries = {}
 
 
-def _kernel():
-    """The compiled library's entry point (built on first call)."""
-    global _lib
-    if _lib is None:
+def _kernel(entry: str = "flash_prefill_bf16"):
+    """A C entry point of the compiled library (built on first call):
+    ``flash_prefill_bf16`` (four pointers) or ``flash_prefill_lse_f32``
+    (five)."""
+    fn = _entries.get(entry)
+    if fn is None:
         from gpustack_tpu_torch.ops._build import load
 
-        lib = load("flash_attention")
-        fn = lib.flash_prefill_bf16
+        fn = getattr(load("flash_attention"), entry)
         fn.restype = ctypes.c_int
         fn.argtypes = (
-            [ctypes.c_void_p] * 4
+            [ctypes.c_void_p] * (5 if entry == "flash_prefill_lse_f32" else 4)
             + [ctypes.c_int] * 6
             + [ctypes.c_longlong] * 9
             + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         )
-        _lib = fn
-    return _lib
+        _entries[entry] = fn
+    return fn
 
 
 def flash_attention_prefill_ref(
@@ -78,6 +85,36 @@ def flash_attention_prefill_ref(
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgts,bshd->bthgd", w, v.float())
     return out.reshape(B, T, Hq * d).to(q.dtype)
+
+
+def flash_attention_lse_ref(
+    q: torch.Tensor,        # [B, T, Hq, d]
+    k: torch.Tensor,        # [B, S, Hkv, d]
+    v: torch.Tensor,        # [B, S, Hkv, d]
+    scale: float,
+    q_offset: int = 0,
+):
+    """Plain version of the LSE mode, in fp32 math: ``(out [B, T, Hq*d],
+    lse [B, Hq, T])``, ``out`` the causal attention of
+    :func:`flash_attention_prefill_ref` before its downcast and ``lse``
+    each row's natural log-sum-exp of its scaled visible scores. A row that
+    sees no key gets 0 and an LSE of ``_NEG``, as the kernel gives."""
+    B, T, Hq, d = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qf = q.float().reshape(B, T, Hkv, G, d) * scale
+    scores = torch.einsum("bthgd,bshd->bhgts", qf, k.float())
+    q_pos = q_offset + torch.arange(T, device=q.device)
+    k_pos = torch.arange(S, device=q.device)
+    mask = k_pos[None, :] <= q_pos[:, None]                     # [T, S]
+    scores = scores.masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(scores, dim=-1)                       # [B,Hkv,G,T]
+    seen = lse > _NEG / 2
+    w = torch.where(seen[..., None], torch.exp(scores - lse[..., None]),
+                    0.0)
+    out = torch.einsum("bhgts,bshd->bthgd", w, v.float())
+    lse = torch.where(seen, lse, _NEG)
+    return out.reshape(B, T, Hq * d), lse.reshape(B, Hq, T)
 
 
 def _check_cuda_inputs(q, k, v, scale) -> tuple:
@@ -157,18 +194,18 @@ def _refuse(q, k, v) -> None:
         )
 
 
-def _launch_error(err: int) -> str:
+def _launch_error(err: int, entry: str = "flash_prefill_bf16") -> str:
     if err == -1:
         return (
-            "flash_prefill_bf16: the CUDA driver has no "
+            f"{entry}: the CUDA driver has no "
             "cuTensorMapEncodeTiled (TMA needs CUDA 12 on Hopper)"
         )
     if err <= -1000:
         return (
-            "flash_prefill_bf16: the driver refused a TMA tensor map "
+            f"{entry}: the driver refused a TMA tensor map "
             f"(CUresult {-1000 - err})"
         )
-    return f"flash_prefill_bf16 launch failed: cudaError {err}"
+    return f"{entry} launch failed: cudaError {err}"
 
 
 def flash_attention_prefill(
@@ -194,15 +231,59 @@ def flash_attention_prefill(
         raise ValueError(f"unsupported device {q.device}")
     strides = _check_cuda_inputs(q, k, v, scale)
     out = torch.empty((B, T, Hq * d), dtype=q.dtype, device=q.device)
-    err = _kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, T, S, Hq, Hkv, d, *strides, q_offset, float(scale),
-        torch._C._cuda_getCurrentRawStream(q.device.index),
-    )
+    # the library launches on the calling thread's current device
+    with torch.cuda.device(q.device):
+        err = _kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, T, S, Hq, Hkv, d, *strides, q_offset, float(scale),
+            torch._C._cuda_getCurrentRawStream(q.device.index),
+        )
     if err != 0:
         raise RuntimeError(_launch_error(err))
     flash_attention_prefill.launches += 1
+    flash_attention_prefill.launches_by_path["causal"] += 1
     return out
 
 
 flash_attention_prefill.launches = 0
+flash_attention_prefill.launches_by_path = {"causal": 0, "lse": 0}
+
+
+def flash_attention_lse(
+    q: torch.Tensor,        # [B, T, Hq, d]
+    k: torch.Tensor,        # [B, S, Hkv, d]
+    v: torch.Tensor,        # [B, S, Hkv, d]
+    scale: float,
+    q_offset: int = 0,
+):
+    """The kernel's LSE mode: ``(out [B, T, Hq*d], lse [B, Hq, T])``, both
+    fp32: the causal attention of :func:`flash_attention_prefill`
+    normalised but not downcast, and each row's natural log-sum-exp of its
+    scaled visible scores. Counted in ``flash_attention_prefill.launches``
+    (and its ``launches_by_path["lse"]``)."""
+    B, T, Hq, d = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if Hq % Hkv != 0:
+        raise ValueError(
+            f"q heads ({Hq}) must be a multiple of kv heads ({Hkv})"
+        )
+    q_offset = int(q_offset)
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return flash_attention_lse_ref(q, k, v, scale, q_offset)
+        raise ValueError(f"unsupported device {q.device}")
+    strides = _check_cuda_inputs(q, k, v, scale)
+    out = torch.empty((B, T, Hq * d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+    entry = "flash_prefill_lse_f32"
+    with torch.cuda.device(q.device):
+        err = _kernel(entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, T, S, Hq, Hkv, d, *strides, q_offset,
+            float(scale), torch._C._cuda_getCurrentRawStream(q.device.index),
+        )
+    if err != 0:
+        raise RuntimeError(_launch_error(err, entry))
+    flash_attention_prefill.launches += 1
+    flash_attention_prefill.launches_by_path["lse"] += 1
+    return out, lse

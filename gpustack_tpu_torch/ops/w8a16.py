@@ -230,11 +230,13 @@ def w8a16_matmul(
     else:
         path = "wgmma"
         bn, _, _, kchunk, _ = wgmma_plan(M, N, K, sms)
-    err = _kernel()(
-        x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-        M, N, K, x2.stride(0), q.stride(0), N, bn, kchunk,
-        torch._C._cuda_getCurrentRawStream(x.device.index),
-    )
+    # the library launches on the calling thread's current device
+    with torch.cuda.device(x.device):
+        err = _kernel()(
+            x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+            M, N, K, x2.stride(0), q.stride(0), N, bn, kchunk,
+            torch._C._cuda_getCurrentRawStream(x.device.index),
+        )
     if err != 0:
         raise RuntimeError(
             f"w8a16_gemm_bf16 launch failed: {err} (> 0 a cudaError, -1 no "
@@ -342,10 +344,11 @@ def _grouped_launch(entry, wrapper, x, w, s, offsets, max_rows):
     ptrs = [x.data_ptr(), w.data_ptr()] + (
         [] if s is None else [s.data_ptr()]
     ) + [offsets.data_ptr(), out.data_ptr()]
-    err = _kernel(entry)(
-        *ptrs, E, P, N, K, max_rows, bn, kchunk,
-        torch._C._cuda_getCurrentRawStream(x.device.index),
-    )
+    with torch.cuda.device(x.device):
+        err = _kernel(entry)(
+            *ptrs, E, P, N, K, max_rows, bn, kchunk,
+            torch._C._cuda_getCurrentRawStream(x.device.index),
+        )
     if err != 0:
         raise RuntimeError(
             f"{entry} grouped launch failed: {err} (> 0 a cudaError, -1 no "

@@ -15,10 +15,12 @@ is one rank's view, its (dp, sp, ep, tp) coordinates in JAX's outer to
 inner order (``tp`` innermost, so a ``tp`` group is ranks that differ by
 1) and the ``torch.distributed`` process groups its forward needs: the
 ``tp`` group (the attention and dense MLP all-reduces), the ``ep x tp``
-group (an MoE layer's combine) and the world (the sampled tokens'
-broadcast). Collectives are NCCL on the card and gloo on the CPU; a group
-of one rank makes each collective a no-op, so one process needs no
-process group at all.
+group (an MoE layer's combine), the ``sp`` group (ranks that differ only
+in their ``sp`` index: the ring's hops, the cache merge's all-reduces,
+the prefill's last hidden row and the KV moves of ``insert``) and the
+world (the sampled tokens' broadcast). Collectives are NCCL on the card
+and gloo on the CPU; a group of one rank makes each collective a no-op,
+so one process needs no process group at all.
 """
 
 from __future__ import annotations
@@ -141,6 +143,7 @@ class Mesh:
         self.rank = rank
         self.coords = rank_coords(plan, rank)
         self.tp_group = self.moe_group = self.world_group = None
+        self.sp_group = None
         if plan.chips > 1:
             if not dist.is_initialized():
                 raise RuntimeError(
@@ -155,20 +158,28 @@ class Mesh:
             self.world_group = dist.group.WORLD
             self.tp_group = self._groups(("tp",))
             self.moe_group = self._groups(("ep", "tp"))
+            if plan.sp > 1:
+                self.sp_group = self._groups(("sp",))
 
-    def _groups(self, inner):
-        """This rank's group over the ``inner`` axes: every group is made
-        on every rank in one order (``new_group`` is collective), and a
-        group that is the whole world is the world group."""
+    def _groups(self, axes):
+        """This rank's group over ``axes``: the ranks whose coordinates
+        differ from its own only along them. Every group is made on every
+        rank in one order (``new_group`` is collective), and a group that
+        is the whole world is the world group."""
         p = self.plan
         width = 1
-        for ax in inner:
+        for ax in axes:
             width *= p.axis_sizes()[ax]
         if width == p.chips:
             return dist.group.WORLD
+        members: Dict[tuple, List[int]] = {}
+        for r in range(p.chips):
+            c = rank_coords(p, r)
+            members.setdefault(
+                tuple(c[a] for a in MESH_AXES if a not in axes), []
+            ).append(r)
         mine = None
-        for start in range(0, p.chips, width):
-            ranks = list(range(start, start + width))
+        for ranks in members.values():
             g = dist.new_group(ranks)
             if self.rank in ranks:
                 mine = g
@@ -187,6 +198,23 @@ class Mesh:
     @property
     def ep_rank(self) -> int:
         return self.coords[AXIS_EP]
+
+    @property
+    def sp(self) -> int:
+        return self.plan.sp
+
+    @property
+    def sp_rank(self) -> int:
+        return self.coords[AXIS_SP]
+
+    def sp_peer(self, sp_index: int) -> int:
+        """The global rank at ``sp_index`` along ``sp`` with this rank's
+        other coordinates (point-to-point ops name global ranks)."""
+        c = dict(self.coords, **{AXIS_SP: sp_index % self.plan.sp})
+        rank = 0
+        for ax in MESH_AXES:
+            rank = rank * self.plan.axis_sizes()[ax] + c[ax]
+        return rank
 
     @property
     def moe_size(self) -> int:
@@ -218,6 +246,42 @@ class Mesh:
         parts = [torch.empty_like(x) for _ in range(self.tp)]
         dist.all_gather(parts, x, group=self.tp_group)
         return torch.cat(parts, dim=-1)
+
+    def all_reduce_sp(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Reduce ``x`` over the ``sp`` group in place: ``"sum"`` or
+        ``"max"``."""
+        if self.sp > 1:
+            dist.all_reduce(
+                x, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                group=self.sp_group,
+            )
+        return x
+
+    def broadcast_sp_(self, x: torch.Tensor, sp_src: int) -> torch.Tensor:
+        """The ``x`` of the rank at ``sp_src`` along ``sp``, in place on
+        every rank of this rank's ``sp`` group."""
+        if self.sp > 1:
+            dist.broadcast(x, src=self.sp_peer(sp_src), group=self.sp_group)
+        return x
+
+    def sp_p2p(self, sends, recvs) -> list:
+        """Post ``sends`` ``[(tensor, sp_index)]`` and ``recvs``
+        ``[(tensor, sp_index)]`` over the ``sp`` group as one batch (NCCL
+        groups them, so no order of the pairs can deadlock); returns the
+        requests to ``wait`` on. Every rank of the group computes the same
+        plan, so each send meets its receive."""
+        ops = [dist.P2POp(dist.isend, t, self.sp_peer(i), self.sp_group)
+               for t, i in sends]
+        ops += [dist.P2POp(dist.irecv, t, self.sp_peer(i), self.sp_group)
+                for t, i in recvs]
+        if not ops:
+            return []
+        device = ops[0].tensor.device
+        if device.type != "cuda":
+            return dist.batch_isend_irecv(ops)
+        # NCCL's batched ops run on the calling thread's current device
+        with torch.cuda.device(device):
+            return dist.batch_isend_irecv(ops)
 
     def broadcast_(self, x: torch.Tensor) -> torch.Tensor:
         """Rank 0's ``x`` on every rank, in place."""

@@ -103,6 +103,38 @@ def test_flash_kernel_reads_strided_cache_views():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,T,S,off,Hq,Hkv,d", [
+    (1, 2048, 2048, 0, 32, 8, 128),     # a ring's diagonal block
+    (1, 1024, 1024, 1024, 32, 8, 128),  # a block wholly below it
+    (1, 100, 300, 200, 4, 2, 128),      # ragged, at the causal edge
+    (2, 130, 250, 120, 16, 16, 192),    # d 192, batch 2
+    (1, 64, 64, 0, 8, 1, 256),          # d 256, MQA
+    (2, 200, 200, 0, 4, 1, 64),         # d 64
+])
+def test_flash_lse_mode_matches_plain(B, T, S, off, Hq, Hkv, d):
+    """The LSE mode (a ring block): fp32 output to the kernel gate and each
+    row's log-sum-exp within 1e-3 of the fp32 plain version; counted with
+    the kernel, under its ``"lse"`` path."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(B * 5 + T + off)
+    q, k, v = (
+        torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+        for shape in ((B, T, Hq, d), (B, S, Hkv, d), (B, S, Hkv, d))
+    )
+    before = fa.flash_attention_prefill.launches_by_path["lse"]
+    out, lse = fa.flash_attention_lse(q, k, v, d ** -0.5, q_offset=off)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_prefill.launches_by_path["lse"] == before + 1
+    ref, ref_lse = fa.flash_attention_lse_ref(
+        q.float(), k.float(), v.float(), d ** -0.5, off
+    )
+    assert out.dtype == lse.dtype == torch.float32
+    torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+    _assert_rows_close(out, ref, Hq, d)
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("bad", ["float32", "head_dim", "cpu_k"])
 def test_flash_kernel_refuses_what_it_cannot_run(bad):
     _need_card()
