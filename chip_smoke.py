@@ -1321,8 +1321,10 @@ def reset_launch_counts():
 
 class RunnerCalls:
     """The model forwards a runner runs from here on (instance attributes
-    over the methods the engine calls), each as (method, B, T): the rows
-    its weight products see are M = B·T."""
+    over the methods the engine calls), each as (method, B, T, slot): the
+    rows its weight products see are M = B·T (a decode step's B is a
+    ``dp`` group's slots), and ``slot`` is the slot a prefill names (the
+    ``dp`` group that runs it; None: every group)."""
 
     METHODS = ("prefill", "prefill_with_prefix", "prefill_with_embeds",
                "decode_step", "verify_step", "ingest_step", "embed")
@@ -1334,7 +1336,8 @@ class RunnerCalls:
             fn = getattr(runner, name)
 
             def counted(*args, _fn=fn, _name=name, **kw):
-                self.forwards.append((_name, *self._shape(_name, args)))
+                self.forwards.append((_name, *self._shape(_name, args),
+                                      kw.get("slot")))
                 return _fn(*args, **kw)
 
             setattr(runner, name, counted)
@@ -1346,7 +1349,7 @@ class RunnerCalls:
         if name == "prefill_with_prefix":
             return 1, len(args[3])
         if name == "decode_step":
-            return slots, 1
+            return getattr(self.runner, "rows", slots), 1
         if name in ("verify_step", "ingest_step"):
             return slots, len(args[1][0])
         rows = 1                                    # embed: batch padded
@@ -1380,7 +1383,7 @@ def moe_layers(cfg):
     return cfg.num_layers - cfg.first_k_dense if cfg.is_moe else 0
 
 
-def expected_launches(runner_calls, sp_rank=0):
+def expected_launches(runner_calls, sp_rank=0, dp_rank=0):
     """What windows of runner forwards must launch, each
     :class:`RunnerCalls` with its own model: the flash kernel once per
     layer of every prefill forward (bucketed, continuation or with image
@@ -1405,7 +1408,10 @@ def expected_launches(runner_calls, sp_rank=0):
     counts are taken on) launches the kernel's LSE mode ``sp_rank + 1``
     times a layer, and its continuations and decode steps merge over the
     sequence-sharded cache with no launch; every other flash launch is the
-    causal mode."""
+    causal mode. A ring prefill's MoE and W8A16 products see the rank's
+    ``T / sp`` tokens. Under ``dp`` the counts are rank ``dp_rank``'s
+    group's: a prefill that names a slot runs on the slot's group only,
+    and a decode step's rows are the group's slots."""
     from gpustack_tpu_torch.models.transformer import (
         flash_eligible,
         moe_chunk_tokens,
@@ -1432,19 +1438,25 @@ def expected_launches(runner_calls, sp_rank=0):
             cfg.num_experts_per_tok, cfg.moe_intermediate_size,
             cfg.hidden_size, torch_dtype(cfg).itemsize,
         ) if moe else 0
-        sp = getattr(calls.runner, "sp_mode", False)
-        for name, B, T in calls.forwards:
+        runner = calls.runner
+        sp = getattr(runner, "sp_mode", False)
+        dp, rows = getattr(runner, "dp", 1), getattr(runner, "rows", 0)
+        for name, B, T, slot in calls.forwards:
+            if dp > 1 and slot is not None and slot // rows != dp_rank:
+                continue                    # another group's prefill
+            tokens = B * T
             if sp and name == "prefill":
                 want["flash_attention_prefill"] += (sp_rank + 1) * layers
                 want["flash_lse"] += (sp_rank + 1) * layers
+                tokens //= runner.sp
             elif flash and not sp and name in (
                 "prefill", "prefill_with_prefix", "prefill_with_embeds",
                 "embed",
             ):
                 want["flash_attention_prefill"] += layers
                 want["flash_causal"] += layers
-            for start in range(0, B * T if moe else 0, chunk or 1):
-                count(grouped, grouped, min(chunk, B * T - start), 3 * moe)
+            for start in range(0, tokens if moe else 0, chunk or 1):
+                count(grouped, grouped, min(chunk, tokens - start), 3 * moe)
             if not calls.int8:
                 continue
             head = None if cfg.tie_word_embeddings else {
@@ -1452,7 +1464,7 @@ def expected_launches(runner_calls, sp_rank=0):
                 "prefill_with_embeds": 1,
                 "decode_step": B, "verify_step": B * T,
             }.get(name)
-            for m, n in ((B * T, two_d), (head, 1)):
+            for m, n in ((tokens, two_d), (head, 1)):
                 if m is not None:
                     count("w8a16", "w8a16_matmul", m, n)
     return want
@@ -5595,19 +5607,37 @@ def _s_prefill_profile(engine, n_tokens):
             "prefill_ms_runs": times, **share}
 
 
-def _s_logit_gate(engine):
+def _s_logit_gate(engine, slot=None, replay=False):
     """The standing logit gate over the mesh: a prefill through the
     served path (the flash kernel on every rank) against a prefill of the
     same prompt through the plain attention on the same ranks
     (``probe("prefill_plain")``), last-position logits. MoE routing is
     free in both runs (each rank's router sees the same activations; a
-    pick near a tie may flip between the two runs)."""
+    pick near a tie may flip between the two runs); with ``replay`` the
+    plain run replays each rank's served picks (``probe("routing_*")``)
+    and the free run's numbers ride beside. Under ``dp`` a ``slot``
+    makes both prefills its group's, their logits sent to rank 0."""
     runner, state = engine.runner, engine._state
     ids = _s_ids(1900, runner.cfg.vocab_size, 3)
     padded = ids + [0] * (runner.bucket_for(len(ids)) - len(ids))
+    extra = {}
     with torch.no_grad():
-        served, _, _ = runner.prefill(padded, len(ids))
-        plain = runner.probe(state, "prefill_plain", padded, len(ids))
+        if replay:
+            runner.probe(state, "routing_record")
+        served, _, _ = runner.prefill(padded, len(ids), slot=slot)
+        if replay:
+            runner.probe(state, "routing_replay")
+        plain = runner.probe(state, "prefill_plain", padded, len(ids),
+                             slot=slot)
+        if replay:
+            tapes = runner.probe(state, "routing")
+            free = runner.probe(state, "prefill_plain", padded, len(ids),
+                                slot=slot)
+            extra = {"routing": "the served picks replayed in the plain "
+                     "run, on every rank",
+                     "flipped_tokens_per_rank": [sum(t["flips"])
+                                                 for t in tapes],
+                     "free_routing": _compare_logits(served, free)}
     if served.shape != (runner.cfg.vocab_size,) or not torch.isfinite(
         served
     ).all():
@@ -5617,7 +5647,7 @@ def _s_logit_gate(engine):
         gate["cosine"] < LOGIT_MIN_COSINE
     ):
         raise AssertionError(f"served prefill logits differ: {gate}")
-    return {**gate, "prompt_tokens": len(ids),
+    return {**gate, "prompt_tokens": len(ids), "slot": slot, **extra,
             "reference": "plain attention, bf16, the same ranks",
             "tolerance": {"rel": LOGIT_REL_TOL,
                           "min_cosine": LOGIT_MIN_COSINE}}
@@ -5646,17 +5676,21 @@ def _s_decode_rate(engine):
     return after_first / max(t_end - t_first, 1e-9), len(reqs)
 
 
-def _s_served(argv, label, kind, smi):
+def _s_served(argv, label, kind, smi, gate_slot=None, replay=False,
+              checks=()):
     """One model across the GPUs through the port's server: this process
     is rank 0 (``build_engine_from_args`` starts a follower process per
-    other GPU) and serves HTTP. The standing logit gate; then, counted on
-    every rank: one prompt at each TTFT bucket, a chat over HTTP and 8
-    chats decoding at once; every rank's launches equal what the leader's
-    runner calls need (``expected_launches``: the flash kernel once per
-    layer of each prefill, the grouped kernel three times per MoE layer
-    of each forward); every follower's slot state equal to the leader's;
-    peak memory per rank; then the NCCL share of a 20-step decode profile
-    and of a 2048-bucket prefill on rank 0."""
+    other GPU) and serves HTTP. The standing logit gate
+    (:func:`_s_logit_gate` with ``gate_slot`` and ``replay``), then each
+    of ``checks`` (a function of the idle engine returning its report);
+    then, counted on every rank: one prompt at each TTFT bucket, a chat
+    over HTTP and 8 chats decoding at once; every rank's launches equal
+    what the leader's runner calls need on that rank
+    (``expected_launches``: the flash kernel once per layer of each
+    prefill its ``dp`` group ran, the grouped kernel three times per MoE
+    layer of each forward); every follower's slot state equal to the
+    leader's; peak memory per rank; then the NCCL share of a 20-step
+    decode profile and of a 2048-bucket prefill on rank 0."""
     from gpustack_tpu_torch.engine.api_server import (
         OpenAIServer,
         build_engine_from_args,
@@ -5664,6 +5698,7 @@ def _s_served(argv, label, kind, smi):
         shutdown_replica,
     )
     from gpustack_tpu_torch.engine.engine import GenRequest
+    from gpustack_tpu_torch.parallel.mesh import rank_coords
 
     t0 = time.perf_counter()
     engine = build_engine_from_args(build_parser().parse_args(argv))
@@ -5677,7 +5712,10 @@ def _s_served(argv, label, kind, smi):
     server = OpenAIServer(engine)
     port = server.start("127.0.0.1", 0)
     try:
-        gate = _s_logit_gate(engine)
+        gate = _s_logit_gate(engine, gate_slot, replay)
+        checked = {}
+        for check in checks:
+            checked.update(check(engine))
         for n in S_TTFT_TOKENS.values():          # warm every bucket
             engine.generate(GenRequest(
                 prompt_ids=_s_ids(n, cfg.vocab_size, n), max_tokens=2,
@@ -5702,12 +5740,16 @@ def _s_served(argv, label, kind, smi):
         memory = runner.probe(state, "memory")
         states = runner.probe(state, "slot_state")
         window = calls.counts()
-        want = expected_launches([calls])
+        wants = []
+        for r in range(world):
+            c = rank_coords(plan, r)
+            wants.append(expected_launches([calls], c["sp"], c["dp"]))
         for name in S_KERNELS:
-            if launches[name] != [want[name]] * world:
+            want = [w[name] for w in wants]
+            if launches[name] != want:
                 raise AssertionError(
                     f"{label}: {name} launched {launches[name]} per rank, "
-                    f"the leader's forwards need {want[name]} on each"
+                    f"the leader's forwards need {want}"
                 )
         if window["prefill"] != len(S_TTFT_TOKENS) + 1 + chats:
             raise AssertionError(f"{label}: runner calls {window}")
@@ -5725,7 +5767,8 @@ def _s_served(argv, label, kind, smi):
         report = {
             "model": cfg.name, "plan": str(plan), "layers": cfg.num_layers,
             "device": kind, "nvidia_smi": smi, "setup_s": setup_s,
-            "logit_check": gate, **ttft,
+            "logit_check": gate, **checked, **ttft,
+            "max_slots": engine.max_slots,
             "decode_tokens_per_s_8_slots": rate,
             "decode_tokens_per_chat": S_DECODE_TOKENS,
             "launches_per_rank": {n: launches[n] for n in S_KERNELS},
@@ -6027,18 +6070,40 @@ class _PlainAttention:
          self._fa.flash_attention_lse) = self._saved
 
 
+def _sp_candidates(per_rank, plan, row):
+    """Candidates for a one-card replay (``diagnostics.RoutingTape``) of
+    a replica's recorded picks (``per_rank``: each rank's per-call picks,
+    in rank order): per call, rank 0's (tokens whole on every rank: a
+    decode step), its row ``row`` alone (one slot of a decode step, where
+    the one-card batch is that slot), and the ``sp`` ranks' blocks side
+    by side (a ring prefill), each from the rank at ``ep`` and ``tp``
+    index 0 (``dp`` is 1 under ``sp``)."""
+    group = plan.ep * plan.tp
+    return [
+        [mine, mine[row:row + 1],
+         torch.cat([per_rank[j * group][i] for j in range(plan.sp)])]
+        for i, mine in enumerate(per_rank[0])
+    ]
+
+
 def _t_served_logits(engine):
     """On the idle replica, from this thread (every op broadcast, so every
     rank runs it): a prefill of a 30000-token prompt through the ring, its
     greedy first token inserted into a free slot, then
     ``T_DECODE_STEPS`` decode steps, each step's logits read first
-    (``probe("decode_logits")``); the slot is deactivated at the end.
-    Returns (prompt ids, prefill logits, [step logits], [tokens fed])."""
+    (``probe("decode_logits")``); the slot is deactivated at the end. On
+    an MoE model every rank records its expert picks meanwhile
+    (``probe("routing_record")``). Returns (prompt ids, prefill logits,
+    [step logits], [tokens fed], the one-card replay's candidate picks
+    per MoE layer call or None)."""
     runner, state = engine.runner, engine._state
     ids = _s_ids(T_TTFT_TOKENS[T_MAX_SEQ], runner.cfg.vocab_size, 3)
     padded = ids + [0] * (runner.bucket_for(len(ids)) - len(ids))
     slot = engine._free[0]
+    moe = runner.cfg.is_moe
     with torch.no_grad():
+        if moe:
+            runner.probe(state, "routing_record")
         last, k, v = runner.prefill(padded, len(ids))
         fed = [int(last.argmax())]
         runner.insert(state, k, v, slot, len(ids), fed[0], 0.0, 0, 1.0)
@@ -6050,15 +6115,22 @@ def _t_served_logits(engine):
             state, out = runner.decode_step(state, 1000 + step)
             fed.append(int(out[0][slot]))
         runner.deactivate(state, slot)
-    return ids, last.float().cpu(), steps, fed[:-1]
+        tape = None
+        if moe:
+            per_rank = [r["picks"] for r in runner.probe(state, "routing")]
+            tape = _sp_candidates(per_rank, runner.plan, slot)
+    return ids, last.float().cpu(), steps, fed[:-1], tape
 
 
-def _t_one_card(params, cfg, ids, served_last, served_steps, fed):
-    """The one-card reference over the leader's tree (an sp rank holds it
-    whole): a one-slot engine on this card with the flash kernel and no
+def _t_one_card(params, cfg, ids, served_last, served_steps, fed,
+                tape=None, label="sp4"):
+    """The one-card reference over the whole tree (under ``sp`` alone the
+    leader's): a one-slot engine on this card with the flash kernel and no
     ring. Its TTFT for each TTFT prompt; then the served prefill's logits
     and each decode step's (the served tokens fed) against it, each held
-    to the standing logit gate."""
+    to the standing logit gate. On an MoE model (``tape``: the served
+    picks, :func:`_t_served_logits`) the reference replays the served
+    picks, and a second run with free routing rides beside."""
     from gpustack_tpu_torch.engine import diagnostics
     from gpustack_tpu_torch.engine.engine import GenRequest, LLMEngine
 
@@ -6079,8 +6151,9 @@ def _t_one_card(params, cfg, ids, served_last, served_steps, fed):
         engine.stop()
     runner = engine.runner
     padded = ids + [0] * (runner.bucket_for(len(ids)) - len(ids))
-    gates = []
-    with torch.no_grad():
+
+    def run():
+        gates = []
         last, k, v = runner.prefill(padded, len(ids))
         gates.append(_compare_logits(served_last, last.float().cpu()))
         state = runner.new_state()
@@ -6092,33 +6165,55 @@ def _t_one_card(params, cfg, ids, served_last, served_steps, fed):
             state, _ = runner.decode_step(state, step)
             if step + 1 < len(fed):
                 state.last_tokens[0] = fed[step + 1]
-    del engine, runner, state
+        return gates
+
+    extra = {}
+    with torch.no_grad():
+        if tape is None:
+            gates = run()
+        else:
+            with diagnostics.RoutingTape() as replay:
+                replay.replay(tape)
+                gates = run()
+            free = run()
+            extra = {
+                "routing": "the served picks replayed (rank 0's, or the "
+                "sp ranks' ring blocks side by side)",
+                "flipped_tokens": sum(replay.flips),
+                "free_routing": {"prefill": free[0],
+                                 "decode_steps": free[1:]},
+            }
+    del engine, runner
     bad = [i for i, g in enumerate(gates)
            if g["max_abs_err"] > LOGIT_REL_TOL * g["logit_scale"]
            or g["cosine"] < LOGIT_MIN_COSINE]
     if bad:
         raise AssertionError(
-            f"sp4 logits part from one card at {bad} (0: the prefill, i: "
-            f"decode step i): {[gates[i] for i in bad]}")
+            f"{label} logits part from one card at {bad} (0: the prefill, "
+            f"i: decode step i): {[gates[i] for i in bad]}")
     return ttft, {
         "prefill": gates[0], "decode_steps": gates[1:],
-        "prompt_tokens": len(ids), "tokens_fed": fed,
+        "prompt_tokens": len(ids), "tokens_fed": fed, **extra,
         "reference": "one card, the same tree, flash, no ring",
         "tolerance": {"rel": LOGIT_REL_TOL, "min_cosine": LOGIT_MIN_COSINE},
     }
 
 
-def _t_served(kind, smi):
+def _t_served(kind, smi, argv=None, label="sp4", line="sp_served"):
     """t1. qwen3-8b whole (36 layers, bf16, random weights from a seed)
-    under ``sp4`` through the port's server, this process rank 0 and one
-    follower process per other GPU: the served logits (a 30000-token
-    prefill and ``T_DECODE_STEPS`` decode steps); then, counted on every
-    rank, one prompt at each TTFT bucket, a chat over HTTP and 4 chats
-    decoding at once: rank ``r`` launches the flash kernel's LSE mode
-    ``r + 1`` times a layer of each prefill and the causal mode never;
-    every follower's slot state equal to the leader's; peak memory per
-    rank; the NCCL share of a 32768-bucket prefill on rank 0. After the
-    replica is down, the one-card reference (:func:`_t_one_card`)."""
+    under ``sp4`` through the port's server (``argv``: v1's model and
+    plan), this process rank 0 and one follower process per other GPU:
+    the served logits (a 30000-token prefill and ``T_DECODE_STEPS``
+    decode steps; an MoE model's picks recorded on every rank); then,
+    counted on every rank, one prompt at each TTFT bucket, a chat over
+    HTTP and 4 chats decoding at once: rank ``r`` at ``sp`` index ``i``
+    launches the flash kernel's LSE mode ``i + 1`` times a layer of each
+    prefill and the causal mode never, and the grouped kernel as its
+    share of the tokens needs; every follower's slot state equal to the
+    leader's; peak memory per rank; the NCCL share of a 32768-bucket
+    prefill on rank 0. After the replica is down, the one-card reference
+    (:func:`_t_one_card`) over the whole tree: rank 0's under ``sp``
+    alone, else drawn from the server's seed on this card."""
     from gpustack_tpu_torch.engine.api_server import (
         OpenAIServer,
         build_engine_from_args,
@@ -6128,8 +6223,11 @@ def _t_served(kind, smi):
     from gpustack_tpu_torch.engine.engine import GenRequest
     from gpustack_tpu_torch.parallel.mesh import rank_coords
 
+    from gpustack_tpu_torch.engine.weights import load_or_init_params
+
+    argv = T1_ARGV if argv is None else argv
     t0 = time.perf_counter()
-    engine = build_engine_from_args(build_parser().parse_args(T1_ARGV))
+    engine = build_engine_from_args(build_parser().parse_args(argv))
     runner, state = engine.runner, engine._state
     cfg, plan = runner.cfg, runner.plan
     world = plan.chips
@@ -6143,7 +6241,8 @@ def _t_served(kind, smi):
             engine.generate(GenRequest(
                 prompt_ids=_s_ids(n, cfg.vocab_size, n), max_tokens=2,
                 temperature=0.0), timeout=900)
-        ids, served_last, served_steps, fed = _t_served_logits(engine)
+        ids, served_last, served_steps, fed, tape = _t_served_logits(
+            engine)
         runner.probe(state, "reset_memory")
         calls = RunnerCalls(engine.runner, int8=False)
         runner.probe(state, "reset_launches")
@@ -6165,7 +6264,7 @@ def _t_served(kind, smi):
         states = runner.probe(state, "slot_state")
         window = calls.counts()
         if window["prefill"] != len(T_TTFT_TOKENS) + 1 + chats:
-            raise AssertionError(f"sp4: runner calls {window}")
+            raise AssertionError(f"{label}: runner calls {window}")
         per_rank_want = []
         for r in range(world):
             want = expected_launches([calls], rank_coords(plan, r)["sp"])
@@ -6176,18 +6275,19 @@ def _t_served(kind, smi):
                 "flash_attention_prefill_causal"][r]
             if any(got[n] != want[n] for n in got):
                 raise AssertionError(
-                    f"sp4 rank {r}: launches {got}, the leader's forwards "
+                    f"{label} rank {r}: launches {got}, the leader's forwards "
                     f"need {({n: want[n] for n in got})}")
         for rank, st in enumerate(states[1:], start=1):
             if not torch.equal(st, states[0]):
                 raise AssertionError(
-                    f"sp4: rank {rank}'s slot state parted from the "
+                    f"{label}: rank {rank}'s slot state parted from the "
                     f"leader's: {st.tolist()} vs {states[0].tolist()}")
         health = engine.health()
         if health["status"] != "ok":
-            raise AssertionError(f"sp4: engine unhealthy: {health}")
+            raise AssertionError(f"{label}: engine unhealthy: {health}")
         prefill = _s_prefill_profile(engine, T_TTFT_TOKENS[T_MAX_SEQ])
-        params = runner.params
+        device = runner.device
+        params = runner.params if plan.chips == plan.sp else None
     finally:
         server.shutdown()
         engine.stop()
@@ -6195,8 +6295,10 @@ def _t_served(kind, smi):
     # the replica's KV cache goes; rank 0's tree (whole under sp) stays
     del engine, server, runner, state, calls
     _free()
+    if params is None:
+        params = load_or_init_params(cfg, None, seed=0, device=device)
     one_ttft, gate = _t_one_card(params, cfg, ids, served_last,
-                                 served_steps, fed)
+                                 served_steps, fed, tape, label)
     report = {
         "model": cfg.name, "plan": str(plan), "layers": cfg.num_layers,
         "max_seq_len": T_MAX_SEQ, "device": kind, "nvidia_smi": smi,
@@ -6211,7 +6313,7 @@ def _t_served(kind, smi):
         "followers_slot_state_equal": True, "layout": health["layout"],
         "prefill_32768_rank0": prefill,
     }
-    emit("sp_served", **report)
+    emit(line, **report)
     return report
 
 
@@ -6402,6 +6504,372 @@ def phase_sequence_parallel(kind, smi):
         f"{T_PRESET} sp4 (lse)": served["flash_lse_launches_per_rank"]}}
 
 
+# ---------------------------------------------------------------------------
+# u: data parallelism (dp > 1) across four GPUs
+# ---------------------------------------------------------------------------
+
+U_GPUS = 4
+U1_ARGV = ["--preset", "llama3-70b", "--mesh-plan", "dp2xtp2"] + MAIN_ARGV[2:]
+U2_ARGV = ["--preset", "mixtral-8x7b", "--mesh-plan", "dp2xep2"] + MAIN_ARGV[2:]
+# group 1's first slot at 8 slots under dp2: u1's and u2's logit gates
+# run their prefills there (rank 0 receives the logits), which also opens
+# the NCCL pair communicator group 1 sends rank 0 on before any request
+# is timed (its first use takes about a second)
+U_GROUP1_SLOT = 4
+# u1's pair: one prompt in slot 0 (group 0) and in group 1's first slot
+U_PAIR_TOKENS = 500
+U_PAIR_STEPS = 8
+U_PAIR_REL_TOL = 1e-2
+# u3: llama3-8b's widths at 4 layers, fp32 with TF32 off, a request in
+# every group's slots, against one card
+U3_PRESET = "llama3-8b"
+U3_LAYERS = 4
+U3_PLANS = ("dp2xtp2", "dp4")
+U3_PROMPTS = (1000, 600, 300, 1500)       # slots 0-3, every group's
+U_RANK_DEVICE = "cuda"
+
+
+def _u_slot_pair(engine):
+    """u1's pair, on the idle replica from this thread: one prompt
+    prefilled for slot 0 (group 0) and for group 1's first slot (its
+    logits sent to rank 0), each inserted with its greedy first token,
+    then ``U_PAIR_STEPS`` decode steps, each step's logits read first
+    (``probe("decode_logits")``, every group's rows gathered). The two
+    slots' greedy ids must be identical and their logits within
+    ``U_PAIR_REL_TOL`` of the scale; whether they and the slots' K/V
+    rows (``probe("kv_rows")``) are equal bit for bit is recorded."""
+    runner, state = engine.runner, engine._state
+    n = U_PAIR_TOKENS
+    ids = _s_ids(n, runner.cfg.vocab_size, 21)
+    padded = ids + [0] * (runner.bucket_for(n) - n)
+    slots = (0, runner.rows)
+    with torch.no_grad():
+        lasts, ids_of = [], {s: [] for s in slots}
+        for slot in slots:
+            last, k, v = runner.prefill(padded, n, slot=slot)
+            lasts.append(last.float().cpu())
+            ids_of[slot].append(int(last.argmax()))
+            runner.insert(state, k, v, slot, n, ids_of[slot][0], 0.0, 0,
+                          1.0)
+            del k, v
+        steps = []
+        for step in range(U_PAIR_STEPS):
+            logits = runner.probe(state, "decode_logits")
+            steps.append([logits[s].float().cpu() for s in slots])
+            state, out = runner.decode_step(state, 2000 + step)
+            for s in slots:
+                ids_of[s].append(int(out[0][s]))
+        kv = [runner.probe(state, "kv_rows", true_len=n, slot=s)
+              for s in slots]
+        for s in slots:
+            runner.deactivate(state, s)
+    cmps = [_compare_logits(b, a) for a, b in [lasts] + steps]
+    worst = max(c["max_abs_err"] / c["logit_scale"] for c in cmps)
+    report = {
+        "slots": list(slots), "prompt_tokens": n,
+        "greedy_ids_equal": ids_of[slots[0]] == ids_of[slots[1]],
+        "worst_rel_err": worst,
+        "min_cosine": min(c["cosine"] for c in cmps),
+        "logits_bitwise_equal": all(torch.equal(a, b)
+                                    for a, b in [lasts] + steps),
+        "kv_rows_bitwise_equal": torch.equal(kv[0], kv[1]),
+        "kv_rows_max_abs_diff": (kv[0] - kv[1]).abs().max().item(),
+        "tolerance": {"rel": U_PAIR_REL_TOL},
+    }
+    if not report["greedy_ids_equal"] or worst > U_PAIR_REL_TOL:
+        raise AssertionError(f"slots {slots} part: {report}, ids "
+                             f"{ids_of}")
+    return {"slot_pair": report}
+
+
+def _u_dp_case(mesh, device, preset, layers, prompts):
+    """u3 on one plan: ``preset`` at ``layers`` layers in fp32 (TF32 off,
+    the flash kernel's plain version) through the data-parallel runner on
+    this rank against the one-card runner on the same tree: prompt ``i``
+    (``prompts[i]`` tokens) prefilled for slot ``i`` (on its group;
+    rank 0 receives the logits of every group's), inserted with the
+    one-card greedy first token (rank 0's, broadcast), then
+    ``T_DECODE_STEPS`` decode steps (the one-card runner fed the dp
+    runner's tokens). Every logit row this rank holds within
+    ``SHARD_REL_TOL`` of its scale."""
+    from gpustack_tpu_torch.engine import diagnostics
+    from gpustack_tpu_torch.engine.runner import ModelRunner
+    from gpustack_tpu_torch.engine.weights import load_or_init_params
+    from gpustack_tpu_torch.models.config import get_config
+
+    cfg = dataclasses.replace(get_config(preset), num_layers=layers,
+                              dtype="float32")
+    dp, one = (
+        ModelRunner(cfg, load_or_init_params(cfg, None, seed=0,
+                                             device=device, mesh=m),
+                    device, max_slots=len(prompts), max_seq_len=4096,
+                    mesh=m)
+        for m in (mesh, None)
+    )
+    cmps, ran = [], []
+    with torch.no_grad(), _PlainAttention():
+        states = dp.new_state(), one.new_state()
+        for slot, n in enumerate(prompts):
+            ids = _s_ids(n, cfg.vocab_size, 40 + slot)
+            padded = ids + [0] * (one.bucket_for(n) - n)
+            ref, rk, rv = one.prefill(padded, n)
+            got, k, v = dp.prefill(padded, n, slot=slot)
+            ran.append(k is not None)
+            first = torch.tensor([int(ref.argmax())], device=device)
+            mesh.broadcast_(first)
+            one.insert(states[1], rk, rv, slot, n, int(first), 0.0, 0, 1.0)
+            dp.insert(states[0], k, v, slot, n, int(first), 0.0, 0, 1.0)
+            if got is not None:
+                cmps.append(_compare_logits(got.float(), ref.float()))
+            del rk, rv, k, v
+        parted = 0
+        for step in range(T_DECODE_STEPS):
+            got = diagnostics.probe(dp, states[0], "decode_logits")
+            want = diagnostics.probe(one, states[1], "decode_logits")
+            cmps += [_compare_logits(g.float(), w.float())
+                     for g, w in zip(got, want)]
+            dp.decode_step(states[0], step)
+            one.decode_step(states[1], step)
+            parted += int((states[0].last_tokens
+                           != states[1].last_tokens).sum())
+            states[1].last_tokens.copy_(states[0].last_tokens)
+    worst = max(c["max_abs_err"] / c["logit_scale"] for c in cmps)
+    del dp, one, states
+    return {"plan": str(mesh.plan), "model": cfg.name,
+            "layers": cfg.num_layers, "weights": "fp32, TF32 off",
+            "prompts": list(prompts), "prefills_run": ran,
+            "rows": len(cmps), "worst_rel_err": worst,
+            "min_cosine": min(c["cosine"] for c in cmps),
+            "decode_tokens_parted": parted,
+            "tolerance": {"rel": SHARD_REL_TOL},
+            "ok": worst <= SHARD_REL_TOL}
+
+
+def _u_rank(rank, world, coordinator, device_type, u3):
+    """One rank of u3, in a process of its own: on ``cuda:<rank>`` over
+    NCCL (``device_type`` "cpu": gloo, for a rehearsal). ``u3``: (preset,
+    layers, prompt lengths)."""
+    from gpustack_tpu_torch.parallel.mesh import Mesh, MeshPlan, init_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device_type, rank if device_type == "cuda" else None)
+    first = init_mesh(MeshPlan.parse(U3_PLANS[0]), rank, coordinator, device)
+    out = {"rank": rank, "u3": []}
+    for plan in U3_PLANS:
+        mesh = first if plan == U3_PLANS[0] else Mesh(MeshPlan.parse(plan),
+                                                      rank)
+        out["u3"].append(_u_dp_case(mesh, device, *u3))
+        _s_free(device)
+    return out
+
+
+def phase_data_parallel(kind, smi):
+    """u1. llama3-70b, bf16, 80 layers, ``dp2xtp2`` through the server
+    (``_s_served`` with u1's slot pair); u2. mixtral-8x7b, bf16,
+    ``dp2xep2`` through the server (its logit gate with the served picks
+    replayed, free routing beside); both logit gates on group 1's
+    prefills;
+    then u3 in one process per GPU (:func:`_u_rank`), every rank held to
+    its gates. Returns each kernel's launches per rank on the served
+    paths."""
+    from gpustack_tpu_torch.parallel.launch import run_ranks
+
+    if U_RANK_DEVICE == "cuda" and torch.cuda.device_count() < U_GPUS:
+        raise AssertionError(f"phase u needs {U_GPUS} cards")
+    dense = _s_served(U1_ARGV, "dp2xtp2", kind, smi,
+                      gate_slot=U_GROUP1_SLOT, checks=(_u_slot_pair,))
+    _free()
+    moe = _s_served(U2_ARGV, "dp2xep2", kind, smi, gate_slot=U_GROUP1_SLOT,
+                    replay=True)
+    _free()
+    ranks = run_ranks(_u_rank, U_GPUS, U_RANK_DEVICE,
+                      (U3_PRESET, U3_LAYERS, U3_PROMPTS),
+                      timeout=S_RANK_TIMEOUT_S)
+    for j, plan in enumerate(U3_PLANS):
+        emit("dp_runner", device=kind, nvidia_smi=smi, **ranks[0]["u3"][j],
+             per_rank_ok=[r["u3"][j]["ok"] for r in ranks],
+             per_rank_worst_rel_err=[r["u3"][j]["worst_rel_err"]
+                                     for r in ranks],
+             per_rank_prefills_run=[r["u3"][j]["prefills_run"]
+                                    for r in ranks])
+    bad = [(r["rank"], U3_PLANS[j]) for r in ranks
+           for j, c in enumerate(r["u3"]) if not c["ok"]]
+    if bad:
+        raise AssertionError(f"phase u: failed (rank, plan) {bad}")
+    per_rank = {}
+    for report in (dense, moe):
+        for name, counts in report["launches_per_rank"].items():
+            per_rank.setdefault(name, {})[
+                f"{report['model']} {report['plan']}"] = counts
+    return per_rank
+
+
+# ---------------------------------------------------------------------------
+# v: sequence parallelism beside expert parallelism (sp2xep2), four GPUs
+# ---------------------------------------------------------------------------
+
+V_GPUS = 4
+V_PRESET = "qwen3-30b-a3b"
+V1_ARGV = ["--preset", V_PRESET, "--mesh-plan", "sp2xep2", "--max-seq-len",
+           str(T_MAX_SEQ), "--max-slots", "4", "--host", "127.0.0.1",
+           "--port", "0"]
+# v2: qwen3-30b-a3b's widths at 4 layers, fp32 (TF32 off, the plain
+# versions of the flash modes and of the grouped product), sp2xep2
+# against one card, through a chunked prefill and decode steps, the
+# one-card picks replayed
+V2_PRESET = "qwen3-30b-a3b"
+V2_LAYERS = 4
+V2_PLAN = "sp2xep2"
+V2_PROMPT = 2000
+V2_CHUNKS = (1024, 776)
+
+
+def _v_sp_ep_case(mesh, device, preset, layers, prompt, chunks):
+    """v2: ``preset`` at ``layers`` layers in fp32 through the runner
+    under ``sp2xep2`` on this rank against the one-card runner on the
+    same tree, as t2 (a ``prompt``-token ring prefill; a chunk and a
+    continuation; both inserted; ``T_DECODE_STEPS`` decode steps, the
+    one-card runner fed the sharded runner's tokens). Each one-card
+    forward records its expert picks and the sharded forward after it
+    replays them (:class:`diagnostics.RoutingTape`; a ring block replays
+    its rows of the one-card call's), so a near-tie pick cannot flip
+    between the two; the flips are counted. Every logit row within
+    ``SHARD_REL_TOL`` of its scale."""
+    from gpustack_tpu_torch.engine import diagnostics
+    from gpustack_tpu_torch.engine.runner import ModelRunner
+    from gpustack_tpu_torch.engine.weights import load_or_init_params
+    from gpustack_tpu_torch.models.config import get_config
+
+    cfg = dataclasses.replace(get_config(preset), num_layers=layers,
+                              dtype="float32")
+    sharded, one = (
+        ModelRunner(cfg, load_or_init_params(cfg, None, seed=0,
+                                             device=device, mesh=m),
+                    device, max_slots=2, max_seq_len=4096, mesh=m)
+        for m in (mesh, None)
+    )
+    sp, i = mesh.sp, mesh.sp_rank
+    tape = diagnostics.RoutingTape()
+    flips = []
+
+    def pair(fn_one, fn_sharded):
+        """One forward on one card (recorded), then the same on the
+        mesh (replaying it): both results."""
+        tape.mode, tape.calls = "record", []
+        want = fn_one()
+        cands = []
+        for p in tape.picks():
+            n = p.shape[0] // sp
+            cands.append([p, p[i * n:(i + 1) * n]])
+        tape.replay(cands)
+        got = fn_sharded()
+        flips.append(sum(tape.flips))
+        return got, want
+
+    ids = _s_ids(prompt, cfg.vocab_size, 13)
+    chunked = _s_ids(sum(chunks), cfg.vocab_size, 14)
+    a, b = chunks
+    cmps = []
+    with torch.no_grad(), _PlainAttention(), _PlainGrouped(), tape:
+        states = sharded.new_state(), one.new_state()
+        padded = ids + [0] * (one.bucket_for(prompt) - prompt)
+        got, want = pair(lambda: one.prefill(padded, prompt),
+                         lambda: sharded.prefill(padded, prompt))
+        cmps.append(_compare_logits(got[0].float(), want[0].float()))
+        first = int(want[0].argmax())
+        sharded.insert(states[0], got[1], got[2], 0, prompt, first, 0.0,
+                       0, 1.0)
+        one.insert(states[1], want[1], want[2], 0, prompt, first, 0.0, 0,
+                   1.0)
+        del got, want
+        got, want = pair(lambda: one.prefill_chunk(chunked[:a], a),
+                         lambda: sharded.prefill_chunk(chunked[:a], a))
+        rest = chunked[a:] + [0] * (one.bucket_for(b) - b)
+        total = one.bucket_for(a + one.bucket_for(b))
+        got, want = pair(
+            lambda: one.prefill_continue_chunk(want[1], want[2], a, rest, b,
+                                               total),
+            lambda: sharded.prefill_continue_chunk(got[1], got[2], a, rest,
+                                                   b, total))
+        cmps.append(_compare_logits(got[0].float(), want[0].float()))
+        first = int(want[0].argmax())
+        sharded.insert(states[0], got[1], got[2], 1, a + b, first, 0.0, 0,
+                       1.0)
+        one.insert(states[1], want[1], want[2], 1, a + b, first, 0.0, 0,
+                   1.0)
+        del got, want
+        parted = 0
+        for step in range(T_DECODE_STEPS):
+            got, want = pair(
+                lambda: diagnostics.probe(one, states[1], "decode_logits"),
+                lambda: diagnostics.probe(sharded, states[0],
+                                          "decode_logits"))
+            cmps += [_compare_logits(g.float(), w.float())
+                     for g, w in zip(got, want)]
+            pair(lambda: one.decode_step(states[1], step),
+                 lambda: sharded.decode_step(states[0], step))
+            parted += int((states[0].last_tokens
+                           != states[1].last_tokens).sum())
+            states[1].last_tokens.copy_(states[0].last_tokens)
+    worst = max(c["max_abs_err"] / c["logit_scale"] for c in cmps)
+    del sharded, one, states
+    return {"plan": str(mesh.plan), "model": cfg.name,
+            "layers": cfg.num_layers, "weights": "fp32, TF32 off",
+            "rows": len(cmps), "worst_rel_err": worst,
+            "min_cosine": min(c["cosine"] for c in cmps),
+            "decode_tokens_parted": parted,
+            "flipped_tokens_per_forward": flips,
+            "tolerance": {"rel": SHARD_REL_TOL},
+            "ok": worst <= SHARD_REL_TOL}
+
+
+def _v_rank(rank, world, coordinator, device_type, v2):
+    """One rank of v2, in a process of its own: on ``cuda:<rank>`` over
+    NCCL (``device_type`` "cpu": gloo, for a rehearsal). ``v2``: (preset,
+    layers, prompt tokens, chunks)."""
+    from gpustack_tpu_torch.parallel.mesh import MeshPlan, init_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device_type, rank if device_type == "cuda" else None)
+    mesh = init_mesh(MeshPlan.parse(V2_PLAN), rank, coordinator, device)
+    return {"rank": rank, "v2": _v_sp_ep_case(mesh, device, *v2)}
+
+
+def phase_sp_ep(kind, smi):
+    """v1. qwen3-30b-a3b whole (48 layers, bf16) under ``sp2xep2`` at
+    32768 tokens through the server (:func:`_t_served`: the served
+    logits against the one-card tree with the served picks replayed,
+    free routing beside; TTFT at 32768 and 4096 beside one card's at one
+    slot; every rank's LSE and grouped launches); then v2 in one process
+    per GPU (:func:`_v_rank`), every rank held to its gates. Returns the
+    flash kernel's LSE launches and the grouped kernel's per rank on
+    v1's served path."""
+    from gpustack_tpu_torch.parallel.launch import run_ranks
+
+    if U_RANK_DEVICE == "cuda" and torch.cuda.device_count() < V_GPUS:
+        raise AssertionError(f"phase v needs {V_GPUS} cards")
+    served = _t_served(kind, smi, V1_ARGV, "sp2xep2", "sp_ep_served")
+    _free()
+    ranks = run_ranks(_v_rank, V_GPUS, U_RANK_DEVICE,
+                      (V2_PRESET, V2_LAYERS, V2_PROMPT, V2_CHUNKS),
+                      timeout=S_RANK_TIMEOUT_S)
+    emit("sp_ep_runner", device=kind, nvidia_smi=smi, **ranks[0]["v2"],
+         per_rank_ok=[r["v2"]["ok"] for r in ranks],
+         per_rank_worst_rel_err=[r["v2"]["worst_rel_err"] for r in ranks],
+         per_rank_flips=[r["v2"]["flipped_tokens_per_forward"]
+                         for r in ranks])
+    bad = [r["rank"] for r in ranks if not r["v2"]["ok"]]
+    if bad:
+        raise AssertionError(f"phase v: v2 failed on ranks {bad}")
+    launches = served["launches_per_rank"]
+    key = f"{served['model']} {served['plan']}"
+    return {"flash_attention_prefill": {
+                f"{key} (lse)": launches["flash_attention_prefill_lse"]},
+            "bf16_grouped": {key: launches["bf16_grouped"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6464,6 +6932,15 @@ def main() -> int:
     else:
         emit("t", ran=False, reason=f"needs {T_GPUS} cards, found "
              f"{torch.cuda.device_count()}")
+    for phase, gpus, fn in (("u", U_GPUS, phase_data_parallel),
+                            ("v", V_GPUS, phase_sp_ep)):
+        if torch.cuda.device_count() >= gpus:
+            _free()
+            for name, per_model in fn(kind, smi).items():
+                multi_gpu.setdefault(name, {}).update(per_model)
+        else:
+            emit(phase, ran=False, reason=f"needs {gpus} cards, found "
+                 f"{torch.cuda.device_count()}")
     kernels = []
     grouped_cases = rows.pop("grouped_cases")
     large_m = rows.pop("w8a16_large_m")

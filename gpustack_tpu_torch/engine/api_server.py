@@ -1549,19 +1549,16 @@ def _refuse_multi_gpu(args, cfg, plan, vlm: bool) -> None:
     multihost.py``; here every multi-GPU placement is multi-process)."""
     from gpustack_tpu_torch.models.transformer import check_plan
 
-    if plan.sp > 1 and plan.ep > 1:
+    if plan.sp > 1 and plan.dp != 1:
+        # the JAX runner's refusal, in its words
         raise ValueError(
-            f"plan {plan}: sp > 1 together with ep > 1 is not ported yet"
+            "sp>1 serving requires dp=1 (one sequence-sharded replica); "
+            f"got plan {plan}"
         )
     if plan.sp > 1 and args.max_seq_len % plan.sp:
         raise ValueError(
             f"plan {plan}: max_seq_len {args.max_seq_len} must divide "
             f"evenly over sp={plan.sp}"
-        )
-    if plan.dp > 1:
-        raise ValueError(
-            f"plan {plan}: dp > 1 (a dp-sharded decode batch) is not "
-            "ported yet"
         )
     refused = [
         (args.host_kv_cache_mb > 0, "the host KV tier (--host-kv-cache-mb)"),
@@ -1814,10 +1811,20 @@ def build_engine_from_args(args) -> LLMEngine:
             draft_params = load_or_init_params(
                 draft_cfg, None, seed=0, device=device
             )
+    # the decode batch is dp-sharded: round the slots up to a multiple of
+    # dp, as the JAX server does
+    max_slots = args.max_slots
+    if max_slots % plan.dp:
+        rounded = (max_slots // plan.dp + 1) * plan.dp
+        logger.warning(
+            "max_slots=%d not divisible by mesh dp=%d; rounding up to %d",
+            max_slots, plan.dp, rounded,
+        )
+        max_slots = rounded
     engine = LLMEngine(
         cfg, params,
         model_dir=args.model_dir or None,
-        max_slots=args.max_slots,
+        max_slots=max_slots,
         max_seq_len=args.max_seq_len,
         pipeline_depth=args.pipeline_depth,
         device=device,

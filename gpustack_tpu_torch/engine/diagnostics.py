@@ -12,6 +12,7 @@ import importlib
 
 import torch
 
+from gpustack_tpu_torch.models import transformer
 from gpustack_tpu_torch.models.transformer import forward
 
 # the hand-written kernels' wrappers, by module (their launch counters)
@@ -31,7 +32,84 @@ def _wrappers():
     ]
 
 
-def probe(runner, state, what: str, ids=None, true_len: int = 0):
+class RoutingTape:
+    """The experts each MoE layer call picks, kept per call of
+    ``transformer._moe_mlp`` (``record``), or picks forced back into the
+    calls that follow (``replay``), so two forwards over the same tokens
+    can be compared without the near-tie picks that flip between them.
+
+    Inside ``with``, ``transformer._moe_mlp`` and ``moe_route`` are
+    wrapped. ``replay(calls)`` takes, per layer call in order, candidate
+    ``[N, k]`` pick tensors and uses the one whose N is the call's token
+    count (a ring block's rows or a whole prompt's), consumed row by row
+    across the call's token chunks. A replayed call's combine weights are
+    recomputed from its own router logits over the picks (softmax scoring
+    then ``norm_topk_prob``, or ``softmax_topk``); ``flips`` counts, per
+    call,
+    the tokens whose own picks differ."""
+
+    def __init__(self):
+        self.calls, self.flips = [], []
+        self.mode = "record"
+        self._cur, self._at = None, 0
+
+    def replay(self, calls) -> None:
+        self.mode, self.flips = "replay", []
+        self._queue = list(calls)
+
+    def picks(self):
+        """The recorded picks, one ``[N, k]`` tensor per layer call."""
+        return [torch.cat(c) for c in self.calls]
+
+    def __enter__(self):
+        self._mlp, self._route = transformer._moe_mlp, transformer.moe_route
+
+        def mlp(x, *args, **kw):
+            if self.mode == "record":
+                self.calls.append([])
+            else:
+                n = x.shape[0] * x.shape[1]
+                cands = self._queue.pop(0)
+                match = [c for c in cands if c.shape[0] == n]
+                if not match:
+                    raise ValueError(
+                        f"no recorded picks for a call of {n} tokens "
+                        f"(candidates {[c.shape[0] for c in cands]})")
+                self._cur, self._at = match[0].to(x.device), 0
+                self.flips.append(0)
+            return self._mlp(x, *args, **kw)
+
+        def route(x, router_w, cfg, router_bias=None):
+            idx, combine = self._route(x, router_w, cfg, router_bias)
+            if self.mode == "record":
+                self.calls[-1].append(idx)
+                return idx, combine
+            want = self._cur[self._at:self._at + len(idx)]
+            self._at += len(idx)
+            self.flips[-1] += int(
+                (idx.sort(-1).values != want.sort(-1).values).any(-1).sum())
+            logits = x.float() @ router_w.float()
+            if cfg.moe_scoring == "softmax_topk":
+                if router_bias is not None:
+                    logits = logits + router_bias.float()
+                top_w = torch.softmax(torch.gather(logits, -1, want), -1)
+            elif cfg.moe_scoring == "softmax":
+                top_w = torch.gather(torch.softmax(logits, -1), -1, want)
+                if cfg.norm_topk_prob:
+                    top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+            else:
+                raise ValueError(f"the tape cannot replay {cfg.moe_scoring}")
+            return want, torch.zeros_like(logits).scatter_(-1, want, top_w)
+
+        transformer._moe_mlp, transformer.moe_route = mlp, route
+        return self
+
+    def __exit__(self, *exc):
+        transformer._moe_mlp, transformer.moe_route = self._mlp, self._route
+
+
+def probe(runner, state, what: str, ids=None, true_len: int = 0,
+          slot=None):
     """Read or reset what a check needs on this rank of ``runner``'s mesh
     (every rank calls it in step). ``what``:
 
@@ -45,10 +123,24 @@ def probe(runner, state, what: str, ids=None, true_len: int = 0):
       ``"reset_memory"`` (0 on the CPU);
     - ``"prefill_plain"``: a prefill of the bucket-padded ``ids``
       (``true_len`` real) through the plain attention; the last real
-      position's logits;
+      position's logits (under ``dp`` with a ``slot``, on the owning
+      group and rank 0 only, as :meth:`ModelRunner.prefill`);
     - ``"decode_logits"``: the logits ``[B, V]`` a decode step would
       sample from (it writes the K/V that step would write, and leaves
-      the slot state as it is).
+      the slot state as it is; under ``dp`` each group's rows gathered);
+    - ``"kv_rows"``: ``slot``'s K and V at positions ``0 .. true_len -
+      1`` as this rank's heads hold them (fp32 ``[2, L, true_len, H,
+      hd]``); under ``dp`` from the owning group's rank at this rank's
+      other coordinates, on every ``dp`` peer (a ``dp`` gather), so a
+      check compares two groups' rows of the same heads;
+    - ``"routing_record"``: from here on, record the experts each MoE
+      layer call picks (a :class:`RoutingTape` on every rank);
+    - ``"routing_replay"``: replay each rank's recorded picks, call by
+      call, in the forwards that follow (the same calls over the same
+      tokens);
+    - ``"routing"``: stop the tape; every rank's recorded per-call picks
+      (int32 on the host) and, after a replay, its flipped tokens per
+      call, gathered, in rank order.
     """
     device = runner.device
     cuda = device.type == "cuda"
@@ -86,6 +178,8 @@ def probe(runner, state, what: str, ids=None, true_len: int = 0):
             torch.cuda.reset_peak_memory_stats(device)
         return None
     if what == "prefill_plain":
+        if not runner._runs(slot):
+            return runner._to_leader(None, slot)
         Tb = len(ids)
         tokens = torch.tensor([list(ids)], dtype=torch.int64, device=device)
         positions = torch.arange(Tb, device=device)[None, :]
@@ -93,13 +187,65 @@ def probe(runner, state, what: str, ids=None, true_len: int = 0):
             runner.params, runner.cfg, tokens, positions, runner._cache(Tb),
             return_hidden=True, attn_impl="plain", mesh=runner.mesh,
         )
-        return runner._head(hidden[0, true_len - 1])
+        return runner._to_leader(runner._head(hidden[0, true_len - 1]), slot)
     if what == "decode_logits":
+        rows = slice(runner.row0, runner.row0 + runner.rows)
         logits, _ = forward(
-            runner.params, runner.cfg, state.last_tokens[:, None],
-            state.positions[:, None], state.cache,
+            runner.params, runner.cfg, state.last_tokens[rows, None],
+            state.positions[rows, None], state.cache,
             attn_impl="sp_cache" if runner.sp_mode else "plain",
             mesh=runner.mesh,
         )
+        if runner.dp > 1:
+            return runner.mesh.gather_dp_rows(logits[:, 0])
         return logits[:, 0]
+    if what == "routing_record":
+        runner.routing_tape = RoutingTape().__enter__()
+        return None
+    if what == "routing_replay":
+        tape = runner.routing_tape
+        tape.replay([[p] for p in tape.picks()])
+        return None
+    if what == "routing":
+        tape, runner.routing_tape = runner.routing_tape, None
+        tape.__exit__(None, None, None)
+        picks = tape.picks()
+        k = runner.cfg.num_experts_per_tok
+        # each rank's call count (a dp group that ran no forward has
+        # none), then its calls' rows and flips, then its picks, padded
+        # to the largest rank's (int32: NCCL gathers no int16)
+        n_calls = [int(n) for n in gather(torch.tensor(
+            [len(picks)], device=device))]
+        C = max(n_calls)
+        lens = torch.zeros(2 * C, dtype=torch.int64, device=device)
+        lens[:len(picks)] = torch.tensor([p.shape[0] for p in picks],
+                                         dtype=torch.int64)
+        lens[C:C + len(tape.flips)] = torch.tensor(tape.flips,
+                                                   dtype=torch.int64)
+        all_lens = gather(lens)
+        rows = max(int(n[:C].sum()) for n in all_lens)
+        padded = torch.zeros((rows, k), dtype=torch.int32, device=device)
+        if picks:
+            flat = torch.cat(picks)
+            padded[:flat.shape[0]] = flat.int()
+        out = []
+        for c, n, flat in zip(n_calls, all_lens, gather(padded)):
+            sizes = n[:c].tolist()
+            out.append({"picks": list(flat[:sum(sizes)].split(sizes)),
+                        "flips": n[C:C + c].tolist()})
+        return out
+    if what == "kv_rows":
+        if runner.sp_mode:
+            raise ValueError("kv_rows reads a slot's rows whole: not "
+                             f"under plan {runner.plan}")
+        c = state.cache
+        rows = torch.zeros((2, c.k.shape[0], true_len, *c.k.shape[3:]),
+                           dtype=torch.float32, device=device)
+        if runner._runs(slot):
+            row = slot - runner.row0
+            rows[0] = c.k[:, row, :true_len]
+            rows[1] = c.v[:, row, :true_len]
+        if runner.dp > 1:
+            rows = runner.mesh.all_gather_dp(rows)[slot // runner.rows]
+        return rows.cpu()
     raise ValueError(f"unknown probe {what!r}")

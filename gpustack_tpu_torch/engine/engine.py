@@ -1246,7 +1246,8 @@ class LLMEngine:
         self._step_real += len(ids)
         self._step_prompt += len(ids)
         self._step_padded += bucket
-        last_logits, k, v = self.runner.prefill(padded, len(ids))
+        # the slot names the dp group that runs it (a multi-GPU replica)
+        last_logits, k, v = self.runner.prefill(padded, len(ids), slot=slot)
         self._submit_kv_copy(ids, k, v, len(ids))
         self._finalize_start(slot, req, last_logits, k, v)
 
@@ -1426,11 +1427,12 @@ class LLMEngine:
         self._step_prompt += len(chunk)
         self._step_padded += sb
         if start == 0:
-            job.last, job.k, job.v = r.prefill_chunk(padded, len(chunk))
+            job.last, job.k, job.v = r.prefill_chunk(
+                padded, len(chunk), slot=slot)
         else:
             job.last, job.k, job.v = r.prefill_continue_chunk(
                 job.k, job.v, start, padded, len(chunk),
-                r.bucket_for(start + sb),
+                r.bucket_for(start + sb), slot=slot,
             )
         job.done += len(chunk)
         if job.done >= len(job.ids):
@@ -1456,7 +1458,7 @@ class LLMEngine:
             padded = list(suffix) + [0] * (sb - len(suffix))
             last_logits, k, v = r.prefill_with_prefix(
                 job.k, job.v, job.done, padded, len(suffix),
-                r.bucket_for(job.done + sb),
+                r.bucket_for(job.done + sb), slot=slot,
             )
         else:
             bucket = r.bucket_for(max(1, len(ids)))
@@ -1464,7 +1466,7 @@ class LLMEngine:
             self._step_prompt += len(ids)
             self._step_padded += bucket
             padded = list(ids) + [0] * (bucket - len(ids))
-            last_logits, k, v = r.prefill(padded, len(ids))
+            last_logits, k, v = r.prefill(padded, len(ids), slot=slot)
         del self._chunk_jobs[slot]
         self._submit_kv_copy(ids, k, v, len(ids))
         self._finalize_start(slot, req, last_logits, k, v)

@@ -20,8 +20,13 @@ Determinism contract:
   register until the next ``insert``; chunk ops keep a register of their
   own so a one-shot prefill admitted between chunks cannot clobber it;
 - after each decode step the runner broadcasts rank 0's tokens on the
-  device (``ModelRunner.decode_step``), so followers' slot states equal
-  the leader's bit for bit;
+  device (``ModelRunner.decode_step``; under ``dp`` it gathers each
+  group's rows from the group's first rank), so followers' slot states
+  equal the leader's bit for bit;
+- under ``dp`` the prefill ops name their slot, and a follower whose
+  group does not own it skips the forward (its registers hold None) and
+  the first-token sample; ``insert`` writes K/V on the owning group only
+  and sets the slot's vectors everywhere;
 - features whose host state would part across ranks are refused at build
   (``api_server.build_engine_from_args``: the host KV tier, speculation,
   the vision path, ``--kv-role``) and here, defensively (embeddings and
@@ -190,6 +195,10 @@ class CommandLeader:
             pass
 
 
+def _slot(slot):
+    return None if slot is None else int(slot)
+
+
 def _bias(logit_bias):
     return (
         {str(k): float(v) for k, v in logit_bias.items()}
@@ -222,13 +231,13 @@ class BroadcastingRunner:
 
     # -- wrapped ops ------------------------------------------------------
 
-    def prefill(self, token_ids, true_len: int):
+    def prefill(self, token_ids, true_len: int, slot=None):
         self._leader.broadcast({
             "op": "prefill",
             "ids": [int(t) for t in token_ids],
-            "true_len": int(true_len),
+            "true_len": int(true_len), "slot": _slot(slot),
         })
-        return self._runner.prefill(token_ids, true_len)
+        return self._runner.prefill(token_ids, true_len, slot)
 
     def sample_first(
         self, last_logits, temperature, top_k, top_p, seed, seeded,
@@ -269,27 +278,27 @@ class BroadcastingRunner:
     # -- chunked prefill (engine._advance_chunk): only host ints ride the
     # wire; a follower's continuation reads its own earlier chunk
 
-    def prefill_chunk(self, token_ids, true_len: int):
+    def prefill_chunk(self, token_ids, true_len: int, slot=None):
         self._leader.broadcast({
             "op": "chunk_start",
             "ids": [int(t) for t in token_ids],
-            "true_len": int(true_len),
+            "true_len": int(true_len), "slot": _slot(slot),
         })
-        return self._runner.prefill(token_ids, true_len)
+        return self._runner.prefill(token_ids, true_len, slot)
 
     def prefill_continue_chunk(
         self, k, v, start: int, token_ids, true_len: int,
-        total_bucket: int,
+        total_bucket: int, slot=None,
     ):
         self._leader.broadcast({
             "op": "chunk_continue",
             "start": int(start),
             "ids": [int(t) for t in token_ids],
             "true_len": int(true_len),
-            "total_bucket": int(total_bucket),
+            "total_bucket": int(total_bucket), "slot": _slot(slot),
         })
         return self._runner.prefill_with_prefix(
-            k, v, start, token_ids, true_len, total_bucket
+            k, v, start, token_ids, true_len, total_bucket, slot
         )
 
     def chunk_commit(self) -> None:
@@ -305,14 +314,16 @@ class BroadcastingRunner:
         self._leader.broadcast({"op": "deactivate", "slot": int(slot)})
         return self._runner.deactivate(state, slot)
 
-    def probe(self, state, what: str, ids=None, true_len: int = 0):
+    def probe(self, state, what: str, ids=None, true_len: int = 0,
+              slot=None):
         """A check on every rank at once (``diagnostics.probe``)."""
         self._leader.broadcast({
             "op": "probe", "what": what,
             "ids": None if ids is None else [int(t) for t in ids],
-            "true_len": int(true_len),
+            "true_len": int(true_len), "slot": _slot(slot),
         })
-        return diagnostics.probe(self._runner, state, what, ids, true_len)
+        return diagnostics.probe(self._runner, state, what, ids, true_len,
+                                 slot)
 
     # -- single-process features (refused at build; here defensively) ----
 
@@ -438,10 +449,12 @@ class FollowerLoop:
                 {int(k): float(v) for k, v in raw.items()} if raw else None
             )
 
+        # the slot a prefill names (its dp group's; None: every group)
+        slot = op.get("slot")
         if kind == "prefill":
-            self._reg = r.prefill(op["ids"], op["true_len"])
+            self._reg = r.prefill(op["ids"], op["true_len"], slot)
         elif kind == "chunk_start":
-            self._chunk_reg = r.prefill(op["ids"], op["true_len"])
+            self._chunk_reg = r.prefill(op["ids"], op["true_len"], slot)
         elif kind == "chunk_continue":
             assert self._chunk_reg is not None, (
                 "chunk_continue before chunk_start"
@@ -449,7 +462,7 @@ class FollowerLoop:
             _, k, v = self._chunk_reg
             self._chunk_reg = r.prefill_with_prefix(
                 k, v, op["start"], op["ids"], op["true_len"],
-                op["total_bucket"],
+                op["total_bucket"], slot,
             )
         elif kind == "chunk_commit":
             assert self._chunk_reg is not None, (
@@ -461,11 +474,12 @@ class FollowerLoop:
             self._chunk_reg = None
         elif kind == "sample_first":
             assert self._reg is not None, "sample_first before prefill"
-            r.sample_first(
-                self._reg[0], op["temperature"], op["top_k"], op["top_p"],
-                op["seed"], op["seeded"], op["position"], int(op["key"]),
-                bias_of(op),
-            )
+            if self._reg[0] is not None:   # None: another dp group's
+                r.sample_first(
+                    self._reg[0], op["temperature"], op["top_k"],
+                    op["top_p"], op["seed"], op["seeded"], op["position"],
+                    int(op["key"]), bias_of(op),
+                )
         elif kind == "insert":
             assert self._reg is not None, "insert before prefill"
             _, k, v = self._reg
@@ -480,7 +494,7 @@ class FollowerLoop:
             self.state = r.deactivate(self.state, op["slot"])
         elif kind == "probe":
             diagnostics.probe(r, self.state, op["what"], op.get("ids"),
-                              op.get("true_len", 0))
+                              op.get("true_len", 0), op.get("slot"))
         else:
             logger.warning("unknown multihost op %r", kind)
             return

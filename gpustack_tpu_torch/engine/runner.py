@@ -45,6 +45,17 @@ The port of ``gpustack_tpu/engine/runner.py``:
   each prefill block's K/V to the ranks that own those cache positions,
   point to point over the ``sp`` group, planned from host integers alone.
   Only buckets that divide over ``sp`` are kept.
+- **data parallelism** (``plan.dp > 1``, the JAX layout's ``P(None,
+  'dp', ...)`` cache): ``dp`` groups, each a copy of the model over its
+  ``sp x ep x tp`` ranks, and group ``g`` holds the cache rows of slots
+  ``g·B/dp .. (g+1)·B/dp - 1``; the slot vectors stay whole on every rank.
+  A prefill that names its slot runs on the owning group only, and rank 0
+  receives its first-token logits from the group's first rank (a prefill
+  that names none runs on every group, as GSPMD runs a batch of one);
+  ``insert`` writes K/V on the owning group only. A decode step forwards
+  each group's rows on that group and gathers the sampled rows (tokens
+  and logprobs, one world all-gather on the device) into every rank's
+  whole vectors.
 
 PyTorch runs eagerly, so there are no per-shape compilations to cache:
 the buckets bound the set of prefill shapes the kernel sees.
@@ -81,10 +92,14 @@ class DecodeState:
 
     @staticmethod
     def create(
-        cfg: ModelConfig, batch: int, max_len: int, device, tp: int = 1
+        cfg: ModelConfig, batch: int, max_len: int, device, tp: int = 1,
+        cache_rows: Optional[int] = None,
     ) -> "DecodeState":
+        """``cache_rows``: the cache's rows where they are fewer than the
+        batch's (a ``dp`` group's slots)."""
         return DecodeState(
-            cache=KVCache.create(cfg, batch, max_len, device, tp),
+            cache=KVCache.create(cfg, cache_rows or batch, max_len, device,
+                                 tp),
             last_tokens=torch.zeros(batch, dtype=torch.int64, device=device),
             positions=torch.zeros(batch, dtype=torch.int64, device=device),
             active=torch.zeros(batch, dtype=torch.bool, device=device),
@@ -101,6 +116,9 @@ class ModelRunner:
     supports_async_insert = True
     # why the replica's command channel failed ("" : it has not)
     channel_error = ""
+    # the diagnostics.RoutingTape a check's "routing_record" probe put on
+    # this rank (checks only; the serving path never sets it)
+    routing_tape = None
 
     def __init__(
         self,
@@ -139,6 +157,15 @@ class ModelRunner:
                     f"plan {self.plan}: max_seq_len {max_seq_len} must "
                     f"divide evenly over sp={self.sp}"
                 )
+        self.dp = self.plan.dp
+        if max_slots % self.dp:
+            raise ValueError(
+                f"plan {self.plan}: max_slots {max_slots} must divide "
+                f"evenly over dp={self.dp}"
+            )
+        # this rank's dp group's slots: rows row0 .. row0 + rows - 1
+        self.rows = max_slots // self.dp
+        self.row0 = self.rows * (self.mesh.dp_rank if self.dp > 1 else 0)
         self.layout = SpecLayout(long_context=self.sp_mode)
         # int8 QuantW leaves go to the device as they are, never widened
         self.params = params_to_device(params, self.device)
@@ -166,23 +193,61 @@ class ModelRunner:
 
     def new_state(self) -> DecodeState:
         """The decode batch's state; under ``sp`` its cache holds this
-        rank's ``max_seq_len / sp`` positions of every slot."""
+        rank's ``max_seq_len / sp`` positions of every slot, under ``dp``
+        its group's slots' rows."""
         return DecodeState.create(
             self.cfg, self.max_slots, self.max_seq_len // self.sp,
-            self.device, self.tp,
+            self.device, self.tp, cache_rows=self.rows,
         )
 
     def _cache(self, rows: int) -> KVCache:
         """A scratch cache of one row, ``rows`` long (the rank's heads)."""
         return KVCache.create(self.cfg, 1, rows, self.device, self.tp)
 
-    # -- sequence parallelism ---------------------------------------------
-
-    def _single_sequence_shard(self, what: str) -> None:
-        """Refuse an op the sequence-sharded cache does not serve (the
-        multi-GPU replica refuses each of them at build as well)."""
-        if self.sp_mode:
+    def _refuse_sharded(self, what: str) -> None:
+        """Refuse an op that needs every slot's cache whole on this rank:
+        a sequence-sharded cache, or a ``dp`` group's rows (the multi-GPU
+        replica refuses each of them at build as well)."""
+        if self.sp_mode or self.dp > 1:
             raise ValueError(f"{what} is not supported under plan {self.plan}")
+
+    # -- data parallelism -------------------------------------------------
+
+    def _runs(self, slot: Optional[int]) -> bool:
+        """Whether this rank's ``dp`` group runs a prefill for ``slot``
+        (the owning group; every group for ``slot`` None)."""
+        return self.dp == 1 or slot is None or slot // self.rows == (
+            self.mesh.dp_rank)
+
+    def _to_leader(self, last, slot: Optional[int]):
+        """A prefill's first-token logits on rank 0 as well: the owning
+        group's first rank sends them when another group holds rank 0.
+        Returns this rank's logits (None on a rank whose group did not run
+        the prefill, rank 0 apart)."""
+        if self.dp == 1 or slot is None:
+            return last
+        if last is None and self.mesh.rank == 0:
+            last = torch.empty(self.cfg.vocab_size, dtype=torch.float32,
+                               device=self.device)
+        if last is not None:
+            self.mesh.send_to_leader_(last, slot // self.rows)
+        return last
+
+    def _gather_rows(self, out):
+        """A decode step's sampled rows of every ``dp`` group (tokens,
+        logprobs, top ids and logprobs) whole on every rank, in one
+        gather: packed as float64, which holds int64 ids below 2^53 and
+        every float32 exactly."""
+        tokens, lp, top_ids, top_lps = out
+        m = top_ids.shape[1]
+        whole = self.mesh.gather_dp_rows(torch.cat([
+            tokens[:, None].double(), lp[:, None].double(),
+            top_ids.double(), top_lps.double(),
+        ], 1))
+        return (whole[:, 0].long(), whole[:, 1].float(),
+                whole[:, 2:2 + m].long(), whole[:, 2 + m:].float())
+
+    # -- sequence parallelism ---------------------------------------------
 
     def _sp_last_hidden(self, hidden, true_len: int) -> torch.Tensor:
         """The hidden row of position ``true_len - 1`` of a ring prefill,
@@ -254,10 +319,15 @@ class ModelRunner:
             return "ring"
         return "flash" if self.device.type == "cuda" else "plain"
 
-    def prefill(self, token_ids: Sequence[int], true_len: int):
+    def prefill(self, token_ids: Sequence[int], true_len: int,
+                slot: Optional[int] = None):
         """Run prefill at the bucket for ``true_len``. ``token_ids`` must be
         padded to the bucket length already (any pad id). Returns
-        ``(last_logits [V] fp32, k, v [L, Tb, H, hd])``."""
+        ``(last_logits [V] fp32, k, v [L, Tb, H, hd])``. Under ``dp`` a
+        ``slot`` makes it the owning group's alone: another group's ranks
+        return ``(None, None, None)``, rank 0 the logits."""
+        if not self._runs(slot):
+            return self._to_leader(None, slot), None, None
         Tb = len(token_ids)
         if Tb not in self.prefill_buckets:
             raise ValueError(f"{Tb} is not a bucket {self.prefill_buckets}")
@@ -277,7 +347,7 @@ class ModelRunner:
         )
         # logits for the one position the sampler reads, not all Tb rows
         last = self._head(hidden[0, true_len - 1])
-        return last, cache.k[:, 0], cache.v[:, 0]
+        return self._to_leader(last, slot), cache.k[:, 0], cache.v[:, 0]
 
     def _sp_prefill(self, token_ids: Sequence[int], true_len: int):
         """:meth:`prefill` under ``sp``: this rank's ``Tb / sp`` tokens
@@ -310,7 +380,7 @@ class ModelRunner:
         :meth:`_ids_on_device` sends ids. One fused forward with a fresh
         cache, through the flash kernel on the card at every bucket.
         Returns ``(last_logits [V] fp32, k, v [L, Tb, H, hd])``."""
-        self._single_sequence_shard("vision-token prefill")
+        self._refuse_sharded("vision-token prefill")
         Tb = len(token_ids)
         if Tb not in self.prefill_buckets:
             raise ValueError(f"{Tb} is not a bucket {self.prefill_buckets}")
@@ -340,6 +410,7 @@ class ModelRunner:
     def prefill_with_prefix(
         self, prefix_k, prefix_v, prefix_len: int,
         suffix_ids: Sequence[int], suffix_true_len: int, total_bucket: int,
+        slot: Optional[int] = None,
     ):
         """Continue a prefill from a prefix already on the device (a host
         cache hit, or the chunks done so far): seed a scratch cache of
@@ -362,7 +433,10 @@ class ModelRunner:
         hd]``, this rank's block: a chunk's output) and so are the
         returned K/V (``total_bucket / sp`` rows); the suffix runs whole on
         every rank against the sharded scratch cache (JAX's
-        ``sp_cache_attention`` branch), no flash launch."""
+        ``sp_cache_attention`` branch), no flash launch. Under ``dp``,
+        ``slot`` as for :meth:`prefill`."""
+        if not self._runs(slot):
+            return self._to_leader(None, slot), None, None
         Pb = prefix_k.shape[1] * self.sp
         Tsb = len(suffix_ids)
         if Tsb not in self.prefill_buckets:
@@ -405,20 +479,21 @@ class ModelRunner:
             q_offset=prefix_len, mesh=self.mesh,
         )
         last = self._head(hidden[0, suffix_true_len - 1])
-        return last, cache.k[:, 0], cache.v[:, 0]
+        return self._to_leader(last, slot), cache.k[:, 0], cache.v[:, 0]
 
     # a chunked prefill (engine._advance_chunk) is a prefill, then
     # continuations; a leader's BroadcastingRunner names each step to its
     # followers, which keep the chunk's K/V apart from one-shot prefills
-    def prefill_chunk(self, token_ids: Sequence[int], true_len: int):
-        return self.prefill(token_ids, true_len)
+    def prefill_chunk(self, token_ids: Sequence[int], true_len: int,
+                      slot: Optional[int] = None):
+        return self.prefill(token_ids, true_len, slot)
 
     def prefill_continue_chunk(
         self, k, v, start: int, token_ids: Sequence[int], true_len: int,
-        total_bucket: int,
+        total_bucket: int, slot: Optional[int] = None,
     ):
         return self.prefill_with_prefix(
-            k, v, start, token_ids, true_len, total_bucket
+            k, v, start, token_ids, true_len, total_bucket, slot
         )
 
     def chunk_commit(self) -> None:
@@ -436,7 +511,7 @@ class ModelRunner:
         a power of two with empty rows (true length 0, pooled to zero) so
         the kernel sees a bounded set of shapes. On the card the attention
         is the flash kernel (``attn_impl_for``), as for every prefill."""
-        self._single_sequence_shard("embeddings")
+        self._refuse_sharded("embeddings")
         Tb = len(batch_token_ids[0])
         if Tb not in self.prefill_buckets:
             raise ValueError(f"{Tb} is not a bucket {self.prefill_buckets}")
@@ -487,17 +562,21 @@ class ModelRunner:
         or a one-element device tensor. Under ``sp``, ``k``/``v`` are this
         rank's block of the prefill's positions, and positions ``0 ..
         true_len-1`` move to the ranks whose cache segments own them
-        (:meth:`_sp_move`)."""
-        Tb = k.shape[1] * self.sp
-        if Tb > self.max_seq_len:
-            raise ValueError(f"prefill width {Tb} > max_seq_len")
-        if self.sp_mode:
-            self._sp_move(k, v, Tb, state.cache.k[:, slot],
-                          state.cache.v[:, slot], self.max_seq_len,
-                          int(true_len))
-        else:
-            state.cache.k[:, slot, :Tb] = k
-            state.cache.v[:, slot, :Tb] = v
+        (:meth:`_sp_move`). Under ``dp`` only the owning group's ranks
+        write K/V (into their row ``slot - row0``); every rank sets the
+        slot's vectors."""
+        if self._runs(slot):
+            Tb = k.shape[1] * self.sp
+            if Tb > self.max_seq_len:
+                raise ValueError(f"prefill width {Tb} > max_seq_len")
+            row = slot - self.row0
+            if self.sp_mode:
+                self._sp_move(k, v, Tb, state.cache.k[:, row],
+                              state.cache.v[:, row], self.max_seq_len,
+                              int(true_len))
+            else:
+                state.cache.k[:, row, :Tb] = k
+                state.cache.v[:, row, :Tb] = v
         if isinstance(first_token, torch.Tensor):
             state.last_tokens[slot] = first_token.reshape(())
         else:
@@ -515,7 +594,7 @@ class ModelRunner:
 
     def slot_kv(self, state: DecodeState, slot: int, width: int):
         """Copies of a slot's KV rows ``[:width]``."""
-        self._single_sequence_shard("copying a slot's KV out")
+        self._refuse_sharded("copying a slot's KV out")
         return (
             state.cache.k[:, slot, :width].clone(),
             state.cache.v[:, slot, :width].clone(),
@@ -544,19 +623,27 @@ class ModelRunner:
     def decode_step(self, state: DecodeState, key: int):
         """One decode step (in place). Returns ``(state, (tokens [B],
         token_logprob [B], top_ids [B, TOPLP], top_logprobs [B, TOPLP]))``
-        as fresh device tensors the caller may hold across later steps."""
-        tokens = state.last_tokens[:, None]
-        positions = state.positions[:, None]
+        as fresh device tensors the caller may hold across later steps.
+        Under ``dp`` the forward and the sampler take this group's rows
+        and the outputs are gathered whole."""
+        rows = slice(self.row0, self.row0 + self.rows)
         logits, _ = forward(
-            self.params, self.cfg, tokens, positions, state.cache,
+            self.params, self.cfg, state.last_tokens[rows, None],
+            state.positions[rows, None], state.cache,
             attn_impl="sp_cache" if self.sp_mode else "plain",
             mesh=self.mesh,
         )
-        out = sample(logits[:, 0], state.sampling, key, state.positions)
-        sampled = out[0]
-        if self.mesh is not None:
+        sampling = (state.sampling if self.dp == 1
+                    else state.sampling.rows(self.row0, self.rows))
+        out = sample(logits[:, 0], sampling, key, state.positions[rows],
+                     row0=self.row0)
+        if self.dp > 1:
+            # every group's rows on every rank, on the device
+            out = self._gather_rows(out)
+        elif self.mesh is not None:
             # rank 0's tokens on every rank, on the device
-            self.mesh.broadcast_(sampled)
+            self.mesh.broadcast_(out[0])
+        sampled = out[0]
         # inactive slots keep feeding their last token at a frozen
         # position; their writes stay in their own rows, invisible to any
         # later tenant through the causal mask
@@ -585,7 +672,7 @@ class ModelRunner:
         both. Pad positions land above the new position, hidden by the
         causal mask until overwritten. The JAX forward's logits are
         discarded, so this one stops at the hidden states."""
-        self._single_sequence_shard("draft ingestion")
+        self._refuse_sharded("draft ingestion")
         tokens = self._ids_on_device(tokens)
         counts = self._ids_on_device(counts)
         P = tokens.shape[1]
@@ -635,7 +722,7 @@ class ModelRunner:
         (the engine falls back to plain decode near capacity): the block's
         KV write is contiguous. An inactive row's block is clamped inside
         the cache, as the JAX write is."""
-        self._single_sequence_shard("speculative decoding")
+        self._refuse_sharded("speculative decoding")
         proposals = self._ids_on_device(proposals)
         P = proposals.shape[1]
         fed = torch.cat(

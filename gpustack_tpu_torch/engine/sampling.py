@@ -98,6 +98,14 @@ class SamplingState:
             bias_vals=torch.zeros(batch, MAX_BIAS, device=device),
         )
 
+    def rows(self, start: int, n: int) -> "SamplingState":
+        """Rows ``start .. start + n - 1`` (views): one ``dp`` group's
+        slots."""
+        return SamplingState(*(
+            getattr(self, f.name)[start:start + n]
+            for f in dataclasses.fields(self)
+        ))
+
     def set_slot(
         self, slot: int, temperature: float, top_k: int, top_p: float,
         seed: int = 0, seeded: bool = False,
@@ -128,12 +136,14 @@ def bias_lists(logit_bias) -> Tuple[list, list]:
 
 
 def _row_streams(
-    state: SamplingState, key: int
+    state: SamplingState, key: int, row0: int = 0
 ) -> torch.Tensor:
     """Seeded rows: a stream from their seed only; unseeded rows: from the
-    step key and row index, so identical concurrent prompts diverge."""
+    step key and row index (``row0`` the first row's slot), so identical
+    concurrent prompts diverge."""
     B = state.seed.shape[0]
-    rows = torch.arange(B, device=state.seed.device, dtype=torch.int64)
+    rows = torch.arange(row0, row0 + B, device=state.seed.device,
+                        dtype=torch.int64)
     step = _mix(_mix(torch.full_like(rows, _i64(key % (1 << 64)))) ^ rows)
     seeded = _mix(state.seed ^ _SEEDED_SALT)
     return torch.where(state.seeded, seeded, step)
@@ -144,10 +154,13 @@ def sample(
     state: SamplingState,
     key: int = 0,
     positions: Optional[torch.Tensor] = None,  # [B]; seeded rows need it
+    row0: int = 0,                           # slot of row 0
 ):
     """Sample one token per row honoring per-row temperature/top-k/top-p,
-    seeds and logit bias. Returns ``(tokens i64[B], token_logprob f32[B],
-    top_ids i64[B, TOPLP], top_logprobs f32[B, TOPLP])``."""
+    seeds and logit bias. Row i draws slot ``row0 + i``'s noise (a ``dp``
+    group's rows, as in the whole batch). Returns ``(tokens i64[B],
+    token_logprob f32[B], top_ids i64[B, TOPLP], top_logprobs f32[B,
+    TOPLP])``."""
     B, V = logits.shape
     valid = state.bias_ids >= 0
     bias_cols = state.bias_ids.clamp(0, V - 1)
@@ -177,7 +190,7 @@ def sample(
 
     if positions is None:
         positions = torch.zeros(B, dtype=torch.int64, device=logits.device)
-    noise = gumbel_noise(_row_streams(state, key), positions, n)
+    noise = gumbel_noise(_row_streams(state, key, row0), positions, n)
     choice = torch.argmax(masked + noise, dim=-1)
     choice = torch.where(
         state.temperature > 0, choice, torch.zeros_like(choice)

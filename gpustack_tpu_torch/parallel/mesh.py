@@ -17,14 +17,18 @@ inner order (``tp`` innermost, so a ``tp`` group is ranks that differ by
 ``tp`` group (the attention and dense MLP all-reduces), the ``ep x tp``
 group (an MoE layer's combine), the ``sp`` group (ranks that differ only
 in their ``sp`` index: the ring's hops, the cache merge's all-reduces,
-the prefill's last hidden row and the KV moves of ``insert``) and the
-world (the sampled tokens' broadcast). Collectives are NCCL on the card
-and gloo on the CPU; a group of one rank makes each collective a no-op,
-so one process needs no process group at all.
+the prefill's last hidden row and the KV moves of ``insert``), the
+``dp`` group (ranks that differ only in their ``dp`` index: the same
+heads and experts over other slots' cache rows) and the world (the
+sampled tokens' broadcast, or under ``dp`` their gather, and the
+first-token logits a ``dp`` group sends rank 0). Collectives are NCCL on
+the card and gloo on the CPU; a group of one rank makes each collective a
+no-op, so one process needs no process group at all.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import socket
@@ -143,7 +147,7 @@ class Mesh:
         self.rank = rank
         self.coords = rank_coords(plan, rank)
         self.tp_group = self.moe_group = self.world_group = None
-        self.sp_group = None
+        self.sp_group = self.dp_group = None
         if plan.chips > 1:
             if not dist.is_initialized():
                 raise RuntimeError(
@@ -160,6 +164,8 @@ class Mesh:
             self.moe_group = self._groups(("ep", "tp"))
             if plan.sp > 1:
                 self.sp_group = self._groups(("sp",))
+            if plan.dp > 1:
+                self.dp_group = self._groups(("dp",))
 
     def _groups(self, axes):
         """This rank's group over ``axes``: the ranks whose coordinates
@@ -215,6 +221,24 @@ class Mesh:
         for ax in MESH_AXES:
             rank = rank * self.plan.axis_sizes()[ax] + c[ax]
         return rank
+
+    @property
+    def dp(self) -> int:
+        return self.plan.dp
+
+    @property
+    def dp_rank(self) -> int:
+        return self.coords[AXIS_DP]
+
+    @property
+    def group_size(self) -> int:
+        """Ranks of one ``dp`` group (one copy of the model)."""
+        return self.plan.chips // self.plan.dp
+
+    def dp_leader(self, dp_index: int) -> int:
+        """The first global rank of ``dp`` group ``dp_index``: rank 0's
+        place in that group."""
+        return dp_index * self.group_size
 
     @property
     def moe_size(self) -> int:
@@ -288,6 +312,45 @@ class Mesh:
         if self.world > 1:
             dist.broadcast(x, src=0, group=self.world_group)
         return x
+
+    def gather_dp_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every ``dp`` group's rows of ``x`` (dim 0), each from the
+        group's first rank, side by side on every rank: the decode step's
+        sampled rows into the whole batch. One world all-gather; with
+        ``dp`` 1 it is rank 0's ``x`` (a broadcast), so every rank of a
+        group holds one rank's values even where a tie could break
+        differently."""
+        if self.world == 1:
+            return x
+        if self.dp == 1:
+            return self.broadcast_(x)
+        parts = self.all_gather_world(x)
+        return torch.cat(parts[::self.group_size])
+
+    def all_gather_dp(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """Every ``dp`` peer's ``x`` (same shape), by ``dp`` index."""
+        if self.dp == 1:
+            return [x]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.dp)]
+        dist.all_gather(parts, x, group=self.dp_group)
+        return parts
+
+    def send_to_leader_(self, x: torch.Tensor, dp_index: int) -> None:
+        """Rank 0 receives ``x`` (in place) from ``dp`` group
+        ``dp_index``'s first rank, which sends its own; every other rank
+        and a group that holds rank 0 do nothing."""
+        src = self.dp_leader(dp_index)
+        if src == 0 or self.rank not in (0, src):
+            return
+        # NCCL's point-to-point ops run on the calling thread's device
+        with (torch.cuda.device(x.device) if x.device.type == "cuda"
+              else contextlib.nullcontext()):
+            if self.rank == src:
+                req = dist.isend(x, 0)
+            else:
+                req = dist.irecv(x, src)
+        req.wait()
 
     def all_gather_world(self, x: torch.Tensor) -> List[torch.Tensor]:
         """Every rank's ``x`` (same shape), in rank order."""

@@ -300,13 +300,13 @@ def test_prefix_hit_skips_matched_prefill_tokens(models):
     calls = []
     orig_full, orig_prefix = eng.runner.prefill, eng.runner.prefill_with_prefix
 
-    def spy_full(ids, true_len):
+    def spy_full(ids, true_len, **kw):
         calls.append(("full", true_len))
-        return orig_full(ids, true_len)
+        return orig_full(ids, true_len, **kw)
 
-    def spy_prefix(pk, pv, plen, ids, true_len, tb):
+    def spy_prefix(pk, pv, plen, ids, true_len, tb, **kw):
         calls.append(("prefix", true_len))
-        return orig_prefix(pk, pv, plen, ids, true_len, tb)
+        return orig_prefix(pk, pv, plen, ids, true_len, tb, **kw)
 
     eng.runner.prefill = spy_full
     eng.runner.prefill_with_prefix = spy_prefix

@@ -230,7 +230,7 @@ def test_follower_loss_makes_the_engine_fatal():
 
 def test_chunk_abort_clears_follower_register():
     class DummyRunner:
-        def prefill(self, ids, n):
+        def prefill(self, ids, n, slot=None):
             return ("last", "k", "v")
 
     loop = mh.FollowerLoop(DummyRunner(), "127.0.0.1:1", state=None,

@@ -18,8 +18,8 @@ after ``tests/engine/test_sp_serving.py``.
 - ``--mesh-plan sp2`` through the port's server (rank 0 here, one
   follower process) against the JAX engine under ``sp2``, ``/healthz``
   carrying JAX's long-context layout.
-- Each refusal names the plan: ``sp`` with ``dp > 1`` or ``ep > 1``, a
-  sliding window, a softcap or sinks, ``max_seq_len % sp`` and no bucket
+- Each refusal names the plan: ``sp`` with ``dp > 1`` (JAX's reason),
+  a sliding window, a softcap or sinks, ``max_seq_len % sp`` and no bucket
   left.
 """
 
@@ -271,8 +271,7 @@ def test_server_sp2_healthz_layout_is_jax_describe(replica):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--mesh-plan", "dp2xsp2"], "dp > 1"),
-    (["--mesh-plan", "sp2xep2"], "sp > 1 together with ep > 1"),
+    (["--mesh-plan", "dp2xsp2"], "dp=1"),
     (["--mesh-plan", "sp4", "--max-seq-len", "258"], "divide evenly"),
 ])
 def test_server_refusals_name_the_plan(extra, what):

@@ -6,9 +6,8 @@ serves HTTP here. Greedy ids, through the engine and through a chat,
 equal the JAX engine's at plan ``tp2`` on the same tree (the one-card
 tree from seed 0, of which each rank holds its slice); ``/healthz``
 carries ``layout``, JAX's ``describe()``; the followers' slot state
-equals the leader's; ``sp2xep2``, ``dp2``, ``--speculative``,
-``--host-kv-cache-mb`` and ``--kv-role`` over 2 processes are refused at
-build, naming the plan; killing the follower makes ``/healthz`` report
+equals the leader's; ``--speculative``, ``--host-kv-cache-mb`` and
+``--kv-role`` over 2 processes are refused at build, naming the plan; killing the follower makes ``/healthz`` report
 the engine dead; the follower process is reaped. Then two ranks set up
 from outside through the environment contract, over an int8-quantized
 safetensors checkpoint: each rank's tree is the slice of the whole
@@ -135,8 +134,6 @@ def test_healthz_layout_is_jax_describe(replica):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--mesh-plan", "sp2xep2"], "sp > 1"),
-    (["--mesh-plan", "dp2"], "dp > 1"),
     (["--num-devices", "2", "--speculative", "ngram"], "speculative"),
     (["--num-devices", "2", "--host-kv-cache-mb", "64"], "host KV tier"),
     (["--num-devices", "2", "--host-kv-cache-mb", "64", "--kv-role",
