@@ -763,15 +763,19 @@ def phase_kernels():
         (1, 512, 2048, 1536, 16, 16, 256),
         (8, 2048, 2048, 0, 16, 16, 256),
         (1, 2048, 2048, 0, 8, 1, 256),
+        # a llama3-70b tp4 rank's heads (16 q on 2 kv) continuing a
+        # 1792-token host-tier hit by a 256-token bucket (phase w)
+        (1, 256, 2048, 1792, 16, 2, 128),
     ]
     group8 = cases.index((1, 2048, 2048, 0, 32, 4, 128))
+    tp4_cont = cases.index((1, 256, 2048, 1792, 16, 2, 128))
     mla = cases.index((1, 2048, 2048, 0, 16, 16, 192))
     gemma7b = cases.index((1, 2048, 2048, 0, 16, 16, 256))
     gemma7b_cont = cases.index((1, 512, 2048, 1536, 16, 16, 256))
     gemma2b = cases.index((1, 2048, 2048, 0, 8, 1, 256))
     rows = [
         _flash_case(*c, gen, repeats=3 if i in (
-            0, group8, mla, gemma7b, gemma2b) else 1)
+            0, group8, mla, gemma7b, gemma2b, tp4_cont) else 1)
         for i, c in enumerate(cases)
     ]
     from gpustack_tpu_torch.ops import _build
@@ -868,7 +872,8 @@ def phase_kernels():
             "flash_group8": rows[group8], "flash_mla": rows[mla],
             "flash_gemma7b": rows[gemma7b],
             "flash_gemma7b_continuation": rows[gemma7b_cont],
-            "flash_gemma2b": rows[gemma2b], "flash_lse": lse_rows}
+            "flash_gemma2b": rows[gemma2b],
+            "flash_tp4_continuation": rows[tp4_cont], "flash_lse": lse_rows}
 
 
 def _shard_cases(gen):
@@ -1351,7 +1356,8 @@ class RunnerCalls:
         if name == "decode_step":
             return getattr(self.runner, "rows", slots), 1
         if name in ("verify_step", "ingest_step"):
-            return slots, len(args[1][0])
+            # a verify step runs a dp group's rows, as decode does
+            return getattr(self.runner, "rows", slots), len(args[1][0])
         rows = 1                                    # embed: batch padded
         while rows < len(args[0]):
             rows *= 2
@@ -6870,6 +6876,449 @@ def phase_sp_ep(kind, smi):
             "bf16_grouped": {key: launches["bf16_grouped"]}}
 
 
+# ---------------------------------------------------------------------------
+# w: the host KV tier and speculation on a multi-GPU replica, four GPUs
+# ---------------------------------------------------------------------------
+
+W_GPUS = 4
+W_TIER = ["--host-kv-cache-mb", "4096", "--prefill-chunk", "512"]
+W_70B = ["--preset", "llama3-70b", "--mesh-plan", "tp4"] + MAIN_ARGV[2:]
+# w1: the bf16 tier over a disk spill; its RAM budget drops to
+# W_SPILL_BYTES for the spill run. The same replica serves w2's plain ids.
+W1_ARGV = W_70B + W_TIER + ["--kv-spill-mb", "2048"]
+# w1's int8 tier, with w2's n-gram speculation on the same replica
+W1_INT8_ARGV = W_70B + W_TIER + ["--kv-cache-int8", "--speculative",
+                                 "ngram"]
+# w2: a llama3-8b draft on rank 0's card
+W2_DRAFT_ARGV = W_70B + ["--speculative", "draft", "--draft-source",
+                         "llama3-8b"]
+# w3: mixtral-8x7b dp2xep2 with the tier and n-gram speculation
+W3_ARGV = (["--preset", "mixtral-8x7b", "--mesh-plan", "dp2xep2"]
+           + MAIN_ARGV[2:] + W_TIER + ["--speculative", "ngram"])
+# the chat: a first turn, then two turns each adding new tokens after the
+# reply (each hits the one before); a prompt sharing the first turn's
+# blocks, chunked from the hit (two continuations); a one-shot prompt and
+# its extension (a one-shot hit)
+W_TURNS = (1024, 300, 300)
+W_REPLY = 8
+W_CHUNKED = 900
+W_SHORT = (300, 100)
+W_SPILL_BYTES = 512 << 20
+# conversations that push the cold prompt's blocks out of RAM to disk
+W_FILL = (4, 1792)
+W_GROUP1_SLOT = 4
+W_PAIR_TOKENS = (1280, 300)
+
+
+class ChunkedCalls(RunnerCalls):
+    """:class:`RunnerCalls` that also counts a replica leader's chunk ops,
+    each one forward: a chunk from zero as a prefill, a continuation as a
+    prefix prefill (the leader's chunk ops call its own runner, so
+    nothing is counted twice)."""
+
+    CHUNK_OPS = {"prefill_chunk": "prefill",
+                 "prefill_continue_chunk": "prefill_with_prefix"}
+
+    def __init__(self, runner, int8):
+        super().__init__(runner, int8)
+        for name, as_name in self.CHUNK_OPS.items():
+            fn = getattr(runner, name)
+
+            def counted(*args, _fn=fn, _as=as_name, **kw):
+                self.forwards.append((_as, *self._shape(_as, args),
+                                      kw.get("slot")))
+                return _fn(*args, **kw)
+
+            setattr(runner, name, counted)
+
+
+def _w_drain(engine):
+    engine._kv_copy_pool.submit(lambda: None).result(timeout=600)
+
+
+def _w_block_bytes(engine):
+    """One block's bytes on a rank (its KV heads), in the tier's type: a
+    one-process block's divided by ``tp``."""
+    L, _, _, H, hd = engine.runner._cache(1).k.shape
+    cache = engine.host_kv_cache
+    n = L * BLOCK * H * hd
+    return 2 * (n + L * H * 4) if cache.int8 else 2 * 2 * n
+
+
+def _w_tier(engine, label):
+    """Every rank's tier (``probe("kv_tier")``) holds the leader's keys at
+    the leader's bytes, and the same spilled keys; a block is
+    :func:`_w_block_bytes`."""
+    import hashlib
+
+    tiers = engine.runner.probe(engine._state, "kv_tier")
+    lead = engine.host_kv_cache
+    digest = hashlib.sha256("".join(lead.keys()).encode()).hexdigest()
+    for rank, t in enumerate(tiers):
+        if (t["keys_digest"], t["entries"], t["bytes"], t["spill_digest"]) \
+                != (digest, lead.entries, lead.bytes_used,
+                    tiers[0]["spill_digest"]):
+            raise AssertionError(
+                f"{label}: rank {rank}'s tier {t} parted from the leader's "
+                f"({lead.entries} blocks, {lead.bytes_used} B)")
+    if lead.bytes_used != lead.entries * _w_block_bytes(engine):
+        raise AssertionError(f"{label}: {lead.bytes_used} B for "
+                             f"{lead.entries} blocks")
+    return {"blocks": lead.entries, "bytes_per_rank": lead.bytes_used,
+            "block_bytes_per_rank": _w_block_bytes(engine),
+            "spilled_blocks_per_rank": tiers[0]["spill_entries"],
+            "ranks": len(tiers), "ranks_hold_the_leaders_keys": True}
+
+
+def _w_serve(engine, stored, name, prompt, n=W_REPLY):
+    """One request; its reused tokens must be what the stored sequences
+    give (:func:`_expected_match`). Records what the request stored."""
+    from gpustack_tpu_torch.engine.engine import GenRequest
+
+    want = _expected_match(prompt, stored)
+    req = engine.generate(GenRequest(prompt_ids=prompt, max_tokens=n,
+                                     temperature=0.0, stop_ids=()),
+                          timeout=600)
+    _w_drain(engine)
+    if req.prefix_tokens_reused != want:
+        raise AssertionError(f"{name}: reused {req.prefix_tokens_reused} "
+                             f"tokens, the stored blocks give {want}")
+    stored.append(list(prompt))
+    seq = list(prompt) + req.output_ids[:-1]
+    if len(seq) // BLOCK > len(prompt) // BLOCK:
+        stored.append(seq)
+    return req, {"request": name, "prompt_tokens": len(prompt),
+                 "reused_tokens": want, "ttft_ms": req.ttft_ms}
+
+
+def _w_chat(engine, stored):
+    """The three-turn chat, the chunked prompt seeded from the first
+    turn's blocks, the one-shot hit, and a cold prompt as long as the
+    third turn. Returns (rows, the third turn's prompt, the cold one)."""
+    vocab = engine.cfg.vocab_size
+    rows = []
+    prompt = _s_ids(W_TURNS[0], vocab, 61)
+    turns = []
+    for t, extra in enumerate(W_TURNS):
+        if t:
+            prompt = prompt + turns[-1].output_ids + _s_ids(extra, vocab,
+                                                           61 + t)
+        req, row = _w_serve(engine, stored, f"turn {t + 1}", prompt)
+        turns.append(req)
+        rows.append(row)
+    third = prompt
+    first = _s_ids(W_TURNS[0], vocab, 61)
+    rows.append(_w_serve(engine, stored, "chunked from a hit",
+                         first + _s_ids(W_CHUNKED, vocab, 71))[1])
+    short = _s_ids(W_SHORT[0], vocab, 72)
+    rows.append(_w_serve(engine, stored, "one-shot", short)[1])
+    rows.append(_w_serve(engine, stored, "one-shot hit",
+                         short + _s_ids(W_SHORT[1], vocab, 73))[1])
+    cold = _s_ids(len(third), vocab, 74)
+    rows.append(_w_serve(engine, stored, "cold, the third turn's length",
+                         cold)[1])
+    for r in (rows[1], rows[2], rows[3], rows[5]):
+        if r["reused_tokens"] <= 0:
+            raise AssertionError(f"no hit: {r}")
+    return rows, third, cold
+
+
+def _w_hit(engine, prompt, slot):
+    """A hit on ``prompt``'s stored blocks through the engine's own
+    gather, adoption and prefix prefill, from this thread on the idle
+    replica: the last position's logits (rank 0)."""
+    import types
+
+    from gpustack_tpu_torch.engine.engine import GenRequest
+
+    runner, cache = engine.runner, engine.host_kv_cache
+    top = runner.prefill_buckets[-1]
+    plen = cache.match_prefix_len(prompt)
+    while plen and plen + runner.bucket_for(len(prompt) - plen) > top:
+        plen -= BLOCK
+    got = engine._gather_and_upload(GenRequest(prompt_ids=prompt), prompt,
+                                    plen, cache, slot)
+    job = types.SimpleNamespace()
+    engine._adopt_prefix(job, got, slot)
+    suffix = prompt[plen:]
+    sb = runner.bucket_for(len(suffix))
+    with torch.no_grad():
+        last, _, _ = runner.prefill_with_prefix(
+            job.k, job.v, plen, suffix + [0] * (sb - len(suffix)),
+            len(suffix), runner.bucket_for(plen + sb), slot=slot)
+    return last.float().cpu(), plen
+
+
+def _w_warm_cold(engine, prompt):
+    """The standing logit gate on a hit: the warm first-token logits
+    against a cold prefill of the whole prompt on the same replica (both
+    through the flash kernel), and their greedy tokens (equal, or a near
+    tie of the cold logits)."""
+    runner = engine.runner
+    warm, plen = _w_hit(engine, prompt, 0)
+    bucket = runner.bucket_for(len(prompt))
+    with torch.no_grad():
+        cold, _, _ = runner.prefill(prompt + [0] * (bucket - len(prompt)),
+                                    len(prompt), slot=0)
+    cold = cold.float().cpu()
+    gate = _compare_logits(warm, cold)
+    top2 = cold.topk(2).values
+    gap = float(top2[0] - top2[1])
+    ids_equal = int(warm.argmax()) == int(cold.argmax())
+    if gate["max_abs_err"] > LOGIT_REL_TOL * gate["logit_scale"] or (
+        gate["cosine"] < LOGIT_MIN_COSINE
+    ) or not (ids_equal or gap < IDS_GAP_REL * gate["logit_scale"]):
+        raise AssertionError(f"warm logits part from cold: {gate}, ids "
+                             f"equal {ids_equal}, top-2 gap {gap}")
+    return {**gate, "prefix_tokens": plen, "prompt_tokens": len(prompt),
+            "greedy_ids_equal": ids_equal, "cold_top2_gap": gap,
+            "tolerance": {"rel": LOGIT_REL_TOL,
+                          "min_cosine": LOGIT_MIN_COSINE}}
+
+
+def _w_launches(engine, label, calls, launches):
+    """Every rank's launches equal what the leader's forwards need on that
+    rank (:func:`expected_launches`)."""
+    from gpustack_tpu_torch.parallel.mesh import rank_coords
+
+    plan = engine.runner.plan
+    for r in range(plan.chips):
+        c = rank_coords(plan, r)
+        want = expected_launches([calls], c["sp"], c["dp"])
+        for name in S_KERNELS:
+            if launches[name][r] != want[name]:
+                raise AssertionError(
+                    f"{label}: {name} launched {launches[name]} per rank, "
+                    f"the leader's forwards need {want[name]} on rank {r}")
+    return {n: launches[n] for n in S_KERNELS}
+
+
+def _w_counted(engine, label, body):
+    """``body()`` with every rank's launches counted and checked."""
+    runner, state = engine.runner, engine._state
+    calls = ChunkedCalls(runner, int8=False)
+    runner.probe(state, "reset_launches")
+    calls.reset()
+    out = body()
+    launches = _w_launches(engine, label, calls,
+                           runner.probe(state, "launches"))
+    return out, launches, calls.counts()
+
+
+def _w_replica(argv):
+    from gpustack_tpu_torch.engine.api_server import (
+        OpenAIServer,
+        build_engine_from_args,
+        build_parser,
+    )
+
+    t0 = time.perf_counter()
+    engine = build_engine_from_args(build_parser().parse_args(argv))
+    engine.runner.probe(engine._state, "memory")       # every rank is up
+    setup_s = time.perf_counter() - t0
+    engine.start()
+    server = OpenAIServer(engine)
+    return engine, server, server.start("127.0.0.1", 0), setup_s
+
+
+def _w_close(engine, server):
+    from gpustack_tpu_torch.engine.api_server import shutdown_replica
+
+    server.shutdown()
+    engine.stop()
+    shutdown_replica(engine, timeout=120)
+    _free()
+
+
+def _w_spec(engine, port, label, plain, scale):
+    """w2 on a speculative replica: the greedy chats (ids held to the plain
+    replica's by phase f's rule), every rank's verify steps and accepted
+    proposals equal, decode tokens/s and rank 0's peak memory."""
+    state = engine._state
+    engine.runner.probe(state, "reset_memory")
+    before = engine.runner.probe(state, "spec")
+    out, rate = _greedy(engine, port, logprobs=False)
+    rule = _ids_rule(plain[0], out, IDS_GAP_REL * scale)
+    spec = engine.runner.probe(state, "spec")
+    steps = [s[0] - b[0] for s, b in zip(spec, before)]
+    accepted = [s[1] - b[1] for s, b in zip(spec, before)]
+    if len(set(steps)) != 1 or len(set(accepted)) != 1 or steps[0] < 1:
+        raise AssertionError(f"{label}: verify steps {steps}, accepted "
+                             f"{accepted} per rank")
+    health = engine.health()
+    return {"ids_rule": rule, "verify_steps_per_rank": steps,
+            "accepted_per_rank": accepted,
+            "spec_steps": health["spec_steps"],
+            "spec_extra_tokens": health["spec_extra_tokens"],
+            "spec_acceptance_rate": health["spec_acceptance_rate"],
+            "draft_model": health["draft_model"],
+            "decode_tokens_per_s_8_chats": {"plain": plain[1],
+                                            "speculative": rate},
+            "peak_mem_gb_per_rank": [m / 1e9 for m in engine.runner.probe(
+                state, "memory")]}
+
+
+def _w1(kind, smi):
+    """w1 on the bf16 tier: the chat, counted (flash exact per rank; hits
+    as stored), every rank's tier, warm against cold; the plain chats for
+    w2; then the spill run under W_SPILL_BYTES. Returns (report, the plain
+    chats, the logit scale)."""
+    engine, server, port, setup_s = _w_replica(W1_ARGV)
+    try:
+        stored = []
+        _w_serve(engine, stored, "warm-up", _s_ids(600, engine.cfg.vocab_size,
+                                                   60))
+        (rows, third, _), launches, calls = _w_counted(
+            engine, "w1 bf16", lambda: _w_chat(engine, stored))
+        tier = _w_tier(engine, "w1 bf16")
+        warm_cold = _w_warm_cold(engine, third)
+        plain = _greedy(engine, port, logprobs=True)
+        # the spill run: the leader's budget alone decides evictions
+        cache = engine.host_kv_cache
+        cache.max_bytes = W_SPILL_BYTES
+        before = engine.health()
+        vocab = engine.cfg.vocab_size
+        for i in range(W_FILL[0]):
+            _w_serve(engine, stored, f"fill {i}",
+                     _s_ids(W_FILL[1], vocab, 80 + i), n=1)
+        cold = _s_ids(len(third), vocab, 74)
+        _, hit = _w_serve(engine, stored, "from disk",
+                          cold[:W_TURNS[0]] + _s_ids(60, vocab, 90))
+        after = engine.health()
+        spill = {
+            "ram_budget_bytes": W_SPILL_BYTES, "hit": hit,
+            "faultbacks": after["kv_faultbacks"] - before["kv_faultbacks"],
+            "blocks_spilled": after["kv_spill"]["blocks_spilled"],
+            "tier": _w_tier(engine, "w1 spill"),
+        }
+        if spill["faultbacks"] < 1 or hit["reused_tokens"] < BLOCK:
+            raise AssertionError(f"w1 spill: nothing came back: {spill}")
+        if engine.health()["status"] != "ok":
+            raise AssertionError(f"w1: {engine.health()}")
+        report = {"model": engine.cfg.name, "plan": str(engine.runner.plan),
+                  "tier": "bf16", "device": kind, "nvidia_smi": smi,
+                  "setup_s": setup_s, "requests": rows,
+                  "warm_ttft_ms": rows[2]["ttft_ms"],
+                  "cold_ttft_ms": rows[-1]["ttft_ms"],
+                  "tier_check": tier, "warm_vs_cold": warm_cold,
+                  "launches_per_rank": launches, "runner_calls": calls,
+                  "spill": spill}
+        emit("multi_gpu_kv_tier", **report)
+        return report, plain, warm_cold["logit_scale"]
+    finally:
+        _w_close(engine, server)
+
+
+def _w1_int8(kind, smi, plain, scale):
+    """w1 on the int8 tier, and w2's n-gram speculation on the same
+    replica."""
+    engine, server, port, setup_s = _w_replica(W1_INT8_ARGV)
+    try:
+        stored = []
+        _w_serve(engine, stored, "warm-up", _s_ids(600, engine.cfg.vocab_size,
+                                                   60))
+        (rows, third, _), launches, calls = _w_counted(
+            engine, "w1 int8", lambda: _w_chat(engine, stored))
+        report = {"model": engine.cfg.name, "plan": str(engine.runner.plan),
+                  "tier": "int8", "device": kind, "nvidia_smi": smi,
+                  "setup_s": setup_s, "requests": rows,
+                  "warm_ttft_ms": rows[2]["ttft_ms"],
+                  "cold_ttft_ms": rows[-1]["ttft_ms"],
+                  "tier_check": _w_tier(engine, "w1 int8"),
+                  "warm_vs_cold": _w_warm_cold(engine, third),
+                  "launches_per_rank": launches, "runner_calls": calls,
+                  "speculation": _w_spec(engine, port, "w2 ngram", plain,
+                                         scale)}
+        if report["speculation"]["spec_extra_tokens"] < 1:
+            raise AssertionError(f"w2 n-gram accepted nothing: {report}")
+        emit("multi_gpu_kv_tier_int8", **report)
+        return report
+    finally:
+        _w_close(engine, server)
+
+
+def _w2_draft(kind, smi, plain, scale):
+    engine, server, port, setup_s = _w_replica(W2_DRAFT_ARGV)
+    try:
+        report = {"model": engine.cfg.name, "plan": str(engine.runner.plan),
+                  "device": kind, "nvidia_smi": smi, "setup_s": setup_s,
+                  **_w_spec(engine, port, "w2 draft", plain, scale)}
+        emit("multi_gpu_speculation_draft", **report)
+        return report
+    finally:
+        _w_close(engine, server)
+
+
+def _w3(kind, smi):
+    """w3: a prefix stored from slot 0 (group 0), hit for slot 0 and for
+    group 1's first slot (bitwise equal logits); then the chat and the
+    n-gram chats counted (the grouped kernel exact per rank)."""
+    engine, server, port, setup_s = _w_replica(W3_ARGV)
+    try:
+        runner = engine.runner
+        vocab = engine.cfg.vocab_size
+        n, extra = W_PAIR_TOKENS
+        prefix = _s_ids(n, vocab, 95)
+        with torch.no_grad():
+            _, k, v = runner.prefill(
+                prefix + [0] * (runner.bucket_for(n) - n), n, slot=0)
+        engine._submit_kv_copy(prefix, k, v, n, 0)
+        del k, v
+        _w_drain(engine)
+        prompt = prefix + _s_ids(extra, vocab, 96)
+        lasts = [_w_hit(engine, prompt, s)[0] for s in (0, W_GROUP1_SLOT)]
+        pair = {"slots": [0, W_GROUP1_SLOT], "prefix_tokens": n,
+                "logits_bitwise_equal": torch.equal(*lasts),
+                "max_abs_diff": (lasts[0] - lasts[1]).abs().max().item()}
+        if not pair["logits_bitwise_equal"]:
+            raise AssertionError(f"w3: the two groups' hits part: {pair}")
+
+        def body():
+            stored = [prefix, prompt]
+            rows = _w_chat(engine, stored)[0]
+            return rows, _greedy(engine, port, logprobs=False)
+
+        (rows, (_, rate)), launches, calls = _w_counted(engine, "w3", body)
+        spec = engine.runner.probe(engine._state, "spec")
+        if len({tuple(s) for s in spec}) != 1:
+            raise AssertionError(f"w3: verify steps per rank {spec}")
+        report = {"model": engine.cfg.name, "plan": str(runner.plan),
+                  "device": kind, "nvidia_smi": smi, "setup_s": setup_s,
+                  "cross_group_hit": pair, "requests": rows,
+                  "tier_check": _w_tier(engine, "w3"),
+                  "spec_per_rank": spec,
+                  "decode_tokens_per_s_8_chats": rate,
+                  "launches_per_rank": launches, "runner_calls": calls}
+        emit("multi_gpu_kv_tier_dp", **report)
+        return report
+    finally:
+        _w_close(engine, server)
+
+
+def phase_tier_spec(kind, smi):
+    """w1–w3 (four GPUs, one replica at a time through the port's server).
+    Returns each kernel's launches per rank on the counted windows."""
+    if torch.cuda.device_count() < W_GPUS:
+        raise AssertionError(f"phase w needs {W_GPUS} cards")
+    # each replica's tree is freed before the next is drawn: the counting
+    # wrappers' closures keep a runner in a cycle until a collection
+    w1, plain, scale = _w1(kind, smi)
+    _free()
+    w1_int8 = _w1_int8(kind, smi, plain, scale)
+    _free()
+    _w2_draft(kind, smi, plain, scale)
+    _free()
+    w3 = _w3(kind, smi)
+    _free()
+    out = {}
+    for report, tag in ((w1, "bf16 tier"), (w1_int8, "int8 tier"),
+                        (w3, "tier")):
+        for name, counts in report["launches_per_rank"].items():
+            out.setdefault(name, {})[
+                f"{report['model']} {report['plan']} {tag}"] = counts
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6933,7 +7382,8 @@ def main() -> int:
         emit("t", ran=False, reason=f"needs {T_GPUS} cards, found "
              f"{torch.cuda.device_count()}")
     for phase, gpus, fn in (("u", U_GPUS, phase_data_parallel),
-                            ("v", V_GPUS, phase_sp_ep)):
+                            ("v", V_GPUS, phase_sp_ep),
+                            ("w", W_GPUS, phase_tier_spec)):
         if torch.cuda.device_count() >= gpus:
             _free()
             for name, per_model in fn(kind, smi).items():
@@ -6948,7 +7398,7 @@ def main() -> int:
     group8 = rows.pop("flash_group8")
     mla = rows.pop("flash_mla")
     gemma = {tag: rows.pop(f"flash_{tag}") for tag in (
-        "gemma7b", "gemma7b_continuation", "gemma2b")}
+        "gemma7b", "gemma7b_continuation", "gemma2b", "tp4_continuation")}
     lse_rows = rows.pop("flash_lse")
     for name, row in rows.items():
         launches = sum(counts[name] for counts in paths.values())

@@ -26,6 +26,9 @@ background pull). A completion whose request carries
 ``X-GPUStack-KV-Source: <peer>/kv/export`` first pulls its prompt's blocks
 from that peer, so it prefills only the tail; ``--kv-role`` tags the
 replica. Peers are reached with ``http.client`` on the handler's thread.
+On a multi-GPU replica ``/kv/summary`` serves rank 0's tier (the
+replica's keys) and the routes that move blocks over the wire answer 400
+naming the plan: rank 0 holds only its own KV heads of each block.
 
 It runs on ``http.server.ThreadingHTTPServer`` (one thread per
 connection; each handler blocks on its request's ``done`` event or token
@@ -973,6 +976,19 @@ class OpenAIServer:
             raise HTTPError(404, "engine has no host KV cache")
         return cache
 
+    def _kv_wire(self, what: str):
+        """The host cache, for a route that moves its blocks over the
+        wire: refused on a multi-GPU replica, whose rank 0 holds only its
+        own heads of each block (until disaggregated serving spans
+        ranks)."""
+        plan = self.engine.runner.plan
+        if plan.chips > 1:
+            raise HTTPError(
+                400, f"{what} is not supported on a multi-GPU replica "
+                f"(plan {plan}): rank 0's host tier holds its own KV heads"
+            )
+        return self._kv_cache()
+
     def kv_export(self, body: Dict[str, Any]) -> Tuple[List[bytes], int]:
         """The host cache's matched block run for a prompt as wire frames
         (``kv_transfer``): ``(chunks, payload blocks)``.
@@ -985,7 +1001,7 @@ class OpenAIServer:
         decode replica imports the blocks and prefills only the tail).
         ``tail_key`` (fleet prefetch: the puller has only the directory's
         chain key) walks the chain back from that block."""
-        cache = self._kv_cache()
+        cache = self._kv_wire("/kv/export")
         try:
             prompt_ids = [int(t) for t in body.get("prompt_ids") or []]
         except (TypeError, ValueError):
@@ -1043,7 +1059,7 @@ class OpenAIServer:
         host cache through the engine's stager: decoding slots never wait
         on the insert."""
         eng = self.engine
-        cache = self._kv_cache()
+        cache = self._kv_wire("/kv/import")
         try:
             tokens, prepared, bytes_in = prepare_import(
                 cache, decode_stream(raw)
@@ -1095,7 +1111,7 @@ class OpenAIServer:
         tail chain key. Answers 202 at once; the pull runs on a thread of
         its own, and a dead or slow source leaves this replica cold, with
         the failure counted."""
-        self._kv_cache()
+        self._kv_wire("/kv/pull")
         source = str(body.get("source") or "")
         tail_key = str(body.get("tail_key") or "")
         if not source or not tail_key:
@@ -1316,6 +1332,7 @@ class OpenAIServer:
                     if source and server.engine.host_kv_cache is not None and (
                         call.embeds_override is None
                     ):
+                        server._kv_wire("the X-GPUStack-KV-Source prefetch")
                         server.kv_prefetch(
                             source, call.gens[0].prompt_ids,
                             self.headers.get("X-GPUStack-KV-Source-Auth", ""),
@@ -1544,9 +1561,10 @@ def _argv_of(args) -> List[str]:
 
 def _refuse_multi_gpu(args, cfg, plan, vlm: bool) -> None:
     """What a multi-GPU replica cannot serve yet, refused before any
-    weight is read, naming the plan (the JAX package refuses the same
-    features for multi-host placements, ``gpustack_tpu/engine/
-    multihost.py``; here every multi-GPU placement is multi-process)."""
+    weight is read, naming the plan (the JAX package refuses these
+    features for multi-host placements only, ``gpustack_tpu/engine/
+    multihost.py``; here every multi-GPU placement is multi-process). The
+    host KV tier and speculation serve every plan but ``sp > 1``."""
     from gpustack_tpu_torch.models.transformer import check_plan
 
     if plan.sp > 1 and plan.dp != 1:
@@ -1561,17 +1579,17 @@ def _refuse_multi_gpu(args, cfg, plan, vlm: bool) -> None:
             f"evenly over sp={plan.sp}"
         )
     refused = [
-        (args.host_kv_cache_mb > 0, "the host KV tier (--host-kv-cache-mb)"),
-        (bool(args.speculative), "speculative decoding (--speculative)"),
-        (bool(args.kv_role), "disaggregated serving (--kv-role)"),
-        (vlm, "the vision path (a VLM preset)"),
+        (args.host_kv_cache_mb > 0 and plan.sp > 1,
+         "the host KV tier (--host-kv-cache-mb)", "under sp > 1"),
+        (bool(args.speculative) and plan.sp > 1,
+         "speculative decoding (--speculative)", "under sp > 1"),
+        (bool(args.kv_role), "disaggregated serving (--kv-role)",
+         "on a multi-GPU replica"),
+        (vlm, "the vision path (a VLM preset)", "on a multi-GPU replica"),
     ]
-    for hit, what in refused:
+    for hit, what, where in refused:
         if hit:
-            raise ValueError(
-                f"plan {plan}: {what} is not supported on a multi-GPU "
-                "replica"
-            )
+            raise ValueError(f"plan {plan}: {what} is not supported {where}")
     check_plan(cfg, plan)
 
 
@@ -1793,7 +1811,8 @@ def build_engine_from_args(args) -> LLMEngine:
                 shard_params(params, mesh, kv_heads=cfg.num_kv_heads), device
             )
     draft_cfg = draft_params = None
-    if args.speculative == "draft":
+    # the draft lives on rank 0's card alone (a follower never proposes)
+    if args.speculative == "draft" and rank == 0:
         # the draft is never quantized, as in the JAX server; a preset
         # draws its weights from the target's seed
         source = args.draft_source
@@ -1835,7 +1854,7 @@ def build_engine_from_args(args) -> LLMEngine:
         kv_spill_mb=args.kv_spill_mb,
         kv_spill_dir=args.kv_spill_dir,
         kv_role=args.kv_role,
-        speculative=args.speculative,
+        speculative=args.speculative if rank == 0 else "",
         spec_tokens=args.spec_tokens,
         draft_cfg=draft_cfg,
         draft_params=draft_params,
@@ -1848,17 +1867,22 @@ def build_engine_from_args(args) -> LLMEngine:
             BroadcastingRunner,
             CommandLeader,
             FollowerLoop,
+            FollowerTier,
         )
 
         cmd, token = env[ENV_CMD_ADDRESS], env[ENV_CMD_TOKEN]
+        tier = engine.host_kv_cache
         if rank == 0:
             leader = CommandLeader(
                 int(cmd.rsplit(":", 1)[1]), plan.chips - 1, token=token
             )
             engine.runner = BroadcastingRunner(engine.runner, leader)
+            if tier is not None:
+                tier.lead()         # rank 0's tier names what it changes
         else:
             engine.follower_loop = FollowerLoop(
-                engine.runner, cmd, state=engine._state, token=token
+                engine.runner, cmd, state=engine._state, token=token,
+                tier=None if tier is None else FollowerTier(engine),
             )
     if vlm_cfg is not None:
         # the language tree takes the server's seed 0; the tower seed 1,

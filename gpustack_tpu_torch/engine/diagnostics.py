@@ -8,8 +8,10 @@ replays it (``multihost.FollowerLoop``), and every rank then calls
 
 from __future__ import annotations
 
+import hashlib
 import importlib
 
+import numpy as np
 import torch
 
 from gpustack_tpu_torch.models import transformer
@@ -140,7 +142,19 @@ def probe(runner, state, what: str, ids=None, true_len: int = 0,
       tokens);
     - ``"routing"``: stop the tape; every rank's recorded per-call picks
       (int32 on the host) and, after a replay, its flipped tokens per
-      call, gathered, in rank order.
+      call, gathered, in rank order;
+    - ``"kv_tier"``: every rank's host tier: ``entries``, ``bytes``,
+      ``spill_entries`` and sha256 digests of its sorted RAM keys
+      (``keys_digest``), of its spilled keys (``spill_digest``) and of
+      the block ending at the last full block of ``ids`` as it stores it
+      (``block_digest``: K, V and any int8 scales; "" where absent);
+    - ``"kv_block"``: every rank's stored arrays of that block (``k``,
+      ``v``, ``k_scale``, ``v_scale``; numpy, bf16 as uint16 bits), in
+      rank order;
+    - ``"kv_forget"``: every rank but 0 drops that block from its tier (a
+      lost block: the next hit on it must end the replica);
+    - ``"spec"``: every rank's verify steps and accepted proposals
+      (``[steps, accepted]``).
     """
     device = runner.device
     cuda = device.type == "cuda"
@@ -248,4 +262,76 @@ def probe(runner, state, what: str, ids=None, true_len: int = 0,
         if runner.dp > 1:
             rows = runner.mesh.all_gather_dp(rows)[slot // runner.rows]
         return rows.cpu()
+    if what in ("kv_tier", "kv_block", "kv_forget"):
+        return _kv_probe(runner, what, ids, gather)
+    if what == "spec":
+        rows = gather(torch.stack([
+            torch.tensor(runner.spec_steps, device=device),
+            runner.spec_accepted.to(device),
+        ]))
+        return [[int(x) for x in r.tolist()] for r in rows]
     raise ValueError(f"unknown probe {what!r}")
+
+
+def _block_arrays(blk):
+    return [a for a in (blk.k, blk.v, blk.k_scale, blk.v_scale)
+            if a is not None]
+
+
+def _digest(chunks) -> torch.Tensor:
+    h = hashlib.sha256()
+    for c in chunks:
+        h.update(c)
+    return torch.tensor(list(h.digest()), dtype=torch.int64)
+
+
+def _kv_probe(runner, what, ids, gather):
+    """The host-tier probes (:func:`probe`'s ``kv_*``)."""
+    cache = runner.host_tier
+    blk = key = None
+    if ids is not None:
+        keys = cache.chain_keys(ids)
+        key = keys[-1] if keys else None
+        blk = cache.block(key) if key is not None else None
+    if what == "kv_forget":
+        if runner.mesh is not None and runner.mesh.rank and key is not None:
+            cache._detach(key)
+        return None
+    if what == "kv_block":
+        if blk is None:
+            raise ValueError("kv_block names no block this rank holds")
+        flat = np.concatenate([np.ascontiguousarray(a).view(np.uint8)
+                               .ravel() for a in _block_arrays(blk)])
+        parts = gather(torch.from_numpy(flat).to(runner.device))
+        out = []
+        for part in parts:
+            raw, arrays, at = part.numpy(), {}, 0
+            for name in ("k", "v", "k_scale", "v_scale"):
+                a = getattr(blk, name)
+                if a is None:
+                    continue
+                n = a.nbytes
+                arrays[name] = raw[at:at + n].view(a.dtype).reshape(a.shape)
+                at += n
+            out.append(arrays)
+        return out
+    spill = cache.spill
+    spilled = spill.keys() if spill is not None else []
+    row = torch.cat([
+        torch.tensor([cache.entries, cache.bytes_used, len(spilled),
+                      int(blk is not None)], dtype=torch.int64),
+        _digest(k.encode() for k in cache.keys()),
+        _digest(k.encode() for k in spilled),
+        _digest(np.ascontiguousarray(a).tobytes()
+                for a in (_block_arrays(blk) if blk is not None else [])),
+    ]).to(runner.device)
+    out = []
+    for r in gather(row):
+        r = r.tolist()
+        out.append({
+            "entries": r[0], "bytes": r[1], "spill_entries": r[2],
+            "keys_digest": bytes(r[4:36]).hex(),
+            "spill_digest": bytes(r[36:68]).hex(),
+            "block_digest": bytes(r[68:100]).hex() if r[3] else "",
+        })
+    return out

@@ -56,6 +56,14 @@ greedy tokens, and its positions are rewound). Output is identical to
 plain greedy decoding; near the cache end the step falls back to plain
 decode.
 
+**A multi-GPU replica** (``plan``, ``mesh``; rank 0's engine serves,
+its runner a ``multihost.BroadcastingRunner``): the host tier is rank
+0's authority and each store, change and hit is named to the followers
+through the runner (``kv_store``, ``tier_op``, ``kv_adopt``), whose own
+tiers hold their heads of every block (``multihost.FollowerTier``); the
+draft model lives on rank 0's card alone and its proposals reach the
+other ranks inside the verify step (``verify_step(shared=True)``).
+
 **Embeddings** (``embed``): a batch is handed to the scheduler thread as
 a job and runs there as one forward, so every forward on the card is
 launched by one thread.
@@ -137,7 +145,7 @@ DISPATCH_SYNC_FREE = (
     "_store_finished_sequence", "_check_kv_copies", "_entry_ready",
     "_drain_ready", "_flush_detok", "_step_key", "_record_event",
     "_note_spec_dispatch", "_spec_safe", "_build_proposals",
-    "_draft_propose", "_run_embed_job",
+    "_draft_propose", "_run_embed_job", "_d2h",
 )
 
 # guarded-by contract: lock-guarded shared state, plus the scheduler
@@ -617,6 +625,9 @@ class LLMEngine:
                 min(prefill_chunk, top)
             )
         self._chunk_jobs: Dict[int, _ChunkJob] = {}
+        # ids naming the host tier's stores and hits to a replica's
+        # followers (BroadcastingRunner.kv_store / tier_op)
+        self._kv_ids = itertools.count()
         # futures of kv-copy work (device→host stores, abandoned stages)
         # whose results the scheduler reads, so a failed copy ends the
         # engine instead of vanishing on the copy thread
@@ -655,6 +666,9 @@ class LLMEngine:
                     tempfile.gettempdir(),
                     f"gpustack-kv-spill-{os.getpid()}",
                 )
+                if kv_spill_dir and mesh is not None and mesh.world > 1:
+                    # every rank spills its own heads, to its own files
+                    spill_dir = os.path.join(spill_dir, f"rank{mesh.rank}")
                 self.host_kv_cache.spill = DiskKVSpill(
                     spill_dir, kv_spill_mb * 2**20
                 )
@@ -668,6 +682,7 @@ class LLMEngine:
             if self.device.type == "cuda":
                 self._copy_stream = torch.cuda.Stream(self.device)
                 self._upload_stream = torch.cuda.Stream(self.device)
+        self.runner.host_tier = self.host_kv_cache
 
     # ---- public API -----------------------------------------------------
 
@@ -1210,7 +1225,8 @@ class LLMEngine:
         if (
             self.prefill_chunk
             and len(ids) > self.prefill_chunk
-            and (job := self._plan_chunk_job(req, ids, matched)) is not None
+            and (job := self._plan_chunk_job(req, ids, matched, slot))
+            is not None
         ):
             # long prompt: one chunk per scheduler step, seeded from the
             # host cache's matched block run when one fits
@@ -1234,7 +1250,7 @@ class LLMEngine:
             # kv-copy thread while decode proceeds; the slot holds a job
             # whose single "chunk" is the whole suffix
             fut = self._kv_stage.submit(
-                self._stage_prefix_fn(req, ids, use_len, kv_cache)
+                self._stage_prefix_fn(req, ids, use_len, kv_cache, slot)
             )
             self._chunk_jobs[slot] = _ChunkJob(
                 req=req, ids=list(ids), pending_kv=fut, one_shot=True,
@@ -1248,13 +1264,13 @@ class LLMEngine:
         self._step_padded += bucket
         # the slot names the dp group that runs it (a multi-GPU replica)
         last_logits, k, v = self.runner.prefill(padded, len(ids), slot=slot)
-        self._submit_kv_copy(ids, k, v, len(ids))
+        self._submit_kv_copy(ids, k, v, len(ids), slot)
         self._finalize_start(slot, req, last_logits, k, v)
 
     # ---- chunked prefill and prefix reuse -------------------------------
 
     def _plan_chunk_job(
-        self, req: GenRequest, ids, matched: int = 0
+        self, req: GenRequest, ids, matched: int, slot: int,
     ) -> Optional[_ChunkJob]:
         """Chunk schedule for a long prompt, seeded from the host cache's
         matched block run (``matched``) when one fits. Returns None when
@@ -1286,27 +1302,36 @@ class LLMEngine:
                 # and later steps decode; fits(0) guards the cold restart
                 # of a run evicted between match and gather
                 fut = self._kv_stage.submit(
-                    self._stage_prefix_fn(req, ids, plen, kv_cache)
+                    self._stage_prefix_fn(req, ids, plen, kv_cache, slot)
                 )
                 return _ChunkJob(req=req, ids=list(ids), pending_kv=fut)
             got = (
-                self._gather_and_upload(req, ids, plen, kv_cache)
+                self._gather_and_upload(req, ids, plen, kv_cache, slot)
                 if plen > 0 else None
             )
             if got is not None:
                 job = _ChunkJob(req=req, ids=list(ids))
-                self._adopt_prefix(job, got)
+                self._adopt_prefix(job, got, slot)
                 return job
         if fits(0):
             return _ChunkJob(req=req, ids=list(ids))
         return None
 
-    def _gather_and_upload(self, req, ids, plen: int, kv_cache):
+    def _gather_and_upload(self, req, ids, plen: int, kv_cache, slot):
         """Gather a matched block run from host RAM and upload it at
-        bucket width: ``(k, v, plen, event)``, or None when the run
-        evicted between match and gather. Hit counters and the request's
-        attribution are recorded here, on success only."""
-        got = kv_cache.gather_prefix(list(ids), plen)
+        bucket width: ``(k, v, plen, event, gather id)``, or None when the
+        run evicted between match and gather. Hit counters and the
+        request's attribution are recorded here, on success only. A
+        replica's leader names the gather, and what it restored and
+        evicted, to its followers (``runner.tier_op``)."""
+        gid = next(self._kv_ids)
+        got = self.runner.tier_op(
+            kv_cache, lambda: kv_cache.gather_prefix(list(ids), plen),
+            lambda got: {
+                "op": "kv_gather", "id": gid, "len": plen, "slot": slot,
+                "ids": [int(t) for t in ids[:plen]], "ok": got is not None,
+            },
+        )
         if got is None:
             return None
         pk, pv = got
@@ -1316,9 +1341,9 @@ class LLMEngine:
         t0 = time.time()
         k, v, event = self._upload_prefix(pk, pv, plen)
         req.kv_upload_s = time.time() - t0
-        return k, v, plen, event
+        return k, v, plen, event, gid
 
-    def _stage_prefix_fn(self, req, ids, plen: int, kv_cache):
+    def _stage_prefix_fn(self, req, ids, plen: int, kv_cache, slot):
         """The kv-copy-thread job for a prefix seed."""
         ids_t = tuple(ids)
 
@@ -1326,7 +1351,7 @@ class LLMEngine:
             t0 = time.perf_counter()
             try:
                 return self._gather_and_upload(
-                    req, list(ids_t), plen, kv_cache
+                    req, list(ids_t), plen, kv_cache, slot
                 )
             finally:
                 self._note_overlap(time.perf_counter() - t0)
@@ -1361,12 +1386,17 @@ class LLMEngine:
         event.synchronize()
         return k, v, event
 
-    def _adopt_prefix(self, job: _ChunkJob, got) -> None:
+    def _adopt_prefix(self, job: _ChunkJob, got, slot: int) -> None:
         """Seed ``job`` with an uploaded prefix: the scheduler's stream
         waits on the upload's event, and the tensors (allocated on the
         upload stream) are recorded on it, so the allocator frees them
-        only after the scheduler's stream is done with them."""
-        k, v, plen, event = got
+        only after the scheduler's stream is done with them. A replica's
+        followers adopt their own upload of the same blocks for ``slot``
+        (``runner.kv_adopt``)."""
+        k, v, plen, event, gid = got
+        # a replica's hit check reads one gathered flag a rank: a host
+        # wait, like the upload's own (_upload_prefix)
+        self.runner.kv_adopt(gid, slot)
         if event is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(event)
@@ -1374,7 +1404,7 @@ class LLMEngine:
             v.record_stream(stream)
         job.k, job.v, job.done = k, v, plen
 
-    def _resolve_staged_prefix(self, job: _ChunkJob) -> None:
+    def _resolve_staged_prefix(self, job: _ChunkJob, slot: int) -> None:
         """Rendezvous with a staged gather+upload — the designated wait
         point (blocks when the job is reached before the upload landed).
         An evicted run (None) cold-starts the job; a failed stage raises
@@ -1382,7 +1412,7 @@ class LLMEngine:
         fut, job.pending_kv = job.pending_kv, None
         got = fut.result()
         if got is not None:
-            self._adopt_prefix(job, got)
+            self._adopt_prefix(job, got, slot)
 
     def _advance_chunk(self) -> bool:
         """Run ONE chunk of the oldest runnable in-progress job. A job
@@ -1405,7 +1435,7 @@ class LLMEngine:
             # abandon the remaining chunks; the slot never activated. An
             # upload still in flight is read later, like a store.
             if job.done and not job.one_shot:
-                self.runner.chunk_abort()
+                self.runner.chunk_abort(slot)
             del self._chunk_jobs[slot]
             self._free.append(slot)
             if job.pending_kv is not None:
@@ -1413,7 +1443,7 @@ class LLMEngine:
             self._finish_aborted(job.req)
             return True
         if job.pending_kv is not None:
-            self._resolve_staged_prefix(job)
+            self._resolve_staged_prefix(job, slot)
         if job.one_shot:
             self._advance_one_shot(slot, job)
             return True
@@ -1436,9 +1466,9 @@ class LLMEngine:
             )
         job.done += len(chunk)
         if job.done >= len(job.ids):
-            r.chunk_commit()
+            r.chunk_commit(slot)
             del self._chunk_jobs[slot]
-            self._submit_kv_copy(job.ids, job.k, job.v, len(job.ids))
+            self._submit_kv_copy(job.ids, job.k, job.v, len(job.ids), slot)
             self._finalize_start(slot, job.req, job.last, job.k, job.v)
         return True
 
@@ -1468,20 +1498,61 @@ class LLMEngine:
             padded = list(ids) + [0] * (bucket - len(ids))
             last_logits, k, v = r.prefill(padded, len(ids), slot=slot)
         del self._chunk_jobs[slot]
-        self._submit_kv_copy(ids, k, v, len(ids))
+        self._submit_kv_copy(ids, k, v, len(ids), slot)
         self._finalize_start(slot, req, last_logits, k, v)
 
     # ---- device→host KV stores ------------------------------------------
 
-    def _submit_kv_copy(self, seq, k_dev, v_dev, total: int) -> None:
+    def _submit_kv_copy(
+        self, seq, k_dev, v_dev, total: int, slot: Optional[int] = None,
+        src: str = "reg", width: int = 0,
+    ) -> None:
         """Queue an async device→host copy + block insert of ``seq``'s KV
         (``k_dev``/``v_dev`` may be wider than ``total``: bucket or
         continuation padding). On the card the copy is enqueued here, on
         the copy stream behind the work that produced the K/V, into pinned
-        buffers; the kv-copy thread waits on its event and inserts."""
+        buffers; the kv-copy thread waits on its event and inserts. A
+        replica's leader names the store to its followers here (``src``:
+        the K/V of the prefill just run, or ``"slot"``'s rows
+        ``[:width]``; under ``dp`` ``k_dev`` is None where another group
+        holds them, and ``runner.kv_store`` brings them), and the insert's
+        changes once made (``runner.tier_op``)."""
         kv_cache = self.host_kv_cache
         if kv_cache is None:
             return
+        sid = next(self._kv_ids)
+        k_dev, v_dev = self.runner.kv_store(
+            k_dev, v_dev, slot, total,
+            store={"id": sid, "ids": seq, "src": src, "width": width},
+        )
+        hosts, done = self._d2h(k_dev, v_dev, total)
+
+        def copy_to_host(seq=tuple(seq), k_host=hosts[0], v_host=hosts[1]):
+            t0 = time.perf_counter()
+            try:
+                if done is not None:
+                    done.synchronize()
+                k_np, v_np = to_numpy(k_host), to_numpy(v_host)
+                self.runner.tier_op(
+                    kv_cache,
+                    lambda: kv_cache.insert_sequence(seq, k_np, v_np),
+                    lambda _: {"op": "kv_commit", "id": sid},
+                )
+            finally:
+                self._note_overlap(time.perf_counter() - t0)
+
+        try:
+            fut = self._kv_copy_pool.submit(copy_to_host)
+        except RuntimeError:
+            # pool shut down (engine stopping): skip the store; the cache
+            # is an optimization, never required for correctness
+            return
+        self._kv_copies.append(fut)
+
+    def _d2h(self, k_dev, v_dev, total: int):
+        """Rows ``[:total]`` of ``k_dev``/``v_dev`` to the host: on the
+        card into pinned buffers on the copy stream, behind the work that
+        produced them, with the event to wait on; ``(hosts, event)``."""
         if self.device.type == "cuda":
             stream = self._copy_stream
             stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -1500,25 +1571,7 @@ class LLMEngine:
         else:
             hosts = [k_dev[:, :total].clone(), v_dev[:, :total].clone()]
             done = None
-
-        def copy_to_host(seq=tuple(seq), k_host=hosts[0], v_host=hosts[1]):
-            t0 = time.perf_counter()
-            try:
-                if done is not None:
-                    done.synchronize()
-                kv_cache.insert_sequence(
-                    seq, to_numpy(k_host), to_numpy(v_host)
-                )
-            finally:
-                self._note_overlap(time.perf_counter() - t0)
-
-        try:
-            fut = self._kv_copy_pool.submit(copy_to_host)
-        except RuntimeError:
-            # pool shut down (engine stopping): skip the store; the cache
-            # is an optimization, never required for correctness
-            return
-        self._kv_copies.append(fut)
+        return hosts, done
 
     def _check_kv_copies(self) -> None:
         """Read the result of every finished kv-copy future: a failed copy
@@ -1577,10 +1630,9 @@ class LLMEngine:
             # no full block beyond what the prefill-time store indexed
             return
         total = len(seq)
-        k_dev, v_dev = self.runner.slot_kv(
-            self._state, slot, self.runner.bucket_for(total)
-        )
-        self._submit_kv_copy(seq, k_dev, v_dev, total)
+        width = self.runner.bucket_for(total)
+        k_dev, v_dev = self.runner.slot_kv(self._state, slot, width)
+        self._submit_kv_copy(seq, k_dev, v_dev, total, slot, "slot", width)
 
     def _step_key(self) -> int:
         return int(torch.randint(0, 2**62, (1,), generator=self._gen))
@@ -1705,8 +1757,10 @@ class LLMEngine:
                 self._build_proposals() if self.speculative == "ngram"
                 else self._draft_propose()
             )
+            # a draft's proposals are rank 0's, on its card: a replica's
+            # other ranks take them inside the step
             self._state, tokens, produced = self.runner.verify_step(
-                self._state, proposals
+                self._state, proposals, shared=self.draft_runner is not None
             )
             self._spec_steps += 1
             self._spec_proposed += len(owners) * (self.spec_tokens - 1)

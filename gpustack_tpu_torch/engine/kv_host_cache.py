@@ -21,6 +21,16 @@ per-block scale (amax per layer × head within the block) computed on
 float32 widened exactly from the stored values, and dequantizes back to
 the stored dtype with round-to-nearest-even — bit for bit what the JAX
 cache stores and returns for the same K/V.
+
+On a multi-GPU replica each rank keeps a cache of its own (its KV heads
+of every block) and rank 0's is the authority: ``lead()`` makes a cache
+journal every change it makes (a block attached, evicted, spilled, a
+spill file dropped) so the leader can name them to its followers, and
+``follow()`` makes a cache that never evicts or spills on its own: it
+applies a leader's journal (``replay``) and gathers by the leader's word
+(``follower_gather``). The scales being per layer × head, a rank's int8
+block is bit for bit the slice at its heads of the block one process
+would store.
 """
 
 from __future__ import annotations
@@ -97,6 +107,10 @@ GUARDED_BY = {
     "faultbacks": "_lock",
     "blocks_inserted": "_lock",
     "blocks_evicted": "_lock",
+    # a leader's journal: appended under the caller's own serialization
+    # (every mutating call of a leader's cache runs under the replica's
+    # tier lock, ``BroadcastingRunner.tier_op``), taken there
+    "journal": "BroadcastingRunner._tier_mu",
 }
 
 # sync-in-dispatch: the scheduler calls the match path every admit — trie
@@ -141,6 +155,166 @@ class HostKVCache:
         self.blocks_inserted = 0
         self.blocks_evicted = 0
         self.faultbacks = 0      # disk blocks pulled back into RAM runs
+        # multi-GPU roles (None/False on one process): a leader's journal
+        # of changes, or a follower's "apply the leader's word only"
+        self.journal: Optional[List[Tuple[str, Any]]] = None
+        self.follower = False
+
+    # ---- multi-GPU roles ------------------------------------------------
+
+    def lead(self) -> None:
+        """Journal every change from here on (rank 0 of a replica): a
+        block attached (its index in the call's tokens), evicted, spilled;
+        a spill file dropped. :meth:`take_journal` hands them over."""
+        self.journal = []
+        if self.spill is not None:
+            self.spill.journal = self.journal
+
+    def follow(self) -> None:
+        """Never evict or spill on this cache's own account (a follower
+        rank): it changes only as a leader's journal says."""
+        self.follower = True
+        if self.spill is not None:
+            self.spill.follower = True
+
+    def take_journal(self) -> List[Tuple[str, Any]]:
+        """The changes since the last call, oldest first."""
+        if self.journal is None:
+            return []
+        out = list(self.journal)
+        self.journal.clear()
+        return out
+
+    def _note(self, kind: str, what) -> None:
+        if self.journal is not None:
+            self.journal.append((kind, what))
+
+    def chain_keys(self, tokens) -> List[bytes]:
+        """The chain key of each full block of ``tokens``."""
+        bt = self.block_tokens
+        keys, key = [], b""
+        for b in range(len(tokens) // bt):
+            key = self._child_key(key, tuple(tokens[b * bt:(b + 1) * bt]))
+            keys.append(key)
+        return keys
+
+    def replay(self, events, token_ids, k=None, v=None) -> List[str]:
+        """Apply a leader's journal (a follower's cache): ``("attach",
+        b)`` attaches block ``b`` of ``token_ids`` from ``k``/``v`` (this
+        rank's K/V of the sequence, ``[L, T, H, hd]``: a store) or, with
+        no ``k``, from this rank's spill tier (a restore); consecutive
+        attaches are one attach call, as the leader made them.
+        ``("evict", key)`` detaches a block, ``("spill", key)`` writes an
+        evicted one to the spill tier, ``("unspill", key)`` drops a spill
+        file. Returns the chain keys (hex) this rank could not apply: a
+        block it lacks (the leader's next hit on it ends the replica,
+        naming the key and the rank)."""
+        tokens = tuple(int(t) for t in token_ids)
+        lost: List[str] = []
+        evicted: Dict[str, _Block] = {}
+        i = 0
+        while i < len(events):
+            kind, what = events[i]
+            if kind == "attach":
+                run = []
+                while i < len(events) and events[i][0] == "attach":
+                    run.append(int(events[i][1]))
+                    i += 1
+                lost += self._replay_attach(tokens, run, k, v)
+                continue
+            i += 1
+            if kind == "evict":
+                blk = self._detach(bytes.fromhex(what))
+                if blk is None:
+                    lost.append(what)
+                else:
+                    evicted[what] = blk
+            elif kind == "spill":
+                blk = evicted.get(what)
+                if blk is None or self.spill is None:
+                    lost.append(what)
+                    continue
+                from gpustack_tpu_torch.engine.kv_spill import (
+                    encode_spill_frame,
+                )
+
+                if not self.spill.store(what, encode_spill_frame(blk)[1]):
+                    lost.append(what)
+            elif kind == "unspill":
+                if self.spill is not None:
+                    self.spill.remove(what)
+            else:
+                raise ValueError(f"unknown journal event {kind!r}")
+        return lost
+
+    def _replay_attach(self, tokens, run: List[int], k, v) -> List[str]:
+        bt = self.block_tokens
+        keys = self.chain_keys(tokens[: (max(run) + 1) * bt])
+        prepared: Dict[int, Tuple] = {}
+        lost: List[str] = []
+        for b in run:
+            if k is not None:
+                prepared[b] = self._prepare(k, v, b)
+                continue
+            from gpustack_tpu_torch.engine.kv_transfer import _to_cache_tier
+
+            key_hex = keys[b].hex()
+            frame = self.spill.load(key_hex) if self.spill else None
+            if frame is None or tuple(frame.tokens) != tokens[
+                b * bt:(b + 1) * bt
+            ]:
+                lost.append(key_hex)
+                break
+            prepared[b] = _to_cache_tier(self, frame)
+        if prepared:
+            with self._lock:
+                self._attach_prepared_locked(
+                    tokens[: (max(prepared) + 1) * bt], max(prepared) + 1,
+                    prepared,
+                )
+            if k is None:
+                with self._lock:
+                    self.faultbacks += len(prepared)
+        return lost
+
+    def _detach(self, key: bytes) -> Optional[_Block]:
+        """Remove one leaf block (a leader's eviction)."""
+        with self._lock:
+            blk = self._blocks.get(key)
+            if blk is None or blk.refs:
+                return None
+            del blk.parent.children[key]
+            blk.parent.refs -= 1
+            del self._blocks[key]
+            self._bytes -= blk.nbytes
+            self.blocks_evicted += 1
+        return blk
+
+    def follower_gather(self, prompt_ids, length: int):
+        """A follower's side of a leader's hit: exactly ``length`` tokens
+        of ``prompt_ids``' blocks as this rank holds them, ``(k, v)``, or
+        the chain key (hex) of the first block it lacks. It never faults
+        back on its own: the leader's journal has restored what the
+        leader restored."""
+        bt = self.block_tokens
+        tokens = tuple(int(t) for t in prompt_ids[:length])
+        keys = self.chain_keys(tokens)
+        run = self._walk(tokens, length // bt, touch=True)
+        if len(run) * bt < length:
+            return keys[len(run)].hex()
+        k = np.concatenate([self._block_k(b) for b in run], axis=1)
+        v = np.concatenate([self._block_v(b) for b in run], axis=1)
+        return k, v
+
+    def block(self, key: bytes) -> Optional[_Block]:
+        """The RAM-resident block under ``key`` (checks only)."""
+        with self._lock:
+            return self._blocks.get(key)
+
+    def keys(self) -> List[str]:
+        """Every RAM-resident chain key (hex), sorted (checks only)."""
+        with self._lock:
+            return sorted(k.hex() for k in self._blocks)
 
     def _child_key(self, parent_key: bytes, tokens) -> bytes:
         h = hashlib.sha256()
@@ -470,27 +644,29 @@ class HostKVCache:
                 start += 1
         if start == n_blocks:
             return 0
-        prepared: Dict[int, Tuple[Any, Any, Any, Any, int]] = {}
-        for b in range(start, n_blocks):
-            bk = k[:, b * bt : (b + 1) * bt]
-            bv = v[:, b * bt : (b + 1) * bt]
-            if self.int8:
-                qk, sk = _quantize_block(bk)
-                qv, sv = _quantize_block(bv)
-                nbytes = qk.nbytes + qv.nbytes + sk.nbytes + sv.nbytes
-                prepared[b] = (qk, qv, (sk, sv), k.dtype, nbytes)
-            else:
-                bk = np.ascontiguousarray(bk)
-                bv = np.ascontiguousarray(bv)
-                prepared[b] = (
-                    bk, bv, None, k.dtype, bk.nbytes + bv.nbytes
-                )
+        prepared = {b: self._prepare(k, v, b) for b in range(start, n_blocks)}
         with self._lock:
             inserted, victims = self._attach_prepared_locked(
                 tokens, n_blocks, prepared
             )
         self._spill_victims(victims)
         return inserted
+
+    def _prepare(self, k, v, b: int) -> Tuple[Any, Any, Any, Any, int]:
+        """Block ``b`` of ``k``/``v`` in this cache's tier: ``(k, v,
+        scales|None, dtype, nbytes)``."""
+        bt = self.block_tokens
+        k, v = np.asarray(k), np.asarray(v)
+        bk = k[:, b * bt : (b + 1) * bt]
+        bv = v[:, b * bt : (b + 1) * bt]
+        if self.int8:
+            qk, sk = _quantize_block(bk)
+            qv, sv = _quantize_block(bv)
+            nbytes = qk.nbytes + qv.nbytes + sk.nbytes + sv.nbytes
+            return qk, qv, (sk, sv), k.dtype, nbytes
+        bk = np.ascontiguousarray(bk)
+        bv = np.ascontiguousarray(bv)
+        return bk, bv, None, k.dtype, bk.nbytes + bv.nbytes
 
     def _attach_prepared_locked(
         self, tokens: Tuple[int, ...], n_blocks: int,
@@ -514,7 +690,7 @@ class HostKVCache:
             if b not in prepared:
                 break
             bk, bv, scales, dtype, nbytes = prepared[b]
-            if nbytes > self.max_bytes:
+            if nbytes > self.max_bytes and not self.follower:
                 break   # one block over the whole budget: stop here
             child = _Block(key, block, node)
             child.k, child.v = bk, bv
@@ -530,6 +706,7 @@ class HostKVCache:
             self._bytes += nbytes
             self.blocks_inserted += 1
             inserted += 1
+            self._note("attach", b)
             node = child
         return inserted, self._evict_locked()
 
@@ -546,9 +723,11 @@ class HostKVCache:
         """Detach worst-scoring leaf blocks until back under budget and
         return them — the caller spills them (file I/O happens OUTSIDE
         the trie lock). Leaf-only: ``refs > 0`` means children extend this
-        block."""
+        block. A follower's cache never evicts on its own: its leader's
+        journal names the victims (:meth:`replay`)."""
         victims: List[_Block] = []
-        while self._bytes > self.max_bytes and self._blocks:
+        while (self._bytes > self.max_bytes and self._blocks
+               and not self.follower):
             victim = None
             score = -1.0
             for blk in self._blocks.values():
@@ -565,6 +744,7 @@ class HostKVCache:
             del self._blocks[victim.key]
             self._bytes -= victim.nbytes
             self.blocks_evicted += 1
+            self._note("evict", victim.key.hex())
             victims.append(victim)
         return victims
 

@@ -13,6 +13,12 @@ corruption — truncated file, bad magic, crc mismatch, unparseable meta —
 degrades to a miss (the file is deleted and a counter bumps), never a
 crash and never wrong bytes.
 
+On a multi-GPU replica every rank spills to a directory of its own (the
+default is per process; an explicit one gets a ``rank<r>`` subdirectory),
+and only on the leader's word: a leader's tier journals each file it
+drops (``journal``), and a follower's tier never evicts a file on its own
+(``follower``).
+
 Thread contract: all disk I/O (``store``/``load``) runs on the engine's
 kv-copy executor; the in-memory index has its own lock so residency
 probes (``has``/``size``) from the scheduler thread never touch files.
@@ -51,6 +57,7 @@ GUARDED_BY = {
     "bytes_loaded": "_mu",
     "corrupt": "_mu",
     "evictions": "_mu",
+    "journal": "_mu",
 }
 
 # sync-in-dispatch: residency probes never touch the filesystem
@@ -77,6 +84,11 @@ class DiskKVSpill:
         self.bytes_loaded = 0
         self.corrupt = 0                # loads that degraded to a miss
         self.evictions = 0              # disk-budget evictions
+        # multi-GPU roles (HostKVCache.lead/follow): the leader's journal,
+        # which gets ("unspill", key) for every file dropped; a follower
+        # drops files only when told
+        self.journal = None
+        self.follower = False
         self._scan()
 
     # ---- residency ------------------------------------------------------
@@ -95,6 +107,11 @@ class DiskKVSpill:
     def entries(self) -> int:
         with self._mu:
             return len(self._index)
+
+    def keys(self) -> List[str]:
+        """Every spilled chain key (hex), sorted."""
+        with self._mu:
+            return sorted(self._index)
 
     @property
     def bytes_used(self) -> int:
@@ -132,6 +149,8 @@ class DiskKVSpill:
             self._index[key_hex] = (size, self._tick)
             self._bytes += size
             self.blocks_spilled += 1
+            if self.journal is not None:
+                self.journal.append(("spill", key_hex))
             self.bytes_spilled += size
             doomed = self._collect_over_budget_locked()
         for victim in doomed:
@@ -219,13 +238,15 @@ class DiskKVSpill:
         """Oldest-spilled-first victims to fall back under budget; the
         unlinks happen after the lock is released."""
         doomed: List[str] = []
-        if self.max_bytes <= 0:
+        if self.max_bytes <= 0 or self.follower:
             return doomed
         while self._bytes > self.max_bytes and self._index:
             key = min(self._index.items(), key=lambda kv: kv[1][1])[0]
             size, _ = self._index.pop(key)
             self._bytes -= size
             self.evictions += 1
+            if self.journal is not None:
+                self.journal.append(("unspill", key))
             doomed.append(key)
         return doomed
 
@@ -233,6 +254,8 @@ class DiskKVSpill:
         entry = self._index.pop(key_hex, None)
         if entry is not None:
             self._bytes -= entry[0]
+            if self.journal is not None:
+                self.journal.append(("unspill", key_hex))
 
     def note_corrupt(self) -> None:
         """Count a corruption a caller detected (the host cache's token

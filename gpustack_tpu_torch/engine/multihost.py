@@ -27,10 +27,26 @@ Determinism contract:
   group does not own it skips the forward (its registers hold None) and
   the first-token sample; ``insert`` writes K/V on the owning group only
   and sets the slot's vectors everywhere;
-- features whose host state would part across ranks are refused at build
-  (``api_server.build_engine_from_args``: the host KV tier, speculation,
-  the vision path, ``--kv-role``) and here, defensively (embeddings and
-  rerank answer 400 naming the plan).
+- the host KV tier: each rank keeps its own (its heads of every block)
+  and rank 0's is the authority. The leader alone matches prompts and
+  decides evictions, spills and restores; it names every store (at the
+  moment it copies the K/V out: the followers copy their register's or a
+  slot's rows at the same point of the op stream), every change its tier
+  made (a journal: blocks attached, evicted, spilled, spill files
+  dropped) and every hit (the gather, then its adoption into a slot's
+  prefill). A follower runs its tier's side on its own kv-copy thread in
+  the order the leader named it (:class:`FollowerTier`), and an adopted
+  hit is checked on every rank at once (one world all-gather): a rank
+  that lacks a named block ends the replica with an error naming the key
+  and the rank, never a cold prefill on one rank;
+- speculation: n-gram proposals ride the verify op as host ints; a
+  draft's stay on rank 0's card and reach the others in one broadcast on
+  the device; every rank ends the step with rank 0's accepted tokens
+  (``ModelRunner.verify_step``);
+- features whose host state would still part across ranks are refused at
+  build (``api_server.build_engine_from_args``: the host KV tier and
+  speculation under ``sp``, the vision path, ``--kv-role``) and here,
+  defensively (embeddings and rerank answer 400 naming the plan).
 
 A follower that dies closes its socket: the leader's watcher sees it, and
 the next scheduler step raises, which makes the engine fatal and
@@ -45,15 +61,36 @@ import os
 import socket
 import threading
 import time
+import types
 from typing import Any, Dict, List, Optional
 
 import torch
 
 from gpustack_tpu_torch.engine import diagnostics
+from gpustack_tpu_torch.engine.host_bf16 import to_numpy
 
 logger = logging.getLogger(__name__)
 
 _CONNECT_TIMEOUT_S = 600.0   # followers may still be loading weights
+
+# guarded-by contract: the leader's tier lock serialises each change of
+# its tier with the op that names it (the scheduler and the kv-copy
+# thread both change it); a follower's staged stores belong to its
+# kv-copy thread, its gathered hits and pending futures to its loop
+_FOLLOWER_KV_THREAD = ("_stage", "_commit")
+_FOLLOWER_LOOP = ("store", "commit", "gather", "adopt", "check", "drain",
+                  "_submit")
+GUARDED_BY = {
+    "BroadcastingRunner._gathers": "_tier_mu",
+    "FollowerTier._staged": _FOLLOWER_KV_THREAD,
+    "FollowerTier._gathered": _FOLLOWER_LOOP,
+    "FollowerTier._futures": _FOLLOWER_LOOP,
+}
+
+# thread-boundary contract: a follower's tier state is touched only by the
+# thread that owns it (its loop, or its kv-copy thread)
+THREAD_OWNED = ("FollowerTier._staged", "FollowerTier._gathered",
+                "FollowerTier._futures")
 
 
 def channel_token() -> str:
@@ -131,15 +168,20 @@ class CommandLeader:
         ).start()
 
     def _watch(self, conn: socket.socket, addr) -> None:
-        """A follower sends nothing after its handshake: end of stream or
-        an error on its socket means it is gone."""
+        """A follower sends nothing after its handshake but, when an op
+        fails on it, one ``ERROR <why>`` line: end of stream or an error on
+        its socket means it is gone."""
+        said = b""
         try:
-            while conn.recv(256):
-                pass
+            while chunk := conn.recv(256):
+                said = (said + chunk)[-4096:]
         except OSError:
             pass
         if not self._closing:
-            self.error = f"follower at {addr[0]}:{addr[1]} disconnected"
+            why = said.decode(errors="replace").strip()
+            self.error = f"follower at {addr[0]}:{addr[1]} disconnected" + (
+                f" ({why[len('ERROR '):]})" if why.startswith("ERROR ")
+                else "")
             logger.error("%s", self.error)
 
     def _accept_loop(self) -> None:
@@ -217,6 +259,10 @@ class BroadcastingRunner:
     def __init__(self, runner, leader: CommandLeader):
         self._runner = runner
         self._leader = leader
+        # each change of the leader's tier and the op naming it, as one
+        self._tier_mu = threading.Lock()
+        self._gathers: Dict[int, list] = {}    # gather id -> its tokens
+        self._tier_cache = None
 
     def __getattr__(self, name):
         # everything not wrapped delegates (bucket_for, layout, plan, ...)
@@ -301,14 +347,79 @@ class BroadcastingRunner:
             k, v, start, token_ids, true_len, total_bucket, slot
         )
 
-    def chunk_commit(self) -> None:
-        """A completed chunk job: followers promote the chunk register to
-        the insert register."""
-        self._leader.broadcast({"op": "chunk_commit"})
+    def chunk_commit(self, slot=None) -> None:
+        """A completed chunk job: followers promote the slot's chunk
+        register to the insert register."""
+        self._leader.broadcast({"op": "chunk_commit", "slot": _slot(slot)})
 
-    def chunk_abort(self) -> None:
-        """An abandoned chunk job: followers drop the chunk register."""
-        self._leader.broadcast({"op": "chunk_abort"})
+    def chunk_abort(self, slot=None) -> None:
+        """An abandoned chunk job: followers drop the slot's chunk
+        register."""
+        self._leader.broadcast({"op": "chunk_abort", "slot": _slot(slot)})
+
+    # -- the host KV tier -------------------------------------------------
+
+    def kv_store(self, k, v, slot, total: int, store=None):
+        """A store of the leader's tier: followers copy the same rows
+        (``store["src"]``: their insert register, or ``"slot"``'s rows
+        ``[:width]``) at this point of the op stream."""
+        self._leader.broadcast({
+            "op": "kv_store", "slot": _slot(slot), "total": int(total),
+            "id": int(store["id"]), "ids": [int(t) for t in store["ids"]],
+            "src": store["src"], "width": int(store.get("width", 0)),
+        })
+        return self._runner.kv_store(k, v, slot, total)
+
+    def tier_op(self, cache, fn, make_op):
+        """Change the leader's tier (``fn()``) and name the change to the
+        followers: ``make_op(result)`` with the tier's journal of what
+        changed, under one lock, so the ops leave in the order the
+        changes were made."""
+        with self._tier_mu:
+            out = fn()
+            op = make_op(out)
+            op["events"] = cache.take_journal()
+            self._tier_cache = cache
+            if op["op"] == "kv_gather" and op["ok"]:
+                self._gathers[op["id"]] = op["ids"]
+            self._leader.broadcast(op)
+        return out
+
+    def kv_adopt(self, gather_id: int, slot) -> None:
+        """The gathered hit ``gather_id`` seeds ``slot``'s prefill: every
+        follower takes its own upload of the same blocks, and every rank
+        checks that it held them (:func:`check_hit`)."""
+        self._leader.broadcast({"op": "kv_adopt", "id": int(gather_id),
+                                "slot": _slot(slot)})
+        with self._tier_mu:
+            tokens = self._gathers.pop(gather_id)
+        check_hit(self._runner, self._tier_cache, tokens, -1)
+
+    def prefill_with_prefix(
+        self, k, v, start: int, token_ids, true_len: int,
+        total_bucket: int, slot=None,
+    ):
+        """A one-shot prefill seeded from an adopted hit: followers
+        continue from their own upload of the hit's blocks."""
+        self._leader.broadcast({
+            "op": "prefix_prefill", "start": int(start),
+            "ids": [int(t) for t in token_ids],
+            "true_len": int(true_len),
+            "total_bucket": int(total_bucket), "slot": _slot(slot),
+        })
+        return self._runner.prefill_with_prefix(
+            k, v, start, token_ids, true_len, total_bucket, slot
+        )
+
+    def verify_step(self, state, proposals, shared: bool = False):
+        """A speculative verify step: n-gram proposals ride the op as host
+        ints; ``shared`` ones (a draft's, on rank 0's card) reach the
+        followers in the step's own broadcast on the device."""
+        self._leader.broadcast({
+            "op": "verify", "P": int(proposals.shape[1]),
+            "proposals": None if shared else proposals.tolist(),
+        })
+        return self._runner.verify_step(state, proposals, shared)
 
     def deactivate(self, state, slot: int):
         self._leader.broadcast({"op": "deactivate", "slot": int(slot)})
@@ -334,14 +445,8 @@ class BroadcastingRunner:
             f"(plan {self._runner.plan})"
         )
 
-    def prefill_with_prefix(self, *a, **kw):
-        self._unsupported("prefix-cache prefill")
-
     def prefill_with_embeds(self, *a, **kw):
         self._unsupported("vision-token prefill")
-
-    def verify_step(self, *a, **kw):
-        self._unsupported("speculative decoding")
 
     def ingest_step(self, *a, **kw):
         self._unsupported("draft ingestion")
@@ -350,13 +455,137 @@ class BroadcastingRunner:
         self._unsupported("embeddings")
 
 
+def check_hit(runner, cache, tokens, missing: int) -> None:
+    """Every rank at once, before a hit seeds a prefill: ``missing`` is the
+    index of the first block of ``tokens`` this rank lacks (-1: none). One
+    world all-gather; if any rank lacks one, every rank raises the same
+    error, naming the first such rank and the block's chain key, so no
+    rank runs the prefill cold while the others run it warm."""
+    flags = runner.mesh.all_gather_world(
+        torch.tensor([missing], dtype=torch.int64, device=runner.device))
+    for rank, flag in enumerate(int(f) for f in torch.cat(flags).tolist()):
+        if flag >= 0:
+            key = cache.chain_keys(tokens)[flag].hex()
+            raise RuntimeError(
+                f"rank {rank} lacks KV block {key} (block {flag} of a "
+                f"{len(tokens)}-token prefix hit the leader named); the "
+                "replica's host tiers parted"
+            )
+
+
+class FollowerTier:
+    """A follower's side of the host KV tier: its own ``HostKVCache`` in
+    follower mode (``follow()``), changed only as the leader's ops say, on
+    the engine's kv-copy thread (one worker: the ops run in the order they
+    came). A store's K/V go to the host as the engine's own stores do
+    (``LLMEngine._d2h``) and wait there for the leader's journal of the
+    store; a hit's blocks are gathered and uploaded as the engine uploads
+    them (``LLMEngine._upload_prefix``) and taken by the ``kv_adopt`` op
+    that follows."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.cache = engine.host_kv_cache
+        self.cache.follow()
+        self._pool = engine._kv_copy_pool
+        self._staged: Dict[int, tuple] = {}      # store id -> (ids, k, v)
+        # slot -> (gather id, tokens, future of (k, v, event) | lacking key)
+        self._gathered: Dict[Any, tuple] = {}
+        self._futures: List[Any] = []
+
+    def _submit(self, fn):
+        fut = self._pool.submit(fn)
+        self._futures.append(fut)
+        return fut
+
+    def check(self) -> None:
+        """Raise the first failure of the tier's finished work (a CUDA
+        error: it ends the follower, as it ends the leader's engine)."""
+        while self._futures and self._futures[0].done():
+            self._futures.pop(0).result()
+
+    def drain(self) -> None:
+        """Wait for the tier's queued work (a check reads the tier)."""
+        self._submit(lambda: None).result()
+        self.check()
+
+    @staticmethod
+    def _lost(keys) -> None:
+        if keys:
+            logger.warning(
+                "the leader's tier named %d block(s) this rank cannot "
+                "apply (a hit on them will end the replica): %s",
+                len(keys), ", ".join(keys[:4]),
+            )
+
+    def store(self, store_id: int, ids, k, v, total: int) -> None:
+        hosts, done = self.engine._d2h(k, v, total)
+
+        def _stage():
+            if done is not None:
+                done.synchronize()
+            self._staged[store_id] = (
+                ids, to_numpy(hosts[0]), to_numpy(hosts[1]))
+
+        self._submit(_stage)
+
+    def commit(self, store_id: int, events) -> None:
+        def _commit():
+            ids, k, v = self._staged.pop(store_id)
+            self._lost(self.cache.replay(events, ids, k, v))
+
+        self._submit(_commit)
+
+    def gather(self, gather_id: int, ids, length: int, slot, ok: bool,
+               events, upload: bool) -> None:
+        def _gather_job():
+            self._lost(self.cache.replay(events, ids))
+            if not ok:
+                return None
+            got = self.cache.follower_gather(ids, length)
+            if isinstance(got, str):
+                return got          # the first block this rank lacks
+            if not upload:
+                return None         # another dp group runs the prefill
+            return self.engine._upload_prefix(got[0], got[1], length)
+
+        fut = self._submit(_gather_job)
+        if ok:
+            self._gathered[slot] = (gather_id, list(ids), fut)
+
+    def adopt(self, gather_id: int, slot, runner):
+        """This rank's upload of hit ``gather_id`` for ``slot`` (``(None,
+        None)`` on a rank whose ``dp`` group does not run it), after every
+        rank checked that it held the blocks (:func:`check_hit`)."""
+        entry = self._gathered.pop(slot, None)
+        if entry is None or entry[0] != gather_id:
+            raise RuntimeError(
+                f"kv_adopt {gather_id} for slot {slot} names no gather "
+                "this rank ran"
+            )
+        _, tokens, fut = entry
+        got = fut.result()
+        missing = -1
+        if isinstance(got, str):
+            missing = [k.hex() for k in self.cache.chain_keys(tokens)].index(
+                got)
+            got = None
+        check_hit(runner, self.cache, tokens, missing)
+        if got is None:
+            return None, None
+        job = types.SimpleNamespace()
+        self.engine._adopt_prefix(job, (*got[:2], len(tokens), got[2],
+                                        gather_id), slot)
+        return job.k, job.v
+
+
 class FollowerLoop:
     """Follower side: replay the leader's op stream on the local runner,
     in a thread of its own, until the leader closes the channel."""
 
     def __init__(
         self, runner, cmd_address: str, state,
-        token: Optional[str] = None,
+        token: Optional[str] = None, tier: Optional[FollowerTier] = None,
     ):
         self.runner = runner
         self.cmd_address = cmd_address
@@ -364,8 +593,11 @@ class FollowerLoop:
         # the engine's own DecodeState: a follower creates no state the
         # leader does not
         self.state = state
+        self.tier = tier
         self._reg: Optional[tuple] = None    # latest (last, k, v) prefill
-        self._chunk_reg: Optional[tuple] = None
+        # per slot: a chunk job's (last, k, v) so far, or a hit's
+        # adopted prefix (None, k, v) that its first continuation takes
+        self._chunk_regs: Dict[Any, tuple] = {}
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.ops_applied = 0
@@ -436,6 +668,10 @@ class FollowerLoop:
         except Exception as e:           # a failed op ends the replica
             self.error = f"follower op failed: {e}"
             logger.exception("command channel loop died")
+            try:                         # the leader's error names it too
+                sock.sendall(f"ERROR {self.error}\n".encode())
+            except OSError:
+                pass
         finally:
             sock.close()
 
@@ -449,29 +685,55 @@ class FollowerLoop:
                 {int(k): float(v) for k, v in raw.items()} if raw else None
             )
 
+        if self.tier is not None:
+            self.tier.check()
         # the slot a prefill names (its dp group's; None: every group)
         slot = op.get("slot")
         if kind == "prefill":
             self._reg = r.prefill(op["ids"], op["true_len"], slot)
         elif kind == "chunk_start":
-            self._chunk_reg = r.prefill(op["ids"], op["true_len"], slot)
-        elif kind == "chunk_continue":
-            assert self._chunk_reg is not None, (
-                "chunk_continue before chunk_start"
-            )
-            _, k, v = self._chunk_reg
-            self._chunk_reg = r.prefill_with_prefix(
+            self._chunk_regs[slot] = r.prefill(op["ids"], op["true_len"],
+                                               slot)
+        elif kind in ("chunk_continue", "prefix_prefill"):
+            assert slot in self._chunk_regs, f"{kind} before its prefix"
+            _, k, v = (self._chunk_regs[slot] if kind == "chunk_continue"
+                       else self._chunk_regs.pop(slot))
+            out = r.prefill_with_prefix(
                 k, v, op["start"], op["ids"], op["true_len"],
                 op["total_bucket"], slot,
             )
+            if kind == "chunk_continue":
+                self._chunk_regs[slot] = out
+            else:
+                self._reg = out
         elif kind == "chunk_commit":
-            assert self._chunk_reg is not None, (
-                "chunk_commit before chunk_start"
-            )
-            self._reg = self._chunk_reg
-            self._chunk_reg = None
+            assert slot in self._chunk_regs, "chunk_commit before chunk_start"
+            self._reg = self._chunk_regs.pop(slot)
         elif kind == "chunk_abort":
-            self._chunk_reg = None
+            self._chunk_regs.pop(slot, None)
+        elif kind == "kv_store":
+            if op["src"] == "slot":
+                k, v = r.slot_kv(self.state, slot, op["width"])
+            else:
+                _, k, v = self._reg
+            k, v = r.kv_store(k, v, slot, op["total"])
+            self.tier.store(op["id"], op["ids"], k, v, op["total"])
+        elif kind == "kv_commit":
+            self.tier.commit(op["id"], op["events"])
+        elif kind == "kv_gather":
+            self.tier.gather(op["id"], op["ids"], op["len"], slot, op["ok"],
+                             op["events"], upload=r._runs(slot))
+        elif kind == "kv_adopt":
+            k, v = self.tier.adopt(op["id"], slot, r)
+            self._chunk_regs[slot] = (None, k, v)
+        elif kind == "verify":
+            if op["proposals"] is None:      # rank 0's, on the device
+                buf = torch.empty((r.max_slots, op["P"]), dtype=torch.int64,
+                                  device=r.device)
+                self.state, _, _ = r.verify_step(self.state, buf, True)
+            else:
+                self.state, _, _ = r.verify_step(self.state,
+                                                 op["proposals"])
         elif kind == "sample_first":
             assert self._reg is not None, "sample_first before prefill"
             if self._reg[0] is not None:   # None: another dp group's
@@ -493,6 +755,8 @@ class FollowerLoop:
         elif kind == "deactivate":
             self.state = r.deactivate(self.state, op["slot"])
         elif kind == "probe":
+            if self.tier is not None:
+                self.tier.drain()
             diagnostics.probe(r, self.state, op["what"], op.get("ids"),
                               op.get("true_len", 0), op.get("slot"))
         else:

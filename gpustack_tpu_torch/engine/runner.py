@@ -55,7 +55,16 @@ The port of ``gpustack_tpu/engine/runner.py``:
   ``insert`` writes K/V on the owning group only. A decode step forwards
   each group's rows on that group and gathers the sampled rows (tokens
   and logprobs, one world all-gather on the device) into every rank's
-  whole vectors.
+  whole vectors. A verify step runs each group's rows the same way and
+  gathers its accepted tokens; a host-tier store (``kv_store``) sends the
+  owning group's K/V rows to every other group's ranks at the same heads,
+  so each rank's host tier holds every block.
+- **the host KV tier and speculation over a mesh**: ``slot_kv`` copies
+  the rank's heads of a slot's rows; ``verify_step`` broadcasts rank 0's
+  accepted tokens (a draft's proposals first, when they are rank 0's
+  alone), as decode broadcasts its sampled ones; ``tier_op`` and
+  ``kv_adopt`` are the leader's hooks for naming the tier's changes and
+  hits to its followers (no-ops here, ``multihost.BroadcastingRunner``).
 
 PyTorch runs eagerly, so there are no per-shape compilations to cache:
 the buckets bound the set of prefill shapes the kernel sees.
@@ -119,6 +128,9 @@ class ModelRunner:
     # the diagnostics.RoutingTape a check's "routing_record" probe put on
     # this rank (checks only; the serving path never sets it)
     routing_tape = None
+    # this rank's host KV tier, which the engine attaches for the checks
+    # of diagnostics.probe ("kv_tier", "kv_block")
+    host_tier = None
 
     def __init__(
         self,
@@ -188,6 +200,11 @@ class ModelRunner:
                     f"sp={self.sp}"
                 )
         self.prefill_buckets = tuple(sorted(set(prefill_buckets)))
+        # verify steps run, and the proposals they accepted (a device
+        # count, read by diagnostics.probe only)
+        self.spec_steps = 0
+        self.spec_accepted = torch.zeros((), dtype=torch.int64,
+                                         device=self.device)
 
     # -- state ------------------------------------------------------------
 
@@ -209,6 +226,12 @@ class ModelRunner:
         a sequence-sharded cache, or a ``dp`` group's rows (the multi-GPU
         replica refuses each of them at build as well)."""
         if self.sp_mode or self.dp > 1:
+            raise ValueError(f"{what} is not supported under plan {self.plan}")
+
+    def _refuse_sp(self, what: str) -> None:
+        """Refuse an op that needs a slot's positions whole on this rank
+        (a sequence-sharded cache; refused at build as well)."""
+        if self.sp_mode:
             raise ValueError(f"{what} is not supported under plan {self.plan}")
 
     # -- data parallelism -------------------------------------------------
@@ -496,11 +519,43 @@ class ModelRunner:
             k, v, start, token_ids, true_len, total_bucket, slot
         )
 
-    def chunk_commit(self) -> None:
+    def chunk_commit(self, slot: Optional[int] = None) -> None:
         """The chunk job completed (nothing to do on one process)."""
 
-    def chunk_abort(self) -> None:
+    def chunk_abort(self, slot: Optional[int] = None) -> None:
         """The chunk job was abandoned (nothing to do on one process)."""
+
+    # -- the host KV tier over a mesh ---------------------------------------
+
+    def kv_store(self, k, v, slot: Optional[int], total: int, store=None):
+        """The K/V rows ``0 .. total - 1`` a host-tier store copies, on
+        this rank: as given, and under ``dp`` (``slot`` names the group
+        that holds them) sent from the owning group's ranks to every other
+        group's rank at the same heads, one broadcast over the ``dp``
+        group, so every rank's tier keeps every block and a hit serves a
+        slot of any group. ``k``/``v`` are None on a rank of another
+        group. ``store`` names the store to a leader's followers
+        (``multihost.BroadcastingRunner``)."""
+        if self.dp == 1:
+            return k, v
+        if k is not None:
+            kv = torch.stack([k[:, :total], v[:, :total]])
+        else:
+            like = self._cache(1).k
+            L, _, _, H, hd = like.shape
+            kv = torch.empty((2, L, total, H, hd), dtype=like.dtype,
+                             device=self.device)
+        self.mesh.broadcast_dp_(kv, slot // self.rows)
+        return kv[0], kv[1]
+
+    def tier_op(self, cache, fn, make_op):
+        """Run a change of the host tier (``fn()``); a leader names it to
+        its followers (``multihost.BroadcastingRunner``)."""
+        return fn()
+
+    def kv_adopt(self, gather_id: int, slot: Optional[int]) -> None:
+        """A hit's gathered prefix is about to seed ``slot``'s prefill
+        (nothing to do on one process)."""
 
     # -- embeddings -------------------------------------------------------
 
@@ -593,11 +648,16 @@ class ModelRunner:
         return state
 
     def slot_kv(self, state: DecodeState, slot: int, width: int):
-        """Copies of a slot's KV rows ``[:width]``."""
-        self._refuse_sharded("copying a slot's KV out")
+        """Copies of a slot's KV rows ``[:width]`` (this rank's heads);
+        under ``dp`` ``(None, None)`` on a rank whose group does not hold
+        the slot."""
+        self._refuse_sp("copying a slot's KV out")
+        if not self._runs(slot):
+            return None, None
+        row = slot - self.row0
         return (
-            state.cache.k[:, slot, :width].clone(),
-            state.cache.v[:, slot, :width].clone(),
+            state.cache.k[:, row, :width].clone(),
+            state.cache.v[:, row, :width].clone(),
         )
 
     # -- decode -----------------------------------------------------------
@@ -706,7 +766,8 @@ class ModelRunner:
 
     # -- speculative decoding (greedy verify) -----------------------------
 
-    def verify_step(self, state: DecodeState, proposals):
+    def verify_step(self, state: DecodeState, proposals,
+                    shared: bool = False):
         """Greedy speculative verification (in place).
 
         ``proposals`` ``[B, P]`` (host or device): the first P-1 entries
@@ -721,21 +782,38 @@ class ModelRunner:
         Callers keep ``position + P < max_seq_len`` for every active row
         (the engine falls back to plain decode near capacity): the block's
         KV write is contiguous. An inactive row's block is clamped inside
-        the cache, as the JAX write is."""
-        self._refuse_sharded("speculative decoding")
+        the cache, as the JAX write is.
+
+        Over a mesh: ``shared`` proposals are rank 0's alone (a draft's,
+        on rank 0's card): every rank takes them in one broadcast on the
+        device. The accepted tokens and counts are rank 0's, broadcast on
+        the device (under ``dp`` each group's rows, from its first rank,
+        gathered), so no rank's acceptance parts from the leader's at a
+        near-tie. Under ``dp`` the forward runs the group's rows."""
+        self._refuse_sp("speculative decoding")
         proposals = self._ids_on_device(proposals)
+        if shared and self.mesh is not None:
+            self.mesh.broadcast_(proposals)
         P = proposals.shape[1]
+        rows = slice(self.row0, self.row0 + self.rows)
+        mine = proposals[rows]
         fed = torch.cat(
-            [state.last_tokens[:, None], proposals[:, : P - 1]], 1
+            [state.last_tokens[rows, None], mine[:, : P - 1]], 1
         )
         logits, _ = forward(
-            self.params, self.cfg, fed, self._block_positions(state, P),
-            state.cache, clamp_writes=True, mesh=self.mesh,
+            self.params, self.cfg, fed,
+            self._block_positions(state, P)[rows], state.cache,
+            clamp_writes=True, mesh=self.mesh,
         )
         greedy = logits.argmax(dim=-1)                          # [B, P]
-        match = (proposals[:, : P - 1] == greedy[:, : P - 1]).long()
+        match = (mine[:, : P - 1] == greedy[:, : P - 1]).long()
         n_accept = match.cumprod(dim=1).sum(dim=1)              # 0..P-1
-        produced = torch.where(state.active, n_accept + 1, 0)
+        produced = torch.where(state.active[rows], n_accept + 1, 0)
+        if self.mesh is not None:
+            whole = self.mesh.gather_dp_rows(
+                torch.cat([greedy, produced[:, None]], 1))
+            greedy, produced = whole[:, :P], whole[:, P]
+            n_accept = (produced - 1).clamp_min(0)
         new_last = greedy.gather(1, n_accept[:, None])[:, 0]
         state.last_tokens.copy_(
             torch.where(state.active, new_last, state.last_tokens)
@@ -746,6 +824,8 @@ class ModelRunner:
             state.positions,
         ))
         state.active &= ~(state.positions + 1 >= self.max_seq_len)
+        self.spec_steps += 1
+        self.spec_accepted += (produced - 1).clamp_min(0).sum()
         return state, greedy, produced
 
 

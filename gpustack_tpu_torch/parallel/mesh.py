@@ -19,8 +19,9 @@ group (an MoE layer's combine), the ``sp`` group (ranks that differ only
 in their ``sp`` index: the ring's hops, the cache merge's all-reduces,
 the prefill's last hidden row and the KV moves of ``insert``), the
 ``dp`` group (ranks that differ only in their ``dp`` index: the same
-heads and experts over other slots' cache rows) and the world (the
-sampled tokens' broadcast, or under ``dp`` their gather, and the
+heads and experts over other slots' cache rows; a host-tier store's K/V
+from the group that holds them) and the world (the sampled tokens'
+broadcast, or under ``dp`` their gather, a draft's proposals, and the
 first-token logits a ``dp`` group sends rank 0). Collectives are NCCL on
 the card and gloo on the CPU; a group of one rank makes each collective a
 no-op, so one process needs no process group at all.
@@ -213,14 +214,18 @@ class Mesh:
     def sp_rank(self) -> int:
         return self.coords[AXIS_SP]
 
-    def sp_peer(self, sp_index: int) -> int:
-        """The global rank at ``sp_index`` along ``sp`` with this rank's
-        other coordinates (point-to-point ops name global ranks)."""
-        c = dict(self.coords, **{AXIS_SP: sp_index % self.plan.sp})
+    def peer(self, axis: str, index: int) -> int:
+        """The global rank at ``index`` along ``axis`` with this rank's
+        other coordinates (point-to-point ops and a group's collectives
+        name global ranks)."""
+        c = dict(self.coords, **{axis: index % self.plan.axis_sizes()[axis]})
         rank = 0
         for ax in MESH_AXES:
             rank = rank * self.plan.axis_sizes()[ax] + c[ax]
         return rank
+
+    def sp_peer(self, sp_index: int) -> int:
+        return self.peer(AXIS_SP, sp_index)
 
     @property
     def dp(self) -> int:
@@ -335,6 +340,16 @@ class Mesh:
         parts = [torch.empty_like(x) for _ in range(self.dp)]
         dist.all_gather(parts, x, group=self.dp_group)
         return parts
+
+    def broadcast_dp_(self, x: torch.Tensor, dp_src: int) -> torch.Tensor:
+        """The ``x`` of the rank at ``dp_src`` along ``dp`` (this rank's
+        other coordinates), in place on every rank of this rank's ``dp``
+        group: a host-tier store's K/V rows, from the group whose slot
+        holds them to the same heads of every other group."""
+        if self.dp > 1:
+            dist.broadcast(x, src=self.peer(AXIS_DP, dp_src),
+                           group=self.dp_group)
+        return x
 
     def send_to_leader_(self, x: torch.Tensor, dp_index: int) -> None:
         """Rank 0 receives ``x`` (in place) from ``dp`` group

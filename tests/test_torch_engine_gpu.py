@@ -97,7 +97,7 @@ def test_continuation_from_uploaded_prefix_matches_one_prefill():
             pk, pv = eng.host_kv_cache.gather_prefix(ids, 192)
             uk, uv, event = eng._upload_prefix(pk, pv, 192)
             job = _ChunkJob(req=None, ids=ids)
-            eng._adopt_prefix(job, (uk, uv, 192, event))
+            eng._adopt_prefix(job, (uk, uv, 192, event, 0), 0)
             suffix = ids[192:] + [0] * (64 - 38)
             last, _, _ = r.prefill_with_prefix(
                 job.k, job.v, 192, suffix, 38, r.bucket_for(192 + 64)
