@@ -253,6 +253,31 @@ t. sequence parallelism on four GPUs, when the machine has them (else one
    runner's scale; and the ring alone at qwen3-8b's heads over 32768
    tokens against the one-card flash kernel and the fp32 plain version
    (the kernel gate), with ms per ring call, per hop and one card's call.
+u–w. (four GPUs; see each phase's function) ``dp > 1``, ``sp`` with
+   ``ep``, the host KV tier and speculation on a replica.
+x. disaggregated serving and embeddings on multi-GPU replicas, four GPUs
+   (``phase_kv_role``): two replicas at once, each rank 0 a process of its
+   own that sees two cards (``CUDA_VISIBLE_DEVICES``, which its followers
+   inherit), driven over a pipe. x1: llama3-70b int8 ``--kv-role
+   prefill`` on ``tp2`` and ``--kv-role decode`` on ``tp2``: a 1900-token
+   prompt to the decode server naming the prefill server in
+   ``X-GPUStack-KV-Source``: 7 blocks exported (every rank's heads
+   gathered to rank 0), pulled and imported (each rank's heads scattered),
+   the 108-token tail prefilled at ``q_offset`` 1792 on both decode ranks;
+   the frames against every rank's stored blocks on both replicas (bit for
+   bit, sha256), every rank's tier, exact launches per rank, greedy ids
+   against a cold run on the decode replica (phase g's rule), first-token
+   logits warm against cold, a ``/kv/pull`` by tail key; handoff seconds
+   and bytes, TTFT with the handoff beside a cold one, peak GB a rank;
+   then the same with ``--kv-cache-int8`` on both sides. x2: mixtral-8x7b
+   bf16 ``ep2`` to ``tp2`` (the cold run's expert picks replayed in the
+   warm tail). x3: on x1's prefill replica and x2's ``ep2`` one,
+   ``/v1/embeddings`` of 8 inputs at the 512 bucket (against the same
+   replica's plain-attention forward at cosine 0.999) and ``/v1/rerank``
+   (in the order of the returned vectors' cosines); then fp32 embeddings
+   at full width cut to 4 layers under llama3-70b ``tp4`` and
+   ``dp2xtp2`` and mixtral-8x7b ``ep2xtp2``, one process per GPU, within
+   1e-4 of one card's (plain attention: the kernel is bf16).
 
 In d to o every kernel's launches are counted around the served
 requests alone and must equal what that path's model forwards need,
@@ -766,16 +791,22 @@ def phase_kernels():
         # a llama3-70b tp4 rank's heads (16 q on 2 kv) continuing a
         # 1792-token host-tier hit by a 256-token bucket (phase w)
         (1, 256, 2048, 1792, 16, 2, 128),
+        # a tp2 decode rank's heads after a handed-off 1792-token prefix,
+        # the 108-token tail in its 128 bucket (phase x): llama3-70b's
+        # (32 q on 4 kv), mixtral-8x7b's (16 q on 4 kv)
+        (1, 128, 2048, 1792, 32, 4, 128),
+        (1, 128, 2048, 1792, 16, 4, 128),
     ]
     group8 = cases.index((1, 2048, 2048, 0, 32, 4, 128))
     tp4_cont = cases.index((1, 256, 2048, 1792, 16, 2, 128))
+    tp2_cont = cases.index((1, 128, 2048, 1792, 32, 4, 128))
     mla = cases.index((1, 2048, 2048, 0, 16, 16, 192))
     gemma7b = cases.index((1, 2048, 2048, 0, 16, 16, 256))
     gemma7b_cont = cases.index((1, 512, 2048, 1536, 16, 16, 256))
     gemma2b = cases.index((1, 2048, 2048, 0, 8, 1, 256))
     rows = [
         _flash_case(*c, gen, repeats=3 if i in (
-            0, group8, mla, gemma7b, gemma2b, tp4_cont) else 1)
+            0, group8, mla, gemma7b, gemma2b, tp4_cont, tp2_cont) else 1)
         for i, c in enumerate(cases)
     ]
     from gpustack_tpu_torch.ops import _build
@@ -873,7 +904,8 @@ def phase_kernels():
             "flash_gemma7b": rows[gemma7b],
             "flash_gemma7b_continuation": rows[gemma7b_cont],
             "flash_gemma2b": rows[gemma2b],
-            "flash_tp4_continuation": rows[tp4_cont], "flash_lse": lse_rows}
+            "flash_tp4_continuation": rows[tp4_cont],
+            "flash_tp2_continuation": rows[tp2_cont], "flash_lse": lse_rows}
 
 
 def _shard_cases(gen):
@@ -1450,6 +1482,8 @@ def expected_launches(runner_calls, sp_rank=0, dp_rank=0):
         for name, B, T, slot in calls.forwards:
             if dp > 1 and slot is not None and slot // rows != dp_rank:
                 continue                    # another group's prefill
+            if dp > 1 and name == "embed" and dp_rank:
+                continue                    # the first group embeds
             tokens = B * T
             if sp and name == "prefill":
                 want["flash_attention_prefill"] += (sp_rank + 1) * layers
@@ -7319,6 +7353,580 @@ def phase_tier_spec(kind, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# x: disaggregated prefill/decode and embeddings on multi-GPU replicas
+# ---------------------------------------------------------------------------
+
+X_GPUS = 4
+X_TIER = ["--host-kv-cache-mb", "4096"]
+# x1: llama3-70b int8 weights, tp2 to tp2 (a replica's ranks on two cards)
+X1_ARGV = (["--preset", "llama3-70b", "--quantization", "int8",
+            "--mesh-plan", "tp2"] + MAIN_ARGV[2:] + X_TIER)
+# x2: mixtral-8x7b bf16, ep2 (each rank every KV head) to tp2
+X2_PREFILL_ARGV = (["--preset", "mixtral-8x7b", "--mesh-plan", "ep2"]
+                   + MAIN_ARGV[2:] + X_TIER)
+X2_DECODE_ARGV = (["--preset", "mixtral-8x7b", "--mesh-plan", "tp2"]
+                  + MAIN_ARGV[2:] + X_TIER)
+# each replica's cards (its rank 0 sets them; its followers inherit them)
+X_CARDS = ("0,1", "2,3")
+X_CALL_TIMEOUT_S = 900
+# x3: 8 inputs at the 512 bucket; a query and four documents
+X_EMBED_TEXTS = [f"Input {i} of the replica's batch: " + "kv heads " * (
+    26 + 3 * i) for i in range(8)]
+X_QUERY = "Input 3 of the replica's batch"
+# a chain the source stores and the decode replica pulls by its tail key
+X_PULL_PROMPT = "".join(chr(ord("a") + (i * 7) % 26) for i in range(1034))
+# x3's fp32 runs: full width cut to X3_LAYERS, sharded against one card
+X3_LAYERS = 4
+X3_CASES = (("llama3-70b", "tp4"), ("llama3-70b", "dp2xtp2"),
+            ("mixtral-8x7b", "ep2xtp2"))
+X3_TOL = 1e-4
+X_RANK_DEVICE = "cuda"
+
+
+def _x_child(argv, cards, conn):
+    """One replica's rank 0, in a process of its own that sees only
+    ``cards`` (its followers inherit that): the port's server over
+    ``argv``, then the parent's commands (:data:`_X_COMMANDS`) until
+    ``stop``."""
+    import traceback
+
+    os.environ["CUDA_VISIBLE_DEVICES"] = cards
+    # a llama3-70b prompt's 7 blocks are 587 MB on the wire; the default
+    # 10 s bounds a stalled peer, not a transfer of that size
+    os.environ.setdefault("GPUSTACK_TPU_KV_HANDOFF_TIMEOUT", "60")
+    root = os.path.dirname(os.path.abspath(__file__))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    try:
+        engine, server, port, setup_s = _w_replica(argv)
+    except Exception:
+        conn.send(("error", traceback.format_exc()))
+        return
+    # the leader's forwards, counted from the first count_start
+    engine._x_calls = ChunkedCalls(engine.runner, int8="int8" in argv)
+    conn.send(("ok", (port, setup_s)))
+    try:
+        while True:
+            name, args = conn.recv()
+            if name == "stop":
+                return
+            try:
+                conn.send(("ok", _X_COMMANDS[name](engine, port, *args)))
+            except Exception:
+                conn.send(("error", traceback.format_exc()))
+    finally:
+        _w_close(engine, server)
+        conn.send(("ok", None))
+
+
+# the spawn target of a replica (a rehearsal on the CPU wraps it)
+X_CHILD = _x_child
+
+
+class _XReplica:
+    """A replica in a process of its own (:func:`_x_child`), driven over a
+    pipe: ``call(command, *args)`` runs one of :data:`_X_COMMANDS` there."""
+
+    def __init__(self, label, argv, cards):
+        import multiprocessing as mp
+
+        self.label = label
+        ctx = mp.get_context("spawn")
+        self.conn, child = ctx.Pipe()
+        self.proc = ctx.Process(target=X_CHILD, args=(argv, cards, child),
+                                daemon=True)
+        self.proc.start()
+        child.close()
+        self.port = self.setup_s = None
+
+    def _recv(self, what, timeout):
+        if not self.conn.poll(timeout):
+            raise AssertionError(f"{self.label}: {what} took over "
+                                 f"{timeout} s")
+        status, value = self.conn.recv()
+        if status != "ok":
+            raise AssertionError(f"{self.label}: {what} failed:\n{value}")
+        return value
+
+    def ready(self):
+        self.port, self.setup_s = self._recv("start", X_CALL_TIMEOUT_S)
+        return self
+
+    def call(self, name, *args):
+        self.conn.send((name, args))
+        return self._recv(name, X_CALL_TIMEOUT_S)
+
+    def close(self):
+        try:
+            if self.proc.is_alive():
+                self.conn.send(("stop", ()))
+                self._recv("stop", 300)
+        except (AssertionError, OSError, EOFError):
+            pass
+        finally:
+            self.proc.join(60)
+            if self.proc.is_alive():
+                self.proc.kill()
+                self.proc.join()
+
+
+def _x_count_start(engine, port):
+    """Count every rank's launches and the leader's forwards from here."""
+    engine.runner.probe(engine._state, "reset_launches")
+    engine._x_calls.reset()
+
+
+def _x_count_stop(engine, port, label):
+    """Every rank's launches since :func:`_x_count_start`, each equal to
+    what the leader's forwards need on that rank; and those forwards."""
+    calls = engine._x_calls
+    launches = _w_launches(engine, label, calls,
+                           engine.runner.probe(engine._state, "launches"))
+    return launches, calls.counts()
+
+
+def _x_block_digests(engine, port, ids, n):
+    """Each rank's sha256 of each of ``ids``' first ``n`` blocks as it
+    stores them (K, V and any scales: ``probe("kv_tier")``)."""
+    return [[t["block_digest"] for t in engine.runner.probe(
+        engine._state, "kv_tier", ids=ids[:(b + 1) * BLOCK])]
+        for b in range(n)]
+
+
+def _x_state(engine, port, label):
+    """The tier on every rank (:func:`_w_tier`), the handoff counters, the
+    reused tokens, each rank's peak GB."""
+    health = engine.health()
+    return {"tier": _w_tier(engine, label),
+            "handoff": dict(engine.kv_handoff.snapshot(), seconds_total=(
+                engine.kv_handoff.seconds.snapshot()[1])),
+            "reused_tokens": health["kv_cache_prefix_tokens_reused"],
+            "role": health["kv_role"], "status": health["status"],
+            "keys": engine.host_kv_cache.keys(),
+            "peak_gb_per_rank": [m / 1e9 for m in engine.runner.probe(
+                engine._state, "memory")]}
+
+
+def _x_has(engine, port, key_hex, timeout):
+    """Seconds until the leader's tier holds ``key_hex`` (None: never)."""
+    t0 = time.perf_counter()
+    key = bytes.fromhex(key_hex)
+    while time.perf_counter() - t0 < timeout:
+        if engine.host_kv_cache.block(key) is not None:
+            return time.perf_counter() - t0
+        time.sleep(0.01)
+    return None
+
+
+def _x_cold(engine, port, ids, n):
+    """A cold run of ``ids`` on this replica (its tier detached, so it
+    neither matches nor stores): greedy ids biased to lowercase letters,
+    each position's top-2 logprob gap."""
+    from gpustack_tpu_torch.engine.engine import GenRequest
+
+    cache, engine.host_kv_cache = engine.host_kv_cache, None
+    try:
+        ref = engine.generate(GenRequest(
+            prompt_ids=list(ids), max_tokens=n, temperature=0.0,
+            logit_bias={int(k): v for k, v in LETTERS.items()},
+            logprobs=True, top_logprobs=2,
+        ), timeout=600)
+    finally:
+        engine.host_kv_cache = cache
+    return ref.output_ids, [t[0][1] - t[1][1] for t in
+                            ref.output_top_logprobs]
+
+
+def _x_warm_cold(engine, port, ids, replay):
+    """Phase w's warm-against-cold gate on the imported blocks; with
+    ``replay`` (MoE) the cold prefill's expert picks are recorded on every
+    rank and its tail's rows replayed in the warm continuation."""
+    runner, state = engine.runner, engine._state
+    if not replay:
+        return _w_warm_cold(engine, ids)
+    plen = engine.host_kv_cache.match_prefix_len(ids)
+    bucket = runner.bucket_for(len(ids))
+    runner.probe(state, "routing_record")
+    try:
+        with torch.no_grad():
+            cold, _, _ = runner.prefill(ids + [0] * (bucket - len(ids)),
+                                        len(ids), slot=0)
+        cold = cold.float().cpu()
+        sb = runner.bucket_for(len(ids) - plen)
+        runner.probe(state, "routing_replay", ids=[plen, plen + sb])
+        warm, plen = _w_hit(engine, ids, 0)
+    finally:
+        tape = runner.probe(state, "routing")
+    gate = _compare_logits(warm, cold)
+    top2 = cold.topk(2).values
+    gap = float(top2[0] - top2[1])
+    ids_equal = int(warm.argmax()) == int(cold.argmax())
+    if gate["max_abs_err"] > LOGIT_REL_TOL * gate["logit_scale"] or (
+        gate["cosine"] < LOGIT_MIN_COSINE
+    ) or not (ids_equal or gap < IDS_GAP_REL * gate["logit_scale"]):
+        raise AssertionError(f"warm logits part from cold: {gate}")
+    return {**gate, "prefix_tokens": plen, "prompt_tokens": len(ids),
+            "greedy_ids_equal": ids_equal, "cold_top2_gap": gap,
+            "replayed_picks": True,
+            "flipped_picks_per_rank": [sum(r["flips"]) for r in tape],
+            "tolerance": {"rel": LOGIT_REL_TOL,
+                          "min_cosine": LOGIT_MIN_COSINE}}
+
+
+def _x_embed(engine, port, moe):
+    """x3 on a served replica: ``/v1/embeddings`` of 8 inputs at the 512
+    bucket, every rank's launches counted (flash once a layer of the one
+    forward), each vector against the same replica's forward through the
+    plain attention (MoE: the served picks replayed) at cosine
+    ``EMBED_MIN_COSINE``; ``/v1/rerank`` in the order of the cosines of
+    the returned vectors."""
+    runner, state = engine.runner, engine._state
+    tok = engine.tokenizer
+    lens = [len(tok.encode(t)) for t in X_EMBED_TEXTS]
+    if runner.bucket_for(max(lens)) != 512:
+        raise AssertionError(f"x3 batch lengths {lens}")
+    _x_count_start(engine, port)
+    if moe:
+        runner.probe(state, "routing_record")
+    try:
+        t0 = time.perf_counter()
+        _, raw = _post(port, "/v1/embeddings", {"input": X_EMBED_TEXTS})
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        launches, calls = _x_count_stop(engine, port, "x3 embeddings")
+        vecs = torch.tensor([d["embedding"] for d in json.loads(raw)["data"]])
+        if moe:
+            runner.probe(state, "routing_replay")
+        runner.probe(state, "plain_attention", true_len=1)
+        try:
+            plain = torch.tensor(engine.embed(
+                [tok.encode(t) for t in X_EMBED_TEXTS]))
+        finally:
+            runner.probe(state, "plain_attention", true_len=0)
+    finally:
+        tape = runner.probe(state, "routing") if moe else None
+    cos = torch.nn.functional.cosine_similarity(vecs, plain, dim=-1)
+    if vecs.shape != (8, engine.cfg.hidden_size) or not torch.isfinite(
+            vecs).all() or cos.min().item() < EMBED_MIN_COSINE:
+        raise AssertionError(f"x3 embeddings against the plain attention: "
+                             f"cosines {cos.tolist()}")
+    docs = X_EMBED_TEXTS[:4]
+    _, raw = _post(port, "/v1/rerank", {"query": X_QUERY,
+                                        "documents": docs})
+    order = [r["index"] for r in json.loads(raw)["results"]]
+    _, raw = _post(port, "/v1/embeddings", {"input": [X_QUERY] + docs})
+    ev = torch.tensor([d["embedding"] for d in json.loads(raw)["data"]])
+    scores = (ev[1:] @ ev[0]).tolist()
+    want = sorted(range(len(docs)), key=lambda i: -scores[i])
+    if order != want:
+        raise AssertionError(f"x3 rerank order {order}, cosines {scores}")
+    return {"batch": len(X_EMBED_TEXTS), "bucket": 512,
+            "input_tokens": lens, "http_ms_batch": batch_ms,
+            "min_cosine_vs_plain": cos.min().item(),
+            "min_cosine_gate": EMBED_MIN_COSINE,
+            "flipped_picks_per_rank": None if tape is None else [
+                sum(r["flips"]) for r in tape],
+            "launches_per_rank": launches, "runner_calls": calls,
+            "rerank_order": order, "rerank_cosines": scores}
+
+
+_X_COMMANDS = {
+    "count_start": _x_count_start, "count_stop": _x_count_stop,
+    "digests": _x_block_digests, "state": _x_state, "has": _x_has,
+    "cold": _x_cold, "warm_cold": _x_warm_cold, "embed": _x_embed,
+    "reset_memory": lambda e, p: e.runner.probe(e._state, "reset_memory"),
+}
+
+
+def _x_post(port, path, body=None, raw=None):
+    """POST ``body`` as JSON (or ``raw`` bytes); returns (status, the
+    reply's bytes)."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=raw if raw is not None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return resp.status, resp.read()
+
+
+def _x_digest_of(arrays):
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _x_check_frames(frames, digests, plan, kv_heads, label):
+    """Each rank's stored blocks are the frames' blocks at its KV heads,
+    bit for bit (their sha256 digests)."""
+    import numpy as np
+
+    from gpustack_tpu_torch.parallel.mesh import MeshPlan, kv_head_range
+
+    mp = MeshPlan.parse(plan)
+    for b, (fr, per_rank) in enumerate(zip(frames, digests)):
+        for r, got in enumerate(per_rank):
+            lo, hi = kv_head_range(mp, r, kv_heads)
+            want = _x_digest_of(
+                np.ascontiguousarray(a[:, :, lo:hi])
+                for a in (fr.k, fr.v, fr.k_scale, fr.v_scale)
+                if a is not None)
+            if got != want:
+                raise AssertionError(f"{label}: rank {r}'s block {b} is not "
+                                     "the frame's at its heads")
+    return {"blocks": len(frames), "ranks": len(digests[0]),
+            "bit_for_bit": True}
+
+
+def _x_handoff(kind, smi, label, prefill_argv, decode_argv, moe, embed):
+    """One handoff between two live replicas (module docstring, x1/x2):
+    returns the report; raises on a failed gate."""
+    from gpustack_tpu_torch.engine.kv_host_cache import HostKVCache
+    from gpustack_tpu_torch.engine.kv_transfer import decode_stream
+    from gpustack_tpu_torch.engine.tokenizer import load_tokenizer
+    from gpustack_tpu_torch.models.config import get_config
+
+    t0 = time.perf_counter()
+    pre = _XReplica(f"{label} prefill", prefill_argv + ["--kv-role",
+                                                        "prefill"],
+                    X_CARDS[0])
+    dec = _XReplica(f"{label} decode", decode_argv + ["--kv-role", "decode"],
+                    X_CARDS[1])
+    try:
+        pre.ready()
+        dec.ready()
+        setup_s = time.perf_counter() - t0
+        cfg = get_config(decode_argv[decode_argv.index("--preset") + 1])
+        tok = load_tokenizer(None)
+        ids = tok.encode(N_PROMPT)
+        blocks = (len(ids) - 1) // BLOCK
+        for r in (pre, dec):                   # first calls: warm-up
+            _stream_completion(r.port, "warm up", 2)
+            r.call("reset_memory")
+        _, ttft_cold = _stream_completion(dec.port, N_COLD_PROMPT,
+                                          N_MAX_TOKENS)
+        before = dec.call("state", f"{label} decode")
+        for r in (pre, dec):
+            r.call("count_start")
+        source = f"http://127.0.0.1:{pre.port}/kv/export"
+        t1 = time.perf_counter()
+        text, ttft_warm = _stream_completion(
+            dec.port, N_PROMPT, N_MAX_TOKENS,
+            headers={"X-GPUStack-KV-Source": source})
+        request_s = time.perf_counter() - t1
+        counted = {"prefill": pre.call("count_stop", f"{label} prefill"),
+                   "decode": dec.call("count_stop", f"{label} decode")}
+        forwards = {k: v[1] for k, v in counted.items()}
+        if (forwards["prefill"]["prefill"] != 1
+                or forwards["decode"]["prefill_with_prefix"] != 1
+                or forwards["decode"]["prefill"]):
+            raise AssertionError(f"{label}: runner calls {forwards}: want "
+                                 "one prefill there, one tail prefill here")
+        after = dec.call("state", f"{label} decode")
+        sent = pre.call("state", f"{label} prefill")
+        got = {k: after["handoff"][k] - before["handoff"][k]
+               for k in after["handoff"]}
+        reused = after["reused_tokens"] - before["reused_tokens"]
+        if (got["pulls"] != 1 or got["failures"] or got["blocks_in"] != blocks
+                or reused != blocks * BLOCK
+                or sent["handoff"]["blocks_out"] != blocks):
+            raise AssertionError(f"{label}: handoff received {got}, sent "
+                                 f"{sent['handoff']}, reused {reused}")
+        # the frames the source writes for the prompt, and every rank's
+        # blocks on both replicas
+        t3 = time.perf_counter()
+        _, raw = _x_post(pre.port, "/kv/export", {"prompt_ids": ids})
+        export_s = time.perf_counter() - t3
+        frames = decode_stream(raw)
+        if len(frames) != blocks:
+            raise AssertionError(f"{label}: {len(frames)} frames")
+        # the same frames into the decode replica, which holds them:
+        # decode, stage, the scatter, nothing attached
+        t3 = time.perf_counter()
+        status, reply = _x_post(dec.port, "/kv/import", raw=raw)
+        import_s = time.perf_counter() - t3
+        if status != 200 or json.loads(reply)["blocks_attached"]:
+            raise AssertionError(f"{label}: /kv/import {status} {reply}")
+        plans = [a[a.index("--mesh-plan") + 1] for a in (prefill_argv,
+                                                          decode_argv)]
+        frames_check = {
+            side: _x_check_frames(
+                frames, r.call("digests", ids, blocks), plan,
+                cfg.num_kv_heads, f"{label} {side}")
+            for side, r, plan in (("prefill", pre, plans[0]),
+                                  ("decode", dec, plans[1]))}
+        # greedy ids against a cold run on the decode replica (phase g's
+        # rule), the first-token logits against a cold prefill
+        cold_ids, gaps = dec.call("cold", ids, N_MAX_TOKENS)
+        warm = dec.call("warm_cold", ids, moe)
+        rule = _ids_rule([(cold_ids, gaps)], [(tok.encode(text), None)],
+                         IDS_GAP_REL * warm["logit_scale"])
+        # /kv/pull by the tail key of a chain only the source holds
+        chain = HostKVCache(0, block_tokens=BLOCK).chain_keys(
+            tok.encode(X_PULL_PROMPT))
+        tail = chain[-1].hex()
+        _post(pre.port, "/v1/completions", {
+            "prompt": X_PULL_PROMPT, "max_tokens": 1, "temperature": 0})
+        if pre.call("has", tail, 120.0) is None:
+            raise AssertionError(f"{label}: the source never stored "
+                                 "the pulled chain")
+        t2 = time.perf_counter()
+        status, _ = _x_post(dec.port, "/kv/pull", {"source": source,
+                                                   "tail_key": tail})
+        waited = dec.call("has", tail, 120.0) if status == 202 else None
+        pull_s = time.perf_counter() - t2
+        if waited is None:
+            raise AssertionError(f"{label}: /kv/pull never landed")
+        final = dec.call("state", f"{label} decode after the pull")
+        if not {k.hex() for k in chain} <= set(final["keys"]):
+            raise AssertionError(f"{label}: the pulled chain is not held")
+        report = {
+            "model": cfg.name, "plans": {"prefill": plans[0],
+                                         "decode": plans[1]},
+            "tier": "int8" if "--kv-cache-int8" in decode_argv else "bf16",
+            "device": kind, "nvidia_smi": smi, "setup_s": setup_s,
+            "prompt_tokens": len(ids),
+            "handoff": {"seconds": got["seconds_total"],
+                        "bytes": got["bytes_in"],
+                        "blocks": got["blocks_in"], "block_tokens": BLOCK,
+                        "tail_tokens": len(ids) - reused,
+                        "q_offset": reused, "request_s": request_s,
+                        "export_again_s": export_s,
+                        "import_again_s": import_s},
+            "ttft_ms_decode_replica_handoff": ttft_warm * 1e3,
+            "ttft_ms_decode_replica_cold": ttft_cold * 1e3,
+            "frames_vs_rank_blocks": frames_check,
+            "tier_check": {"prefill": sent["tier"],
+                           "decode": final["tier"]},
+            "greedy_ids_vs_cold": rule, "warm_vs_cold": warm,
+            "launches_per_rank": {k: v[0] for k, v in counted.items()},
+            "runner_calls": forwards,
+            "pull": {"blocks": len(chain), "seconds": pull_s,
+                     "landed_after_s": waited},
+            "peak_gb_per_rank": {"prefill": sent["peak_gb_per_rank"],
+                                 "decode": final["peak_gb_per_rank"]},
+        }
+        if embed:
+            report["embeddings"] = {"prefill": pre.call("embed", moe)}
+        report["seconds"] = time.perf_counter() - t0
+        emit("multi_gpu_kv_role", **report)
+        return report
+    finally:
+        dec.close()
+        pre.close()
+
+
+def _x3_case(mesh, device, preset, layers, texts):
+    """One fp32 embedding batch of ``texts`` (the 512 bucket) through the
+    one-card runner (its expert picks recorded), then through the sharded
+    runner on ``mesh`` (replaying them), each rank building its shard as
+    the server does; rank 0 compares. Both take the plain versions of the
+    kernels, which take bf16 only (as t2 and v2)."""
+    from gpustack_tpu_torch.engine import diagnostics
+    from gpustack_tpu_torch.engine.runner import ModelRunner
+    from gpustack_tpu_torch.engine.tokenizer import load_tokenizer
+    from gpustack_tpu_torch.engine.weights import load_or_init_params
+    from gpustack_tpu_torch.models.config import get_config
+
+    cfg = dataclasses.replace(get_config(preset), num_layers=layers,
+                              dtype="float32")
+    tok = load_tokenizer(None)
+    rows = [tok.encode(t) for t in texts]
+    Tb = 512
+    batch = [r + [0] * (Tb - len(r)) for r in rows]
+    lens = [len(r) for r in rows]
+
+    def embed(m):
+        runner = ModelRunner(cfg, load_or_init_params(
+            cfg, None, seed=0, device=device, mesh=m), device, max_slots=8,
+            max_seq_len=Tb, mesh=m)
+        out = runner.embed(batch, lens)
+        _s_sync(device)
+        ran = runner._runs(0)
+        del runner
+        _s_free(device)
+        return None if out is None else out.cpu(), ran
+
+    tape = diagnostics.RoutingTape()
+    with torch.no_grad(), _PlainAttention(), _PlainGrouped(), tape:
+        want, _ = embed(None)
+        tape.replay([[p] for p in tape.picks()])
+        got, ran = embed(mesh)
+    out = {"model": cfg.name, "plan": str(mesh.plan), "layers": layers,
+           "batch": len(rows), "bucket": Tb, "ran": ran,
+           "flipped_picks": sum(tape.flips)}
+    if mesh.rank:
+        return dict(out, ok=True)
+    err = (got - want).abs().max().item()
+    return dict(out, max_abs_err=err, tolerance=X3_TOL,
+                ok=bool(err <= X3_TOL and torch.isfinite(got).all()))
+
+
+def _x3_rank(rank, world, coordinator, device_type, cases, layers):
+    """One rank of x3's fp32 runs (``cases``: (preset, plan) at ``layers``
+    layers), in a process of its own: on ``cuda:<rank>`` over NCCL
+    (``device_type`` "cpu": gloo, a rehearsal)."""
+    from gpustack_tpu_torch.parallel.mesh import Mesh, MeshPlan, init_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device_type, rank if device_type == "cuda" else None)
+    first = init_mesh(MeshPlan.parse(cases[0][1]), rank, coordinator,
+                      device)
+    out = []
+    for preset, plan in cases:
+        mesh = first if plan == cases[0][1] else Mesh(
+            MeshPlan.parse(plan), rank)
+        t0 = time.perf_counter()
+        case = _x3_case(mesh, device, preset, layers, X_EMBED_TEXTS)
+        out.append(dict(case, seconds=time.perf_counter() - t0))
+        _s_free(device)
+    return out
+
+
+def phase_kv_role(kind, smi):
+    """x1–x3 (four GPUs): two replicas at once, each in a process of its
+    own on two cards; then x3's fp32 runs, one process per GPU. Returns
+    each kernel's launches per rank on the counted windows."""
+    from gpustack_tpu_torch.parallel.launch import run_ranks
+
+    if X_RANK_DEVICE == "cuda" and torch.cuda.device_count() < X_GPUS:
+        raise AssertionError(f"phase x needs {X_GPUS} cards")
+    t0 = time.perf_counter()
+    reports = [
+        _x_handoff(kind, smi, "x1 bf16", X1_ARGV, X1_ARGV, False, True),
+        _x_handoff(kind, smi, "x1 int8", X1_ARGV + ["--kv-cache-int8"],
+                   X1_ARGV + ["--kv-cache-int8"], False, False),
+        _x_handoff(kind, smi, "x2", X2_PREFILL_ARGV, X2_DECODE_ARGV, True,
+                   True),
+    ]
+    ranks = run_ranks(_x3_rank, X_GPUS, X_RANK_DEVICE, X3_CASES, X3_LAYERS,
+                      timeout=S_RANK_TIMEOUT_S)
+    for j, (preset, plan) in enumerate(X3_CASES):
+        emit("multi_gpu_embed_fp32", device=kind, nvidia_smi=smi,
+             **ranks[0][j], per_rank_ran=[r[j]["ran"] for r in ranks])
+    bad = [X3_CASES[j] for j, c in enumerate(ranks[0]) if not c["ok"]]
+    if bad:
+        raise AssertionError(f"phase x3: fp32 embeddings part from one "
+                             f"card's: {bad}")
+    emit("x", seconds=time.perf_counter() - t0)
+    out = {}
+    for report in reports:
+        tag = f"{report['model']} {report['tier']} handoff"
+        for side, launches in report["launches_per_rank"].items():
+            for name, counts in launches.items():
+                out.setdefault(name, {})[
+                    f"{tag} {report['plans'][side]} {side}"] = counts
+        for side, emb in report.get("embeddings", {}).items():
+            for name, counts in emb["launches_per_rank"].items():
+                out.setdefault(name, {})[
+                    f"{report['model']} {report['plans'][side]} "
+                    "embeddings"] = counts
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7383,7 +7991,8 @@ def main() -> int:
              f"{torch.cuda.device_count()}")
     for phase, gpus, fn in (("u", U_GPUS, phase_data_parallel),
                             ("v", V_GPUS, phase_sp_ep),
-                            ("w", W_GPUS, phase_tier_spec)):
+                            ("w", W_GPUS, phase_tier_spec),
+                            ("x", X_GPUS, phase_kv_role)):
         if torch.cuda.device_count() >= gpus:
             _free()
             for name, per_model in fn(kind, smi).items():
@@ -7398,7 +8007,8 @@ def main() -> int:
     group8 = rows.pop("flash_group8")
     mla = rows.pop("flash_mla")
     gemma = {tag: rows.pop(f"flash_{tag}") for tag in (
-        "gemma7b", "gemma7b_continuation", "gemma2b", "tp4_continuation")}
+        "gemma7b", "gemma7b_continuation", "gemma2b", "tp4_continuation",
+        "tp2_continuation")}
     lse_rows = rows.pop("flash_lse")
     for name, row in rows.items():
         launches = sum(counts[name] for counts in paths.values())

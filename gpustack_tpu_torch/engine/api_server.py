@@ -26,9 +26,11 @@ background pull). A completion whose request carries
 ``X-GPUStack-KV-Source: <peer>/kv/export`` first pulls its prompt's blocks
 from that peer, so it prefills only the tail; ``--kv-role`` tags the
 replica. Peers are reached with ``http.client`` on the handler's thread.
-On a multi-GPU replica ``/kv/summary`` serves rank 0's tier (the
-replica's keys) and the routes that move blocks over the wire answer 400
-naming the plan: rank 0 holds only its own KV heads of each block.
+On a multi-GPU replica (each rank holds its own KV heads of every
+block) ``/kv/summary`` serves rank 0's tier (the replica's keys), an
+export gathers the ranks' heads into whole-head frames and an import
+scatters each rank its heads, so the frames are a one-process tier's;
+under ``sp`` the routes answer 400 naming the plan.
 
 It runs on ``http.server.ThreadingHTTPServer`` (one thread per
 connection; each handler blocks on its request's ``done`` event or token
@@ -978,14 +980,14 @@ class OpenAIServer:
 
     def _kv_wire(self, what: str):
         """The host cache, for a route that moves its blocks over the
-        wire: refused on a multi-GPU replica, whose rank 0 holds only its
-        own heads of each block (until disaggregated serving spans
-        ranks)."""
+        wire. A multi-GPU replica moves whole-head blocks (its ranks'
+        heads gathered on export, scattered on import:
+        ``LLMEngine.kv_export_blocks``, ``kv_import_prepared``); refused
+        under ``sp`` (no host tier there; refused at build as well)."""
         plan = self.engine.runner.plan
-        if plan.chips > 1:
+        if plan.sp > 1:
             raise HTTPError(
-                400, f"{what} is not supported on a multi-GPU replica "
-                f"(plan {plan}): rank 0's host tier holds its own KV heads"
+                400, f"{what} is not supported under plan {plan}"
             )
         return self._kv_cache()
 
@@ -1023,10 +1025,12 @@ class OpenAIServer:
         # one trie walk: encode straight off the export and count payload
         # frames as they are made (a second walk could disagree under a
         # concurrent eviction)
-        blocks = (
-            cache.export_blocks(prompt_ids) if prompt_ids
-            else cache.export_chain(tail_key)
-        )
+        try:
+            blocks = self.engine.kv_export_blocks(
+                prompt_ids, tail_key, have, timeout=self._handoff_timeout())
+        except concurrent.futures.TimeoutError:
+            raise HTTPError(503, "kv export did not run within "
+                            f"{self._handoff_timeout()}s; retry") from None
         chunks, payload_blocks = [MAGIC], 0
         for blk in blocks:
             frame, carried = encode_block(blk, have)
@@ -1564,7 +1568,8 @@ def _refuse_multi_gpu(args, cfg, plan, vlm: bool) -> None:
     weight is read, naming the plan (the JAX package refuses these
     features for multi-host placements only, ``gpustack_tpu/engine/
     multihost.py``; here every multi-GPU placement is multi-process). The
-    host KV tier and speculation serve every plan but ``sp > 1``."""
+    host KV tier, speculation and ``--kv-role`` serve every plan but
+    ``sp > 1``."""
     from gpustack_tpu_torch.models.transformer import check_plan
 
     if plan.sp > 1 and plan.dp != 1:
@@ -1583,8 +1588,8 @@ def _refuse_multi_gpu(args, cfg, plan, vlm: bool) -> None:
          "the host KV tier (--host-kv-cache-mb)", "under sp > 1"),
         (bool(args.speculative) and plan.sp > 1,
          "speculative decoding (--speculative)", "under sp > 1"),
-        (bool(args.kv_role), "disaggregated serving (--kv-role)",
-         "on a multi-GPU replica"),
+        (bool(args.kv_role) and plan.sp > 1,
+         "disaggregated serving (--kv-role)", "under sp > 1"),
         (vlm, "the vision path (a VLM preset)", "on a multi-GPU replica"),
     ]
     for hit, what, where in refused:

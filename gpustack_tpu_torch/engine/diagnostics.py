@@ -139,7 +139,12 @@ def probe(runner, state, what: str, ids=None, true_len: int = 0,
       layer call picks (a :class:`RoutingTape` on every rank);
     - ``"routing_replay"``: replay each rank's recorded picks, call by
       call, in the forwards that follow (the same calls over the same
-      tokens);
+      tokens); with ``ids`` ``[start, stop]``, rows ``start .. stop - 1``
+      of each recorded call are offered too (a continuation's tail of a
+      recorded prefill from zero);
+    - ``"plain_attention"``: from here on (``true_len`` 1) or no longer
+      (0), this rank's prefill and embedding forwards take the plain
+      attention (a check's reference forward on the same ranks);
     - ``"routing"``: stop the tape; every rank's recorded per-call picks
       (int32 on the host) and, after a replay, its flipped tokens per
       call, gathered, in rank order;
@@ -218,7 +223,15 @@ def probe(runner, state, what: str, ids=None, true_len: int = 0,
         return None
     if what == "routing_replay":
         tape = runner.routing_tape
-        tape.replay([[p] for p in tape.picks()])
+        rows = slice(*ids) if ids else None
+        tape.replay([[p] if rows is None else [p, p[rows]]
+                     for p in tape.picks()])
+        return None
+    if what == "plain_attention":
+        if true_len:
+            runner.attn_impl_for = lambda bucket: "plain"
+        else:
+            runner.__dict__.pop("attn_impl_for", None)
         return None
     if what == "routing":
         tape, runner.routing_tape = runner.routing_tape, None

@@ -60,9 +60,12 @@ decode.
 its runner a ``multihost.BroadcastingRunner``): the host tier is rank
 0's authority and each store, change and hit is named to the followers
 through the runner (``kv_store``, ``tier_op``, ``kv_adopt``), whose own
-tiers hold their heads of every block (``multihost.FollowerTier``); the
-draft model lives on rank 0's card alone and its proposals reach the
-other ranks inside the verify step (``verify_step(shared=True)``).
+tiers hold their heads of every block (``multihost.FollowerTier``); a
+handoff's export gathers the ranks' heads and its import scatters them,
+each a job on the scheduler thread (``kv_export_blocks``,
+``kv_import_prepared``), as is an embedding batch; the draft model lives
+on rank 0's card alone and its proposals reach the other ranks inside
+the verify step (``verify_step(shared=True)``).
 
 **Embeddings** (``embed``): a batch is handed to the scheduler thread as
 a job and runs there as one forward, so every forward on the card is
@@ -103,7 +106,7 @@ import queue
 import tempfile
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -145,7 +148,7 @@ DISPATCH_SYNC_FREE = (
     "_store_finished_sequence", "_check_kv_copies", "_entry_ready",
     "_drain_ready", "_flush_detok", "_step_key", "_record_event",
     "_note_spec_dispatch", "_spec_safe", "_build_proposals",
-    "_draft_propose", "_run_embed_job", "_d2h",
+    "_draft_propose", "_run_job", "_d2h",
 )
 
 # guarded-by contract: lock-guarded shared state, plus the scheduler
@@ -160,7 +163,7 @@ _SCHEDULER_METHODS = (
     "_plan_chunk_job", "_new_slot_info", "_emit_text", "_push",
     "_entry_ready", "_step_key", "_submit_kv_copy", "_check_kv_copies",
     "_note_spec_dispatch", "_spec_safe", "_build_proposals",
-    "_draft_propose", "_run_embed_job", "_profile_step", "_profile_poll",
+    "_draft_propose", "_run_job", "_profile_step", "_profile_poll",
 )
 
 GUARDED_BY = {
@@ -348,12 +351,17 @@ class _ChunkJob:
 
 
 @dataclasses.dataclass
-class _EmbedJob:
-    """One embedding batch for the scheduler thread: rows pre-padded to
-    one bucket; ``result`` resolves to the ``[N, D]`` device tensor."""
+class _Job:
+    """Work for the scheduler thread, which launches every forward (and, on
+    a replica's leader, every op and collective of the command stream):
+    ``fn()`` runs there and ``result`` resolves to what it returns.
+    ``tokens``: an embedding batch's (real, padded) tokens for the step's
+    flight record. ``fatal``: a failure also ends the engine (a replica's
+    handoff, whose followers ran their side of it)."""
 
-    ids: List[List[int]]
-    lens: List[int]
+    fn: Callable[[], Any]
+    tokens: Optional[Tuple[int, int]] = None
+    fatal: bool = False
     result: concurrent.futures.Future = dataclasses.field(
         default_factory=concurrent.futures.Future
     )
@@ -607,8 +615,9 @@ class LLMEngine:
                 max_slots=max_slots, max_seq_len=max_seq_len,
             )
             self._draft_state = self.draft_runner.new_state()
-        # embedding batches handed to the scheduler thread
-        self._embed_jobs: "queue.Queue[_EmbedJob]" = queue.Queue()
+        # embedding batches and a replica's handoffs, handed to the
+        # scheduler thread
+        self._jobs: "queue.Queue[_Job]" = queue.Queue()
         # on-demand profiler capture (capture_profile): the scheduler
         # thread starts and stops torch.profiler around N busy steps
         self._profile_mu = threading.Lock()
@@ -764,7 +773,7 @@ class LLMEngine:
             self._wake.notify_all()
         if self._thread:
             self._thread.join(timeout=30)
-        self._fail_embed_jobs("engine stopped")
+        self._fail_jobs("engine stopped")
         self._detok.stop()
         if self._kv_copy_pool is not None:
             # stores already queued land; later ones are skipped
@@ -777,14 +786,16 @@ class LLMEngine:
         (``runner.embed``: rows padded to one prefill bucket, the batch to
         a power of two). The JAX engine runs this on the caller's thread;
         here the batch goes to the scheduler thread as a job, so every
-        forward on the card is launched by one thread. Needs a started
-        engine."""
+        forward on the card is launched by one thread (on a replica, the
+        leader names it to its followers there: ``embed`` on the op
+        stream). Refused under ``sp`` (a sequence-sharded replica). Needs
+        a started engine."""
         if self._fatal:
             raise ValueError(f"engine is down: {self._fatal}")
-        if self.runner.plan.chips > 1:
+        if self.runner.sp_mode:
             raise ValueError(
-                "embeddings are not supported on a multi-GPU replica "
-                f"(plan {self.runner.plan})"
+                "embeddings are not supported under plan "
+                f"{self.runner.plan}"
             )
         if not batch_prompt_ids or any(not ids for ids in batch_prompt_ids):
             raise ValueError("embedding inputs must be non-empty")
@@ -797,23 +808,29 @@ class LLMEngine:
         bucket = self.runner.bucket_for(
             max(len(ids) for ids in batch_prompt_ids)
         )
-        job = _EmbedJob(
-            ids=[list(ids) + [0] * (bucket - len(ids))
-                 for ids in batch_prompt_ids],
-            lens=[len(ids) for ids in batch_prompt_ids],
-        )
+        rows = [list(ids) + [0] * (bucket - len(ids))
+                for ids in batch_prompt_ids]
+        lens = [len(ids) for ids in batch_prompt_ids]
+        # the batch runs padded to the next power of two
+        padded = bucket * (1 << (len(rows) - 1).bit_length())
+        job = self._schedule(_Job(lambda: self.runner.embed(rows, lens),
+                                  tokens=(sum(lens), padded)), "embed")
+        # the device-to-host copy waits for the forward on the stream
+        return job.result(timeout).tolist()
+
+    def _schedule(self, job: _Job, what: str) -> concurrent.futures.Future:
+        """Hand ``job`` to the scheduler thread; its result's future."""
         with self._wake:
             if not self._running:
-                raise RuntimeError("embed needs a started engine")
-            self._embed_jobs.put(job)
+                raise RuntimeError(f"{what} needs a started engine")
+            self._jobs.put(job)
             self._wake.notify_all()
-        # the device-to-host copy waits for the forward on the stream
-        return job.result.result(timeout).tolist()
+        return job.result
 
-    def _fail_embed_jobs(self, message: str) -> None:
+    def _fail_jobs(self, message: str) -> None:
         while True:
             try:
-                job = self._embed_jobs.get_nowait()
+                job = self._jobs.get_nowait()
             except queue.Empty:
                 return
             job.result.set_exception(RuntimeError(message))
@@ -889,7 +906,7 @@ class LLMEngine:
                     with self._wake:
                         if (
                             self._running and self._waiting.empty()
-                            and self._embed_jobs.empty()
+                            and self._jobs.empty()
                         ):
                             t0 = time.perf_counter()
                             self._wake.wait(timeout=0.05)
@@ -938,7 +955,7 @@ class LLMEngine:
                 job.req.stream.put(None)
             job.req.done.set()
         self._chunk_jobs.clear()
-        self._fail_embed_jobs(message)
+        self._fail_jobs(message)
         while not self._waiting.empty():
             try:
                 req = self._waiting.get_nowait()
@@ -968,45 +985,46 @@ class LLMEngine:
         # at most one prefill chunk per step: decode cadence for running
         # slots is bounded by one chunk's latency, not a whole prompt's
         progressed = self._advance_chunk()
-        # at most one embedding batch per step, like a prefill
-        embedded = self._run_embed_job()
+        # at most one job (an embedding batch, a replica's handoff) per
+        # step, like a prefill
+        ran = self._run_job()
         if self._slots:
             self._decode_once()
             self._flight_record(t0)
             return True
-        if admitted or progressed or embedded or self._chunk_jobs:
+        if admitted or progressed or ran or self._chunk_jobs:
             self._flight_record(t0)
             return True
         self._drain_pending()
         if self._step_out or self._step_spec_accepted:
             # tokens the drain delivered belong to a record too
             self._flight_record(t0)
-        return not (self._waiting.empty() and self._embed_jobs.empty())
+        return not (self._waiting.empty() and self._jobs.empty())
 
-    def _run_embed_job(self) -> bool:
-        """Dispatch the oldest queued embedding batch (one forward); its
-        future resolves to the device tensor, which the caller's thread
-        copies to the host."""
+    def _run_job(self) -> bool:
+        """Run the oldest queued job. An embedding batch is one forward
+        whose future resolves to the device tensor (the caller's thread
+        copies it to the host)."""
         try:
-            job = self._embed_jobs.get_nowait()
+            job = self._jobs.get_nowait()
         except queue.Empty:
             return False
         if not job.result.set_running_or_notify_cancel():
             return True
         try:
-            vecs = self.runner.embed(job.ids, job.lens)
+            out = job.fn()
         except Exception as e:
             # a bad batch fails its caller; a CUDA error fails the next
-            # step too, which ends the engine
+            # step too, which ends the engine, as a failed handoff does
             job.result.set_exception(e)
+            if job.fatal:
+                raise
             return True
-        self._step_mode = self._step_mode or "embed"
-        self._step_real += sum(job.lens)
-        # the batch runs padded to the next power of two
-        self._step_padded += len(job.ids[0]) * (
-            1 << (len(job.ids) - 1).bit_length()
-        )
-        job.result.set_result(vecs)
+        if job.tokens is not None:
+            self._step_mode = self._step_mode or "embed"
+            self._step_real += job.tokens[0]
+            self._step_padded += job.tokens[1]
+        job.result.set_result(out)
         return True
 
     def _flight_record(self, t0: float) -> None:
@@ -1579,18 +1597,54 @@ class LLMEngine:
         while self._kv_copies and self._kv_copies[0].done():
             self._kv_copies.pop(0).result()
 
+    def kv_export_blocks(self, prompt_ids, tail_key: str = "", have=(),
+                         timeout: float = 60.0) -> List[dict]:
+        """The host tier's blocks for an export, whole-head and as stored:
+        ``prompt_ids``' matched run (``export_blocks``) or, without
+        prompt ids, the chain ending at ``tail_key`` (``export_chain``).
+        On a replica the leader reads its tier on the scheduler thread
+        and gathers its followers' heads of the blocks whose payload
+        travels (outside ``have``): ``runner.kv_export``, ordered on the
+        op stream like every collective."""
+        cache = self.host_kv_cache
+
+        def read():
+            if prompt_ids:
+                return cache.export_blocks(prompt_ids)
+            return cache.export_chain(tail_key)
+
+        if self.runner.plan.chips == 1:
+            return read()
+        return self._schedule(_Job(
+            lambda: self.runner.kv_export(cache, read, have), fatal=True,
+        ), "a replica's kv export").result(timeout)
+
     def kv_import_prepared(self, tokens, prepared):
         """Land a handed-off block run (decoded and converted to the
         cache's tier by ``kv_transfer.prepare_import``) through the
         ``_KVStager`` on the kv-copy thread, so the scheduler, and every
         decoding slot with it, never waits on a transfer. Returns a
         ``concurrent.futures.Future`` of the blocks attached (0 without a
-        cache)."""
+        cache). On a replica each rank keeps its KV heads: the leader cuts
+        its own and stages every other rank's in pinned buffers here,
+        then, on the scheduler thread (one job, ordered on the op stream),
+        attaches its own, names the attach and sends the others theirs
+        (``runner.kv_import_stage``, ``runner.kv_import``)."""
         kv_cache = self.host_kv_cache
         if kv_cache is None:
             fut = concurrent.futures.Future()
             fut.set_result(0)
             return fut
+        if self.runner.plan.chips > 1:
+            staged = self.runner.kv_import_stage(prepared)
+
+            def scatter():
+                n = self.runner.kv_import(kv_cache, tokens, staged)
+                self.kv_handoff.blocks_in += n
+                return n
+
+            return self._schedule(_Job(scatter, fatal=True),
+                                  "a replica's kv import")
 
         def land():
             t0 = time.perf_counter()

@@ -30,7 +30,12 @@ spill file dropped) so the leader can name them to its followers, and
 applies a leader's journal (``replay``) and gathers by the leader's word
 (``follower_gather``). The scales being per layer × head, a rank's int8
 block is bit for bit the slice at its heads of the block one process
-would store.
+would store. A handoff moves whole-head blocks: an export reads each
+rank's heads of the named blocks (``export_blocks`` or ``export_chain``
+on the leader, ``named_blocks`` on a follower) and the leader joins them;
+an import keeps each rank's heads (``import_blocks`` of its slices on
+the leader, journalled; ``replay`` with the scattered ``prepared``
+blocks on a follower).
 """
 
 from __future__ import annotations
@@ -198,12 +203,15 @@ class HostKVCache:
             keys.append(key)
         return keys
 
-    def replay(self, events, token_ids, k=None, v=None) -> List[str]:
+    def replay(self, events, token_ids, k=None, v=None,
+               prepared=None) -> List[str]:
         """Apply a leader's journal (a follower's cache): ``("attach",
         b)`` attaches block ``b`` of ``token_ids`` from ``k``/``v`` (this
-        rank's K/V of the sequence, ``[L, T, H, hd]``: a store) or, with
-        no ``k``, from this rank's spill tier (a restore); consecutive
-        attaches are one attach call, as the leader made them.
+        rank's K/V of the sequence, ``[L, T, H, hd]``: a store), from
+        ``prepared[b]`` (this rank's heads of an imported block, in the
+        tier's form) or, with neither, from this rank's spill tier (a
+        restore); consecutive attaches are one attach call, as the leader
+        made them.
         ``("evict", key)`` detaches a block, ``("spill", key)`` writes an
         evicted one to the spill tier, ``("unspill", key)`` drops a spill
         file. Returns the chain keys (hex) this rank could not apply: a
@@ -220,7 +228,7 @@ class HostKVCache:
                 while i < len(events) and events[i][0] == "attach":
                     run.append(int(events[i][1]))
                     i += 1
-                lost += self._replay_attach(tokens, run, k, v)
+                lost += self._replay_attach(tokens, run, k, v, prepared)
                 continue
             i += 1
             if kind == "evict":
@@ -247,7 +255,8 @@ class HostKVCache:
                 raise ValueError(f"unknown journal event {kind!r}")
         return lost
 
-    def _replay_attach(self, tokens, run: List[int], k, v) -> List[str]:
+    def _replay_attach(self, tokens, run: List[int], k, v,
+                       given=None) -> List[str]:
         bt = self.block_tokens
         keys = self.chain_keys(tokens[: (max(run) + 1) * bt])
         prepared: Dict[int, Tuple] = {}
@@ -255,6 +264,12 @@ class HostKVCache:
         for b in run:
             if k is not None:
                 prepared[b] = self._prepare(k, v, b)
+                continue
+            if given is not None:
+                if b in given:
+                    prepared[b] = given[b]
+                else:
+                    lost.append(keys[b].hex())
                 continue
             from gpustack_tpu_torch.engine.kv_transfer import _to_cache_tier
 
@@ -272,7 +287,7 @@ class HostKVCache:
                     tokens[: (max(prepared) + 1) * bt], max(prepared) + 1,
                     prepared,
                 )
-            if k is None:
+            if k is None and given is None:
                 with self._lock:
                     self.faultbacks += len(prepared)
         return lost
@@ -572,6 +587,16 @@ class HostKVCache:
         if limit <= 0:
             return []
         return self._exported(self._walk(prompt, limit, touch=True))
+
+    def named_blocks(self, keys_hex) -> Tuple[List[dict], int]:
+        """This rank's RAM blocks under ``keys_hex``, in
+        :meth:`export_blocks`' shape (a follower's side of a leader's
+        export), and the index of the first key it lacks (-1: none)."""
+        with self._lock:
+            run = [self._blocks.get(bytes.fromhex(k)) for k in keys_hex]
+        missing = next((i for i, b in enumerate(run) if b is None), -1)
+        return self._exported(run[:missing] if missing >= 0 else run), \
+            missing
 
     def import_blocks(self, token_ids, prepared: Dict[int, Tuple]) -> int:
         """Attach pre-converted blocks: ``prepared[b]`` is ``(k, v,

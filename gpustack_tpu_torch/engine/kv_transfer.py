@@ -26,6 +26,13 @@ bf16 blocks are ``uint16`` bit patterns on the host (``host_bf16``) and
 are named ``"bfloat16"`` in the meta, so a frame this module encodes is
 byte for byte the frame the JAX package encodes for the same K/V, and
 each decodes the other's.
+
+A multi-GPU replica's ranks each hold their KV heads of every block
+(axis 2 of ``[L, T, H, hd]``, and of the int8 scales ``[L, 1, H, 1]``):
+:func:`join_heads` makes one whole-head exported block of the ranks'
+parts, :func:`slice_heads` cuts a prepared block to a rank's heads, and
+:func:`pack_arrays` / :func:`unpack_arrays` lay a run of blocks out as
+one byte buffer for the move between ranks. The frames stay whole-head.
 """
 
 from __future__ import annotations
@@ -323,6 +330,78 @@ def _to_cache_tier(cache, fr: Frame) -> Tuple:
     k = np.ascontiguousarray(k)
     v = np.ascontiguousarray(v)
     return k, v, None, logical, k.nbytes + v.nbytes
+
+
+# ---------------------------------------------------------------------------
+# Blocks split and joined over KV heads (a multi-GPU replica's ranks)
+# ---------------------------------------------------------------------------
+
+_HEAD_AXIS = 2                # [L, T, H, hd] and the scales' [L, 1, H, 1]
+
+
+def block_arrays(k, v, scales) -> List[np.ndarray]:
+    """A block's arrays in wire order: k, v and any int8 scales."""
+    return [k, v] + ([] if scales is None else list(scales))
+
+
+def slice_heads(prep: Tuple, lo: int, hi: int) -> Tuple:
+    """A prepared block ``(k, v, scales|None, dtype, nbytes)`` at KV heads
+    ``[lo, hi)``, each array a contiguous copy, its bytes recounted. The
+    int8 scales are per layer x head, so the slice is bit for bit the
+    block one process would store for those heads."""
+    k, v, scales, dtype, _ = prep
+    if lo == 0 and hi == k.shape[_HEAD_AXIS]:
+        return prep
+
+    def cut(a):
+        return np.ascontiguousarray(a[:, :, lo:hi])
+
+    k, v = cut(k), cut(v)
+    if scales is not None:
+        scales = (cut(scales[0]), cut(scales[1]))
+    return (k, v, scales, dtype,
+            sum(a.nbytes for a in block_arrays(k, v, scales)))
+
+
+def join_heads(parts: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """One exported block (``HostKVCache.export_blocks``' dicts) from
+    its parts over the KV heads, in head order: the arrays concatenated
+    on the head axis, the bytes summed; key, tokens and dtype are the
+    first part's."""
+    out = dict(parts[0])
+    for name in ("k", "v", "k_scale", "v_scale"):
+        if out[name] is not None:
+            out[name] = np.concatenate([p[name] for p in parts],
+                                       axis=_HEAD_AXIS)
+    out["nbytes"] = sum(p["nbytes"] for p in parts)
+    return out
+
+
+def pack_arrays(arrays: List[np.ndarray],
+                out: Optional[np.ndarray] = None) -> np.ndarray:
+    """The arrays' bytes one after another (uint8), into ``out`` when
+    given (a pinned buffer's view: one copy on the host)."""
+    if out is None:
+        out = np.empty(sum(a.nbytes for a in arrays), np.uint8)
+    at = 0
+    for a in arrays:
+        out[at:at + a.nbytes] = np.ascontiguousarray(a).view(
+            np.uint8).ravel()
+        at += a.nbytes
+    return out
+
+
+def unpack_arrays(flat: np.ndarray, like) -> List[np.ndarray]:
+    """:func:`pack_arrays` undone: ``like`` gives each array's
+    ``(dtype, shape)``, in order; the arrays view ``flat``."""
+    out, at = [], 0
+    for dtype, shape in like:
+        n = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        out.append(flat[at:at + n].view(dtype).reshape(shape))
+        at += n
+    if at != flat.size:
+        raise ValueError(f"{flat.size} bytes for arrays of {at}")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -43,10 +43,22 @@ Determinism contract:
   draft's stay on rank 0's card and reach the others in one broadcast on
   the device; every rank ends the step with rank 0's accepted tokens
   (``ModelRunner.verify_step``);
+- a handoff (``/kv/export``, ``/kv/import``) moves whole-head blocks
+  while each rank keeps its own heads. An export is named (``kv_export``:
+  the chain keys whose payload travels) where the leader reads its tier,
+  under the tier lock, and each distinct head part of those blocks then
+  moves once to rank 0, which joins them (:func:`gather_heads`); an
+  import is attached on the leader at its heads and named (``kv_import``:
+  the token chain, the journal, the blocks' shapes at a rank's heads),
+  then rank 0 sends every other rank its heads (:func:`scatter_heads`)
+  and each follower attaches them as the journal says. Both run on the
+  leader's scheduler thread, where every other op and collective starts;
+- an embedding batch rides the ``embed`` op as host ints; the first
+  ``dp`` group runs it (``ModelRunner.embed``);
 - features whose host state would still part across ranks are refused at
-  build (``api_server.build_engine_from_args``: the host KV tier and
-  speculation under ``sp``, the vision path, ``--kv-role``) and here,
-  defensively (embeddings and rerank answer 400 naming the plan).
+  build (``api_server.build_engine_from_args``: the host KV tier,
+  speculation and ``--kv-role`` under ``sp``, the vision path) and here,
+  defensively (embeddings under ``sp`` answer 400 naming the plan).
 
 A follower that dies closes its socket: the leader's watcher sees it, and
 the next scheduler step raises, which makes the engine fatal and
@@ -64,10 +76,21 @@ import time
 import types
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from gpustack_tpu_torch.engine import diagnostics
 from gpustack_tpu_torch.engine.host_bf16 import to_numpy
+from gpustack_tpu_torch.engine.kv_transfer import (
+    _dtype_from_name,
+    _dtype_name,
+    block_arrays,
+    join_heads,
+    pack_arrays,
+    slice_heads,
+    unpack_arrays,
+)
+from gpustack_tpu_torch.parallel.mesh import kv_head_range
 
 logger = logging.getLogger(__name__)
 
@@ -385,6 +408,79 @@ class BroadcastingRunner:
             self._leader.broadcast(op)
         return out
 
+    def kv_export(self, cache, read, have=()) -> List[dict]:
+        """A whole-head export of the leader's tier (``read()``:
+        ``export_blocks`` or ``export_chain``): named to the followers as
+        it is read (``kv_export``, the keys of the blocks whose payload
+        travels: those outside ``have``), then those blocks' head parts
+        gathered to rank 0 and joined (:func:`gather_heads`). Scheduler
+        thread."""
+        have = frozenset(have)
+        blocks = self.tier_op(cache, read, lambda blocks: {
+            "op": "kv_export",
+            "keys": [b["key"] for b in blocks if b["key"] not in have],
+        })
+        sent = [b for b in blocks if b["key"] not in have]
+        joined = gather_heads(self._runner, [b["key"] for b in sent], sent,
+                              -1)
+        whole = {b["key"]: j for b, j in zip(sent, joined)}
+        return [whole.get(b["key"], b) for b in blocks]
+
+    def kv_import_stage(self, prepared) -> dict:
+        """The host work of a whole-head import, done before its turn on
+        the op stream: the leader's own heads of the ``prepared`` blocks
+        (``"mine"``), and every other rank's packed once per distinct
+        head range (``"parts"``, pinned on the card)."""
+        runner = self._runner
+        plan, heads = runner.plan, runner.cfg.num_kv_heads
+        parts: Dict[tuple, torch.Tensor] = {}
+        for r in range(1, plan.chips):
+            span = kv_head_range(plan, r, heads)
+            if span not in parts:
+                parts[span] = _staged([
+                    a for b in sorted(prepared)
+                    for a in block_arrays(*slice_heads(prepared[b],
+                                                       *span)[:3])
+                ], runner.device)
+        span = kv_head_range(plan, 0, heads)
+        return {"mine": {b: slice_heads(p, *span)
+                         for b, p in prepared.items()},
+                "parts": parts}
+
+    def kv_import(self, cache, tokens, staged) -> int:
+        """A whole-head import (``staged``: :meth:`kv_import_stage`): the
+        leader attaches its heads and names the attach (``kv_import``:
+        the token chain, the journal, a block's arrays at a rank's heads),
+        then sends each other rank its heads (:func:`scatter_heads`).
+        Scheduler thread."""
+        mine = staged["mine"]
+        order = sorted(mine)
+        first = mine[order[0]] if order else None
+        n = self.tier_op(
+            cache, lambda: cache.import_blocks(tokens, mine),
+            lambda n: {
+                "op": "kv_import", "ids": [int(t) for t in tokens],
+                "blocks": order,
+                "like": [] if first is None else [
+                    [a.dtype.str, list(a.shape)]
+                    for a in block_arrays(*first[:3])],
+                "dtype": "" if first is None else _dtype_name(first[3]),
+            })
+        if order:
+            scatter_heads(self._runner, staged["parts"])
+        return n
+
+    def embed(self, batch_token_ids, true_lens):
+        """An embedding batch: named to the followers (``embed``), then
+        run here (``ModelRunner.embed``)."""
+        self._runner._refuse_sp("embeddings")
+        self._leader.broadcast({
+            "op": "embed", "ids": [[int(t) for t in r]
+                                   for r in batch_token_ids],
+            "lens": [int(n) for n in true_lens],
+        })
+        return self._runner.embed(batch_token_ids, true_lens)
+
     def kv_adopt(self, gather_id: int, slot) -> None:
         """The gathered hit ``gather_id`` seeds ``slot``'s prefill: every
         follower takes its own upload of the same blocks, and every rank
@@ -451,8 +547,17 @@ class BroadcastingRunner:
     def ingest_step(self, *a, **kw):
         self._unsupported("draft ingestion")
 
-    def embed(self, *a, **kw):
-        self._unsupported("embeddings")
+
+def _first_lacking(runner, missing: int):
+    """One world all-gather of each rank's ``missing`` (the index of the
+    first named block it lacks, -1: none): ``(rank, index)`` of the first
+    rank that lacks one, or None, the same on every rank."""
+    flags = runner.mesh.all_gather_world(
+        torch.tensor([missing], dtype=torch.int64, device=runner.device))
+    for rank, flag in enumerate(int(f) for f in torch.cat(flags).tolist()):
+        if flag >= 0:
+            return rank, flag
+    return None
 
 
 def check_hit(runner, cache, tokens, missing: int) -> None:
@@ -461,16 +566,132 @@ def check_hit(runner, cache, tokens, missing: int) -> None:
     world all-gather; if any rank lacks one, every rank raises the same
     error, naming the first such rank and the block's chain key, so no
     rank runs the prefill cold while the others run it warm."""
-    flags = runner.mesh.all_gather_world(
-        torch.tensor([missing], dtype=torch.int64, device=runner.device))
-    for rank, flag in enumerate(int(f) for f in torch.cat(flags).tolist()):
-        if flag >= 0:
-            key = cache.chain_keys(tokens)[flag].hex()
-            raise RuntimeError(
-                f"rank {rank} lacks KV block {key} (block {flag} of a "
-                f"{len(tokens)}-token prefix hit the leader named); the "
-                "replica's host tiers parted"
-            )
+    lacking = _first_lacking(runner, missing)
+    if lacking is not None:
+        rank, flag = lacking
+        key = cache.chain_keys(tokens)[flag].hex()
+        raise RuntimeError(
+            f"rank {rank} lacks KV block {key} (block {flag} of a "
+            f"{len(tokens)}-token prefix hit the leader named); the "
+            "replica's host tiers parted"
+        )
+
+
+def _staged(arrays, device) -> torch.Tensor:
+    """``arrays`` packed into one uint8 tensor on ``device``: on the card
+    through a pinned host buffer (one copy on the host, an asynchronous
+    one to the card)."""
+    if device.type != "cuda":
+        return torch.from_numpy(pack_arrays(arrays))
+    n = sum(a.nbytes for a in arrays)
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    pack_arrays(arrays, out=host.numpy())
+    return host.to(device, non_blocking=True)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A received uint8 buffer on the host (through a pinned buffer on the
+    card: the copy waits for the transfer that filled it)."""
+    if t.device.type != "cuda":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=torch.uint8, pin_memory=True)
+    host.copy_(t)
+    return host.numpy()
+
+
+def gather_heads(runner, keys, blocks, missing: int):
+    """Every rank at once, for an export naming the blocks ``keys``:
+    ``blocks`` are this rank's heads of them (``export_blocks``' dicts)
+    and ``missing`` the index of the first it lacks (-1: none). If any
+    rank lacks one, every rank raises, naming the rank and the key. Else
+    each distinct head part of rank 0's ``tp`` group moves once to rank
+    0 (``Mesh.gather_heads``: nothing under ``tp`` 1), which returns the
+    whole-head blocks (``join_heads``); other ranks return None."""
+    if not keys:
+        return []
+    lacking = _first_lacking(runner, missing)
+    if lacking is not None:
+        rank, i = lacking
+        raise RuntimeError(
+            f"rank {rank} lacks KV block {keys[i]} (block {i} of an "
+            f"export of {len(keys)} the leader named); the replica's host "
+            "tiers parted"
+        )
+    mesh = runner.mesh
+    heads = runner.cfg.num_kv_heads
+    if len(mesh.head_holders(heads)) == 1:
+        return blocks if mesh.rank == 0 else None
+    arrays = [a for b in blocks for a in _payload(b)]
+    parts = mesh.gather_heads(_staged(arrays, runner.device), heads)
+    if parts is None:
+        return None
+    like = [(a.dtype, a.shape) for a in arrays]
+    unpacked = [arrays] + [unpack_arrays(_to_host(p), like)
+                           for p in parts[1:]]
+    out, at = [], 0
+    for b in blocks:
+        n = len(_payload(b))
+        out.append(join_heads([
+            {**b, **dict(zip(_present(b), arrs[at:at + n])),
+             "nbytes": sum(a.nbytes for a in arrs[at:at + n])}
+            for arrs in unpacked]))
+        at += n
+    return out
+
+
+def _present(blk):
+    return [n for n in ("k", "v", "k_scale", "v_scale")
+            if blk[n] is not None]
+
+
+def _payload(blk):
+    return [blk[n] for n in _present(blk)]
+
+
+def scatter_heads(runner, staged=None, op=None):
+    """Every rank at once, for an import: rank 0 sends each other rank its
+    heads of the imported blocks (``staged``, by head range:
+    :meth:`BroadcastingRunner.kv_import_stage`) and returns None; a
+    follower receives its heads as the ``kv_import`` ``op`` lays them out
+    and returns the received buffer (on the host, or on the card with the
+    event its copy to the host is recorded on) for
+    :func:`unstage_import`."""
+    mesh, heads = runner.mesh, runner.cfg.num_kv_heads
+    if mesh.rank == 0:
+        mesh.scatter_from_leader_(None, {
+            r: staged[kv_head_range(mesh.plan, r, heads)]
+            for r in range(1, mesh.world)})
+        return None
+    per_block = sum(int(np.prod(shape)) * np.dtype(dtype).itemsize
+                    for dtype, shape in op["like"])
+    buf = torch.empty(per_block * len(op["blocks"]), dtype=torch.uint8,
+                      device=runner.device)
+    mesh.scatter_from_leader_(buf)
+    if buf.device.type != "cuda":
+        return buf.numpy(), None
+    # to the host without waiting here: the tier's thread waits on it
+    host = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
+    host.copy_(buf, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host.numpy(), done
+
+
+def unstage_import(op, flat) -> Dict[int, tuple]:
+    """A follower's received heads of a ``kv_import``'s blocks as prepared
+    blocks ``{b: (k, v, scales|None, dtype, nbytes)}``, each array a copy
+    of its own."""
+    like = [(np.dtype(d), tuple(s)) for d, s in op["like"]] * len(
+        op["blocks"])
+    arrays = [a.copy() for a in unpack_arrays(flat, like)]
+    n = len(op["like"])
+    dtype = _dtype_from_name(op["dtype"])
+    out = {}
+    for i, b in enumerate(op["blocks"]):
+        k, v, *scales = arrays[i * n:(i + 1) * n]
+        out[b] = (k, v, tuple(scales) if scales else None, dtype,
+                  sum(a.nbytes for a in arrays[i * n:(i + 1) * n]))
+    return out
 
 
 class FollowerTier:
@@ -552,6 +773,36 @@ class FollowerTier:
         fut = self._submit(_gather_job)
         if ok:
             self._gathered[slot] = (gather_id, list(ids), fut)
+
+    def export(self, keys, events):
+        """This rank's heads of the blocks a leader's export names, read
+        where the leader read its own: after the queued work, with the
+        journal the export carried. ``(blocks, index of the first it
+        lacks or -1)``."""
+        def read():
+            self._lost(self.cache.replay(events, ()))
+            return self.cache.named_blocks(keys)
+
+        out = self._submit(read).result()
+        self.check()
+        return out
+
+    def import_(self, op, runner) -> None:
+        """A leader's import: this rank's heads arrive from rank 0
+        (:func:`scatter_heads`, on the loop thread, in the op stream's
+        order) and are attached on the kv-copy thread as the leader's
+        journal says."""
+        flat, done = (scatter_heads(runner, op=op) if op["blocks"]
+                      else (None, None))
+
+        def attach():
+            if done is not None:
+                done.synchronize()
+            prepared = {} if flat is None else unstage_import(op, flat)
+            self._lost(self.cache.replay(op["events"], op["ids"],
+                                         prepared=prepared))
+
+        self._submit(attach)
 
     def adopt(self, gather_id: int, slot, runner):
         """This rank's upload of hit ``gather_id`` for ``slot`` (``(None,
@@ -726,6 +977,13 @@ class FollowerLoop:
         elif kind == "kv_adopt":
             k, v = self.tier.adopt(op["id"], slot, r)
             self._chunk_regs[slot] = (None, k, v)
+        elif kind == "kv_export":
+            gather_heads(r, op["keys"], *self.tier.export(op["keys"],
+                                                         op["events"]))
+        elif kind == "kv_import":
+            self.tier.import_(op, r)
+        elif kind == "embed":
+            r.embed(op["ids"], op["lens"])
         elif kind == "verify":
             if op["proposals"] is None:      # rank 0's, on the device
                 buf = torch.empty((r.max_slots, op["P"]), dtype=torch.int64,

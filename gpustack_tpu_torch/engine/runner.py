@@ -21,7 +21,7 @@ The port of ``gpustack_tpu/engine/runner.py``:
   token; a draft model's runner catches up with ``ingest_step`` and
   rewinds its proposals with ``snapshot_sequence``/``restore_sequence``;
 - **embed**: one cacheless forward over a padded batch, mean-pooled and
-  l2-normalised.
+  l2-normalised (over a mesh: on every rank of the first ``dp`` group).
 
 - **a mesh** (``plan`` and ``mesh``, one process per GPU): the params
   are the rank's shard, the KV cache holds the rank's KV heads
@@ -565,8 +565,13 @@ class ModelRunner:
         every row pre-padded to one bucket ``Tb``; the batch is padded to
         a power of two with empty rows (true length 0, pooled to zero) so
         the kernel sees a bounded set of shapes. On the card the attention
-        is the flash kernel (``attn_impl_for``), as for every prefill."""
-        self._refuse_sharded("embeddings")
+        is the flash kernel (``attn_impl_for``), as for every prefill.
+        Under ``dp`` the first group runs the batch (rank 0's: the vectors
+        are where the leader reads them), another group's slots untouched;
+        refused under ``sp``. None on every rank but 0."""
+        self._refuse_sp("embeddings")
+        if not self._runs(0):
+            return None
         Tb = len(batch_token_ids[0])
         if Tb not in self.prefill_buckets:
             raise ValueError(f"{Tb} is not a bucket {self.prefill_buckets}")
@@ -584,6 +589,8 @@ class ModelRunner:
             self.params, self.cfg, tokens, positions, return_hidden=True,
             attn_impl=self.attn_impl_for(Tb), mesh=self.mesh,
         )
+        if self.mesh is not None and self.mesh.rank:
+            return None              # rank 0 pools, as on one card
         lens_t = self._ids_on_device(lens)
         mask = (positions < lens_t[:, None])[..., None].float()
         pooled = (hidden * mask).sum(dim=1) / mask.sum(dim=1).clamp_min(1.0)

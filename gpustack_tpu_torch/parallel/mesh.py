@@ -22,9 +22,12 @@ the prefill's last hidden row and the KV moves of ``insert``), the
 heads and experts over other slots' cache rows; a host-tier store's K/V
 from the group that holds them) and the world (the sampled tokens'
 broadcast, or under ``dp`` their gather, a draft's proposals, and the
-first-token logits a ``dp`` group sends rank 0). Collectives are NCCL on
-the card and gloo on the CPU; a group of one rank makes each collective a
-no-op, so one process needs no process group at all.
+first-token logits a ``dp`` group sends rank 0). A handed-off block run
+moves point to point between rank 0 and the ranks that hold its KV heads
+(:meth:`Mesh.gather_heads`, :meth:`Mesh.scatter_from_leader_`).
+Collectives are NCCL on the card and gloo on the CPU; a group of one rank
+makes each collective a no-op, so one process needs no process group at
+all.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import contextlib
 import dataclasses
 import datetime
 import socket
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -133,6 +136,19 @@ def rank_coords(plan: MeshPlan, rank: int) -> Dict[str, int]:
         idx.append(rest % n)
         rest //= n
     return dict(zip(MESH_AXES, reversed(idx)))
+
+
+def kv_head_range(plan: MeshPlan, rank: int, kv_heads: int) -> Tuple[int, int]:
+    """The KV heads ``[lo, hi)`` rank ``rank`` keeps, as the sharding cuts
+    them (``sharding._slice``): its ``tp`` index's ``kv_heads / tp``, or,
+    with ``tp`` above ``kv_heads``, the one whole head its query heads
+    read."""
+    t, tp = rank_coords(plan, rank)[AXIS_TP], plan.tp
+    if tp > kv_heads:
+        i = t // (tp // kv_heads)
+        return i, i + 1
+    n = kv_heads // tp
+    return t * n, (t + 1) * n
 
 
 class Mesh:
@@ -366,6 +382,58 @@ class Mesh:
             else:
                 req = dist.irecv(x, src)
         req.wait()
+
+    def head_holders(self, kv_heads: int) -> List[int]:
+        """One global rank for each distinct part of the KV heads in rank
+        0's ``tp`` group (global ranks ``0 .. tp - 1``), in head order:
+        the first of the ranks that share a head where ``tp`` is above
+        ``kv_heads``."""
+        parts = min(self.tp, kv_heads)
+        return [t * (self.tp // parts) for t in range(parts)]
+
+    def gather_heads(self, x: torch.Tensor,
+                     kv_heads: int) -> Optional[List[torch.Tensor]]:
+        """Every distinct KV-head part of ``x`` (same shape on every rank)
+        in rank 0's ``tp`` group, in head order, on rank 0: one message
+        from each :meth:`head_holders` rank, so each head moves once; any
+        other rank sends nothing. None off rank 0."""
+        holders = self.head_holders(kv_heads)
+        if self.rank == 0:
+            parts = [x] + [torch.empty_like(x) for _ in holders[1:]]
+            self._p2p([], list(zip(parts[1:], holders[1:])))
+            return parts
+        if self.rank in holders:
+            self._p2p([(x, 0)], [])
+        return None
+
+    def scatter_from_leader_(self, x: Optional[torch.Tensor],
+                             parts=None) -> Optional[torch.Tensor]:
+        """Rank 0 sends ``parts[r]`` to every other rank ``r`` (one
+        message each); every other rank receives into ``x`` in place."""
+        if self.world == 1:
+            return x
+        if self.rank == 0:
+            self._p2p([(parts[r], r) for r in range(1, self.world)], [])
+        else:
+            self._p2p([], [(x, 0)])
+        return x
+
+    @staticmethod
+    def _p2p(sends, recvs) -> None:
+        """Post ``sends`` and ``recvs`` ``[(tensor, global rank)]`` and
+        wait for them (NCCL: a communicator per pair of ranks, as
+        :meth:`send_to_leader_`; its point-to-point ops run on the calling
+        thread's current device)."""
+        pairs = sends + recvs
+        if not pairs:
+            return
+        device = pairs[0][0].device
+        with (torch.cuda.device(device) if device.type == "cuda"
+              else contextlib.nullcontext()):
+            reqs = [dist.isend(t, r) for t, r in sends]
+            reqs += [dist.irecv(t, r) for t, r in recvs]
+        for req in reqs:
+            req.wait()
 
     def all_gather_world(self, x: torch.Tensor) -> List[torch.Tensor]:
         """Every rank's ``x`` (same shape), in rank order."""

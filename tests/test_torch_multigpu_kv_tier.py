@@ -32,8 +32,9 @@ pipeline depth 0, and each tier's copies are drained between requests.
   each rank's int8 block is bit for bit the slice of JAX's int8 block of
   the same whole-head K/V; after evictions, spills and a restore from
   disk, every rank's RAM and spill keys equal the leader's and JAX's.
-- ``/kv/export``, ``/kv/import`` and ``/kv/pull`` answer 400 naming the
-  plan; ``/kv/summary`` gives the leader's keys.
+- ``/kv/export`` gives the ranks' blocks joined over the KV heads,
+  ``/kv/import`` and ``/kv/pull`` serve; ``/kv/summary`` gives the
+  leader's keys.
 - A follower that lost a block the leader names ends the replica with an
   error naming the key and the rank (last: it ends that replica).
 """
@@ -480,7 +481,28 @@ def _call(port, method, path, body=None):
         conn.close()
 
 
+def _call_raw(port, path, body=None, raw=None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", path,
+                     body=raw if raw is not None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
 def test_kv_wire_routes_refuse_and_summary_is_the_leaders(spilled):
+    """The routes that move blocks over the wire serve on the replica
+    (they answered 400 until a replica moved whole-head blocks):
+    ``/kv/export`` of a served chat's prompt gives frames whose payload is
+    the ranks' blocks joined over the KV heads; the same frames through
+    ``/kv/import`` attach nothing (the tier holds them); ``/kv/pull`` by
+    the chain's tail key from the replica itself lands; ``/kv/summary``
+    gives the leader's keys."""
+    from gpustack_tpu_torch.engine.kv_transfer import decode_stream  # analysis: ignore[metrics-drift]
+
     eng, _, _, _, _, _ = spilled
     server = OpenAIServer(eng)
     port = server.start("127.0.0.1", 0)
@@ -490,23 +512,33 @@ def test_kv_wire_routes_refuse_and_summary_is_the_leaders(spilled):
             "messages": msgs, "max_tokens": 4, "temperature": 0})
         assert status == 200
         _drain(eng)
-        for path, body in (("/kv/export", {"prompt_ids": [1, 2, 3]}),
-                           ("/kv/pull", {"source": "http://x",
-                                         "tail_key": "00"})):
-            status, reply = _call(port, "POST", path, body)
-            assert status == 400
-            assert "plan dp1xsp1xep1xtp2" in reply["error"]["message"]
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
-        conn.request("POST", "/kv/import", body=b"x")
-        resp = conn.getresponse()
-        assert resp.status == 400
-        assert b"plan dp1xsp1xep1xtp2" in resp.read()
-        conn.close()
+        ids = eng.tokenizer.apply_chat_template(msgs)
+        n = (len(ids) - 1) // BLOCK
+        status, raw = _call_raw(port, "/kv/export", {"prompt_ids": ids})
+        frames = decode_stream(raw)
+        assert status == 200 and len(frames) == n >= 1
+        ranks = eng.runner.probe(eng._state, "kv_block",
+                                 ids=ids[:n * BLOCK])
+        for name in ("k", "v"):
+            whole = np.concatenate([r[name] for r in ranks], axis=2)
+            assert getattr(frames[-1], name).tobytes() == whole.tobytes()
+        status, reply = _call_raw(port, "/kv/import", raw=raw)
+        assert status == 200
+        assert json.loads(reply)["blocks_attached"] == 0
+        status, _ = _call(port, "POST", "/kv/pull", {
+            "source": f"http://127.0.0.1:{port}/kv/export",
+            "tail_key": frames[-1].key})
+        assert status == 202
+        deadline = time.time() + 60
+        while server.prefetch_ok < 1 and time.time() < deadline:
+            time.sleep(0.05)
+        assert server.prefetch_ok == 1 and server.prefetch_failed == 0
         status, summary = _call(port, "POST", "/kv/summary", {})
         assert status == 200 and summary["keys"]
         leader = set(eng.host_kv_cache.keys())
         for entry in summary["keys"].values():
             assert entry["tail"] in leader
+        assert eng.health()["status"] == "ok"
     finally:
         server.shutdown()
 

@@ -247,8 +247,20 @@ def test_broadcasting_runner_refuses_single_process_features():
     eng = _engine()
     runner = mh.BroadcastingRunner(eng.runner, leader=None)
     assert runner.supports_async_insert is False
-    # the host tier's prefix prefill and the verify step are served over
-    # the channel (tests/test_torch_multigpu_kv_tier.py, _spec.py)
-    for fn in ("prefill_with_embeds", "ingest_step", "embed"):
+    # the host tier's prefix prefill, the verify step and an embedding
+    # batch are served over the channel (tests/test_torch_multigpu_*.py)
+    for fn in ("prefill_with_embeds", "ingest_step"):
         with pytest.raises(ValueError, match="multi-GPU replica"):
             getattr(runner, fn)()
+
+    class Channel:
+        ops = []
+
+        def broadcast(self, op):
+            self.ops.append(op)
+
+    runner = mh.BroadcastingRunner(eng.runner, Channel())
+    rows = [[5, 6, 7] + [0] * 29, [8] + [0] * 31]
+    got = runner.embed(rows, [3, 1])
+    assert Channel.ops == [{"op": "embed", "ids": rows, "lens": [3, 1]}]
+    assert torch.equal(got, eng.runner.embed(rows, [3, 1]))

@@ -1,0 +1,245 @@
+"""Rank bodies for the multi-GPU handoff and embedding tests
+(``test_torch_multigpu_kv_role.py``, ``test_torch_multigpu_embeddings.py``):
+one fp32 replica of the port's server, each rank in a process of its own
+over gloo (``parallel.launch.run_ranks``), importing no JAX.
+
+:func:`replica` builds a rank as ``api_server.build_engine_from_args``
+does (the rank's shard of a numpy tree, rank 0's ``BroadcastingRunner``
+and ``CommandLeader``, a follower's ``FollowerLoop`` and ``FollowerTier``)
+but from a given tree and config, so the replica runs in fp32 on the JAX
+package's own weights. Rank 0 serves HTTP and runs one of the scripts
+below against its own server; it returns what the script returns, and a
+follower returns once the leader closes the channel."""
+
+import http.client
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from gpustack_tpu_torch.engine import diagnostics  # analysis: ignore[metrics-drift]
+from gpustack_tpu_torch.engine import multihost as mh  # analysis: ignore[metrics-drift]
+from gpustack_tpu_torch.engine.api_server import OpenAIServer  # analysis: ignore[metrics-drift]
+from gpustack_tpu_torch.engine.engine import GenRequest, LLMEngine  # analysis: ignore[metrics-drift]
+from gpustack_tpu_torch.engine.weights import params_from_numpy  # analysis: ignore[metrics-drift]
+from gpustack_tpu_torch.parallel.mesh import MeshPlan, close_mesh, init_mesh  # analysis: ignore[metrics-drift]
+
+CPU = torch.device("cpu")
+TOKEN = "replica-test"
+
+
+def replica(rank, world, coordinator, cfg, tree, plan, engine_kw, cmd_port,
+            http_port, script, args):
+    """One rank of an fp32 replica of ``cfg`` over ``tree`` under
+    ``plan``; rank 0 serves on ``http_port`` (0: any) and returns
+    ``script(engine, port, *args)``."""
+    mesh = init_mesh(MeshPlan.parse(plan), rank, coordinator, CPU)
+    params = params_from_numpy(tree, CPU, mesh if world > 1 else None,
+                               cfg.num_kv_heads)
+    engine = LLMEngine(cfg, params, device="cpu", plan=mesh.plan,
+                       mesh=mesh, pipeline_depth=0, **engine_kw)
+    tier = engine.host_kv_cache
+    if world > 1 and rank:
+        engine.follower_loop = mh.FollowerLoop(
+            engine.runner, f"127.0.0.1:{cmd_port}", state=engine._state,
+            token=TOKEN, tier=None if tier is None else mh.FollowerTier(
+                engine))
+        engine.follower_loop.start()
+        engine.follower_loop.join()
+        close_mesh(mesh)
+        return engine.follower_loop.error
+    if world > 1:
+        engine.runner = mh.BroadcastingRunner(
+            engine.runner, mh.CommandLeader(cmd_port, world - 1,
+                                            token=TOKEN))
+        if tier is not None:
+            tier.lead()
+    engine.start()
+    server = OpenAIServer(engine, model_name=cfg.name)
+    port = server.start("127.0.0.1", http_port)
+    try:
+        return script(engine, port, *args)
+    finally:
+        server.shutdown()
+        engine.stop()
+        if world > 1:
+            engine.runner.close()
+        close_mesh(mesh)
+
+
+def _post(port, path, body=None, raw=None, headers=None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", path,
+                     body=raw if raw is not None else json.dumps(body),
+                     headers={"Content-Type": "application/json",
+                              **(headers or {})})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _drain(engine):
+    """The leader's queued tier work has landed (and been named)."""
+    if engine._kv_copy_pool is not None:
+        engine._kv_copy_pool.submit(lambda: None).result(timeout=120)
+
+
+def _probe(engine, what, ids=None):
+    """``diagnostics.probe`` on every rank (through the leader's runner;
+    one process: its own runner)."""
+    if hasattr(engine.runner, "probe"):
+        return engine.runner.probe(engine._state, what, ids=ids)
+    return diagnostics.probe(engine.runner, engine._state, what, ids)
+
+
+def _blocks(engine, ids, n):
+    """Every rank's stored arrays of each of ``ids``' first ``n`` blocks
+    (``probe("kv_block")``)."""
+    bt = engine.host_kv_cache.block_tokens
+    return [_probe(engine, "kv_block", ids[:(b + 1) * bt])
+            for b in range(n)]
+
+
+def _greedy(engine, ids, n):
+    req = engine.generate(GenRequest(prompt_ids=list(ids), max_tokens=n,
+                                     temperature=0.0, stop_ids=()),
+                          timeout=120)
+    _drain(engine)
+    return list(req.output_ids), req.prefix_tokens_reused
+
+
+def kv_checks(engine, port, frames, a, b, tail, n_new):
+    """The handoff routes of one replica: the JAX engine's ``frames`` of
+    prompt ``a`` through ``/kv/import``, every rank's blocks and tier
+    after it; ``a`` exported again by prompt ids, with its first block in
+    ``have``, and by its tail key; ``b`` exported with prefill on a miss
+    and every rank's blocks of it; greedy ids of ``a + tail`` (a hit on
+    the imported blocks)."""
+    cache = engine.host_kv_cache
+    out = {}
+    status, body = _post(port, "/kv/import", raw=frames)
+    out["import"] = (status, json.loads(body))
+    keys = [k.hex() for k in cache.chain_keys(a)]
+    out["a_blocks"] = _blocks(engine, a, len(keys))
+    out["tiers"] = _probe(engine, "kv_tier")
+    out["leader_keys"] = cache.keys()
+    for name, req in (("a_export", {"prompt_ids": a}),
+                      ("a_export_have", {"prompt_ids": a,
+                                         "have": keys[:1]}),
+                      ("a_chain", {"tail_key": keys[-1]}),
+                      ("b_export", {"prompt_ids": b, "prefill": True})):
+        out[name] = _post(port, "/kv/export", req)
+    _drain(engine)
+    out["b_blocks"] = _blocks(engine, b, (len(b) - 1) // cache.block_tokens)
+    out["ids"], out["reused"] = _greedy(engine, a + tail, n_new)
+    out["handoff"] = engine.kv_handoff.snapshot()
+    out["status"] = engine.health()["status"]
+    return out
+
+
+def serve_until(engine, port, sentinel, chat, prompt):
+    """A prefill-role source on its fixed port: ``chat`` served first (a
+    conversation for ``/kv/pull`` by tail key), then serving until
+    ``sentinel`` exists; every rank's blocks of ``prompt`` and ``chat``
+    and the handoff counters."""
+    _greedy(engine, chat, 2)
+    deadline = time.time() + 300
+    while not os.path.exists(sentinel) and time.time() < deadline:
+        time.sleep(0.05)
+    bt = engine.host_kv_cache.block_tokens
+    return {"prompt_blocks": _blocks(engine, prompt, (len(prompt) - 1)
+                                     // bt),
+            "handoff": engine.kv_handoff.snapshot(),
+            "role": engine.health()["kv_role"],
+            "status": engine.health()["status"]}
+
+
+def pull_from(engine, port, src_port, sentinel, text, chat, n_new):
+    """A decode-role replica against the source on ``src_port``: a
+    completion of ``text`` naming the source in ``X-GPUStack-KV-Source``;
+    the same prompt's greedy ids (a hit on the pulled blocks); a
+    ``/kv/pull`` of ``chat``'s chain by its tail key; every rank's blocks
+    of both and every rank's tier. Creates ``sentinel`` when done."""
+    try:
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", src_port,
+                                                  timeout=5)
+                conn.request("GET", "/healthz")
+                if conn.getresponse().status == 200:
+                    break
+            except OSError:
+                time.sleep(0.1)
+        cache = engine.host_kv_cache
+        ids = engine.tokenizer.encode(text)
+        source = f"http://127.0.0.1:{src_port}/kv/export"
+        status, body = _post(port, "/v1/completions", {
+            "prompt": text, "max_tokens": n_new, "temperature": 0},
+            headers={"X-GPUStack-KV-Source": source})
+        out = {"completion": (status, json.loads(body)), "prompt_ids": ids}
+        _drain(engine)
+        out["handoff"] = engine.kv_handoff.snapshot()
+        out["reused_by_completion"] = engine.health()[
+            "kv_cache_prefix_tokens_reused"]
+        out["ids"], out["reused"] = _greedy(engine, ids, n_new)
+        tail = cache.chain_keys(chat)[-1]
+        out["pull"] = _post(port, "/kv/pull", {"source": source,
+                                               "tail_key": tail.hex()})
+        deadline = time.time() + 60
+        while cache.block(tail) is None and time.time() < deadline:
+            time.sleep(0.05)
+        bt = cache.block_tokens
+        out["prompt_blocks"] = _blocks(engine, ids, (len(ids) - 1) // bt)
+        out["chat_blocks"] = _blocks(engine, chat, len(chat) // bt)
+        out["tiers"] = _probe(engine, "kv_tier")
+        out["leader_keys"] = cache.keys()
+        out["role"] = engine.health()["kv_role"]
+        out["status"] = engine.health()["status"]
+        return out
+    finally:
+        open(sentinel, "w").close()
+
+
+def embed_checks(engine, port, batch, text_batch, query, documents,
+                 warm):
+    """``/v1/embeddings`` of token-id and text inputs and ``/v1/rerank``;
+    the slot state of every rank around them, after ``warm`` prompts were
+    served (their slots keep their last tokens and positions)."""
+    for ids in warm:
+        _greedy(engine, ids, 3)
+    state = _probe(engine, "slot_state")
+    out = {"slot_state_before": [s.numpy() for s in state]}
+    for name, body in (("ids", {"input": batch}),
+                       ("text", {"input": text_batch}),
+                       ("base64", {"input": batch,
+                                   "encoding_format": "base64"})):
+        status, raw = _post(port, "/v1/embeddings", body)
+        out[name] = (status, json.loads(raw))
+    status, raw = _post(port, "/v1/rerank", {"query": query,
+                                             "documents": documents})
+    out["rerank"] = (status, json.loads(raw))
+    out["text_ids"] = [engine.tokenizer.encode(t) for t in text_batch]
+    out["rerank_ids"] = [engine.tokenizer.encode(t)
+                         for t in [query] + documents]
+    state = _probe(engine, "slot_state")
+    out["slot_state_after"] = [s.numpy() for s in state]
+    out["status"] = engine.health()["status"]
+    return out
+
+
+def refused_embedding(engine, port):
+    """An embedding request a replica must refuse: its status and
+    message."""
+    status, raw = _post(port, "/v1/embeddings", {"input": [[5, 6, 7]]})
+    return status, json.loads(raw)
+
+
+def vectors(reply):
+    """The float vectors of an ``/v1/embeddings`` reply, by index."""
+    return np.asarray([d["embedding"] for d in sorted(
+        reply["data"], key=lambda d: d["index"])], np.float32)
