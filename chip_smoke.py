@@ -1444,9 +1444,10 @@ def expected_launches(runner_calls, sp_rank=0, dp_rank=0):
     launches are counted per mode too: a runner under ``sp`` runs each
     prefill from zero as a ring, whose rank ``sp_rank`` (the rank the
     counts are taken on) launches the kernel's LSE mode ``sp_rank + 1``
-    times a layer, and its continuations and decode steps merge over the
-    sequence-sharded cache with no launch; every other flash launch is the
-    causal mode. A ring prefill's MoE and W8A16 products see the rank's
+    times a layer (an embedding batch too: one launch a block for all its
+    rows), and its continuations, decode steps and verify blocks merge
+    over the sequence-sharded cache with no launch; every other flash
+    launch is the causal mode. A ring prefill's MoE and W8A16 products see the rank's
     ``T / sp`` tokens. Under ``dp`` the counts are rank ``dp_rank``'s
     group's: a prefill that names a slot runs on the slot's group only,
     and a decode step's rows are the group's slots."""
@@ -1485,7 +1486,7 @@ def expected_launches(runner_calls, sp_rank=0, dp_rank=0):
             if dp > 1 and name == "embed" and dp_rank:
                 continue                    # the first group embeds
             tokens = B * T
-            if sp and name == "prefill":
+            if sp and name in ("prefill", "embed"):
                 want["flash_attention_prefill"] += (sp_rank + 1) * layers
                 want["flash_lse"] += (sp_rank + 1) * layers
                 tokens //= runner.sp
@@ -6092,17 +6093,18 @@ T_RANK_DEVICE = "cuda"
 
 
 class _PlainAttention:
-    """Both modes of the flash kernel swapped for their plain versions
-    (the fp32 checks of t2: the kernel takes bf16 only; phase c and t3
-    hold the kernel itself)."""
+    """Both modes of the flash kernel swapped for their plain versions,
+    over query-row chunks (the fp32 checks of t2, v2, x3 and y3: the
+    kernel takes bf16 only; phase c and t3 hold the kernel itself)."""
 
     def __enter__(self):
+        from gpustack_tpu_torch.engine import diagnostics
         from gpustack_tpu_torch.ops import flash_attention as fa
 
         self._fa = fa
         self._saved = (fa.flash_attention_prefill, fa.flash_attention_lse)
-        fa.flash_attention_prefill = fa.flash_attention_prefill_ref
-        fa.flash_attention_lse = fa.flash_attention_lse_ref
+        fa.flash_attention_prefill = diagnostics.plain_prefill
+        fa.flash_attention_lse = diagnostics.plain_lse
         return self
 
     def __exit__(self, *exc):
@@ -6971,11 +6973,11 @@ def _w_drain(engine):
 
 
 def _w_block_bytes(engine):
-    """One block's bytes on a rank (its KV heads), in the tier's type: a
-    one-process block's divided by ``tp``."""
+    """One block's bytes on a rank (its KV heads, under ``sp`` its stripe
+    of the tokens; an int8 block's scales whole), in the tier's type."""
     L, _, _, H, hd = engine.runner._cache(1).k.shape
     cache = engine.host_kv_cache
-    n = L * BLOCK * H * hd
+    n = L * cache.block_rows * H * hd
     return 2 * (n + L * H * 4) if cache.int8 else 2 * 2 * n
 
 
@@ -7079,7 +7081,8 @@ def _w_hit(engine, prompt, slot):
     with torch.no_grad():
         last, _, _ = runner.prefill_with_prefix(
             job.k, job.v, plen, suffix + [0] * (sb - len(suffix)),
-            len(suffix), runner.bucket_for(plen + sb), slot=slot)
+            len(suffix), runner.bucket_for(plen + sb), slot=slot,
+            prefix_block=job.prefix_block)
     return last.float().cpu(), plen
 
 
@@ -7659,19 +7662,26 @@ def _x_digest_of(arrays):
 
 
 def _x_check_frames(frames, digests, plan, kv_heads, label):
-    """Each rank's stored blocks are the frames' blocks at its KV heads,
-    bit for bit (their sha256 digests)."""
+    """Each rank's stored blocks are the frames' blocks at its part (its
+    KV heads; under ``sp`` K and V at its stripe of the tokens, the
+    scales whole), bit for bit (their sha256 digests)."""
     import numpy as np
 
-    from gpustack_tpu_torch.parallel.mesh import MeshPlan, kv_head_range
+    from gpustack_tpu_torch.parallel.mesh import (
+        MeshPlan,
+        kv_head_range,
+        kv_stripe,
+    )
 
     mp = MeshPlan.parse(plan)
     for b, (fr, per_rank) in enumerate(zip(frames, digests)):
         for r, got in enumerate(per_rank):
             lo, hi = kv_head_range(mp, r, kv_heads)
+            r0, r1 = kv_stripe(mp, r, BLOCK)
             want = _x_digest_of(
-                np.ascontiguousarray(a[:, :, lo:hi])
-                for a in (fr.k, fr.v, fr.k_scale, fr.v_scale)
+                np.ascontiguousarray(a[:, r0:r1, lo:hi] if i < 2
+                                     else a[:, :, lo:hi])
+                for i, a in enumerate((fr.k, fr.v, fr.k_scale, fr.v_scale))
                 if a is not None)
             if got != want:
                 raise AssertionError(f"{label}: rank {r}'s block {b} is not "
@@ -7680,9 +7690,11 @@ def _x_check_frames(frames, digests, plan, kv_heads, label):
             "bit_for_bit": True}
 
 
-def _x_handoff(kind, smi, label, prefill_argv, decode_argv, moe, embed):
-    """One handoff between two live replicas (module docstring, x1/x2):
-    returns the report; raises on a failed gate."""
+def _x_handoff(kind, smi, label, prefill_argv, decode_argv, moe, embed,
+               prompt=N_PROMPT, cold_prompt=N_COLD_PROMPT,
+               line="multi_gpu_kv_role"):
+    """One handoff between two live replicas (module docstring, x1/x2; y3
+    with ``prompt``): returns the report; raises on a failed gate."""
     from gpustack_tpu_torch.engine.kv_host_cache import HostKVCache
     from gpustack_tpu_torch.engine.kv_transfer import decode_stream
     from gpustack_tpu_torch.engine.tokenizer import load_tokenizer
@@ -7700,12 +7712,12 @@ def _x_handoff(kind, smi, label, prefill_argv, decode_argv, moe, embed):
         setup_s = time.perf_counter() - t0
         cfg = get_config(decode_argv[decode_argv.index("--preset") + 1])
         tok = load_tokenizer(None)
-        ids = tok.encode(N_PROMPT)
+        ids = tok.encode(prompt)
         blocks = (len(ids) - 1) // BLOCK
         for r in (pre, dec):                   # first calls: warm-up
             _stream_completion(r.port, "warm up", 2)
             r.call("reset_memory")
-        _, ttft_cold = _stream_completion(dec.port, N_COLD_PROMPT,
+        _, ttft_cold = _stream_completion(dec.port, cold_prompt,
                                           N_MAX_TOKENS)
         before = dec.call("state", f"{label} decode")
         for r in (pre, dec):
@@ -7713,7 +7725,7 @@ def _x_handoff(kind, smi, label, prefill_argv, decode_argv, moe, embed):
         source = f"http://127.0.0.1:{pre.port}/kv/export"
         t1 = time.perf_counter()
         text, ttft_warm = _stream_completion(
-            dec.port, N_PROMPT, N_MAX_TOKENS,
+            dec.port, prompt, N_MAX_TOKENS,
             headers={"X-GPUStack-KV-Source": source})
         request_s = time.perf_counter() - t1
         counted = {"prefill": pre.call("count_stop", f"{label} prefill"),
@@ -7811,19 +7823,20 @@ def _x_handoff(kind, smi, label, prefill_argv, decode_argv, moe, embed):
         if embed:
             report["embeddings"] = {"prefill": pre.call("embed", moe)}
         report["seconds"] = time.perf_counter() - t0
-        emit("multi_gpu_kv_role", **report)
+        emit(line, **report)
         return report
     finally:
         dec.close()
         pre.close()
 
 
-def _x3_case(mesh, device, preset, layers, texts):
-    """One fp32 embedding batch of ``texts`` (the 512 bucket) through the
-    one-card runner (its expert picks recorded), then through the sharded
-    runner on ``mesh`` (replaying them), each rank building its shard as
-    the server does; rank 0 compares. Both take the plain versions of the
-    kernels, which take bf16 only (as t2 and v2)."""
+def _x3_case(mesh, device, preset, layers, texts, bucket=512):
+    """One fp32 embedding batch of ``texts`` (token ids or text,
+    ``bucket`` wide) through the one-card runner (its expert picks
+    recorded), then through the sharded runner on ``mesh`` (replaying
+    them), each rank building its shard as the server does; rank 0
+    compares. Both take the plain versions of the kernels, which take
+    bf16 only (as t2 and v2)."""
     from gpustack_tpu_torch.engine import diagnostics
     from gpustack_tpu_torch.engine.runner import ModelRunner
     from gpustack_tpu_torch.engine.tokenizer import load_tokenizer
@@ -7833,8 +7846,8 @@ def _x3_case(mesh, device, preset, layers, texts):
     cfg = dataclasses.replace(get_config(preset), num_layers=layers,
                               dtype="float32")
     tok = load_tokenizer(None)
-    rows = [tok.encode(t) for t in texts]
-    Tb = 512
+    rows = [t if isinstance(t, list) else tok.encode(t) for t in texts]
+    Tb = bucket
     batch = [r + [0] * (Tb - len(r)) for r in rows]
     lens = [len(r) for r in rows]
 
@@ -7927,6 +7940,420 @@ def phase_kv_role(kind, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# y: the host KV tier, speculation, --kv-role and embeddings under sp > 1
+# ---------------------------------------------------------------------------
+
+Y_GPUS = 4
+Y_TIER = ["--host-kv-cache-mb", "4096"]
+# y1: phase t's qwen3-8b sp4 replica at 32768 with the tier (4096 MB a
+# rank); the int8 tier's replica runs y2's n-gram speculation too
+Y1_ARGV = T1_ARGV + Y_TIER
+Y1_INT8_ARGV = Y1_ARGV + ["--kv-cache-int8", "--speculative", "ngram"]
+# y2: a perfect draft (the target's own seed) on rank 0's card
+Y2_DRAFT_ARGV = T1_ARGV + ["--speculative", "draft", "--draft-source",
+                           T_PRESET]
+# the chat: a long first turn, then two turns adding tokens after the
+# reply (each hits the one before), and a cold prompt as long as turn 3
+Y_TURNS = (24000, 600, 600)
+Y_REPLY = 8
+# the first turn's blocks whose int8 stripes are held to the bf16 ones
+Y_INT8_BLOCKS = (0, 47)
+# y2: one chat a slot, each 8190 tokens long, so the first verify block
+# (positions 8190 .. 8193) crosses rank 0's segment end at 8192; as many
+# greedy tokens as phase g's chats
+Y_SPEC_PROMPT = 8190
+Y_SPEC_TOKENS = SPEC_MAX_TOKENS
+# phase g's gate on a perfect draft's acceptance, held here to what the
+# share of the served tokens the one-card draft itself predicts allows:
+# under an sp4 target the ring's bf16 rounding flips some of the target's
+# near ties, which no draft on one card can follow
+Y_DRAFT_MIN_ACCEPT = 0.9
+# y3: handoffs of a 4000-token prompt (15 blocks, a 160-token tail)
+# between qwen3-8b sp2 and tp2 replicas, two cards each
+Y3_ARGV = ["--preset", T_PRESET, "--max-seq-len", str(T_MAX_SEQ),
+           "--max-slots", "4", "--host", "127.0.0.1", "--port", "0"] + Y_TIER
+Y3_PROMPT = "".join(chr(ord("a") + (i * 11) % 26) for i in range(4000))
+Y3_COLD_PROMPT = "".join(chr(ord("a") + (i * 17) % 26) for i in range(4000))
+# y3's embeddings on y1's replica: x3's 8 x 512 batch and one input at
+# the 32768 bucket, each against the same replica's plain attention
+Y_EMBED_LONG = 32000
+Y_EMBED_MIN_COSINE = 0.9999
+# y3's fp32 runs: full width cut to Y3_LAYERS, sp4 against one card
+Y3_LAYERS = 4
+Y_RANK_DEVICE = "cuda"
+
+
+def _y_chat(engine, stored):
+    """y1's chat (:data:`Y_TURNS`), each request's reused tokens as the
+    stored blocks give them, then the cold prompt. Returns (rows, the
+    third turn's prompt, the first turn's)."""
+    vocab = engine.cfg.vocab_size
+    rows, turns = [], []
+    prompt = first = _s_ids(Y_TURNS[0], vocab, 161)
+    for t, extra in enumerate(Y_TURNS):
+        if t:
+            prompt = prompt + turns[-1].output_ids + _s_ids(
+                extra, vocab, 161 + t)
+        req, row = _w_serve(engine, stored, f"turn {t + 1}", prompt,
+                            Y_REPLY)
+        turns.append(req)
+        rows.append(row)
+    rows.append(_w_serve(engine, stored, "cold, the third turn's length",
+                         _s_ids(len(prompt), vocab, 174), Y_REPLY)[1])
+    if not rows[1]["reused_tokens"] or not rows[2]["reused_tokens"]:
+        raise AssertionError(f"y1: no hit: {rows}")
+    return rows, prompt, first
+
+
+def _y_blocks(engine, prompt):
+    """Every rank's stored arrays of ``prompt``'s blocks
+    :data:`Y_INT8_BLOCKS` (``probe("kv_block")``)."""
+    return {b: engine.runner.probe(engine._state, "kv_block",
+                                   ids=prompt[:(b + 1) * BLOCK])
+            for b in Y_INT8_BLOCKS}
+
+
+def _y_int8_check(bf16, int8):
+    """The int8 tier's stored blocks against the bf16 tier's of the same
+    prompt on a replica of the same plan (the same bf16 K/V): rank 0
+    joins each block's stripes, quantises the whole block once (the
+    host tier's own ``_quantize_block``), and every rank's ``q`` and
+    scales must equal that block's at its stripe, bit for bit."""
+    import numpy as np
+
+    from gpustack_tpu_torch.engine.host_bf16 import BF16
+    from gpustack_tpu_torch.engine.kv_host_cache import _quantize_block
+
+    out = {}
+    for b, ranks in bf16.items():
+        rows = [0]
+        for r in ranks:
+            rows.append(rows[-1] + r["k"].shape[1])
+        for name in ("k", "v"):
+            whole = np.concatenate([r[name] for r in ranks], axis=1)
+            q, scale = _quantize_block(whole.view(BF16))
+            for rank, got in enumerate(int8[b]):
+                want_q = q[:, rows[rank]:rows[rank + 1]]
+                if (got[name].tobytes() != want_q.tobytes()
+                        or got[f"{name}_scale"].tobytes()
+                        != scale.tobytes()):
+                    raise AssertionError(
+                        f"y1 int8: rank {rank}'s block {b} {name} is not "
+                        "its stripe of the whole block's quantisation")
+        out[b] = {"ranks": len(ranks), "q_and_scales_bit_for_bit": True,
+                  "stripe_rows": [r["k"].shape[1] for r in ranks]}
+    return out
+
+
+def _y_chats(engine, logprobs):
+    """Four chats at once (one a slot), each :data:`Y_SPEC_PROMPT` tokens,
+    :data:`Y_SPEC_TOKENS` greedy tokens: ([(ids, each position's top-2
+    gap or None)], decode tokens/s after every first token)."""
+    from gpustack_tpu_torch.engine.engine import GenRequest
+
+    vocab = engine.cfg.vocab_size
+    reqs = [engine.submit(GenRequest(
+        prompt_ids=_s_ids(Y_SPEC_PROMPT, vocab, 180 + i),
+        max_tokens=Y_SPEC_TOKENS, temperature=0.0, stop_ids=(),
+        logprobs=logprobs, top_logprobs=2 if logprobs else 0))
+        for i in range(engine.max_slots)]
+    for r in reqs:
+        if not r.done.wait(900):
+            raise AssertionError("a y2 chat timed out")
+        if len(r.output_ids) != Y_SPEC_TOKENS:
+            raise AssertionError(f"a y2 chat ended {r.finish_reason}")
+    t_first = max(r.first_token_at for r in reqs)
+    t_end = max(r.finished_at for r in reqs)
+    rate = sum(len(r.output_ids) - 1 for r in reqs) / max(
+        t_end - t_first, 1e-9)
+    return [(r.output_ids, [t[0][1] - t[1][1] for t in r.output_top_logprobs]
+             if logprobs else None) for r in reqs], rate
+
+
+def _y_spec(engine, label, plain, scale):
+    """y2 on a speculative replica: :func:`_y_chats` (ids held to the plain
+    replica's by phase f's rule), every rank's verify steps and accepted
+    proposals equal, decode tokens/s, each rank's peak GB. Returns (the
+    report, the chats' ids)."""
+    state = engine._state
+    engine.runner.probe(state, "reset_memory")
+    before = engine.runner.probe(state, "spec")
+    out, rate = _y_chats(engine, logprobs=False)
+    rule = _ids_rule(plain[0], out, IDS_GAP_REL * scale)
+    spec = engine.runner.probe(state, "spec")
+    steps = [s[0] - b[0] for s, b in zip(spec, before)]
+    accepted = [s[1] - b[1] for s, b in zip(spec, before)]
+    if len(set(steps)) != 1 or len(set(accepted)) != 1 or steps[0] < 1:
+        raise AssertionError(f"{label}: verify steps {steps}, accepted "
+                             f"{accepted} per rank")
+    health = engine.health()
+    gaps = [g for _, chat in plain[0] for g in chat]
+    return {"ids_rule": rule, "verify_steps_per_rank": steps,
+            "accepted_per_rank": accepted,
+            "spec_steps": health["spec_steps"],
+            "spec_extra_tokens": health["spec_extra_tokens"],
+            "spec_acceptance_rate": health["spec_acceptance_rate"],
+            "draft_model": health["draft_model"],
+            "plain_near_tie_share": sum(
+                g < IDS_GAP_REL * scale for g in gaps) / max(1, len(gaps)),
+            "prompt_tokens": Y_SPEC_PROMPT,
+            "decode_tokens_per_s_4_chats": {"plain": plain[1],
+                                            "speculative": rate},
+            "peak_mem_gb_per_rank": [m / 1e9 for m in engine.runner.probe(
+                state, "memory")]}, [ids for ids, _ in out]
+
+
+def _y_embed(engine, port):
+    """y3's embeddings on a served ``sp`` replica: each batch (x3's 8 x
+    512, one input of :data:`Y_EMBED_LONG` tokens at the 32768 bucket)
+    through ``/v1/embeddings``, every rank's launches counted (a ring of
+    LSE launches), each vector against the same replica's forward with
+    the ring's blocks in the plain version at cosine
+    :data:`Y_EMBED_MIN_COSINE`; ``/v1/rerank`` in the order of the
+    cosines of the returned vectors."""
+    runner, state = engine.runner, engine._state
+    tok = engine.tokenizer
+    batches = {"8x512": [tok.encode(t) for t in X_EMBED_TEXTS],
+               "1x32768": [_s_ids(Y_EMBED_LONG, engine.cfg.vocab_size, 5)]}
+    out = {}
+    for label, batch in batches.items():
+        calls = ChunkedCalls(runner, int8=False)
+        runner.probe(state, "reset_launches")
+        calls.reset()
+        t0 = time.perf_counter()
+        _, raw = _post(port, "/v1/embeddings", {"input": batch})
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = _w_launches(engine, f"y3 embeddings {label}", calls,
+                               runner.probe(state, "launches"))
+        vecs = torch.tensor([d["embedding"] for d in json.loads(raw)["data"]])
+        runner.probe(state, "plain_attention", true_len=1)
+        try:
+            plain = torch.tensor(engine.embed(batch))
+        finally:
+            runner.probe(state, "plain_attention", true_len=0)
+        cos = torch.nn.functional.cosine_similarity(vecs, plain, dim=-1)
+        if vecs.shape != (len(batch), engine.cfg.hidden_size) or not (
+                torch.isfinite(vecs).all()) or (
+                cos.min().item() < Y_EMBED_MIN_COSINE):
+            raise AssertionError(f"y3 embeddings {label} against the plain "
+                                 f"attention: cosines {cos.tolist()}")
+        out[label] = {"batch": len(batch),
+                      "bucket": runner.bucket_for(max(map(len, batch))),
+                      "input_tokens": [len(b) for b in batch],
+                      "http_ms": ms,
+                      "min_cosine_vs_plain": cos.min().item(),
+                      "launches_per_rank": launches,
+                      "runner_calls": calls.counts()}
+    docs = X_EMBED_TEXTS[:4]
+    _, raw = _post(port, "/v1/rerank", {"query": X_QUERY,
+                                        "documents": docs})
+    order = [r["index"] for r in json.loads(raw)["results"]]
+    _, raw = _post(port, "/v1/embeddings", {"input": [X_QUERY] + docs})
+    ev = torch.tensor([d["embedding"] for d in json.loads(raw)["data"]])
+    scores = (ev[1:] @ ev[0]).tolist()
+    if order != sorted(range(len(docs)), key=lambda i: -scores[i]):
+        raise AssertionError(f"y3 rerank order {order}, cosines {scores}")
+    out.update(min_cosine_gate=Y_EMBED_MIN_COSINE, rerank_order=order,
+               rerank_cosines=scores)
+    return out
+
+
+def _y1(kind, smi):
+    """y1 on the bf16 tier: the chat, counted (LSE launches exact per
+    rank; hits as stored), every rank's tier, warm against cold, two
+    blocks' stripes for the int8 check; y2's plain chats; y3's
+    embeddings. Returns (report, the plain chats, the logit scale, the
+    blocks)."""
+    engine, server, port, setup_s = _w_replica(Y1_ARGV)
+    try:
+        stored = []
+        _w_serve(engine, stored, "warm-up",
+                 _s_ids(600, engine.cfg.vocab_size, 60), Y_REPLY)
+        (rows, third, first), launches, calls = _w_counted(
+            engine, "y1 bf16", lambda: _y_chat(engine, stored))
+        report = {"model": engine.cfg.name, "plan": str(engine.runner.plan),
+                  "tier": "bf16", "device": kind, "nvidia_smi": smi,
+                  "setup_s": setup_s, "requests": rows,
+                  "warm_ttft_ms": rows[2]["ttft_ms"],
+                  "cold_ttft_ms": rows[-1]["ttft_ms"],
+                  "tier_check": _w_tier(engine, "y1 bf16"),
+                  "warm_vs_cold": _w_warm_cold(engine, third),
+                  "launches_per_rank": launches, "runner_calls": calls}
+        blocks = _y_blocks(engine, first)
+        plain = _y_chats(engine, logprobs=True)
+        report["decode_tokens_per_s_4_chats"] = plain[1]
+        report["embeddings"] = _y_embed(engine, port)
+        if engine.health()["status"] != "ok":
+            raise AssertionError(f"y1: {engine.health()}")
+        emit("sp_kv_tier", **report)
+        return report, plain, report["warm_vs_cold"]["logit_scale"], blocks
+    finally:
+        _w_close(engine, server)
+
+
+def _y1_int8(kind, smi, plain, scale, blocks):
+    """y1 on the int8 tier (its blocks against the bf16 tier's joined and
+    quantised whole), and y2's n-gram speculation on the same replica."""
+    engine, server, port, setup_s = _w_replica(Y1_INT8_ARGV)
+    try:
+        stored = []
+        _w_serve(engine, stored, "warm-up",
+                 _s_ids(600, engine.cfg.vocab_size, 60), Y_REPLY)
+        (rows, third, first), launches, calls = _w_counted(
+            engine, "y1 int8", lambda: _y_chat(engine, stored))
+        report = {"model": engine.cfg.name, "plan": str(engine.runner.plan),
+                  "tier": "int8", "device": kind, "nvidia_smi": smi,
+                  "setup_s": setup_s, "requests": rows,
+                  "warm_ttft_ms": rows[2]["ttft_ms"],
+                  "cold_ttft_ms": rows[-1]["ttft_ms"],
+                  "tier_check": _w_tier(engine, "y1 int8"),
+                  "int8_blocks": _y_int8_check(blocks,
+                                               _y_blocks(engine, first)),
+                  "warm_vs_cold": _w_warm_cold(engine, third),
+                  "launches_per_rank": launches, "runner_calls": calls,
+                  "speculation": _y_spec(engine, "y2 ngram", plain,
+                                         scale)[0]}
+        emit("sp_kv_tier_int8", **report)
+        return report
+    finally:
+        _w_close(engine, server)
+
+
+def _y_draft_agreement(engine, outputs):
+    """The share of the served chats' tokens (``outputs``, the target's
+    greedy chains) that the draft model predicts itself, teacher-forced:
+    one forward of the draft over each prompt and its served tokens on
+    rank 0's card, its argmax at each position against the next served
+    token."""
+    from gpustack_tpu_torch.models.transformer import forward, lm_head
+
+    draft = engine.draft_runner
+    vocab = engine.cfg.vocab_size
+    agree = total = 0
+    with torch.no_grad():
+        for i, out in enumerate(outputs):
+            prompt = _s_ids(Y_SPEC_PROMPT, vocab, 180 + i)
+            seq = prompt + out[:-1]
+            bucket = draft.bucket_for(len(seq))
+            tokens = torch.tensor([seq + [0] * (bucket - len(seq))],
+                                  device=draft.device)
+            hidden, _ = forward(
+                draft.params, draft.cfg, tokens,
+                torch.arange(bucket, device=draft.device)[None, :],
+                return_hidden=True, attn_impl=draft.attn_impl_for(bucket))
+            pred = lm_head(draft.params, draft.cfg,
+                           hidden[0, len(prompt) - 1:len(seq)]).argmax(-1)
+            agree += int((pred.cpu() == torch.tensor(out)).sum())
+            total += len(out)
+    return agree / max(1, total)
+
+
+def _y2_draft(kind, smi, plain, scale):
+    """y2's draft of the target's own seed on rank 0's card: phase g's
+    perfect-draft gate (:data:`Y_DRAFT_MIN_ACCEPT`) on the acceptance its
+    teacher-forced agreement ``a`` allows a verify block of ``k``
+    proposals, the mean of ``a^j`` over ``j = 1 .. k`` (1 where the draft
+    computes the target's own logits, as on one card)."""
+    engine, server, port, setup_s = _w_replica(Y2_DRAFT_ARGV)
+    try:
+        spec, outputs = _y_spec(engine, "y2 draft", plain, scale)
+        agreement = _y_draft_agreement(engine, outputs)
+        k = engine.spec_tokens - 1
+        allowed = sum(agreement ** j for j in range(1, k + 1)) / k
+        report = {"model": engine.cfg.name, "plan": str(engine.runner.plan),
+                  "device": kind, "nvidia_smi": smi, "setup_s": setup_s,
+                  **spec, "draft_teacher_forced_agreement": agreement,
+                  "acceptance_allowed": allowed,
+                  "acceptance_gate": Y_DRAFT_MIN_ACCEPT * allowed}
+        if report["spec_acceptance_rate"] < Y_DRAFT_MIN_ACCEPT * allowed:
+            raise AssertionError(
+                f"y2: the draft accepted {report['spec_acceptance_rate']} "
+                f"of its proposals; its agreement {agreement} with the "
+                f"served tokens allows {allowed}")
+        emit("sp_speculation_draft", **report)
+        return report
+    finally:
+        _w_close(engine, server)
+
+
+def _y3_rank(rank, world, coordinator, device_type, preset, layers,
+             long_tokens, long_bucket):
+    """One rank of y3's fp32 runs of ``preset`` at ``layers`` layers under
+    ``sp4`` against one card: x3's 8 x 512 batch and one input of
+    ``long_tokens`` at the ``long_bucket`` bucket (``device_type``
+    "cpu": gloo, a rehearsal)."""
+    from gpustack_tpu_torch.models.config import get_config
+    from gpustack_tpu_torch.parallel.mesh import MeshPlan, init_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device_type, rank if device_type == "cuda" else None)
+    mesh = init_mesh(MeshPlan.parse("sp4"), rank, coordinator, device)
+    long_ids = _s_ids(long_tokens, get_config(preset).vocab_size, 5)
+    out = []
+    for texts, bucket in ((X_EMBED_TEXTS, 512), ([long_ids], long_bucket)):
+        t0 = time.perf_counter()
+        case = _x3_case(mesh, device, preset, layers, texts, bucket)
+        out.append(dict(case, seconds=time.perf_counter() - t0))
+        _s_free(device)
+    return out
+
+
+def phase_sp_features(kind, smi):
+    """y1–y3 (four GPUs): qwen3-8b ``sp4`` with the bf16 tier, then the
+    int8 tier with n-gram speculation, then a perfect draft, one replica
+    at a time; the handoffs, two replicas at once; the fp32 embeddings,
+    one process per GPU. Returns each kernel's launches per rank on the
+    counted windows."""
+    from gpustack_tpu_torch.parallel.launch import run_ranks
+
+    if Y_RANK_DEVICE == "cuda" and torch.cuda.device_count() < Y_GPUS:
+        raise AssertionError(f"phase y needs {Y_GPUS} cards")
+    t0 = time.perf_counter()
+    y1, plain, scale, blocks = _y1(kind, smi)
+    _free()
+    y1_int8 = _y1_int8(kind, smi, plain, scale, blocks)
+    del blocks
+    _free()
+    _y2_draft(kind, smi, plain, scale)
+    _free()
+    sp2 = ["--mesh-plan", "sp2"] + Y3_ARGV
+    tp2 = ["--mesh-plan", "tp2"] + Y3_ARGV
+    handoffs = [
+        _x_handoff(kind, smi, "y3 sp2 to tp2", sp2, tp2, False, False,
+                   Y3_PROMPT, Y3_COLD_PROMPT, "sp_kv_role"),
+        _x_handoff(kind, smi, "y3 tp2 to sp2", tp2, sp2, False, False,
+                   Y3_PROMPT, Y3_COLD_PROMPT, "sp_kv_role"),
+    ]
+    ranks = run_ranks(_y3_rank, Y_GPUS, Y_RANK_DEVICE, T_PRESET, Y3_LAYERS,
+                      Y_EMBED_LONG, T_MAX_SEQ, timeout=S_RANK_TIMEOUT_S)
+    for j in range(len(ranks[0])):
+        emit("sp_embed_fp32", device=kind, nvidia_smi=smi, **ranks[0][j])
+    bad = [c["bucket"] for c in ranks[0] if not c["ok"]]
+    if bad:
+        raise AssertionError(f"phase y3: fp32 embeddings part from one "
+                             f"card's at buckets {bad}")
+    emit("y", seconds=time.perf_counter() - t0)
+    out = {}
+    for report, tag in ((y1, "bf16 tier"), (y1_int8, "int8 tier")):
+        for name, counts in report["launches_per_rank"].items():
+            out.setdefault(name, {})[
+                f"{report['model']} {report['plan']} {tag}"] = counts
+    for label, emb in y1["embeddings"].items():
+        if isinstance(emb, dict) and "launches_per_rank" in emb:
+            for name, counts in emb["launches_per_rank"].items():
+                out.setdefault(name, {})[
+                    f"{y1['model']} {y1['plan']} embeddings {label}"] = counts
+    for report in handoffs:
+        for side, launches in report["launches_per_rank"].items():
+            for name, counts in launches.items():
+                out.setdefault(name, {})[
+                    f"{report['model']} handoff {report['plans'][side]} "
+                    f"{side}"] = counts
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7992,7 +8419,8 @@ def main() -> int:
     for phase, gpus, fn in (("u", U_GPUS, phase_data_parallel),
                             ("v", V_GPUS, phase_sp_ep),
                             ("w", W_GPUS, phase_tier_spec),
-                            ("x", X_GPUS, phase_kv_role)):
+                            ("x", X_GPUS, phase_kv_role),
+                            ("y", Y_GPUS, phase_sp_features)):
         if torch.cuda.device_count() >= gpus:
             _free()
             for name, per_model in fn(kind, smi).items():

@@ -978,19 +978,6 @@ class OpenAIServer:
             raise HTTPError(404, "engine has no host KV cache")
         return cache
 
-    def _kv_wire(self, what: str):
-        """The host cache, for a route that moves its blocks over the
-        wire. A multi-GPU replica moves whole-head blocks (its ranks'
-        heads gathered on export, scattered on import:
-        ``LLMEngine.kv_export_blocks``, ``kv_import_prepared``); refused
-        under ``sp`` (no host tier there; refused at build as well)."""
-        plan = self.engine.runner.plan
-        if plan.sp > 1:
-            raise HTTPError(
-                400, f"{what} is not supported under plan {plan}"
-            )
-        return self._kv_cache()
-
     def kv_export(self, body: Dict[str, Any]) -> Tuple[List[bytes], int]:
         """The host cache's matched block run for a prompt as wire frames
         (``kv_transfer``): ``(chunks, payload blocks)``.
@@ -1003,7 +990,7 @@ class OpenAIServer:
         decode replica imports the blocks and prefills only the tail).
         ``tail_key`` (fleet prefetch: the puller has only the directory's
         chain key) walks the chain back from that block."""
-        cache = self._kv_wire("/kv/export")
+        cache = self._kv_cache()
         try:
             prompt_ids = [int(t) for t in body.get("prompt_ids") or []]
         except (TypeError, ValueError):
@@ -1063,7 +1050,7 @@ class OpenAIServer:
         host cache through the engine's stager: decoding slots never wait
         on the insert."""
         eng = self.engine
-        cache = self._kv_wire("/kv/import")
+        cache = self._kv_cache()
         try:
             tokens, prepared, bytes_in = prepare_import(
                 cache, decode_stream(raw)
@@ -1115,7 +1102,7 @@ class OpenAIServer:
         tail chain key. Answers 202 at once; the pull runs on a thread of
         its own, and a dead or slow source leaves this replica cold, with
         the failure counted."""
-        self._kv_wire("/kv/pull")
+        self._kv_cache()
         source = str(body.get("source") or "")
         tail_key = str(body.get("tail_key") or "")
         if not source or not tail_key:
@@ -1336,7 +1323,7 @@ class OpenAIServer:
                     if source and server.engine.host_kv_cache is not None and (
                         call.embeds_override is None
                     ):
-                        server._kv_wire("the X-GPUStack-KV-Source prefetch")
+                        server._kv_cache()
                         server.kv_prefetch(
                             source, call.gens[0].prompt_ids,
                             self.headers.get("X-GPUStack-KV-Source-Auth", ""),
@@ -1385,8 +1372,10 @@ class OpenAIServer:
                     for chunk in chunks:
                         self._chunk(chunk)
                         stats.bytes_out += len(chunk)
-                    self.wfile.write(b"0\r\n\r\n")
+                    # counted before the last chunk: a puller that has
+                    # read the whole stream sees the count
                     stats.blocks_out += payload_blocks
+                    self.wfile.write(b"0\r\n\r\n")
                 except OSError:
                     self.close_connection = True
 
@@ -1567,9 +1556,9 @@ def _refuse_multi_gpu(args, cfg, plan, vlm: bool) -> None:
     """What a multi-GPU replica cannot serve yet, refused before any
     weight is read, naming the plan (the JAX package refuses these
     features for multi-host placements only, ``gpustack_tpu/engine/
-    multihost.py``; here every multi-GPU placement is multi-process). The
-    host KV tier, speculation and ``--kv-role`` serve every plan but
-    ``sp > 1``."""
+    multihost.py``; here every multi-GPU placement is multi-process): the
+    vision path, and what the JAX runner refuses under ``sp`` (``dp >
+    1``, a ``max_seq_len`` that does not divide, ``check_plan``)."""
     from gpustack_tpu_torch.models.transformer import check_plan
 
     if plan.sp > 1 and plan.dp != 1:
@@ -1583,18 +1572,9 @@ def _refuse_multi_gpu(args, cfg, plan, vlm: bool) -> None:
             f"plan {plan}: max_seq_len {args.max_seq_len} must divide "
             f"evenly over sp={plan.sp}"
         )
-    refused = [
-        (args.host_kv_cache_mb > 0 and plan.sp > 1,
-         "the host KV tier (--host-kv-cache-mb)", "under sp > 1"),
-        (bool(args.speculative) and plan.sp > 1,
-         "speculative decoding (--speculative)", "under sp > 1"),
-        (bool(args.kv_role) and plan.sp > 1,
-         "disaggregated serving (--kv-role)", "under sp > 1"),
-        (vlm, "the vision path (a VLM preset)", "on a multi-GPU replica"),
-    ]
-    for hit, what, where in refused:
-        if hit:
-            raise ValueError(f"plan {plan}: {what} is not supported {where}")
+    if vlm:
+        raise ValueError(f"plan {plan}: the vision path (a VLM preset) is "
+                         "not supported on a multi-GPU replica")
     check_plan(cfg, plan)
 
 

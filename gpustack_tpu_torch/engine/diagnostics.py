@@ -17,6 +17,11 @@ import torch
 from gpustack_tpu_torch.models import transformer
 from gpustack_tpu_torch.models.transformer import forward
 
+# fp32 scores of one query-row chunk of the plain attention references
+PLAIN_CHUNK_BYTES = 1 << 30
+# the flash kernel's LSE mode while "plain_attention" swaps it out
+_SWAPPED = {}
+
 # the hand-written kernels' wrappers, by module (their launch counters)
 KERNEL_WRAPPERS = (
     ("flash_attention", "flash_attention_prefill"),
@@ -32,6 +37,37 @@ def _wrappers():
             f"gpustack_tpu_torch.ops.{mod}"), name))
         for mod, name in KERNEL_WRAPPERS
     ]
+
+
+def _chunk_rows(q, S: int) -> int:
+    B, _, Hq, _ = q.shape
+    return max(1, PLAIN_CHUNK_BYTES // (B * Hq * S * 4))
+
+
+def plain_prefill(q, k, v, scale: float, q_offset: int = 0):
+    """The flash kernel's plain version (``flash_attention_prefill_ref``)
+    over query-row chunks of at most ``PLAIN_CHUNK_BYTES`` of fp32
+    scores, so a check's reference runs at 32768 tokens."""
+    from gpustack_tpu_torch.ops import flash_attention as fa
+
+    n = _chunk_rows(q, k.shape[1])
+    return torch.cat([
+        fa.flash_attention_prefill_ref(q[:, t:t + n], k, v, scale,
+                                       q_offset + t)
+        for t in range(0, q.shape[1], n)], dim=1)
+
+
+def plain_lse(q, k, v, scale: float, q_offset: int = 0):
+    """The LSE mode's plain version (``flash_attention_lse_ref``) over
+    query-row chunks, as :func:`plain_prefill`: ``(out, lse)``."""
+    from gpustack_tpu_torch.ops import flash_attention as fa
+
+    n = _chunk_rows(q, k.shape[1])
+    parts = [fa.flash_attention_lse_ref(q[:, t:t + n], k, v, scale,
+                                        q_offset + t)
+             for t in range(0, q.shape[1], n)]
+    return (torch.cat([o for o, _ in parts], dim=1),
+            torch.cat([lse for _, lse in parts], dim=2))
 
 
 class RoutingTape:
@@ -144,7 +180,9 @@ def probe(runner, state, what: str, ids=None, true_len: int = 0,
       recorded prefill from zero);
     - ``"plain_attention"``: from here on (``true_len`` 1) or no longer
       (0), this rank's prefill and embedding forwards take the plain
-      attention (a check's reference forward on the same ranks);
+      attention, and a ring's blocks the LSE mode's plain version
+      (:func:`plain_lse`; a check's reference forward on the same
+      ranks);
     - ``"routing"``: stop the tape; every rank's recorded per-call picks
       (int32 on the host) and, after a replay, its flipped tokens per
       call, gathered, in rank order;
@@ -228,10 +266,16 @@ def probe(runner, state, what: str, ids=None, true_len: int = 0,
                      for p in tape.picks()])
         return None
     if what == "plain_attention":
+        from gpustack_tpu_torch.ops import flash_attention as fa
+
         if true_len:
             runner.attn_impl_for = lambda bucket: "plain"
+            _SWAPPED.setdefault("lse", fa.flash_attention_lse)
+            fa.flash_attention_lse = plain_lse
         else:
             runner.__dict__.pop("attn_impl_for", None)
+            fa.flash_attention_lse = _SWAPPED.pop("lse",
+                                                  fa.flash_attention_lse)
         return None
     if what == "routing":
         tape, runner.routing_tape = runner.routing_tape, None

@@ -60,8 +60,9 @@ decode.
 its runner a ``multihost.BroadcastingRunner``): the host tier is rank
 0's authority and each store, change and hit is named to the followers
 through the runner (``kv_store``, ``tier_op``, ``kv_adopt``), whose own
-tiers hold their heads of every block (``multihost.FollowerTier``); a
-handoff's export gathers the ranks' heads and its import scatters them,
+tiers hold their part of every block (``multihost.FollowerTier``: their
+KV heads, under ``sp`` their stripe of its tokens); a handoff's export
+gathers the ranks' parts and its import scatters them,
 each a job on the scheduler thread (``kv_export_blocks``,
 ``kv_import_prepared``), as is an embedding batch; the draft model lives
 on rank 0's card alone and its proposals reach the other ranks inside
@@ -348,6 +349,9 @@ class _ChunkJob:
     # deferred ONE-SHOT prefill (a prefix hit without chunking): the
     # single "chunk" is the whole suffix, run once the upload landed
     one_shot: bool = False
+    # under sp: k/v are a hit's upload, the host tier's stripes of blocks
+    # of this many tokens, until the first continuation moves them
+    prefix_block: int = 0
 
 
 @dataclasses.dataclass
@@ -681,6 +685,12 @@ class LLMEngine:
                 self.host_kv_cache.spill = DiskKVSpill(
                     spill_dir, kv_spill_mb * 2**20
                 )
+            if plan is not None and plan.sp > 1:
+                # each rank keeps its sp stripe of every block's tokens
+                from gpustack_tpu_torch.parallel.mesh import kv_stripe
+
+                self.host_kv_cache.stripe = kv_stripe(
+                    plan, mesh.rank, self.host_kv_cache.block_tokens)
             self.kv_conv = ConvIndex()
             # device↔host KV copies run off the scheduler thread; staged
             # prefix uploads share the thread behind a two-slot bound
@@ -788,15 +798,10 @@ class LLMEngine:
         here the batch goes to the scheduler thread as a job, so every
         forward on the card is launched by one thread (on a replica, the
         leader names it to its followers there: ``embed`` on the op
-        stream). Refused under ``sp`` (a sequence-sharded replica). Needs
-        a started engine."""
+        stream; under ``sp`` the batch is a ring prefill). Needs a started
+        engine."""
         if self._fatal:
             raise ValueError(f"engine is down: {self._fatal}")
-        if self.runner.sp_mode:
-            raise ValueError(
-                "embeddings are not supported under plan "
-                f"{self.runner.plan}"
-            )
         if not batch_prompt_ids or any(not ids for ids in batch_prompt_ids):
             raise ValueError("embedding inputs must be non-empty")
         for ids in batch_prompt_ids:
@@ -1379,13 +1384,18 @@ class LLMEngine:
     def _upload_prefix(self, pk, pv, use_len: int):
         """Upload a matched prefix run padded to its BUCKET width (pad rows
         sit at positions >= use_len: overwritten by the suffix or hidden
-        by the causal mask). On the card: a pinned host buffer copied on
-        the upload stream into tensors allocated there; waits for the
-        copy (on the calling thread, the kv-copy thread when staged) so
-        the request's upload time is the transfer's. Returns ``(k, v,
-        event)``; the scheduler adopts them with :meth:`_adopt_prefix`."""
-        pw = self.runner.bucket_for(use_len)
-        L, _, H, hd = pk.shape
+        by the causal mask); under ``sp`` the rank's stripes as the tier
+        holds them (no pad: the prefill moves them once). On the card: a
+        pinned host buffer copied on the upload stream into tensors
+        allocated there; waits for the copy (on the calling thread, the
+        kv-copy thread when staged) so the request's upload time is the
+        transfer's. Returns ``(k, v, event)``; the scheduler adopts them
+        with :meth:`_adopt_prefix`."""
+        L, rows, H, hd = pk.shape
+        if self.runner.sp_mode:
+            pw = use_len = rows
+        else:
+            pw = self.runner.bucket_for(use_len)
         cuda = self.device.type == "cuda"
         hosts = []
         for arr in (pk, pv):
@@ -1415,6 +1425,8 @@ class LLMEngine:
         # a replica's hit check reads one gathered flag a rank: a host
         # wait, like the upload's own (_upload_prefix)
         self.runner.kv_adopt(gid, slot)
+        job.prefix_block = (self.host_kv_cache.block_tokens
+                            if self.runner.sp_mode else 0)
         if event is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(event)
@@ -1481,7 +1493,9 @@ class LLMEngine:
             job.last, job.k, job.v = r.prefill_continue_chunk(
                 job.k, job.v, start, padded, len(chunk),
                 r.bucket_for(start + sb), slot=slot,
+                prefix_block=job.prefix_block,
             )
+            job.prefix_block = 0
         job.done += len(chunk)
         if job.done >= len(job.ids):
             r.chunk_commit(slot)
@@ -1507,6 +1521,7 @@ class LLMEngine:
             last_logits, k, v = r.prefill_with_prefix(
                 job.k, job.v, job.done, padded, len(suffix),
                 r.bucket_for(job.done + sb), slot=slot,
+                prefix_block=job.prefix_block,
             )
         else:
             bucket = r.bucket_for(max(1, len(ids)))
@@ -1533,27 +1548,30 @@ class LLMEngine:
         replica's leader names the store to its followers here (``src``:
         the K/V of the prefill just run, or ``"slot"``'s rows
         ``[:width]``; under ``dp`` ``k_dev`` is None where another group
-        holds them, and ``runner.kv_store`` brings them), and the insert's
-        changes once made (``runner.tier_op``)."""
+        holds them, and ``runner.kv_store`` brings them; under ``sp`` it
+        gives the rank's stripes, with each block's amax for an int8
+        tier), and the insert's changes once made (``runner.tier_op``)."""
         kv_cache = self.host_kv_cache
         if kv_cache is None:
             return
         sid = next(self._kv_ids)
-        k_dev, v_dev = self.runner.kv_store(
+        k_dev, v_dev, amax = self.runner.kv_store(
             k_dev, v_dev, slot, total,
             store={"id": sid, "ids": seq, "src": src, "width": width},
         )
-        hosts, done = self._d2h(k_dev, v_dev, total)
+        hosts, done = self._d2h(k_dev, v_dev, total, amax)
 
-        def copy_to_host(seq=tuple(seq), k_host=hosts[0], v_host=hosts[1]):
+        def copy_to_host(seq=tuple(seq), hosts=hosts):
             t0 = time.perf_counter()
             try:
                 if done is not None:
                     done.synchronize()
-                k_np, v_np = to_numpy(k_host), to_numpy(v_host)
+                k_np, v_np, amax_np = (
+                    None if h is None else to_numpy(h) for h in hosts)
                 self.runner.tier_op(
                     kv_cache,
-                    lambda: kv_cache.insert_sequence(seq, k_np, v_np),
+                    lambda: kv_cache.insert_sequence(seq, k_np, v_np,
+                                                     amax_np),
                     lambda _: {"op": "kv_commit", "id": sid},
                 )
             finally:
@@ -1567,27 +1585,31 @@ class LLMEngine:
             return
         self._kv_copies.append(fut)
 
-    def _d2h(self, k_dev, v_dev, total: int):
-        """Rows ``[:total]`` of ``k_dev``/``v_dev`` to the host: on the
-        card into pinned buffers on the copy stream, behind the work that
-        produced them, with the event to wait on; ``(hosts, event)``."""
+    def _d2h(self, k_dev, v_dev, total: int, amax=None):
+        """Rows ``[:total]`` of ``k_dev``/``v_dev`` (all of them where they
+        are fewer: an ``sp`` rank's stripes) and an int8 store's ``amax``
+        (or None) to the host: on the card into pinned buffers on the copy
+        stream, behind the work that produced them, with the event to wait
+        on; ``(hosts, event)``."""
+        parts = [k_dev[:, :total], v_dev[:, :total], amax]
         if self.device.type == "cuda":
             stream = self._copy_stream
             stream.wait_stream(torch.cuda.current_stream(self.device))
             hosts = []
             with torch.cuda.stream(stream):
-                for t in (k_dev, v_dev):
-                    host = torch.empty(
-                        (t.shape[0], total) + tuple(t.shape[2:]),
-                        dtype=t.dtype, pin_memory=True,
-                    )
-                    host.copy_(t[:, :total], non_blocking=True)
+                for t in parts:
+                    if t is None:
+                        hosts.append(None)
+                        continue
+                    host = torch.empty(t.shape, dtype=t.dtype,
+                                       pin_memory=True)
+                    host.copy_(t, non_blocking=True)
                     t.record_stream(stream)
                     hosts.append(host)
                 done = torch.cuda.Event()
                 done.record()
         else:
-            hosts = [k_dev[:, :total].clone(), v_dev[:, :total].clone()]
+            hosts = [None if t is None else t.clone() for t in parts]
             done = None
         return hosts, done
 

@@ -30,12 +30,18 @@ spill file dropped) so the leader can name them to its followers, and
 applies a leader's journal (``replay``) and gathers by the leader's word
 (``follower_gather``). The scales being per layer × head, a rank's int8
 block is bit for bit the slice at its heads of the block one process
-would store. A handoff moves whole-head blocks: an export reads each
-rank's heads of the named blocks (``export_blocks`` or ``export_chain``
-on the leader, ``named_blocks`` on a follower) and the leader joins them;
-an import keeps each rank's heads (``import_blocks`` of its slices on
-the leader, journalled; ``replay`` with the scattered ``prepared``
-blocks on a follower).
+would store. Under ``sp`` a rank keeps its ``stripe`` of each block's
+tokens as well (``parallel.mesh.kv_stripe``: rows ``[lo, hi)`` of every
+block, so a rank's K/V of a sequence are its stripes one block after
+another): its int8 scales are the whole block's, from the amax the
+``sp`` ranks reduced on the card (``amax`` of :meth:`insert_sequence`
+and :meth:`replay`), so its ``q`` is bit for bit the stripe of the block
+one process would store. A handoff moves whole blocks: an export reads
+each rank's part of the named blocks (``export_blocks`` or
+``export_chain`` on the leader, ``named_blocks`` on a follower) and the
+leader joins them; an import keeps each rank's part (``import_blocks``
+of its parts on the leader, journalled; ``replay`` with the scattered
+``prepared`` blocks on a follower).
 """
 
 from __future__ import annotations
@@ -55,13 +61,19 @@ from gpustack_tpu_torch.engine.host_bf16 import (
 DEFAULT_BLOCK_TOKENS = 256
 
 
-def _quantize_block(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+def _quantize_block(x: np.ndarray, amax: Optional[np.ndarray] = None
+                    ) -> Tuple[np.ndarray, np.ndarray]:
     """Per-block int8: scale = amax over (tokens, head_dim) per
-    layer × head, so one outlier token degrades only its own block."""
+    layer × head, so one outlier token degrades only its own block.
+    ``amax`` (fp32 ``[L, 1, H, 1]``): the whole block's, where ``x`` is
+    one ``sp`` stripe of it (the max is exact, so the scale is the one
+    the whole block gives)."""
     x32 = bf16_bits_to_f32(x) if is_bf16(x.dtype) else np.asarray(
         x, np.float32
     )
-    scale = np.max(np.abs(x32), axis=(1, 3), keepdims=True) / 127.0
+    if amax is None:
+        amax = np.max(np.abs(x32), axis=(1, 3), keepdims=True)
+    scale = amax / 127.0
     scale = np.maximum(scale, 1e-8).astype(np.float32)
     q = np.clip(np.rint(x32 / scale), -127, 127).astype(np.int8)
     return q, scale
@@ -164,6 +176,16 @@ class HostKVCache:
         # of changes, or a follower's "apply the leader's word only"
         self.journal: Optional[List[Tuple[str, Any]]] = None
         self.follower = False
+        # under sp: the rows [lo, hi) of each block this rank keeps
+        # (parallel.mesh.kv_stripe); None keeps every row
+        self.stripe: Optional[Tuple[int, int]] = None
+
+    @property
+    def block_rows(self) -> int:
+        """The K/V rows a block holds here (its stripe under ``sp``)."""
+        if self.stripe is None:
+            return self.block_tokens
+        return self.stripe[1] - self.stripe[0]
 
     # ---- multi-GPU roles ------------------------------------------------
 
@@ -204,10 +226,12 @@ class HostKVCache:
         return keys
 
     def replay(self, events, token_ids, k=None, v=None,
-               prepared=None) -> List[str]:
+               prepared=None, amax=None) -> List[str]:
         """Apply a leader's journal (a follower's cache): ``("attach",
         b)`` attaches block ``b`` of ``token_ids`` from ``k``/``v`` (this
-        rank's K/V of the sequence, ``[L, T, H, hd]``: a store), from
+        rank's K/V of the sequence, ``[L, T, H, hd]``, under ``sp`` its
+        stripes, with ``amax`` as :meth:`insert_sequence` takes it: a
+        store), from
         ``prepared[b]`` (this rank's heads of an imported block, in the
         tier's form) or, with neither, from this rank's spill tier (a
         restore); consecutive attaches are one attach call, as the leader
@@ -228,7 +252,8 @@ class HostKVCache:
                 while i < len(events) and events[i][0] == "attach":
                     run.append(int(events[i][1]))
                     i += 1
-                lost += self._replay_attach(tokens, run, k, v, prepared)
+                lost += self._replay_attach(tokens, run, k, v, prepared,
+                                            amax)
                 continue
             i += 1
             if kind == "evict":
@@ -256,14 +281,14 @@ class HostKVCache:
         return lost
 
     def _replay_attach(self, tokens, run: List[int], k, v,
-                       given=None) -> List[str]:
+                       given=None, amax=None) -> List[str]:
         bt = self.block_tokens
         keys = self.chain_keys(tokens[: (max(run) + 1) * bt])
         prepared: Dict[int, Tuple] = {}
         lost: List[str] = []
         for b in run:
             if k is not None:
-                prepared[b] = self._prepare(k, v, b)
+                prepared[b] = self._prepare(k, v, b, amax)
                 continue
             if given is not None:
                 if b in given:
@@ -640,12 +665,15 @@ class HostKVCache:
 
     # ---- insert ---------------------------------------------------------
 
-    def insert_sequence(self, token_ids, k, v) -> int:
+    def insert_sequence(self, token_ids, k, v, amax=None) -> int:
         """Split ``(k, v)`` (``[L, T, H, hd]`` with ``T >=
         len(token_ids)``; extra width is bucket padding) into full blocks
         and attach any that are not already cached. Existing blocks are
         touched (LRU recency), never re-stored. Returns the number of new
-        blocks."""
+        blocks. Under ``sp`` (``stripe``) ``k``/``v`` are this rank's
+        stripes, ``block_rows`` rows a block, and an int8 tier takes each
+        block's whole amax from ``amax`` (fp32 ``[2, L, blocks, H]``: K's,
+        then V's)."""
         tokens = tuple(int(t) for t in token_ids)
         bt = self.block_tokens
         n_blocks = len(tokens) // bt
@@ -669,7 +697,8 @@ class HostKVCache:
                 start += 1
         if start == n_blocks:
             return 0
-        prepared = {b: self._prepare(k, v, b) for b in range(start, n_blocks)}
+        prepared = {b: self._prepare(k, v, b, amax)
+                    for b in range(start, n_blocks)}
         with self._lock:
             inserted, victims = self._attach_prepared_locked(
                 tokens, n_blocks, prepared
@@ -677,16 +706,20 @@ class HostKVCache:
         self._spill_victims(victims)
         return inserted
 
-    def _prepare(self, k, v, b: int) -> Tuple[Any, Any, Any, Any, int]:
-        """Block ``b`` of ``k``/``v`` in this cache's tier: ``(k, v,
-        scales|None, dtype, nbytes)``."""
-        bt = self.block_tokens
+    def _prepare(self, k, v, b: int,
+                 amax=None) -> Tuple[Any, Any, Any, Any, int]:
+        """Block ``b`` of ``k``/``v`` (``block_rows`` rows a block) in this
+        cache's tier: ``(k, v, scales|None, dtype, nbytes)``."""
+        n = self.block_rows
         k, v = np.asarray(k), np.asarray(v)
-        bk = k[:, b * bt : (b + 1) * bt]
-        bv = v[:, b * bt : (b + 1) * bt]
+        bk = k[:, b * n : (b + 1) * n]
+        bv = v[:, b * n : (b + 1) * n]
         if self.int8:
-            qk, sk = _quantize_block(bk)
-            qv, sv = _quantize_block(bv)
+            ak = av = None
+            if amax is not None:
+                ak, av = (amax[i][:, b][:, None, :, None] for i in (0, 1))
+            qk, sk = _quantize_block(bk, ak)
+            qv, sv = _quantize_block(bv, av)
             nbytes = qk.nbytes + qv.nbytes + sk.nbytes + sv.nbytes
             return qk, qv, (sk, sv), k.dtype, nbytes
         bk = np.ascontiguousarray(bk)

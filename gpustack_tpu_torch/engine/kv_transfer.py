@@ -27,12 +27,14 @@ are named ``"bfloat16"`` in the meta, so a frame this module encodes is
 byte for byte the frame the JAX package encodes for the same K/V, and
 each decodes the other's.
 
-A multi-GPU replica's ranks each hold their KV heads of every block
-(axis 2 of ``[L, T, H, hd]``, and of the int8 scales ``[L, 1, H, 1]``):
-:func:`join_heads` makes one whole-head exported block of the ranks'
-parts, :func:`slice_heads` cuts a prepared block to a rank's heads, and
-:func:`pack_arrays` / :func:`unpack_arrays` lay a run of blocks out as
-one byte buffer for the move between ranks. The frames stay whole-head.
+A multi-GPU replica's ranks each hold their part of every block: their
+KV heads (axis 2 of ``[L, T, H, hd]``, and of the int8 scales ``[L, 1,
+H, 1]``) and, under ``sp``, their stripe of its tokens (axis 1; the
+scales stay the whole block's). :func:`join_parts` makes one whole
+exported block of the ranks' parts, :func:`slice_part` cuts a prepared
+block to a rank's part, and :func:`pack_arrays` / :func:`unpack_arrays`
+lay a run of blocks out as one byte buffer for the move between ranks.
+The frames stay whole blocks, as one process writes them.
 """
 
 from __future__ import annotations
@@ -333,10 +335,11 @@ def _to_cache_tier(cache, fr: Frame) -> Tuple:
 
 
 # ---------------------------------------------------------------------------
-# Blocks split and joined over KV heads (a multi-GPU replica's ranks)
+# Blocks split and joined over KV heads and sp stripes (a replica's ranks)
 # ---------------------------------------------------------------------------
 
-_HEAD_AXIS = 2                # [L, T, H, hd] and the scales' [L, 1, H, 1]
+_TOKEN_AXIS = 1               # [L, T, H, hd]; the scales' [L, 1, H, 1]
+_HEAD_AXIS = 2
 
 
 def block_arrays(k, v, scales) -> List[np.ndarray]:
@@ -344,36 +347,50 @@ def block_arrays(k, v, scales) -> List[np.ndarray]:
     return [k, v] + ([] if scales is None else list(scales))
 
 
-def slice_heads(prep: Tuple, lo: int, hi: int) -> Tuple:
+def slice_part(prep: Tuple, heads: Tuple[int, int],
+               rows: Optional[Tuple[int, int]] = None) -> Tuple:
     """A prepared block ``(k, v, scales|None, dtype, nbytes)`` at KV heads
-    ``[lo, hi)``, each array a contiguous copy, its bytes recounted. The
-    int8 scales are per layer x head, so the slice is bit for bit the
-    block one process would store for those heads."""
+    ``heads`` ``[lo, hi)`` and token rows ``rows`` ``[a, b)`` (an ``sp``
+    stripe; None: all), each array a contiguous copy, its bytes
+    recounted. The int8 scales are per layer x head of the whole block,
+    so they are cut at the heads alone, and the part is bit for bit what
+    one process stores for those heads and rows."""
     k, v, scales, dtype, _ = prep
-    if lo == 0 and hi == k.shape[_HEAD_AXIS]:
+    (lo, hi), (a, b) = heads, rows or (0, k.shape[_TOKEN_AXIS])
+    if (lo, hi, a, b) == (0, k.shape[_HEAD_AXIS], 0, k.shape[_TOKEN_AXIS]):
         return prep
 
-    def cut(a):
-        return np.ascontiguousarray(a[:, :, lo:hi])
+    def cut(x):
+        return np.ascontiguousarray(x[:, a:b, lo:hi])
 
     k, v = cut(k), cut(v)
     if scales is not None:
-        scales = (cut(scales[0]), cut(scales[1]))
+        scales = tuple(np.ascontiguousarray(x[:, :, lo:hi]) for x in scales)
     return (k, v, scales, dtype,
-            sum(a.nbytes for a in block_arrays(k, v, scales)))
+            sum(x.nbytes for x in block_arrays(k, v, scales)))
 
 
-def join_heads(parts: List[Dict[str, Any]]) -> Dict[str, Any]:
-    """One exported block (``HostKVCache.export_blocks``' dicts) from
-    its parts over the KV heads, in head order: the arrays concatenated
-    on the head axis, the bytes summed; key, tokens and dtype are the
-    first part's."""
+def join_parts(parts: List[Dict[str, Any]], heads: int) -> Dict[str, Any]:
+    """One exported block (``HostKVCache.export_blocks``' dicts) from its
+    parts, stripe by stripe and ``heads`` head parts a stripe, in head
+    order (``Mesh.part_holders``' order): K and V joined over the heads
+    within a stripe, then the stripes over the tokens; the int8 scales
+    (the whole block's on every stripe) over the heads of the first
+    stripe; the bytes recounted. Key, tokens and dtype are the first
+    part's."""
     out = dict(parts[0])
-    for name in ("k", "v", "k_scale", "v_scale"):
+    stripes = [parts[i:i + heads] for i in range(0, len(parts), heads)]
+    for name in ("k", "v"):
+        out[name] = np.concatenate([
+            np.concatenate([p[name] for p in s], axis=_HEAD_AXIS)
+            for s in stripes], axis=_TOKEN_AXIS)
+    for name in ("k_scale", "v_scale"):
         if out[name] is not None:
-            out[name] = np.concatenate([p[name] for p in parts],
+            out[name] = np.concatenate([p[name] for p in stripes[0]],
                                        axis=_HEAD_AXIS)
-    out["nbytes"] = sum(p["nbytes"] for p in parts)
+    out["nbytes"] = sum(out[n].nbytes for n in ("k", "v", "k_scale",
+                                                "v_scale")
+                        if out[n] is not None)
     return out
 
 

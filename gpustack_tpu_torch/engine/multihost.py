@@ -27,9 +27,11 @@ Determinism contract:
   group does not own it skips the forward (its registers hold None) and
   the first-token sample; ``insert`` writes K/V on the owning group only
   and sets the slot's vectors everywhere;
-- the host KV tier: each rank keeps its own (its heads of every block)
-  and rank 0's is the authority. The leader alone matches prompts and
-  decides evictions, spills and restores; it names every store (at the
+- the host KV tier: each rank keeps its own (its part of every block: its
+  KV heads, and under ``sp`` its stripe of the block's tokens, with the
+  whole block's int8 scales) and rank 0's is the authority. The leader
+  alone matches prompts and decides evictions, spills and restores; it
+  names every store (at the
   moment it copies the K/V out: the followers copy their register's or a
   slot's rows at the same point of the op stream), every change its tier
   made (a journal: blocks attached, evicted, spilled, spill files
@@ -43,22 +45,22 @@ Determinism contract:
   draft's stay on rank 0's card and reach the others in one broadcast on
   the device; every rank ends the step with rank 0's accepted tokens
   (``ModelRunner.verify_step``);
-- a handoff (``/kv/export``, ``/kv/import``) moves whole-head blocks
-  while each rank keeps its own heads. An export is named (``kv_export``:
-  the chain keys whose payload travels) where the leader reads its tier,
-  under the tier lock, and each distinct head part of those blocks then
-  moves once to rank 0, which joins them (:func:`gather_heads`); an
-  import is attached on the leader at its heads and named (``kv_import``:
-  the token chain, the journal, the blocks' shapes at a rank's heads),
-  then rank 0 sends every other rank its heads (:func:`scatter_heads`)
-  and each follower attaches them as the journal says. Both run on the
-  leader's scheduler thread, where every other op and collective starts;
+- a handoff (``/kv/export``, ``/kv/import``) moves whole blocks while
+  each rank keeps its own part. An export is named (``kv_export``: the
+  chain keys whose payload travels) where the leader reads its tier,
+  under the tier lock, and each distinct part of those blocks then moves
+  once to rank 0, which joins them (:func:`gather_parts`); an import is
+  attached on the leader at its part and named (``kv_import``: the token
+  chain, the journal, a whole block's shapes), then rank 0 sends every
+  other rank its part (:func:`scatter_parts`) and each follower attaches
+  it as the journal says. Both run on the leader's scheduler thread,
+  where every other op and collective starts;
 - an embedding batch rides the ``embed`` op as host ints; the first
-  ``dp`` group runs it (``ModelRunner.embed``);
-- features whose host state would still part across ranks are refused at
-  build (``api_server.build_engine_from_args``: the host KV tier,
-  speculation and ``--kv-role`` under ``sp``, the vision path) and here,
-  defensively (embeddings under ``sp`` answer 400 naming the plan).
+  ``dp`` group runs it (``ModelRunner.embed``; under ``sp`` a ring
+  prefill whose pooled sums every ``sp`` rank adds);
+- the vision path, whose host state would part across ranks, is refused
+  at build (``api_server.build_engine_from_args``) and here,
+  defensively.
 
 A follower that dies closes its socket: the leader's watcher sees it, and
 the next scheduler step raises, which makes the engine fatal and
@@ -85,12 +87,12 @@ from gpustack_tpu_torch.engine.kv_transfer import (
     _dtype_from_name,
     _dtype_name,
     block_arrays,
-    join_heads,
+    join_parts,
     pack_arrays,
-    slice_heads,
+    slice_part,
     unpack_arrays,
 )
-from gpustack_tpu_torch.parallel.mesh import kv_head_range
+from gpustack_tpu_torch.parallel.mesh import kv_head_range, kv_stripe
 
 logger = logging.getLogger(__name__)
 
@@ -357,7 +359,7 @@ class BroadcastingRunner:
 
     def prefill_continue_chunk(
         self, k, v, start: int, token_ids, true_len: int,
-        total_bucket: int, slot=None,
+        total_bucket: int, slot=None, prefix_block: int = 0,
     ):
         self._leader.broadcast({
             "op": "chunk_continue",
@@ -365,9 +367,11 @@ class BroadcastingRunner:
             "ids": [int(t) for t in token_ids],
             "true_len": int(true_len),
             "total_bucket": int(total_bucket), "slot": _slot(slot),
+            "prefix_block": int(prefix_block),
         })
         return self._runner.prefill_with_prefix(
-            k, v, start, token_ids, true_len, total_bucket, slot
+            k, v, start, token_ids, true_len, total_bucket, slot,
+            prefix_block,
         )
 
     def chunk_commit(self, slot=None) -> None:
@@ -391,7 +395,7 @@ class BroadcastingRunner:
             "id": int(store["id"]), "ids": [int(t) for t in store["ids"]],
             "src": store["src"], "width": int(store.get("width", 0)),
         })
-        return self._runner.kv_store(k, v, slot, total)
+        return self._runner.kv_store(k, v, slot, total, store)
 
     def tier_op(self, cache, fn, make_op):
         """Change the leader's tier (``fn()``) and name the change to the
@@ -409,11 +413,11 @@ class BroadcastingRunner:
         return out
 
     def kv_export(self, cache, read, have=()) -> List[dict]:
-        """A whole-head export of the leader's tier (``read()``:
+        """A whole-block export of the leader's tier (``read()``:
         ``export_blocks`` or ``export_chain``): named to the followers as
         it is read (``kv_export``, the keys of the blocks whose payload
-        travels: those outside ``have``), then those blocks' head parts
-        gathered to rank 0 and joined (:func:`gather_heads`). Scheduler
+        travels: those outside ``have``), then those blocks' parts
+        gathered to rank 0 and joined (:func:`gather_parts`). Scheduler
         thread."""
         have = frozenset(have)
         blocks = self.tier_op(cache, read, lambda blocks: {
@@ -421,59 +425,58 @@ class BroadcastingRunner:
             "keys": [b["key"] for b in blocks if b["key"] not in have],
         })
         sent = [b for b in blocks if b["key"] not in have]
-        joined = gather_heads(self._runner, [b["key"] for b in sent], sent,
+        joined = gather_parts(self._runner, [b["key"] for b in sent], sent,
                               -1)
         whole = {b["key"]: j for b, j in zip(sent, joined)}
         return [whole.get(b["key"], b) for b in blocks]
 
     def kv_import_stage(self, prepared) -> dict:
-        """The host work of a whole-head import, done before its turn on
-        the op stream: the leader's own heads of the ``prepared`` blocks
-        (``"mine"``), and every other rank's packed once per distinct
-        head range (``"parts"``, pinned on the card)."""
+        """The host work of a whole-block import, done before its turn on
+        the op stream: the leader's own part of the ``prepared`` blocks
+        (``"mine"``), every other rank's packed once per distinct part
+        (``"parts"``, pinned on the card), and a whole block's arrays'
+        dtypes and shapes (``"like"``)."""
         runner = self._runner
-        plan, heads = runner.plan, runner.cfg.num_kv_heads
         parts: Dict[tuple, torch.Tensor] = {}
-        for r in range(1, plan.chips):
-            span = kv_head_range(plan, r, heads)
-            if span not in parts:
-                parts[span] = _staged([
+        for r in range(1, runner.plan.chips):
+            part = _part(runner, r)
+            if part not in parts:
+                parts[part] = _staged([
                     a for b in sorted(prepared)
-                    for a in block_arrays(*slice_heads(prepared[b],
-                                                       *span)[:3])
+                    for a in block_arrays(*slice_part(prepared[b],
+                                                      *part)[:3])
                 ], runner.device)
-        span = kv_head_range(plan, 0, heads)
-        return {"mine": {b: slice_heads(p, *span)
+        first = prepared[min(prepared)] if prepared else None
+        return {"mine": {b: slice_part(p, *_part(runner, 0))
                          for b, p in prepared.items()},
-                "parts": parts}
+                "parts": parts,
+                "like": [] if first is None else [
+                    [a.dtype.str, list(a.shape)]
+                    for a in block_arrays(*first[:3])]}
 
     def kv_import(self, cache, tokens, staged) -> int:
-        """A whole-head import (``staged``: :meth:`kv_import_stage`): the
-        leader attaches its heads and names the attach (``kv_import``:
-        the token chain, the journal, a block's arrays at a rank's heads),
-        then sends each other rank its heads (:func:`scatter_heads`).
-        Scheduler thread."""
+        """A whole-block import (``staged``: :meth:`kv_import_stage`): the
+        leader attaches its part and names the attach (``kv_import``: the
+        token chain, the journal, a whole block's arrays' shapes), then
+        sends each other rank its part (:func:`scatter_parts`). Scheduler
+        thread."""
         mine = staged["mine"]
         order = sorted(mine)
-        first = mine[order[0]] if order else None
         n = self.tier_op(
             cache, lambda: cache.import_blocks(tokens, mine),
             lambda n: {
                 "op": "kv_import", "ids": [int(t) for t in tokens],
-                "blocks": order,
-                "like": [] if first is None else [
-                    [a.dtype.str, list(a.shape)]
-                    for a in block_arrays(*first[:3])],
-                "dtype": "" if first is None else _dtype_name(first[3]),
+                "blocks": order, "like": staged["like"],
+                "dtype": "" if not order else _dtype_name(
+                    mine[order[0]][3]),
             })
         if order:
-            scatter_heads(self._runner, staged["parts"])
+            scatter_parts(self._runner, staged["parts"])
         return n
 
     def embed(self, batch_token_ids, true_lens):
         """An embedding batch: named to the followers (``embed``), then
         run here (``ModelRunner.embed``)."""
-        self._runner._refuse_sp("embeddings")
         self._leader.broadcast({
             "op": "embed", "ids": [[int(t) for t in r]
                                    for r in batch_token_ids],
@@ -493,7 +496,7 @@ class BroadcastingRunner:
 
     def prefill_with_prefix(
         self, k, v, start: int, token_ids, true_len: int,
-        total_bucket: int, slot=None,
+        total_bucket: int, slot=None, prefix_block: int = 0,
     ):
         """A one-shot prefill seeded from an adopted hit: followers
         continue from their own upload of the hit's blocks."""
@@ -502,9 +505,11 @@ class BroadcastingRunner:
             "ids": [int(t) for t in token_ids],
             "true_len": int(true_len),
             "total_bucket": int(total_bucket), "slot": _slot(slot),
+            "prefix_block": int(prefix_block),
         })
         return self._runner.prefill_with_prefix(
-            k, v, start, token_ids, true_len, total_bucket, slot
+            k, v, start, token_ids, true_len, total_bucket, slot,
+            prefix_block,
         )
 
     def verify_step(self, state, proposals, shared: bool = False):
@@ -599,14 +604,39 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return host.numpy()
 
 
-def gather_heads(runner, keys, blocks, missing: int):
+def _part(runner, rank: int):
+    """Rank ``rank``'s part of a host-tier block: ``(its KV heads, its
+    stripe of the tokens)`` (``parallel.mesh.kv_head_range``,
+    ``kv_stripe``)."""
+    plan = runner.plan
+    return (kv_head_range(plan, rank, runner.cfg.num_kv_heads),
+            kv_stripe(plan, rank, runner.host_tier.block_tokens))
+
+
+def _part_like(like, part):
+    """A block's arrays' ``(dtype, shape)`` (``like``: its K, V and any
+    scales, in wire order) at ``part`` (:func:`_part`): K and V cut at the
+    heads and the stripe, the scales at the heads alone."""
+    (h0, h1), (r0, r1) = part
+    out = []
+    for j, (dtype, shape) in enumerate(like):
+        shape = list(shape)
+        shape[2] = h1 - h0
+        if j < 2:
+            shape[1] = r1 - r0
+        out.append((np.dtype(dtype), tuple(shape)))
+    return out
+
+
+def gather_parts(runner, keys, blocks, missing: int):
     """Every rank at once, for an export naming the blocks ``keys``:
-    ``blocks`` are this rank's heads of them (``export_blocks``' dicts)
+    ``blocks`` are this rank's parts of them (``export_blocks``' dicts)
     and ``missing`` the index of the first it lacks (-1: none). If any
     rank lacks one, every rank raises, naming the rank and the key. Else
-    each distinct head part of rank 0's ``tp`` group moves once to rank
-    0 (``Mesh.gather_heads``: nothing under ``tp`` 1), which returns the
-    whole-head blocks (``join_heads``); other ranks return None."""
+    each distinct part (``Mesh.part_holders``: a stripe's heads) moves
+    once to rank 0 (``Mesh.gather_parts``: nothing under ``tp`` and
+    ``sp`` 1), which returns the whole blocks (``join_parts``); other
+    ranks return None."""
     if not keys:
         return []
     lacking = _first_lacking(runner, missing)
@@ -619,22 +649,29 @@ def gather_heads(runner, keys, blocks, missing: int):
         )
     mesh = runner.mesh
     heads = runner.cfg.num_kv_heads
-    if len(mesh.head_holders(heads)) == 1:
+    holders = mesh.part_holders(heads)
+    if len(holders) == 1:
         return blocks if mesh.rank == 0 else None
     arrays = [a for b in blocks for a in _payload(b)]
-    parts = mesh.gather_heads(_staged(arrays, runner.device), heads)
+    mine = _part(runner, 0)[0]
+    likes = [[x for b in blocks for x in _part_like(
+        [(a.dtype, a.shape) for a in _payload(b)], (mine, _part(runner,
+                                                                h)[1]))]
+              for h in holders]
+    parts = mesh.gather_parts(
+        _staged(arrays, runner.device), heads,
+        [sum(int(np.prod(shape)) * dtype.itemsize for dtype, shape in like)
+         for like in likes])
     if parts is None:
         return None
-    like = [(a.dtype, a.shape) for a in arrays]
     unpacked = [arrays] + [unpack_arrays(_to_host(p), like)
-                           for p in parts[1:]]
+                           for p, like in zip(parts[1:], likes[1:])]
     out, at = [], 0
     for b in blocks:
         n = len(_payload(b))
-        out.append(join_heads([
-            {**b, **dict(zip(_present(b), arrs[at:at + n])),
-             "nbytes": sum(a.nbytes for a in arrs[at:at + n])}
-            for arrs in unpacked]))
+        out.append(join_parts([
+            {**b, **dict(zip(_present(b), arrs[at:at + n]))}
+            for arrs in unpacked], len(holders) // mesh.sp))
         at += n
     return out
 
@@ -648,22 +685,22 @@ def _payload(blk):
     return [blk[n] for n in _present(blk)]
 
 
-def scatter_heads(runner, staged=None, op=None):
+def scatter_parts(runner, staged=None, op=None):
     """Every rank at once, for an import: rank 0 sends each other rank its
-    heads of the imported blocks (``staged``, by head range:
+    part of the imported blocks (``staged``, by part:
     :meth:`BroadcastingRunner.kv_import_stage`) and returns None; a
-    follower receives its heads as the ``kv_import`` ``op`` lays them out
+    follower receives its part as the ``kv_import`` ``op`` lays it out
     and returns the received buffer (on the host, or on the card with the
     event its copy to the host is recorded on) for
     :func:`unstage_import`."""
-    mesh, heads = runner.mesh, runner.cfg.num_kv_heads
+    mesh = runner.mesh
     if mesh.rank == 0:
         mesh.scatter_from_leader_(None, {
-            r: staged[kv_head_range(mesh.plan, r, heads)]
-            for r in range(1, mesh.world)})
+            r: staged[_part(runner, r)] for r in range(1, mesh.world)})
         return None
-    per_block = sum(int(np.prod(shape)) * np.dtype(dtype).itemsize
-                    for dtype, shape in op["like"])
+    per_block = sum(int(np.prod(shape)) * dtype.itemsize
+                    for dtype, shape in _part_like(op["like"],
+                                                   _part(runner, mesh.rank)))
     buf = torch.empty(per_block * len(op["blocks"]), dtype=torch.uint8,
                       device=runner.device)
     mesh.scatter_from_leader_(buf)
@@ -677,14 +714,14 @@ def scatter_heads(runner, staged=None, op=None):
     return host.numpy(), done
 
 
-def unstage_import(op, flat) -> Dict[int, tuple]:
-    """A follower's received heads of a ``kv_import``'s blocks as prepared
-    blocks ``{b: (k, v, scales|None, dtype, nbytes)}``, each array a copy
-    of its own."""
-    like = [(np.dtype(d), tuple(s)) for d, s in op["like"]] * len(
-        op["blocks"])
-    arrays = [a.copy() for a in unpack_arrays(flat, like)]
-    n = len(op["like"])
+def unstage_import(op, flat, like) -> Dict[int, tuple]:
+    """A follower's received part of a ``kv_import``'s blocks (``like``:
+    a block's arrays at its part, :func:`_part_like`) as prepared blocks
+    ``{b: (k, v, scales|None, dtype, nbytes)}``, each array a copy of its
+    own."""
+    arrays = [a.copy() for a in unpack_arrays(flat, like * len(
+        op["blocks"]))]
+    n = len(like)
     dtype = _dtype_from_name(op["dtype"])
     out = {}
     for i, b in enumerate(op["blocks"]):
@@ -739,21 +776,22 @@ class FollowerTier:
                 len(keys), ", ".join(keys[:4]),
             )
 
-    def store(self, store_id: int, ids, k, v, total: int) -> None:
-        hosts, done = self.engine._d2h(k, v, total)
+    def store(self, store_id: int, ids, k, v, total: int,
+              amax=None) -> None:
+        hosts, done = self.engine._d2h(k, v, total, amax)
 
         def _stage():
             if done is not None:
                 done.synchronize()
-            self._staged[store_id] = (
-                ids, to_numpy(hosts[0]), to_numpy(hosts[1]))
+            self._staged[store_id] = (ids, *(
+                None if h is None else to_numpy(h) for h in hosts))
 
         self._submit(_stage)
 
     def commit(self, store_id: int, events) -> None:
         def _commit():
-            ids, k, v = self._staged.pop(store_id)
-            self._lost(self.cache.replay(events, ids, k, v))
+            ids, k, v, amax = self._staged.pop(store_id)
+            self._lost(self.cache.replay(events, ids, k, v, amax=amax))
 
         self._submit(_commit)
 
@@ -775,7 +813,7 @@ class FollowerTier:
             self._gathered[slot] = (gather_id, list(ids), fut)
 
     def export(self, keys, events):
-        """This rank's heads of the blocks a leader's export names, read
+        """This rank's parts of the blocks a leader's export names, read
         where the leader read its own: after the queued work, with the
         journal the export carried. ``(blocks, index of the first it
         lacks or -1)``."""
@@ -788,17 +826,19 @@ class FollowerTier:
         return out
 
     def import_(self, op, runner) -> None:
-        """A leader's import: this rank's heads arrive from rank 0
-        (:func:`scatter_heads`, on the loop thread, in the op stream's
-        order) and are attached on the kv-copy thread as the leader's
+        """A leader's import: this rank's part arrives from rank 0
+        (:func:`scatter_parts`, on the loop thread, in the op stream's
+        order) and is attached on the kv-copy thread as the leader's
         journal says."""
-        flat, done = (scatter_heads(runner, op=op) if op["blocks"]
+        flat, done = (scatter_parts(runner, op=op) if op["blocks"]
                       else (None, None))
+        like = _part_like(op["like"], _part(runner, runner.mesh.rank))
 
         def attach():
             if done is not None:
                 done.synchronize()
-            prepared = {} if flat is None else unstage_import(op, flat)
+            prepared = ({} if flat is None
+                        else unstage_import(op, flat, like))
             self._lost(self.cache.replay(op["events"], op["ids"],
                                          prepared=prepared))
 
@@ -951,7 +991,7 @@ class FollowerLoop:
                        else self._chunk_regs.pop(slot))
             out = r.prefill_with_prefix(
                 k, v, op["start"], op["ids"], op["true_len"],
-                op["total_bucket"], slot,
+                op["total_bucket"], slot, op.get("prefix_block", 0),
             )
             if kind == "chunk_continue":
                 self._chunk_regs[slot] = out
@@ -967,8 +1007,8 @@ class FollowerLoop:
                 k, v = r.slot_kv(self.state, slot, op["width"])
             else:
                 _, k, v = self._reg
-            k, v = r.kv_store(k, v, slot, op["total"])
-            self.tier.store(op["id"], op["ids"], k, v, op["total"])
+            k, v, amax = r.kv_store(k, v, slot, op["total"], op)
+            self.tier.store(op["id"], op["ids"], k, v, op["total"], amax)
         elif kind == "kv_commit":
             self.tier.commit(op["id"], op["events"])
         elif kind == "kv_gather":
@@ -978,7 +1018,7 @@ class FollowerLoop:
             k, v = self.tier.adopt(op["id"], slot, r)
             self._chunk_regs[slot] = (None, k, v)
         elif kind == "kv_export":
-            gather_heads(r, op["keys"], *self.tier.export(op["keys"],
+            gather_parts(r, op["keys"], *self.tier.export(op["keys"],
                                                          op["events"]))
         elif kind == "kv_import":
             self.tier.import_(op, r)

@@ -21,7 +21,9 @@ The port of ``gpustack_tpu/engine/runner.py``:
   token; a draft model's runner catches up with ``ingest_step`` and
   rewinds its proposals with ``snapshot_sequence``/``restore_sequence``;
 - **embed**: one cacheless forward over a padded batch, mean-pooled and
-  l2-normalised (over a mesh: on every rank of the first ``dp`` group).
+  l2-normalised (over a mesh: on every rank of the first ``dp`` group;
+  under ``sp`` a ring prefill, each rank's pooled sums reduced over the
+  group).
 
 - **a mesh** (``plan`` and ``mesh``, one process per GPU): the params
   are the rank's shard, the KV cache holds the rank's KV heads
@@ -40,11 +42,14 @@ The port of ``gpustack_tpu/engine/runner.py``:
   on the rank's own tokens; the attention is the ring,
   ``ops/ring_attention.py``) and returns the rank's block of the bucket's
   K/V; the last position's hidden row comes from the rank that holds it.
-  A continuation chunk and a decode step run their tokens whole on every
-  rank against the sharded cache (the merged attention). ``insert`` moves
-  each prefill block's K/V to the ranks that own those cache positions,
-  point to point over the ``sp`` group, planned from host integers alone.
-  Only buckets that divide over ``sp`` are kept.
+  A continuation chunk, a decode step and a verify or ingest block run
+  their tokens whole on every rank against the sharded cache (the merged
+  attention; a block's write masked to the owning rank on the device).
+  ``insert`` moves each prefill block's K/V to the ranks that own those
+  cache positions, point to point over the ``sp`` group, planned from
+  host integers alone (:class:`KVLayout`: a bucket's blocks, the decode
+  cache's segments, the host tier's stripes). Only buckets that divide
+  over ``sp`` are kept.
 - **data parallelism** (``plan.dp > 1``, the JAX layout's ``P(None,
   'dp', ...)`` cache): ``dp`` groups, each a copy of the model over its
   ``sp x ep x tp`` ranks, and group ``g`` holds the cache rows of slots
@@ -60,11 +65,16 @@ The port of ``gpustack_tpu/engine/runner.py``:
   owning group's K/V rows to every other group's ranks at the same heads,
   so each rank's host tier holds every block.
 - **the host KV tier and speculation over a mesh**: ``slot_kv`` copies
-  the rank's heads of a slot's rows; ``verify_step`` broadcasts rank 0's
-  accepted tokens (a draft's proposals first, when they are rank 0's
-  alone), as decode broadcasts its sampled ones; ``tier_op`` and
-  ``kv_adopt`` are the leader's hooks for naming the tier's changes and
-  hits to its followers (no-ops here, ``multihost.BroadcastingRunner``).
+  the rank's heads of a slot's rows (under ``sp`` its segment's part of
+  them); ``kv_store`` gives what the rank's tier keeps (under ``sp`` its
+  stripes of each block, moved from any layout, with each block's amax
+  reduced over the group for an int8 tier); a hit's stripes move once
+  into the scratch cache of ``prefill_with_prefix``; ``verify_step``
+  broadcasts rank 0's accepted tokens (a draft's proposals first, when
+  they are rank 0's alone), as decode broadcasts its sampled ones;
+  ``tier_op`` and ``kv_adopt`` are the leader's hooks for naming the
+  tier's changes and hits to its followers (no-ops here,
+  ``multihost.BroadcastingRunner``).
 
 PyTorch runs eagerly, so there are no per-shape compilations to cache:
 the buckets bound the set of prefill shapes the kernel sees.
@@ -87,6 +97,55 @@ from gpustack_tpu_torch.models.transformer import (
 )
 from gpustack_tpu_torch.parallel.mesh import Mesh, MeshPlan
 from gpustack_tpu_torch.parallel.sharding import SpecLayout
+
+
+@dataclasses.dataclass(frozen=True)
+class KVLayout:
+    """Where the positions of a sequence-sharded K/V lie over the ``sp``
+    ranks, from host integers alone: ``width`` (the global width) gives
+    contiguous segments of ``width / sp`` positions, segment ``i`` on the
+    rank at ``sp`` index ``i`` (a bucket's blocks, the decode cache's
+    segments); ``block`` gives the host tier's stripes
+    (``parallel.mesh.kv_stripe``): rows ``[lo_i, hi_i)`` of each block of
+    ``block`` tokens on index ``i``, block ``b``'s at the rank's rows
+    from ``b·(hi_i - lo_i)``."""
+
+    width: int = 0
+    block: int = 0
+
+    def pieces(self, n: int, sp: int):
+        """``[(first position, end, sp index, first row)]`` tiling
+        positions ``0 .. n-1`` in order."""
+        if self.width:
+            w = self.width // sp
+            return [(i * w, min((i + 1) * w, n), i, 0)
+                    for i in range(sp) if i * w < n]
+        bt, out = self.block, []
+        for b in range(-(-n // bt)):
+            for i in range(sp):
+                lo, hi = i * bt // sp, (i + 1) * bt // sp
+                if b * bt + lo < min(b * bt + hi, n):
+                    out.append((b * bt + lo, min(b * bt + hi, n), i,
+                                b * (hi - lo)))
+        return out
+
+
+def _layout_runs(src: KVLayout, dst: KVLayout, n: int, sp: int):
+    """``(position, count, src index, src row, dst index, dst row)`` for
+    each run of positions ``0 .. n-1`` that is contiguous in both
+    layouts, in position order."""
+    a, b = src.pieces(n, sp), dst.pieces(n, sp)
+    out, i, j = [], 0, 0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        if lo < hi:
+            out.append((lo, hi - lo, a[i][2], a[i][3] + lo - a[i][0],
+                        b[j][2], b[j][3] + lo - b[j][0]))
+        if a[i][1] == hi:
+            i += 1
+        if b[j][1] == hi:
+            j += 1
+    return out
 
 
 @dataclasses.dataclass
@@ -228,10 +287,10 @@ class ModelRunner:
         if self.sp_mode or self.dp > 1:
             raise ValueError(f"{what} is not supported under plan {self.plan}")
 
-    def _refuse_sp(self, what: str) -> None:
-        """Refuse an op that needs a slot's positions whole on this rank
-        (a sequence-sharded cache; refused at build as well)."""
-        if self.sp_mode:
+    def _refuse_dp(self, what: str) -> None:
+        """Refuse an op that needs every slot's cache rows on this rank
+        (a ``dp`` group holds its own slots' rows)."""
+        if self.dp > 1:
             raise ValueError(f"{what} is not supported under plan {self.plan}")
 
     # -- data parallelism -------------------------------------------------
@@ -280,45 +339,42 @@ class ModelRunner:
         last = hidden[0, row].clone()
         return self.mesh.broadcast_sp_(last, owner)
 
-    def _sp_move(self, src_k, src_v, src_width: int, dst_k, dst_v,
-                 dst_width: int, n: int) -> None:
-        """Copy positions ``0 .. n-1`` of a sequence-sharded K/V of global
-        width ``src_width`` (``src_k``/``src_v`` ``[L, src_width / sp, H,
-        hd]``, this rank's block) into one of ``dst_width`` (``dst_k``/
-        ``dst_v``, this rank's ``[L, dst_width / sp, H, hd]``). Each
-        position goes from the rank whose source block holds it to the
-        rank whose destination block does: a local copy, or one message a
-        pair of ranks, point to point over the ``sp`` group. The plan
+    def _sp_move(self, src_k, src_v, src: KVLayout, dst_k, dst_v,
+                 dst: KVLayout, n: int) -> None:
+        """Copy positions ``0 .. n-1`` of a sequence-sharded K/V laid out
+        as ``src`` (``src_k``/``src_v`` ``[L, rows, H, hd]``, this rank's
+        rows) into one laid out as ``dst`` (``dst_k``/``dst_v``, this
+        rank's). Each run of positions goes from the rank whose source
+        rows hold it to the rank whose destination rows do: a local copy,
+        or one message a pair of ranks (every run between them packed in
+        position order), point to point over the ``sp`` group. The plan
         follows from the host integers alone, the same on every rank."""
-        sp, r = self.sp, self.mesh.sp_rank
-        a, b = src_width // sp, dst_width // sp
-        s0, d0 = r * a, r * b          # this rank's first position in each
-        sends, recvs, landed = [], [], []
-        for src in range(sp):
-            for dst in range(sp):
-                lo = max(src * a, dst * b)
-                hi = min((src + 1) * a, (dst + 1) * b, n)
-                if lo >= hi or r not in (src, dst):
-                    continue
-                if src == dst:
-                    dst_k[:, lo - d0:hi - d0] = src_k[:, lo - s0:hi - s0]
-                    dst_v[:, lo - d0:hi - d0] = src_v[:, lo - s0:hi - s0]
-                elif src == r:
-                    sends.append((torch.stack([
-                        src_k[:, lo - s0:hi - s0], src_v[:, lo - s0:hi - s0],
-                    ]), dst))
-                else:
-                    buf = torch.empty(
-                        (2, dst_k.shape[0], hi - lo, *dst_k.shape[2:]),
-                        dtype=dst_k.dtype, device=dst_k.device,
-                    )
-                    recvs.append((buf, src))
-                    landed.append((buf, lo - d0, hi - d0))
-        for req in self.mesh.sp_p2p(sends, recvs):
+        r = self.mesh.sp_rank
+        sends, recvs = {}, {}
+        for _, m, s_i, s_row, d_i, d_row in _layout_runs(src, dst, n,
+                                                           self.sp):
+            if s_i == d_i == r:
+                dst_k[:, d_row:d_row + m] = src_k[:, s_row:s_row + m]
+                dst_v[:, d_row:d_row + m] = src_v[:, s_row:s_row + m]
+            elif s_i == r:
+                sends.setdefault(d_i, []).append((s_row, m))
+            elif d_i == r:
+                recvs.setdefault(s_i, []).append((d_row, m))
+        out = [(torch.stack([
+            torch.cat([t[:, a:a + m] for a, m in runs], 1)
+            for t in (src_k, src_v)]), d_i) for d_i, runs in sends.items()]
+        inc = [(torch.empty(
+            (2, dst_k.shape[0], sum(m for _, m in runs), *dst_k.shape[2:]),
+            dtype=dst_k.dtype, device=dst_k.device), s_i)
+            for s_i, runs in recvs.items()]
+        for req in self.mesh.sp_p2p(out, inc):
             req.wait()
-        for buf, lo, hi in landed:
-            dst_k[:, lo:hi] = buf[0]
-            dst_v[:, lo:hi] = buf[1]
+        for (buf, s_i) in inc:
+            at = 0
+            for d_row, m in recvs[s_i]:
+                dst_k[:, d_row:d_row + m] = buf[0, :, at:at + m]
+                dst_v[:, d_row:d_row + m] = buf[1, :, at:at + m]
+                at += m
 
     # -- prefill ----------------------------------------------------------
 
@@ -433,7 +489,7 @@ class ModelRunner:
     def prefill_with_prefix(
         self, prefix_k, prefix_v, prefix_len: int,
         suffix_ids: Sequence[int], suffix_true_len: int, total_bucket: int,
-        slot: Optional[int] = None,
+        slot: Optional[int] = None, prefix_block: int = 0,
     ):
         """Continue a prefill from a prefix already on the device (a host
         cache hit, or the chunks done so far): seed a scratch cache of
@@ -456,11 +512,14 @@ class ModelRunner:
         hd]``, this rank's block: a chunk's output) and so are the
         returned K/V (``total_bucket / sp`` rows); the suffix runs whole on
         every rank against the sharded scratch cache (JAX's
-        ``sp_cache_attention`` branch), no flash launch. Under ``dp``,
-        ``slot`` as for :meth:`prefill`."""
+        ``sp_cache_attention`` branch), no flash launch. ``prefix_block``
+        > 0 under ``sp``: the prefix is instead the host tier's stripes of
+        blocks of that many tokens (a hit's upload), moved once into the
+        scratch cache. Under ``dp``, ``slot`` as for :meth:`prefill`."""
         if not self._runs(slot):
             return self._to_leader(None, slot), None, None
-        Pb = prefix_k.shape[1] * self.sp
+        striped = self.sp_mode and prefix_block > 0
+        Pb = prefix_len if striped else prefix_k.shape[1] * self.sp
         Tsb = len(suffix_ids)
         if Tsb not in self.prefill_buckets:
             raise ValueError(f"{Tsb} is not a bucket {self.prefill_buckets}")
@@ -481,8 +540,11 @@ class ModelRunner:
             )
         cache = self._cache(total_bucket // self.sp)
         if self.sp_mode:
-            self._sp_move(prefix_k, prefix_v, Pb, cache.k[:, 0],
-                          cache.v[:, 0], total_bucket, prefix_len)
+            self._sp_move(
+                prefix_k, prefix_v,
+                KVLayout(block=prefix_block) if striped else KVLayout(Pb),
+                cache.k[:, 0], cache.v[:, 0], KVLayout(total_bucket),
+                prefix_len)
         else:
             cache.k[:, 0, :Pb] = prefix_k
             cache.v[:, 0, :Pb] = prefix_v
@@ -513,10 +575,11 @@ class ModelRunner:
 
     def prefill_continue_chunk(
         self, k, v, start: int, token_ids: Sequence[int], true_len: int,
-        total_bucket: int, slot: Optional[int] = None,
+        total_bucket: int, slot: Optional[int] = None, prefix_block: int = 0,
     ):
         return self.prefill_with_prefix(
-            k, v, start, token_ids, true_len, total_bucket, slot
+            k, v, start, token_ids, true_len, total_bucket, slot,
+            prefix_block,
         )
 
     def chunk_commit(self, slot: Optional[int] = None) -> None:
@@ -529,15 +592,25 @@ class ModelRunner:
 
     def kv_store(self, k, v, slot: Optional[int], total: int, store=None):
         """The K/V rows ``0 .. total - 1`` a host-tier store copies, on
-        this rank: as given, and under ``dp`` (``slot`` names the group
-        that holds them) sent from the owning group's ranks to every other
-        group's rank at the same heads, one broadcast over the ``dp``
-        group, so every rank's tier keeps every block and a hit serves a
-        slot of any group. ``k``/``v`` are None on a rank of another
-        group. ``store`` names the store to a leader's followers
+        this rank, as ``(k, v, amax)``: as given (``amax`` None); under
+        ``dp`` (``slot`` names the group that holds them) sent from the
+        owning group's ranks to every other group's rank at the same
+        heads, one broadcast over the ``dp`` group, so every rank's tier
+        keeps every block and a hit serves a slot of any group (``k``/
+        ``v`` are None on a rank of another group). Under ``sp`` this
+        rank's stripes of the full blocks of ``total``
+        (:class:`KVLayout`, ``block_rows`` rows a block), moved from a
+        prefill's bucket layout, or from the decode cache's segments for
+        ``store["src"] == "slot"`` (:meth:`slot_kv`); for an int8 tier
+        also each block's amax over its whole tokens, per layer and head
+        (fp32 ``[2, L, blocks, H]``, one all-reduce MAX over the group,
+        exact), which :meth:`HostKVCache.insert_sequence` quantises
+        with. ``store`` names the store to a leader's followers
         (``multihost.BroadcastingRunner``)."""
+        if self.sp_mode:
+            return self._sp_kv_store(k, v, total, (store or {}).get("src"))
         if self.dp == 1:
-            return k, v
+            return k, v, None
         if k is not None:
             kv = torch.stack([k[:, :total], v[:, :total]])
         else:
@@ -546,7 +619,30 @@ class ModelRunner:
             kv = torch.empty((2, L, total, H, hd), dtype=like.dtype,
                              device=self.device)
         self.mesh.broadcast_dp_(kv, slot // self.rows)
-        return kv[0], kv[1]
+        return kv[0], kv[1], None
+
+    def _sp_kv_store(self, k, v, total: int, src: Optional[str]):
+        tier = self.host_tier
+        bt = tier.block_tokens
+        blocks = total // bt
+        lo, hi = tier.stripe
+        L, _, H, hd = k.shape
+        out_k, out_v = (torch.empty((L, blocks * (hi - lo), H, hd),
+                                    dtype=k.dtype, device=self.device)
+                        for _ in range(2))
+        width = (self.max_seq_len if src == "slot"
+                 else k.shape[1] * self.sp)
+        self._sp_move(k, v, KVLayout(width), out_k, out_v,
+                      KVLayout(block=bt), blocks * bt)
+        if not tier.int8 or not blocks:
+            return out_k, out_v, None
+        amax = torch.zeros((2, L, blocks, H), dtype=torch.float32,
+                           device=self.device)
+        if hi > lo:
+            for i, t in enumerate((out_k, out_v)):
+                amax[i] = t.view(L, blocks, hi - lo, H, hd).abs().amax(
+                    dim=(2, 4)).float()
+        return out_k, out_v, self.mesh.all_reduce_sp(amax, op="max")
 
     def tier_op(self, cache, fn, make_op):
         """Run a change of the host tier (``fn()``); a leader names it to
@@ -567,9 +663,9 @@ class ModelRunner:
         the kernel sees a bounded set of shapes. On the card the attention
         is the flash kernel (``attn_impl_for``), as for every prefill.
         Under ``dp`` the first group runs the batch (rank 0's: the vectors
-        are where the leader reads them), another group's slots untouched;
-        refused under ``sp``. None on every rank but 0."""
-        self._refuse_sp("embeddings")
+        are where the leader reads them), another group's slots untouched.
+        Under ``sp`` the batch is a ring prefill (:meth:`_sp_embed`). None
+        on every rank but 0."""
         if not self._runs(0):
             return None
         Tb = len(batch_token_ids[0])
@@ -581,6 +677,8 @@ class ModelRunner:
             Nb *= 2
         padded = [list(r) for r in batch_token_ids] + [[0] * Tb] * (Nb - N)
         lens = list(true_lens) + [0] * (Nb - N)
+        if self.sp_mode:
+            return self._sp_embed(padded, lens, N)
         tokens = self._ids_on_device(padded)
         positions = torch.arange(Tb, device=self.device)[None, :].expand(
             Nb, Tb
@@ -594,6 +692,32 @@ class ModelRunner:
         lens_t = self._ids_on_device(lens)
         mask = (positions < lens_t[:, None])[..., None].float()
         pooled = (hidden * mask).sum(dim=1) / mask.sum(dim=1).clamp_min(1.0)
+        norm = pooled.norm(dim=-1, keepdim=True)
+        return (pooled / norm.clamp_min(1e-9))[:N]
+
+    def _sp_embed(self, padded, lens, N: int):
+        """:meth:`embed` under ``sp`` (JAX's GSPMD embedding): each rank
+        takes its ``Tb / sp`` positions of every row through the ring, in
+        a scratch cache of that many rows, and sums its rows under each
+        row's length; the sums and counts are added over the group in one
+        all-reduce, and rank 0 normalises."""
+        Nb, T = len(padded), len(padded[0]) // self.sp
+        start = self.mesh.sp_rank * T
+        tokens = self._ids_on_device([r[start:start + T] for r in padded])
+        positions = (start + torch.arange(T, device=self.device))[
+            None, :].expand(Nb, T)
+        hidden, _ = forward(
+            self.params, self.cfg, tokens, positions,
+            KVCache.create(self.cfg, Nb, T, self.device, self.tp),
+            return_hidden=True, attn_impl="ring", mesh=self.mesh,
+        )
+        lens_t = self._ids_on_device(lens)
+        mask = (positions < lens_t[:, None])[..., None].float()
+        part = self.mesh.all_reduce_sp(torch.cat(
+            [(hidden * mask).sum(dim=1), mask.sum(dim=1)], dim=1))
+        if self.mesh.rank:
+            return None
+        pooled = part[:, :-1] / part[:, -1:].clamp_min(1.0)
         norm = pooled.norm(dim=-1, keepdim=True)
         return (pooled / norm.clamp_min(1e-9))[:N]
 
@@ -633,9 +757,9 @@ class ModelRunner:
                 raise ValueError(f"prefill width {Tb} > max_seq_len")
             row = slot - self.row0
             if self.sp_mode:
-                self._sp_move(k, v, Tb, state.cache.k[:, row],
-                              state.cache.v[:, row], self.max_seq_len,
-                              int(true_len))
+                self._sp_move(k, v, KVLayout(Tb), state.cache.k[:, row],
+                              state.cache.v[:, row],
+                              KVLayout(self.max_seq_len), int(true_len))
             else:
                 state.cache.k[:, row, :Tb] = k
                 state.cache.v[:, row, :Tb] = v
@@ -656,12 +780,16 @@ class ModelRunner:
 
     def slot_kv(self, state: DecodeState, slot: int, width: int):
         """Copies of a slot's KV rows ``[:width]`` (this rank's heads);
-        under ``dp`` ``(None, None)`` on a rank whose group does not hold
-        the slot."""
-        self._refuse_sp("copying a slot's KV out")
+        under ``sp`` this rank's part of them (its segment's rows below
+        ``width``: ``kv_store`` takes them as the decode cache's
+        layout); under ``dp`` ``(None, None)`` on a rank whose group does
+        not hold the slot."""
         if not self._runs(slot):
             return None, None
         row = slot - self.row0
+        if self.sp_mode:
+            seg = self.max_seq_len // self.sp
+            width = max(0, min(seg, width - self.mesh.sp_rank * seg))
         return (
             state.cache.k[:, row, :width].clone(),
             state.cache.v[:, row, :width].clone(),
@@ -738,8 +866,10 @@ class ModelRunner:
         becomes each row's final ingested token; rows with count 0 keep
         both. Pad positions land above the new position, hidden by the
         causal mask until overwritten. The JAX forward's logits are
-        discarded, so this one stops at the hidden states."""
-        self._refuse_sharded("draft ingestion")
+        discarded, so this one stops at the hidden states. Under ``sp``
+        the block runs whole on every rank against the sharded cache, as
+        a verify block does; refused under ``dp``."""
+        self._refuse_dp("draft ingestion")
         tokens = self._ids_on_device(tokens)
         counts = self._ids_on_device(counts)
         P = tokens.shape[1]
@@ -747,6 +877,7 @@ class ModelRunner:
         forward(
             self.params, self.cfg, fed, self._block_positions(state, P),
             state.cache, return_hidden=True, clamp_writes=True,
+            attn_impl="sp_cache" if self.sp_mode else "plain",
             mesh=self.mesh,
         )
         last_idx = (counts - 1).clamp_min(0)
@@ -796,8 +927,10 @@ class ModelRunner:
         device. The accepted tokens and counts are rank 0's, broadcast on
         the device (under ``dp`` each group's rows, from its first rank,
         gathered), so no rank's acceptance parts from the leader's at a
-        near-tie. Under ``dp`` the forward runs the group's rows."""
-        self._refuse_sp("speculative decoding")
+        near-tie. Under ``dp`` the forward runs the group's rows; under
+        ``sp`` the block runs whole on every rank against the sharded
+        cache, each position written by the rank that owns it (a block
+        may cross a segment's end) before the attention merges."""
         proposals = self._ids_on_device(proposals)
         if shared and self.mesh is not None:
             self.mesh.broadcast_(proposals)
@@ -810,7 +943,9 @@ class ModelRunner:
         logits, _ = forward(
             self.params, self.cfg, fed,
             self._block_positions(state, P)[rows], state.cache,
-            clamp_writes=True, mesh=self.mesh,
+            clamp_writes=True,
+            attn_impl="sp_cache" if self.sp_mode else "plain",
+            mesh=self.mesh,
         )
         greedy = logits.argmax(dim=-1)                          # [B, P]
         match = (mine[:, : P - 1] == greedy[:, : P - 1]).long()

@@ -981,12 +981,14 @@ def forward(
     this rank's contiguous block (``cache.max_len == T``, positions
     ``sp_rank * T + t``; every other layer runs on these tokens alone),
     written at the cache's rows ``0 .. T-1``; ``attn_impl="sp_cache"`` is
-    every other step (decode, a continuation chunk): the tokens are whole
-    on every ``sp`` rank, only the rank that owns a position writes its
-    K/V (a decode step's write is masked on the device; a block of ``T >
-    1``, all rows at ``q_offset``, is cut on the host), and the attention
-    merges over the group. Neither takes a sliding window, softcap or
-    sinks (:func:`check_plan`).
+    every other step (decode, a verify or ingest block, a continuation
+    chunk): the tokens are whole on every ``sp`` rank, only the rank that
+    owns a position writes its K/V (a decode step's write, and with
+    ``clamp_writes`` a ``[B, T]`` block's, is masked on the device after
+    the global clamp; a chunk of ``T > 1``, all rows at ``q_offset``, is
+    cut on the host), before the attention merges over the group, so a
+    query sees its own block's keys on the next rank. Neither takes a
+    sliding window, softcap or sinks (:func:`check_plan`).
 
     Returns ``(logits [B, T, vocab] fp32, cache or None)``, or the final
     normalized hidden states (fp32) with ``return_hidden``.
@@ -1051,12 +1053,25 @@ def forward(
     elif attn_impl == "sp_cache":
         S = cache.max_len
         base = mesh.sp_rank * S                 # this rank's first position
-        if T == 1:
-            # the owner of each row's position writes; another rank
-            # writes back what its clamped row already holds
+        masked = T == 1 or clamp_writes
+        if masked:
+            # a decode step, or a verify/ingest block of contiguous
+            # positions per row: each element is written by the rank whose
+            # segment owns its position, the row's start first clamped
+            # into the whole cache (JAX's dynamic_update_slice over
+            # S * sp positions). T <= S consecutive rows are distinct
+            # modulo S, so a non-owner writes back what its row already
+            # holds and never lands on an owner's row.
+            if T > S:
+                raise ValueError(f"a block of {T} positions overflows a "
+                                 f"rank's segment of {S}")
+            start = positions[:, :1]
+            if clamp_writes:
+                start = start.clamp(0, S * mesh.sp - T)
+            local = start - base + torch.arange(T, device=device)
+            own = ((local >= 0) & (local < S))[..., None, None]
+            write_pos = local.remainder(S)
             rows = torch.arange(B, device=device)[:, None]
-            own = ((positions >= base) & (positions < base + S))[..., None, None]
-            write_pos = (positions - base).clamp(0, S - 1)
         else:
             # a block at q_offset (host int): this rank's part of it
             lo = max(q_offset, base)
@@ -1168,7 +1183,7 @@ def forward(
         elif sp_attn:
             k_l, v_l = cache.k[li], cache.v[li]
             k, v = k.to(k_l.dtype), v.to(v_l.dtype)
-            if T == 1:
+            if masked:
                 k_l[rows, write_pos] = torch.where(own, k, k_l[rows, write_pos])
                 v_l[rows, write_pos] = torch.where(own, v, v_l[rows, write_pos])
             elif lo < hi:

@@ -22,9 +22,11 @@ the prefill's last hidden row and the KV moves of ``insert``), the
 heads and experts over other slots' cache rows; a host-tier store's K/V
 from the group that holds them) and the world (the sampled tokens'
 broadcast, or under ``dp`` their gather, a draft's proposals, and the
-first-token logits a ``dp`` group sends rank 0). A handed-off block run
-moves point to point between rank 0 and the ranks that hold its KV heads
-(:meth:`Mesh.gather_heads`, :meth:`Mesh.scatter_from_leader_`).
+first-token logits a ``dp`` group sends rank 0). A host-tier block is
+cut into parts: a rank keeps its KV heads (:func:`kv_head_range`) of its
+``sp`` stripe of the block's tokens (:func:`kv_stripe`), and a handed-off
+block run moves point to point between rank 0 and the ranks that hold
+its parts (:meth:`Mesh.gather_parts`, :meth:`Mesh.scatter_from_leader_`).
 Collectives are NCCL on the card and gloo on the CPU; a group of one rank
 makes each collective a no-op, so one process needs no process group at
 all.
@@ -151,6 +153,25 @@ def kv_head_range(plan: MeshPlan, rank: int, kv_heads: int) -> Tuple[int, int]:
     return t * n, (t + 1) * n
 
 
+def kv_stripe(plan: MeshPlan, rank: int,
+              block_tokens: int) -> Tuple[int, int]:
+    """The rows ``[lo, hi)`` of each host-tier block of ``block_tokens``
+    tokens that rank ``rank`` keeps: at ``sp`` index ``i``, ``lo =
+    floor(i·bt/sp)`` and ``hi = floor((i+1)·bt/sp)``, so the ``sp``
+    ranks' stripes tile the block for any block size (``(0, bt)`` without
+    ``sp``)."""
+    i, sp = rank_coords(plan, rank)[AXIS_SP], plan.sp
+    return i * block_tokens // sp, (i + 1) * block_tokens // sp
+
+
+def rank_at(plan: MeshPlan, **coords: int) -> int:
+    """The global rank at ``coords`` (each axis not named: index 0)."""
+    rank = 0
+    for ax in MESH_AXES:
+        rank = rank * plan.axis_sizes()[ax] + coords.get(ax, 0)
+    return rank
+
+
 class Mesh:
     """One rank's place in a plan's mesh and its process groups.
 
@@ -234,11 +255,8 @@ class Mesh:
         """The global rank at ``index`` along ``axis`` with this rank's
         other coordinates (point-to-point ops and a group's collectives
         name global ranks)."""
-        c = dict(self.coords, **{axis: index % self.plan.axis_sizes()[axis]})
-        rank = 0
-        for ax in MESH_AXES:
-            rank = rank * self.plan.axis_sizes()[ax] + c[ax]
-        return rank
+        return rank_at(self.plan, **dict(
+            self.coords, **{axis: index % self.plan.axis_sizes()[axis]}))
 
     def sp_peer(self, sp_index: int) -> int:
         return self.peer(AXIS_SP, sp_index)
@@ -383,23 +401,27 @@ class Mesh:
                 req = dist.irecv(x, src)
         req.wait()
 
-    def head_holders(self, kv_heads: int) -> List[int]:
-        """One global rank for each distinct part of the KV heads in rank
-        0's ``tp`` group (global ranks ``0 .. tp - 1``), in head order:
-        the first of the ranks that share a head where ``tp`` is above
-        ``kv_heads``."""
+    def part_holders(self, kv_heads: int) -> List[int]:
+        """One global rank for each distinct part of a host-tier block
+        (:func:`kv_stripe` of the tokens, :func:`kv_head_range` of the KV
+        heads) among the ranks at ``dp`` and ``ep`` index 0, stripe by
+        stripe and in head order within one: the first of the ranks that
+        share a head where ``tp`` is above ``kv_heads``."""
         parts = min(self.tp, kv_heads)
-        return [t * (self.tp // parts) for t in range(parts)]
+        return [rank_at(self.plan, sp=i, tp=t * (self.tp // parts))
+                for i in range(self.sp) for t in range(parts)]
 
-    def gather_heads(self, x: torch.Tensor,
-                     kv_heads: int) -> Optional[List[torch.Tensor]]:
-        """Every distinct KV-head part of ``x`` (same shape on every rank)
-        in rank 0's ``tp`` group, in head order, on rank 0: one message
-        from each :meth:`head_holders` rank, so each head moves once; any
-        other rank sends nothing. None off rank 0."""
-        holders = self.head_holders(kv_heads)
+    def gather_parts(self, x: torch.Tensor, kv_heads: int,
+                     sizes: List[int]) -> Optional[List[torch.Tensor]]:
+        """Every distinct part of a block run (``x``, this rank's, a flat
+        buffer; ``sizes[i]`` the elements of :meth:`part_holders`' ``i``-th
+        rank's) on rank 0, in :meth:`part_holders`' order: one message
+        from each holder, so each part moves once; any other rank sends
+        nothing. None off rank 0."""
+        holders = self.part_holders(kv_heads)
         if self.rank == 0:
-            parts = [x] + [torch.empty_like(x) for _ in holders[1:]]
+            parts = [x] + [torch.empty(n, dtype=x.dtype, device=x.device)
+                           for n in sizes[1:]]
             self._p2p([], list(zip(parts[1:], holders[1:])))
             return parts
         if self.rank in holders:

@@ -13,8 +13,9 @@ every rank of the first ``dp`` group; rank 0 pools and normalises.
 - ``/v1/rerank`` scores are the cosines of the JAX engine's vectors
   within 1e-5, in their order;
 - every rank's slot state is the same before and after (under ``dp`` the
-  other group's, after requests left it non-zero, is untouched);
-- under ``sp2`` the request gets a 400 naming the plan.
+  other group's, after requests left it non-zero, is untouched).
+
+Embeddings under ``sp`` are ``tests/test_torch_sp_features.py``'s.
 """
 
 import base64
@@ -140,10 +141,3 @@ def test_every_ranks_slot_state_is_untouched(embedded):
     # under dp2)
     assert (before[0][1] > 0).sum() == len(WARM)
     assert embedded["status"] == "ok"
-
-
-def test_embeddings_under_sp_answer_400_naming_the_plan():
-    _, _, cfg, tree = _trees("tiny")
-    status, reply = _run("sp2", cfg, tree, workers.refused_embedding, ())
-    assert status == 400
-    assert "plan dp1xsp2xep1xtp1" in reply["error"]["message"]

@@ -24,7 +24,9 @@ serves the same prompts.
   ``X-GPUStack-KV-Source`` prefetch and a ``/kv/pull`` by tail key land
   the source ranks' blocks joined over heads at each decode rank's
   heads, and the decode replica's greedy ids are the JAX engine's.
-- ``--kv-role`` under ``sp2`` is refused, naming the plan.
+
+Handoffs out of and into an ``sp`` replica are
+``tests/test_torch_sp_features.py``'s.
 """
 
 import dataclasses
@@ -42,10 +44,6 @@ from gpustack_tpu.engine.engine import LLMEngine as JaxLLMEngine
 from gpustack_tpu.engine.kv_host_cache import HostKVCache as JaxHostKVCache
 from gpustack_tpu.models import init_params
 from gpustack_tpu.models.config import get_config as jax_get_config
-from gpustack_tpu_torch.engine.api_server import (  # analysis: ignore[metrics-drift]
-    build_engine_from_args,
-    build_parser,
-)
 from gpustack_tpu_torch.engine.kv_host_cache import HostKVCache  # analysis: ignore[metrics-drift]
 from gpustack_tpu_torch.engine.tokenizer import load_tokenizer  # analysis: ignore[metrics-drift]
 from gpustack_tpu_torch.models.config import get_config  # analysis: ignore[metrics-drift]
@@ -340,14 +338,3 @@ def test_pull_by_tail_key_lands_on_every_rank(pair):
     coords = [rank_coords(MeshPlan.parse(pair["dst"]), r)
               for r in range(len(dec["tiers"]))]
     assert len(coords) == MeshPlan.parse(pair["dst"]).chips
-
-
-def test_kv_role_under_sp_is_refused_naming_the_plan():
-    args = build_parser().parse_args([
-        "--preset", "tiny", "--device", "cpu", "--mesh-plan", "sp2",
-        "--max-seq-len", "128", "--kv-role", "decode"])
-    with pytest.raises(ValueError) as e:
-        build_engine_from_args(args)
-    assert "plan dp1xsp2xep1xtp1" in str(e.value)
-    assert "disaggregated serving (--kv-role)" in str(e.value)
-    assert "under sp > 1" in str(e.value)

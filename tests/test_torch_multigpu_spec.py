@@ -174,16 +174,3 @@ def test_spec_counters_match_jax_on_every_rank(runs, mode):
     assert probe[0][0] == steps
     if mode == "draft":
         assert accepted > 0
-
-
-@pytest.mark.parametrize("extra,what", [
-    (MODES["ngram"], "speculative decoding"),
-    (MODES["draft"], "speculative decoding"),
-    (["--host-kv-cache-mb", "64"], "the host KV tier"),
-])
-def test_sp_still_refuses_both_naming_the_plan(extra, what):
-    with pytest.raises(ValueError) as err:
-        build_engine_from_args(build_parser().parse_args(
-            ARGV + ["--mesh-plan", "sp2", *extra]))
-    assert what in str(err.value)
-    assert "plan dp1xsp2xep1xtp1" in str(err.value)

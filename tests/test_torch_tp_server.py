@@ -6,9 +6,10 @@ serves HTTP here. Greedy ids, through the engine and through a chat,
 equal the JAX engine's at plan ``tp2`` on the same tree (the one-card
 tree from seed 0, of which each rank holds its slice); ``/healthz``
 carries ``layout``, JAX's ``describe()``; the followers' slot state
-equals the leader's; ``--speculative``, ``--host-kv-cache-mb`` and
-``--kv-role`` under ``sp2``, and a VLM preset over 2 processes, are
-refused at build, naming the plan; killing the follower makes ``/healthz`` report
+equals the leader's; a VLM preset over 2 processes, and a ``tp`` the
+heads do not divide over, are refused at build, naming the plan (the
+``sp`` features: ``tests/test_torch_sp_features.py``); killing the
+follower makes ``/healthz`` report
 the engine dead; the follower process is reaped. Then two ranks set up
 from outside through the environment contract, over an int8-quantized
 safetensors checkpoint: each rank's tree is the slice of the whole
@@ -135,9 +136,6 @@ def test_healthz_layout_is_jax_describe(replica):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--mesh-plan", "sp2", "--speculative", "ngram"], "speculative"),
-    (["--mesh-plan", "sp2", "--host-kv-cache-mb", "64"], "host KV tier"),
-    (["--mesh-plan", "sp2", "--kv-role", "prefill"], "--kv-role"),
     (["--preset", "tiny-vlm", "--num-devices", "2"], "vision path"),
     (["--mesh-plan", "tp8"], "query heads (4) does not divide over 8"),
     (["--mesh-plan", "tp3"], "KV heads neither divide"),

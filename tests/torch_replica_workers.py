@@ -1,5 +1,6 @@
-"""Rank bodies for the multi-GPU handoff and embedding tests
-(``test_torch_multigpu_kv_role.py``, ``test_torch_multigpu_embeddings.py``):
+"""Rank bodies for the multi-GPU handoff, embedding and ``sp`` feature
+tests (``test_torch_multigpu_kv_role.py``,
+``test_torch_multigpu_embeddings.py``, ``test_torch_sp_features.py``):
 one fp32 replica of the port's server, each rank in a process of its own
 over gloo (``parallel.launch.run_ranks``), importing no JAX.
 
@@ -9,7 +10,10 @@ and ``CommandLeader``, a follower's ``FollowerLoop`` and ``FollowerTier``)
 but from a given tree and config, so the replica runs in fp32 on the JAX
 package's own weights. Rank 0 serves HTTP and runs one of the scripts
 below against its own server; it returns what the script returns, and a
-follower returns once the leader closes the channel."""
+follower returns once the leader closes the channel. With
+``engine_kw["draft"]`` rank 0's engine speculates with a draft of the
+target's own tree, on rank 0 alone, as ``--speculative draft`` builds
+it."""
 
 import http.client
 import json
@@ -38,8 +42,16 @@ def replica(rank, world, coordinator, cfg, tree, plan, engine_kw, cmd_port,
     mesh = init_mesh(MeshPlan.parse(plan), rank, coordinator, CPU)
     params = params_from_numpy(tree, CPU, mesh if world > 1 else None,
                                cfg.num_kv_heads)
+    kw = dict(engine_kw)
+    if kw.pop("draft", False) and not rank:
+        # a draft of the target's own tree, on rank 0 alone (as the
+        # server builds it): it proposes the target's greedy tokens
+        kw.update(draft_cfg=cfg, draft_params=params_from_numpy(
+            tree, CPU, None, cfg.num_kv_heads))
+    elif rank:
+        kw.pop("speculative", None)     # a follower never proposes
     engine = LLMEngine(cfg, params, device="cpu", plan=mesh.plan,
-                       mesh=mesh, pipeline_depth=0, **engine_kw)
+                       mesh=mesh, pipeline_depth=0, **kw)
     tier = engine.host_kv_cache
     if world > 1 and rank:
         engine.follower_loop = mh.FollowerLoop(
@@ -243,3 +255,127 @@ def vectors(reply):
     """The float vectors of an ``/v1/embeddings`` reply, by index."""
     return np.asarray([d["embedding"] for d in sorted(
         reply["data"], key=lambda d: d["index"])], np.float32)
+
+
+def sequence(engine, port, steps):
+    """Several scripts of this module on one replica, in turn: ``steps``
+    ``[(name, args)]``; their results, in order."""
+    return [globals()[name](engine, port, *args) for name, args in steps]
+
+
+def chat_checks(engine, port, turns, short, n_new):
+    """A chat: turn ``t``'s prompt is the one before, its reply and
+    ``turns[t]`` (each hitting the one before), then each prompt of
+    ``short`` (each hitting the one before it); every request's greedy
+    ids and reused tokens, every rank's tier and the leader's keys."""
+    outs, reused, prompt = [], [], []
+    for t, extra in enumerate(turns):
+        prompt = prompt + (outs[-1] if t else []) + list(extra)
+        ids, n = _greedy(engine, prompt, n_new)
+        outs.append(ids)
+        reused.append(n)
+    for p in short:
+        ids, n = _greedy(engine, p, n_new)
+        outs.append(ids)
+        reused.append(n)
+    return {"ids": outs, "reused": reused,
+            "tiers": _probe(engine, "kv_tier"),
+            "leader_keys": engine.host_kv_cache.keys(),
+            "health": engine.health()}
+
+
+def block_checks(engine, port, prompt, n):
+    """One greedy token of ``prompt`` (its blocks stored), then every
+    rank's stored arrays of its first ``n`` blocks."""
+    _greedy(engine, prompt, 1)
+    return _blocks(engine, prompt, n)
+
+
+def spill_checks(engine, port, budget, fills, again):
+    """The leader's RAM budget cut to ``budget`` bytes, then one greedy
+    token of each of ``fills`` (pushing blocks out to disk) and of
+    ``again`` (a hit restored from disk): each request's reused tokens,
+    every rank's tier after each, the leader's RAM and spilled keys."""
+    cache = engine.host_kv_cache
+    cache.max_bytes = budget
+    reused, tiers = [], []
+    for p in list(fills) + [again]:
+        reused.append(_greedy(engine, p, 1)[1])
+        tiers.append(_probe(engine, "kv_tier"))
+    return {"reused": reused, "tiers": tiers, "leader_keys": cache.keys(),
+            "leader_spill": cache.spill.keys(), "health": engine.health()}
+
+
+def spec_checks(engine, port, prompts, n_new):
+    """Greedy ids of each prompt (one request at a time), the engine's
+    verify steps, proposals made and accepted each added, and every
+    rank's verify steps and accepted proposals (``probe("spec")``)."""
+    ids, counts = [], []
+    names = ("_spec_steps", "_spec_proposed", "_spec_hits")
+    for p in prompts:
+        before = [getattr(engine, k) for k in names]
+        ids.append(_greedy(engine, p, n_new)[0])
+        counts.append([getattr(engine, k) - b
+                       for k, b in zip(names, before)])
+    return {"ids": ids, "counts": counts, "spec": _probe(engine, "spec"),
+            "health": engine.health()}
+
+
+def _wait_health(port, deadline_s=120):
+    deadline = time.time() + deadline_s
+    while time.time() < deadline:
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=5)
+            conn.request("GET", "/healthz")
+            if conn.getresponse().status == 200:
+                return
+        except OSError:
+            pass
+        time.sleep(0.1)
+    raise TimeoutError(f"no server on port {port}")
+
+
+def _wait_file(path, deadline_s=300):
+    deadline = time.time() + deadline_s
+    while not os.path.exists(path) and time.time() < deadline:
+        time.sleep(0.05)
+
+
+def handoff_peer(engine, port, peer_port, text, served, wait_first,
+                 wait_for, signal, n_new):
+    """One of two live replicas that hand prompts to each other, each the
+    other's source: (with ``wait_first``, after ``wait_for`` exists) a
+    completion of ``text`` naming the peer's ``/kv/export`` in
+    ``X-GPUStack-KV-Source`` (the peer prefills it on a miss and hands
+    its blocks over), then the prompt's greedy ids (a hit on the handed
+    blocks), every rank's blocks of it and tier, and this replica's
+    ``/kv/export`` of it (raw frames); creates ``signal``. Last, once the
+    peer has pulled ``served`` from it (``wait_for`` exists, without
+    ``wait_first``), its ``/kv/export`` of ``served``."""
+    out = {}
+    try:
+        _wait_health(peer_port)
+        if wait_first:
+            _wait_file(wait_for)
+        ids = engine.tokenizer.encode(text)
+        status, body = _post(port, "/v1/completions", {
+            "prompt": text, "max_tokens": n_new, "temperature": 0},
+            headers={"X-GPUStack-KV-Source":
+                     f"http://127.0.0.1:{peer_port}/kv/export"})
+        out.update(completion=(status, json.loads(body)), prompt_ids=ids)
+        _drain(engine)
+        out["handoff"] = engine.kv_handoff.snapshot()
+        out["ids"], out["reused"] = _greedy(engine, ids, n_new)
+        bt = engine.host_kv_cache.block_tokens
+        out["blocks"] = _blocks(engine, ids, (len(ids) - 1) // bt)
+        out["tiers"] = _probe(engine, "kv_tier")
+        out["leader_keys"] = engine.host_kv_cache.keys()
+        out["export"] = _post(port, "/kv/export", {"prompt_ids": ids})
+    finally:
+        open(signal, "w").close()
+        if not wait_first:
+            _wait_file(wait_for)
+    out["served_export"] = _post(port, "/kv/export", {
+        "prompt_ids": engine.tokenizer.encode(served)})
+    out["status"] = engine.health()["status"]
+    return out

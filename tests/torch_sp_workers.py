@@ -112,3 +112,36 @@ def refusal(rank, world, coordinator, cfg, tree, plan, max_seq_len,
     except ValueError as e:
         return str(e)
     return ""
+
+
+def verify_ingest(rank, world, coordinator, cfg, tree, plan, prompts,
+                  blocks, max_seq_len):
+    """The speculative ops under ``plan``: each of ``prompts`` prefilled
+    and inserted into slot ``i`` with its greedy first token, then for
+    each ``(kind, tokens [B, P], counts [B] or None)`` of ``blocks`` a
+    verify step (``"verify"``: the tokens are proposals) or a draft's
+    ingest step (``"ingest"``), each followed by a decode step. Returns,
+    per block, ``((greedy [B, P], produced [B])`` of a verify step or
+    None, the last tokens and positions after it, and the decode step's
+    tokens and token logprobs)``."""
+    runner = _runner(rank, coordinator, cfg, tree, plan, max_seq_len)
+    state = runner.new_state()
+    for slot, prompt in enumerate(prompts):
+        last, k, v = _prefill(runner, prompt, 0)
+        state = runner.insert(state, k, v, slot, len(prompt),
+                              int(last.argmax()), 0.0, 0, 1.0)
+    out = []
+    for step, (kind, tokens, counts) in enumerate(blocks):
+        verified = None
+        if kind == "verify":
+            state, greedy, produced = runner.verify_step(
+                state, torch.from_numpy(tokens))
+            verified = (greedy.numpy(), produced.numpy())
+        else:
+            state = runner.ingest_step(state, torch.from_numpy(tokens),
+                                       torch.from_numpy(counts))
+        after = (state.last_tokens.numpy().copy(),
+                 state.positions.numpy().copy())
+        state, dec = runner.decode_step(state, step)
+        out.append((verified, *after, dec[0].numpy(), dec[1].numpy()))
+    return out
