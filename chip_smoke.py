@@ -34,11 +34,15 @@ c. kernels: each hand-written kernel against its plain PyTorch version on
    down products and bf16 (``bf16_grouped``) at qwen3-30b-a3b's,
    deepseek-v2-lite's and gpt-oss-20b's, each at the routed rows of a
    seeded top-k pick of a decode step's 8 slots (the GEMV) and the 2048
-   bucket (the ``wgmma`` path), every segment held to the plain version,
-   timed beside the plain version, ``torch._grouped_mm`` (bf16; on the
-   dequantized weight for int8) and the bound for the rows and experts
-   the pick reaches; then, checked only, routings that stress the
-   segments (an expert no token picks, every token on one expert, a
+   bucket (the persistent ``wgmma`` kernel, each row with its plan: unit
+   rows and columns, the routing's units, CTAs and waves), every segment
+   held to the plain version, timed beside the plain version,
+   ``torch._grouped_mm`` (bf16; on the dequantized weight for int8) and
+   the bound for the rows and experts the pick reaches; timed without a
+   gate, bf16 at mixtral-8x7b's two int8 shapes (the schedule without
+   the widening) and qwen3-30b-a3b's bf16 products with half the pairs
+   on a quarter of the experts; then, checked only, routings that stress
+   the segments (an expert no token picks, every token on one expert, a
    segment ending mid-tile, one token, 17 tokens); the flash kernel's LSE
    mode (a ring block's fp32 output and row log-sum-exp) against its
    plain version at llama3-8b's heads (T = S = 2048) and at the three
@@ -811,6 +815,7 @@ def phase_kernels():
     ]
     from gpustack_tpu_torch.ops import _build
     from gpustack_tpu_torch.ops import flash_attention as fa
+    from gpustack_tpu_torch.ops import w8a16
 
     smem = _build.load("flash_attention").flash_prefill_smem_bytes
     emit("kernels", name="flash_attention_prefill",
@@ -877,6 +882,23 @@ def phase_kernels():
                     n, E, k, K, N, weight, wtype, gen,
                     repeats=3 if n == 2048 else 1,
                 )
+    # timed diagnostics, no gate on their times: bf16 at mixtral-8x7b's
+    # two int8 shapes (the schedule without the widening stage) and
+    # qwen3-30b-a3b's bf16 products with half the pairs on a quarter of
+    # the experts, all at the 2048 bucket
+    diagnostics = [
+        _grouped_case(2048, E, k, K, N, f"{weight} (bf16 at the int8 shape)",
+                      "bf16", gen)
+        for weight in ("mixtral-8x7b we_gate/we_up", "mixtral-8x7b we_down")
+        for E, k, K, N, _ in [GROUPED_PRODUCTS[weight]]
+    ] + [
+        _grouped_case(2048, E, k, K, N, weight, "bf16", gen,
+                      routing="skewed")
+        for weight in ("qwen3-30b-a3b we_gate/we_up",
+                       "qwen3-30b-a3b we_down")
+        for E, k, K, N, _ in [GROUPED_PRODUCTS[weight]]
+    ]
+    stages = _build.load("w8a16_gemm").w8a16_grouped_stages
     for wtype in grouped:
         ragged = [
             _grouped_case(n, E, k, 4096, 1024, f"ragged {routing}", wtype,
@@ -891,7 +913,12 @@ def phase_kernels():
         emit("kernels", name=GROUPED_WRAPPERS[wtype],
              tolerance={"rtol": W8A16_RTOL, "atol": W8A16_ATOL,
                         "row_rtol": W8A16_ROW_RTOL},
-             cases=list(grouped[wtype].values()), ragged=ragged)
+             stages_per_unit_shape={
+                 f"{bm}x{bn}": stages(bm, bn)
+                 for bm in ((128,) if wtype == "int8" else (64, 128))
+                 for bn in w8a16.GROUPED_BN[wtype]},
+             cases=list(grouped[wtype].values()), ragged=ragged,
+             **({"diagnostics": diagnostics} if wtype == "bf16" else {}))
     _shard_cases(gen)
     return {"flash_attention_prefill": rows[0], "w8a16_matmul": w8_rows[0],
             "w8a16_grouped": grouped["int8"][
@@ -1094,9 +1121,15 @@ def _w8a16_case(M, K, N, weight, gen, repeats=1):
 def _grouped_routing(n, E, k, routing, gen):
     """A seeded top-k pick of ``n`` tokens over ``E`` experts: uniform
     scores ("random"), expert 0 never picked ("empty"), every token's
-    first pick the last expert ("one"), or 200 tokens on expert 0 (a
-    segment ending mid-tile, "midtile")."""
+    first pick the last expert ("one"), 200 tokens on expert 0 (a segment
+    ending mid-tile, "midtile"), or half of every token's picks among a
+    quarter of the experts ("skewed")."""
     scores = torch.rand(n, E, generator=gen, device="cuda")
+    if routing == "skewed":
+        hot = E // 4
+        return torch.cat([scores[:, :hot].topk(k // 2, dim=-1).indices,
+                          hot + scores[:, hot:].topk(k - k // 2,
+                                                     dim=-1).indices], 1)
     if routing == "empty":
         scores[:, 0] = -1.0
     elif routing == "one":
@@ -1241,13 +1274,13 @@ def _grouped_case(n, E, k, K, N, weight, wtype, gen, routing="random",
                 "ctas": E * -(-N // w8a16.GEMV_BN) * ksplit,
                 "working_ctas": reached * -(-N // w8a16.GEMV_BN) * ksplit}
     else:
-        bn, grid_m, grid_n, _, ksplit = w8a16.wgmma_plan(P, N, K, sms, E)
-        tiles = sum(-(-(b - a) // w8a16.WGMMA_BM)
-                    for a, b in zip(bounds, bounds[1:]))
-        plan = {"path": "wgmma", "bn": bn, "ksplit": ksplit,
-                "ctas": grid_m * grid_n * ksplit,
-                "working_ctas": tiles * grid_n * ksplit,
-                "waves": tiles * grid_n * ksplit / sms}
+        # the persistent kernel: units of bm x bn outputs (the routing's
+        # count, read here on the host for the report only), ctas CTAs
+        bm, bn, grid = w8a16.grouped_plan(P, E, N, sms, not bf16w)
+        units = sum(-(-(b - a) // bm)
+                    for a, b in zip(bounds, bounds[1:])) * -(-N // bn)
+        plan = {"path": "wgmma", "bm": bm, "bn": bn, "units": units,
+                "ctas": grid, "waves": units / grid}
     return {
         **row, **plan,
         "ms": ms, "ms_runs": ms_runs, "plain_ms": plain_ms,
@@ -8501,7 +8534,8 @@ def main() -> int:
                     "path", "experts_reached", "max_abs_err", "ms",
                     "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "library_call",
-                )}}
+                )}, **{k: case[k] for k in (
+                    "bm", "bn", "units", "ctas", "waves") if k in case}}
                 for (weight, n), case in grouped_cases[wtype].items()
             ],
         })

@@ -23,9 +23,11 @@ kernel with bf16 expert weights and no scale. They stand for the JAX
 ``_moe_mlp``'s dense-dispatch expert products
 (``gpustack_tpu/models/transformer.py:487-502``, ``_mm`` or ``einsum``
 over the expert axis; XLA products there, no Pallas kernel) with the same
-values up to summation order. The host never reads ``offsets``: the grid
-is sized for the worst case and each CTA finds its rows on the card, so
-the serving loop never waits on the device.
+values up to summation order. The host never reads ``offsets``: above 16
+rows an expert one persistent CTA per SM walks the units (BM rows x BN
+columns of one expert) that the offsets make, each CTA building its table
+on the card; :func:`grouped_plan` picks BM, BN and the grid from host
+integers alone, so the serving loop never waits on the device.
 
 Each wrapper launches its kernel for CUDA tensors (or raises: no fallback
 on the card) and takes its plain version only for CPU tensors. Its
@@ -48,6 +50,12 @@ MAX_EXPERTS = 65535        # csrc: w8a16_max_experts() (the GEMV's grid z)
 WGMMA_BM = 128             # csrc: w8a16_wgmma_tile_m(), rows per CTA
 WGMMA_BK = 64              # k rows per stage of the wgmma path
 WGMMA_MIN_KTILES = 8       # k stages a CTA of a split keeps at least
+# the grouped kernel's plan (csrc: grouped_wgmma)
+GROUPED_TABLE_EXPERTS = 1024   # csrc: w8a16_grouped_table_experts()
+GROUPED_BN = {"bf16": (128, 192, 256), "int8": (128, 256)}
+GROUPED_BM128_ROWS = 384   # bf16: mean rows an expert from which units
+                           # hold 128 (gpt-oss-20b's 256 ran faster at 64,
+                           # mixtral-8x7b's 512 at 128)
 
 _lib = None
 
@@ -72,6 +80,7 @@ def _kernel(entry: str = "gemm"):
             or lib.w8a16_max_ksplit() != MAX_KSPLIT
             or lib.w8a16_wgmma_tile_m() != WGMMA_BM
             or lib.w8a16_max_experts() != MAX_EXPERTS
+            or lib.w8a16_grouped_table_experts() != GROUPED_TABLE_EXPERTS
         ):
             raise RuntimeError("w8a16_gemm.cu and ops/w8a16.py disagree")
         gemm = lib.w8a16_gemm_bf16
@@ -82,11 +91,11 @@ def _kernel(entry: str = "gemm"):
             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         int8 = lib.w8a16_grouped_bf16
-        int8.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+        int8.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p
         ]
         bf16 = lib.bf16_grouped_bf16
-        bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p
         ]
         _lib = {"gemm": gemm, "int8": int8, "bf16": bf16}
@@ -123,26 +132,16 @@ def gemv_plan(N: int, K: int, sms: int, E: int = 1) -> tuple:
     return kchunk, -(-K // kchunk)
 
 
-def grouped_tiles(P: int, E: int) -> int:
-    """Row tiles of a grouped ``wgmma`` grid over ``P`` sorted rows of
-    ``E`` experts: the worst case of sum(ceil(c_e / 128)), sized without
-    the counts (csrc ``run``). Tiles past the routing's last exit. E = 0
-    is the 2-D product's grid."""
-    return -(-P // WGMMA_BM) + E
-
-
-def wgmma_plan(M: int, N: int, K: int, sms: int, E: int = 0) -> tuple:
-    """(BN, grid_m, grid_n, kchunk, ksplit) for the large-M path: CTAs of
-    ``WGMMA_BM`` x BN outputs, ``grid_m`` row tiles (a grouped call of
-    ``E`` experts over M sorted rows: :func:`grouped_tiles`), BN 256 (each
-    x tile feeds twice the columns, so fewer shared-memory bytes per
+def wgmma_plan(M: int, N: int, K: int, sms: int) -> tuple:
+    """(BN, grid_m, grid_n, kchunk, ksplit) for the 2-D large-M path: CTAs
+    of ``WGMMA_BM`` x BN outputs, ``grid_m`` row tiles, BN 256 (each x
+    tile feeds twice the columns, so fewer shared-memory bytes per
     product) when that grid still gives every SM a CTA, else 128. A grid
     smaller than the card splits K over ``ksplit`` CTAs of one cluster
     (``kchunk`` rows each, at least ``WGMMA_MIN_KTILES`` stages), so the
-    weights stream from every SM. The grid's x axis walks the rows (and
-    an expert's tiles are neighbours), so CTAs that run together share
-    weight columns."""
-    grid_m = grouped_tiles(M, E)
+    weights stream from every SM. The grid's x axis walks the rows, so
+    CTAs that run together share weight columns."""
+    grid_m = -(-M // WGMMA_BM)
     bn = 256 if grid_m * -(-N // 256) >= sms else 128
     grid_n = -(-N // bn)
     ktiles = -(-K // WGMMA_BK)
@@ -151,6 +150,36 @@ def wgmma_plan(M: int, N: int, K: int, sms: int, E: int = 0) -> tuple:
     ))
     per = -(-ktiles // cap)
     return bn, grid_m, grid_n, per * WGMMA_BK, -(-ktiles // per)
+
+
+def grouped_plan(P: int, E: int, N: int, sms: int, int8: bool) -> tuple:
+    """(BM, BN, grid) of the grouped kernel over ``P`` sorted rows
+    of ``E`` experts, from host integers alone (the counts stay on the
+    card):
+
+    - BM: int8, 128-row units always (a widened tile feeds both consumer
+      warpgroups: at 64 rows the widening stage set the pace of every int8
+      product on the card); bf16, 128 once the mean rows an expert ``P /
+      E`` reach ``GROUPED_BM128_ROWS``, below 64-row units taken in turn
+      by the two consumers, which cut the ragged last unit of each expert;
+    - BN: of the widths the kernel takes (int8's widening stage maps 128
+      and 256), the one whose units load the fewest bytes of x and weight
+      tiles a k-stage, ``ceil(N / BN) * 64 * (2 BM + wb BN)``, then the
+      fewest column tiles: each column tile reloads its x rows, so at
+      every served width a 256-wide tile beats the narrower ones that
+      pad fewer columns (192 at N = 2880, 128 at 1408 ran slower);
+    - grid: one CTA per SM, fewer only where the worst case of units,
+      ``(ceil(P / BM) + min(E, P)) * ceil(N / BN)``, is smaller."""
+    bm = 128 if int8 or P >= GROUPED_BM128_ROWS * E else 64
+    wb = 1 if int8 else 2
+
+    def loaded(w):
+        tiles = -(-N // w)
+        return tiles * WGMMA_BK * (bm * 2 + w * wb), tiles
+
+    bn = min(GROUPED_BN["int8" if int8 else "bf16"], key=loaded)
+    units = (-(-P // bm) + min(E, P)) * -(-N // bn)
+    return bm, bn, max(1, min(sms, units))
 
 
 _sms = {}
@@ -336,17 +365,17 @@ def _grouped_launch(entry, wrapper, x, w, s, offsets, max_rows):
     out = torch.empty((P, N), dtype=torch.bfloat16, device=x.device)
     sms = _sm_count(x.device.index)
     if max_rows <= GEMV_MAX_M:
-        path, bn = "gemv", 0
+        path, plan = "gemv", (0, 0, 0)
         kchunk = gemv_plan(N, K, sms, min(E, P))[0]
     else:
-        path = "wgmma"
-        bn, _, _, kchunk, _ = wgmma_plan(P, N, K, sms, E)
+        path, kchunk = "wgmma", 0
+        plan = grouped_plan(P, E, N, sms, s is not None)
     ptrs = [x.data_ptr(), w.data_ptr()] + (
         [] if s is None else [s.data_ptr()]
     ) + [offsets.data_ptr(), out.data_ptr()]
     with torch.cuda.device(x.device):
         err = _kernel(entry)(
-            *ptrs, E, P, N, K, max_rows, bn, kchunk,
+            *ptrs, E, P, N, K, max_rows, kchunk, *plan,
             torch._C._cuda_getCurrentRawStream(x.device.index),
         )
     if err != 0:

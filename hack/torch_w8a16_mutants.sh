@@ -53,7 +53,11 @@ mutants = {
                                 "for (int r = 0; r + 1 < ksplit; ++r)"),
     "gemv_skips_last_k_step": ("const bool k_ok = k < k_end;",
                                "const bool k_ok = k + GV_KSTEP < k_end;"),
-    "wgmma_drops_scale": ("acc[4 * nb + 2 * h] * s0", "acc[4 * nb + 2 * h]"),
+    "wgmma_drops_scale": (
+        "(out + m * ldo + n) =\n"
+        "                __floats2bfloat162_rn(acc[4 * nb + 2 * h] * s0,",
+        "(out + m * ldo + n) =\n"
+        "                __floats2bfloat162_rn(acc[4 * nb + 2 * h],"),
     "wgmma_skips_last_k_tile": (
         "const int ktiles = min((K + MM_BK - 1) / MM_BK - kt0, ktile_chunk);",
         "const int ktiles = min((K + MM_BK - 1) / MM_BK - kt0, ktile_chunk)"
@@ -63,8 +67,9 @@ mutants = {
     "widen_drops_sign_bias": ("b[e] = v[i][e] ^ 0x80808080u;",
                               "b[e] = v[i][e];"),
     "wgmma_drops_last_m_tile_rows": (
-        "if (m < m_end)\n",
-        "if (m < m_end && blockIdx.x + 1 < gridDim.x)\n"),
+        "if (m < m_end)\n            *reinterpret_cast",
+        "if (m < m_end && blockIdx.x + 1 < gridDim.x)\n"
+        "            *reinterpret_cast"),
     "loader_waits_wrong_phase": (
         "mbar_wait(bar(empty, t), phase(t) ^ 1);",
         "mbar_wait(bar(empty, t), phase(t));"),

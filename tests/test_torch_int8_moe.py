@@ -119,24 +119,26 @@ def test_w8a16_bmm_plain_matches_jax_mm(x_kind):
 def test_batched_plans_count_every_expert_in_the_grid(E, M, N, K):
     """The grouped plans over M sorted rows of E experts see the grid the
     card runs, sized without the counts: the GEMV's column slices of the
-    min(E, M) experts its rows can reach, the wgmma path's worst case of
-    ceil(M / 128) + E row tiles. K is split (over a cluster) only while
-    that grid has fewer CTAs than SMs, the wgmma tile is 256 wide only
-    when the grid still fills the card, and the splits cover K once;
-    E = 0 is the 2-D plan."""
+    min(E, M) experts its rows can reach (K split over a cluster only
+    while that grid has fewer CTAs than SMs, the splits covering K once);
+    the persistent kernel's at most one CTA per SM, capped by the worst
+    case of (ceil(M / BM) + min(E, M)) row units of ceil(N / BN) column
+    tiles. The 2-D plan: its tile is 256 wide only when the grid still
+    fills the card."""
     sms = 132
     kchunk, ksplit = w8a16.gemv_plan(N, K, sms, min(E, M))
     nb = min(E, M) * -(-N // w8a16.GEMV_BN)
     assert (ksplit - 1) * kchunk < K <= ksplit * kchunk
     assert ksplit == 1 or nb * (ksplit - 1) < sms
-    bn, grid_m, grid_n, kchunk, ksplit = w8a16.wgmma_plan(M, N, K, sms, E)
-    assert grid_m == w8a16.grouped_tiles(M, E) == -(-M // 128) + E
-    assert (bn == 256) == (grid_m * -(-N // 256) >= sms)
-    assert (ksplit - 1) * kchunk < K <= ksplit * kchunk
-    assert ksplit == 1 or grid_m * grid_n * ksplit <= sms
+    for int8 in (True, False):
+        bm, bn, grid = w8a16.grouped_plan(M, E, N, sms, int8)
+        assert bm in (64, 128) and bn in (128, 256) + (() if int8 else (192,))
+        units = (-(-M // bm) + min(E, M)) * -(-N // bn)
+        assert grid == min(sms, units)
     bn, grid_m, grid_n, kchunk, ksplit = w8a16.wgmma_plan(M, N, K, sms)
     assert grid_m == -(-M // 128)
     assert (bn == 256) == (grid_m * -(-N // 256) >= sms)
+    assert (ksplit - 1) * kchunk < K <= ksplit * kchunk
     assert ksplit == 1 or grid_m * grid_n * ksplit <= sms
 
 

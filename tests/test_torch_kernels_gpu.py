@@ -326,6 +326,23 @@ _GROUPED_SHAPES = [
     (5, 13, 2, 4104, 1040, "random"),       # K % 64, N % 64 != 0
     (5, 130, 2, 4104, 1040, "random"),
     (7, 33, 3, 264, 4112, "random"),
+    # the persistent kernel's plans: N 2880 (BN 192 for bf16) and 1408
+    # (BN 128) at a mean of at most 64 rows an expert (64-row units) and
+    # of at least 256 (128-row units at 512); 129 experts (past four
+    # warps of lanes) and 1100 (more than a CTA copies into shared
+    # memory: its walk reads offsets in device memory)
+    (32, 512, 4, 2880, 2880, "random"),
+    (64, 512, 6, 2048, 1408, "random"),
+    (32, 2048, 4, 2880, 1408, "random"),
+    (8, 2048, 2, 1024, 2880, "random"),
+    (8, 2048, 2, 2880, 1408, "random"),
+    (129, 300, 8, 1024, 512, "random"),
+    (1100, 300, 8, 256, 256, "random"),
+    # the kernel's other unit shapes: BN 128 at 64 and 128 rows (int8 128
+    # x 128), BN 192 at 128 rows
+    (8, 300, 2, 1024, 128, "random"),
+    (4, 2048, 1, 1024, 128, "random"),
+    (4, 2048, 1, 1024, 320, "random"),
 ]
 
 
@@ -406,6 +423,37 @@ def test_grouped_kernel_matches_plain(E, n, k, K, N, routing, bf16w):
     assert (out.float() - plain.float()).abs().max() <= 2e-2 * (
         1 + plain.float().abs().max()
     )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16w", [False, True], ids=["int8", "bf16"])
+@pytest.mark.parametrize("n,E,E_loc,e0,K,N", [
+    (2048, 8, 4, 4, 4096, 7168),        # mixtral-8x7b ep2xtp2's gate
+    (2048, 8, 4, 0, 7168, 4096),        # and down, at either rank
+    (512, 32, 8, 16, 2880, 2880),       # gpt-oss-20b's widths
+])
+def test_grouped_kernel_takes_an_ep_slice(n, E, E_loc, e0, K, N, bf16w):
+    """As an ``ep`` rank runs it: the pairs sorted over all E experts, the
+    kernel given the E_loc local experts and ``offsets[e0:e0 + E_loc +
+    1]`` (offsets[0] > 0 or offsets[E_loc] < P): each local segment held
+    to its plain product."""
+    _need_card()
+    from gpustack_tpu_torch.ops import w8a16  # analysis: ignore[metrics-drift]
+
+    k = 2
+    xs, w, s, offsets, _ = _grouped_inputs(E, n, k, K, N, "random", bf16w,
+                                           e0 + n + N)
+    local = offsets[e0:e0 + E_loc + 1].clone()
+    w, s = w[e0:e0 + E_loc].contiguous(), (
+        None if s is None else s[e0:e0 + E_loc].contiguous())
+    out = (w8a16.bf16_grouped(xs, w, local, n) if bf16w
+           else w8a16.w8a16_grouped(xs, w, s, local, n))
+    torch.cuda.synchronize()
+    a, b = local[0].item(), local[-1].item()
+    assert 0 < a or b < n * k
+    shifted = local - a
+    _assert_grouped_close(out[a:b].contiguous(), xs[a:b].contiguous(), w, s,
+                          shifted)
 
 
 @pytest.mark.gpu

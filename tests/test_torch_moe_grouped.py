@@ -5,15 +5,20 @@ versions of its grouped expert kernels, against numpy and the JAX package.
 the inverse) against a numpy reference, at the routings that stress the
 kernels: an expert no token picked, every token on one expert, segments
 ending exactly at and one past a tile of 64 and of 128 rows, one token,
-and k = E. A Python mirror of the grouped ``wgmma`` CTA's prologue (the
-tile walk in ``csrc/w8a16_gemm.cu`` ``find_tile``) covers every routed row
-once and stays within the grid the host sizes without the counts. The
+and k = E. A Python mirror of the persistent grouped kernel's schedule
+(``csrc/w8a16_gemm.cu`` ``Walk`` and ``grouped_wgmma``: the units the
+offsets make, each CTA's share of them) stores every routed output once,
+by its own expert, with CTAs' shares within one unit of each other; the
+plan (``grouped_plan``) at every served MoE product. The
 grouped plain versions (``w8a16_grouped_plain``, ``bf16_grouped_plain``)
 against the 2-D plain version per segment (bit for bit) and against the
 JAX ``_mm`` / ``einsum`` over the expert axis at each pair's (token,
 expert) (fp32, 1e-5: summation order only). The wrappers refuse what the
 kernel cannot take. Inputs come from numpy with a seed.
 """
+
+import importlib.util
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -88,61 +93,192 @@ def test_dispatch_matches_numpy(kind):
         assert (np.diff(want_perm[seg]) > 0).all()
 
 
-def _tile_walk(offsets, tile, bm):
-    """Mirror of ``find_tile`` (``csrc/w8a16_gemm.cu``) as the warp runs
-    it: lanes take experts 32 at a time, an inclusive scan of their tile
-    counts places each expert's first tile, and the lane whose expert
-    holds ``tile`` answers (expert, first row, end row); None past the
-    last tile."""
-    E = len(offsets) - 1
-    before, found = 0, None
-    for e0 in range(0, E, 32):
-        lanes = range(e0, e0 + 32)
-        lo = [offsets[e] if e < E else 0 for e in lanes]
-        hi = [offsets[e + 1] if e < E else 0 for e in lanes]
-        nt = [-(-(h - lo_) // bm) for lo_, h in zip(lo, hi)]
-        incl = np.cumsum(nt)
-        for lane in range(32):
-            first = before + incl[lane] - nt[lane]
-            if first <= tile < first + nt[lane]:
-                assert found is None
-                found = (e0 + lane, lo[lane] + (tile - first) * bm, hi[lane])
-        before += int(incl[31])
-    return found
+class _Walk:
+    """Mirror of ``Walk`` (``csrc/w8a16_gemm.cu``): expert e's rows [lo,
+    hi) make R = ceil((hi - lo) / bm) row units in each of T column
+    strips, units [ub, ue) strip by strip; ``at`` only steps forward
+    through the experts, as each role of a CTA asks for its units in
+    rising order."""
+
+    def __init__(self, off, bm, bn, T):
+        self.off, self.bm, self.bn, self.T = off, bm, bn, T
+        self.e, self.lo, self.hi, self.ub = 0, off[0], off[1], 0
+        self.ue = self.row_units(self.hi - self.lo) * T
+
+    def row_units(self, rows):
+        return (max(rows, 0) + self.bm - 1) // self.bm
+
+    def at(self, u):
+        while u >= self.ue:
+            self.e += 1
+            self.lo, self.hi = self.hi, self.off[self.e + 1]
+            self.ub = self.ue
+            self.ue += self.row_units(self.hi - self.lo) * self.T
+        c, r = divmod(u - self.ub, self.row_units(self.hi - self.lo))
+        return self.e, self.lo + r * self.bm, self.hi, c * self.bn
+
+
+def _cta_units(off, bm, bn, N, grid):
+    """Mirror of ``grouped_wgmma``'s schedule: the prologue's total of
+    units (each lane sums experts lane, lane + 32, ...; the warp adds them
+    up), then CTA b's units b, b + grid, ... through its own walk; a CTA
+    with none leaves. Returns [[(expert, m0, m_end, n0), ...] per CTA]."""
+    E, T = len(off) - 1, -(-N // bn)
+    probe = _Walk(off, bm, bn, T)
+    lanes = [sum(probe.row_units(off[e + 1] - off[e])
+                 for e in range(lane, E, 32)) for lane in range(32)]
+    U = sum(lanes) * T
+    ctas = []
+    for b in range(grid):
+        mine = (U - b - 1) // grid + 1 if U > b else 0
+        walk = _Walk(off, bm, bn, T)
+        ctas.append([walk.at(b + i * grid) for i in range(mine)])
+    return ctas
+
+
+def _check_schedule(off, bm, bn, N, grid):
+    """Every routed (row, column) stored exactly once, by its own expert's
+    unit; rows outside [off[0], off[E]) never stored; CTAs' unit counts
+    within one of each other; in ping-pong (bm 64) the two consumers'
+    shares (units i % 2) also within one."""
+    E = len(off) - 1
+    P = max(off[-1], 1)
+    hits = np.zeros((P, N), dtype=np.int64)
+    ctas = _cta_units(off, bm, bn, N, grid)
+    for units in ctas:
+        for e, m0, m_end, n0 in units:
+            assert off[e] <= m0 < m_end == off[e + 1]
+            assert 0 <= n0 < N and n0 % bn == 0
+            hits[m0:min(m0 + bm, m_end), n0:n0 + bn] += 1
+    want = np.zeros_like(hits)
+    want[off[0]:off[E]] = 1
+    np.testing.assert_array_equal(hits, want)
+    counts = [len(u) for u in ctas]
+    assert max(counts) - min(counts) <= 1
+    T = -(-N // bn)
+    assert sum(counts) == T * sum(-(-(b - a) // bm)
+                                  for a, b in zip(off, off[1:]))
+    for units in ctas:
+        assert len(units[0::2]) - len(units[1::2]) in (0, 1)
+    return ctas
 
 
 @pytest.mark.parametrize("bm", [64, 128])
 @pytest.mark.parametrize("kind", KINDS)
-def test_tile_walk_covers_every_row_once(kind, bm):
-    """Every grouped CTA of the worst-case grid (ceil(P / bm) + E row
-    tiles) runs the walk: the tiles found cover each routed row exactly
-    once, each with its own expert, rows stored only before the segment's
-    end; the others exit. A 33-expert variant crosses the warp's lanes."""
+def test_unit_walk_stores_every_output_once(kind, bm):
+    """The grouped kernel's units over each routing's offsets, at a width
+    that pads its last column tile (N 320 at BN 128)
+    and one that fits (N 384 at BN 192), on a grid of 7 CTAs and on one
+    of 132 (more CTAs than units leave at once)."""
     rng = np.random.default_rng(KINDS.index(kind))
     top, E = _routing(kind, rng)
     _, offsets, _ = pt.moe_dispatch(top, E)
-    cases = [offsets.tolist()]
-    counts = rng.integers(0, 3 * bm, size=33)
-    counts[[0, 31, 32]] = [0, bm, bm + 1]
-    cases.append([0] + np.cumsum(counts).tolist())
-    for off in cases:
-        E_, P = len(off) - 1, off[-1]
-        grid = w8a16.grouped_tiles(P, E_) if bm == 128 else (
-            -(-P // bm) + E_
-        )
-        covered = np.zeros(P, dtype=np.int64)
-        used = 0
-        for t in range(grid):
-            found = _tile_walk(off, t, bm)
-            if found is None:
-                continue
-            used += 1
-            e, m0, m_end = found
-            assert off[e] <= m0 < m_end == off[e + 1]
-            covered[m0:min(m0 + bm, m_end)] += 1
-        assert used == sum(-(-(b - a) // bm) for a, b in zip(off, off[1:]))
-        assert used <= grid
-        np.testing.assert_array_equal(covered, np.ones(P, dtype=np.int64))
+    off = offsets.tolist()
+    for N, bn in ((320, 128), (384, 192)):
+        for grid in (7, 132):
+            _check_schedule(off, bm, bn, N, grid)
+
+
+def _segments(counts, start=0):
+    return [start] + (start + np.cumsum(counts)).tolist()
+
+
+@pytest.mark.parametrize("bm", [64, 128])
+@pytest.mark.parametrize("case", [
+    "ep_slice", "e33", "e129", "segment_bm", "segment_bm_plus1",
+    "above_the_table",
+])
+def test_unit_walk_edge_offsets(case, bm):
+    """Offsets the routing kinds do not reach: an ``ep`` rank's slice
+    (offsets[0] > 0, offsets[E] < P: the other ranks' rows unwritten),
+    33 and 129 experts (past a warp's lanes, once and four times), every
+    segment exactly BM or BM + 1 rows, and more experts than a CTA copies
+    into shared memory (its walk reads the same bounds from memory)."""
+    rng = np.random.default_rng(len(case) + bm)
+    if case == "ep_slice":
+        full = _segments(rng.integers(0, 3 * bm, size=8))
+        off = full[2:7]
+        assert off[0] > 0 and off[-1] < full[-1]
+    elif case in ("e33", "e129"):
+        E = int(case[1:])
+        counts = rng.integers(0, 3 * bm, size=E)
+        counts[[0, 31, 32]] = [0, bm, bm + 1]
+        off = _segments(counts)
+    elif case == "above_the_table":
+        E = w8a16.GROUPED_TABLE_EXPERTS + 9
+        off = _segments(rng.integers(0, 3, size=E))
+    else:
+        extra = case.endswith("plus1")
+        off = _segments([bm + extra] * 5)
+    for N, bn in ((320, 128), (384, 192), (256, 256)):
+        for grid in (5, 132):
+            ctas = _check_schedule(off, bm, bn, N, grid)
+            rows = [m0 for units in ctas for _, m0, _, _ in units]
+            assert min(rows) == off[0] and max(rows) < off[-1]
+
+
+def _served_products():
+    """chip_smoke.py's GROUPED_PRODUCTS, the products its phase c times:
+    {name: (E, top-k, K, N, weight types served)}."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.GROUPED_PRODUCTS
+
+
+_PRODUCTS = _served_products()
+
+
+@pytest.mark.parametrize("n", [8, 2048])
+@pytest.mark.parametrize("product", sorted(_PRODUCTS))
+def test_grouped_plan_at_the_served_products(product, n):
+    """The plan of every served MoE product at a decode step's 8 tokens
+    and the 2048 bucket. BM: int8 128 always, bf16 128 only from
+    GROUPED_BM128_ROWS mean rows an expert. BN: the width whose units load
+    the fewest bytes of x and weight tiles (each column tile reloads its
+    x rows), so 256 at every served width, 2880 and 1408 included, where
+    the fitted 192 and 128 would pad nothing but load more. Grid: at most
+    one CTA per SM, no more than the worst case of units, and a
+    uniform routing's units spread over it within one a CTA."""
+    E, k, K, N, types = _PRODUCTS[product]
+    P = n * k
+    for sms in (132, 114):
+        for wtype in types:
+            int8 = wtype == "int8"
+            bm, bn, grid = w8a16.grouped_plan(P, E, N, sms, int8)
+            assert bm == (128 if int8 or P >= w8a16.GROUPED_BM128_ROWS * E
+                          else 64)
+            wb = 1 if int8 else 2
+            assert bn in w8a16.GROUPED_BN[wtype]
+            loaded = {w: (-(-N // w) * 64 * (2 * bm + wb * w), -(-N // w))
+                      for w in w8a16.GROUPED_BN[wtype]}
+            assert loaded[bn] == min(loaded.values())
+            assert bn == 256
+            if N in (2880, 1408):
+                assert -(-N // bn) * bn - N == {2880: 192, 1408: 128}[N]
+            worst = (-(-P // bm) + min(E, P)) * -(-N // bn)
+            assert 1 <= grid == min(sms, worst) <= sms
+            counts = np.bincount(np.arange(P) % E, minlength=E)
+            _check_schedule(_segments(counts), bm, bn, min(N, 512), grid)
+
+
+def test_grouped_plan_fits_narrow_widths():
+    """Where a narrower tile loads fewer bytes it wins: 192 at N 320 (two
+    tiles of 192 against two of 256) and 1040, and at the gate shards of a
+    tensor-parallel rank that ``hack/torch_grouped_ab.py --narrow`` times
+    (qwen3-30b-a3b's 192 under tp4 and 384 under tp2, deepseek-v2-lite's
+    352 under tp4), 128 at N 128; int8 never takes 192 (its widening
+    stage maps 128 and 256)."""
+    plan = w8a16.grouped_plan
+    for E, k, N in ((128, 8, 192), (128, 8, 384), (64, 6, 352)):
+        assert plan(2048 * k, E, N, 132, False)[:2] == (64, 192)
+    assert plan(300, 4, 320, 132, False)[1] == 192
+    assert plan(300, 4, 1040, 132, False)[1] == 192
+    assert plan(300, 4, 128, 132, False)[1] == 128
+    assert plan(300, 4, 320, 132, True)[:2] == (128, 256)
+    assert plan(300, 4, 128, 132, True)[:2] == (128, 128)
 
 
 def _gemv_ctas(offsets):
