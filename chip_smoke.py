@@ -282,6 +282,24 @@ x. disaggregated serving and embeddings on multi-GPU replicas, four GPUs
    at full width cut to 4 layers under llama3-70b ``tp4`` and
    ``dp2xtp2`` and mixtral-8x7b ``ep2xtp2``, one process per GPU, within
    1e-4 of one card's (plain attention: the kernel is bf16).
+y. (four GPUs; ``phase_sp_features``) the tier, speculation, handoffs
+   and embeddings under ``sp4``.
+z. image chats on multi-GPU replicas, four GPUs
+   (``phase_vision_replica``): phase o's tower on rank 0 alone, each
+   prompt's image rows broadcast from its card. z1 llama3-70b ``tp4`` and
+   z2 mixtral-8x7b ``dp2xep2`` (bf16, full width and depth) through the
+   server: an image prefill's logits against the plain attention on the
+   same ranks (MoE picks replayed; under ``dp2`` on each group's slot),
+   with its launches per rank; chats with a 64 x 64 PNG, a 97 x 53 one
+   and a streamed one, image and text TTFT of one token count, counted
+   on every rank; every rank's slot state the leader's; under ``dp2``
+   the two chats on different groups and each group's K/V rows untouched
+   by the other's; greedy ids against the runner called directly. z3
+   qwen3-8b ``sp4`` at 32768: one request with an image in rank 0's
+   segment and one in rank 2's, LSE launches ``(r + 1)`` × 36 on rank
+   ``r``, its logits against one card's ``prefill_with_embeds``. z4:
+   fp32 at 4 layers under ``tp4``, ``dp2xep2`` and ``sp4`` within 1e-4 of
+   one card. Each line: the rows' broadcast bytes and ms, peak GB a rank.
 
 In d to o every kernel's launches are counted around the served
 requests alone and must equal what that path's model forwards need,
@@ -1475,7 +1493,8 @@ def expected_launches(runner_calls, sp_rank=0, dp_rank=0):
     rows. Each product of M ≤ 16 rows (a chunk's tokens, for the grouped
     kernel) takes the GEMV, any larger one the ``wgmma`` path. The flash
     launches are counted per mode too: a runner under ``sp`` runs each
-    prefill from zero as a ring, whose rank ``sp_rank`` (the rank the
+    prefill from zero (an image prompt's too) as a ring, whose rank
+    ``sp_rank`` (the rank the
     counts are taken on) launches the kernel's LSE mode ``sp_rank + 1``
     times a layer (an embedding batch too: one launch a block for all its
     rows), and its continuations, decode steps and verify blocks merge
@@ -1519,7 +1538,7 @@ def expected_launches(runner_calls, sp_rank=0, dp_rank=0):
             if dp > 1 and name == "embed" and dp_rank:
                 continue                    # the first group embeds
             tokens = B * T
-            if sp and name in ("prefill", "embed"):
+            if sp and name in ("prefill", "prefill_with_embeds", "embed"):
                 want["flash_attention_prefill"] += (sp_rank + 1) * layers
                 want["flash_lse"] += (sp_rank + 1) * layers
                 tokens //= runner.sp
@@ -4404,29 +4423,27 @@ def _image_logit_check(engine, msgs):
             "image_tokens": int(mask.sum()), **gate}
 
 
-def _direct_image_greedy(engine, msgs, n):
-    """Greedy ids of an image chat from the runner called directly:
-    ``prefill_with_embeds``, ``sample_first``, ``insert`` into a decode
-    state of its own, then ``decode_step``s, under the letters' logit bias
-    the served requests carry."""
-    runner = engine.runner
+def _image_greedy(runner, state, slot, prompt, n):
+    """Greedy ids of an image prompt (``_mm_prompt``'s tuple) from the
+    runner called directly, under the letters' logit bias the served
+    chats carry: ``prefill_with_embeds`` for ``slot``, ``sample_first``,
+    ``insert`` into ``state``, ``n - 1`` decode steps; the slot is
+    deactivated at the end."""
+    ids, padded, embeds, mask = prompt
     bias = {int(k): v for k, v in LETTERS.items()}
-    ids, padded, embeds, mask = _mm_prompt(engine, msgs)
     with torch.no_grad():
-        last, k, v = runner.prefill_with_embeds(
-            padded, len(ids), embeds, mask
-        )
-        toks = runner.sample_first(
-            last, 0.0, 0, 1.0, 0, False, len(ids) - 1, 0, logit_bias=bias
-        )[0]
-        state = runner.new_state()
-        runner.insert(state, k, v, 0, len(ids), toks[0], 0.0, 0, 1.0,
+        last, k, v = runner.prefill_with_embeds(padded, len(ids), embeds,
+                                                mask, slot=slot)
+        toks = runner.sample_first(last, 0.0, 0, 1.0, 0, False,
+                                   len(ids) - 1, 0, logit_bias=bias)[0]
+        runner.insert(state, k, v, slot, len(ids), toks[0], 0.0, 0, 1.0,
                       logit_bias=bias)
+        del k, v
         out = [int(toks[0])]
         for step in range(n - 1):
             state, sampled = runner.decode_step(state, step + 1)
-            out.append(int(sampled[0][0]))
-    del state
+            out.append(int(sampled[0][slot]))
+        runner.deactivate(state, slot)
     return out
 
 
@@ -4547,7 +4564,8 @@ def phase_vlm(kind, smi, device="cuda"):
                                  f"image prefills, {O_TTFT_REPS} text ones")
         check_launches("vlm path", counts, expected_launches([calls]))
         direct = {
-            name: _direct_image_greedy(engine, msgs, O_MAX_TOKENS)
+            name: _image_greedy(engine.runner, engine.runner.new_state(), 0,
+                                _mm_prompt(engine, msgs), O_MAX_TOKENS)
             for name, msgs in (("64x64", msgs64), ("97x53", msgs97))
         }
         for name, ids in direct.items():
@@ -8387,6 +8405,578 @@ def phase_sp_features(kind, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# z: the vision path on a multi-GPU replica (four GPUs)
+# ---------------------------------------------------------------------------
+
+Z_GPUS = 4
+# z1, z2: phase o's tower projected into llama3-70b (tp4) and
+# mixtral-8x7b (dp2xep2), both bf16 at full width and depth, on rank 0
+Z1_ARGV = ["--preset", "llama3-70b", "--mesh-plan", "tp4"] + MAIN_ARGV[2:]
+Z2_ARGV = (["--preset", "mixtral-8x7b", "--mesh-plan", "dp2xep2"]
+           + MAIN_ARGV[2:])
+# z3: phase t's qwen3-8b sp4 replica at 32768; one request whose second
+# image follows Z3_GAP text tokens, so its rows fall in rank 2's segment
+Z3_ARGV = T1_ARGV
+Z3_GAP = 20000
+Z3_SEGMENTS = [0, 2]
+# z4: full width cut to Z4_LAYERS in fp32 (TF32 off), each plan's
+# prefill_with_embeds against one card's; the second image after Z4_GAP
+# text tokens straddles sp4's second and third blocks of the 512 bucket
+Z4_LAYERS = 4
+Z4_CASES = (("llama3-70b", "tp4"), ("mixtral-8x7b", "dp2xep2"),
+            ("qwen3-8b", "sp4"))
+Z4_GAP = 150
+Z_RANK_DEVICE = "cuda"
+
+
+def _z_bundle(lang, device):
+    """Phase o's tower (seed 1) projected into ``lang``'s width."""
+    from gpustack_tpu_torch.models.vlm import (
+        VisionBundle,
+        VisionConfig,
+        VLMConfig,
+        init_vision_params,
+    )
+
+    vcfg = VLMConfig(name=f"{lang.name}-vision", language=lang,
+                     vision=VisionConfig())
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    return VisionBundle(vcfg, init_vision_params(vcfg, gen), device)
+
+
+def _z_pngs():
+    from gpustack_tpu_torch.models.png import encode_png
+
+    return (encode_png(_seeded_image(64, 64, 64)),
+            encode_png(_seeded_image(97, 97, 53)))
+
+
+def _z_two_images(gap):
+    """One user turn: phase o's text, the 64 x 64 image, ``gap`` text
+    tokens, the 97 x 53 image (resized) and a question mark."""
+    parts = [_image_msgs(png)[0]["content"] for png in _z_pngs()]
+    return [{"role": "user", "content": parts[0] + [
+        {"type": "text", "text": "x" * gap}, parts[1][1],
+        {"type": "text", "text": "?"}]}]
+
+
+def _z_text_twin(engine, msgs):
+    """``msgs`` with each image part as as many text tokens: a text chat
+    of the image chat's token count (checked)."""
+    n = engine.vision.n_image_tokens
+    text = [{"role": m["role"], "content": "".join(
+        p["text"] if p["type"] == "text" else "x" * n
+        for p in m["content"])} for m in msgs]
+    if len(engine.tokenizer.apply_chat_template(text)) != len(
+            _mm_prompt(engine, msgs)[0]):
+        raise AssertionError("the text chat's token count differs")
+    return text
+
+
+class _RowsTimer:
+    """Rank 0's world broadcasts of a prompt's image rows (inside
+    ``ModelRunner._image_rows``): each one's bytes and CUDA-event ms
+    around the call, the wait for the followers to reach it included."""
+
+    def __init__(self, runner):
+        inner = getattr(runner, "_runner", runner)
+        mesh, image_rows, self.events = inner.mesh, inner._image_rows, []
+
+        def timed(*args):
+            def broadcast(x, _plain=mesh.broadcast_):
+                if x.is_cuda:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    _plain(x)
+                    end.record()
+                else:                      # gloo: the host's clock
+                    start = time.perf_counter()
+                    _plain(x)
+                    end = time.perf_counter()
+                self.events.append((x.numel() * x.element_size(), start,
+                                    end))
+                return x
+
+            mesh.broadcast_ = broadcast
+            try:
+                return image_rows(*args)
+            finally:
+                del mesh.broadcast_
+
+        inner._image_rows = timed
+
+    def read(self):
+        if any(not isinstance(s, float) for _, s, _ in self.events):
+            torch.cuda.synchronize()
+        out = [{"bytes": b, "ms": (e - s) * 1e3 if isinstance(s, float)
+                else s.elapsed_time(e)} for b, s, e in self.events]
+        self.events.clear()
+        return out
+
+
+def _z_rows_summary(rows):
+    return {"broadcasts": len(rows),
+            "bytes": sorted({r["bytes"] for r in rows}),
+            "ms_median": statistics.median(r["ms"] for r in rows),
+            "ms_runs": [r["ms"] for r in rows]}
+
+
+def _z_launches(engine, label, calls, launches):
+    """:func:`_w_launches`, and every rank's flash launches by mode (the
+    causal mode one a layer on each rank of the slot's group, the LSE
+    mode ``(r + 1)`` a layer at ``sp`` index ``r``)."""
+    from gpustack_tpu_torch.parallel.mesh import rank_coords
+
+    out = _w_launches(engine, label, calls, launches)
+    plan = engine.runner.plan
+    for mode in ("causal", "lse"):
+        got = launches[f"flash_attention_prefill_{mode}"]
+        want = []
+        for r in range(plan.chips):
+            c = rank_coords(plan, r)
+            want.append(expected_launches([calls], c["sp"],
+                                          c["dp"])[f"flash_{mode}"])
+        if got != want:
+            raise AssertionError(f"{label}: flash {mode} launched {got} "
+                                 f"per rank, the forwards need {want}")
+        out[f"flash_{mode}"] = got
+    return out
+
+
+def _z_logit_gate(engine, msgs, slot, replay, label):
+    """An image prompt's prefill on the idle replica from this thread
+    (every rank runs it; under ``dp`` the ``slot``'s group, its logits
+    sent to rank 0), counted on every rank, against the same prefill
+    with the plain attention on the same ranks (``probe
+    ("plain_attention")``): last-position logits within the served-logit
+    tolerance. With ``replay`` the plain run replays each rank's served
+    expert picks, and the free-routing run rides beside."""
+    import types
+
+    runner, state = engine.runner, engine._state
+    ids, padded, embeds, mask = _mm_prompt(engine, msgs)
+    args = (padded, len(ids), embeds, mask)
+    extra = {}
+    with torch.no_grad():
+        if replay:
+            runner.probe(state, "routing_record")
+        runner.probe(state, "reset_launches")
+        served, _, _ = runner.prefill_with_embeds(*args, slot=slot)
+        launches = runner.probe(state, "launches")
+        if replay:
+            runner.probe(state, "routing_replay")
+        runner.probe(state, "plain_attention", true_len=1)
+        try:
+            plain, _, _ = runner.prefill_with_embeds(*args, slot=slot)
+            if replay:
+                tapes = runner.probe(state, "routing")
+                free, _, _ = runner.prefill_with_embeds(*args, slot=slot)
+                extra = {"routing": "the served picks replayed in the "
+                         "plain run, on every rank",
+                         "flipped_tokens_per_rank": [sum(t["flips"])
+                                                     for t in tapes],
+                         "free_routing": _compare_logits(served, free)}
+        finally:
+            runner.probe(state, "plain_attention", true_len=0)
+    one = types.SimpleNamespace(runner=runner, int8=False, forwards=[
+        ("prefill_with_embeds", 1, len(padded), slot)])
+    per_rank = _z_launches(engine, f"{label} image prefill", one, launches)
+    if served.shape != (runner.cfg.vocab_size,) or not torch.isfinite(
+            served).all():
+        raise AssertionError(f"{label}: bad logits {tuple(served.shape)}")
+    gate = _compare_logits(served, plain)
+    if gate["max_abs_err"] > LOGIT_REL_TOL * gate["logit_scale"] or (
+            gate["cosine"] < LOGIT_MIN_COSINE):
+        raise AssertionError(f"{label}: image prefill logits differ: {gate}")
+    return {**gate, "slot": slot, "prompt_tokens": len(ids),
+            "bucket": len(padded), "image_tokens": int(mask.sum()),
+            "launches_per_rank": per_rank, **extra,
+            "reference": "plain attention, bf16, the same ranks",
+            "tolerance": {"rel": LOGIT_REL_TOL,
+                          "min_cosine": LOGIT_MIN_COSINE}}
+
+
+def _z_last_slot(calls):
+    """The slot the last prefill of ``calls`` (a :class:`RunnerCalls`)
+    named: the engine's slot for the request it started."""
+    return next(f[3] for f in reversed(calls.forwards)
+                if f[0] in ("prefill", "prefill_with_embeds"))
+
+
+def _z_chat(port, msgs, n_prompt):
+    _, raw = _post(port, "/v1/chat/completions", {
+        "messages": msgs, "max_tokens": O_MAX_TOKENS, "temperature": 0,
+        "logit_bias": LETTERS})
+    data = json.loads(raw)
+    _check_usage(data, n_prompt)
+    return data["choices"][0]["message"]["content"]
+
+
+def _z_ttft(port, image_msgs, text_msgs):
+    ttft = {"image": [], "text": []}
+    for _ in range(O_TTFT_REPS):
+        for name, msgs in (("image", image_msgs), ("text", text_msgs)):
+            ttft[name].append(_stream_chat(port, msgs, 4)[1] * 1e3)
+    return {"ttft_ms_image": statistics.median(ttft["image"]),
+            "ttft_ms_text_same_tokens": statistics.median(ttft["text"]),
+            "ttft_ms_runs": ttft}
+
+
+def _z_same_states(engine, label):
+    states = engine.runner.probe(engine._state, "slot_state")
+    for rank, st in enumerate(states[1:], start=1):
+        if not torch.equal(st, states[0]):
+            raise AssertionError(
+                f"{label}: rank {rank}'s slot state parted from the "
+                f"leader's: {st.tolist()} vs {states[0].tolist()}")
+
+
+def _z_served(kind, smi, argv, label):
+    """z1 (``tp4``) or z2 (``dp2xep2``): the tower on rank 0 of a replica
+    built through the server. The logit gate with its per-rank launches
+    on a slot of each ``dp`` group (group 1's first); then, counted on
+    every rank: an image chat with the 64 x 64 PNG, (under ``dp``: text
+    chats until the next slot is group 1's) one with the 97 x 53 PNG, a
+    streamed one, and image and text chats of one token count for TTFT;
+    launches as the leader's forwards need them on each rank, every
+    rank's slot state the leader's; under ``dp`` the two image chats on
+    different groups, each group's K/V rows of its chat untouched by the
+    other group's; the served greedy ids against the runner called
+    directly on the same slot."""
+    from gpustack_tpu_torch.engine.engine import GenRequest
+
+    t0 = time.perf_counter()
+    engine, server, port, setup_s = _w_replica(argv)
+    try:
+        runner, state = engine.runner, engine._state
+        tok, plan, cfg = engine.tokenizer, runner.plan, runner.cfg
+        engine.vision = _z_bundle(cfg, runner.device)
+        msgs64, msgs97 = (_image_msgs(png) for png in _z_pngs())
+        text = _z_text_twin(engine, msgs64)
+        n = len(_mm_prompt(engine, msgs64)[0])
+        timer = _RowsTimer(runner)
+        dp = runner.dp > 1
+        gates = [_z_logit_gate(engine, msgs64, slot, cfg.is_moe, label)
+                 for slot in ((runner.rows, 0) if dp else (None,))]
+        calls = RunnerCalls(runner, int8=False)
+        runner.probe(state, "reset_memory")
+        runner.probe(state, "reset_launches")
+        calls.reset()
+        timer.read()
+
+        def last_slot():
+            return _z_last_slot(calls)
+
+        served, slots, kv = {}, {}, {}
+        served["64x64"] = _z_chat(port, msgs64, n)
+        slots["64x64"] = last_slot()
+        fillers = 0
+        if dp:
+            kv["64x64"] = runner.probe(state, "kv_rows", true_len=n,
+                                       slot=slots["64x64"])
+            while last_slot() // runner.rows == 0:
+                engine.generate(GenRequest(
+                    prompt_ids=_s_ids(24, cfg.vocab_size, 300 + fillers),
+                    max_tokens=1, temperature=0.0), timeout=600)
+                fillers += 1
+        served["97x53"] = _z_chat(port, msgs97, n)
+        slots["97x53"] = last_slot()
+        if dp:
+            kv["97x53"] = runner.probe(state, "kv_rows", true_len=n,
+                                       slot=slots["97x53"])
+        streamed, _ = _stream_chat(port, msgs64, O_MAX_TOKENS)
+        if streamed != served["64x64"]:
+            raise AssertionError(f"{label}: stream {streamed!r} != "
+                                 f"{served['64x64']!r}")
+
+        def untouched(name):
+            # the chat's K/V rows as they were after its own prefill
+            after = runner.probe(state, "kv_rows", true_len=n,
+                                 slot=slots[name])
+            if not torch.equal(kv[name], after):
+                raise AssertionError(
+                    f"{label}: slot {slots[name]}'s K/V rows changed under "
+                    "the other group's chats")
+
+        if dp:
+            untouched("64x64")     # group 1's two chats ran since
+        ttft = _z_ttft(port, msgs64, text)
+        if dp:
+            untouched("97x53")     # the TTFT chats ran on group 0 since
+        launches = _z_launches(engine, label, calls,
+                               runner.probe(state, "launches"))
+        window = calls.counts()
+        images = 3 + O_TTFT_REPS
+        if window["prefill_with_embeds"] != images or window["prefill"] != (
+                O_TTFT_REPS + fillers) or window["prefill_with_prefix"]:
+            raise AssertionError(f"{label}: runner calls {window}")
+        _z_same_states(engine, label)
+        memory = runner.probe(state, "memory")
+        rows = timer.read()
+        groups = {}
+        if dp:
+            groups = {name: s // runner.rows for name, s in slots.items()}
+            if sorted(groups.values()) != [0, 1]:
+                raise AssertionError(f"{label}: image chats on slots "
+                                     f"{slots}: not one a group")
+        for name, msgs in (("64x64", msgs64), ("97x53", msgs97)):
+            ids = _image_greedy(runner, state, slots[name],
+                            _mm_prompt(engine, msgs), O_MAX_TOKENS)
+            if tok.encode(served[name]) != ids:
+                raise AssertionError(f"{label} {name}: served "
+                                     f"{served[name]!r}, direct {ids}")
+        if engine.health()["status"] != "ok":
+            raise AssertionError(f"{label}: {engine.health()}")
+        report = {
+            "model": cfg.name, "plan": str(plan), "layers": cfg.num_layers,
+            "device": kind, "nvidia_smi": smi, "setup_s": setup_s,
+            "vision": f"{cfg.name}-vision, the tower on rank 0",
+            "logit_checks": gates, "slots": slots, "dp_groups": groups,
+            "kv_rows_untouched_by_the_other_group": bool(kv),
+            "greedy_ids_vs_runner": "identical", **ttft,
+            "rows_broadcast": _z_rows_summary(rows),
+            "launches_per_rank": launches, "runner_calls": window,
+            "followers_slot_state_equal": True,
+            "peak_mem_gb_per_rank": [m / 1e9 for m in memory],
+            "seconds": time.perf_counter() - t0}
+        emit(f"vision_replica_{label}", **report)
+        return report
+    finally:
+        _w_close(engine, server)
+
+
+def _z3(kind, smi):
+    """z3: qwen3-8b ``sp4`` at 32768 through the server, the tower on rank
+    0; one request with an image in rank 0's segment and one in rank
+    2's. Its prefill's logits from the replica's runner, then, counted on
+    every rank, the chat and image and text TTFT (LSE launches ``(r + 1)``
+    a layer on rank ``r``, none causal), every rank's slot state the
+    leader's, the served greedy ids against the runner called directly;
+    after the replica is down, the logits and greedy ids against one
+    card's ``prefill_with_embeds`` over rank 0's tree (flash, no ring)."""
+    import numpy as np
+
+    from gpustack_tpu_torch.engine.runner import ModelRunner
+
+    t0 = time.perf_counter()
+    engine, server, port, setup_s = _w_replica(Z3_ARGV)
+    try:
+        runner, state = engine.runner, engine._state
+        tok, plan, cfg = engine.tokenizer, runner.plan, runner.cfg
+        engine.vision = _z_bundle(cfg, runner.device)
+        msgs = _z_two_images(Z3_GAP)
+        text = _z_text_twin(engine, msgs)
+        prompt = _mm_prompt(engine, msgs)
+        ids, padded, embeds, mask = prompt
+        block = len(padded) // runner.sp
+        segments = sorted({int(p) // block for p in np.flatnonzero(mask)})
+        if segments != Z3_SEGMENTS:
+            raise AssertionError(f"z3: image rows in the segments of ranks "
+                                 f"{segments}, not {Z3_SEGMENTS}")
+        timer = _RowsTimer(runner)
+        with torch.no_grad():
+            replica, _, _ = runner.prefill_with_embeds(padded, len(ids),
+                                                       embeds, mask)
+        replica = replica.float().cpu()
+        calls = RunnerCalls(runner, int8=False)
+        runner.probe(state, "reset_memory")
+        runner.probe(state, "reset_launches")
+        calls.reset()
+        timer.read()
+        served = _z_chat(port, msgs, len(ids))
+        slot = _z_last_slot(calls)
+        ttft = _z_ttft(port, msgs, text)
+        launches = _z_launches(engine, "z3", calls,
+                               runner.probe(state, "launches"))
+        window = calls.counts()
+        if window["prefill_with_embeds"] != 1 + O_TTFT_REPS or window[
+                "prefill"] != O_TTFT_REPS:
+            raise AssertionError(f"z3: runner calls {window}")
+        _z_same_states(engine, "z3")
+        memory = runner.probe(state, "memory")
+        rows = timer.read()
+        direct = _image_greedy(runner, state, slot, prompt, O_MAX_TOKENS)
+        if tok.encode(served) != direct:
+            raise AssertionError(f"z3: served {served!r}, direct {direct}")
+        if engine.health()["status"] != "ok":
+            raise AssertionError(f"z3: {engine.health()}")
+        params, device = runner.params, runner.device   # whole under sp
+    finally:
+        _w_close(engine, server)
+    del engine, server, runner, state, calls
+    _free()
+    one = ModelRunner(cfg, params, device, max_slots=1,
+                      max_seq_len=T_MAX_SEQ)
+    with torch.no_grad():
+        last, _, _ = one.prefill_with_embeds(padded, len(ids), embeds, mask)
+    gate = _compare_logits(replica, last.float().cpu())
+    if gate["max_abs_err"] > LOGIT_REL_TOL * gate["logit_scale"] or (
+            gate["cosine"] < LOGIT_MIN_COSINE):
+        raise AssertionError(f"z3: sp4 image logits part from one card's: "
+                             f"{gate}")
+    one_ids = _image_greedy(one, one.new_state(), 0, prompt, O_MAX_TOKENS)
+    del one, params
+    _free()
+    top2 = last.float().topk(2).values
+    report = {
+        "model": cfg.name, "plan": str(plan), "layers": cfg.num_layers,
+        "max_seq_len": T_MAX_SEQ, "device": kind, "nvidia_smi": smi,
+        "setup_s": setup_s, "prompt_tokens": len(ids),
+        "bucket": len(padded), "image_tokens": int(mask.sum()),
+        "image_row_segments": segments,
+        "logit_check": {**gate, "reference": "one card's "
+                        "prefill_with_embeds, the same tree, flash, no ring",
+                        "tolerance": {"rel": LOGIT_REL_TOL,
+                                      "min_cosine": LOGIT_MIN_COSINE}},
+        "greedy_ids_vs_runner": "identical",
+        "greedy_ids_vs_one_card": ("identical" if one_ids == direct else {
+            "replica": direct, "one_card": one_ids,
+            "one_card_first_token_top2_gap": float(top2[0] - top2[1])}),
+        **ttft, "rows_broadcast": _z_rows_summary(rows),
+        "launches_per_rank": launches, "runner_calls": window,
+        "followers_slot_state_equal": True,
+        "peak_mem_gb_per_rank": [m / 1e9 for m in memory],
+        "seconds": time.perf_counter() - t0}
+    emit("vision_replica_z3", **report)
+    return report
+
+
+def _z4_case(mesh, device, preset, layers, gap):
+    """z4 on one plan: ``preset`` at ``layers`` layers in fp32 (the plain
+    versions of the kernels, which take bf16 only): a two-image prompt
+    through ``prefill_with_embeds`` on one card (its expert picks
+    recorded), then on ``mesh`` (replaying them; under ``dp`` on group
+    1's first slot, the logits sent to rank 0; the rows from rank 0
+    alone), each rank building its shard as the server does; rank 0
+    compares the last position's logits."""
+    import numpy as np
+
+    from gpustack_tpu_torch.engine import diagnostics
+    from gpustack_tpu_torch.engine.runner import ModelRunner
+    from gpustack_tpu_torch.engine.tokenizer import load_tokenizer
+    from gpustack_tpu_torch.engine.weights import load_or_init_params
+    from gpustack_tpu_torch.models.config import get_config
+    from gpustack_tpu_torch.models.vlm import build_mm_prompt
+
+    cfg = dataclasses.replace(get_config(preset), num_layers=layers,
+                              dtype="float32")
+    ids, embeds, mask = build_mm_prompt(
+        load_tokenizer(None), _z_two_images(gap),
+        _z_bundle(get_config(preset), device))
+    plan = mesh.plan
+    rows = {}
+
+    def run(m, slot):
+        runner = ModelRunner(cfg, load_or_init_params(
+            cfg, None, seed=0, device=device, mesh=m), device, max_slots=4,
+            max_seq_len=512, mesh=m)
+        pad = runner.bucket_for(len(ids)) - len(ids)
+        lead = m is None or m.rank == 0
+        if m is not None:
+            # every rank at the prefill first: the timed broadcast waits
+            # on no rank's tree
+            m.broadcast_(torch.zeros(1, device=device))
+            if lead:
+                timer = _RowsTimer(runner)
+        last, k, v = runner.prefill_with_embeds(
+            ids + [0] * pad, len(ids),
+            np.pad(embeds, ((0, pad), (0, 0))) if lead else None,
+            np.pad(mask, (0, pad)), slot=slot)
+        _s_sync(device)
+        if m is not None and lead:
+            rows.update(_z_rows_summary(timer.read()))
+        ran = k is not None
+        del runner, k, v
+        _s_free(device)
+        return None if last is None else last.cpu(), ran
+
+    tape = diagnostics.RoutingTape()
+    with torch.no_grad(), _PlainAttention(), _PlainGrouped(), tape:
+        want, _ = run(None, None)
+        tape.replay([[p] for p in tape.picks()])
+        got, ran = run(mesh, (plan.dp - 1) * (4 // plan.dp)
+                       if plan.dp > 1 else None)
+    out = {"model": cfg.name, "plan": str(plan), "layers": layers,
+           "weights": "fp32, TF32 off", "prompt_tokens": len(ids),
+           "image_tokens": int(mask.sum()), "ran": ran,
+           "flipped_picks": sum(tape.flips)}
+    if mesh.rank:
+        return dict(out, ok=True)
+    gate = _compare_logits(got, want)
+    return dict(out, **gate, rows_broadcast=rows,
+                tolerance={"rel": SHARD_REL_TOL},
+                ok=bool(gate["max_abs_err"] <= SHARD_REL_TOL
+                        * gate["logit_scale"] and torch.isfinite(got).all()))
+
+
+def _z4_rank(rank, world, coordinator, device_type, cases, layers, gap):
+    """One rank of z4's fp32 runs (``cases``: (preset, plan) at ``layers``
+    layers), in a process of its own: on ``cuda:<rank>`` over NCCL
+    (``device_type`` "cpu": gloo, a rehearsal)."""
+    from gpustack_tpu_torch.parallel.mesh import Mesh, MeshPlan, init_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda = device_type == "cuda"
+    device = torch.device(device_type, rank if cuda else None)
+    first = init_mesh(MeshPlan.parse(cases[0][1]), rank, coordinator,
+                      device)
+    out = []
+    for preset, plan in cases:
+        mesh = first if plan == cases[0][1] else Mesh(
+            MeshPlan.parse(plan), rank)
+        t0 = time.perf_counter()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        case = _z4_case(mesh, device, preset, layers, gap)
+        out.append(dict(case, seconds=time.perf_counter() - t0,
+                        peak_gb=(torch.cuda.max_memory_allocated(device)
+                                 / 1e9 if cuda else 0.0)))
+        _s_free(device)
+    return out
+
+
+def phase_vision_replica(kind, smi):
+    """z1–z4 (four GPUs): image chats on llama3-70b ``tp4``, mixtral-8x7b
+    ``dp2xep2`` and qwen3-8b ``sp4`` replicas, one at a time, the tower on
+    rank 0 and the rows broadcast from its card; then z4's fp32 runs, one
+    process per GPU. Returns each kernel's launches per rank on the
+    counted windows."""
+    from gpustack_tpu_torch.parallel.launch import run_ranks
+
+    if Z_RANK_DEVICE == "cuda" and torch.cuda.device_count() < Z_GPUS:
+        raise AssertionError(f"phase z needs {Z_GPUS} cards")
+    t0 = time.perf_counter()
+    reports = []
+    for run in (lambda: _z_served(kind, smi, Z1_ARGV, "z1"),
+                lambda: _z_served(kind, smi, Z2_ARGV, "z2"),
+                lambda: _z3(kind, smi)):
+        reports.append(run())
+        _free()            # the replica's runner, held in cycles till now
+    t4 = time.perf_counter()
+    ranks = run_ranks(_z4_rank, Z_GPUS, Z_RANK_DEVICE, Z4_CASES, Z4_LAYERS,
+                      Z4_GAP, timeout=S_RANK_TIMEOUT_S)
+    for j in range(len(Z4_CASES)):
+        emit("vision_replica_fp32", device=kind, nvidia_smi=smi,
+             **ranks[0][j], per_rank_ran=[r[j]["ran"] for r in ranks],
+             peak_mem_gb_per_rank=[r[j]["peak_gb"] for r in ranks])
+    bad = [Z4_CASES[j] for j, c in enumerate(ranks[0]) if not c["ok"]]
+    if bad:
+        raise AssertionError(f"phase z4: fp32 image logits part from one "
+                             f"card's: {bad}")
+    emit("z", seconds=time.perf_counter() - t0,
+         z4_seconds=time.perf_counter() - t4)
+    out = {}
+    for report in reports:
+        for name, counts in report["launches_per_rank"].items():
+            out.setdefault(name, {})[
+                f"{report['model']} {report['plan']} image chats"] = counts
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -8453,7 +9043,8 @@ def main() -> int:
                             ("v", V_GPUS, phase_sp_ep),
                             ("w", W_GPUS, phase_tier_spec),
                             ("x", X_GPUS, phase_kv_role),
-                            ("y", Y_GPUS, phase_sp_features)):
+                            ("y", Y_GPUS, phase_sp_features),
+                            ("z", Z_GPUS, phase_vision_replica)):
         if torch.cuda.device_count() >= gpus:
             _free()
             for name, per_model in fn(kind, smi).items():

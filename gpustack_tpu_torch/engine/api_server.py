@@ -13,9 +13,9 @@ not; streamed choices interleave; ``response_format`` ``json_object`` or
 (requests that leave temperature unset default to 0 there). Chat
 messages may carry ``image_url`` parts (``data:`` PNG URLs) when the
 engine has a vision bundle (``engine.vision``; ``--preset tiny-vlm``
-builds one): the prompt is built on the handler thread
-(``models/vlm.build_mm_prompt``) and its image embeddings ride the
-request to one fused prefill. The audio routes are
+builds one, on rank 0 of a multi-GPU replica): the prompt is built on
+the handler thread (``models/vlm.build_mm_prompt``) and its image
+embeddings ride the request to one fused prefill. The audio routes are
 ``engine/audio_server.py``'s.
 
 Disaggregated prefill/decode serving (with a host KV cache): ``POST
@@ -1552,13 +1552,11 @@ def _argv_of(args) -> List[str]:
     return argv
 
 
-def _refuse_multi_gpu(args, cfg, plan, vlm: bool) -> None:
-    """What a multi-GPU replica cannot serve yet, refused before any
-    weight is read, naming the plan (the JAX package refuses these
-    features for multi-host placements only, ``gpustack_tpu/engine/
-    multihost.py``; here every multi-GPU placement is multi-process): the
-    vision path, and what the JAX runner refuses under ``sp`` (``dp >
-    1``, a ``max_seq_len`` that does not divide, ``check_plan``)."""
+def _refuse_multi_gpu(args, cfg, plan) -> None:
+    """What a multi-GPU replica cannot serve, refused before any weight
+    is read, naming the plan: what the JAX runner refuses under ``sp``
+    (``dp > 1``, a ``max_seq_len`` that does not divide) and what the
+    plan cannot cut (``check_plan``)."""
     from gpustack_tpu_torch.models.transformer import check_plan
 
     if plan.sp > 1 and plan.dp != 1:
@@ -1572,9 +1570,6 @@ def _refuse_multi_gpu(args, cfg, plan, vlm: bool) -> None:
             f"plan {plan}: max_seq_len {args.max_seq_len} must divide "
             f"evenly over sp={plan.sp}"
         )
-    if vlm:
-        raise ValueError(f"plan {plan}: the vision path (a VLM preset) is "
-                         "not supported on a multi-GPU replica")
     check_plan(cfg, plan)
 
 
@@ -1635,7 +1630,7 @@ def _watch_followers(procs, joined: threading.Event) -> None:
     threading.Thread(target=watch, name="follower-watch", daemon=True).start()
 
 
-def _placement(args, cfg, vlm: bool):
+def _placement(args, cfg):
     """This process's place in its replica: ``(plan, rank, env, procs)``.
     The plan is chosen as the JAX server chooses it: ``--mesh-plan``, else
     ``plan_mesh`` over ``--num-devices`` (default 1). ``env`` is the
@@ -1656,7 +1651,7 @@ def _placement(args, cfg, vlm: bool):
         )
     if plan.chips == 1:
         return plan, 0, {}, []
-    _refuse_multi_gpu(args, cfg, plan, vlm)
+    _refuse_multi_gpu(args, cfg, plan)
     if os.environ.get(ENV_COORDINATOR):
         env = {k: os.environ[k] for k in (
             ENV_COORDINATOR, ENV_NUM_PROCESSES, ENV_PROCESS_ID,
@@ -1709,7 +1704,8 @@ def build_engine_from_args(args) -> LLMEngine:
     is read, a config the card's kernels cannot serve is refused
     (``check_kernel_shapes``; on the card that refuses ``tiny-vlm``, whose
     language half has head_dim 16). A VLM preset serves its language half
-    in the engine and attaches the vision tower as ``engine.vision``.
+    in the engine and attaches the vision tower as ``engine.vision`` (on
+    a multi-GPU replica, rank 0's alone).
 
     Multi-GPU (``--num-devices`` or ``--mesh-plan`` over more than one
     GPU, or the environment contract set from outside): this process is
@@ -1760,7 +1756,7 @@ def build_engine_from_args(args) -> LLMEngine:
         cfg = vlm_cfg.language
     else:
         cfg = get_config(args.preset)
-    plan, rank, env, procs = _placement(args, cfg, vlm_cfg is not None)
+    plan, rank, env, procs = _placement(args, cfg)
     mesh = None
     if plan.chips > 1:
         if rank and os.environ.get(ENV_PARENT_PID):
@@ -1869,9 +1865,11 @@ def build_engine_from_args(args) -> LLMEngine:
                 engine.runner, cmd, state=engine._state, token=token,
                 tier=None if tier is None else FollowerTier(engine),
             )
-    if vlm_cfg is not None:
+    if vlm_cfg is not None and rank == 0:
         # the language tree takes the server's seed 0; the tower seed 1,
-        # as the JAX server's key(1)
+        # as the JAX server's key(1). On a multi-GPU replica the tower is
+        # rank 0's alone: its server builds every image prompt, and the
+        # rows reach the followers on the device (multihost.py)
         gen = torch.Generator(device=device)
         gen.manual_seed(1)
         engine.vision = VisionBundle(

@@ -1226,7 +1226,9 @@ class LLMEngine:
         if req.embeds_override is not None:
             # VLM prompt: placeholder ids alias across different images,
             # so the token-keyed host KV cache and chunked prefill do not
-            # apply; one fused prefill with the embedding override
+            # apply (on a multi-GPU replica no rank's tier is named a
+            # store); one fused prefill with the embedding override, on
+            # the slot's dp group
             bucket = self.runner.bucket_for(max(1, len(ids)))
             padded = list(ids) + [0] * (bucket - len(ids))
             self._step_mode = self._step_mode or "prefill"
@@ -1235,7 +1237,7 @@ class LLMEngine:
             self._step_padded += bucket
             embeds, mask = self._padded_embeds(req, bucket, len(ids))
             last_logits, k, v = self.runner.prefill_with_embeds(
-                padded, len(ids), embeds, mask
+                padded, len(ids), embeds, mask, slot=slot
             )
             self._finalize_start(slot, req, last_logits, k, v)
             return
@@ -1681,14 +1683,13 @@ class LLMEngine:
 
     @staticmethod
     def _padded_embeds(req: GenRequest, bucket: int, n_ids: int):
-        """Bucket-pad a VLM request's override embeddings (host numpy)."""
+        """A VLM request's override as the runner takes it (host numpy):
+        the mask bucket-padded, the ``[n_ids, D]`` embeddings as they came
+        (padded, a long prompt's would copy ``[bucket, D]`` fp32 on the
+        host, which the runner never reads past the mask)."""
         embeds, mask = req.embeds_override
-        pad_rows = bucket - n_ids
-        embeds = np.pad(
-            np.asarray(embeds, np.float32), ((0, pad_rows), (0, 0))
-        )
-        mask = np.pad(np.asarray(mask, bool), (0, pad_rows))
-        return embeds, mask
+        return (np.asarray(embeds, np.float32),
+                np.pad(np.asarray(mask, bool), (0, bucket - n_ids)))
 
     def _store_finished_sequence(self, slot: int, req: GenRequest) -> None:
         """Cache the FULL finished sequence (prompt + generated tokens) so

@@ -58,9 +58,15 @@ Determinism contract:
 - an embedding batch rides the ``embed`` op as host ints; the first
   ``dp`` group runs it (``ModelRunner.embed``; under ``sp`` a ring
   prefill whose pooled sums every ``sp`` rank adds);
-- the vision path, whose host state would part across ranks, is refused
-  at build (``api_server.build_engine_from_args``) and here,
-  defensively.
+- the vision path: the tower runs on rank 0 alone (its server decodes
+  the images and builds the prompt on the request's handler thread), so
+  no follower holds image state that could part from the leader's. The
+  ``prefill_with_embeds`` op carries host ints only (the padded ids,
+  ``true_len``, the slot and the mask's runs of image rows); the rows
+  themselves leave rank 0's card in one world broadcast on the device
+  (``ModelRunner.prefill_with_embeds``), and each rank splices its own.
+  An image prompt is never stored in or matched against any rank's tier
+  (the leader names no store) and never chunked.
 
 A follower that dies closes its socket: the leader's watcher sees it, and
 the next scheduler step raises, which makes the engine fatal and
@@ -266,6 +272,23 @@ def _slot(slot):
     return None if slot is None else int(slot)
 
 
+def mask_runs(mask) -> List[List[int]]:
+    """``[[start, length], ...]``: the runs of True in a bool mask (an
+    image prompt's rows), as host ints for the wire."""
+    m = np.concatenate([[False], np.asarray(mask, bool), [False]])
+    edges = np.flatnonzero(m[1:] != m[:-1])
+    return [[int(a), int(b - a)] for a, b in zip(edges[::2], edges[1::2])]
+
+
+def mask_of(runs, n: int) -> np.ndarray:
+    """The bool mask of ``n`` rows whose True runs are ``runs``
+    (:func:`mask_runs`)."""
+    mask = np.zeros(n, bool)
+    for start, length in runs:
+        mask[start:start + length] = True
+    return mask
+
+
 def _bias(logit_bias):
     return (
         {str(k): float(v) for k, v in logit_bias.items()}
@@ -309,6 +332,20 @@ class BroadcastingRunner:
             "true_len": int(true_len), "slot": _slot(slot),
         })
         return self._runner.prefill(token_ids, true_len, slot)
+
+    def prefill_with_embeds(self, token_ids, true_len: int, embeds, mask,
+                            slot=None):
+        """An image prompt's prefill: the op names the mask's runs, and
+        the rows under it reach the followers on the device, from this
+        rank's ``embeds`` (``ModelRunner.prefill_with_embeds``)."""
+        self._leader.broadcast({
+            "op": "prefill_with_embeds",
+            "ids": [int(t) for t in token_ids],
+            "true_len": int(true_len), "slot": _slot(slot),
+            "rows": mask_runs(mask),
+        })
+        return self._runner.prefill_with_embeds(token_ids, true_len, embeds,
+                                                mask, slot)
 
     def sample_first(
         self, last_logits, temperature, top_k, top_p, seed, seeded,
@@ -537,7 +574,8 @@ class BroadcastingRunner:
         return diagnostics.probe(self._runner, state, what, ids, true_len,
                                  slot)
 
-    # -- single-process features (refused at build; here defensively) ----
+    # -- a draft's op: the draft runs on rank 0's card alone, through a
+    # runner of its own (refused here, defensively) ----------------------
 
     def _unsupported(self, what: str):
         # ValueError: the API handlers answer it with a 400
@@ -545,9 +583,6 @@ class BroadcastingRunner:
             f"{what} is not supported on a multi-GPU replica "
             f"(plan {self._runner.plan})"
         )
-
-    def prefill_with_embeds(self, *a, **kw):
-        self._unsupported("vision-token prefill")
 
     def ingest_step(self, *a, **kw):
         self._unsupported("draft ingestion")
@@ -982,6 +1017,11 @@ class FollowerLoop:
         slot = op.get("slot")
         if kind == "prefill":
             self._reg = r.prefill(op["ids"], op["true_len"], slot)
+        elif kind == "prefill_with_embeds":
+            # the rows arrive from rank 0 on the device
+            self._reg = r.prefill_with_embeds(
+                op["ids"], op["true_len"], None,
+                mask_of(op["rows"], len(op["ids"])), slot)
         elif kind == "chunk_start":
             self._chunk_regs[slot] = r.prefill(op["ids"], op["true_len"],
                                                slot)

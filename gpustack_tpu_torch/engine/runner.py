@@ -75,6 +75,10 @@ The port of ``gpustack_tpu/engine/runner.py``:
   ``tier_op`` and ``kv_adopt`` are the leader's hooks for naming the
   tier's changes and hits to its followers (no-ops here,
   ``multihost.BroadcastingRunner``).
+- **the vision path over a mesh**: a VLM prompt's image rows are rank
+  0's (its server runs the tower); ``prefill_with_embeds`` uploads only
+  the rows under the mask and broadcasts them to every rank on the
+  device, and each rank splices those that fall in the tokens it runs.
 
 PyTorch runs eagerly, so there are no per-shape compilations to cache:
 the buckets bound the set of prefill shapes the kernel sees.
@@ -280,13 +284,6 @@ class ModelRunner:
         """A scratch cache of one row, ``rows`` long (the rank's heads)."""
         return KVCache.create(self.cfg, 1, rows, self.device, self.tp)
 
-    def _refuse_sharded(self, what: str) -> None:
-        """Refuse an op that needs every slot's cache whole on this rank:
-        a sequence-sharded cache, or a ``dp`` group's rows (the multi-GPU
-        replica refuses each of them at build as well)."""
-        if self.sp_mode or self.dp > 1:
-            raise ValueError(f"{what} is not supported under plan {self.plan}")
-
     def _refuse_dp(self, what: str) -> None:
         """Refuse an op that needs every slot's cache rows on this rank
         (a ``dp`` group holds its own slots' rows)."""
@@ -428,10 +425,13 @@ class ModelRunner:
         last = self._head(hidden[0, true_len - 1])
         return self._to_leader(last, slot), cache.k[:, 0], cache.v[:, 0]
 
-    def _sp_prefill(self, token_ids: Sequence[int], true_len: int):
+    def _sp_prefill(self, token_ids: Sequence[int], true_len: int,
+                    image=None):
         """:meth:`prefill` under ``sp``: this rank's ``Tb / sp`` tokens
-        through the ring. Returns ``(last_logits [V] fp32, k, v [L,
-        Tb / sp, H, hd])``, the K/V of this rank's block of positions."""
+        through the ring (``image``: the prompt's image rows and mask,
+        :meth:`_image_rows`, spliced where they fall in those tokens).
+        Returns ``(last_logits [V] fp32, k, v [L, Tb / sp, H, hd])``, the
+        K/V of this rank's block of positions."""
         T = len(token_ids) // self.sp
         start = self.mesh.sp_rank * T
         tokens = torch.tensor(
@@ -442,6 +442,8 @@ class ModelRunner:
         hidden, cache = forward(
             self.params, self.cfg, tokens, positions, self._cache(T),
             return_hidden=True, attn_impl="ring", mesh=self.mesh,
+            embeds_override=(None if image is None
+                             else self._splice(*image, start, T)),
         )
         last = self._head(self._sp_last_hidden(hidden, true_len))
         return last, cache.k[:, 0], cache.v[:, 0]
@@ -451,40 +453,100 @@ class ModelRunner:
 
     def prefill_with_embeds(
         self, token_ids: Sequence[int], true_len: int, embeds, mask,
+        slot: Optional[int] = None,
     ):
         """Like :meth:`prefill`, with per-token embedding overrides (a VLM
-        prompt, ``models/vlm.py``): ``embeds`` ``[Tb, D]`` fp32 and
-        ``mask`` ``[Tb]`` bool (numpy or host tensors), bucket-padded.
-        They go to the card through pinned memory without blocking, as
-        :meth:`_ids_on_device` sends ids. One fused forward with a fresh
-        cache, through the flash kernel on the card at every bucket.
-        Returns ``(last_logits [V] fp32, k, v [L, Tb, H, hd])``."""
-        self._refuse_sharded("vision-token prefill")
+        prompt, ``models/vlm.py``): ``embeds`` fp32, bucket-padded ``[Tb,
+        D]`` or the prompt's own ``[true_len, D]`` (padding them would
+        copy ``[Tb, D]`` on the host for rows never read), and ``mask``
+        ``[Tb]`` bool, bucket-padded (numpy or host tensors). Only the
+        rows under the mask go to the card, through pinned
+        memory without blocking, as :meth:`_ids_on_device` sends ids, and
+        are spliced there. One fused forward with a fresh cache, through
+        the flash kernel on the card at every bucket. Returns
+        ``(last_logits [V] fp32, k, v [L, Tb, H, hd])``.
+
+        Over a mesh ``embeds`` is rank 0's alone (None on every other
+        rank, which gets the ``mask`` from the leader's op): its rows
+        reach every rank in one world broadcast on the device
+        (:meth:`_image_rows`), and the prefill then runs as
+        :meth:`prefill` does on the plan. Under ``tp`` and ``ep`` every
+        rank splices every row after the vocab-split lookup's
+        all-reduce; under ``dp`` the ``slot``'s group alone runs it
+        (another group's ranks drop the rows), its logits sent to rank 0;
+        under ``sp`` each rank splices the rows that fall in its block of
+        the ring."""
         Tb = len(token_ids)
         if Tb not in self.prefill_buckets:
             raise ValueError(f"{Tb} is not a bucket {self.prefill_buckets}")
         if not 0 < true_len <= Tb:
             raise ValueError(f"true_len {true_len} outside 1..{Tb}")
-        embeds = torch.as_tensor(embeds, dtype=torch.float32)
-        mask = torch.as_tensor(mask, dtype=torch.bool)
-        if embeds.shape != (Tb, self.cfg.hidden_size) or mask.shape != (Tb,):
-            raise ValueError(
-                f"embeds {tuple(embeds.shape)} / mask {tuple(mask.shape)} "
-                f"do not match bucket {Tb} x {self.cfg.hidden_size}"
-            )
-        if self.device.type == "cuda":
-            embeds = embeds.pin_memory().to(self.device, non_blocking=True)
-            mask = mask.pin_memory().to(self.device, non_blocking=True)
+        image = self._image_rows(embeds, mask, Tb, true_len)
+        if not self._runs(slot):
+            return self._to_leader(None, slot), None, None
+        if self.sp_mode:
+            return self._sp_prefill(token_ids, true_len, image)
         tokens = self._ids_on_device([list(token_ids)])
         positions = torch.arange(Tb, device=self.device)[None, :]
         cache = self._cache(Tb)
         hidden, cache = forward(
             self.params, self.cfg, tokens, positions, cache,
             return_hidden=True, attn_impl=self.attn_impl_for(Tb),
-            embeds_override=(embeds[None], mask[None]), mesh=self.mesh,
+            embeds_override=self._splice(*image, 0, Tb), mesh=self.mesh,
         )
         last = self._head(hidden[0, true_len - 1])
-        return last, cache.k[:, 0], cache.v[:, 0]
+        return self._to_leader(last, slot), cache.k[:, 0], cache.v[:, 0]
+
+    def _image_rows(self, embeds, mask, Tb: int, true_len: int):
+        """``(rows [n, D] fp32 on the device, mask [Tb] bool on the
+        host)``: the rows of ``embeds`` (``[Tb, D]`` or ``[true_len,
+        D]``) under ``mask``, uploaded by the
+        rank that holds them (rank 0, or this one process) and, over a
+        mesh, broadcast from rank 0 to every rank on the device. Every
+        rank knows ``n`` from the mask, so a rank without ``embeds``
+        receives into a buffer of its own."""
+        mask = torch.as_tensor(mask, dtype=torch.bool)
+        D = self.cfg.hidden_size
+        if self.mesh is None or self.mesh.rank == 0:
+            embeds = torch.as_tensor(embeds, dtype=torch.float32)
+            n = embeds.shape[0] if embeds.ndim else -1
+            if (embeds.shape not in ((Tb, D), (true_len, D))
+                    or mask.shape != (Tb,) or mask[n:].any()):
+                raise ValueError(
+                    f"embeds {tuple(embeds.shape)} / mask "
+                    f"{tuple(mask.shape)} do not match bucket {Tb} (or "
+                    f"true_len {true_len}) x {D}"
+                )
+            rows = embeds[mask[:n]]
+            if self.device.type == "cuda":
+                rows = rows.pin_memory().to(self.device, non_blocking=True)
+        else:
+            if mask.shape != (Tb,):
+                raise ValueError(f"mask {tuple(mask.shape)} does not match "
+                                 f"bucket {Tb}")
+            rows = torch.empty((int(mask.sum()), D), dtype=torch.float32,
+                               device=self.device)
+        if self.mesh is not None and rows.shape[0]:
+            self.mesh.broadcast_(rows)
+        return rows, mask
+
+    def _splice(self, rows, mask, start: int, T: int):
+        """``forward``'s ``embeds_override`` for positions ``start ..
+        start + T - 1`` of a prompt whose image rows (in position order)
+        and mask :meth:`_image_rows` gave: ``(embeds [1, T, D], mask [1,
+        T])`` on the device, the rows that fall in the span at their
+        positions and zeros elsewhere. The positions and the span's rows
+        follow from the host mask, so nothing is read back."""
+        local = mask[start:start + T]
+        first = int(mask[:start].sum())
+        at = torch.nonzero(local).flatten()
+        ov = torch.zeros((T, rows.shape[1]), dtype=torch.float32,
+                         device=self.device)
+        ov.index_copy_(0, self._ids_on_device(at),
+                       rows[first:first + at.numel()])
+        if self.device.type == "cuda":
+            local = local.pin_memory().to(self.device, non_blocking=True)
+        return ov[None], local[None]
 
     def prefill_with_prefix(
         self, prefix_k, prefix_v, prefix_len: int,

@@ -959,7 +959,10 @@ def forward(
     ``embeds_override`` ``(embeds [B, T, D], mask [B, T] bool)`` splices
     vision embeddings into the prompt (``models/vlm.py``): rows under the
     mask take ``embeds`` in the compute dtype instead of the vocab row,
-    before Gemma's embedding scale, as in JAX.
+    before Gemma's embedding scale, as in JAX. Over a mesh it is spliced
+    after the vocab-split lookup's all-reduce, so every ``tp`` rank holds
+    the same rows; under ``attn_impl="ring"`` it covers the rank's own
+    ``T`` tokens, as ``tokens`` does.
 
     ``mesh`` (``parallel.mesh.Mesh``, one rank of a multi-GPU replica):
     the Megatron forward on the rank's shard (``parallel.sharding``).

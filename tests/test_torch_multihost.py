@@ -13,6 +13,7 @@ import json
 import socket
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -247,11 +248,11 @@ def test_broadcasting_runner_refuses_single_process_features():
     eng = _engine()
     runner = mh.BroadcastingRunner(eng.runner, leader=None)
     assert runner.supports_async_insert is False
-    # the host tier's prefix prefill, the verify step and an embedding
-    # batch are served over the channel (tests/test_torch_multigpu_*.py)
-    for fn in ("prefill_with_embeds", "ingest_step"):
-        with pytest.raises(ValueError, match="multi-GPU replica"):
-            getattr(runner, fn)()
+    # the host tier's prefix prefill, the verify step, an embedding
+    # batch and an image prefill are served over the channel
+    # (tests/test_torch_multigpu_*.py); a draft's ingestion is rank 0's
+    with pytest.raises(ValueError, match="multi-GPU replica"):
+        runner.ingest_step()
 
     class Channel:
         ops = []
@@ -264,3 +265,18 @@ def test_broadcasting_runner_refuses_single_process_features():
     got = runner.embed(rows, [3, 1])
     assert Channel.ops == [{"op": "embed", "ids": rows, "lens": [3, 1]}]
     assert torch.equal(got, eng.runner.embed(rows, [3, 1]))
+    # an image prefill names its rows as runs of the mask, never the rows
+    ids = [5, 6, 7, 8, 9] + [0] * 27
+    mask = np.zeros(32, bool)
+    mask[1:3] = mask[4] = True
+    embeds = np.zeros((32, eng.cfg.hidden_size), np.float32)
+    embeds[mask] = np.random.default_rng(0).normal(size=(3, 64))
+    Channel.ops.clear()
+    got = runner.prefill_with_embeds(ids, 5, embeds, mask, slot=1)
+    assert Channel.ops == [{"op": "prefill_with_embeds", "ids": ids,
+                            "true_len": 5, "slot": 1,
+                            "rows": [[1, 2], [4, 1]]}]
+    want = eng.runner.prefill_with_embeds(ids, 5, embeds, mask)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (mh.mask_of(Channel.ops[0]["rows"], 32) == mask).all()

@@ -136,7 +136,6 @@ def test_healthz_layout_is_jax_describe(replica):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--preset", "tiny-vlm", "--num-devices", "2"], "vision path"),
     (["--mesh-plan", "tp8"], "query heads (4) does not divide over 8"),
     (["--mesh-plan", "tp3"], "KV heads neither divide"),
 ])

@@ -1,6 +1,7 @@
-"""Rank bodies for the multi-GPU handoff, embedding and ``sp`` feature
-tests (``test_torch_multigpu_kv_role.py``,
-``test_torch_multigpu_embeddings.py``, ``test_torch_sp_features.py``):
+"""Rank bodies for the multi-GPU handoff, embedding, vision and ``sp``
+feature tests (``test_torch_multigpu_kv_role.py``,
+``test_torch_multigpu_embeddings.py``, ``test_torch_multigpu_vlm.py``,
+``test_torch_sp_features.py``):
 one fp32 replica of the port's server, each rank in a process of its own
 over gloo (``parallel.launch.run_ranks``), importing no JAX.
 
@@ -28,6 +29,7 @@ from gpustack_tpu_torch.engine import multihost as mh  # analysis: ignore[metric
 from gpustack_tpu_torch.engine.api_server import OpenAIServer  # analysis: ignore[metrics-drift]
 from gpustack_tpu_torch.engine.engine import GenRequest, LLMEngine  # analysis: ignore[metrics-drift]
 from gpustack_tpu_torch.engine.weights import params_from_numpy  # analysis: ignore[metrics-drift]
+from gpustack_tpu_torch.models import vlm  # analysis: ignore[metrics-drift]
 from gpustack_tpu_torch.parallel.mesh import MeshPlan, close_mesh, init_mesh  # analysis: ignore[metrics-drift]
 
 CPU = torch.device("cpu")
@@ -379,3 +381,65 @@ def handoff_peer(engine, port, peer_port, text, served, wait_first,
         "prompt_ids": engine.tokenizer.encode(served)})
     out["status"] = engine.health()["status"]
     return out
+
+
+def _attach_tower(engine, vision):
+    """Rank 0's vision bundle (``vision``: the port's ``VLMConfig`` and a
+    numpy tower tree), as the server attaches it to the leader alone."""
+    vcfg, tower = vision
+    engine.vision = vlm.VisionBundle(vcfg, params_from_numpy(tower, CPU),
+                                     "cpu")
+
+
+def vision_checks(engine, port, vision, chats, prompts, fillers, n_new):
+    """Image chats on a replica whose leader holds the tower: ``fillers``
+    (text prompts, one greedy token each) first, so the slots that follow
+    are those the test expects; then for each chat of ``chats`` (message
+    lists) with its prompt ``prompts[i]`` as the JAX package builds it
+    (``(ids, embeds, mask)``): that prompt's first-token logits from the
+    runner called directly on the slot the chat is then served on, the
+    served chat's reply and the same prompt's greedy ids through
+    ``engine.generate``. Every rank's tier and slot state around them."""
+    _attach_tower(engine, vision)
+    for ids in fillers:
+        _greedy(engine, ids, 1)
+    tiers_before = (_probe(engine, "kv_tier")
+                    if engine.host_kv_cache is not None else None)
+    out = {"chats": []}
+    for msgs, (ids, embeds, mask) in zip(chats, prompts):
+        runner = engine.runner
+        bucket = runner.bucket_for(len(ids))
+        pad = bucket - len(ids)
+        slot = engine._free[0]
+        with torch.no_grad():
+            last, _, _ = runner.prefill_with_embeds(
+                list(ids) + [0] * pad, len(ids),
+                np.pad(embeds, ((0, pad), (0, 0))), np.pad(mask, (0, pad)),
+                slot=slot)
+        status, raw = _post(port, "/v1/chat/completions", {
+            "messages": msgs, "max_tokens": n_new, "temperature": 0})
+        built = vlm.build_mm_prompt(engine.tokenizer, msgs, engine.vision)
+        req = engine.generate(GenRequest(
+            prompt_ids=built[0], max_tokens=n_new, temperature=0.0,
+            stop_ids=(), embeds_override=built[1:]), timeout=120)
+        _drain(engine)
+        out["chats"].append({
+            "slot": slot, "logits": last.numpy(), "status": status,
+            "reply": json.loads(raw), "built": built,
+            "ids": list(req.output_ids),
+            "matched": (engine.host_kv_cache.match_prefix_len(built[0])
+                        if engine.host_kv_cache is not None else 0)})
+    out["tiers_before"] = tiers_before
+    out["tiers_after"] = (_probe(engine, "kv_tier")
+                          if engine.host_kv_cache is not None else None)
+    out["slot_state"] = [s.numpy() for s in _probe(engine, "slot_state")]
+    out["status"] = engine.health()["status"]
+    return out
+
+
+def vision_refusal(engine, port, vision, msgs):
+    """An image chat a replica must refuse: its status and message."""
+    _attach_tower(engine, vision)
+    status, raw = _post(port, "/v1/chat/completions", {
+        "messages": msgs, "max_tokens": 2, "temperature": 0})
+    return status, json.loads(raw)
